@@ -5,23 +5,41 @@
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
   1. device   — torch's device name and nvidia-smi's name and power limit;
-  2. build    — nvcc builds kernels K1 (embedding bag) and K2 (dot
-                interaction) from src/repro_torch/csrc/, in parallel;
+  2. build    — nvcc builds kernels K1 (embedding bag), K2 (dot interaction),
+                K3 (hot-cache probe + gather + pool), K4 (swap-in scatter)
+                and K5 (top-k neighbor select) from src/repro_torch/csrc/,
+                one nvcc per source, all in parallel;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the main path's shapes, in f32 and bf16 (TF32 off); CUDA-event
-                medians of the kernel, its plain version and one PyTorch call
-                computing the same function, beside the bound from bytes and
-                operations;
+                the main paths' shapes (TF32 off): K1/K2 in f32 and bf16; K3
+                on dlrm-flexemr's 2048-request batch over a 2^18-slot cache,
+                f32 and bf16 rows; K4 at the cache build's writes and with
+                repeated slots, into f32 and bf16 rows; K5 in f32 and f64 with
+                ties and -inf.  CUDA-event medians of the kernel, its plain
+                version and one PyTorch call computing the same function
+                (none for K3), beside the bound from bytes and operations;
   4. forward  — ``R.forward`` of dlrm-flexemr at its published config
                 (26 fields x 64, 150M-row f32 table made on the card) on
                 2048 synthetic requests: finite scores, allclose to the plain
                 forward, K1 and K2 launched;
+  4b. cached_forward — the same model with a 2^18-slot ``HashCacheState``:
+                built by ``make_hash_cache_from_table`` from the hot ids of 4
+                warm-up batches (K4), ``R.forward(..., cache=...)`` on the
+                phase-4 batch (K3, K1, K2) allclose to the uncached forward,
+                one refresh (``cache_insert`` threshold 2 + ``decay_freq``,
+                K4 again) and a second forward; then device medians of the
+                cached and uncached forward, timed in turns;
   5. serve    — ``repro_torch.launch.serve.run`` with its defaults (8 servers,
                 pooled engine, depth 2, closed loop) on 400 requests: every
                 request retired, finite scores, K2 launched once per batch;
+  5b. serve_prefetch — a ``FlexEMRServer`` built as ``launch.serve.run``
+                builds it, plus a ``PrefetchEngine`` whose miner selects on
+                the card (K5), on 400 requests of co-occurrence traffic: every
+                request retired, finite scores, rows prefetched, K5 launched;
   6. the ``{"kernels": [...]}`` line, then as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
+Each path (4, 4b, 5, 5b) runs with the launch counts set to 0 just before it
+and read just after; comparisons and timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
 ``src/`` beside it, it exits nonzero before printing any result.
 """
@@ -46,6 +64,14 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 FORWARD_BATCH = 2048
 SERVE_REQUESTS = 400
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: every timed launch starts cold
+HOT_SLOTS = 1 << 18  # the cached forward's hash cache (67 MB of f32 rows)
+MAX_PROBES = 8
+WARMUP_BATCHES = 4
+MINER_ROWS = 64  # K5's timed shape: about one cache plan's triggers
+FORWARD_TURNS = 6  # cached/uncached forward timing pairs, alternating order
+PREFETCH_CACHE_ROWS = 256  # the serve_prefetch controller's row cap
+PREFETCH_REFRESH_EVERY = 4  # batches between cache plans
+PREFETCH_BURST = 8  # requests submitted between serving steps
 
 
 def log(msg: str) -> None:
@@ -76,7 +102,7 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
 def assert_close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -88,6 +114,16 @@ def assert_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
+def assert_equal(name: str, got, want) -> float:
+    """Bit-equal (NaN-free inputs: torch.equal counts -inf == -inf)."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel output is not bit-equal to its plain "
+                             f"version ({tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype})")
+    log(f"  {name}: ok, bit-equal")
+    return 0.0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU present", file=sys.stderr)
@@ -95,13 +131,39 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs.dlrm_flexemr import make_config
+    from repro_torch.core.adaptive_cache import AdaptiveCacheController, MemoryModel
+    from repro_torch.core.embedding import make_hash_cache_from_table
+    from repro_torch.core.sharding import make_fused_tables
     from repro_torch.data import synthetic as syn
+    from repro_torch.hotcache import kernels as HK
+    from repro_torch.hotcache import ref as HREF
+    from repro_torch.hotcache import table as T
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import dot_interaction as K2
     from repro_torch.kernels import embedding_bag as K1
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import recsys as R
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.prefetch import CooccurrenceMiner, PrefetchEngine, PrefetchPolicy
+    from repro_torch.prefetch import kernels as PK
+    from repro_torch.prefetch import ref as PREF
+    from repro_torch.runtime.serving import FlexEMRServer
     from repro_torch.utils import tree_to
+
+    def launch_counts() -> dict:
+        return {"embedding_bag": K1.launches, "dot_interaction": K2.launches,
+                "probe_gather_pool": HK.launches[HK.PROBE],
+                "scatter_update": HK.launches[HK.SCATTER],
+                "topk_neighbor_select": PK.launches}
+
+    def reset_counts() -> None:
+        K1.launches = K2.launches = PK.launches = 0
+        HK.launches.update(dict.fromkeys(HK.launches, 0))
+
+    def require(path: str, counts: dict, names) -> None:
+        missing = [n for n in names if counts[n] < 1]
+        if missing:
+            raise AssertionError(f"{path} did not launch {missing}: {counts}")
 
     dev = torch.device(DEVICE)
     # ---------------------------------------------------------------- device
@@ -119,7 +181,8 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
-    report = build.build([K1.NAME, K2.NAME], ptxas_verbose=True)
+    report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME],
+                         ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
     for name, r in report.items():
@@ -198,27 +261,166 @@ def main() -> int:
             cuda_ms(lambda: torch.bmm(x_fwd, x_fwd.transpose(1, 2)), flush),
         ),
     }
-    for name, (ms, plain_ms, lib_ms), (bms, by) in zip(
-            timings, timings.values(), ((k1_bound, k1_by), (k2_bound, k2_by))):
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms (by {by}; the "
-            f"kernel reaches {bms / ms:.1%} of it)")
+    bounds = {"embedding_bag": (k1_bound, k1_by), "dot_interaction": (k2_bound, k2_by)}
+    errs = {"embedding_bag": k1_err, "dot_interaction": k2_err}
     log(f"  bounds: K1 moves {k1_bytes / 1e6:.2f} MB ({torch.unique(live).numel()} "
         f"unique live rows of {ids.numel()} slots); K2 moves "
         f"{(B * Fx * Dx + B * Fx * Fx) * 4 / 1e6:.2f} MB")
     del x_fwd, x_bf, x_srv, x_big, k1_out
 
+    # ---- hot set of the cached forward: fused ids of warm-up batches by count
+    warm = np.random.default_rng(1)
+    warm_ids = []
+    for _ in range(WARMUP_BATCHES):
+        wb = syn.recsys_batch(warm, cfg.tables, FORWARD_BATCH, n_dense=cfg.n_dense)
+        wf = emb._fused_rows(emb.sharded, torch.from_numpy(wb["indices"])).numpy()
+        warm_ids.append(wf[wb["mask"]])
+    uniq, counts = np.unique(np.concatenate(warm_ids), return_counts=True)
+    hot_ids = uniq[np.argsort(-counts, kind="stable")].astype(np.int32)
+    log(f"  hot set: {len(hot_ids)} unique fused ids in {WARMUP_BATCHES} warm-up "
+        f"batches of {FORWARD_BATCH}; cache of {HOT_SLOTS} slots, P = {MAX_PROBES}")
+
+    # ---- K4 at the cache build's writes (the swap-in of make_hash_cache_from_table)
+    C = HOT_SLOTS
+    h = hot_ids[:C]
+    keys_np, freq_np, _, w_slots, w_idx = T.insert_plan(
+        np.full((C,), T.EMPTY_KEY, np.int32), np.zeros((C,), np.int32), h,
+        np.arange(len(h), 0, -1, dtype=np.int32), 1, MAX_PROBES)
+    hot_rows = emb.gather_rows(params["emb"], torch.from_numpy(h).to(dev))
+    slots_t = torch.from_numpy(w_slots).to(dev)
+    rows_w = hot_rows[torch.from_numpy(w_idx).to(dev)]
+    values = torch.zeros((C, D), dtype=torch.float32, device=dev)
+    k4_err = assert_equal(
+        f"K4 scatter_update f32 [{len(w_slots)} writes into {C} x {D}] (cache build)",
+        HK.scatter_update(values, slots_t, rows_w),
+        HREF.scatter_update_ref(torch.zeros_like(values), slots_t, rows_w))
+    assert_equal("K4 scatter_update f32 rows -> bf16 values (cache build)",
+                 HK.scatter_update(torch.zeros((C, D), dtype=torch.bfloat16, device=dev),
+                                   slots_t, rows_w),
+                 HREF.scatter_update_ref(torch.zeros((C, D), dtype=torch.bfloat16,
+                                                     device=dev), slots_t, rows_w))
+    rep_slots = torch.randint(0, 4096, (65536,), device=dev, generator=gen,
+                              dtype=torch.int32)  # every slot written ~16 times
+    rep_rows = torch.randn((65536, D), device=dev, generator=gen)
+    for vdt in (torch.float32, torch.bfloat16):
+        base = torch.randn((8192, D), device=dev, generator=gen).to(vdt)
+        assert_equal(f"K4 scatter_update f32 rows -> {str(vdt)[6:]} values, 65536 "
+                     "writes to 4096 repeated slots (last write wins)",
+                     HK.scatter_update(base.clone(), rep_slots, rep_rows),
+                     HREF.scatter_update_ref(base.clone(), rep_slots, rep_rows))
+    del rep_rows
+    check_cache = T.HashCacheState(keys=torch.from_numpy(keys_np).to(dev), rows=values,
+                                   freq=torch.from_numpy(freq_np).to(dev))
+    occupied = int(check_cache.occupancy())
+
+    # ---- K3 on the forward batch's sharded-field query over that cache
+    msk = batch["mask"].reshape(-1)
+    query = torch.where(msk, fused.reshape(-1), T.EMPTY_KEY).contiguous()
+    k3_out = HK.probe_gather_pool(check_cache.keys, check_cache.rows, query, wts,
+                                  n_bags, MAX_PROBES)
+    k3_want = HREF.probe_gather_pool_ref(check_cache.keys, check_cache.rows, query,
+                                         wts, n_bags, MAX_PROBES)
+    assert_equal(f"K3 probe_gather_pool miss [{n_bags} bags x {nnz}, C = {C}]",
+                 k3_out[1], k3_want[1])
+    k3_err = assert_close(f"K3 probe_gather_pool pooled f32 [{n_bags}, {D}]",
+                          k3_out[0], k3_want[0], 1e-5, 1e-5)
+    rows_bf = check_cache.rows.to(torch.bfloat16)
+    got_bf = HK.probe_gather_pool(check_cache.keys, rows_bf, query, wts, n_bags, MAX_PROBES)
+    want_bf = HREF.probe_gather_pool_ref(check_cache.keys, rows_bf, query, wts, n_bags,
+                                         MAX_PROBES)
+    assert_equal("K3 probe_gather_pool miss (bf16 rows)", got_bf[1], want_bf[1])
+    assert_close("K3 probe_gather_pool pooled (bf16 rows)", got_bf[0], want_bf[0],
+                 1e-5, 1e-5)
+    del rows_bf, got_bf, want_bf
+    hit = ~k3_out[1]
+    n_live = int((query != T.EMPTY_KEY).sum())
+    n_hits = int(hit.sum())
+    uniq_hit_rows = torch.unique(query[hit]).numel()
+    k3_bytes = (ids.numel() * 8  # ids + weights
+                + n_live * 4  # one key per live id
+                + uniq_hit_rows * D * 4  # the hit rows, once
+                + n_bags * D * 4 + ids.numel())  # pooled output + miss bytes
+    bounds["probe_gather_pool"] = bound(k3_bytes, 2 * n_hits * D)
+    errs["probe_gather_pool"] = k3_err
+    log(f"  K3 query: {n_live} live ids, {n_hits} hits ({uniq_hit_rows} unique rows) "
+        f"in a cache holding {occupied} of {len(h)} hot ids; moves {k3_bytes / 1e6:.2f} MB")
+
+    # ---- K5: the miner's [M, 16] f64 lists and the TPU-shaped [4096, 128] f32
+    def tied_scores(m, width, dtype):
+        s = torch.round(torch.randn((m, width), device=dev, generator=gen) * 4) / 4
+        s[torch.rand((m, width), device=dev, generator=gen) < 0.25] = float("-inf")
+        s[-1] = float("-inf")  # an all -inf row walks its columns in order
+        return s.to(dtype).contiguous()
+
+    k5_cases = {}
+    for m, width, k in ((MINER_ROWS, 16, 12), (2048, 16, 12), (4096, 128, 32)):
+        for dt in (torch.float32, torch.float64):
+            s = tied_scores(m, width, dt)
+            gv, gi = PK.topk_neighbor_select(s, k)
+            wv, wi = PREF.topk_neighbor_select_ref(s, k)
+            name = f"K5 topk_neighbor_select {str(dt)[6:]} [{m}, {width}] k={k}"
+            assert_equal(f"{name} values", gv, wv)
+            assert_equal(f"{name} indices", gi, wi)
+            k5_cases[(m, width, dt)] = (s, k)
+    errs["topk_neighbor_select"] = 0.0
+    errs["scatter_update"] = k4_err
+
+    # ---- timings of K3, K4, K5 (plain versions and library calls beside)
+    last = torch.full((C,), -1, dtype=torch.int64, device=dev)
+    order = torch.arange(len(w_slots), device=dev)
+    last.scatter_reduce_(0, slots_t.long(), order, reduce="amax")
+    keep = last[slots_t.long()] == order
+    slots_u, rows_u = slots_t[keep].long(), rows_w[keep]
+    scratch = torch.zeros((C, D), dtype=torch.float32, device=dev)
+    bounds["scatter_update"] = bound(int(keep.sum()) * D * 8 + len(w_slots) * 4, 0)
+    s_miner, k_miner = k5_cases[(MINER_ROWS, 16, torch.float64)]
+    bounds["topk_neighbor_select"] = bound(
+        s_miner.numel() * 8 + s_miner.shape[0] * k_miner * 12, 0)
+    timings["probe_gather_pool"] = (
+        cuda_ms(lambda: HK.probe_gather_pool(check_cache.keys, check_cache.rows, query,
+                                             wts, n_bags, MAX_PROBES), flush),
+        cuda_ms(lambda: HREF.probe_gather_pool_ref(check_cache.keys, check_cache.rows,
+                                                   query, wts, n_bags, MAX_PROBES), flush),
+        None,  # no single PyTorch call probes a hash table
+    )
+    timings["scatter_update"] = (
+        cuda_ms(lambda: HK.scatter_update(scratch, slots_t, rows_w), flush),
+        cuda_ms(lambda: HREF.scatter_update_ref(scratch, slots_t, rows_w), flush),
+        cuda_ms(lambda: scratch.index_copy_(0, slots_u, rows_u), flush),
+    )
+    timings["topk_neighbor_select"] = (
+        cuda_ms(lambda: PK.topk_neighbor_select(s_miner, k_miner), flush),
+        cuda_ms(lambda: PREF.topk_neighbor_select_ref(s_miner, k_miner), flush),
+        cuda_ms(lambda: torch.topk(s_miner, k_miner, dim=1), flush),
+    )
+    s_tpu, k_tpu = k5_cases[(4096, 128, torch.float32)]
+    k5_tpu = (cuda_ms(lambda: PK.topk_neighbor_select(s_tpu, k_tpu), flush),
+              cuda_ms(lambda: PREF.topk_neighbor_select_ref(s_tpu, k_tpu), flush),
+              cuda_ms(lambda: torch.topk(s_tpu, k_tpu, dim=1), flush),
+              bound(s_tpu.numel() * 4 + s_tpu.shape[0] * k_tpu * 8, 0)[0])
+    for name, (ms, plain_ms, lib_ms) in timings.items():
+        bms, by = bounds[name]
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib}, bound {bms:.6f} ms (by {by}; the "
+            f"kernel reaches {bms / ms:.1%} of it)")
+    log(f"  K4 timed at the cache build: {len(w_slots)} writes, {int(keep.sum())} "
+        f"survive; K5 timed at the miner's [{MINER_ROWS}, 16] f64, k={k_miner}")
+    log(f"  K5 at [4096, 128] f32 k={k_tpu}: kernel {k5_tpu[0]:.4f} ms, plain "
+        f"{k5_tpu[1]:.4f} ms, torch.topk {k5_tpu[2]:.4f} ms, bound {k5_tpu[3]:.6f} ms")
+    del scratch, last, order, keep, slots_u, rows_u, k5_cases, s_tpu, k3_out, k3_want
+    del check_cache, values, hot_rows, rows_w, slots_t
+
     # --------------------------------------------------------------- forward
-    K1.launches = K2.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
         scores = R.forward(cfg, params, batch)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
-    fwd_launches = {"embedding_bag": K1.launches, "dot_interaction": K2.launches}
-    if min(fwd_launches.values()) < 1:
-        raise AssertionError(f"forward did not launch every kernel: {fwd_launches}")
+    fwd_launches = launch_counts()
+    require("forward", fwd_launches, ("embedding_bag", "dot_interaction"))
     if scores.shape != (FORWARD_BATCH,) or not bool(torch.isfinite(scores).all()):
         raise AssertionError(f"forward scores not finite [{FORWARD_BATCH}]: {scores.shape}")
     with torch.no_grad():
@@ -237,15 +439,84 @@ def main() -> int:
         fwd_ms = cuda_ms(lambda: R.forward(cfg, params, batch), flush)
     log(f"[forward] first call {fwd_s * 1e3:.2f} ms wall, then {fwd_ms:.4f} ms "
         f"device median (L2 cold); launches in the first call {fwd_launches}")
-    del params, table, batch, fused, ids, wts, ids_2d, live, pooled, pooled_plain, scores
+
+    # -------------------------------------------------------- cached forward
+    host2 = syn.recsys_batch(np.random.default_rng(2), cfg.tables, FORWARD_BATCH,
+                             n_dense=cfg.n_dense)
+    batch2 = {k: torch.from_numpy(host2[k]).to(dev) for k in ("indices", "mask", "dense")}
+    with torch.no_grad():
+        scores2 = R.forward(cfg, params, batch2)  # uncached, outside the window
+    fused_b = emb._fused_rows(emb.sharded, batch["indices"])[batch["mask"]].cpu().numpy()
+    ref_ids, ref_counts = np.unique(fused_b, return_counts=True)
+
+    def hit_rate(cache, b) -> float:
+        f = emb._fused_rows(emb.sharded, b["indices"])
+        q = torch.where(b["mask"], f, T.EMPTY_KEY)
+        return float(T.cache_lookup(cache, q, MAX_PROBES)[1].sum()) / float(b["mask"].sum())
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = make_hash_cache_from_table(emb, params["emb"], hot_ids, HOT_SLOTS,
+                                       max_probes=MAX_PROBES, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        scores_c = R.forward(cfg, params, batch, cache=cache)
+    hit1 = hit_rate(cache, batch)
+    t0 = time.perf_counter()
+    ref_rows = emb.gather_rows(params["emb"], torch.from_numpy(ref_ids.astype(np.int32)).to(dev))
+    cache, admitted = T.cache_insert(cache, ref_ids, ref_rows, ref_counts, 2, MAX_PROBES)
+    cache = T.decay_freq(cache, 0.5)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    with torch.no_grad():
+        scores_c2 = R.forward(cfg, params, batch2, cache=cache)
+    torch.cuda.synchronize()
+    hit2 = hit_rate(cache, batch2)
+    cached_launches = launch_counts()
+    require("cached_forward", cached_launches,
+            ("probe_gather_pool", "scatter_update", "embedding_bag", "dot_interaction"))
+    for name, got in (("scores", scores_c), ("scores after refresh", scores_c2)):
+        if got.shape != (FORWARD_BATCH,) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"cached forward {name} not finite: {got.shape}")
+    assert_close("cached forward scores [2048] vs uncached forward", scores_c, scores,
+                 1e-4, 1e-5)
+    assert_close("cached forward scores after refresh vs uncached forward", scores_c2,
+                 scores2, 1e-4, 1e-5)
+    with torch.no_grad():
+        pooled_c = emb.lookup(params["emb"], batch["indices"], batch["mask"], cache=cache)
+    assert_close("cached lookup pooled [2048, 26, 64] vs lookup_reference", pooled_c,
+                 pooled_plain, 1e-5, 1e-5)
+    # Cached and uncached forward timed in turns (plain, cached, cached,
+    # plain, ...) in this one call, so clocks and allocator state are shared.
+    turns = {False: [], True: []}
+    with torch.no_grad():
+        for i in range(FORWARD_TURNS):
+            for cached in ((False, True) if i % 2 == 0 else (True, False)):
+                c = cache if cached else None
+                turns[cached].append(
+                    cuda_ms(lambda: R.forward(cfg, params, batch, cache=c), flush))
+    log("[cached_forward] " + json.dumps({
+        "cache_slots": HOT_SLOTS, "occupancy": int(cache.occupancy()),
+        "build_seconds": build_s, "refresh_seconds": refresh_s,
+        "refresh_admitted": int(admitted.sum()), "refresh_candidates": len(ref_ids),
+        "hit_rate_first": hit1, "hit_rate_after_refresh": hit2,
+        "cached_forward_ms": statistics.median(turns[True]),
+        "uncached_forward_ms": statistics.median(turns[False]),
+        "cached_forward_ms_turns": turns[True], "uncached_forward_ms_turns": turns[False],
+        "launches": cached_launches,
+    }))
+    del params, table, batch, batch2, fused, ids, wts, ids_2d, live, pooled, pooled_plain
+    del scores, scores2, scores_c, scores_c2, pooled_c, cache, ref_rows, query
     del flush
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- serve
     args = launch_serve.parse_args(["--requests", str(SERVE_REQUESTS)])
-    K1.launches = K2.launches = 0
+    reset_counts()
     out = launch_serve.run(args)
-    srv_launches = {"embedding_bag": K1.launches, "dot_interaction": K2.launches}
+    srv_launches = launch_counts()
     if not out["requests"] == out["submitted"] == SERVE_REQUESTS:
         raise AssertionError(f"served {out['requests']} of {out['submitted']} "
                              f"(wanted {SERVE_REQUESTS})")
@@ -263,23 +534,91 @@ def main() -> int:
         "launches": srv_launches,
     }))
 
+    # -------------------------------------------------------- serve_prefetch
+    scfg = launch_serve.make_serving_dlrm(1.0)
+    sparams = R.init_params(scfg, 0, device=dev)
+    # launch.serve.run's controller, with a row cap below the traffic's
+    # working set: with its default 65,536 rows every co-occurring partner
+    # of a newly planned row is already resident, and nothing is prefetched.
+    controller = AdaptiveCacheController(
+        scfg.tables, scfg.embed_dim,
+        MemoryModel(fixed_bytes=2 << 28, bytes_per_sample=1 << 14, hbm_bytes=1 << 30),
+        max_rows=PREFETCH_CACHE_ROWS, field_replication=False)
+    engine = PrefetchEngine(
+        CooccurrenceMiner(list_len=16, max_rows=16_384, decay=0.99, device=dev),
+        PrefetchPolicy(k_neighbors=12, byte_budget=1 << 18, min_score=1.0))
+    server = FlexEMRServer(scfg, sparams, make_fused_tables(scfg.tables, scfg.embed_dim, 8),
+                           controller=controller, prefetcher=engine,
+                           cache_refresh_every=PREFETCH_REFRESH_EVERY,
+                           registry=MetricsRegistry(), device=dev)
+    wl = syn.CooccurrenceWorkload(scfg.tables, batch=1, alpha=1.1, cooccur_frac=0.8,
+                                  pool_size=32, n_dense=scfg.n_dense, seed=0)
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        b = wl.next_batch()
+        reqs.append({"indices": b["indices"][0], "mask": b["mask"][0],
+                     "dense": b["dense"][0]})
+    nonfinite = 0
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for i in range(0, SERVE_REQUESTS, PREFETCH_BURST):
+            for r in reqs[i:i + PREFETCH_BURST]:
+                server.submit(r)
+            while (res := server.step()) is not None:
+                nonfinite += int((~np.isfinite(res["scores"])).sum())
+        while server.metrics.requests < SERVE_REQUESTS:
+            if (res := server.step()) is not None:
+                nonfinite += int((~np.isfinite(res["scores"])).sum())
+        torch.cuda.synchronize()
+        pf_wall = time.perf_counter() - t0
+        pf_launches = launch_counts()
+        pf = server.metrics.summary()
+    finally:
+        server.close()
+    if pf["requests"] != SERVE_REQUESTS:
+        raise AssertionError(f"serve_prefetch retired {pf['requests']} of {SERVE_REQUESTS}")
+    if nonfinite:
+        raise AssertionError(f"{nonfinite} non-finite serve_prefetch scores")
+    if pf["prefetch_issued"] <= 0:
+        raise AssertionError(f"serve_prefetch prefetched nothing: {pf}")
+    require("serve_prefetch", pf_launches, ("topk_neighbor_select", "dot_interaction"))
+    if pf_launches["dot_interaction"] < pf["batches"]:
+        raise AssertionError(f"K2 launched {pf_launches['dot_interaction']} times "
+                             f"for {pf['batches']} batches")
+    log("[serve_prefetch] " + json.dumps({
+        "device": str(server.device), "requests": pf["requests"], "batches": pf["batches"],
+        "throughput_rps": SERVE_REQUESTS / pf_wall, "p50_latency_ms": pf["p50_latency_ms"],
+        "p99_latency_ms": pf["p99_latency_ms"], "hit_rate": pf["hit_rate"],
+        "dense_seconds": pf["dense_seconds"], "lookup_seconds": pf["lookup_seconds"],
+        **{k: pf[k] for k in ("prefetch_issued", "prefetch_hits", "prefetch_evicted",
+                              "bytes_prefetch", "prefetch_useful_rate")},
+        "miner_pairs_observed": engine.miner.pairs_observed,
+        "prefetch_triggers": engine.stats.triggers, "launches": pf_launches,
+    }))
+    del sparams, server
+
     # ---------------------------------------------------------- kernels line
-    meta = {
-        "embedding_bag": (K1, "src/repro/kernels/embedding_bag.py:38", k1_err,
-                          k1_bound, k1_by),
-        "dot_interaction": (K2, "src/repro/kernels/dot_interaction.py:28", k2_err,
-                            k2_bound, k2_by),
+    sources = {
+        "embedding_bag": "src/repro/kernels/embedding_bag.py:38",
+        "dot_interaction": "src/repro/kernels/dot_interaction.py:28",
+        "probe_gather_pool": "src/repro/hotcache/kernels.py:64",
+        "scatter_update": "src/repro/hotcache/kernels.py:122",
+        "topk_neighbor_select": "src/repro/prefetch/kernels.py:66",
     }
+    paths = {"forward": fwd_launches, "serve": srv_launches,
+             "cached_forward": cached_launches, "serve_prefetch": pf_launches}
     kernels = []
-    for name, (mod, replaces, err, bms, by) in meta.items():
+    for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]
+        bms, by = bounds[name]
+        by_path = {p: c[name] for p, c in paths.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{mod.NAME}.cu",
-            "replaces": replaces,
-            "launches": fwd_launches[name] + srv_launches[name],
-            "launches_by_path": {"forward": fwd_launches[name], "serve": srv_launches[name]},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms, "ok": True,
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "ok": True,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Paper anchor: §3.1.1 — "shrink the lookup": a hot-row cache in front of the
 disaggregated embedding servers so wire bytes scale with the *miss* rate,
 not the request rate.  This module is the host-side half of the pillar; the
-device-resident half (HashCacheState + Pallas kernels) lives in table.py /
+device-resident half (HashCacheState + kernels K3/K4) lives in table.py /
 kernels.py.
 
 ``HostHashCache`` is the host-side mirror of table.HashCacheState — same
@@ -44,7 +44,7 @@ Invariants:
     - bytes_network - bytes_swap_in - bytes_prefetch, so every wire byte is
     attributed to exactly one channel (miss, swap-in, or speculation).
 
-When a ``repro.prefetch.PrefetchEngine`` is attached, the tier also becomes
+When a ``repro_torch.prefetch.PrefetchEngine`` is attached, the tier also becomes
 the spatial-locality prefetch channel (§3.1.2): every lookup feeds the
 co-occurrence miner, every refresh's swap-in fetch piggybacks the admitted
 rows' top-k partners under the engine's byte budget, and hits served by a
@@ -362,7 +362,7 @@ class TieredLookupService:
     accounting (an O(batch) np.unique per call) for latency-critical callers
     that don't consume the stats.
 
-    ``prefetcher`` (a repro.prefetch.PrefetchEngine) turns the refresh
+    ``prefetcher`` (a repro_torch.prefetch.PrefetchEngine) turns the refresh
     fetch into the §3.1.2 piggyback channel; see the module docstring.
     """
 

@@ -5,5 +5,8 @@
 
 ``ops.py`` holds the entry points (dispatch by device), ``ref.py`` the plain
 versions, ``build.py`` the nvcc/ctypes build.  Importing this package builds
-nothing; a kernel builds at its first launch.
+nothing; a kernel builds at its first launch.  The other kernels sit with
+the subsystem they serve: K3 ``probe_gather_pool`` and K4 ``scatter_update``
+in ``hotcache/kernels.py``, K5 ``topk_neighbor_select`` in
+``prefetch/kernels.py``; their sources are in ``csrc/`` too.
 """

@@ -2,8 +2,9 @@
 
 Port of ``repro/models/recsys.py`` for ``arch="dlrm"`` on one device: the
 paper's Fig-1 reference model — bottom MLP on dense features, embedding bags
-(``core.embedding.DisaggEmbedding.lookup``, kernel K1 on the card), pairwise
-dot interaction (kernel K2 on the card), top MLP.  The other archs
+(``core.embedding.DisaggEmbedding.lookup``, kernel K1 on the card, with the
+hot-row cache's kernel K3 in front when ``forward`` is given a cache),
+pairwise dot interaction (kernel K2 on the card), top MLP.  The other archs
 (wide_deep, autoint, mind, two_tower, dcn, deepfm), the mesh paths, training
 steps and retrieval wait for later slices of the port.
 """
@@ -19,7 +20,7 @@ from repro_torch.core.embedding import DisaggEmbedding
 from repro_torch.core.sharding import TableSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import numpy_to_tensor, resolve_device, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,18 +92,11 @@ def init_params(cfg: RecsysConfig, seed: int = 0, num_shards: int = 1,
     return params
 
 
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.array(a, order="C")  # a writable copy: jax leaves are read-only
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
 def params_from_numpy(np_params: dict, device) -> dict:
     """The reference package's params (``np.asarray`` on each leaf) as this
     package's nested dict of tensors on ``device``."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _to_tensor(np.asarray(a)).to(dev), np_params)
+    return tree_map(lambda a: numpy_to_tensor(np.asarray(a)).to(dev), np_params)
 
 
 # ------------------------------------------------------------------ forward
@@ -125,10 +119,14 @@ def dense_forward(cfg: RecsysConfig, params: dict, pooled: torch.Tensor,
     return L.mlp_apply(params["top"], torch.cat([inter, bot], dim=-1))[:, 0]
 
 
-def forward(cfg: RecsysConfig, params: dict, batch: dict) -> torch.Tensor:
+def forward(cfg: RecsysConfig, params: dict, batch: dict,
+            cache=None) -> torch.Tensor:
     """Per-sample scores.  batch: indices [B,F,nnz] int32, mask [B,F,nnz]
-    bool, dense [B,n_dense], all on the params' device."""
-    pooled = cfg.embedding().lookup(params["emb"], batch["indices"], batch["mask"])
+    bool, dense [B,n_dense], all on the params' device.  ``cache`` (a
+    ``HashCacheState`` or ``HotCacheState``) serves the hot rows of the
+    sharded fields, as the reference's ``forward(mesh=..., cache=...)``."""
+    pooled = cfg.embedding().lookup(params["emb"], batch["indices"], batch["mask"],
+                                    cache=cache)
     return dense_forward(cfg, params, pooled, batch["dense"])
 
 

@@ -1,13 +1,16 @@
 """FlexEMR serving runtime: the ranker-side loop tying every §3 mechanism
 together at host level.  Port of ``repro/runtime/serving.py``: the host side
-(batcher, tier, engine pool, controller, admission, metrics) is the
-reference's, and the dense stage runs in torch on ``device`` — on the card
-its dot interaction is kernel K2.  The prefetcher, chaos injection and live
+(batcher, tier, engine pool, controller, admission, prefetcher, metrics)
+is the reference's, and the dense stage runs in torch on ``device`` — on the
+card its dot interaction is kernel K2, and a prefetcher whose miner runs on
+the card selects neighbors with kernel K5.  Chaos injection and live
 ``reshard`` wait for later slices of the port.
 
   request queue (BucketBatcher)      — the task queue of Fig 5
   SlidingWindowLoadMonitor           — §3.1.1 temporal-dynamics tracing
   AdaptiveCacheController            — §3.1.1 cache sizing (+field replication)
+  PrefetchEngine (optional)          — §3.1.2 co-occurrence piggyback on the
+                                       plan swap-in
   PooledLookupService                — §3.2 multi-threaded rdma engine pool
                                        (engine="legacy" keeps the old
                                        per-connection HostLookupService)
@@ -221,6 +224,7 @@ class FlexEMRServer:
         pushdown: bool = True,
         hedge_timeout: float | None = 0.05,
         cache_refresh_every: int = 16,
+        prefetcher=None,  # repro_torch.prefetch.PrefetchEngine | None
         engine: str = "pooled",  # 'pooled' (§3.2 rdma pool) | 'legacy'
         pipeline_depth: int = 2,  # batches in flight (1 = closed loop)
         batcher: BucketBatcher | None = None,
@@ -327,10 +331,14 @@ class FlexEMRServer:
         self._degraded_requests = 0
         self._degraded_batches = 0
         self._degraded_rows = 0
+        self.prefetcher = prefetcher
         # repro.hotcache tiered front end over the lookup service.  The hash
         # cache starts empty (0 slots) until the controller's first plan;
         # refresh_every=0: the controller owns the swap-in schedule, not the
-        # tier's own LFU loop.
+        # tier's own LFU loop.  With a prefetcher, the tier mines
+        # co-occurrence and attributes prefetch hits; the piggyback fetch
+        # itself rides the plan swap-in (_apply_cache_plan), since the
+        # controller owns that schedule here.
         # Straggler mitigation: on the pool, the miss tier posts async and
         # hedges *through the pool* (duplicate subrequests on other engine
         # threads, cancel-the-loser); the legacy engine keeps the ranker-side
@@ -343,6 +351,7 @@ class FlexEMRServer:
             self.service,
             num_slots=0,
             refresh_every=0,
+            prefetcher=prefetcher,
             track_bytes=track_bytes,
             # The controller consumes each batch's heat from the dedup
             # prepass published on the pending handle (admit phase, where
@@ -366,6 +375,10 @@ class FlexEMRServer:
         if hasattr(self.service, "engine_summary"):
             self.registry.register_provider(
                 "rdma.pool", self.service.engine_summary
+            )
+        if prefetcher is not None:
+            self.registry.register_provider(
+                "prefetch", prefetcher.stats.summary
             )
         self.slo = slo
         if slo is not None:
@@ -459,6 +472,11 @@ class FlexEMRServer:
         self.metrics.bytes_swap_in = s.bytes_swap_in + self._plan_swap_in_bytes
         self.metrics.prefetch_hits = s.prefetch_hits
         self.metrics.prefetch_evicted = s.prefetch_evicted
+        if self.prefetcher is not None:
+            # Piggybacks ride the plan swap-in here, so read the engine's
+            # own counters (the tier's only cover self-driven refreshes).
+            self.metrics.prefetch_issued = self.prefetcher.stats.issued
+            self.metrics.bytes_prefetch = self.prefetcher.stats.bytes_prefetch
 
     def _lookup(self, indices: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Closed-loop tiered lookup (probe + miss + merge in one call) —
@@ -746,6 +764,12 @@ class FlexEMRServer:
             # The planned rows ARE the chosen hot set: threshold 1 (always
             # admit); plan.admission_threshold gates runtime misses instead.
             cache.insert(ids, rows, freqs, 1.0)
+            if self.prefetcher is not None:
+                # §3.1.2 piggyback: the plan's swap-in fetch carries the new
+                # rows' co-occurring partners, under the plan's byte budget.
+                self.prefetcher.set_byte_budget(plan.prefetch_budget_bytes)
+                self.prefetcher.piggyback(ids[~already], cache, self.service)
+                self.prefetcher.decay()
         if hasattr(self.service, "set_shard_affinity"):
             # Skew-aware dealing (§3.2 follow-on): feed the controller's
             # per-shard heat into the pool's shard->thread table so hot

@@ -6,6 +6,7 @@ import logging
 import time
 from typing import Any, Iterator
 
+import numpy as np
 import torch
 
 logger = logging.getLogger("repro_torch")
@@ -26,6 +27,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def numpy_to_tensor(a) -> torch.Tensor:
+    """A CPU tensor holding a writable copy of ``a`` (jax leaves are
+    read-only); ml_dtypes bfloat16 arrays keep their bits."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def tree_leaves(tree: Any) -> list:
