@@ -6,9 +6,10 @@
 Phases, each printed as it runs; any failure raises and exits nonzero:
   1. device   — torch's device name and nvidia-smi's name and power limit;
   2. build    — nvcc builds kernels K1 (embedding bag), K2 (dot interaction),
-                K3 (hot-cache probe + gather + pool), K4 (swap-in scatter)
-                and K5 (top-k neighbor select) from src/repro_torch/csrc/,
-                one nvcc per source, all in parallel;
+                K3 (hot-cache probe + gather + pool), K4 (swap-in scatter),
+                K5 (top-k neighbor select), K6 (flash attention) and K7
+                (flash decode) from src/repro_torch/csrc/, one nvcc per
+                source, all in parallel;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (TF32 off): K1/K2 in f32 and bf16; K3
                 on dlrm-flexemr's 2048-request batch over a 2^18-slot cache,
@@ -35,16 +36,48 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 builds it, plus a ``PrefetchEngine`` whose miner selects on
                 the card (K5), on 400 requests of co-occurrence traffic: every
                 request retired, finite scores, rows prefetched, K5 launched;
-  6. the ``{"kernels": [...]}`` line, then as the last line
+  6. lm_kernels — after the DLRM state is freed: K6 against its plain
+                version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
+                causal in bf16 and f32, at qwen2-72b's GQA heads
+                [1, 4096, 64, 8, 128] and at a ragged S; K7 at the decode
+                path's caches [4, 4128, 32, 80] with NaN past cache_len
+                4097, at cache_len 1, in f32 and with GQA; bf16 to two
+                output ulps plus 2^-5 of the row's RMS, a check shown to
+                refuse a planted fault (one KV tile of 64 skipped).
+                CUDA-event medians of each kernel, its plain version and
+                ``F.scaled_dot_product_attention`` (timed only, never called
+                by the port), and of kernel and library at the repo's own
+                lengths (prefill_32k at B = 1, decode_32k at B = 8);
+  7. lm_prefill — stablelm-3b at full width and depth (bf16 weights made on
+                the card from seed 0), ``transformer.prefill`` of 4 prompts
+                of 4,096 tokens: finite last logits, K6 launched once per
+                layer; wall time of the first call, device median, tokens/s,
+                and the kernels' device time in one profiled call;
+  8. lm_decode — the caches padded to 4,128 positions, 32 greedy
+                ``decode_step``s (argmax fed back, ``pos`` on the card, no
+                host sync in the loop): finite logits, K7 launched 32 x 32
+                times; per-step wall median (CUDA events around each step
+                measure the host's enqueue pace: the device runs ahead of
+                it), tokens/s, and the device's busy time and the kernels'
+                time per step over two profiled steps;
+  9. lm_checks — in f32 compute on the card, TF32 off: a 2-layer cut of the
+                same weights (prefill 256, 4 decode steps) against the same
+                on the CPU (plain versions), and the full depth (prefill
+                1,024, 4 decode steps) against one ``forward`` over all
+                1,028 tokens;
+ 10. the ``{"kernels": [...]}`` line, then as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Each path (4, 4b, 5, 5b) runs with the launch counts set to 0 just before it
-and read just after; comparisons and timings run outside those windows.
+Each path (4, 4b, 5, 5b, 7, 8) runs with the launch counts set to 0 just
+before it and read just after; comparisons and timings run outside those
+windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
 ``src/`` beside it, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -61,6 +94,7 @@ sys.path.insert(0, str(ROOT / "src"))
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 FORWARD_BATCH = 2048
 SERVE_REQUESTS = 400
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: every timed launch starts cold
@@ -72,6 +106,28 @@ FORWARD_TURNS = 6  # cached/uncached forward timing pairs, alternating order
 PREFETCH_CACHE_ROWS = 256  # the serve_prefetch controller's row cap
 PREFETCH_REFRESH_EVERY = 4  # batches between cache plans
 PREFETCH_BURST = 8  # requests submitted between serving steps
+LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
+LM_PROMPT = 4096  # tokens per prompt
+LM_DECODE_STEPS = 32
+LM_CACHE = 4128  # decode cache positions: the prompt + 32, padded
+LM_CUT_LAYERS = 2  # the f32 check of the card path against the CPU path
+LM_CUT_PROMPT = 256
+LM_DEPTH_PROMPT = 1024  # the f32 check of decode against forward, full depth
+LM_CHECK_STEPS = 4
+LM_LONG_DECODE_BATCH = 8  # decode_32k's batch of 128 cut to one card (LM_SHAPES)
+LM_GQA_HEADS = (64, 8, 128)  # qwen2-72b's query heads, KV heads, head dim
+LM_RAGGED_SEQ = 1037  # no multiple of a 64-row tile
+# K6/K7 against their plain versions.  f32: rtol = atol = 2e-5, the
+# reference's.  bf16, by ``assert_close_rows``: rtol 2^-6 (two output ulps)
+# plus 2^-5 of the RMS of the element's row (its head's dh values), for the
+# probabilities that kernel and plain version round to bf16 at different
+# points.  A fixed atol cannot do: |out| falls as 1/sqrt(keys), to about
+# 0.02 at 4,096 keys, so an atol that covers a 4-key row would accept a
+# kernel that skips a KV tile of a long row (phase 6 checks that this one
+# does not).
+LM_F32_TOL = (2e-5, 2e-5)
+LM_BF16_TOL = (1.6e-2, 3.2e-2)
+LM_KV_TILE = 64  # the KV tile of the planted faults
 
 
 def log(msg: str) -> None:
@@ -95,10 +151,38 @@ def cuda_ms(fn, flush: torch.Tensor, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_busy(fn, calls: int) -> dict:
+    """Run ``fn`` ``calls`` times under ``torch.profiler``: the device time
+    its kernels took (summed; one stream, so they do not overlap), how many
+    kernels and copies ran, and the kernels with the most of the time.
+    ``device_busy_ms`` is None when the trace holds no device events.  The
+    profiler slows the host, so the window's own wall time is not reported;
+    compare with an unprofiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            n_ops += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"calls": calls,
+            "device_busy_ms": sum(by_name.values()) / calls if by_name else None,
+            "device_ops_per_call": n_ops / calls,
+            "top_kernels_ms_per_call": [[n[:70], ms / calls] for n, ms in top]}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -112,6 +196,34 @@ def assert_close(name: str, got, want, rtol: float, atol: float) -> float:
                              f"(max abs err {err:.3e}, rtol {rtol}, atol {atol})")
     log(f"  {name}: ok, max abs err {err:.3e} (rtol {rtol}, atol {atol})")
     return err
+
+
+def limit_share(got, want, rtol: float, row_tol: float) -> float:
+    """Largest |got - want| / (rtol |want| + row_tol rms(want's row)) over
+    the elements, a row being the last dim: at most 1 is a pass."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((g - w).abs() / (rtol * w.abs() + row_tol * rms).clamp_min(1e-30)).max())
+
+
+def assert_close_rows(name: str, got, want, rtol: float, row_tol: float) -> float:
+    err, share = max_err(got, want), limit_share(got, want, rtol, row_tol)
+    if not share <= 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs "
+                             f"err {err:.3e}, {share:.3f} of the limit: rtol {rtol}, "
+                             f"{row_tol} of the row's RMS)")
+    log(f"  {name}: ok, max abs err {err:.3e}, {share:.3f} of the limit (rtol {rtol}, "
+        f"{row_tol} of the row's RMS)")
+    return err
+
+
+def assert_refused(name: str, planted, want, rtol: float, row_tol: float) -> None:
+    """The check of ``assert_close_rows`` must fail on a planted fault."""
+    err, share = max_err(planted, want), limit_share(planted, want, rtol, row_tol)
+    if share <= 1.0:
+        raise AssertionError(f"{name}: the check accepts a planted fault (max abs err "
+                             f"{err:.3e}, {share:.3f} of the limit)")
+    log(f"  {name}: refused, max abs err {err:.3e}, {share:.3f} of the limit")
 
 
 def assert_equal(name: str, got, want) -> float:
@@ -131,6 +243,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs.dlrm_flexemr import make_config
+    from repro_torch.configs.lm_common import LM_SHAPES, serving_config
+    from repro_torch.configs.stablelm_3b import make_config as make_lm_config
     from repro_torch.core.adaptive_cache import AdaptiveCacheController, MemoryModel
     from repro_torch.core.embedding import make_hash_cache_from_table
     from repro_torch.core.sharding import make_fused_tables
@@ -141,23 +255,27 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import dot_interaction as K2
     from repro_torch.kernels import embedding_bag as K1
+    from repro_torch.kernels import flash_attention as K6
+    from repro_torch.kernels import flash_decode as K7
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as TF
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.prefetch import CooccurrenceMiner, PrefetchEngine, PrefetchPolicy
     from repro_torch.prefetch import kernels as PK
     from repro_torch.prefetch import ref as PREF
     from repro_torch.runtime.serving import FlexEMRServer
-    from repro_torch.utils import tree_to
+    from repro_torch.utils import tree_size_bytes, tree_to
 
     def launch_counts() -> dict:
         return {"embedding_bag": K1.launches, "dot_interaction": K2.launches,
                 "probe_gather_pool": HK.launches[HK.PROBE],
                 "scatter_update": HK.launches[HK.SCATTER],
-                "topk_neighbor_select": PK.launches}
+                "topk_neighbor_select": PK.launches,
+                "flash_attention": K6.launches, "flash_decode": K7.launches}
 
     def reset_counts() -> None:
-        K1.launches = K2.launches = PK.launches = 0
+        K1.launches = K2.launches = PK.launches = K6.launches = K7.launches = 0
         HK.launches.update(dict.fromkeys(HK.launches, 0))
 
     def require(path: str, counts: dict, names) -> None:
@@ -181,8 +299,8 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
-    report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME],
-                         ptxas_verbose=True)
+    report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME, K6.NAME,
+                          K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
     for name, r in report.items():
@@ -596,7 +714,294 @@ def main() -> int:
         "miner_pairs_observed": engine.miner.pairs_observed,
         "prefetch_triggers": engine.stats.triggers, "launches": pf_launches,
     }))
-    del sparams, server
+    del sparams, server, controller, engine, reqs, wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] DLRM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        "allocated on the card")
+
+    # ------------------------------------------------------------ lm kernels
+    lm_cfg = serving_config(make_lm_config())
+    Hq, Hkv, dh = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.d_head
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    lm_gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, device=dev, generator=lm_gen).to(dtype)
+
+    def k6_bound(q, k, causal):
+        B_, S_, H_, d_ = q.shape
+        pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
+        rate = BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S
+        return bound(2 * (q.numel() + k.numel()) * q.element_size(),  # q, k, v, out
+                     4 * d_ * B_ * H_ * pairs, rate)
+
+    def k7_bound(q, kc, n):
+        B_, _, Hkv_, d_ = kc.shape
+        return bound(2 * B_ * n * Hkv_ * d_ * kc.element_size()  # K and V rows < n
+                     + 2 * q.numel() * q.element_size(),  # q, out
+                     4 * d_ * q.shape[0] * q.shape[1] * n)
+
+    def k6_lib(q, k, v, causal):  # the yardstick: timed here, never called by the port
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=causal,
+                                              enable_gqa=True)
+
+    def k7_lib(q, kc, vc, n):
+        return F.scaled_dot_product_attention(q[:, :, None], kc[:, :n].transpose(1, 2),
+                                              vc[:, :n].transpose(1, 2), enable_gqa=True)
+
+    lm_rows = []
+
+    def time_case(label, kern, plain, lib, bnd):
+        row = {"case": label, "ms": cuda_ms(kern, flush),
+               "plain_ms": None if plain is None else cuda_ms(plain, flush),
+               "library_ms": cuda_ms(lib, flush), "bound_ms": bnd[0], "bound_by": bnd[1]}
+        lm_rows.append(row)
+        return row
+
+    log("[lm_kernels] K6 and K7 against their plain versions on the card")
+    B, S = LM_BATCH, LM_PROMPT
+    k6_cases = {
+        "path bf16": ((B, S, Hq, dh), Hkv, bf16, True),
+        "path f32": ((B, S, Hq, dh), Hkv, f32, True),
+        "gqa bf16": ((1, S, LM_GQA_HEADS[0], LM_GQA_HEADS[2]), LM_GQA_HEADS[1], bf16, True),
+        "ragged bf16": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, bf16, True),
+        "ragged full f32": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, f32, False),
+    }
+    with torch.no_grad():
+        for label, (shape, hkv, dt, causal) in k6_cases.items():
+            q = rnd(shape, dt)
+            k = rnd(shape[:2] + (hkv, shape[3]), dt)
+            v = rnd(shape[:2] + (hkv, shape[3]), dt)
+            check = assert_close_rows if dt == bf16 else assert_close
+            tol = LM_BF16_TOL if dt == bf16 else LM_F32_TOL
+            want = ref.flash_attention_ref(q, k, v, causal)
+            err = check(f"K6 flash_attention {label} {list(shape[:3]) + [hkv, shape[3]]} "
+                        f"{'causal' if causal else 'full'}",
+                        K6.flash_attention(q, k, v, causal), want, *tol)
+            if label == "path bf16":
+                # A kernel whose KV loop skips the first tile, seen only on
+                # the later half of the rows, where |out| is smallest.
+                t, h = LM_KV_TILE, S // 2
+                planted = ref.flash_attention_ref(q[:, t:], k[:, t:], v[:, t:], True)
+                assert_refused(f"K6 {label} with the first KV tile skipped, rows {h}+",
+                               planted[:, h - t:], want[:, h:], *tol)
+                del planted
+                errs["flash_attention"] = err
+                timings["flash_attention"] = (
+                    cuda_ms(lambda: K6.flash_attention(q, k, v, True), flush),
+                    cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), flush),
+                    cuda_ms(lambda: k6_lib(q, k, v, True), flush))
+                bounds["flash_attention"] = k6_bound(q, k, True)
+            elif label in ("path f32", "gqa bf16"):
+                time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
+                          lambda: K6.flash_attention(q, k, v, causal),
+                          lambda: ref.flash_attention_ref(q, k, v, causal),
+                          lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal))
+            del q, k, v, want
+        # K6 at prefill_32k's length, one sequence: kernel and library only.
+        Sp = LM_SHAPES["prefill_32k"]["seq"]
+        q, k, v = (rnd((1, Sp, Hq, dh), bf16) for _ in range(3))
+        time_case(f"K6 bf16 [1, {Sp}, {Hq}, {Hkv}, {dh}] causal (prefill_32k, B = 1)",
+                  lambda: K6.flash_attention(q, k, v, True), None,
+                  lambda: k6_lib(q, k, v, True), k6_bound(q, k, True))
+        del q, k, v
+
+        n_path = LM_PROMPT + 1  # the first decode step's valid length
+        k7_cases = {
+            "path bf16": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), bf16, n_path),
+            "cache_len 1": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), bf16, 1),
+            "path f32": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), f32, n_path),
+            "gqa bf16": ((2, LM_GQA_HEADS[0], LM_GQA_HEADS[2]),
+                         (2, LM_CACHE, LM_GQA_HEADS[1], LM_GQA_HEADS[2]), bf16, n_path),
+        }
+        for label, (qs, cs, dt, n) in k7_cases.items():
+            q, kc, vc = rnd(qs, dt), rnd(cs, dt), rnd(cs, dt)
+            kc[:, n:] = float("nan")  # garbage past cache_len is never read
+            vc[:, n:] = float("nan")
+            n_t = torch.tensor(n, dtype=torch.int32, device=dev)
+            got = K7.flash_decode(q, kc, vc, n_t)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"K7 {label}: output not finite with NaN past cache_len")
+            check = assert_close_rows if dt == bf16 else assert_close
+            tol = LM_BF16_TOL if dt == bf16 else LM_F32_TOL
+            want = ref.flash_decode_ref(q, kc, vc, n_t)
+            err = check(f"K7 flash_decode {label} q {list(qs)} caches {list(cs)} "
+                        f"cache_len {n}, NaN past it", got, want, *tol)
+            if label == "path bf16":
+                assert_refused(f"K7 {label} with the last KV tile skipped",
+                               ref.flash_decode_ref(q, kc, vc, n_t - LM_KV_TILE), want, *tol)
+                errs["flash_decode"] = err
+                timings["flash_decode"] = (
+                    cuda_ms(lambda: K7.flash_decode(q, kc, vc, n_t), flush),
+                    cuda_ms(lambda: ref.flash_decode_ref(q, kc, vc, n_t), flush),
+                    cuda_ms(lambda: k7_lib(q, kc, vc, n), flush))
+                bounds["flash_decode"] = k7_bound(q, kc, n)
+            elif label in ("path f32", "gqa bf16"):
+                time_case(f"K7 {label} q {list(qs)} caches {list(cs)} cache_len {n}",
+                          lambda: K7.flash_decode(q, kc, vc, n_t),
+                          lambda: ref.flash_decode_ref(q, kc, vc, n_t),
+                          lambda: k7_lib(q, kc, vc, n), k7_bound(q, kc, n))
+            del q, kc, vc, got, want
+        # K7 at decode_32k's length, B = 8, a full cache: kernel and library only.
+        Bl, Sl = LM_LONG_DECODE_BATCH, LM_SHAPES["decode_32k"]["seq"]
+        q = rnd((Bl, Hq, dh), bf16)
+        kc, vc = rnd((Bl, Sl, Hkv, dh), bf16), rnd((Bl, Sl, Hkv, dh), bf16)
+        n_t = torch.tensor(Sl, dtype=torch.int32, device=dev)
+        time_case(f"K7 bf16 q [{Bl}, {Hq}, {dh}] caches [{Bl}, {Sl}, {Hkv}, {dh}] cache_len "
+                  f"{Sl} (decode_32k, B = {Bl})", lambda: K7.flash_decode(q, kc, vc, n_t),
+                  None, lambda: k7_lib(q, kc, vc, Sl), k7_bound(q, kc, Sl))
+        del q, kc, vc
+    for name in ("flash_attention", "flash_decode"):
+        ms, plain_ms, lib_ms = timings[name]
+        bms, by = bounds[name]
+        log(f"  {name} at the path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bms:.6f} ms (by {by}; the kernel reaches "
+            f"{bms / ms:.1%} of it)")
+    log("[lm_kernels] " + json.dumps(lm_rows))
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ lm_prefill
+    t0 = time.perf_counter()
+    lm_params = TF.init_params(lm_cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[lm_prefill] {lm_cfg.name}: {lm_cfg.num_params():,} parameters in bf16 "
+        f"({tree_size_bytes(lm_params) / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    host_lm = syn.lm_batch(np.random.default_rng(0), lm_cfg.vocab, LM_BATCH, LM_PROMPT)
+    tokens = torch.from_numpy(host_lm["tokens"]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, (kc, vc) = TF.prefill(lm_cfg, lm_params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = launch_counts()
+    if prefill_launches["flash_attention"] != lm_cfg.n_layers:
+        raise AssertionError(f"lm_prefill launched K6 {prefill_launches['flash_attention']} "
+                             f"times, want one per layer ({lm_cfg.n_layers})")
+    Vp = lm_cfg.padded_vocab()
+    if last.shape != (LM_BATCH, Vp) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"lm_prefill last logits not finite [{LM_BATCH}, {Vp}]: "
+                             f"{tuple(last.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: TF.prefill(lm_cfg, lm_params, tokens), flush,
+                             reps=5, warmup=1)
+        prefill_busy = device_busy(lambda: TF.prefill(lm_cfg, lm_params, tokens), 1)
+    log("[lm_prefill] " + json.dumps({
+        "model": lm_cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "first_call_wall_ms": prefill_s * 1e3, "device_median_ms": prefill_ms,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / (prefill_ms / 1e3),
+        "peak_memory_gb": peak_gb, "launches": prefill_launches,
+        "profile": prefill_busy,
+    }))
+
+    # ------------------------------------------------------------- lm_decode
+    k_cache, v_cache = TF.init_decode_cache(lm_cfg, LM_BATCH, LM_CACHE, device=dev)
+    k_cache[:, :, :LM_PROMPT] = kc
+    v_cache[:, :, :LM_PROMPT] = vc
+    del kc, vc
+    tok = last[:, :lm_cfg.vocab].argmax(-1).to(torch.int32)
+    pos = torch.tensor(LM_PROMPT, dtype=torch.int32, device=dev)
+    step_events, generated = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(LM_DECODE_STEPS):  # no host sync inside the loop
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, (k_cache, v_cache) = TF.decode_step(lm_cfg, lm_params,
+                                                        (k_cache, v_cache), tok, pos)
+            end.record()
+            step_events.append((start, end))
+            tok = logits[:, :lm_cfg.vocab].argmax(-1).to(torch.int32)
+            generated.append(tok)
+            pos += 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = launch_counts()
+    want_launches = lm_cfg.n_layers * LM_DECODE_STEPS
+    if decode_launches["flash_decode"] != want_launches:
+        raise AssertionError(f"lm_decode launched K7 {decode_launches['flash_decode']} "
+                             f"times, want {want_launches}")
+    if logits.shape != (LM_BATCH, Vp) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_decode logits not finite: {tuple(logits.shape)}")
+    if int(pos) != LM_PROMPT + LM_DECODE_STEPS:
+        raise AssertionError(f"lm_decode ended at position {int(pos)}")
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in step_events]
+    # Two more steps under the profiler, at the first two positions again.
+    pos.fill_(LM_PROMPT)
+
+    def step():
+        tok_ = TF.decode_step(lm_cfg, lm_params, (k_cache, v_cache), tok, pos)[0]
+        pos.add_(1)
+        return tok_
+
+    with torch.no_grad():
+        decode_busy = device_busy(step, 2)
+    log("[lm_decode] " + json.dumps({
+        "model": lm_cfg.name, "batch": LM_BATCH, "cache": LM_CACHE,
+        "steps": LM_DECODE_STEPS, "wall_s": decode_s,
+        "step_wall_median_ms": statistics.median(step_ms),
+        "step_wall_ms_min_max": [min(step_ms), max(step_ms)],
+        "step_device_busy_ms": decode_busy["device_busy_ms"],
+        "decode_tokens_per_s": LM_BATCH * LM_DECODE_STEPS / decode_s,
+        "first_tokens_generated": torch.stack(generated[:4], 1).tolist(),
+        "launches": decode_launches, "profile": decode_busy,
+    }))
+    del k_cache, v_cache, logits, last, tokens
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- lm_checks
+    def prefill_then_decode(cfg_, params_, toks, prompt, device):
+        """Last prefill logits, then each teacher-forced decode step's, and
+        the caches after the steps."""
+        toks = toks.to(device)
+        steps = toks.shape[1] - prompt
+        with torch.no_grad():
+            last_, (kc_, vc_) = TF.prefill(cfg_, params_, toks[:, :prompt])
+            kd, vd = TF.init_decode_cache(cfg_, toks.shape[0], prompt + steps, device=device)
+            kd[:, :, :prompt] = kc_
+            vd[:, :, :prompt] = vc_
+            outs = [last_]
+            for i in range(steps):
+                p_ = torch.tensor(prompt + i, dtype=torch.int32, device=device)
+                outs.append(TF.decode_step(cfg_, params_, (kd, vd), toks[:, prompt + i], p_)[0])
+        return torch.stack(outs), kd, vd
+
+    log("[lm_checks] f32 compute, TF32 off")
+    cut_cfg = dataclasses.replace(lm_cfg, n_layers=LM_CUT_LAYERS, compute_dtype=f32)
+    cut_params = dict(lm_params, layers={k: v[:LM_CUT_LAYERS]
+                                         for k, v in lm_params["layers"].items()})
+    cut_toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(1), lm_cfg.vocab, 2,
+                                             LM_CUT_PROMPT + LM_CHECK_STEPS)["tokens"])
+    on_card = prefill_then_decode(cut_cfg, cut_params, cut_toks, LM_CUT_PROMPT, dev)
+    on_cpu = prefill_then_decode(cut_cfg, tree_to(cut_params, "cpu"), cut_toks,
+                                 LM_CUT_PROMPT, "cpu")
+    for what, got, want in zip(("logits", "k cache", "v cache"), on_card, on_cpu):
+        assert_close(f"lm {LM_CUT_LAYERS}-layer cut, full width, prefill {LM_CUT_PROMPT} + "
+                     f"{LM_CHECK_STEPS} decode steps: {what} on the card (K6/K7) vs the CPU "
+                     "(plain versions)", got.cpu(), want, 1e-4, 1e-4)
+    del on_card, on_cpu, cut_params
+    deep_cfg = dataclasses.replace(lm_cfg, compute_dtype=f32)
+    deep_toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(2), lm_cfg.vocab, 2,
+                                              LM_DEPTH_PROMPT + LM_CHECK_STEPS)["tokens"])
+    stepped = prefill_then_decode(deep_cfg, lm_params, deep_toks, LM_DEPTH_PROMPT, dev)[0]
+    with torch.no_grad():
+        full = TF.forward(deep_cfg, lm_params, deep_toks.to(dev))[0]
+    want = full[:, LM_DEPTH_PROMPT - 1:].transpose(0, 1)  # [steps + 1, B, Vp]
+    assert_close(f"lm full depth f32: prefill {LM_DEPTH_PROMPT} + {LM_CHECK_STEPS} decode "
+                 f"steps vs one forward over {LM_DEPTH_PROMPT + LM_CHECK_STEPS} tokens",
+                 stepped, want, 1e-3, 1e-3)
+    del stepped, full, want, lm_params
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- kernels line
     sources = {
@@ -605,9 +1010,12 @@ def main() -> int:
         "probe_gather_pool": "src/repro/hotcache/kernels.py:64",
         "scatter_update": "src/repro/hotcache/kernels.py:122",
         "topk_neighbor_select": "src/repro/prefetch/kernels.py:66",
+        "flash_attention": "src/repro/kernels/flash_attention.py:76",
+        "flash_decode": "src/repro/kernels/flash_decode.py:69",
     }
     paths = {"forward": fwd_launches, "serve": srv_launches,
-             "cached_forward": cached_launches, "serve_prefetch": pf_launches}
+             "cached_forward": cached_launches, "serve_prefetch": pf_launches,
+             "lm_prefill": prefill_launches, "lm_decode": decode_launches}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]

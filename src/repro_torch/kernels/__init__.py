@@ -2,6 +2,8 @@
 
   embedding_bag    — K1, fused gather + weighted pool (csrc/embedding_bag.cu)
   dot_interaction  — K2, DLRM pairwise-dot gram matrix (csrc/dot_interaction.cu)
+  flash_attention  — K6, causal/full GQA attention forward (csrc/flash_attention.cu)
+  flash_decode     — K7, one query token against a KV cache (csrc/flash_decode.cu)
 
 ``ops.py`` holds the entry points (dispatch by device), ``ref.py`` the plain
 versions, ``build.py`` the nvcc/ctypes build.  Importing this package builds

@@ -1,0 +1,84 @@
+"""Kernel K7: flash decoding (one query token against a KV cache), CUDA for
+Hopper.
+
+Port of ``repro/kernels/flash_decode.py::flash_decode``; the source and its
+design note are ``csrc/flash_decode.cu``.  ``flash_decode`` launches the
+kernel on CUDA tensors only; ``ops.flash_decode`` routes a CPU tensor to the
+plain version (``ref.flash_decode_ref``).  The valid length is a device
+int32 tensor that the kernel reads itself (the TPU kernel's scalar
+prefetch), so a decode loop never waits on the host.  Unlike the TPU kernel
+it takes any S (no ``block_k``); head dims ``HEAD_DIMS`` only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "flash_decode"
+HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations
+_ARGS = [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+]
+_SYMBOLS = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf16"}
+
+launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+
+
+def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cache_len: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: a dtype other than f32/bf16
+    or mixed dtypes, shapes other than q [B,H,dh], caches [B,S,Hkv,dh] with
+    Hkv dividing H, a head dim outside ``HEAD_DIMS``, non-contiguous
+    tensors, or a ``cache_len`` that is not one int32 element."""
+    if q.dtype not in _SYMBOLS or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"{NAME}: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}; "
+                        "want one of f32 / bf16 for q and both caches")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"{NAME}: want q [B,H,dh] and caches [B,S,Hkv,dh], got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, H, dh = q.shape
+    if (k_cache.shape[0], k_cache.shape[3]) != (B, dh) or H % k_cache.shape[2]:
+        raise ValueError(f"{NAME}: caches {tuple(k_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same B, dh; Hkv divides H)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{NAME}: q and the caches must be contiguous")
+    if not isinstance(cache_len, torch.Tensor) or cache_len.dtype != torch.int32 \
+            or cache_len.numel() != 1:
+        raise TypeError(f"{NAME}: cache_len must be an int32 tensor of one element")
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cache_len: torch.Tensor) -> torch.Tensor:
+    """q [B,H,dh], caches [B,S,Hkv,dh] (f32 | bf16), ``cache_len`` an int32
+    CUDA tensor of one element -> [B,H,dh] in q's dtype: each query head
+    attends to positions ``< cache_len`` of its KV head; nothing at or past
+    ``cache_len`` is read."""
+    global launches
+    check_inputs(q, k_cache, v_cache, cache_len)
+    devs = {t.device for t in (q, k_cache, v_cache, cache_len)}
+    if q.device.type != "cuda" or len(devs) != 1:
+        raise ValueError(
+            f"{NAME} kernel takes CUDA tensors on one device, got {sorted(map(str, devs))}; "
+            "ops.flash_decode routes CPU tensors to the plain version"
+        )
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError(f"{NAME}: q and the caches must start on 16-byte boundaries")
+    B, H, dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
+    with torch.cuda.device(q.device):
+        code = getattr(lib, _SYMBOLS[q.dtype])(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+            out.data_ptr(), B, S, H, Hkv, dh, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, NAME, code)
+    launches += 1
+    return out

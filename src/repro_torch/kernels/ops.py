@@ -1,7 +1,8 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (``embedding_bag.py``,
-``dot_interaction.py``), a CPU tensor to the plain version in ``ref.py``;
+``dot_interaction.py``, ``flash_attention.py``, ``flash_decode.py``), a CPU
+tensor to the plain version in ``ref.py``;
 any other device raises.  There is no switch and no fallback: on the card
 the plain version is never taken, and a failed build or launch raises.
 """
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.kernels import dot_interaction as K2
 from repro_torch.kernels import embedding_bag as K1
+from repro_torch.kernels import flash_attention as K6
+from repro_torch.kernels import flash_decode as K7
 from repro_torch.kernels import ref
 
 
@@ -49,3 +52,20 @@ def dot_interaction_triu(x: torch.Tensor) -> torch.Tensor:
     F = x.shape[1]
     iu, ju = torch.triu_indices(F, F, device=x.device)
     return prods[:, iu, ju]
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q [B,S,H,dh], k/v [B,S,Hkv,dh] -> [B,S,H,dh] GQA attention, kernel K6
+    on the card."""
+    if _is_cuda(q):
+        return K6.flash_attention(q, k, v, causal)
+    return ref.flash_attention_ref(q, k, v, causal)
+
+
+def flash_decode(q, k_cache, v_cache, cache_len):
+    """q [B,H,dh] against caches [B,S,Hkv,dh] up to ``cache_len`` (an int32
+    tensor of one element on the caches' device) -> [B,H,dh], kernel K7 on
+    the card."""
+    if _is_cuda(q):
+        return K7.flash_decode(q, k_cache, v_cache, cache_len)
+    return ref.flash_decode_ref(q, k_cache, v_cache, cache_len)

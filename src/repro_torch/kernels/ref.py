@@ -5,6 +5,8 @@ wrapper takes them only for a tensor that lies on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -26,3 +28,72 @@ def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     """[B, F, D] -> [B, F, F] pairwise dot (gram) matrix, f32 accumulation."""
     xf = x.to(torch.float32)
     return torch.bmm(xf, xf.transpose(1, 2))
+
+
+NEG_INF = -1e30  # the masked score of the reference's attention
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, S, H, dh]
+    k: torch.Tensor,  # [B, S, Hkv, dh]
+    v: torch.Tensor,  # [B, S, Hkv, dh]
+    causal: bool = True,
+    q_block: int = 512,
+) -> torch.Tensor:
+    """[B, S, H, dh] in q's dtype: exact GQA attention chunked over blocks of
+    ``q_block`` queries, as the reference's ``layers.gqa_prefill_attention``
+    (f32 scores scaled by 1/sqrt(dh), masked to -1e30, softmax, probs rounded
+    to v's dtype, f32 accumulation).  Query head h reads KV head
+    h // (H // Hkv) by reshape, KV is never repeated.  A causal block scores
+    only the keys up to its last query: the keys it skips are masked, and
+    their exp(-1e30 - max) is exactly 0 either way."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    kt = k.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]  # [B,Hkv,1,dh,S]
+    vt = v.permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,S,dh]
+    out = torch.empty_like(q)
+    for s0 in range(0, S, q_block):
+        n = min(q_block, S - s0)
+        n_keys = s0 + n if causal else S
+        qb = q[:, s0:s0 + n].to(torch.float32).reshape(B, n, Hkv, g, dh)
+        scores = qb.permute(0, 2, 3, 1, 4) @ kt[..., :n_keys] * scale  # [B,Hkv,g,n,keys]
+        if causal:
+            qpos = torch.arange(s0, s0 + n, device=q.device)
+            kpos = torch.arange(n_keys, device=q.device)
+            scores = scores.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype).to(torch.float32)
+        ob = probs @ vt[:, :, :, :n_keys].to(torch.float32)  # [B,Hkv,g,n,dh]
+        out[:, s0:s0 + n] = ob.permute(0, 3, 1, 2, 4).reshape(B, n, H, dh).to(q.dtype)
+    return out
+
+
+def flash_decode_ref(
+    q: torch.Tensor,  # [B, H, dh]
+    k_cache: torch.Tensor,  # [B, S, Hkv, dh]
+    v_cache: torch.Tensor,
+    cache_len,  # int or one-element int tensor: the valid prefix
+) -> torch.Tensor:
+    """[B, H, dh] in q's dtype: the reference's single-device
+    ``layers.flash_decode_shard`` (f32 scores, -inf past ``cache_len``, the
+    safe max, probs rounded to v's dtype, out / max(l, 1e-30)).  Rows at or
+    past ``cache_len`` are masked out of the scores and the values, so
+    whatever they hold (NaN included) never reaches the output."""
+    B, S, Hkv, dh = k_cache.shape
+    H = q.shape[1]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qr = q.to(torch.float32).reshape(B, Hkv, g, dh)
+    valid = torch.arange(S, device=q.device) < torch.as_tensor(cache_len, device=q.device)
+    scores = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.to(torch.float32)) * scale
+    scores = scores.masked_fill(~valid, float("-inf"))
+    local_max = scores.amax(dim=-1)  # [B,Hkv,g]
+    safe_max = torch.where(torch.isfinite(local_max), local_max, 0.0)
+    probs = torch.exp(scores - safe_max[..., None])
+    probs = torch.where(valid, probs, 0.0)
+    l_sum = probs.sum(dim=-1)
+    vf = torch.where(valid[None, :, None, None], v_cache, 0).to(torch.float32)
+    o = torch.einsum("bhgs,bshd->bhgd", probs.to(v_cache.dtype).to(torch.float32), vf)
+    out = o / torch.clamp_min(l_sum[..., None], 1e-30)
+    return out.reshape(B, H, dh).to(q.dtype)

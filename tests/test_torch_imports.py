@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.sharding import TableSpec, make_fused_tables
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.runtime.serving import FlexEMRServer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -101,3 +102,27 @@ def test_launch_serve_defaults_to_cuda_and_raises_without_gpu(no_gpu):
 def test_params_from_numpy_raises_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         R.params_from_numpy({"w": np.zeros(3, np.float32)}, "cuda")
+
+
+def _tiny_lm():
+    return T.TransformerConfig(name="t", n_layers=2, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_ff=32, vocab=64, d_head=8)
+
+
+def test_lm_init_params_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        T.init_params(_tiny_lm())
+
+
+def test_lm_init_decode_cache_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        T.init_decode_cache(_tiny_lm(), batch=2, max_len=8)
+
+
+def test_lm_params_from_numpy_raises_without_gpu(no_gpu):
+    cfg = _tiny_lm()
+    np_params = {k: v.numpy() for k, v in T.init_params(cfg, device="cpu").items()
+                 if k != "layers"}
+    np_params["layers"] = {"ln1": np.ones((2, 16), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        T.params_from_numpy(cfg, np_params, "cuda")
