@@ -9,9 +9,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 K3 (hot-cache probe + gather + pool), K4 (swap-in scatter),
                 K5 (top-k neighbor select), K6 (flash attention) and K7
                 (flash decode) from src/repro_torch/csrc/, one nvcc per
-                source, all in parallel;
+                source, all in parallel, and prints each kernel's -Xptxas -v
+                registers, spills and performance warnings;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the main paths' shapes (TF32 off): K1/K2 in f32 and bf16; K3
+                the main paths' shapes (TF32 off): K1/K2 in f32 and bf16 (K2
+                also at every serve bucket [32..1024, 17, 64] and at
+                [3, 40, 512], and timed at the buckets beside torch.bmm); K3
                 on dlrm-flexemr's 2048-request batch over a 2^18-slot cache,
                 f32 and bf16 rows; K4 at the cache build's writes and with
                 repeated slots, into f32 and bf16 rows; K5 in f32 and f64 with
@@ -39,7 +42,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
   6. lm_kernels — after the DLRM state is freed: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
                 causal in bf16 and f32, at qwen2-72b's GQA heads
-                [1, 4096, 64, 8, 128] and at a ragged S; K7 at the decode
+                [1, 4096, 64, 8, 128], at dh 128 without GQA
+                [1, 4096, 32, 32, 128], at a ragged S (bf16 causal at dh
+                64, 80 and 96, bf16 and f32 full); K7 at the decode
                 path's caches [4, 4128, 32, 80] with NaN past cache_len
                 4097, at cache_len 1, in f32 and with GQA; bf16 to two
                 output ulps plus 2^-5 of the row's RMS, a check shown to
@@ -96,6 +101,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 FORWARD_BATCH = 2048
+SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)  # data/pipeline.BucketBatcher's defaults
+SERVE_FIELDS = 17  # dlrm-serve's 16 fields + the bottom MLP's output
 SERVE_REQUESTS = 400
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: every timed launch starts cold
 HOT_SLOTS = 1 << 18  # the cached forward's hash cache (67 MB of f32 rows)
@@ -183,6 +190,10 @@ def device_busy(fn, calls: int) -> dict:
             "device_busy_ms": sum(by_name.values()) / calls if by_name else None,
             "device_ops_per_call": n_ops / calls,
             "top_kernels_ms_per_call": [[n[:70], ms / calls] for n, ms in top]}
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}.get(t.dtype, str(t.dtype)[6:])
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -303,9 +314,9 @@ def main() -> int:
                           K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
-    for name, r in report.items():
+    for name, r in report.items():  # nvcc -Xptxas -v: registers, spills, warnings
         for line in r["log"].splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
 
     # ------------------------------------------- main-path model and inputs
@@ -349,12 +360,18 @@ def main() -> int:
     x_bf = x_fwd.to(torch.bfloat16)
     assert_close(f"K2 dot_interaction bf16 {list(x_bf.shape)}",
                  K2.dot_interaction(x_bf), ref.dot_interaction_ref(x_bf), 1e-4, 1e-4)
-    x_srv = torch.randn((64, 17, 64), device=dev, generator=gen)
-    assert_close(f"K2 dot_interaction f32 {list(x_srv.shape)} (serve bucket)",
-                 K2.dot_interaction(x_srv), ref.dot_interaction_ref(x_srv), 1e-4, 1e-4)
+    k2_buckets = {}  # the serve buckets' [B, 17, 64] inputs, checked here, timed below
+    for bucket in SERVE_BUCKETS:
+        x_srv = torch.randn((bucket, SERVE_FIELDS, cfg.embed_dim), device=dev, generator=gen)
+        for x_ in (x_srv, x_srv.to(torch.bfloat16)):
+            assert_close(f"K2 dot_interaction {dtype_name(x_)} {list(x_.shape)} (serve bucket)",
+                         K2.dot_interaction(x_), ref.dot_interaction_ref(x_), 1e-4, 1e-4)
+        k2_buckets[bucket] = x_srv
     x_big = torch.randn((3, 40, 512), device=dev, generator=gen)
-    assert_close(f"K2 dot_interaction f32 {list(x_big.shape)} (one sample > 48 KB shared)",
-                 K2.dot_interaction(x_big), ref.dot_interaction_ref(x_big), 1e-4, 1e-4)
+    for x_ in (x_big, x_big.to(torch.bfloat16)):
+        assert_close(f"K2 dot_interaction {dtype_name(x_)} {list(x_.shape)} (one sample "
+                     "> 48 KB shared)", K2.dot_interaction(x_), ref.dot_interaction_ref(x_),
+                     1e-4, 1e-4)
 
     D = table.shape[1]
     live = ids[wts != 0]
@@ -384,7 +401,20 @@ def main() -> int:
     log(f"  bounds: K1 moves {k1_bytes / 1e6:.2f} MB ({torch.unique(live).numel()} "
         f"unique live rows of {ids.numel()} slots); K2 moves "
         f"{(B * Fx * Dx + B * Fx * Fx) * 4 / 1e6:.2f} MB")
-    del x_fwd, x_bf, x_srv, x_big, k1_out
+    k2_rows = []  # K2 at the serve buckets, beside torch.bmm, in turns
+    for bucket, x_ in k2_buckets.items():
+        Bb, Fb, Db = x_.shape
+        kern = lambda: K2.dot_interaction(x_)  # noqa: E731
+        lib = lambda: torch.bmm(x_, x_.transpose(1, 2))  # noqa: E731
+        t_kern, t_lib = [], []
+        for fn, times in ((kern, t_kern), (lib, t_lib), (lib, t_lib), (kern, t_kern)):
+            times.append(cuda_ms(fn, flush))
+        k2_rows.append({"case": f"K2 f32 [{Bb}, {Fb}, {Db}] (serve bucket)",
+                        "ms": statistics.median(t_kern), "library_ms": statistics.median(t_lib),
+                        "bound_ms": bound(Bb * Fb * Db * 4 + Bb * Fb * Fb * 4,
+                                          2 * Bb * Fb * Fb * Db)[0]})
+    log("[kernels] K2 at the serve buckets: " + json.dumps(k2_rows))
+    del x_fwd, x_bf, x_srv, x_big, k1_out, k2_buckets
 
     # ---- hot set of the cached forward: fused ids of warm-up batches by count
     warm = np.random.default_rng(1)
@@ -767,7 +797,11 @@ def main() -> int:
         "path bf16": ((B, S, Hq, dh), Hkv, bf16, True),
         "path f32": ((B, S, Hq, dh), Hkv, f32, True),
         "gqa bf16": ((1, S, LM_GQA_HEADS[0], LM_GQA_HEADS[2]), LM_GQA_HEADS[1], bf16, True),
+        "dh128 bf16": ((1, S, Hq, LM_GQA_HEADS[2]), Hq, bf16, True),
         "ragged bf16": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, bf16, True),
+        "ragged dh64 bf16": ((2, LM_RAGGED_SEQ, 4, 64), 2, bf16, True),
+        "ragged dh96 bf16": ((2, LM_RAGGED_SEQ, 4, 96), 2, bf16, True),
+        "ragged full bf16": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, bf16, False),
         "ragged full f32": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, f32, False),
     }
     with torch.no_grad():
@@ -795,7 +829,7 @@ def main() -> int:
                     cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), flush),
                     cuda_ms(lambda: k6_lib(q, k, v, True), flush))
                 bounds["flash_attention"] = k6_bound(q, k, True)
-            elif label in ("path f32", "gqa bf16"):
+            elif label in ("path f32", "gqa bf16", "dh128 bf16"):
                 time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
                           lambda: K6.flash_attention(q, k, v, causal),
                           lambda: ref.flash_attention_ref(q, k, v, causal),

@@ -10,17 +10,43 @@
 // writes F*F f32 outputs for 2*F*F*D flops: at F = 27, D = 64 f32 that is
 // about 9.5 flops per byte, under the card's f32 ridge of about 20
 // (67 TFLOP/s over 3.35 TB/s), so device-memory traffic sets the floor.
+// No TF32: the plain version holds f32 to 1e-4, and TF32 would miss that by
+// an order of magnitude at D = 64.
 //
-// What the design does about it: every input byte is read from device
-// memory once.  A block of 256 threads stages S whole samples (as many as
-// fit in 48 KB of shared memory, at most 16) with coalesced loads, upcasting
-// bf16 to f32 on the way in; rows are padded to D + 1 floats so threads that
-// read different rows at the same column hit different banks.  Each thread
-// then computes (sample, i, j) dots strided by the block size, accumulating
-// in f32 over d in order, and consecutive threads write consecutive outputs
-// (coalesced stores).  The full [F, F] matrix is written, as the TPU kernel
-// does; the triu is taken outside.  The last block masks the ragged edge,
-// so any batch size works (the TPU kernel needs B % block_b == 0).
+// What the design does about it:
+//  * Only the upper triangle.  F is padded to Fp, a multiple of 4, with zero
+//    rows in shared memory and cut into 4-row tiles; a thread owns one tile
+//    pair (ti <= tj) of one sample and keeps its 4 x 4 sums in registers, so
+//    every value it loads from shared memory feeds 4 FMAs and the mirrored
+//    half is never computed.  Sums run over d in order, in f32 FMAs.
+//  * 16-byte loads.  Rows are read along D in 16-byte vectors (4 f32 or 8
+//    bf16; bf16 converts to f32 exactly as it is read).  Row r of a sample
+//    sits in slot (r % 4) * (Fp / 4) + r / 4, so the j rows that neighbouring
+//    threads read (tiles tj, tj + 1, ...) lie in neighbouring slots, and the
+//    slot pitch is an odd number of 16-byte units: the threads of a quarter
+//    warp hit distinct banks, and those sharing ti read one broadcast address.
+//  * Mirrored, coalesced stores.  Each result goes into the group's [F, F]
+//    tiles in shared memory at (i, j) and (j, i); the group then leaves as
+//    one contiguous stretch of G*F*F floats, consecutive threads on
+//    consecutive addresses.  The full gram matrix is written, as the TPU
+//    kernel does; dot_interaction_triu takes the triangle outside.
+//  * Keep the card fed.  Blocks of 128 threads walk groups of G samples
+//    (a grid-stride loop over at most as many blocks as fit on the card).
+//    The next group's rows are copied in with cp.async into a second buffer
+//    while the current group is computed.  G is the largest that keeps a
+//    group's tiles within the block's threads and its shared memory within
+//    48 KB, so 4 or more blocks stay resident per SM at F = 17-41, D = 64 (G =
+//    2 at [2048, 27, 64] f32); it shrinks for small batches so more SMs share
+//    them.  On the card a 74 KB budget (3 blocks a SM) ran slower at
+//    [2048, 27, 64], and so did fewer, longer-lived blocks with 2 or 4
+//    groups each, there and most at [3, 40, 512]
+//    (tools/kernel_variants/k2_groups.json; the figures are in PERF.md):
+//    a group's compute is a chain that one block runs alone, and resident
+//    blocks overlap better than a block's own double buffer.  A sample
+//    larger than 48 KB ([3, 40, 512]) takes the dynamic shared-memory
+//    opt-in; the wrapper
+//    refuses one past the 227 KB a block can hold.  Any batch size: the last
+//    group may be short.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,66 +54,194 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSamples = 16;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kThreads = 128;
+constexpr int kTile = 4;  // rows per register tile
+constexpr int kBlockSmemTarget = 48 * 1024;  // 4 or more blocks a SM
+constexpr int kMaxSmem = 232448;  // 227 KB, a Hopper block's dynamic maximum
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-template <typename T>
-__global__ void dot_interaction_kernel(const T* __restrict__ x,
-                                       float* __restrict__ out, int64_t batch,
-                                       int F, int D, int S) {
-  extern __shared__ float smem[];  // [S * F][D + 1]
-  const int ld = D + 1;
-  const int64_t b0 = (int64_t)blockIdx.x * S;
-  const int ns = (int)(batch - b0 < S ? batch - b0 : S);
-  const T* xb = x + b0 * F * D;
-  const int n_in = ns * F * D;
-  for (int e = threadIdx.x; e < n_in; e += blockDim.x) {
-    const int row = e / D;
-    smem[row * ld + (e - row * D)] = to_f32(xb[e]);
-  }
-  __syncthreads();
-  const int FF = F * F;
-  const int n_out = ns * FF;
-  float* ob = out + b0 * FF;
-  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int s = e / FF;
-    const int r = e - s * FF;
-    const int i = r / F;
-    const int j = r - i * F;
-    const float* xi = smem + (s * F + i) * ld;
-    const float* xj = smem + (s * F + j) * ld;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc = fmaf(xi[d], xj[d], acc);
-    ob[e] = acc;
+// A 16-byte vector of the row as f32 values.
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an f32: exact
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
+struct Plan {
+  int Fp, T, ntiles, units, pitch, G;
+  long long groups;
+  int buf_units;  // one buffer, in 16-byte units
+  size_t smem;
+};
+
+// units: 16-byte vectors per row; pitch: units rounded up to an odd count.
+Plan make_plan(long long batch, int F, int D, int elem, int sms) {
+  Plan p;
+  p.Fp = (F + kTile - 1) / kTile * kTile;
+  p.T = p.Fp / kTile;
+  p.ntiles = p.T * (p.T + 1) / 2;
+  p.units = D * elem / 16;
+  p.pitch = p.units | 1;
+  const long long sample = (long long)p.Fp * p.pitch * 16;
+  auto bytes = [&](long long g) { return 2 * g * sample + g * (long long)F * F * 4; };
+  long long G = kThreads / p.ntiles;
+  const long long spread = (batch + 2LL * sms - 1) / (2LL * sms);  // 2 groups a SM
+  if (G > spread) G = spread;
+  while (G > 1 && bytes(G) > kBlockSmemTarget) --G;
+  if (G < 1) G = 1;
+  p.G = (int)G;
+  p.groups = (batch + G - 1) / G;
+  p.buf_units = (int)(G * p.Fp * p.pitch);
+  p.smem = (size_t)bytes(G);
+  return p;
+}
+
 template <typename T>
-int launch(const void* x, void* out, long long batch, int F, int D,
-           void* stream) {
-  if (batch <= 0) return 0;
-  const long long per_sample = (long long)F * (D + 1) * sizeof(float);
-  long long S = kDefaultSmem / per_sample;
-  if (S < 1) S = 1;
-  if (S > kMaxSamples) S = kMaxSamples;
-  if (S > batch) S = batch;
-  const long long smem = S * per_sample;
-  if (smem > kDefaultSmem) {
-    // One sample alone exceeds 48 KB: opt in to Hopper's larger carve-out
-    // (the launch below reports an error past 227 KB).
-    const cudaError_t err = cudaFuncSetAttribute(
-        dot_interaction_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+__global__ void __launch_bounds__(kThreads)
+    dot_interaction_kernel(const T* __restrict__ x, float* __restrict__ out,
+                           long long batch, int F, int D, Plan p) {
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte vector
+  extern __shared__ uint4 smem[];
+  float* outs = reinterpret_cast<float*>(smem + 2 * p.buf_units);
+  const int FF = F * F;
+  const int row_units = F * p.units;  // a sample's 16-byte vectors in x
+
+  // Zero both buffers once: the padding rows F..Fp-1 are never copied over.
+  for (int e = threadIdx.x; e < 2 * p.buf_units; e += kThreads)
+    smem[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  auto load = [&](long long grp, uint4* dst) {
+    const long long b0 = grp * p.G;
+    const int ns = (int)(batch - b0 < p.G ? batch - b0 : p.G);
+    const uint4* src = reinterpret_cast<const uint4*>(x + b0 * F * D);
+    for (int e = threadIdx.x; e < ns * row_units; e += kThreads) {
+      const int row = e / p.units;  // s * F + f
+      const int c = e - row * p.units;
+      const int s = row / F;
+      const int f = row - s * F;
+      const int slot = s * p.Fp + (f % kTile) * p.T + f / kTile;
+      cp_async16(dst + slot * p.pitch + c, src + e);
+    }
+  };
+
+  long long grp = blockIdx.x;
+  if (grp < p.groups) load(grp, smem);
+  cp_async_commit();
+  for (int cur = 0; grp < p.groups; grp += gridDim.x, cur ^= 1) {
+    if (grp + gridDim.x < p.groups) load(grp + gridDim.x, cur ? smem : smem + p.buf_units);
+    cp_async_commit();  // possibly empty: the wait below counts groups
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint4* in = cur ? smem + p.buf_units : smem;
+    const long long b0 = grp * p.G;
+    const int ns = (int)(batch - b0 < p.G ? batch - b0 : p.G);
+    for (int item = threadIdx.x; item < ns * p.ntiles; item += kThreads) {
+      const int s = item / p.ntiles;
+      int rem = item - s * p.ntiles;
+      int ti = 0;
+      while (rem >= p.T - ti) {
+        rem -= p.T - ti;
+        ++ti;
+      }
+      const int tj = ti + rem;
+      const uint4* base = in + (long long)s * p.Fp * p.pitch;
+      float acc[kTile][kTile];
+#pragma unroll
+      for (int a = 0; a < kTile; ++a)
+#pragma unroll
+        for (int c = 0; c < kTile; ++c) acc[a][c] = 0.f;
+      for (int u = 0; u < p.units; ++u) {
+        float xi[kTile][V], xj[kTile][V];
+#pragma unroll
+        for (int a = 0; a < kTile; ++a) {
+          unpack(base[(a * p.T + ti) * p.pitch + u], xi[a]);
+          unpack(base[(a * p.T + tj) * p.pitch + u], xj[a]);
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int a = 0; a < kTile; ++a)
+#pragma unroll
+            for (int c = 0; c < kTile; ++c) acc[a][c] = fmaf(xi[a][v], xj[c][v], acc[a][c]);
+      }
+      float* o = outs + s * FF;
+#pragma unroll
+      for (int a = 0; a < kTile; ++a) {
+        const int i = ti * kTile + a;
+#pragma unroll
+        for (int c = 0; c < kTile; ++c) {
+          const int j = tj * kTile + c;
+          if (i < F && j < F) {
+            o[i * F + j] = acc[a][c];
+            o[j * F + i] = acc[a][c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    float* ob = out + b0 * FF;
+    for (int e = threadIdx.x; e < ns * FF; e += kThreads) ob[e] = outs[e];
+    __syncthreads();  // outs and this buffer are free for the next group
   }
-  const long long blocks = (batch + S - 1) / S;
-  dot_interaction_kernel<T><<<(unsigned)blocks, kThreads, (size_t)smem,
-                              (cudaStream_t)stream>>>(
-      (const T*)x, (float*)out, batch, F, D, (int)S);
+  cp_async_wait<0>();
+}
+
+int sm_count() {
+  static int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+template <typename T>
+int launch(const void* x, void* out, long long batch, int F, int D, void* stream) {
+  if (batch <= 0) return 0;
+  if (F <= 0 || D <= 0 || (D * (int)sizeof(T)) % 16) return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  const Plan p = make_plan(batch, F, D, (int)sizeof(T), sms);
+  if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = dot_interaction_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > p.groups) blocks = p.groups;
+  kernel<<<(unsigned)blocks, kThreads, p.smem, (cudaStream_t)stream>>>(
+      (const T*)x, (float*)out, batch, F, D, p);
   return (int)cudaGetLastError();
 }
 
@@ -95,7 +249,8 @@ int launch(const void* x, void* out, long long batch, int F, int D,
 
 extern "C" {
 
-// x [batch, F, D], out [batch, F, F] f32.  Returns cudaGetLastError().
+// x [batch, F, D] on a 16-byte boundary with D * sizeof(element) a multiple
+// of 16, out [batch, F, F] f32.  Returns cudaGetLastError().
 int dot_interaction_f32(const void* x, void* out, long long batch, int F,
                         int D, void* stream) {
   return launch<float>(x, out, batch, F, D, stream);

@@ -12,45 +12,104 @@
 //
 // What bounds it on the card: operations.  Every valid (q, k) pair costs
 // 4 * dh FLOP (q . k and p . v) against 2 * dh bytes of K and V that a
-// 64-row query tile shares, so at S = 4096, dh = 80 in bf16 the kernel does
-// about 1,000 FLOP per byte of device memory, far above the card's ridge of
-// about 295 (989 TFLOP/s bf16 over 3.35 TB/s): the tensor cores set the floor.
+// 128-row query tile shares, so at S = 4096, dh = 80 in bf16 the kernel does
+// about 2,000 FLOP per byte of device memory, far above the card's ridge of
+// about 295 (989 TFLOP/s bf16 over 3.35 TB/s): the tensor cores set the floor,
+// and only wgmma reaches their full rate.
 //
-// What the design does about it:
-//  * bf16: the two products run on the tensor cores with mma.sync m16n8k16
-//    (bf16 in, f32 accumulate).  dh = 80 is five 16-deep steps of q . k and
-//    ten 8-wide tiles of p . v, so nothing is padded to a power of two.  One
-//    block of 4 warps owns 64 query rows of one (batch, head), 16 rows a
-//    warp; Q stays in registers as A fragments for the whole block.  A loop
-//    inside the block walks KV tiles of 64 rows (the TPU grid's sequential
-//    axis), staged in shared memory with 16-byte loads, rows padded by 8
-//    elements so the fragment reads and ldmatrix hit distinct banks.  The
-//    f32 (m, l, acc) state stays in registers; the score tile's accumulator
-//    layout is reused as the A fragment of p . v, and V's B fragments come
-//    from ldmatrix.trans.  The causal loop stops at the diagonal (the Pallas
-//    kernel's skip of future blocks) and masks only the tiles that need it.
-//    Query tiles run last-first, so the longest causal rows start
-//    first and the short ones fill the tail.
-//  * f32: no TF32 (it keeps about three decimal digits, and the reference
-//    holds f32 to 2e-5): scalar FMAs, 256 threads, each owning one query row
-//    and every fourth key / head dim; the four threads of a row reduce its
-//    max and sum with shuffles.
-//  * Any S: the ragged last query and KV tiles are masked (the Pallas kernel
-//    asserts S % bq == 0).  The [B, S, H, dh] layout is read and written
-//    through strides (no transposes); offsets are 64-bit.
-//  * Later work: wgmma, TMA and a producer warp that keeps the next KV tile
-//    in flight while the current one is consumed.
+// What the design does about it (bf16, FlashAttention-3 class):
+//  * A warp-specialised CTA of 384 threads owns 128 query rows of one
+//    (batch, head).  Warpgroup 2 is the producer: one thread loads Q once by
+//    TMA and then keeps K and V tiles of 128 keys in flight with TMA
+//    (cp.async.bulk.tensor) in a ring of 3 stages, each stage with a full
+//    and an empty mbarrier.  Warpgroups 0 and 1 are consumers of 64 query
+//    rows each.  Two stages ran slower on the card than three and four ran
+//    level (tools/kernel_variants/k6_stages.json; the figures are in
+//    PERF.md).
+//  * Registers.  setmaxnreg lowers the producer to 40 registers and asks 232
+//    for the consumers, the split FlashAttention-3 makes; ptxas nonetheless
+//    compiles the consumers' code within the launch bound's 168 registers
+//    (the -Xptxas -v figure; 232 and 240 were asked, with the role index
+//    made warp-uniform or not), so the request has bought them nothing yet.
+//    It stays because the producer's cut to 40 is what makes room for any
+//    consumer past 168; why ptxas does not use that room is an open
+//    question (ROADMAP).
+//  * S = Q . K^T is wgmma m64n128k16 with A and B from shared memory, dh / 16
+//    steps (5 at dh 80).  The online softmax runs in registers on the
+//    accumulator layout: each thread holds 2 rows x 32 keys, a row's max and
+//    sum reduce over its quad with two shuffles, l stays a per-thread partial
+//    sum until the end, and the 1/sqrt(dh) scale folds into one FMA before
+//    each ex2.  p is rounded to bf16 for P . V (l comes from the unrounded
+//    p, as in the Pallas kernel).  The accumulator of key columns
+//    16kk..16kk+15 packs, two values per register, into exactly the A
+//    fragment of k-step kk, so P never leaves registers: O += P . V is wgmma
+//    with A from registers and V as B from shared memory, transposed by the
+//    descriptor's transpose bit (V's rows are keys, its contiguous axis dh is
+//    wgmma's N).  Each tile's P . V follows its own softmax, in one loop for
+//    every head dim: S, P and O then fit in 168 registers with no spill.
+//  * Causal: KV tiles wholly in the future are never loaded (the loop stops
+//    at the CTA's diagonal); only diagonal and ragged tiles pay for the
+//    mask.  Query tiles run longest-first (the last tile of S first).  Any
+//    S: TMA fills rows past S with zeros and the ragged tile masks its keys;
+//    rows past S are not stored.  The output goes through shared memory
+//    (the warpgroup's own Q region, free after its last S product) and out
+//    in 16-byte stores, in the [B, S, H, dh] layout and q's dtype.
+//
+// Where the trouble was, and how it was met:
+//  * dh = 80 and swizzling.  A row of 80 bf16 is 160 bytes, more than the
+//    128-byte swizzle span.  A tile is stored as regions, one TMA box each:
+//    dh / 64 regions of 64 columns (128-byte rows, 128-byte swizzle) and,
+//    where dh % 64 is 16 or 32, one region of the rest (32- or 64-byte rows,
+//    that span's swizzle).  Q and K are K-major (dh, the reduction axis,
+//    contiguous): a k-step of 16 columns in a 64-column region advances the
+//    descriptor's start by 32 B inside the swizzle atom, SBO = 8 rows of
+//    128 B; in the remainder region SBO = 8 rows of its span.  V is
+//    MN-major: each 64-column region is one n64 product (SBO = 8 keys of
+//    128 B, 2 KB per k-step of 16 keys) and the rest an n32 product; at dh
+//    80, V stays in five 16-column regions (32-byte swizzle: SBO = 256 B,
+//    LBO = one region, 512 B per k-step) so that P . V is one n80 product:
+//    n64 + n16 ran slower (tools/kernel_variants/k6_v_layout.json; the
+//    figures are in PERF.md).  Nothing is padded to 128.  chip_smoke.py
+//    holds each layout against the plain version: dh 64, 80, 96 and 128.
+//  * Tensor maps need the driver API.  cuTensorMapEncodeTiled lives in
+//    libcuda; the build links nothing, so the launch function fetches it
+//    once through cudaGetDriverEntryPoint(ByVersion) from the runtime.  Maps
+//    are built on the host in the launch function, 4-D over (dh, heads, S,
+//    B) with the caller's strides (which the wrapper checks are 16-byte
+//    multiples, as TMA requires), and passed by value in a __grid_constant__
+//    struct.
+//  * Accumulator layout.  wgmma's m64 accumulator is, warp by warp, the
+//    mma.sync m16n8 layout stacked over 4 warps, and its register A fragment
+//    is mma.sync's m16n8k16 one, so registers 8kk..8kk+7 of S pack into the
+//    four A registers of P . V's k-step kk with no shuffle.
+//  * Asynchronous registers.  wgmma reads its register operand and writes
+//    its accumulator after the instruction issues; fence_regs pins them
+//    around each wait, so the compiler neither reads S early nor reuses P's
+//    registers while the product runs.
+//  * Build: wgmma and setmaxnreg need sm_90a, which build.py targets; the
+//    build phase of chip_smoke.py prints -Xptxas -v (registers, shared
+//    memory, spills) for this file.  The consumers hold S (64 f32), O (dh / 2
+//    f32) and P (32 registers); none of the four head dims spills.
+//
+// f32: no TF32 (it keeps about three decimal digits, and the reference holds
+// f32 to 2e-5): scalar FMAs, 256 threads, each owning one query row and every
+// fourth key / head dim; the four threads of a row reduce its max and sum
+// with shuffles.  Its rows are read and written through strides; offsets are
+// 64-bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per KV tile
+constexpr int kBQ = 64;  // query rows per block (f32) and per consumer warpgroup (bf16)
+constexpr int kBK = 64;  // keys per KV tile (f32)
 
 struct Strides {  // element strides of the [B, S, H, dh] tensors
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -58,204 +117,325 @@ struct Strides {  // element strides of the [B, S, H, dh] tensors
 
 // ------------------------------------------------------------------ bf16
 
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 query rows each
+constexpr int kThreadsBf16 = 128 * (kConsumers + 1);
+constexpr int kRowsCta = kBQ * kConsumers;  // query rows per CTA
+constexpr int kBKV = 128;  // keys per KV tile
+constexpr int kStages = 3;  // K/V ring depth (225 KB of shared memory at dh 128)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr long long kMaxSeqBf16 = (1LL << 31) - 256;  // positions (and TMA coordinates) are int32
+
+// A tile of `rows` rows of dh bf16 is stored as kMain regions of 64 columns
+// (128-byte rows, 128-byte swizzle) and, where dh % 64 = 16 or 32, one
+// region of the remaining kRem columns (32- or 64-byte rows, the swizzle of
+// that span): [region][rows][span], each region a TMA box of its own.
+template <int D>
+struct Layout {  // shared memory, from a 1024-byte aligned base
+  static constexpr int kMain = D / 64;
+  static constexpr int kRem = D % 64;  // 0, 16 or 32
+  // dh 80 keeps V in 16-column regions (32-byte swizzle), so that P . V is
+  // one n80 product (a 64-column region plus an n16 product ran slower on
+  // the card: k6_v_layout.json); dh 96 splits P . V into n64 and n32 products.
+  static constexpr bool kVChunked = kRem == 16;
+  static_assert(kRem == 0 || kRem == 16 || kRem == 32, "dh in 64, 80, 96, 128");
+  static constexpr int kQBytes = kBQ * D * 2;  // one warpgroup's Q
+  static constexpr int kKVBytes = kBKV * D * 2;  // one K or V tile
+  static constexpr int kK = kConsumers * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+};
+
+// The tensor maps of q, k and v: [0] boxes of 64 columns, [1] of kRem.
+struct Maps {
+  CUtensorMap q[2], k[2], v[2];
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a . b, a 16x16 row-major, b 16x8 column-major, bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// S = Q . K^T for one warpgroup.  Both operands are K-major (dh, the
+// reduction axis, contiguous); k-step c takes 16 columns (32 bytes): in a
+// 64-column region the start advances 32 bytes inside the 128-byte swizzle
+// atom, SBO = 8 rows of 128 B; in the remainder region the start is the
+// region (+ 32 B for the second step of a 64-byte span), SBO = 8 rows of it.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
+  using Ly = Layout<D>;
+  hopper::wgmma_fence();  // the first k-step ignores sc's old values (scale-d 0)
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    if (c < 4 * Ly::kMain) {
+      const uint32_t off_q = (c / 4) * kBQ * 128 + (c % 4) * 32;
+      const uint32_t off_k = (c / 4) * kBKV * 128 + (c % 4) * 32;
+      hopper::wgmma_ss_m64n128<0, 0>(sc, hopper::desc<128>(q_addr + off_q, 16, 1024),
+                                     hopper::desc<128>(k_addr + off_k, 16, 1024), c > 0);
+    } else if constexpr (Ly::kRem > 0) {
+      constexpr int span = Ly::kRem * 2;  // bytes per row of the remainder region
+      const uint32_t cc = (c - 4 * Ly::kMain) * 32;
+      const uint32_t q_rem = q_addr + Ly::kMain * kBQ * 128 + cc;
+      const uint32_t k_rem = k_addr + Ly::kMain * kBKV * 128 + cc;
+      hopper::wgmma_ss_m64n128<0, 0>(sc, hopper::desc<span>(q_rem, 16, 8 * span),
+                                     hopper::desc<span>(k_rem, 16, 8 * span), c > 0);
+    }
+  }
+  hopper::wgmma_commit();
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem_ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// O += P . V: P from registers; V is MN-major (dh, wgmma's N, contiguous), so
+// the transpose bit is set.  Each 64-column region is one n64 product (SBO =
+// 8 keys of 128 B, a k-step of 16 keys advances 2 KB), the remainder one n16
+// or n32 product (SBO = 8 keys of its span); O's registers follow dh in
+// order, 32 for each region and kRem / 2 for the remainder.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[32],
+                                         uint32_t v_addr) {
+  using Ly = Layout<D>;
+  constexpr int span = Ly::kRem * 2;
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk) {
+    const uint32_t(&a)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&pa[4 * kk]);
+    if constexpr (Ly::kVChunked) {
+      // 16-column regions of kBKV rows x 32 B: LBO = one region, SBO = 8 keys.
+      const uint64_t b = hopper::desc<32>(v_addr + kk * 16 * 32, kBKV * 32, 256);
+      hopper::wgmma_rs_m64n80<1>(acc, a, b);
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < Ly::kMain; ++j)
+      hopper::wgmma_rs_m64n64<1>(
+          *reinterpret_cast<float(*)[32]>(&acc[32 * j]), a,
+          hopper::desc<128>(v_addr + j * kBKV * 128 + kk * 16 * 128, kBKV * 128, 1024));
+    if constexpr (Ly::kRem > 0) {
+      const uint32_t v_rem = v_addr + Ly::kMain * kBKV * 128 + kk * 16 * span;
+      float(&rem)[Ly::kRem / 2] =
+          *reinterpret_cast<float(*)[Ly::kRem / 2]>(&acc[32 * Ly::kMain]);
+      if constexpr (Ly::kRem == 16)
+        hopper::wgmma_rs_m64n16<1>(rem, a, hopper::desc<32>(v_rem, kBKV * span, 8 * span));
+      else
+        hopper::wgmma_rs_m64n32<1>(rem, a, hopper::desc<64>(v_rem, kBKV * span, 8 * span));
+    }
+  }
+  hopper::wgmma_commit();
 }
 
-// Copy rows [row0, row0 + 64) of one head into a [64][LD] tile in shared
-// memory, 16 bytes a thread at a time; rows at or past S are zero.
-template <int D, int LD, int THREADS, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row0,
-                                          long long S, long long row_stride) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CH = D / VEC;
-  for (int e = threadIdx.x; e < kBK * CH; e += THREADS) {
-    const int r = e / CH;
-    const int c = e - r * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c * VEC);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * VEC) = val;
+// One tile's online softmax on the raw scores of rows row_a, row_b (the
+// scale folds into one FMA per exponent: scale > 0, so the max of s is the
+// max of s * scale).  sc becomes p, unrounded; returns the rescale factors.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], bool masked, int kv0, int row_a,
+                                             int row_b, int S, int causal, int t4,
+                                             float scale_log2, float& m0,
+                                             float& m1, float& l0, float& l1, float& a0,
+                                             float& a1) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = (e < 2) ? row_a : row_b;
+        if (key >= S || (causal && key > row)) sc[4 * j + e] = kNegInf;
+      }
+    }
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  a0 = hopper::ex2(m0 - mn0);
+  a1 = hopper::ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = hopper::ex2(fmaf(sc[4 * j], scale_log2, -mn0));
+    sc[4 * j + 1] = hopper::ex2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+    sc[4 * j + 2] = hopper::ex2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+    sc[4 * j + 3] = hopper::ex2(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+    rs0 += sc[4 * j] + sc[4 * j + 1];
+    rs1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * a0 + rs0;  // l from the unrounded p, as the Pallas kernel
+  l1 = l1 * a1 + rs1;
+}
+
+// The accumulator of key columns 16kk..16kk+15, rounded to bf16, is the A
+// fragment of P . V's k-step kk: pa[4kk..4kk+3].
+__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pa[2 * j] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pa[2 * j + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float a0, float a1) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    acc[4 * j] *= a0;
+    acc[4 * j + 1] *= a0;
+    acc[4 * j + 2] *= a1;
+    acc[4 * j + 3] *= a1;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o, long long S,
-                                int group, int causal, float scale_log2,
-                                Strides st) {
-  constexpr int LD = D + 8;  // padded smem row (bf16 elements)
-  constexpr int KSTEPS = D / 16;  // depth steps of q . k
-  constexpr int NT = D / 8;  // 8-wide output tiles of p . v
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ Maps maps,
+                                __nv_bfloat16* __restrict__ o, long long S, int group,
+                                int causal, float scale_log2, long long ob, long long os,
+                                long long oh) {
+  using Ly = Layout<D>;
+  constexpr int ST = kStages;
+  constexpr int NO = D / 2;  // O accumulator registers per thread
   extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Ly::kBar);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
 
-  const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * kBQ;
+  const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * kRowsCta;
   const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int hk = h / group;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row within the warp's 16
-  const int t4 = lane & 3;  // fragment column pair
+  const int b = blockIdx.z;
+  const long long kv_end = causal ? (q0 + kRowsCta < S ? q0 + kRowsCta : S) : S;
+  const int n_tiles = (int)((kv_end + kBKV - 1) / kBKV);
+  const int wg = threadIdx.x >> 7;
 
-  const __nv_bfloat16* qh = q + b * st.qb + h * st.qh;
-  const __nv_bfloat16* kh = k + b * st.kb + hk * st.kh;
-  const __nv_bfloat16* vh = v + b * st.vb + hk * st.vh;
-
-  load_tile<D, LD, 128>(Qs, qh, q0, S, st.qs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);  // the producer's arrive + the TMA bytes
+      hopper::mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const __nv_bfloat16* p0 = Qs + r0 * LD + kk * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
 
-  float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units), rows r0, r0+8
-  float l0 = 0.f, l1 = 0.f;  // this thread's share of the running sums
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const long long row_a = q0 + r0;
-  const long long row_b = row_a + 8;
-  const long long kv_end = causal ? (q0 + kBQ < S ? q0 + kBQ : S) : S;
-  for (long long kv0 = 0; kv0 < kv_end; kv0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile<D, LD, 128>(Ks, kh, kv0, S, st.ks);
-    load_tile<D, LD, 128>(Vs, vh, kv0, S, st.vs);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kp = Ks + (n * 8 + g) * LD + t4 * 2;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
-      }
-    }
-
-    const bool masked = (kv0 + kBK > S) || (causal && kv0 + kBK - 1 > q0);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (masked) {
-          const long long key = kv0 + n * 8 + t4 * 2 + (e & 1);
-          const long long row = (e < 2) ? row_a : row_b;
-          if (key >= S || (causal && key > row)) x = kNegInf;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      const int hk = h / group;
+      hopper::mbar_arrive_expect_tx(qbar, kConsumers * Ly::kQBytes);
+      // One box per region: kMain of 64 columns, then the remainder.
+      auto load = [&](uint8_t* dst, const CUtensorMap* m, uint64_t* bar, int head, int row0,
+                      int rows) {
+        for (int j = 0; j < Ly::kMain; ++j)
+          hopper::tma_load_4d(dst + j * rows * 128, &m[0], bar, 64 * j, head, row0, b);
+        if (Ly::kRem > 0)
+          hopper::tma_load_4d(dst + Ly::kMain * rows * 128, &m[1], bar, 64 * Ly::kMain, head,
+                              row0, b);
+      };
+      for (int w = 0; w < kConsumers; ++w)
+        load(smem + w * Ly::kQBytes, maps.q, qbar, h, (int)(q0 + w * kBQ), kBQ);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % ST;
+        hopper::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * Ly::kKVBytes);
+        load(smem + Ly::kK + s * Ly::kKVBytes, maps.k, &full[s], hk, i * kBKV, kBKV);
+        uint8_t* v_dst = smem + Ly::kV + s * Ly::kKVBytes;
+        if (Ly::kVChunked) {
+          for (int c = 0; c < D / 16; ++c)
+            hopper::tma_load_4d(v_dst + c * kBKV * 32, &maps.v[1], &full[s], 16 * c, hk,
+                                i * kBKV, b);
+        } else {
+          load(v_dst, maps.v, &full[s], hk, i * kBKV, kBKV);
         }
-        s[n][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0);
-    const float a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mn0);
-      s[n][1] = exp2f(s[n][1] - mn0);
-      s[n][2] = exp2f(s[n][2] - mn1);
-      s[n][3] = exp2f(s[n][3] - mn1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * a0 + rs0;  // l from the unrounded p, as the Pallas kernel
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-
-    // p . v: the score accumulators of key tiles 2kk and 2kk+1 are, once
-    // rounded to bf16, the A fragment of the 16-key step kk.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int mat = lane >> 3;
-      const __nv_bfloat16* vp =
-          Vs + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vp + np * 16);
-        mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
       }
     }
-  }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;  // accumulator row within the warp's 16
+    const int t4 = lane & 3;  // accumulator column pair
+    const int Sq = (int)S;  // positions fit in 32 bits (S <= kMaxSeqBf16)
+    const int qw0 = (int)q0 + wg * kBQ;  // this warpgroup's first query row
+    const int row_a = qw0 + warp * 16 + g;
+    const int row_b = row_a + 8;
+    uint8_t* qs = smem + wg * Ly::kQBytes;
+    const uint32_t q_addr = hopper::smem_u32(qs);
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units), rows row_a, row_b
+    float l0 = 0.f, l1 = 0.f;  // this thread's share of the running sums
+    float acc[NO];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + t4 * 2;
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(oh + row_a * st.os + col) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(oh + row_b * st.os + col) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+
+    uint32_t pa[32];  // P in bf16, the A operand of P . V
+    float sc[64];  // S of the current tile, then its p
+    float a0, a1;
+    auto k_addr = [&](int i) { return hopper::smem_u32(smem + Ly::kK + (i % ST) * Ly::kKVBytes); };
+    auto v_addr = [&](int i) { return hopper::smem_u32(smem + Ly::kV + (i % ST) * Ly::kKVBytes); };
+    auto masked = [&](int i) {
+      const int kv0 = i * kBKV;
+      return (kv0 + kBKV > Sq) || (causal && kv0 + kBKV - 1 > qw0);
+    };
+    auto release = [&](int i) {  // P . V of tile i has completed in this warp
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[i % ST]);
+    };
+
+    hopper::mbar_wait(qbar, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      hopper::mbar_wait(&full[i % ST], (i / ST) & 1);
+      issue_qk<D>(sc, q_addr, k_addr(i));
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      softmax_tile(sc, masked(i), i * kBKV, row_a, row_b, Sq, causal, t4, scale_log2, m0, m1,
+                   l0, l1, a0, a1);
+      rescale(acc, a0, a1);
+      pack_p(sc, pa);
+      hopper::wgmma_fence();
+      issue_pv<D>(acc, pa, v_addr(i));
+      hopper::wgmma_wait<0>();
+      release(i);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    // Stage the warpgroup's [64][D] bf16 output in its own Q region (its last
+    // reader, the final S product, has completed), then 16-byte stores.
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(qs);
+    const int ra = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int col = 8 * j + 2 * t4;
+      *reinterpret_cast<uint32_t*>(st + ra * D + col) =
+          pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(st + (ra + 8) * D + col) =
+          pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+    hopper::named_barrier_sync(1 + wg, 128);
+    __nv_bfloat16* oh_ = o + (long long)b * ob + (long long)h * oh;
+    constexpr int CH = D / 8;  // 16-byte pieces per row
+    for (int e = tid; e < kBQ * CH; e += 128) {
+      const int r = e / CH;
+      const int c = e - r * CH;
+      if (qw0 + r < Sq)
+        *reinterpret_cast<uint4*>(oh_ + (long long)(qw0 + r) * os + c * 8) =
+            *reinterpret_cast<const uint4*>(st + r * D + c * 8);
+    }
   }
 }
 
@@ -370,35 +550,106 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- launch
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, long long B,
-           long long S, int H, int Hkv, int causal, const Strides& st,
-           void* stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int threads = kBf16 ? 128 : 256;
+// cuTensorMapEncodeTiled from libcuda, fetched once through the runtime (the
+// library links nothing but cudart).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int kEncodeError = 10000;  // + CUresult: a tensor map was refused
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      p = nullptr;
+#endif
+    return p != nullptr && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over (dh, heads, S, B) of a bf16 [B, S, heads, dh] tensor with
+// element strides sb, ss, sh: boxes of `cols` columns x `rows` rows, swizzled
+// over the box's row of cols * 2 bytes (128, 64 or 32), zeros outside the
+// tensor.  Returns 0 or kEncodeError + CUresult.
+int make_map(CUtensorMap* map, const void* ptr, long long B, long long S, int heads, int D,
+             long long sb, long long ss, long long sh, int cols, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, long long B, long long S,
+                int H, int Hkv, int causal, const Strides& st, void* stream) {
+  if (S > kMaxSeqBf16) return (int)cudaErrorInvalidValue;
+  Maps maps;
+  constexpr int kRem = Layout<D>::kRem;
+  int err = 0;
+  for (int j = 0; j < (kRem ? 2 : 1) && !err; ++j) {
+    const int cols = j == 0 ? 64 : kRem;
+    err = make_map(&maps.q[j], q, B, S, H, D, st.qb, st.qs, st.qh, cols, kBQ);
+    if (!err) err = make_map(&maps.k[j], k, B, S, Hkv, D, st.kb, st.ks, st.kh, cols, kBKV);
+    if (!err)
+      err = make_map(&maps.v[j], v, B, S, Hkv, D, st.vb, st.vs, st.vh,
+                     j == 1 && Layout<D>::kVChunked ? 16 : cols, kBKV);
+  }
+  if (err) return err;
+  constexpr int smem = Layout<D>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = kLog2e / sqrtf((float)D);
+  const dim3 grid((unsigned)((S + kRowsCta - 1) / kRowsCta), (unsigned)H, (unsigned)B);
+  flash_attention_bf16_kernel<D><<<grid, kThreadsBf16, smem, (cudaStream_t)stream>>>(
+      maps, (__nv_bfloat16*)o, S, H / Hkv, causal, scale_log2, st.ob, st.os, st.oh);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, long long B, long long S,
+               int H, int Hkv, int causal, const Strides& st, void* stream) {
   constexpr size_t smem =
-      kBf16 ? (size_t)(kBQ + 2 * kBK) * (D + 8) * sizeof(__nv_bfloat16)
-            : (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * (kBK + 1)) * sizeof(float);
-  void (*kernel)(const T*, const T*, const T*, T*, long long, int, int, float, Strides);
-  if constexpr (kBf16) {
-    kernel = flash_attention_bf16_kernel<D>;
-  } else {
-    kernel = flash_attention_f32_kernel<D>;
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+      (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * (kBK + 1)) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const float scale_log2 = kLog2e / sqrtf((float)D);
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H / Hkv, causal,
+  flash_attention_f32_kernel<D><<<grid, 256, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H / Hkv, causal,
       scale_log2, st);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <bool kBf16, int D>
+int launch(const void* q, const void* k, const void* v, void* o, long long B, long long S,
+           int H, int Hkv, int causal, const Strides& st, void* stream) {
+  if constexpr (kBf16) return launch_bf16<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+  else return launch_f32<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+}
+
+template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, void* o, long long B,
              long long S, int H, int Hkv, int D, int causal,
              const long long* strides, void* stream) {
@@ -410,10 +661,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, long long B,
   st.vb = strides[6]; st.vs = strides[7]; st.vh = strides[8];
   st.ob = strides[9]; st.os = strides[10]; st.oh = strides[11];
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 96: return launch<T, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 64: return launch<kBf16, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 80: return launch<kBf16, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 96: return launch<kBf16, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 128: return launch<kBf16, 128>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -424,20 +675,25 @@ extern "C" {
 
 // q [B, S, H, D], k and v [B, S, Hkv, D], o [B, S, H, D], one dtype; strides
 // holds the 12 element strides (b, s, h) of q, k, v, o; the last dim is
-// contiguous.  D in {64, 80, 96, 128}.  Returns cudaGetLastError().
+// contiguous.  D in {64, 80, 96, 128}.  bf16 also needs q, k and v on
+// 16-byte boundaries with 16-byte multiples as strides (TMA), and S below
+// 2^31 - 256.  Returns
+// cudaGetLastError(), or 10000 + a CUresult when a tensor map is refused.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          long long B, long long S, int H, int Hkv, int D,
                          int causal, const long long* strides, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
+  return dispatch<true>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         long long B, long long S, int H, int Hkv, int D,
                         int causal, const long long* strides, void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
+  return dispatch<false>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 10000)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

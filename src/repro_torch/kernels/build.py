@@ -6,10 +6,11 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from ``build/repro_torch/`` (a
-directory that ``.gitignore`` lists).  No PyTorch headers and no ninja: a
-library builds in seconds.  Nothing builds at import; a kernel wrapper
+The file name carries a hash of the source, of every header of ``csrc/``
+it includes (``#include "<header>"``, followed recursively) and of the
+flags, so an edited source or header rebuilds and an unchanged one loads
+from ``build/repro_torch/`` (a directory that ``.gitignore`` lists).  No
+PyTorch headers and no ninja: a library builds in seconds.  Nothing builds at import; a kernel wrapper
 calls :func:`load` at its first launch, and :func:`build` compiles several
 sources at once, one nvcc process each, all started together.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_paths: dict[str, Path] = {}  # libraries that replace a build of csrc/<name>.cu
 
 
 def nvcc() -> str:
@@ -45,10 +48,30 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes, directly
+    or through another header, each once, in the order first met."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC / inc.decode())
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names, ptxas_verbose: bool = False) -> dict[str, dict]:
@@ -85,6 +108,15 @@ def build(names, ptxas_verbose: bool = False) -> dict[str, dict]:
     return report
 
 
+def use_library(name: str, path: Path) -> None:
+    """From now on :func:`load` opens ``path`` for ``lib<name>`` instead of
+    building ``csrc/<name>.cu``: a variant of the source, built elsewhere,
+    runs through the kernel's own wrapper (``tools/kernel_variants.py``)."""
+    with _lock:
+        _paths[name] = Path(path)
+        _libs.pop(name, None)
+
+
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library ``lib<name>``, built first if needed.  Every C
     function in ``signatures`` gets its ``argtypes`` and returns an ``int``
@@ -92,8 +124,11 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            path = _paths.get(name)
+            if path is None:
+                build([name])
+                path = library_path(name)
+            lib = ctypes.CDLL(str(path))
             for sym, argtypes in signatures.items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes

@@ -20,21 +20,49 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 _SYMBOLS = {torch.float32: "dot_interaction_f32",
             torch.bfloat16: "dot_interaction_bf16"}
 
+MAX_SMEM = 232448  # bytes of shared memory one block can hold (227 KB)
+
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+
+
+def sample_smem_bytes(F: int, D: int, itemsize: int) -> int:
+    """Shared memory the kernel needs for one sample: two buffers of F rows
+    padded to a multiple of 4, each row an odd number of 16-byte vectors,
+    plus the sample's [F, F] f32 result (``make_plan`` in the source at
+    G = 1)."""
+    units = D * itemsize // 16
+    return 2 * (-(-F // 4) * 4) * (units | 1) * 16 + F * F * 4
+
+
+def check_inputs(x: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: a dtype other than f32/bf16,
+    a shape other than a contiguous [B, F, D], rows that are not a multiple
+    of 16 bytes or a start off a 16-byte boundary (its loads are 16-byte
+    vectors), or one sample too large for a block's shared memory."""
+    if x.dtype not in _SYMBOLS:
+        raise TypeError(f"{NAME}: dtype {x.dtype} not in f32/bf16")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{NAME}: want a contiguous [B, F, D], got {tuple(x.shape)}")
+    _, F, D = x.shape
+    if (D * x.element_size()) % 16:
+        raise ValueError(f"{NAME}: rows of D={D} {x.dtype} are not a multiple of 16 bytes")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{NAME}: x must start on a 16-byte boundary")
+    if sample_smem_bytes(F, D, x.element_size()) > MAX_SMEM:
+        raise ValueError(f"{NAME}: one [F={F}, D={D}] sample needs "
+                         f"{sample_smem_bytes(F, D, x.element_size())} bytes of shared "
+                         f"memory, over the {MAX_SMEM} a block holds")
 
 
 def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     """``[B, F, D]`` f32 | bf16 CUDA tensor -> ``[B, F, F]`` f32, kernel K2."""
     global launches
+    check_inputs(x)
     if x.device.type != "cuda":
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors, got {x.device}; "
             "ops.dot_interaction_triu routes CPU tensors to the plain version"
         )
-    if x.dtype not in _SYMBOLS:
-        raise TypeError(f"{NAME}: dtype {x.dtype} not in f32/bf16")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{NAME}: want a contiguous [B, F, D], got {tuple(x.shape)}")
     B, F, D = x.shape
     out = torch.empty((B, F, F), dtype=torch.float32, device=x.device)
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})

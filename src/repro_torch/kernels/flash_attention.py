@@ -18,6 +18,7 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations (multiples of 16)
+MAX_SEQ_BF16 = 2**31 - 256  # the bf16 kernel's positions and TMA coordinates are int32
 _ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
@@ -32,7 +33,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernel does not take: a dtype other than f32/bf16
     or mixed dtypes, shapes other than q [B,S,H,dh], k = v [B,S,Hkv,dh] with
     Hkv dividing H, a head dim outside ``HEAD_DIMS``, a last dim that is not
-    contiguous, or rows not on 16-byte boundaries."""
+    contiguous, or rows not on 16-byte boundaries: a start or a stride that
+    is no multiple of 16 bytes (the bf16 kernel loads its tiles with TMA,
+    which requires both); in bf16 also an S past ``MAX_SEQ_BF16``."""
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{NAME}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                         "want one of f32 / bf16 for q, k and v")
@@ -45,10 +48,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          " (same B, S, dh; Hkv divides H)")
     if dh not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and S > MAX_SEQ_BF16:
+        raise ValueError(f"{NAME}: S = {S} past the bf16 kernel's {MAX_SEQ_BF16} positions")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{NAME}: {name} strides {t.stride()} — want a contiguous "
                              "head dim and rows on 16-byte boundaries")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{NAME}: {name} must start on a 16-byte boundary")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,8 +70,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{NAME} kernel takes CUDA tensors, got {q.device}, {k.device}, {v.device}; "
             "ops.flash_attention routes CPU tensors to the plain version"
         )
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{NAME}: q, k and v must start on 16-byte boundaries")
     B, S, H, dh = q.shape
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(

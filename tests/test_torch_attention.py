@@ -190,8 +190,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
          TypeError, "dtype"),
         ((torch.zeros(1, 8, 2, 160)[..., ::2],) + _qkv(dtype=torch.float32)[1:],
          ValueError, "strides"),
+        ((torch.zeros(1, 8, 2, 84, dtype=torch.bfloat16)[..., :80],) + _qkv()[1:],
+         ValueError, "strides"),
+        ((torch.zeros(8 * 2 * 80 + 8, dtype=torch.bfloat16)[1:8 * 2 * 80 + 1].view(1, 8, 2, 80),)
+         + _qkv()[1:], ValueError, "16-byte boundary"),
+        ((torch.zeros(1, 1, 1, 80, dtype=torch.bfloat16).expand(1, 2**31, 1, 80),) * 3,
+         ValueError, "positions"),
     ],
-    ids=["f16", "dh48", "dh16", "groups", "rank", "mixed", "strided"],
+    ids=["f16", "dh48", "dh16", "groups", "rank", "mixed", "strided", "row-pitch",
+         "misaligned", "too-long"],
 )
 def test_flash_attention_refuses_bad_input(args, exc, match):
     with pytest.raises(exc, match=match):

@@ -8,7 +8,9 @@ versions on the card by chip_smoke.py.  Tolerances are the reference's own:
 f32 1e-5; bf16 2e-2 (bag) and 3e-2 (gram), since the two sides round the
 bf16 inputs identically but sum in different orders.
 """
+import ctypes
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,8 +63,12 @@ def test_bag_lookup_matches_pallas(rng):
 
 
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,F,D,blk", [(8, 7, 32, 4), (16, 27, 64, 8), (4, 40, 16, 4)])
+@pytest.mark.parametrize("B,F,D,blk", [(8, 7, 32, 4), (16, 27, 64, 8), (4, 40, 16, 4),
+                                       (64, 17, 64, 16), (6, 41, 64, 3)])
 def test_dot_interaction_matches_pallas(dtypes, B, F, D, blk, rng):
+    """The reference's sweep plus the serve shape [64, 17, 64] and F = 41, the
+    widest paper config, which neither 3 nor 4 divides: the shapes whose rows
+    the kernel pads to its 4-row register tiles."""
     jdt, tdt = dtypes
     x_j, x_t = _pair(rng.normal(size=(B, F, D)), jdt, tdt)
     want = jax_dot(x_j, block_b=blk, interpret=True)
@@ -117,3 +123,90 @@ def test_bound_symbols_exist_in_source(mod):
     path = build.library_path(mod.NAME)
     assert path.parent == build.BUILD_DIR
     assert re.fullmatch(rf"lib{mod.NAME}-[0-9a-f]{{16}}\.so", path.name)
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` whose data starts 2 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=dtype)
+    step = 2 // flat.element_size() or 1
+    return flat[step:step + n].view(shape)
+
+
+@pytest.mark.parametrize(
+    "x,exc,match",
+    [
+        (torch.zeros(2, 3, 8, dtype=torch.float16), TypeError, "dtype"),
+        (torch.zeros(6, 8), ValueError, "want a contiguous"),
+        (torch.zeros(2, 8, 3).transpose(1, 2), ValueError, "want a contiguous"),
+        (torch.zeros(2, 3, 6), ValueError, "multiple of 16 bytes"),
+        (torch.zeros(2, 3, 12, dtype=torch.bfloat16), ValueError, "multiple of 16 bytes"),
+        (_misaligned((2, 3, 8), torch.bfloat16), ValueError, "16-byte boundary"),
+        (torch.zeros(1, 64, 1024), ValueError, "shared memory"),
+    ],
+    ids=["f16", "rank", "strided", "row-f32", "row-bf16", "misaligned", "too-large"],
+)
+def test_dot_interaction_refuses_bad_input(x, exc, match):
+    """Every input the kernel cannot take raises in the wrapper, before any
+    launch (the CPU tensors here never reach the device check)."""
+    before = K2.launches
+    with pytest.raises(exc, match=match):
+        K2.dot_interaction(x)
+    assert K2.launches == before
+
+
+@pytest.mark.parametrize("F,D,itemsize,want", [(27, 64, 4, 18148), (17, 64, 2, 6916),
+                                               (40, 512, 4, 171520), (41, 64, 4, 30660)])
+def test_dot_interaction_sample_smem(F, D, itemsize, want):
+    """Two buffers of F rows padded to a multiple of 4, each row an odd count
+    of 16-byte vectors, plus the [F, F] f32 result: the serve bucket, the
+    forward's samples and [3, 40, 512] fit a block; F = 64, D = 1024 does not."""
+    assert K2.sample_smem_bytes(F, D, itemsize) == want <= K2.MAX_SMEM
+    assert K2.sample_smem_bytes(64, 1024, 4) > K2.MAX_SMEM
+    K2.check_inputs(torch.zeros(3, 40, 512))  # chip_smoke.py's largest sample
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edit to a header that a source includes, directly or through another
+    header, changes the library's path (so a stale build is never loaded);
+    an edit to a header it does not include leaves the path alone."""
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint k_fn();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
+
+
+def test_use_library_replaces_the_build(tmp_path, monkeypatch):
+    """After ``use_library`` the wrapper's ``load`` opens the given library,
+    once, with the wrapper's signatures, and builds nothing."""
+    opened = []
+
+    class Lib:
+        def __init__(self, path):
+            opened.append(path)
+            self.k_fn = types.SimpleNamespace()
+            self.k_error_string = types.SimpleNamespace()
+
+    def no_build(names, ptxas_verbose=False):
+        raise AssertionError(f"built {names}")
+
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_paths", {})
+    build.use_library("k", tmp_path / "libk-variant.so")
+    lib = build.load("k", {"k_fn": [ctypes.c_int]})
+    assert build.load("k", {"k_fn": [ctypes.c_int]}) is lib
+    assert opened == [str(tmp_path / "libk-variant.so")]
+    assert lib.k_fn.argtypes == [ctypes.c_int] and lib.k_fn.restype is ctypes.c_int

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time text variants of a CUDA kernel of the port against its committed source.
+
+    python3 tools/kernel_variants.py tools/kernel_variants/k6_stages.json [...]
+
+on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
+
+    {"kernel": "flash_attention" | "dot_interaction",
+     "cases": [[B, S, H, Hkv, dh], ...] or [[B, F, D], ...],
+     "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
+
+Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
+replaced by ``new`` (each must occur); the committed source runs as the
+variant ``base``.  Every variant of every spec is built at once, one nvcc
+each, with the flags of ``kernels/build.py``, into ``build/kernel_variants/``,
+and runs through the kernel's own wrapper (``build.use_library``).  At each
+case a variant with ``check`` (the default) is first held against the plain
+version as ``chip_smoke.py`` holds the kernel (K6 bf16 causal by
+``assert_close_rows``, K2 f32 at 1e-4); a variant that cuts work out sets
+``"check": false``.  Then every variant and the library call
+(``F.scaled_dot_product_attention`` or ``torch.bmm``) are timed by CUDA
+events, L2 flushed, in turns: ``ROUNDS`` rounds, the order reversed every
+round, the card idle for ``PAUSE_S`` before each timing so that every one
+starts from the same clocks rather than from the heat of the last (without
+it, one build read slower round after round of one call).  One
+JSON line per case gives each one's median in ms over the rounds and its
+time in every round, so that pairs of rounds can be counted, with the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+import chip_smoke as CS  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import dot_interaction as K2  # noqa: E402
+from repro_torch.kernels import flash_attention as K6  # noqa: E402
+
+OUT = ROOT / "build" / "kernel_variants"
+ROUNDS = 10  # pairs of rounds for each two variants
+PAUSE_S = 1.0
+
+
+def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Path]]]:
+    """{spec: {variant: (variant, library path)}}, the committed source as ``base``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    for tag, spec in specs.items():
+        src0 = (build.CSRC / f"{spec['kernel']}.cu").read_text()
+        libs[tag] = {}
+        for v in [{"name": "base", "subs": []}, *spec["variants"]]:
+            src = src0
+            for old, new in v["subs"]:
+                if old not in src:
+                    raise ValueError(f"{tag} {v['name']}: {old!r} not in {spec['kernel']}.cu")
+                src = src.replace(old, new)
+            cu = OUT / f"{tag}_{v['name']}.cu"
+            cu.write_text(src)
+            so = cu.with_suffix(".so")
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC),
+                   "-o", str(so), str(cu)]
+            procs.append((f"{tag} {v['name']}", subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            libs[tag][v["name"]] = (v, so)
+    for label, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        for line in log.splitlines():
+            if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+                print(f"  {label}: {line.strip()}", flush=True)
+    return libs
+
+
+def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
+        gen: torch.Generator) -> None:
+    kernel = spec["kernel"]
+    for case in spec["cases"]:
+        if kernel == "flash_attention":
+            B, S, H, Hkv, dh = case
+            q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(torch.bfloat16)
+            k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen)
+                    .to(torch.bfloat16) for _ in range(2))
+            want = ref.flash_attention_ref(q, k, v, True)
+            call = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
+            check = lambda n, got: CS.assert_close_rows(  # noqa: E731
+                f"{tag} {n} {case}", got, want, *CS.LM_BF16_TOL)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True)
+        else:
+            x = torch.randn(tuple(case), device="cuda", generator=gen)
+            want = ref.dot_interaction_ref(x)
+            call = lambda: K2.dot_interaction(x)  # noqa: E731
+            check = lambda n, got: CS.assert_close(  # noqa: E731
+                f"{tag} {n} {case}", got, want, 1e-4, 1e-4)
+            library = lambda: torch.bmm(x, x.transpose(1, 2))  # noqa: E731
+
+        def timed(so):
+            build.use_library(kernel, so)
+            return CS.cuda_ms(call, flush)
+
+        for n, (variant, so) in libs.items():
+            if variant.get("check", True):
+                build.use_library(kernel, so)
+                check(n, call())
+        fns = {n: (lambda so=so: timed(so)) for n, (_, so) in libs.items()}
+        fns["library"] = lambda: CS.cuda_ms(library, flush)
+        times = {n: [] for n in fns}
+        order = list(fns)
+        for r in range(ROUNDS):
+            for n in (order if r % 2 == 0 else order[::-1]):
+                time.sleep(PAUSE_S)
+                times[n].append(fns[n]())
+        print(json.dumps({"spec": tag, "case": case, "card": card,
+                          "median_ms": {n: statistics.median(t) for n, t in times.items()},
+                          "round_ms": times}), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA GPU present", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    specs = {Path(p).stem: json.loads(Path(p).read_text()) for p in sys.argv[1:]}
+    libs = build_variants(specs)
+    flush = torch.empty(CS.L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for tag, spec in specs.items():
+        run(tag, spec, libs[tag], card, flush, gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
