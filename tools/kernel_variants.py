@@ -5,10 +5,15 @@
 
 on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
 
-    {"kernel": "flash_attention" | "dot_interaction",
-     "cases": [[B, S, H, Hkv, dh], ...] or [[B, F, D], ...],
+    {"kernel": "flash_attention" | "dot_interaction" | "flash_decode" | "scatter_update",
+     "cases": [...],
      "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
 
+with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal), [B, F, D]
+(dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
+NaN past cache_len; a seventh entry "f32" runs it in f32) or [C, D, K]
+(scatter_update: K f32 rows of D into distinct random slots of a [C, D] f32
+table, as a hot-cache build writes them).
 Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
 replaced by ``new`` (each must occur); the committed source runs as the
 variant ``base``.  Every variant of every spec is built at once, one nvcc
@@ -16,10 +21,10 @@ each, with the flags of ``kernels/build.py``, into ``build/kernel_variants/``,
 and runs through the kernel's own wrapper (``build.use_library``).  At each
 case a variant with ``check`` (the default) is first held against the plain
 version as ``chip_smoke.py`` holds the kernel (K6 bf16 causal by
-``assert_close_rows``, K2 f32 at 1e-4); a variant that cuts work out sets
-``"check": false``.  Then every variant and the library call
-(``F.scaled_dot_product_attention`` or ``torch.bmm``) are timed by CUDA
-events, L2 flushed, in turns: ``ROUNDS`` rounds, the order reversed every
+``assert_close_rows``, K2 f32 at 1e-4, K7 as K6 in bf16 and at 2e-5 in f32,
+K4 bit-equal); a variant that cuts work out sets ``"check": false``.  Then
+every variant and the library call (``F.scaled_dot_product_attention``,
+``torch.bmm`` or ``index_copy_``) are timed by CUDA events, L2 flushed, in turns: ``ROUNDS`` rounds, the order reversed every
 round, the card idle for ``PAUSE_S`` before each timing so that every one
 starts from the same clocks rather than from the heat of the last (without
 it, one build read slower round after round of one call).  One
@@ -44,9 +49,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
+from repro_torch.hotcache import kernels as HK  # noqa: E402
+from repro_torch.hotcache import ref as HREF  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import dot_interaction as K2  # noqa: E402
 from repro_torch.kernels import flash_attention as K6  # noqa: E402
+from repro_torch.kernels import flash_decode as K7  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
 ROUNDS = 10  # pairs of rounds for each two variants
@@ -84,29 +92,67 @@ def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Pa
     return libs
 
 
+def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
+    """(call, check, library) of one case: the kernel through its wrapper,
+    ``check(name)``, which calls it on fresh inputs where it writes in place
+    and holds the output against the plain version, and the library call."""
+    if kernel == "flash_attention":
+        B, S, H, Hkv, dh = case
+        q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+        want = ref.flash_attention_ref(q, k, v, True)
+        call = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
+        return (call,
+                lambda n: CS.assert_close_rows(f"{tag} {n} {case}", call(), want,
+                                               *CS.LM_BF16_TOL),
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True))
+    if kernel == "dot_interaction":
+        x = torch.randn(tuple(case), device="cuda", generator=gen)
+        want = ref.dot_interaction_ref(x)
+        call = lambda: K2.dot_interaction(x)  # noqa: E731
+        return (call,
+                lambda n: CS.assert_close(f"{tag} {n} {case}", call(), want, 1e-4, 1e-4),
+                lambda: torch.bmm(x, x.transpose(1, 2)))
+    if kernel == "flash_decode":
+        B, S, H, Hkv, dh, n = case[:6]
+        dt = torch.float32 if case[6:] == ["f32"] else torch.bfloat16
+        q = torch.randn((B, H, dh), device="cuda", generator=gen).to(dt)
+        kc, vc = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen).to(dt)
+                  for _ in range(2))
+        kc[:, n:] = float("nan")  # never read
+        vc[:, n:] = float("nan")
+        n_t = torch.tensor(n, dtype=torch.int32, device="cuda")
+        want = ref.flash_decode_ref(q, kc, vc, n_t)
+        close, tol = ((CS.assert_close_rows, CS.LM_BF16_TOL) if dt == torch.bfloat16
+                      else (CS.assert_close, CS.LM_F32_TOL))
+        call = lambda: K7.flash_decode(q, kc, vc, n_t)  # noqa: E731
+        return (call,
+                lambda name: close(f"{tag} {name} {case}", call(), want, *tol),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2),
+                    enable_gqa=True))
+    if kernel == "scatter_update":
+        C, D, K = case
+        slots = torch.randperm(C, device="cuda", generator=gen)[:K].to(torch.int32)
+        rows = torch.randn((K, D), device="cuda", generator=gen)
+        values = torch.zeros((C, D), device="cuda")
+        want = HREF.scatter_update_ref(torch.zeros_like(values), slots, rows)
+        slots_l = slots.long()
+        return (lambda: HK.scatter_update(values, slots, rows),
+                lambda n: CS.assert_equal(f"{tag} {n} {case}", HK.scatter_update(
+                    torch.zeros_like(values), slots, rows), want),
+                lambda: values.index_copy_(0, slots_l, rows))
+    raise ValueError(f"{tag}: no cases for kernel {kernel!r}")
+
+
 def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
         gen: torch.Generator) -> None:
     kernel = spec["kernel"]
     for case in spec["cases"]:
-        if kernel == "flash_attention":
-            B, S, H, Hkv, dh = case
-            q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(torch.bfloat16)
-            k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen)
-                    .to(torch.bfloat16) for _ in range(2))
-            want = ref.flash_attention_ref(q, k, v, True)
-            call = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
-            check = lambda n, got: CS.assert_close_rows(  # noqa: E731
-                f"{tag} {n} {case}", got, want, *CS.LM_BF16_TOL)
-            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-                enable_gqa=True)
-        else:
-            x = torch.randn(tuple(case), device="cuda", generator=gen)
-            want = ref.dot_interaction_ref(x)
-            call = lambda: K2.dot_interaction(x)  # noqa: E731
-            check = lambda n, got: CS.assert_close(  # noqa: E731
-                f"{tag} {n} {case}", got, want, 1e-4, 1e-4)
-            library = lambda: torch.bmm(x, x.transpose(1, 2))  # noqa: E731
+        call, check, library = setup(tag, kernel, case, gen)
 
         def timed(so):
             build.use_library(kernel, so)
@@ -115,7 +161,7 @@ def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
         for n, (variant, so) in libs.items():
             if variant.get("check", True):
                 build.use_library(kernel, so)
-                check(n, call())
+                check(n)
         fns = {n: (lambda so=so: timed(so)) for n, (_, so) in libs.items()}
         fns["library"] = lambda: CS.cuda_ms(library, flush)
         times = {n: [] for n in fns}
