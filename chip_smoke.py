@@ -17,7 +17,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 [3, 40, 512], and timed at the buckets beside torch.bmm); K3
                 on dlrm-flexemr's 2048-request batch over a 2^18-slot cache,
                 f32 and bf16 rows; K4 at the cache build's writes and with
-                repeated slots, into f32 and bf16 rows; K5 in f32 and f64 with
+                repeated slots, into f32 and bf16 rows, with slots outside
+                [0, C) mixed in, with one write, from bf16 rows and at a
+                width of 17 (the element-wise copy); K5 in f32 and f64 with
                 ties and -inf.  CUDA-event medians of the kernel, its plain
                 version and one PyTorch call computing the same function
                 (none for K3), beside the bound from bytes and operations;
@@ -46,9 +48,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 [1, 4096, 32, 32, 128], at a ragged S (bf16 causal at dh
                 64, 80 and 96, bf16 and f32 full); K7 at the decode
                 path's caches [4, 4128, 32, 80] with NaN past cache_len
-                4097, at cache_len 1, in f32 and with GQA; bf16 to two
-                output ulps plus 2^-5 of the row's RMS, a check shown to
-                refuse a planted fault (one KV tile of 64 skipped).
+                4097, at cache_len 1, in f32 and with GQA, and at g = 4
+                (q [2, 32, 128], 8 KV heads) with cache_len on an edge of
+                the kernel's split over S, one past it and the whole cache;
+                bf16 to two output ulps plus 2^-5 of the row's RMS, a check
+                shown to refuse planted faults (one KV tile of 64 skipped;
+                K7's middle chunk dropped).
                 CUDA-event medians of each kernel, its plain version and
                 ``F.scaled_dot_product_attention`` (timed only, never called
                 by the port), and of kernel and library at the repo's own
@@ -84,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -190,6 +196,25 @@ def device_busy(fn, calls: int) -> dict:
             "device_busy_ms": sum(by_name.values()) / calls if by_name else None,
             "device_ops_per_call": n_ops / calls,
             "top_kernels_ms_per_call": [[n[:70], ms / calls] for n, ms in top]}
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_decode_kernel<bf16, 80, 1>`` from a mangled entry-function
+    name: the kernel and its type and integer template arguments."""
+    for m in re.finditer(r"_kernelI", mangled):  # <length><name>I<args>E
+        end = m.start() + len("_kernel")
+        n = next((n for n in range(1, end) if mangled[:end - n].endswith(str(n))), 0)
+        name, rest = mangled[end - n:end], mangled[end:]
+        if n:
+            args, rest = [], rest[1:]
+            for tok, label in ((r"13__nv_bfloat16", "bf16"), (r"f", "f32"), (r"d", "f64"),
+                               (r"Li(\d+)E", None), (r"Lb([01])E", None)) * 4:
+                t = re.match(tok, rest)
+                if t:
+                    args.append(label or t.group(1))
+                    rest = rest[t.end():]
+            return f"{name}<{', '.join(args)}>"
+    return mangled
 
 
 def dtype_name(t: torch.Tensor) -> str:
@@ -316,7 +341,10 @@ def main() -> int:
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
     for name, r in report.items():  # nvcc -Xptxas -v: registers, spills, warnings
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "C75" in line:
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                log(f"  {name}: {kernel_name(entry.group(1))}")
+            elif "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
 
     # ------------------------------------------- main-path model and inputs
@@ -457,6 +485,25 @@ def main() -> int:
                      HK.scatter_update(base.clone(), rep_slots, rep_rows),
                      HREF.scatter_update_ref(base.clone(), rep_slots, rep_rows))
     del rep_rows
+    # Slots outside [0, C) mixed in, one write, bf16 rows, and a width of 17
+    # (rows of 68 or 34 bytes: the element-wise copy).
+    mixed = torch.randint(-64, 8192 + 64, (4096,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    one = torch.tensor([5000], dtype=torch.int32, device=dev)
+    f32_, bf16_ = torch.float32, torch.bfloat16
+    for sl, vdt, rdt, width in ((mixed, f32_, f32_, D), (mixed, bf16_, bf16_, D),
+                                (mixed, f32_, bf16_, D), (mixed, bf16_, f32_, D),
+                                (mixed, f32_, f32_, 17), (mixed, bf16_, f32_, 17),
+                                (mixed, f32_, bf16_, 17), (mixed, bf16_, bf16_, 17),
+                                (one, f32_, f32_, D), (one, bf16_, f32_, 17)):
+        base = torch.randn((8192, width), device=dev, generator=gen).to(vdt)
+        rows_x = torch.randn((sl.shape[0], width), device=dev, generator=gen).to(rdt)
+        what = "one write (K = 1)" if sl is one else "4096 writes, slots outside [0, C) mixed in"
+        assert_equal(f"K4 scatter_update {dtype_name(rows_x)} rows -> {dtype_name(base)} "
+                     f"values, D = {width}, 8192 slots, {what}",
+                     HK.scatter_update(base.clone(), sl, rows_x),
+                     HREF.scatter_update_ref(base.clone(), sl, rows_x))
+    del mixed, one, base, rows_x
     check_cache = T.HashCacheState(keys=torch.from_numpy(keys_np).to(dev), rows=values,
                                    freq=torch.from_numpy(freq_np).to(dev))
     occupied = int(check_cache.occupancy())
@@ -844,13 +891,25 @@ def main() -> int:
         del q, k, v
 
         n_path = LM_PROMPT + 1  # the first decode step's valid length
+        # K7 splits the positions into chunks (K7.plan_split): cache_len on a
+        # chunk boundary of the g = 4 case, one past it, and the whole cache.
+        g4_q = (2, 4 * LM_GQA_HEADS[1], LM_GQA_HEADS[2])
+        g4_c = (2, LM_CACHE, LM_GQA_HEADS[1], LM_GQA_HEADS[2])
+        g4_bounds = K7.chunk_bounds(LM_CACHE, K7.plan_split(LM_CACHE, 2, g4_c[2], 4))
+        edge = g4_bounds[len(g4_bounds) // 2]
         k7_cases = {
             "path bf16": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), bf16, n_path),
             "cache_len 1": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), bf16, 1),
             "path f32": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), f32, n_path),
             "gqa bf16": ((2, LM_GQA_HEADS[0], LM_GQA_HEADS[2]),
                          (2, LM_CACHE, LM_GQA_HEADS[1], LM_GQA_HEADS[2]), bf16, n_path),
+            "g4 chunk edge bf16": (g4_q, g4_c, bf16, edge),
+            "g4 chunk edge + 1 bf16": (g4_q, g4_c, bf16, edge + 1),
+            "g4 full cache bf16": (g4_q, g4_c, bf16, LM_CACHE),
+            "g4 chunk edge + 1 f32": (g4_q, g4_c, f32, edge + 1),
         }
+        log(f"  K7 chunks: {K7.plan_split(LM_CACHE, B, Hkv, Hq // Hkv)} at the path shape, "
+            f"{len(g4_bounds) - 1} at g = 4 (chunk edge {edge})")
         for label, (qs, cs, dt, n) in k7_cases.items():
             q, kc, vc = rnd(qs, dt), rnd(cs, dt), rnd(cs, dt)
             kc[:, n:] = float("nan")  # garbage past cache_len is never read
@@ -867,6 +926,15 @@ def main() -> int:
             if label == "path bf16":
                 assert_refused(f"K7 {label} with the last KV tile skipped",
                                ref.flash_decode_ref(q, kc, vc, n_t - LM_KV_TILE), want, *tol)
+                # A combine that drops the middle chunk of the split.
+                bnd = K7.chunk_bounds(cs[1], K7.plan_split(cs[1], cs[0], cs[2], qs[1] // cs[2]))
+                lo, hi = bnd[(len(bnd) - 1) // 2], bnd[(len(bnd) - 1) // 2 + 1]
+                keep = torch.cat([torch.arange(lo, device=dev),
+                                  torch.arange(hi, cs[1], device=dev)])
+                assert_refused(f"K7 {label} with chunk [{lo}, {hi}) dropped",
+                               ref.flash_decode_ref(q, kc[:, keep], vc[:, keep],
+                                                    n - (hi - lo)), want, *tol)
+                del keep
                 errs["flash_decode"] = err
                 timings["flash_decode"] = (
                     cuda_ms(lambda: K7.flash_decode(q, kc, vc, n_t), flush),

@@ -16,27 +16,40 @@
 // (B = 4, 32 heads, dh = 80, 4,097 positions) the rows are 168 MB: 50 us at
 // 3.35 TB/s.
 //
-// What the design does about it:
-//  * Rows are read with 16-byte loads: a segment of W lanes (W the power of
-//    two at or above dh * size / 16) reads one row, lane c its c-th 16 bytes;
-//    the segment's partial dots meet in a butterfly of shuffles.  A block of
-//    8 warps serves one (KV head, batch) and up to G of its query heads
-//    (grid z splits larger groups); its segments stride over positions, each
-//    with its own (m, l, acc) in registers, and each segment starts the K and
-//    V loads of 8 positions (2 for a group of 8 heads) before it uses any,
-//    so many rows are in flight.
-//    The segments' states meet at the end: a shuffle butterfly inside each
-//    warp, then shared memory across warps.
+// What the design does about it (flash-decoding, as the reference's
+// sequence-sharded decode combines its shards, src/repro/models/layers.py):
+//  * The positions split into n_split chunks, balanced (chunk i is
+//    [i S / n, (i + 1) S / n)), chosen by the wrapper (plan_split) so that
+//    the grid (Hkv, B, n_split x head chunks) puts several blocks on every
+//    SM even where B x Hkv is far below the card's 132 SMs.  A block serves
+//    one (KV head, batch, chunk) and up to G of the KV head's query heads.
+//  * Each block writes a partial (m, l, acc[dh]) per query head to an f32
+//    workspace.  The last block of a (batch, KV head, head chunk) to finish,
+//    found by an atomic ticket that it resets to 0, rescales and sums the
+//    partials in chunk order (deterministic, whichever block ends last) and
+//    writes out / max(l, 1e-30).  One chunk writes out directly.
+//  * Each of the 4 warps of a block streams its own tiles of rows through a
+//    4-stage cp.async ring in shared memory: the loads of three tiles are in
+//    flight while it computes one, and no register holds a row in flight.
+//    A copy is 16 bytes a lane over the tile's rows laid end to end, so no
+//    lane idles at dh 80 (10 chunks a row).
+//  * Compute reads the tile from shared memory: a segment of W lanes (the
+//    power of two at or above the row's 16-byte chunks) takes one row, lane
+//    c its c-th chunk; the segment's partial dots meet in a butterfly of
+//    shuffles, and each segment keeps its own (m, l, acc) in registers.  The
+//    segments of a warp, then the warps, meet at the end.
+//  * Grouped heads take G = 4 a block (q and acc of 4 heads in registers,
+//    about 120 registers at dh 128, so that several blocks fit an SM); more
+//    heads take more head chunks over the same rows, read through L2.
 //  * cache_len is read on the card from an int32 tensor: one build serves
-//    any fill level, and the decode loop never waits on the host.
+//    any fill level, and the decode loop never waits on the host.  A chunk
+//    that starts at or past it writes an empty partial (m = -inf, l = 0,
+//    acc = 0), which the combine weighs by 0.
 //  * Nothing at or past cache_len is read: those rows may hold anything,
-//    NaN included, and NaN * 0 is NaN.  A segment with no valid row yet keeps
-//    m = -inf and leaves l and acc at 0.
-//  * Any S and cache_len = 1 work (the Pallas kernel asserts S % bk == 0);
-//    offsets are 64-bit, since a whole [L, B, S, Hkv, dh] cache passes 2^31
+//    NaN included.  A tile's rows past it are zero-filled by the copy
+//    (cp.async with source size 0 reads nothing) and scored -inf.
+//  * Offsets are 64-bit, since a whole [L, B, S, Hkv, dh] cache passes 2^31
 //    elements and the per-layer slice starts far into it.
-//  * Later work: a split over S with a second combine pass, so that B * Hkv
-//    blocks below the card's 132 SMs still fill it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,8 +58,43 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;  // cp.async ring depth of each warp
+constexpr int kStageBytes = 2560;  // K + V bytes of one warp's tile, at most
+constexpr int kGroupHeads = 4;  // query heads a block serves when g > 1
+constexpr bool kCombineInLastBlock = true;  // else a second launch combines
+
+// The layout of one (dtype, head dim): 16-byte chunks of a row, the lanes
+// of a segment, the rows a warp computes at once, and the rows of a tile.
+template <typename T, int D>
+struct Tile {
+  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per chunk
+  static constexpr int kChunks = D / kVec;
+  static constexpr int kLanes = kChunks <= 8 ? 8 : kChunks <= 16 ? 16 : 32;
+  static constexpr int kSegs = 32 / kLanes;  // rows a warp computes at once
+  static constexpr int kRowBytes = D * (int)sizeof(T);
+  static constexpr int kFit = kStageBytes / (2 * kRowBytes) / kSegs * kSegs;
+  static constexpr int kRows = kFit > kSegs ? kFit : kSegs;  // rows a tile
+  static constexpr int kPasses = kRows / kSegs;  // rows a segment takes a tile
+  static constexpr int kRingBytes = kWarps * kStages * 2 * kRows * kRowBytes;
+  static_assert(kChunks * kVec == D && kChunks <= 32, "a row must fit one warp");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  // Source size 0 reads nothing and zero-fills the 16 bytes.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ void to_f32(const uint4& raw, float (&x)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -74,50 +122,76 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-// One block per (KV head, batch, chunk of G query heads).
+// Partials of query head h, chunk i: acc at ws[(h' * n_split + i) * D],
+// (m, l) at ws[B H n_split D + 2 (h' * n_split + i)], h' = b * H + h.
+template <typename T, int D>
+__device__ void combine(float* __restrict__ ws, T* __restrict__ out, long long bh0,
+                        int gc, int n_split, long long n_partials) {
+  const float* ml = ws + n_partials * D;
+  for (int t = threadIdx.x; t < gc * D; t += kThreads) {
+    const int j = t / D;
+    const int d = t - j * D;
+    const long long base = (bh0 + j) * n_split;
+    // Unrolled, so that 8 chunks' loads are in flight at once.
+    float mx = -INFINITY;
+#pragma unroll 8
+    for (int i = 0; i < n_split; ++i) mx = fmaxf(mx, __ldcg(ml + 2 * (base + i)));
+    float lsum = 0.f, o = 0.f;
+    if (mx != -INFINITY) {
+#pragma unroll 8
+      for (int i = 0; i < n_split; ++i) {  // in chunk order
+        const float mi = __ldcg(ml + 2 * (base + i));
+        const float f = mi == -INFINITY ? 0.f : __expf(mi - mx);  // 0 for an empty chunk
+        lsum = fmaf(__ldcg(ml + 2 * (base + i) + 1), f, lsum);
+        o = fmaf(__ldcg(ws + (base + i) * D + d), f, o);
+      }
+    }
+    store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+  }
+}
+
+// One block per (KV head, batch, chunk x head chunk of G query heads).
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ len_ptr,
-                        T* __restrict__ out, long long S, int H, int Hkv,
-                        int group, float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int C = D / VEC;  // chunks per row
-  constexpr int W = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : C <= 8 ? 8 : C <= 16 ? 16 : 32;
-  constexpr int R = 32 / W;  // segments (rows in flight) per warp
-  constexpr int NSEG = kWarps * R;
-  // Positions a segment loads before it computes: more rows in flight where
-  // one query head leaves registers free.
-  constexpr int kUnroll = G == 1 ? 8 : 2;
-  static_assert(C <= 32, "a row must fit one warp");
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+                        T* __restrict__ out, float* __restrict__ ws,
+                        int* __restrict__ tickets, long long S, int H, int Hkv,
+                        int group, int n_split, float scale) {
+  using L = Tile<T, D>;
+  constexpr int VEC = L::kVec, C = L::kChunks, W = L::kLanes, R = L::kSegs;
+  constexpr int ROWS = L::kRows, PASSES = L::kPasses;
+  constexpr int kCombineBytes = kWarps * G * (D + 2) * 4;
+  constexpr int kSmem = L::kRingBytes > kCombineBytes ? L::kRingBytes : kCombineBytes;
+  __shared__ __align__(16) unsigned char smem[kSmem];
+  __shared__ int sm_last;
 
   const int hk = blockIdx.x;
   const long long b = blockIdx.y;
-  const int j0 = blockIdx.z * G;
+  const int n_jc = (group + G - 1) / G;
+  const long long sp = blockIdx.z / n_jc;  // this block's chunk
+  const int jc = blockIdx.z - (int)sp * n_jc;
+  const int j0 = jc * G;
   const int gc = min(G, group - j0);  // query heads in this block
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int seg_in_warp = lane / W;
+  const int seg = lane / W;
   const int c = lane % W;  // this lane's 16-byte chunk of a row
   const bool active = c < C;
 
   long long len = *len_ptr;
   len = len < 0 ? 0 : (len > S ? S : len);
+  const long long p_begin = sp * S / n_split;
+  const long long p_end = min((sp + 1) * S / n_split, len);
+  const long long bh0 = b * H + (long long)hk * group + j0;  // first query head
 
   float qv[G][VEC];
-  const long long h0 = (long long)hk * group + j0;  // first query head
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     float tmp[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
-    if (j < gc && active) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(q + (b * H + h0 + j) * D + c * VEC);
-      to_f32(raw, tmp);
-    }
+    if (j < gc && active) to_f32(*reinterpret_cast<const uint4*>(q + (bh0 + j) * D + c * VEC), tmp);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qv[j][e] = tmp[e];
   }
@@ -131,65 +205,94 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
   }
 
-  const long long row_stride = (long long)Hkv * D;  // elements between positions
-  const T* kb = kc + (b * S * Hkv + hk) * D + c * VEC;
-  const T* vb = vc + (b * S * Hkv + hk) * D + c * VEC;
-  const long long seg = warp * R + seg_in_warp;
-  // The loop bound is the warp's first position, the same for all its
-  // lanes, so every shuffle below has the whole warp.
-  for (long long base = (long long)warp * R; base < len; base += (long long)NSEG * kUnroll) {
-    uint4 kraw[kUnroll], vraw[kUnroll];
-    bool valid[kUnroll];
+  if (p_begin < p_end) {  // the same for the whole block
+    const long long n_tiles = (p_end - p_begin + ROWS - 1) / ROWS;
+    const int n_it = n_tiles > warp ? (int)((n_tiles - warp + kWarps - 1) / kWarps) : 0;
+    uint4* ring = reinterpret_cast<uint4*>(smem) + warp * (kStages * 2 * ROWS * C);
+    const long long row_stride = (long long)Hkv * D;  // elements between positions
+    const T* kb = kc + (b * S * Hkv + hk) * D;
+    const T* vb = vc + (b * S * Hkv + hk) * D;
+    // Warp tile it covers positions r0 .. r0 + ROWS - 1, r0 = p_begin + (warp + it * kWarps) * ROWS.
+    auto load = [&](int it) {
+      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
+      uint4* st = ring + (it % kStages) * (2 * ROWS * C);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long p = base + (seg - warp * R) + (long long)u * NSEG;
-      valid[u] = p < len;
-      kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (valid[u] && active) {
-        kraw[u] = *reinterpret_cast<const uint4*>(kb + p * row_stride);
-        vraw[u] = *reinterpret_cast<const uint4*>(vb + p * row_stride);
+      for (int x0 = 0; x0 < ROWS * C; x0 += 32) {
+        const int x = x0 + lane;
+        if (x < ROWS * C) {
+          const int r = x / C;
+          const long long p = r0 + r;
+          const bool ok = p < p_end;
+          const long long off = ok ? p * row_stride + (x - r * C) * VEC : 0;
+          cp_async16(st + x, kb + off, ok);
+          cp_async16(st + ROWS * C + x, vb + off, ok);
+        }
       }
-    }
-    float s[kUnroll][G];
+    };
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kx[VEC];
-      to_f32(kraw[u], kx);
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_it) load(s);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_it; ++it) {
+      if (it + kStages - 1 < n_it) load(it + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();  // tile it has landed
+      __syncwarp();
+      const uint4* ks = ring + (it % kStages) * (2 * ROWS * C);
+      const uint4* vs = ks + ROWS * C;
+      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
+      float s[PASSES][G];
+      float vx[PASSES][VEC];
+      bool valid[PASSES];
+#pragma unroll
+      for (int u = 0; u < PASSES; ++u) {
+        const int r = u * R + seg;
+        valid[u] = r0 + r < p_end;
+        uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
+        if (active) {
+          kraw = ks[r * C + c];
+          vraw = vs[r * C + c];
+        }
+        float kx[VEC];
+        to_f32(kraw, kx);
+        to_f32(vraw, vx[u]);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) d = fmaf(qv[j][e], kx[e], d);
+#pragma unroll
+          for (int off = W / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+          s[u][j] = valid[u] ? d * scale : -INFINITY;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        float d = 0.f;
+        float mn = m[j];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) d = fmaf(qv[j][e], kx[e], d);
+        for (int u = 0; u < PASSES; ++u) mn = fmaxf(mn, s[u][j]);
+        if (mn == -INFINITY) continue;  // no valid row seen by this segment yet
+        const float alpha = __expf(m[j] - mn);  // 0 when m[j] is -inf
+        m[j] = mn;
+        l[j] *= alpha;
 #pragma unroll
-        for (int off = W / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-        s[u][j] = valid[u] ? d * scale : -INFINITY;
+        for (int e = 0; e < VEC; ++e) acc[j][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < PASSES; ++u) {
+          const float p = valid[u] ? __expf(s[u][j] - mn) : 0.f;
+          l[j] += p;  // l from the unrounded p, as the Pallas kernel
+          const float pr = round_to(p, q);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[j][e] = fmaf(pr, vx[u][e], acc[j][e]);
+        }
       }
-    }
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      float mn = m[j];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) mn = fmaxf(mn, s[u][j]);
-      if (mn == -INFINITY) continue;  // no valid row seen by this segment yet
-      const float alpha = __expf(m[j] - mn);  // 0 when m[j] is -inf
-      m[j] = mn;
-      l[j] *= alpha;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[j][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = valid[u] ? __expf(s[u][j] - mn) : 0.f;
-        l[j] += p;  // l from the unrounded p, as the Pallas kernel
-        const float pr = round_to(p, q);
-        float vx[VEC];
-        to_f32(vraw[u], vx);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[j][e] = fmaf(pr, vx[e], acc[j][e]);
-      }
+      __syncwarp();  // the stage is free for the load of tile it + kStages
     }
   }
+  cp_async_wait<0>();
 
-  // Combine the R segments of this warp (lanes W, 2W, ... apart).
+  // Combine the R segments of each warp (lanes W, 2W, ... apart).
 #pragma unroll
   for (int off = W; off < 32; off <<= 1) {
 #pragma unroll
@@ -208,71 +311,125 @@ __global__ void __launch_bounds__(kThreads)
       m[j] = mn;
     }
   }
+  __syncthreads();  // every warp is done with its ring: it becomes the scratch below
+  float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
+  float* sm_l = sm_m + kWarps * G;  // [kWarps][G]
+  float* sm_acc = sm_l + kWarps * G;  // [kWarps][G][D]
   if (lane < W) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (lane == 0) {
-        sm_m[warp][j] = m[j];
-        sm_l[warp][j] = l[j];
+        sm_m[warp * G + j] = m[j];
+        sm_l[warp * G + j] = l[j];
       }
       if (active) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) sm_acc[warp][j][c * VEC + e] = acc[j][e];
+        for (int e = 0; e < VEC; ++e) sm_acc[(warp * G + j) * D + c * VEC + e] = acc[j][e];
       }
     }
   }
   __syncthreads();
 
   // Combine the warps: one thread per (query head, head dim).
+  const long long n_partials = (long long)gridDim.y * H * n_split;
   for (int t = threadIdx.x; t < gc * D; t += kThreads) {
     const int j = t / D;
     const int d = t - j * D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][j]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + j]);
     float lsum = 0.f, o = 0.f;
     if (mx != -INFINITY) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        const float f = __expf(sm_m[w][j] - mx);  // 0 for a warp with no row
-        lsum = fmaf(sm_l[w][j], f, lsum);
-        o = fmaf(sm_acc[w][j][d], f, o);
+        const float f = __expf(sm_m[w * G + j] - mx);  // 0 for a warp with no row
+        lsum = fmaf(sm_l[w * G + j], f, lsum);
+        o = fmaf(sm_acc[(w * G + j) * D + d], f, o);
       }
     }
-    store(out + (b * H + h0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+    if (n_split == 1) {
+      store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+    } else {
+      const long long pi = (bh0 + j) * n_split + sp;
+      ws[pi * D + d] = o;
+      if (d == 0) {
+        ws[n_partials * D + 2 * pi] = mx;
+        ws[n_partials * D + 2 * pi + 1] = lsum;
+      }
+    }
   }
+  if (n_split == 1 || !kCombineInLastBlock) return;
+
+  // The last block of this (batch, KV head, head chunk) combines the chunks.
+  __threadfence();  // this block's partials are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ticket = tickets + ((long long)b * Hkv + hk) * n_jc + jc;
+    const bool last = atomicAdd(ticket, 1) == n_split - 1;
+    if (last) *ticket = 0;  // every block of the group has counted: ready for the next call
+    sm_last = last;
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  combine<T, D>(ws, out, bh0, gc, n_split, n_partials);
 }
 
 template <typename T, int D, int G>
-int launch(const void* q, const void* kc, const void* vc, const int* len,
-           void* out, long long B, long long S, int H, int Hkv, void* stream) {
+__global__ void __launch_bounds__(kThreads)
+    combine_kernel(float* __restrict__ ws, T* __restrict__ out, int H, int group,
+                   int n_split) {
+  const int j0 = blockIdx.z * G;
+  const long long bh0 = (long long)blockIdx.y * H + (long long)blockIdx.x * group + j0;
+  combine<T, D>(ws, out, bh0, min(G, group - j0), n_split,
+                (long long)gridDim.y * H * n_split);
+}
+
+template <typename T, int D, int G>
+int launch(const void* q, const void* kc, const void* vc, const int* len, void* out,
+           void* ws, void* tickets, long long B, long long S, int H, int Hkv,
+           int n_split, void* stream) {
   const int group = H / Hkv;
-  const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)((group + G - 1) / G));
+  const int n_jc = (group + G - 1) / G;
+  if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S ||
+      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)(n_split * n_jc));
   const float scale = 1.f / sqrtf((float)D);
-  flash_decode_kernel<T, D, G><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, len, (T*)out, S, H, Hkv, group, scale);
+  cudaStream_t st = (cudaStream_t)stream;
+  flash_decode_kernel<T, D, G><<<grid, kThreads, 0, st>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, len, (T*)out, (float*)ws, (int*)tickets,
+      S, H, Hkv, group, n_split, scale);
+  if (kCombineInLastBlock || n_split == 1) return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  combine_kernel<T, D, G><<<dim3((unsigned)Hkv, (unsigned)B, (unsigned)n_jc), kThreads, 0,
+                            st>>>((float*)ws, (T*)out, H, group, n_split);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int by_group(const void* q, const void* kc, const void* vc, const int* len,
-             void* out, long long B, long long S, int H, int Hkv, void* stream) {
-  if (H / Hkv == 1) return launch<T, D, 1>(q, kc, vc, len, out, B, S, H, Hkv, stream);
-  return launch<T, D, 8>(q, kc, vc, len, out, B, S, H, Hkv, stream);
+int by_group(const void* q, const void* kc, const void* vc, const int* len, void* out,
+             void* ws, void* tickets, long long B, long long S, int H, int Hkv,
+             int n_split, void* stream) {
+  if (H / Hkv == 1)
+    return launch<T, D, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+  return launch<T, D, kGroupHeads>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split,
+                                   stream);
 }
 
 template <typename T>
-int dispatch(const void* q, const void* kc, const void* vc, const void* len,
-             void* out, long long B, long long S, int H, int Hkv, int D,
-             void* stream) {
+int dispatch(const void* q, const void* kc, const void* vc, const void* len, void* out,
+             void* ws, void* tickets, long long B, long long S, int H, int Hkv, int D,
+             int n_split, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv || S <= 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv || S <= 0 || n_split < 1) return (int)cudaErrorInvalidValue;
   const int* n = (const int*)len;
   switch (D) {
-    case 64: return by_group<T, 64>(q, kc, vc, n, out, B, S, H, Hkv, stream);
-    case 80: return by_group<T, 80>(q, kc, vc, n, out, B, S, H, Hkv, stream);
-    case 96: return by_group<T, 96>(q, kc, vc, n, out, B, S, H, Hkv, stream);
-    case 128: return by_group<T, 128>(q, kc, vc, n, out, B, S, H, Hkv, stream);
+    case 64: return by_group<T, 64>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 80: return by_group<T, 80>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 96: return by_group<T, 96>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 128: return by_group<T, 128>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -282,18 +439,25 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* len,
 extern "C" {
 
 // q [B, H, D], k_cache and v_cache [B, S, Hkv, D], out [B, H, D], all
-// contiguous and of one dtype; cache_len a device int32 scalar.
-// D in {64, 80, 96, 128}.  Returns cudaGetLastError().
+// contiguous and of one dtype; cache_len a device int32 scalar; D in
+// {64, 80, 96, 128}.  n_split chunks of the positions (1 <= n_split <= S);
+// for n_split > 1, ws an f32 workspace of B H n_split (D + 2) elements and
+// tickets B H int32 zeros that the kernel leaves at zero.  Returns
+// cudaGetLastError().
 int flash_decode_bf16(const void* q, const void* kc, const void* vc,
-                      const void* cache_len, void* out, long long B, long long S,
-                      int H, int Hkv, int D, void* stream) {
-  return dispatch<__nv_bfloat16>(q, kc, vc, cache_len, out, B, S, H, Hkv, D, stream);
+                      const void* cache_len, void* out, void* ws, void* tickets,
+                      long long B, long long S, int H, int Hkv, int D, int n_split,
+                      void* stream) {
+  return dispatch<__nv_bfloat16>(q, kc, vc, cache_len, out, ws, tickets, B, S, H, Hkv, D,
+                                 n_split, stream);
 }
 
 int flash_decode_f32(const void* q, const void* kc, const void* vc,
-                     const void* cache_len, void* out, long long B, long long S,
-                     int H, int Hkv, int D, void* stream) {
-  return dispatch<float>(q, kc, vc, cache_len, out, B, S, H, Hkv, D, stream);
+                     const void* cache_len, void* out, void* ws, void* tickets,
+                     long long B, long long S, int H, int Hkv, int D, int n_split,
+                     void* stream) {
+  return dispatch<float>(q, kc, vc, cache_len, out, ws, tickets, B, S, H, Hkv, D, n_split,
+                         stream);
 }
 
 const char* flash_decode_error_string(int code) {

@@ -10,27 +10,41 @@
 //   values[slots[i], :] = cast(rows[i, :])   for the last i of each slot
 //
 // Blocks run in no order here, so the order is restored explicitly in two
-// passes over the K writes: a winner pass takes atomicMax(winner[slot], i)
-// into a [C] int32 scratch the wrapper fills with -1, and a copy pass writes
-// row i only where winner[slots[i]] == i.  Only one write per slot survives,
+// passes over the K writes: a winner pass takes a 64-bit atomicMax of
+// (tag << 32) | i into winner[slot], and a copy pass writes row i only where
+// winner[slots[i]] == (tag << 32) | i.  Only one write per slot survives,
 // so the copies never race and the result equals the sequential scatter.
-// Slots outside [0, C) are skipped.  The cast f32 -> bf16 rounds to nearest
-// even (__float2bfloat16_rn), as torch's and numpy's casts do.
+// The [C] scratch is never cleared: the wrapper keeps one per (device,
+// stream, C) and raises the tag by one every call, so a word left by an
+// earlier call carries a smaller tag and loses to any write of this one
+// (the wrapper zeroes the scratch when the 32-bit tag would wrap).  Slots
+// outside [0, C) are skipped.  The cast f32 -> bf16 rounds to nearest even
+// (__float2bfloat16_rn), as torch's and numpy's casts do.
 //
 // What bounds it on the card: bytes.  Each surviving row is read once and
 // written once (2 x D elements), plus the K slots; no arithmetic.
 //
-// What the design does about it: one warp copies one row, lanes on
-// consecutive elements, so each row moves as coalesced 128-byte runs; the
-// winner pass touches only the slots and the scratch (4 bytes a write).
+// What the design does about it:
+//  * No fill launch: the tag replaces clearing the scratch.
+//  * The copy pass works on (row, 16-byte chunk) items laid end to end over
+//    the threads, so a row of 64 f32 takes 16 lanes and no lane idles; each
+//    thread carries 4 items.  It issues the 4 slot loads and the 4 row loads
+//    together, then the 4 winner loads, then the stores: two dependent round
+//    trips to device memory per thread, with the row bytes already in flight
+//    during the first (a row is read before its winner check is known; a
+//    losing row costs bytes only where slots repeat).
+//  * Rows whose width is not a whole number of chunks, or tables not on
+//    16-byte boundaries, take the same pass one element an item.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kItems = 4;  // (row, chunk) items a thread of the copy pass carries
 
 template <typename To, typename From>
 __device__ __forceinline__ To cast(From v);
@@ -49,46 +63,116 @@ __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16, __nv_bfloat16>(__nv
   return v;
 }
 
+// N elements from p: 16-byte loads where N elements fill whole 16-byte words
+// (each row is read once: streamed past L1 and evicted first from L2).
+template <typename T, int N>
+__device__ __forceinline__ void load(const T* p, T (&x)[N]) {
+  if constexpr (sizeof(T) * N % 16 == 0) {
+#pragma unroll
+    for (int w = 0; w < (int)(sizeof(T) * N / 16); ++w) {
+      const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p) + w);
+      memcpy(&x[w * 16 / sizeof(T)], &v, 16);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) x[e] = p[e];
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store(T* p, const T (&x)[N]) {
+  if constexpr (sizeof(T) * N % 16 == 0) {
+#pragma unroll
+    for (int w = 0; w < (int)(sizeof(T) * N / 16); ++w) {
+      uint4 v;
+      memcpy(&v, &x[w * 16 / sizeof(T)], 16);
+      reinterpret_cast<uint4*>(p)[w] = v;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = x[e];
+  }
+}
+
 __global__ void winner_kernel(const int32_t* __restrict__ slots, int64_t k,
-                              int64_t num_slots, int32_t* __restrict__ winner) {
+                              int64_t num_slots, unsigned long long* __restrict__ winner,
+                              unsigned long long tag) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
   const int32_t s = __ldg(slots + i);
   if (s < 0 || s >= num_slots) return;
-  atomicMax(winner + s, (int32_t)i);
+  atomicMax(winner + s, (tag << 32) | (unsigned long long)i);
 }
 
-template <typename Tv, typename Tr>
-__global__ void copy_kernel(Tv* __restrict__ values,
-                            const int32_t* __restrict__ slots,
-                            const Tr* __restrict__ rows,
-                            const int32_t* __restrict__ winner, int64_t k,
-                            int64_t num_slots, int dim) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (i >= k) return;
-  const int32_t s = __ldg(slots + i);
-  if (s < 0 || s >= num_slots || __ldg(winner + s) != (int32_t)i) return;
-  Tv* dst = values + (int64_t)s * dim;
-  const Tr* src = rows + i * dim;
-  for (int d = lane; d < dim; d += 32) dst[d] = cast<Tv, Tr>(src[d]);
+// VEC elements an item: a row is `chunks` items of VEC elements.
+template <typename Tv, typename Tr, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    copy_kernel(Tv* __restrict__ values, const int32_t* __restrict__ slots,
+                const Tr* __restrict__ rows, const unsigned long long* __restrict__ winner,
+                int64_t k, int64_t num_slots, int chunks, unsigned long long tag) {
+  const int64_t n_items = k * chunks;
+  const int64_t dim = (int64_t)chunks * VEC;
+  const int64_t first = (int64_t)blockIdx.x * (kThreads * kItems) + threadIdx.x;
+  int64_t row[kItems];
+  int32_t slot[kItems];
+  int chunk[kItems];
+  bool live[kItems];
+  Tr data[kItems][VEC];
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int64_t item = first + (int64_t)u * kThreads;
+    live[u] = item < n_items;
+    row[u] = !live[u] ? 0 : n_items >> 32 ? item / chunks : (uint32_t)item / (uint32_t)chunks;
+    chunk[u] = (int)(item - row[u] * chunks);
+    slot[u] = -1;
+    if (live[u]) {
+      slot[u] = __ldg(slots + row[u]);
+      load(rows + row[u] * dim + (int64_t)chunk[u] * VEC, data[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    live[u] = live[u] && slot[u] >= 0 && slot[u] < num_slots &&
+              __ldg(winner + slot[u]) == ((tag << 32) | (unsigned long long)row[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    if (!live[u]) continue;
+    Tv x[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[e] = cast<Tv, Tr>(data[u][e]);
+    store(values + (int64_t)slot[u] * dim + (int64_t)chunk[u] * VEC, x);
+  }
+}
+
+template <typename Tv, typename Tr, int VEC>
+int copy(void* values, const void* slots, const void* rows, const void* winner,
+         long long k, long long num_slots, int chunks, unsigned long long tag,
+         cudaStream_t st) {
+  const long long per_block = (long long)kThreads * kItems;
+  const long long blocks = (k * chunks + per_block - 1) / per_block;
+  copy_kernel<Tv, Tr, VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (Tv*)values, (const int32_t*)slots, (const Tr*)rows,
+      (const unsigned long long*)winner, k, num_slots, chunks, tag);
+  return (int)cudaGetLastError();
 }
 
 template <typename Tv, typename Tr>
 int launch(void* values, const void* slots, const void* rows, void* winner,
-           long long k, long long num_slots, int dim, void* stream) {
+           long long k, long long num_slots, int dim, unsigned long long tag,
+           void* stream) {
   if (k <= 0) return 0;
+  if (tag == 0 || tag >> 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   winner_kernel<<<(unsigned)((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      (const int32_t*)slots, k, num_slots, (int32_t*)winner);
+      (const int32_t*)slots, k, num_slots, (unsigned long long*)winner, tag);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  const long long warps_per_block = kThreads / 32;
-  copy_kernel<Tv, Tr><<<(unsigned)((k + warps_per_block - 1) / warps_per_block),
-                        kThreads, 0, st>>>(
-      (Tv*)values, (const int32_t*)slots, (const Tr*)rows,
-      (const int32_t*)winner, k, num_slots, dim);
-  return (int)cudaGetLastError();
+  // 16 bytes of the narrower type an item, where rows and table allow it.
+  constexpr int VEC = 16 / (int)(sizeof(Tv) < sizeof(Tr) ? sizeof(Tv) : sizeof(Tr));
+  if (dim % VEC == 0 && (uintptr_t)values % 16 == 0 && (uintptr_t)rows % 16 == 0)
+    return copy<Tv, Tr, VEC>(values, slots, rows, winner, k, num_slots, dim / VEC, tag, st);
+  return copy<Tv, Tr, 1>(values, slots, rows, winner, k, num_slots, dim, tag, st);
 }
 
 }  // namespace
@@ -96,33 +180,34 @@ int launch(void* values, const void* slots, const void* rows, void* winner,
 extern "C" {
 
 // values [num_slots, dim] (updated in place), slots [k] int32, rows [k, dim],
-// winner [num_slots] int32 scratch filled with -1 by the caller.  The suffix
-// names the value type, then the row type.  Returns cudaGetLastError().
+// winner [num_slots] 64-bit scratch whose words all carry tags below `tag`
+// (zeros at first), 1 <= tag < 2^32.  The suffix names the value type, then
+// the row type.  Returns cudaGetLastError().
 int scatter_update_f32_f32(void* values, const void* slots, const void* rows,
                            void* winner, long long k, long long num_slots,
-                           int dim, void* stream) {
-  return launch<float, float>(values, slots, rows, winner, k, num_slots, dim, stream);
+                           int dim, unsigned long long tag, void* stream) {
+  return launch<float, float>(values, slots, rows, winner, k, num_slots, dim, tag, stream);
 }
 
 int scatter_update_bf16_f32(void* values, const void* slots, const void* rows,
                             void* winner, long long k, long long num_slots,
-                            int dim, void* stream) {
-  return launch<__nv_bfloat16, float>(values, slots, rows, winner, k, num_slots,
-                                      dim, stream);
+                            int dim, unsigned long long tag, void* stream) {
+  return launch<__nv_bfloat16, float>(values, slots, rows, winner, k, num_slots, dim, tag,
+                                      stream);
 }
 
 int scatter_update_f32_bf16(void* values, const void* slots, const void* rows,
                             void* winner, long long k, long long num_slots,
-                            int dim, void* stream) {
-  return launch<float, __nv_bfloat16>(values, slots, rows, winner, k, num_slots,
-                                      dim, stream);
+                            int dim, unsigned long long tag, void* stream) {
+  return launch<float, __nv_bfloat16>(values, slots, rows, winner, k, num_slots, dim, tag,
+                                      stream);
 }
 
 int scatter_update_bf16_bf16(void* values, const void* slots, const void* rows,
                              void* winner, long long k, long long num_slots,
-                             int dim, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(values, slots, rows, winner, k,
-                                              num_slots, dim, stream);
+                             int dim, unsigned long long tag, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(values, slots, rows, winner, k, num_slots,
+                                              dim, tag, stream);
 }
 
 const char* scatter_update_error_string(int code) {

@@ -25,7 +25,7 @@ _PROBE_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
 ]
 _PROBE_SYMBOLS = {dt: f"{PROBE}_{s}" for dt, s in _DTYPES.items()}
 _SCATTER_SYMBOLS = {
@@ -35,6 +35,11 @@ _SCATTER_SYMBOLS = {
 
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
 launches = {PROBE: 0, SCATTER: 0}
+
+# K4's winner scratch: one [C] int64 per (device, stream, C), never cleared
+# between calls; each call raises its tag by one (csrc/scatter_update.cu).
+MAX_TAG = 2**32 - 1
+_winners: dict[tuple, list] = {}  # key -> [scratch, last tag]
 
 
 def _check_same_device(name: str, ref_t: torch.Tensor, **tensors) -> None:
@@ -91,6 +96,24 @@ def probe_gather_pool(
     return pooled, miss
 
 
+def winner_scratch(device: torch.device, stream: int,
+                   num_slots: int) -> tuple[torch.Tensor, int]:
+    """(scratch, tag) for one K4 call on ``stream``: the scratch of (device,
+    stream, num_slots), made as zeros at first use, and a tag one above the
+    last call's.  Past ``MAX_TAG`` the scratch is zeroed (on the current
+    stream, before the launch) and the tags start again at 1."""
+    key = (device, stream, num_slots)
+    entry = _winners.get(key)
+    if entry is None:
+        entry = _winners[key] = [torch.zeros((num_slots,), dtype=torch.int64,
+                                             device=device), 0]
+    entry[1] += 1
+    if entry[1] > MAX_TAG:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
 def scatter_update(
     values: torch.Tensor,  # [C, D] f32 | bf16 cache rows, updated in place
     slots: torch.Tensor,  # [K] int32 target slots (duplicates: last write wins)
@@ -117,12 +140,13 @@ def scatter_update(
     if K >= 2**31:
         raise ValueError(f"{SCATTER}: at most 2^31 - 1 writes per launch, got {K}")
     C, D = values.shape
-    winner = torch.full((C,), -1, dtype=torch.int32, device=values.device)
     lib = build.load(SCATTER, {s: _SCATTER_ARGS for s in _SCATTER_SYMBOLS.values()})
     with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        winner, tag = winner_scratch(values.device, stream, C)
         code = getattr(lib, _SCATTER_SYMBOLS[key])(
             values.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-            winner.data_ptr(), K, C, D, torch.cuda.current_stream().cuda_stream,
+            winner.data_ptr(), K, C, D, tag, stream,
         )
     build.check(lib, SCATTER, code)
     launches[SCATTER] += 1

@@ -8,10 +8,17 @@ plain version (``ref.flash_decode_ref``).  The valid length is a device
 int32 tensor that the kernel reads itself (the TPU kernel's scalar
 prefetch), so a decode loop never waits on the host.  Unlike the TPU kernel
 it takes any S (no ``block_k``); head dims ``HEAD_DIMS`` only.
+
+The kernel splits the positions into chunks (``plan_split``, from the shapes
+alone, so the host never reads ``cache_len``); each block writes a partial
+(m, l, acc) to an f32 workspace and the last block of each group combines
+them, counted by int32 tickets that the kernel leaves at zero and that stay
+allocated per (device, stream).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,13 +26,52 @@ from repro_torch.kernels import build
 
 NAME = "flash_decode"
 HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations
-_ARGS = [ctypes.c_void_p] * 5 + [
+_ARGS = [ctypes.c_void_p] * 7 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _SYMBOLS = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf16"}
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+
+# The split over positions (the kernel's kGroupHeads is GROUP_HEADS).
+SMS = 132  # an H100's streaming multiprocessors
+TARGET_BLOCKS = 4 * SMS  # at least four blocks an SM, where S allows
+MIN_CHUNK = 128  # positions: no chunk shorter, unless S is
+MAX_CHUNK = 1024  # positions: longer caches take more chunks
+MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z = chunks x head chunks
+GROUP_HEADS = 4
+
+_tickets: dict[tuple, torch.Tensor] = {}  # (device, stream) -> int32 zeros
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split(S: int, B: int, Hkv: int, group: int) -> int:
+    """The number of chunks the kernel splits S positions into, for B
+    batches of Hkv KV heads of ``group`` query heads each: enough that the
+    grid reaches ``TARGET_BLOCKS`` blocks and no chunk passes ``MAX_CHUNK``,
+    as far as chunks of at least ``MIN_CHUNK`` and the grid's limit allow."""
+    head_chunks = 1 if group == 1 else -(-group // GROUP_HEADS)
+    want = max(-(-TARGET_BLOCKS // (B * Hkv * head_chunks)), -(-S // MAX_CHUNK))
+    return max(1, min(want, S // MIN_CHUNK, MAX_GRID_Z // head_chunks))
+
+
+def chunk_bounds(S: int, n_split: int) -> list[int]:
+    """Where the kernel's chunks start, and S: chunk i is
+    [i S // n_split, (i + 1) S // n_split)."""
+    return [i * S // n_split for i in range(n_split + 1)]
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n int32 zeros kept for (device, stream): the kernel leaves
+    them at zero, so they are zeroed once, when made or grown."""
+    key = (device, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -72,12 +118,20 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"{NAME}: q and the caches must start on 16-byte boundaries")
     B, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    n_split = plan_split(S, B, Hkv, H // Hkv)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = tickets = None
+        if n_split > 1:
+            ws = torch.empty((B * H * n_split * (dh + 2),), dtype=torch.float32,
+                             device=q.device)
+            tickets = _ticket_buffer(q.device, stream, B * H)
         code = getattr(lib, _SYMBOLS[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            out.data_ptr(), B, S, H, Hkv, dh, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            0 if tickets is None else tickets.data_ptr(), B, S, H, Hkv, dh, n_split, stream,
         )
     build.check(lib, NAME, code)
     launches += 1

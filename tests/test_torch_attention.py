@@ -153,6 +153,119 @@ def test_flash_decode_ignores_nan_past_cache_len(tdt, rng):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+# -------------------------------------------------- K7's split over S
+
+SPLIT_SHAPES = {  # (S, B, Hkv, group): the decode path, GQA, decode_32k
+    "path": (4128, 4, 32, 1), "gqa": (4128, 2, 8, 8), "decode_32k": (32768, 8, 32, 1),
+}
+
+
+def _blocks(S, B, Hkv, group):
+    head_chunks = 1 if group == 1 else -(-group // K7.GROUP_HEADS)
+    return K7.plan_split(S, B, Hkv, group) * B * Hkv * head_chunks, head_chunks
+
+
+@pytest.mark.parametrize("S,B,Hkv,group", [
+    *SPLIT_SHAPES.values(), (4128, 2, 8, 4), (1, 4, 32, 1), (100, 1, 1, 1), (129, 1, 1, 1),
+    (1037, 2, 4, 2), (2**31 - 1, 1, 1, 16),
+], ids=[*SPLIT_SHAPES, "g4", "S1", "S100", "S129", "ragged", "S2^31"])
+def test_plan_split_chunks_cover_the_cache(S, B, Hkv, group):
+    """The kernel's chunks cover [0, S) exactly, in order, none shorter than
+    MIN_CHUNK (or S), and the grid stays within CUDA's limit."""
+    n = K7.plan_split(S, B, Hkv, group)
+    bounds = K7.chunk_bounds(S, n)
+    assert bounds[0] == 0 and bounds[-1] == S and len(bounds) == n + 1
+    lengths = np.diff(bounds)
+    assert lengths.min() >= min(S, K7.MIN_CHUNK) and lengths.max() - lengths.min() <= 1
+    assert n * _blocks(S, B, Hkv, group)[1] <= K7.MAX_GRID_Z
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES.values(), ids=SPLIT_SHAPES.keys())
+def test_plan_split_fills_the_card(shape):
+    """At the path, GQA and 32k shapes the grid reaches TARGET_BLOCKS blocks
+    (at least four an SM) and no chunk passes MAX_CHUNK positions."""
+    S = shape[0]
+    assert _blocks(*shape)[0] >= K7.TARGET_BLOCKS
+    assert max(np.diff(K7.chunk_bounds(S, K7.plan_split(*shape)))) <= K7.MAX_CHUNK
+
+
+def test_plan_split_one_position_is_one_chunk():
+    assert K7.plan_split(1, 4, 32, 1) == 1 and K7.chunk_bounds(1, 1) == [0, 1]
+
+
+def _chunk_partials(q, k, v, cache_len, bounds):
+    """(m, l, acc) of each chunk [a, b) by the plain arithmetic of
+    ``layers.flash_decode_shard`` on the chunk's rows (rows at or past
+    cache_len masked out of the scores and the values)."""
+    B, S, Hkv, dh = k.shape
+    qr = q.float().reshape(B, Hkv, -1, dh)
+    parts = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        valid = torch.arange(a, b) < cache_len
+        kk = torch.where(valid[None, :, None, None], k[:, a:b], 0).float()
+        vv = torch.where(valid[None, :, None, None], v[:, a:b], 0).float()
+        scores = torch.einsum("bhgd,bshd->bhgs", qr, kk) / np.sqrt(dh)
+        scores = scores.masked_fill(~valid, float("-inf"))
+        local_max = scores.amax(-1)
+        safe_max = torch.where(torch.isfinite(local_max), local_max, 0.0)
+        probs = torch.where(valid, torch.exp(scores - safe_max[..., None]), 0.0)
+        o = torch.einsum("bhgs,bshd->bhgd", probs.to(v.dtype).float(), vv)
+        parts.append((local_max, probs.sum(-1), o))
+    return parts
+
+
+def _combine(parts, dtype):
+    """The chunks' partials combined, in chunk order, by the algebra of the
+    reference's sequence-sharded decode (src/repro/models/layers.py:209-219)."""
+    g_max = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_g = o_g = 0.0
+    for m, l_, o in parts:
+        f = torch.where(torch.isfinite(m), torch.exp(m - g_max), 0.0)
+        l_g = l_g + l_ * f
+        o_g = o_g + o * f[..., None]
+    out = o_g / torch.clamp_min(l_g[..., None], 1e-30)
+    return out.reshape(out.shape[0], -1, out.shape[-1]).to(dtype)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("where", ["1", "first-chunk", "chunk-edge", "edge+1", "S"])
+def test_chunk_partials_combine_to_the_reference(dtypes, where, rng):
+    """Partials over K7's chunks, combined as the sharded decode combines its
+    shards, match the plain version (NaN past cache_len) and the Pallas
+    kernel in interpret mode (finite rows past cache_len: it reads them)."""
+    jdt, tdt = dtypes
+    B, S, H, Hkv, dh = 2, 384, 8, 2, 80
+    bounds = K7.chunk_bounds(S, K7.plan_split(S, B, Hkv, H // Hkv))
+    assert len(bounds) > 2
+    n = {"1": 1, "first-chunk": bounds[1] // 2, "chunk-edge": bounds[1],
+         "edge+1": bounds[1] + 1, "S": S}[where]
+    q_j, q_t = _pair(rng.normal(size=(B, H, dh)), jdt, tdt)
+    k_j, k_t = _pair(rng.normal(size=(B, S, Hkv, dh)), jdt, tdt)
+    v_j, v_t = _pair(rng.normal(size=(B, S, Hkv, dh)), jdt, tdt)
+    want_pallas = jax_decode(q_j, k_j, v_j, jnp.asarray(n, jnp.int32), block_k=128,
+                             interpret=True)
+    k_t[:, n:] = float("nan")
+    v_t[:, n:] = float("nan")
+    got = _combine(_chunk_partials(q_t, k_t, v_t, n, bounds), tdt)
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref.flash_decode_ref(q_t, k_t, v_t, n).float().numpy(), _tol(tdt))
+    _close(got, want_pallas, _tol(tdt))
+
+
+def test_ticket_buffer_is_kept_per_device_and_stream(monkeypatch):
+    """K7's tickets: int32 zeros made once per (device, stream), grown (as
+    new zeros) when a launch needs more."""
+    monkeypatch.setattr(K7, "_tickets", {})
+    dev = torch.device("cpu")
+    a = K7._ticket_buffer(dev, 1, 10)
+    assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
+    assert K7._ticket_buffer(dev, 1, 10) is a and K7._ticket_buffer(dev, 1, 4) is a
+    assert K7._ticket_buffer(dev, 2, 10) is not a
+    big = K7._ticket_buffer(dev, 1, 100)
+    assert big is not a and big.numel() >= 100 and not big.any()
+    assert K7._ticket_buffer(dev, 1, 100) is big
+
+
 # ------------------------------------------------------- wrapper refusals
 
 

@@ -9,7 +9,9 @@ chip_smoke.py holds the CUDA kernels against those on the card.  Tolerances:
   * the cached lookup rtol 1e-5, atol 1e-6 (as tests/test_hotcache.py);
   * DLRM scores rtol 1e-4, atol 1e-5 (BLAS summation order).
 """
+import contextlib
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -247,6 +249,74 @@ def test_scatter_update_repeated_slots_last_write_wins(rng):
     got = HK.scatter_update(torch.from_numpy(vals.copy()), torch.from_numpy(slots),
                             torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_winner_scratch_is_kept_per_device_stream_and_size(monkeypatch):
+    """K4's winner scratch: int64 zeros made once per (device, stream, C);
+    every call on it takes the next tag."""
+    monkeypatch.setattr(HK, "_winners", {})
+    dev = torch.device("cpu")
+    a, t1 = HK.winner_scratch(dev, 7, 16)
+    b, t2 = HK.winner_scratch(dev, 7, 16)
+    assert a is b and (t1, t2) == (1, 2)
+    assert a.dtype == torch.int64 and a.shape == (16,) and not a.any()
+    other_stream, t = HK.winner_scratch(dev, 8, 16)
+    assert other_stream is not a and t == 1
+    other_size, t = HK.winner_scratch(dev, 7, 32)
+    assert other_size is not a and other_size.shape == (32,) and t == 1
+    assert HK.winner_scratch(dev, 7, 16) == (a, 3)
+
+
+def test_winner_scratch_is_zeroed_when_the_tag_wraps(monkeypatch):
+    monkeypatch.setattr(HK, "_winners", {})
+    dev = torch.device("cpu")
+    scratch, _ = HK.winner_scratch(dev, 0, 8)
+    scratch.fill_((2**31 - 1) << 32 | 5)  # words left by earlier calls
+    HK._winners[(dev, 0, 8)][1] = HK.MAX_TAG - 1
+    same, tag = HK.winner_scratch(dev, 0, 8)
+    assert same is scratch and tag == HK.MAX_TAG and scratch.all()
+    same, tag = HK.winner_scratch(dev, 0, 8)
+    assert same is scratch and tag == 1 and not scratch.any()
+
+
+class _FakeScatterLib:
+    """Stands in for libscatter_update: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, sym):
+        if not sym.startswith(HK.SCATTER):
+            raise AttributeError(sym)
+        return lambda *args: self.calls.append((sym, args)) or 0
+
+
+def test_scatter_update_passes_one_scratch_and_rising_tags(monkeypatch):
+    """The CUDA branch of the K4 wrapper, with the library and the CUDA
+    calls faked: no fill, the same scratch of the right size every call on
+    one stream, tags 1, 2, ..., and the launch counted."""
+    lib = _FakeScatterLib()
+    monkeypatch.setattr(HK, "_winners", {})
+    monkeypatch.setattr(HK, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "check", lambda lib_, name, code: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=1234))
+    monkeypatch.setattr(torch, "full", None)  # no fill: the wrapper must not call it
+    before = HK.launches[HK.SCATTER]
+    values = torch.zeros(64, 8)
+    slots = torch.tensor([3, 9, 3], dtype=torch.int32)
+    rows = torch.ones(3, 8, dtype=torch.bfloat16)
+    for _ in range(2):
+        assert HK.scatter_update(values, slots, rows) is values
+    (sym1, a1), (sym2, a2) = lib.calls
+    assert sym1 == sym2 == "scatter_update_f32_bf16"
+    scratch = HK._winners[(values.device, 1234, 64)][0]
+    assert a1[3] == a2[3] == scratch.data_ptr() and scratch.shape == (64,)
+    assert a1[4:] == (3, 64, 8, 1, 1234) and a2[4:] == (3, 64, 8, 2, 1234)
+    assert HK.launches[HK.SCATTER] == before + 2
+    HK.launches[HK.SCATTER] = before
 
 
 # ------------------------------------------------------- the cached lookup

@@ -16,7 +16,9 @@ NaN past cache_len; a seventh entry "f32" runs it in f32) or [C, D, K]
 table, as a hot-cache build writes them).
 Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
 replaced by ``new`` (each must occur); the committed source runs as the
-variant ``base``.  Every variant of every spec is built at once, one nvcc
+variant ``base``.  A variant may also set ``"attrs"``: attributes of the
+kernel's wrapper module (such as K7's ``MAX_CHUNK``) that hold while it is
+checked and timed.  Every variant of every spec is built at once, one nvcc
 each, with the flags of ``kernels/build.py``, into ``build/kernel_variants/``,
 and runs through the kernel's own wrapper (``build.use_library``).  At each
 case a variant with ``check`` (the default) is first held against the plain
@@ -57,6 +59,8 @@ from repro_torch.kernels import flash_attention as K6  # noqa: E402
 from repro_torch.kernels import flash_decode as K7  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
+WRAPPERS = {"flash_attention": K6, "dot_interaction": K2, "flash_decode": K7,
+            "scatter_update": HK}
 ROUNDS = 10  # pairs of rounds for each two variants
 PAUSE_S = 1.0
 
@@ -154,15 +158,30 @@ def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
     for case in spec["cases"]:
         call, check, library = setup(tag, kernel, case, gen)
 
-        def timed(so):
+        def as_variant(variant, so, fn):
+            """fn() with the variant's library and wrapper attributes."""
             build.use_library(kernel, so)
-            return CS.cuda_ms(call, flush)
+            mod = WRAPPERS[kernel]
+            attrs = variant.get("attrs", {})
+            saved = {a: getattr(mod, a) for a in attrs}
+            plan = getattr(mod, "plan_split", None)
+            try:
+                for a, val in attrs.items():
+                    setattr(mod, a, val)
+                if plan is not None:
+                    plan.cache_clear()
+                return fn()
+            finally:
+                for a, val in saved.items():
+                    setattr(mod, a, val)
+                if plan is not None:
+                    plan.cache_clear()
 
         for n, (variant, so) in libs.items():
             if variant.get("check", True):
-                build.use_library(kernel, so)
-                check(n)
-        fns = {n: (lambda so=so: timed(so)) for n, (_, so) in libs.items()}
+                as_variant(variant, so, lambda: check(n))
+        fns = {n: (lambda v=v, so=so: as_variant(v, so, lambda: CS.cuda_ms(call, flush)))
+               for n, (v, so) in libs.items()}
         fns["library"] = lambda: CS.cuda_ms(library, flush)
         times = {n: [] for n in fns}
         order = list(fns)
