@@ -63,7 +63,10 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;  // cp.async ring depth of each warp
 constexpr int kStageBytes = 2560;  // K + V bytes of one warp's tile, at most
 constexpr int kGroupHeads = 4;  // query heads a block serves when g > 1
-constexpr bool kCombineInLastBlock = true;  // else a second launch combines
+constexpr int kMaxSplit = 512;  // chunks at most (the combine's shared memory)
+constexpr int kHeadsPerBlock = 1;  // KV heads a block serves when g = 1, a warp each
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // The layout of one (dtype, head dim): 16-byte chunks of a row, the lanes
 // of a segment, the rows a warp computes at once, and the rows of a tile.
@@ -123,35 +126,64 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 // Partials of query head h, chunk i: acc at ws[(h' * n_split + i) * D],
-// (m, l) at ws[B H n_split D + 2 (h' * n_split + i)], h' = b * H + h.
-template <typename T, int D>
-__device__ void combine(float* __restrict__ ws, T* __restrict__ out, long long bh0,
-                        int gc, int n_split, long long n_partials) {
+// (m, l) at ws[B H n_split D + 2 (h' * n_split + i)], h' = b * H + h.  The
+// last block of a group combines its gc heads: every (m, l) into shared
+// memory at once, per head the max and the weights exp(m_i - max) (0 for an
+// empty chunk) and l summed in chunk order, then out = sum over chunks, in
+// order, of acc_i w_i, over max(l, 1e-30), with the loads of 4 chunks in
+// flight at a time.
+template <typename T, int D, int G>
+__device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long long bh0,
+                        int gc, int n_split, long long n_partials, float* sm) {
   const float* ml = ws + n_partials * D;
-  for (int t = threadIdx.x; t < gc * D; t += kThreads) {
-    const int j = t / D;
-    const int d = t - j * D;
-    const long long base = (bh0 + j) * n_split;
-    // Unrolled, so that 8 chunks' loads are in flight at once.
+  float* sm_w = sm;  // [gc][n_split]: m, then the weights
+  float* sm_l = sm + G * kMaxSplit;  // [gc][n_split]
+  float* sm_sum = sm_l + G * kMaxSplit;  // [gc]
+  for (int t = threadIdx.x; t < gc * n_split; t += kThreads) {
+    sm_w[t] = __ldcg(ml + 2 * (bh0 * n_split + t));
+    sm_l[t] = __ldcg(ml + 2 * (bh0 * n_split + t) + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < gc) {
+    float* w = sm_w + threadIdx.x * n_split;
+    const float* lp = sm_l + threadIdx.x * n_split;
     float mx = -INFINITY;
-#pragma unroll 8
-    for (int i = 0; i < n_split; ++i) mx = fmaxf(mx, __ldcg(ml + 2 * (base + i)));
-    float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll 8
-      for (int i = 0; i < n_split; ++i) {  // in chunk order
-        const float mi = __ldcg(ml + 2 * (base + i));
-        const float f = mi == -INFINITY ? 0.f : __expf(mi - mx);  // 0 for an empty chunk
-        lsum = fmaf(__ldcg(ml + 2 * (base + i) + 1), f, lsum);
-        o = fmaf(__ldcg(ws + (base + i) * D + d), f, o);
-      }
+    for (int i = 0; i < n_split; ++i) mx = fmaxf(mx, w[i]);
+    float lsum = 0.f;
+    for (int i = 0; i < n_split; ++i) {
+      w[i] = w[i] == -INFINITY ? 0.f : __expf(w[i] - mx);
+      lsum = fmaf(lp[i], w[i], lsum);
     }
-    store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+    sm_sum[threadIdx.x] = lsum;
+  }
+  __syncthreads();
+  constexpr int P = (G * D + kThreads - 1) / kThreads;  // (head, dim) pairs a thread
+  float o[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) o[p] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < n_split; ++i) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int t = threadIdx.x + p * kThreads;
+      const int j = t / D;
+      if (t < gc * D)
+        o[p] = fmaf(__ldcg(ws + ((bh0 + j) * n_split + i) * D + (t - j * D)),
+                    sm_w[j * n_split + i], o[p]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int t = threadIdx.x + p * kThreads;
+    const int j = t / D;
+    if (t < gc * D) store(out + bh0 * D + t, o[p] / fmaxf(sm_sum[j], 1e-30f));
   }
 }
 
-// One block per (KV head, batch, chunk x head chunk of G query heads).
-template <typename T, int D, int G>
+// One block per (KV head, batch, chunk x head chunk of G query heads), or
+// with HPB > 1 (g = 1 only) per (HPB KV heads, batch, chunk), warp w on head
+// HPB x + w, all warps on the same tiles.
+template <typename T, int D, int G, int HPB>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ len_ptr,
@@ -161,19 +193,22 @@ __global__ void __launch_bounds__(kThreads)
   using L = Tile<T, D>;
   constexpr int VEC = L::kVec, C = L::kChunks, W = L::kLanes, R = L::kSegs;
   constexpr int ROWS = L::kRows, PASSES = L::kPasses;
-  constexpr int kCombineBytes = kWarps * G * (D + 2) * 4;
-  constexpr int kSmem = L::kRingBytes > kCombineBytes ? L::kRingBytes : kCombineBytes;
+  static_assert(HPB == 1 || (G == 1 && HPB == kWarps), "a warp a head, g = 1 only");
+  constexpr int NH = G * HPB;  // query heads a block serves
+  constexpr int kWarpSumBytes = kWarps * G * (D + 2) * 4;
+  constexpr int kCombineBytes = (2 * NH * kMaxSplit + NH) * 4;
+  constexpr int kSmem = cmax(L::kRingBytes, cmax(kWarpSumBytes, kCombineBytes));
   __shared__ __align__(16) unsigned char smem[kSmem];
   __shared__ int sm_last;
 
-  const int hk = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int hk = blockIdx.x * HPB + (HPB > 1 ? warp : 0);  // this warp's KV head
   const long long b = blockIdx.y;
   const int n_jc = (group + G - 1) / G;
   const long long sp = blockIdx.z / n_jc;  // this block's chunk
   const int jc = blockIdx.z - (int)sp * n_jc;
   const int j0 = jc * G;
-  const int gc = min(G, group - j0);  // query heads in this block
-  const int warp = threadIdx.x >> 5;
+  const int gc = min(G, group - j0);  // query heads of this KV head in this block
   const int lane = threadIdx.x & 31;
   const int seg = lane / W;
   const int c = lane % W;  // this lane's 16-byte chunk of a row
@@ -183,7 +218,11 @@ __global__ void __launch_bounds__(kThreads)
   len = len < 0 ? 0 : (len > S ? S : len);
   const long long p_begin = sp * S / n_split;
   const long long p_end = min((sp + 1) * S / n_split, len);
-  const long long bh0 = b * H + (long long)hk * group + j0;  // first query head
+  const long long bh0 = b * H + (long long)hk * group + j0;  // this warp's first query head
+  // Warp tiles: it = 0, 1, ... covers positions r0 .. r0 + ROWS - 1 from
+  // r0 = p_begin + (first + it * stride) * ROWS.
+  constexpr int stride = HPB > 1 ? 1 : kWarps;
+  const int first = HPB > 1 ? 0 : warp;
 
   float qv[G][VEC];
 #pragma unroll
@@ -207,14 +246,13 @@ __global__ void __launch_bounds__(kThreads)
 
   if (p_begin < p_end) {  // the same for the whole block
     const long long n_tiles = (p_end - p_begin + ROWS - 1) / ROWS;
-    const int n_it = n_tiles > warp ? (int)((n_tiles - warp + kWarps - 1) / kWarps) : 0;
+    const int n_it = n_tiles > first ? (int)((n_tiles - first + stride - 1) / stride) : 0;
     uint4* ring = reinterpret_cast<uint4*>(smem) + warp * (kStages * 2 * ROWS * C);
     const long long row_stride = (long long)Hkv * D;  // elements between positions
     const T* kb = kc + (b * S * Hkv + hk) * D;
     const T* vb = vc + (b * S * Hkv + hk) * D;
-    // Warp tile it covers positions r0 .. r0 + ROWS - 1, r0 = p_begin + (warp + it * kWarps) * ROWS.
     auto load = [&](int it) {
-      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
+      const long long r0 = p_begin + (first + (long long)it * stride) * ROWS;
       uint4* st = ring + (it % kStages) * (2 * ROWS * C);
 #pragma unroll
       for (int x0 = 0; x0 < ROWS * C; x0 += 32) {
@@ -241,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
       const uint4* ks = ring + (it % kStages) * (2 * ROWS * C);
       const uint4* vs = ks + ROWS * C;
-      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
+      const long long r0 = p_begin + (first + (long long)it * stride) * ROWS;
       float s[PASSES][G];
       float vx[PASSES][VEC];
       bool valid[PASSES];
@@ -311,6 +349,24 @@ __global__ void __launch_bounds__(kThreads)
       m[j] = mn;
     }
   }
+  const long long n_partials = (long long)gridDim.y * H * n_split;
+  if (HPB > 1) {  // each warp holds its own head's state: write it
+    if (lane < W && active) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (n_split == 1) {
+          store(out + bh0 * D + c * VEC + e, acc[0][e] / fmaxf(l[0], 1e-30f));
+        } else {
+          const long long pi = bh0 * n_split + sp;
+          ws[pi * D + c * VEC + e] = acc[0][e];
+          if (lane == 0 && e == 0) {
+            ws[n_partials * D + 2 * pi] = m[0];
+            ws[n_partials * D + 2 * pi + 1] = l[0];
+          }
+        }
+      }
+    }
+  } else {
   __syncthreads();  // every warp is done with its ring: it becomes the scratch below
   float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
   float* sm_l = sm_m + kWarps * G;  // [kWarps][G]
@@ -331,7 +387,6 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // Combine the warps: one thread per (query head, head dim).
-  const long long n_partials = (long long)gridDim.y * H * n_split;
   for (int t = threadIdx.x; t < gc * D; t += kThreads) {
     const int j = t / D;
     const int d = t - j * D;
@@ -358,13 +413,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  if (n_split == 1 || !kCombineInLastBlock) return;
+  }
+  if (n_split == 1) return;
 
-  // The last block of this (batch, KV head, head chunk) combines the chunks.
+  // The last block of this (batch, KV head(s), head chunk) combines the chunks.
   __threadfence();  // this block's partials are visible before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    int* ticket = tickets + ((long long)b * Hkv + hk) * n_jc + jc;
+    int* ticket = tickets + ((long long)b * gridDim.x + blockIdx.x) * n_jc + jc;
     const bool last = atomicAdd(ticket, 1) == n_split - 1;
     if (last) *ticket = 0;  // every block of the group has counted: ready for the next call
     sm_last = last;
@@ -372,39 +428,26 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  combine<T, D>(ws, out, bh0, gc, n_split, n_partials);
+  // With HPB > 1 the block's heads are HPB consecutive query heads from warp 0's.
+  combine<T, D, NH>(ws, out, HPB > 1 ? b * H + (long long)blockIdx.x * HPB : bh0,
+                    HPB > 1 ? HPB : gc, n_split, n_partials, reinterpret_cast<float*>(smem));
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(float* __restrict__ ws, T* __restrict__ out, int H, int group,
-                   int n_split) {
-  const int j0 = blockIdx.z * G;
-  const long long bh0 = (long long)blockIdx.y * H + (long long)blockIdx.x * group + j0;
-  combine<T, D>(ws, out, bh0, min(G, group - j0), n_split,
-                (long long)gridDim.y * H * n_split);
-}
-
-template <typename T, int D, int G>
+template <typename T, int D, int G, int HPB>
 int launch(const void* q, const void* kc, const void* vc, const int* len, void* out,
            void* ws, void* tickets, long long B, long long S, int H, int Hkv,
            int n_split, void* stream) {
   const int group = H / Hkv;
   const int n_jc = (group + G - 1) / G;
-  if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S ||
+  if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S || n_split > kMaxSplit ||
       (n_split > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)(n_split * n_jc));
+  const dim3 grid((unsigned)(Hkv / HPB), (unsigned)B, (unsigned)(n_split * n_jc));
   const float scale = 1.f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
-  flash_decode_kernel<T, D, G><<<grid, kThreads, 0, st>>>(
+  flash_decode_kernel<T, D, G, HPB><<<grid, kThreads, 0, st>>>(
       (const T*)q, (const T*)kc, (const T*)vc, len, (T*)out, (float*)ws, (int*)tickets,
       S, H, Hkv, group, n_split, scale);
-  if (kCombineInLastBlock || n_split == 1) return (int)cudaGetLastError();
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  combine_kernel<T, D, G><<<dim3((unsigned)Hkv, (unsigned)B, (unsigned)n_jc), kThreads, 0,
-                            st>>>((float*)ws, (T*)out, H, group, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -412,10 +455,13 @@ template <typename T, int D>
 int by_group(const void* q, const void* kc, const void* vc, const int* len, void* out,
              void* ws, void* tickets, long long B, long long S, int H, int Hkv,
              int n_split, void* stream) {
-  if (H / Hkv == 1)
-    return launch<T, D, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-  return launch<T, D, kGroupHeads>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split,
-                                   stream);
+  if (H / Hkv > 1)
+    return launch<T, D, kGroupHeads, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv,
+                                        n_split, stream);
+  if (kHeadsPerBlock > 1 && Hkv % kHeadsPerBlock == 0)
+    return launch<T, D, 1, kHeadsPerBlock>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv,
+                                           n_split, stream);
+  return launch<T, D, 1, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
 }
 
 template <typename T>

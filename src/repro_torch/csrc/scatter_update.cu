@@ -10,22 +10,23 @@
 //   values[slots[i], :] = cast(rows[i, :])   for the last i of each slot
 //
 // Blocks run in no order here, so the order is restored explicitly in two
-// passes over the K writes: a winner pass takes a 64-bit atomicMax of
-// (tag << 32) | i into winner[slot], and a copy pass writes row i only where
-// winner[slots[i]] == (tag << 32) | i.  Only one write per slot survives,
-// so the copies never race and the result equals the sequential scatter.
-// The [C] scratch is never cleared: the wrapper keeps one per (device,
-// stream, C) and raises the tag by one every call, so a word left by an
-// earlier call carries a smaller tag and loses to any write of this one
-// (the wrapper zeroes the scratch when the 32-bit tag would wrap).  Slots
-// outside [0, C) are skipped.  The cast f32 -> bf16 rounds to nearest even
+// passes over the K writes: a winner pass takes a 32-bit atomicMax of
+// base + i into winner[slot], and a copy pass writes row i only where
+// winner[slots[i]] == base + i.  Only one write per slot survives, so the
+// copies never race and the result equals the sequential scatter.  The [C]
+// scratch is never cleared: the wrapper keeps one per (device, stream, C)
+// and moves base past the words of every earlier call on it (base rises by
+// K a call, from 1 over a scratch of zeros), so a word left by an earlier
+// call is below base and loses to any write of this one; the wrapper zeroes
+// the scratch and starts again at 1 where base + K - 1 would pass 2^32 - 1.
+// Slots outside [0, C) are skipped.  The cast f32 -> bf16 rounds to nearest even
 // (__float2bfloat16_rn), as torch's and numpy's casts do.
 //
 // What bounds it on the card: bytes.  Each surviving row is read once and
 // written once (2 x D elements), plus the K slots; no arithmetic.
 //
 // What the design does about it:
-//  * No fill launch: the tag replaces clearing the scratch.
+//  * No fill launch: the moving base replaces clearing the scratch.
 //  * The copy pass works on (row, 16-byte chunk) items laid end to end over
 //    the threads, so a row of 64 f32 takes 16 lanes and no lane idles; each
 //    thread carries 4 items.  It issues the 4 slot loads and the 4 row loads
@@ -95,21 +96,21 @@ __device__ __forceinline__ void store(T* p, const T (&x)[N]) {
 }
 
 __global__ void winner_kernel(const int32_t* __restrict__ slots, int64_t k,
-                              int64_t num_slots, unsigned long long* __restrict__ winner,
-                              unsigned long long tag) {
+                              int64_t num_slots, unsigned int* __restrict__ winner,
+                              unsigned int base) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
   const int32_t s = __ldg(slots + i);
   if (s < 0 || s >= num_slots) return;
-  atomicMax(winner + s, (tag << 32) | (unsigned long long)i);
+  atomicMax(winner + s, base + (unsigned int)i);
 }
 
 // VEC elements an item: a row is `chunks` items of VEC elements.
 template <typename Tv, typename Tr, int VEC>
 __global__ void __launch_bounds__(kThreads)
     copy_kernel(Tv* __restrict__ values, const int32_t* __restrict__ slots,
-                const Tr* __restrict__ rows, const unsigned long long* __restrict__ winner,
-                int64_t k, int64_t num_slots, int chunks, unsigned long long tag) {
+                const Tr* __restrict__ rows, const unsigned int* __restrict__ winner,
+                int64_t k, int64_t num_slots, int chunks, unsigned int base) {
   const int64_t n_items = k * chunks;
   const int64_t dim = (int64_t)chunks * VEC;
   const int64_t first = (int64_t)blockIdx.x * (kThreads * kItems) + threadIdx.x;
@@ -133,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int u = 0; u < kItems; ++u) {
     live[u] = live[u] && slot[u] >= 0 && slot[u] < num_slots &&
-              __ldg(winner + slot[u]) == ((tag << 32) | (unsigned long long)row[u]);
+              __ldg(winner + slot[u]) == base + (unsigned int)row[u];
   }
 #pragma unroll
   for (int u = 0; u < kItems; ++u) {
@@ -147,32 +148,31 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename Tv, typename Tr, int VEC>
 int copy(void* values, const void* slots, const void* rows, const void* winner,
-         long long k, long long num_slots, int chunks, unsigned long long tag,
-         cudaStream_t st) {
+         long long k, long long num_slots, int chunks, unsigned int base, cudaStream_t st) {
   const long long per_block = (long long)kThreads * kItems;
   const long long blocks = (k * chunks + per_block - 1) / per_block;
   copy_kernel<Tv, Tr, VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
       (Tv*)values, (const int32_t*)slots, (const Tr*)rows,
-      (const unsigned long long*)winner, k, num_slots, chunks, tag);
+      (const unsigned int*)winner, k, num_slots, chunks, base);
   return (int)cudaGetLastError();
 }
 
 template <typename Tv, typename Tr>
 int launch(void* values, const void* slots, const void* rows, void* winner,
-           long long k, long long num_slots, int dim, unsigned long long tag,
-           void* stream) {
+           long long k, long long num_slots, int dim, unsigned int base, void* stream) {
   if (k <= 0) return 0;
-  if (tag == 0 || tag >> 32) return (int)cudaErrorInvalidValue;
+  if (base == 0 || base - 1 + (unsigned long long)k > 0xffffffffull)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   winner_kernel<<<(unsigned)((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      (const int32_t*)slots, k, num_slots, (unsigned long long*)winner, tag);
+      (const int32_t*)slots, k, num_slots, (unsigned int*)winner, base);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   // 16 bytes of the narrower type an item, where rows and table allow it.
   constexpr int VEC = 16 / (int)(sizeof(Tv) < sizeof(Tr) ? sizeof(Tv) : sizeof(Tr));
   if (dim % VEC == 0 && (uintptr_t)values % 16 == 0 && (uintptr_t)rows % 16 == 0)
-    return copy<Tv, Tr, VEC>(values, slots, rows, winner, k, num_slots, dim / VEC, tag, st);
-  return copy<Tv, Tr, 1>(values, slots, rows, winner, k, num_slots, dim, tag, st);
+    return copy<Tv, Tr, VEC>(values, slots, rows, winner, k, num_slots, dim / VEC, base, st);
+  return copy<Tv, Tr, 1>(values, slots, rows, winner, k, num_slots, dim, base, st);
 }
 
 }  // namespace
@@ -180,34 +180,34 @@ int launch(void* values, const void* slots, const void* rows, void* winner,
 extern "C" {
 
 // values [num_slots, dim] (updated in place), slots [k] int32, rows [k, dim],
-// winner [num_slots] 64-bit scratch whose words all carry tags below `tag`
-// (zeros at first), 1 <= tag < 2^32.  The suffix names the value type, then
-// the row type.  Returns cudaGetLastError().
+// winner [num_slots] 32-bit scratch whose words all lie below `base` (zeros
+// at first), 1 <= base and base + k - 1 < 2^32.  The suffix names the value
+// type, then the row type.  Returns cudaGetLastError().
 int scatter_update_f32_f32(void* values, const void* slots, const void* rows,
                            void* winner, long long k, long long num_slots,
-                           int dim, unsigned long long tag, void* stream) {
-  return launch<float, float>(values, slots, rows, winner, k, num_slots, dim, tag, stream);
+                           int dim, unsigned int base, void* stream) {
+  return launch<float, float>(values, slots, rows, winner, k, num_slots, dim, base, stream);
 }
 
 int scatter_update_bf16_f32(void* values, const void* slots, const void* rows,
                             void* winner, long long k, long long num_slots,
-                            int dim, unsigned long long tag, void* stream) {
-  return launch<__nv_bfloat16, float>(values, slots, rows, winner, k, num_slots, dim, tag,
+                            int dim, unsigned int base, void* stream) {
+  return launch<__nv_bfloat16, float>(values, slots, rows, winner, k, num_slots, dim, base,
                                       stream);
 }
 
 int scatter_update_f32_bf16(void* values, const void* slots, const void* rows,
                             void* winner, long long k, long long num_slots,
-                            int dim, unsigned long long tag, void* stream) {
-  return launch<float, __nv_bfloat16>(values, slots, rows, winner, k, num_slots, dim, tag,
+                            int dim, unsigned int base, void* stream) {
+  return launch<float, __nv_bfloat16>(values, slots, rows, winner, k, num_slots, dim, base,
                                       stream);
 }
 
 int scatter_update_bf16_bf16(void* values, const void* slots, const void* rows,
                              void* winner, long long k, long long num_slots,
-                             int dim, unsigned long long tag, void* stream) {
+                             int dim, unsigned int base, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(values, slots, rows, winner, k, num_slots,
-                                              dim, tag, stream);
+                                              dim, base, stream);
 }
 
 const char* scatter_update_error_string(int code) {

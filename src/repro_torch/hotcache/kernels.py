@@ -25,7 +25,7 @@ _PROBE_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
 ]
 _PROBE_SYMBOLS = {dt: f"{PROBE}_{s}" for dt, s in _DTYPES.items()}
 _SCATTER_SYMBOLS = {
@@ -36,10 +36,11 @@ _SCATTER_SYMBOLS = {
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
 launches = {PROBE: 0, SCATTER: 0}
 
-# K4's winner scratch: one [C] int64 per (device, stream, C), never cleared
-# between calls; each call raises its tag by one (csrc/scatter_update.cu).
-MAX_TAG = 2**32 - 1
-_winners: dict[tuple, list] = {}  # key -> [scratch, last tag]
+# K4's winner scratch: one [C] 32-bit word per slot and (device, stream, C),
+# never cleared between calls: each call's words lie above every earlier
+# call's (csrc/scatter_update.cu).
+MAX_WORD = 2**32 - 1
+_winners: dict[tuple, list] = {}  # key -> [scratch, the next call's base]
 
 
 def _check_same_device(name: str, ref_t: torch.Tensor, **tensors) -> None:
@@ -96,22 +97,25 @@ def probe_gather_pool(
     return pooled, miss
 
 
-def winner_scratch(device: torch.device, stream: int,
-                   num_slots: int) -> tuple[torch.Tensor, int]:
-    """(scratch, tag) for one K4 call on ``stream``: the scratch of (device,
-    stream, num_slots), made as zeros at first use, and a tag one above the
-    last call's.  Past ``MAX_TAG`` the scratch is zeroed (on the current
-    stream, before the launch) and the tags start again at 1."""
+def winner_scratch(device: torch.device, stream: int, num_slots: int,
+                   writes: int) -> tuple[torch.Tensor, int]:
+    """(scratch, base) for one K4 call of ``writes`` writes on ``stream``:
+    the int32 scratch of (device, stream, num_slots), made as zeros at first
+    use, and the base of this call's words base .. base + writes - 1, which
+    starts at 1 and rises by the writes of every call.  Where the words
+    would pass ``MAX_WORD`` (as unsigned 32-bit), the scratch is zeroed (on
+    the current stream, before the launch) and base starts again at 1."""
     key = (device, stream, num_slots)
     entry = _winners.get(key)
     if entry is None:
-        entry = _winners[key] = [torch.zeros((num_slots,), dtype=torch.int64,
-                                             device=device), 0]
-    entry[1] += 1
-    if entry[1] > MAX_TAG:
+        entry = _winners[key] = [torch.zeros((num_slots,), dtype=torch.int32,
+                                             device=device), 1]
+    if entry[1] + writes - 1 > MAX_WORD:
         entry[0].zero_()
         entry[1] = 1
-    return entry[0], entry[1]
+    base = entry[1]
+    entry[1] += writes
+    return entry[0], base
 
 
 def scatter_update(
@@ -143,10 +147,10 @@ def scatter_update(
     lib = build.load(SCATTER, {s: _SCATTER_ARGS for s in _SCATTER_SYMBOLS.values()})
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        winner, tag = winner_scratch(values.device, stream, C)
+        winner, base = winner_scratch(values.device, stream, C, K)
         code = getattr(lib, _SCATTER_SYMBOLS[key])(
             values.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-            winner.data_ptr(), K, C, D, tag, stream,
+            winner.data_ptr(), K, C, D, base, stream,
         )
     build.check(lib, SCATTER, code)
     launches[SCATTER] += 1

@@ -39,8 +39,10 @@ SMS = 132  # an H100's streaming multiprocessors
 TARGET_BLOCKS = 4 * SMS  # at least four blocks an SM, where S allows
 MIN_CHUNK = 128  # positions: no chunk shorter, unless S is
 MAX_CHUNK = 1024  # positions: longer caches take more chunks
+MAX_SPLIT = 512  # chunks at most (kMaxSplit: the combine's shared memory)
 MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z = chunks x head chunks
-GROUP_HEADS = 4
+GROUP_HEADS = 4  # the kernel's kGroupHeads: query heads a block when g > 1
+HEADS_PER_BLOCK = 1  # the kernel's kHeadsPerBlock: KV heads a block when g = 1
 
 _tickets: dict[tuple, torch.Tensor] = {}  # (device, stream) -> int32 zeros
 
@@ -50,10 +52,12 @@ def plan_split(S: int, B: int, Hkv: int, group: int) -> int:
     """The number of chunks the kernel splits S positions into, for B
     batches of Hkv KV heads of ``group`` query heads each: enough that the
     grid reaches ``TARGET_BLOCKS`` blocks and no chunk passes ``MAX_CHUNK``,
-    as far as chunks of at least ``MIN_CHUNK`` and the grid's limit allow."""
+    as far as chunks of at least ``MIN_CHUNK``, ``MAX_SPLIT`` and the grid's
+    limit allow."""
     head_chunks = 1 if group == 1 else -(-group // GROUP_HEADS)
-    want = max(-(-TARGET_BLOCKS // (B * Hkv * head_chunks)), -(-S // MAX_CHUNK))
-    return max(1, min(want, S // MIN_CHUNK, MAX_GRID_Z // head_chunks))
+    head_blocks = Hkv // HEADS_PER_BLOCK if group == 1 and Hkv % HEADS_PER_BLOCK == 0 else Hkv
+    want = max(-(-TARGET_BLOCKS // (B * head_blocks * head_chunks)), -(-S // MAX_CHUNK))
+    return max(1, min(want, S // MIN_CHUNK, MAX_SPLIT, MAX_GRID_Z // head_chunks))
 
 
 def chunk_bounds(S: int, n_split: int) -> list[int]:

@@ -162,7 +162,8 @@ SPLIT_SHAPES = {  # (S, B, Hkv, group): the decode path, GQA, decode_32k
 
 def _blocks(S, B, Hkv, group):
     head_chunks = 1 if group == 1 else -(-group // K7.GROUP_HEADS)
-    return K7.plan_split(S, B, Hkv, group) * B * Hkv * head_chunks, head_chunks
+    hpb = K7.HEADS_PER_BLOCK if group == 1 and Hkv % K7.HEADS_PER_BLOCK == 0 else 1
+    return K7.plan_split(S, B, Hkv, group) * B * (Hkv // hpb) * head_chunks, head_chunks
 
 
 @pytest.mark.parametrize("S,B,Hkv,group", [
@@ -171,13 +172,14 @@ def _blocks(S, B, Hkv, group):
 ], ids=[*SPLIT_SHAPES, "g4", "S1", "S100", "S129", "ragged", "S2^31"])
 def test_plan_split_chunks_cover_the_cache(S, B, Hkv, group):
     """The kernel's chunks cover [0, S) exactly, in order, none shorter than
-    MIN_CHUNK (or S), and the grid stays within CUDA's limit."""
+    MIN_CHUNK (or S), no more than MAX_SPLIT, and the grid stays within
+    CUDA's limit."""
     n = K7.plan_split(S, B, Hkv, group)
     bounds = K7.chunk_bounds(S, n)
     assert bounds[0] == 0 and bounds[-1] == S and len(bounds) == n + 1
     lengths = np.diff(bounds)
     assert lengths.min() >= min(S, K7.MIN_CHUNK) and lengths.max() - lengths.min() <= 1
-    assert n * _blocks(S, B, Hkv, group)[1] <= K7.MAX_GRID_Z
+    assert n <= K7.MAX_SPLIT and n * _blocks(S, B, Hkv, group)[1] <= K7.MAX_GRID_Z
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES.values(), ids=SPLIT_SHAPES.keys())

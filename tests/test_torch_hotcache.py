@@ -252,31 +252,34 @@ def test_scatter_update_repeated_slots_last_write_wins(rng):
 
 
 def test_winner_scratch_is_kept_per_device_stream_and_size(monkeypatch):
-    """K4's winner scratch: int64 zeros made once per (device, stream, C);
-    every call on it takes the next tag."""
+    """K4's winner scratch: int32 zeros made once per (device, stream, C);
+    each call's words start where the last call's ended, from 1."""
     monkeypatch.setattr(HK, "_winners", {})
     dev = torch.device("cpu")
-    a, t1 = HK.winner_scratch(dev, 7, 16)
-    b, t2 = HK.winner_scratch(dev, 7, 16)
-    assert a is b and (t1, t2) == (1, 2)
-    assert a.dtype == torch.int64 and a.shape == (16,) and not a.any()
-    other_stream, t = HK.winner_scratch(dev, 8, 16)
-    assert other_stream is not a and t == 1
-    other_size, t = HK.winner_scratch(dev, 7, 32)
-    assert other_size is not a and other_size.shape == (32,) and t == 1
-    assert HK.winner_scratch(dev, 7, 16) == (a, 3)
+    a, b1 = HK.winner_scratch(dev, 7, 16, 5)
+    b, b2 = HK.winner_scratch(dev, 7, 16, 3)
+    assert a is b and (b1, b2) == (1, 6)
+    assert a.dtype == torch.int32 and a.shape == (16,) and not a.any()
+    other_stream, base = HK.winner_scratch(dev, 8, 16, 5)
+    assert other_stream is not a and base == 1
+    other_size, base = HK.winner_scratch(dev, 7, 32, 5)
+    assert other_size is not a and other_size.shape == (32,) and base == 1
+    assert HK.winner_scratch(dev, 7, 16, 1) == (a, 9)
 
 
-def test_winner_scratch_is_zeroed_when_the_tag_wraps(monkeypatch):
+def test_winner_scratch_is_zeroed_before_the_words_wrap(monkeypatch):
+    """A call whose last word would pass 2^32 - 1 zeroes the scratch first
+    and starts again at 1; one that ends exactly at 2^32 - 1 does not."""
     monkeypatch.setattr(HK, "_winners", {})
     dev = torch.device("cpu")
-    scratch, _ = HK.winner_scratch(dev, 0, 8)
-    scratch.fill_((2**31 - 1) << 32 | 5)  # words left by earlier calls
-    HK._winners[(dev, 0, 8)][1] = HK.MAX_TAG - 1
-    same, tag = HK.winner_scratch(dev, 0, 8)
-    assert same is scratch and tag == HK.MAX_TAG and scratch.all()
-    same, tag = HK.winner_scratch(dev, 0, 8)
-    assert same is scratch and tag == 1 and not scratch.any()
+    scratch, _ = HK.winner_scratch(dev, 0, 8, 1)
+    scratch.fill_(-5)  # words left by earlier calls (2^32 - 5 as unsigned)
+    HK._winners[(dev, 0, 8)][1] = HK.MAX_WORD - 9
+    same, base = HK.winner_scratch(dev, 0, 8, 10)
+    assert same is scratch and base == HK.MAX_WORD - 9 and scratch.all()
+    same, base = HK.winner_scratch(dev, 0, 8, 1)
+    assert same is scratch and base == 1 and not scratch.any()
+    assert HK.winner_scratch(dev, 0, 8, 4)[1] == 2
 
 
 class _FakeScatterLib:
@@ -291,10 +294,10 @@ class _FakeScatterLib:
         return lambda *args: self.calls.append((sym, args)) or 0
 
 
-def test_scatter_update_passes_one_scratch_and_rising_tags(monkeypatch):
+def test_scatter_update_passes_one_scratch_and_rising_bases(monkeypatch):
     """The CUDA branch of the K4 wrapper, with the library and the CUDA
     calls faked: no fill, the same scratch of the right size every call on
-    one stream, tags 1, 2, ..., and the launch counted."""
+    one stream, bases 1, 1 + K, ..., and the launch counted."""
     lib = _FakeScatterLib()
     monkeypatch.setattr(HK, "_winners", {})
     monkeypatch.setattr(HK, "_is_cuda", lambda t: True)
@@ -314,7 +317,7 @@ def test_scatter_update_passes_one_scratch_and_rising_tags(monkeypatch):
     assert sym1 == sym2 == "scatter_update_f32_bf16"
     scratch = HK._winners[(values.device, 1234, 64)][0]
     assert a1[3] == a2[3] == scratch.data_ptr() and scratch.shape == (64,)
-    assert a1[4:] == (3, 64, 8, 1, 1234) and a2[4:] == (3, 64, 8, 2, 1234)
+    assert a1[4:] == (3, 64, 8, 1, 1234) and a2[4:] == (3, 64, 8, 4, 1234)
     assert HK.launches[HK.SCATTER] == before + 2
     HK.launches[HK.SCATTER] = before
 
