@@ -208,10 +208,10 @@ def kernel_name(mangled: str) -> str:
         if n:
             args, rest = [], rest[1:]
             for tok, label in ((r"13__nv_bfloat16", "bf16"), (r"f", "f32"), (r"d", "f64"),
-                               (r"Li(\d+)E", None), (r"Lb([01])E", None)) * 4:
+                               (r"S\d*_", "S_"), (r"Li(\d+)E", None), (r"Lb([01])E", None)) * 4:
                 t = re.match(tok, rest)
-                if t:
-                    args.append(label or t.group(1))
+                if t:  # S<n>_ repeats an earlier type: here always the first
+                    args.append(args[0] if label == "S_" else label or t.group(1))
                     rest = rest[t.end():]
             return f"{name}<{', '.join(args)}>"
     return mangled

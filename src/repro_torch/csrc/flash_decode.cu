@@ -25,22 +25,26 @@
 //    one (KV head, batch, chunk) and up to G of the KV head's query heads.
 //  * Each block writes a partial (m, l, acc[dh]) per query head to an f32
 //    workspace.  The last block of a (batch, KV head, head chunk) to finish,
-//    found by an atomic ticket that it resets to 0, rescales and sums the
-//    partials in chunk order (deterministic, whichever block ends last) and
-//    writes out / max(l, 1e-30).  One chunk writes out directly.
+//    found by an atomic ticket that it resets to 0, combines them: every
+//    (m, l) into shared memory at once, then the accumulators rescaled and
+//    summed in chunk order (deterministic, whichever block ends last), over
+//    max(l, 1e-30).  One chunk writes out directly.  (A second launch for the
+//    combine ran slower.)
 //  * Each of the 4 warps of a block streams its own tiles of rows through a
 //    4-stage cp.async ring in shared memory: the loads of three tiles are in
 //    flight while it computes one, and no register holds a row in flight.
 //    A copy is 16 bytes a lane over the tile's rows laid end to end, so no
-//    lane idles at dh 80 (10 chunks a row).
+//    lane idles at dh 80 (10 chunks a row).  (cp.async.bulk copies of whole
+//    rows on mbarriers, and one KV head a warp, ran slower at the path shape.)
 //  * Compute reads the tile from shared memory: a segment of W lanes (the
 //    power of two at or above the row's 16-byte chunks) takes one row, lane
 //    c its c-th chunk; the segment's partial dots meet in a butterfly of
 //    shuffles, and each segment keeps its own (m, l, acc) in registers.  The
 //    segments of a warp, then the warps, meet at the end.
 //  * Grouped heads take G = 4 a block (q and acc of 4 heads in registers,
-//    about 120 registers at dh 128, so that several blocks fit an SM); more
-//    heads take more head chunks over the same rows, read through L2.
+//    about 125 registers at dh 128, so that several blocks fit an SM; G = 8
+//    took 195 and ran slower); more heads take more head chunks over the
+//    same rows, read through L2.
 //  * cache_len is read on the card from an int32 tensor: one build serves
 //    any fill level, and the decode loop never waits on the host.  A chunk
 //    that starts at or past it writes an empty partial (m = -inf, l = 0,
@@ -64,7 +68,6 @@ constexpr int kStages = 4;  // cp.async ring depth of each warp
 constexpr int kStageBytes = 2560;  // K + V bytes of one warp's tile, at most
 constexpr int kGroupHeads = 4;  // query heads a block serves when g > 1
 constexpr int kMaxSplit = 512;  // chunks at most (the combine's shared memory)
-constexpr int kHeadsPerBlock = 1;  // KV heads a block serves when g = 1, a warp each
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -180,10 +183,8 @@ __device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long 
   }
 }
 
-// One block per (KV head, batch, chunk x head chunk of G query heads), or
-// with HPB > 1 (g = 1 only) per (HPB KV heads, batch, chunk), warp w on head
-// HPB x + w, all warps on the same tiles.
-template <typename T, int D, int G, int HPB>
+// One block per (KV head, batch, chunk x head chunk of G query heads).
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ len_ptr,
@@ -193,22 +194,20 @@ __global__ void __launch_bounds__(kThreads)
   using L = Tile<T, D>;
   constexpr int VEC = L::kVec, C = L::kChunks, W = L::kLanes, R = L::kSegs;
   constexpr int ROWS = L::kRows, PASSES = L::kPasses;
-  static_assert(HPB == 1 || (G == 1 && HPB == kWarps), "a warp a head, g = 1 only");
-  constexpr int NH = G * HPB;  // query heads a block serves
   constexpr int kWarpSumBytes = kWarps * G * (D + 2) * 4;
-  constexpr int kCombineBytes = (2 * NH * kMaxSplit + NH) * 4;
+  constexpr int kCombineBytes = (2 * G * kMaxSplit + G) * 4;
   constexpr int kSmem = cmax(L::kRingBytes, cmax(kWarpSumBytes, kCombineBytes));
   __shared__ __align__(16) unsigned char smem[kSmem];
   __shared__ int sm_last;
 
-  const int warp = threadIdx.x >> 5;
-  const int hk = blockIdx.x * HPB + (HPB > 1 ? warp : 0);  // this warp's KV head
+  const int hk = blockIdx.x;
   const long long b = blockIdx.y;
   const int n_jc = (group + G - 1) / G;
   const long long sp = blockIdx.z / n_jc;  // this block's chunk
   const int jc = blockIdx.z - (int)sp * n_jc;
   const int j0 = jc * G;
-  const int gc = min(G, group - j0);  // query heads of this KV head in this block
+  const int gc = min(G, group - j0);  // query heads in this block
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int seg = lane / W;
   const int c = lane % W;  // this lane's 16-byte chunk of a row
@@ -218,11 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   len = len < 0 ? 0 : (len > S ? S : len);
   const long long p_begin = sp * S / n_split;
   const long long p_end = min((sp + 1) * S / n_split, len);
-  const long long bh0 = b * H + (long long)hk * group + j0;  // this warp's first query head
-  // Warp tiles: it = 0, 1, ... covers positions r0 .. r0 + ROWS - 1 from
-  // r0 = p_begin + (first + it * stride) * ROWS.
-  constexpr int stride = HPB > 1 ? 1 : kWarps;
-  const int first = HPB > 1 ? 0 : warp;
+  const long long bh0 = b * H + (long long)hk * group + j0;  // first query head
 
   float qv[G][VEC];
 #pragma unroll
@@ -246,13 +241,14 @@ __global__ void __launch_bounds__(kThreads)
 
   if (p_begin < p_end) {  // the same for the whole block
     const long long n_tiles = (p_end - p_begin + ROWS - 1) / ROWS;
-    const int n_it = n_tiles > first ? (int)((n_tiles - first + stride - 1) / stride) : 0;
+    // Warp tile it covers positions r0 .. r0 + ROWS - 1, r0 = p_begin + (warp + it kWarps) ROWS.
+    const int n_it = n_tiles > warp ? (int)((n_tiles - warp + kWarps - 1) / kWarps) : 0;
     uint4* ring = reinterpret_cast<uint4*>(smem) + warp * (kStages * 2 * ROWS * C);
     const long long row_stride = (long long)Hkv * D;  // elements between positions
     const T* kb = kc + (b * S * Hkv + hk) * D;
     const T* vb = vc + (b * S * Hkv + hk) * D;
     auto load = [&](int it) {
-      const long long r0 = p_begin + (first + (long long)it * stride) * ROWS;
+      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
       uint4* st = ring + (it % kStages) * (2 * ROWS * C);
 #pragma unroll
       for (int x0 = 0; x0 < ROWS * C; x0 += 32) {
@@ -279,7 +275,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
       const uint4* ks = ring + (it % kStages) * (2 * ROWS * C);
       const uint4* vs = ks + ROWS * C;
-      const long long r0 = p_begin + (first + (long long)it * stride) * ROWS;
+      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
       float s[PASSES][G];
       float vx[PASSES][VEC];
       bool valid[PASSES];
@@ -350,23 +346,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   const long long n_partials = (long long)gridDim.y * H * n_split;
-  if (HPB > 1) {  // each warp holds its own head's state: write it
-    if (lane < W && active) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        if (n_split == 1) {
-          store(out + bh0 * D + c * VEC + e, acc[0][e] / fmaxf(l[0], 1e-30f));
-        } else {
-          const long long pi = bh0 * n_split + sp;
-          ws[pi * D + c * VEC + e] = acc[0][e];
-          if (lane == 0 && e == 0) {
-            ws[n_partials * D + 2 * pi] = m[0];
-            ws[n_partials * D + 2 * pi + 1] = l[0];
-          }
-        }
-      }
-    }
-  } else {
   __syncthreads();  // every warp is done with its ring: it becomes the scratch below
   float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
   float* sm_l = sm_m + kWarps * G;  // [kWarps][G]
@@ -413,14 +392,13 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  }
   if (n_split == 1) return;
 
-  // The last block of this (batch, KV head(s), head chunk) combines the chunks.
+  // The last block of this (batch, KV head, head chunk) combines the chunks.
   __threadfence();  // this block's partials are visible before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    int* ticket = tickets + ((long long)b * gridDim.x + blockIdx.x) * n_jc + jc;
+    int* ticket = tickets + ((long long)b * Hkv + hk) * n_jc + jc;
     const bool last = atomicAdd(ticket, 1) == n_split - 1;
     if (last) *ticket = 0;  // every block of the group has counted: ready for the next call
     sm_last = last;
@@ -428,12 +406,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  // With HPB > 1 the block's heads are HPB consecutive query heads from warp 0's.
-  combine<T, D, NH>(ws, out, HPB > 1 ? b * H + (long long)blockIdx.x * HPB : bh0,
-                    HPB > 1 ? HPB : gc, n_split, n_partials, reinterpret_cast<float*>(smem));
+  combine<T, D, G>(ws, out, bh0, gc, n_split, n_partials, reinterpret_cast<float*>(smem));
 }
 
-template <typename T, int D, int G, int HPB>
+template <typename T, int D, int G>
 int launch(const void* q, const void* kc, const void* vc, const int* len, void* out,
            void* ws, void* tickets, long long B, long long S, int H, int Hkv,
            int n_split, void* stream) {
@@ -442,10 +418,10 @@ int launch(const void* q, const void* kc, const void* vc, const int* len, void* 
   if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S || n_split > kMaxSplit ||
       (n_split > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(Hkv / HPB), (unsigned)B, (unsigned)(n_split * n_jc));
+  const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)(n_split * n_jc));
   const float scale = 1.f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
-  flash_decode_kernel<T, D, G, HPB><<<grid, kThreads, 0, st>>>(
+  flash_decode_kernel<T, D, G><<<grid, kThreads, 0, st>>>(
       (const T*)q, (const T*)kc, (const T*)vc, len, (T*)out, (float*)ws, (int*)tickets,
       S, H, Hkv, group, n_split, scale);
   return (int)cudaGetLastError();
@@ -455,13 +431,10 @@ template <typename T, int D>
 int by_group(const void* q, const void* kc, const void* vc, const int* len, void* out,
              void* ws, void* tickets, long long B, long long S, int H, int Hkv,
              int n_split, void* stream) {
-  if (H / Hkv > 1)
-    return launch<T, D, kGroupHeads, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv,
-                                        n_split, stream);
-  if (kHeadsPerBlock > 1 && Hkv % kHeadsPerBlock == 0)
-    return launch<T, D, 1, kHeadsPerBlock>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv,
-                                           n_split, stream);
-  return launch<T, D, 1, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+  if (H / Hkv == 1)
+    return launch<T, D, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
+  return launch<T, D, kGroupHeads>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split,
+                                   stream);
 }
 
 template <typename T>

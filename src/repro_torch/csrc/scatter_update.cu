@@ -29,11 +29,11 @@
 //  * No fill launch: the moving base replaces clearing the scratch.
 //  * The copy pass works on (row, 16-byte chunk) items laid end to end over
 //    the threads, so a row of 64 f32 takes 16 lanes and no lane idles; each
-//    thread carries 4 items.  It issues the 4 slot loads and the 4 row loads
-//    together, then the 4 winner loads, then the stores: two dependent round
-//    trips to device memory per thread, with the row bytes already in flight
-//    during the first (a row is read before its winner check is known; a
-//    losing row costs bytes only where slots repeat).
+//    thread carries 2 items (4 and 8 ran slower).  It issues their slot and
+//    row loads together, then their winner loads, then the stores: two
+//    dependent round trips to device memory per thread, with the row bytes
+//    already in flight during the first (a row is read before its winner
+//    check is known; a losing row costs bytes only where slots repeat).
 //  * Rows whose width is not a whole number of chunks, or tables not on
 //    16-byte boundaries, take the same pass one element an item.
 
@@ -45,7 +45,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;  // (row, chunk) items a thread of the copy pass carries
+constexpr int kItems = 2;  // (row, chunk) items a thread of the copy pass carries
 
 template <typename To, typename From>
 __device__ __forceinline__ To cast(From v);

@@ -9,6 +9,7 @@ the kernel (or raises), a CPU tensor takes the plain version in
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -41,6 +42,7 @@ launches = {PROBE: 0, SCATTER: 0}
 # call's (csrc/scatter_update.cu).
 MAX_WORD = 2**32 - 1
 _winners: dict[tuple, list] = {}  # key -> [scratch, the next call's base]
+_winners_lock = threading.Lock()  # two threads may share a stream
 
 
 def _check_same_device(name: str, ref_t: torch.Tensor, **tensors) -> None:
@@ -106,16 +108,17 @@ def winner_scratch(device: torch.device, stream: int, num_slots: int,
     would pass ``MAX_WORD`` (as unsigned 32-bit), the scratch is zeroed (on
     the current stream, before the launch) and base starts again at 1."""
     key = (device, stream, num_slots)
-    entry = _winners.get(key)
-    if entry is None:
-        entry = _winners[key] = [torch.zeros((num_slots,), dtype=torch.int32,
-                                             device=device), 1]
-    if entry[1] + writes - 1 > MAX_WORD:
-        entry[0].zero_()
-        entry[1] = 1
-    base = entry[1]
-    entry[1] += writes
-    return entry[0], base
+    with _winners_lock:
+        entry = _winners.get(key)
+        if entry is None:
+            entry = _winners[key] = [torch.zeros((num_slots,), dtype=torch.int32,
+                                                 device=device), 1]
+        if entry[1] + writes - 1 > MAX_WORD:
+            entry[0].zero_()
+            entry[1] = 1
+        base = entry[1]
+        entry[1] += writes
+        return entry[0], base
 
 
 def scatter_update(

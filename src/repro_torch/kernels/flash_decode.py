@@ -12,13 +12,16 @@ it takes any S (no ``block_k``); head dims ``HEAD_DIMS`` only.
 The kernel splits the positions into chunks (``plan_split``, from the shapes
 alone, so the host never reads ``cache_len``); each block writes a partial
 (m, l, acc) to an f32 workspace and the last block of each group combines
-them, counted by int32 tickets that the kernel leaves at zero and that stay
-allocated per (device, stream).
+them, counted by int32 tickets that the kernel leaves at zero.  Workspace
+and tickets stay allocated per (device, stream), so a call allocates only
+its output: calls on one stream run in order, and none reads another's
+workspace.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -42,9 +45,10 @@ MAX_CHUNK = 1024  # positions: longer caches take more chunks
 MAX_SPLIT = 512  # chunks at most (kMaxSplit: the combine's shared memory)
 MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z = chunks x head chunks
 GROUP_HEADS = 4  # the kernel's kGroupHeads: query heads a block when g > 1
-HEADS_PER_BLOCK = 1  # the kernel's kHeadsPerBlock: KV heads a block when g = 1
 
-_tickets: dict[tuple, torch.Tensor] = {}  # (device, stream) -> int32 zeros
+# (device, stream) -> (f32 workspace, int32 tickets, zeros between launches)
+_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,8 +59,7 @@ def plan_split(S: int, B: int, Hkv: int, group: int) -> int:
     as far as chunks of at least ``MIN_CHUNK``, ``MAX_SPLIT`` and the grid's
     limit allow."""
     head_chunks = 1 if group == 1 else -(-group // GROUP_HEADS)
-    head_blocks = Hkv // HEADS_PER_BLOCK if group == 1 and Hkv % HEADS_PER_BLOCK == 0 else Hkv
-    want = max(-(-TARGET_BLOCKS // (B * head_blocks * head_chunks)), -(-S // MAX_CHUNK))
+    want = max(-(-TARGET_BLOCKS // (B * Hkv * head_chunks)), -(-S // MAX_CHUNK))
     return max(1, min(want, S // MIN_CHUNK, MAX_SPLIT, MAX_GRID_Z // head_chunks))
 
 
@@ -66,16 +69,24 @@ def chunk_bounds(S: int, n_split: int) -> list[int]:
     return [i * S // n_split for i in range(n_split + 1)]
 
 
-def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least n int32 zeros kept for (device, stream): the kernel leaves
-    them at zero, so they are zeroed once, when made or grown."""
+def _scratch_for(device: torch.device, stream: int, ws_elems: int,
+                 n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The workspace (at least ``ws_elems`` f32) and tickets (at least
+    ``n_tickets`` int32 zeros) kept for (device, stream), each made or grown
+    (to twice its size at least) when a launch needs more.  The kernel
+    leaves the tickets at zero, so they are zeroed only when made."""
     key = (device, stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
-                          dtype=torch.int32, device=device)
-        _tickets[key] = buf
-    return buf
+    with _scratch_lock:
+        ws, tickets = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < ws_elems:
+            ws = torch.empty((max(ws_elems, 2 * (0 if ws is None else ws.numel())),),
+                             dtype=torch.float32, device=device)
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros((max(n_tickets, 2 * (0 if tickets is None
+                                                       else tickets.numel())),),
+                                  dtype=torch.int32, device=device)
+        _scratch[key] = ws, tickets
+        return ws, tickets
 
 
 def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -127,15 +138,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ws = tickets = None
+        ws = tickets = 0
         if n_split > 1:
-            ws = torch.empty((B * H * n_split * (dh + 2),), dtype=torch.float32,
-                             device=q.device)
-            tickets = _ticket_buffer(q.device, stream, B * H)
+            ws, tickets = (t.data_ptr() for t in _scratch_for(
+                q.device, stream, B * H * n_split * (dh + 2), B * H))
         code = getattr(lib, _SYMBOLS[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            0 if tickets is None else tickets.data_ptr(), B, S, H, Hkv, dh, n_split, stream,
+            out.data_ptr(), ws, tickets, B, S, H, Hkv, dh, n_split, stream,
         )
     build.check(lib, NAME, code)
     launches += 1

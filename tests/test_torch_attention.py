@@ -162,8 +162,7 @@ SPLIT_SHAPES = {  # (S, B, Hkv, group): the decode path, GQA, decode_32k
 
 def _blocks(S, B, Hkv, group):
     head_chunks = 1 if group == 1 else -(-group // K7.GROUP_HEADS)
-    hpb = K7.HEADS_PER_BLOCK if group == 1 and Hkv % K7.HEADS_PER_BLOCK == 0 else 1
-    return K7.plan_split(S, B, Hkv, group) * B * (Hkv // hpb) * head_chunks, head_chunks
+    return K7.plan_split(S, B, Hkv, group) * B * Hkv * head_chunks, head_chunks
 
 
 @pytest.mark.parametrize("S,B,Hkv,group", [
@@ -254,18 +253,24 @@ def test_chunk_partials_combine_to_the_reference(dtypes, where, rng):
     _close(got, want_pallas, _tol(tdt))
 
 
-def test_ticket_buffer_is_kept_per_device_and_stream(monkeypatch):
-    """K7's tickets: int32 zeros made once per (device, stream), grown (as
-    new zeros) when a launch needs more."""
-    monkeypatch.setattr(K7, "_tickets", {})
+def test_scratch_is_kept_per_device_and_stream(monkeypatch):
+    """K7's workspace and tickets: made once per (device, stream), the
+    tickets as zeros, and grown (the tickets as new zeros) only when a
+    launch needs more."""
+    monkeypatch.setattr(K7, "_scratch", {})
     dev = torch.device("cpu")
-    a = K7._ticket_buffer(dev, 1, 10)
-    assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
-    assert K7._ticket_buffer(dev, 1, 10) is a and K7._ticket_buffer(dev, 1, 4) is a
-    assert K7._ticket_buffer(dev, 2, 10) is not a
-    big = K7._ticket_buffer(dev, 1, 100)
-    assert big is not a and big.numel() >= 100 and not big.any()
-    assert K7._ticket_buffer(dev, 1, 100) is big
+    ws, tickets = K7._scratch_for(dev, 1, 100, 10)
+    assert ws.dtype == torch.float32 and ws.numel() >= 100
+    assert tickets.dtype == torch.int32 and tickets.numel() >= 10 and not tickets.any()
+    again = K7._scratch_for(dev, 1, 50, 4)
+    assert again[0] is ws and again[1] is tickets
+    other = K7._scratch_for(dev, 2, 100, 10)
+    assert other[0] is not ws and other[1] is not tickets
+    more_ws = K7._scratch_for(dev, 1, 1000, 10)
+    assert more_ws[0].numel() >= 1000 and more_ws[1] is tickets
+    more_tickets = K7._scratch_for(dev, 1, 10, 100)
+    assert more_tickets[0] is more_ws[0] and more_tickets[1].numel() >= 100
+    assert not more_tickets[1].any()
 
 
 # ------------------------------------------------------- wrapper refusals

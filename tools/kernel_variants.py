@@ -26,10 +26,11 @@ version as ``chip_smoke.py`` holds the kernel (K6 bf16 causal by
 ``assert_close_rows``, K2 f32 at 1e-4, K7 as K6 in bf16 and at 2e-5 in f32,
 K4 bit-equal); a variant that cuts work out sets ``"check": false``.  Then
 every variant and the library call (``F.scaled_dot_product_attention``,
-``torch.bmm`` or ``index_copy_``) are timed by CUDA events, L2 flushed, in turns: ``ROUNDS`` rounds, the order reversed every
-round, the card idle for ``PAUSE_S`` before each timing so that every one
-starts from the same clocks rather than from the heat of the last (without
-it, one build read slower round after round of one call).  One
+``torch.bmm`` or ``index_copy_``) are timed by CUDA events, L2 flushed, in
+turns: ``ROUNDS`` rounds, the order reversed every round, the card idle for
+``PAUSE_S`` before each timing so that every one starts from the same
+clocks rather than from the heat of the last (without it, one build read
+slower round after round of one call).  One
 JSON line per case gives each one's median in ms over the rounds and its
 time in every round, so that pairs of rounds can be counted, with the card's
 name and power limit.
