@@ -895,8 +895,7 @@ def main() -> int:
         # chunk boundary of the g = 4 case, one past it, and the whole cache.
         g4_q = (2, 4 * LM_GQA_HEADS[1], LM_GQA_HEADS[2])
         g4_c = (2, LM_CACHE, LM_GQA_HEADS[1], LM_GQA_HEADS[2])
-        g4_bounds = K7.chunk_bounds(LM_CACHE, K7.plan_split(LM_CACHE, 2, g4_c[2],
-                                                            K7.head_chunks(bf16, 4)))
+        g4_bounds = K7.chunk_bounds(LM_CACHE, K7.plan_split(LM_CACHE, 2, g4_c[2], 4))
         edge = g4_bounds[len(g4_bounds) // 2]
         k7_cases = {
             "path bf16": ((B, Hq, dh), (B, LM_CACHE, Hkv, dh), bf16, n_path),
@@ -909,7 +908,7 @@ def main() -> int:
             "g4 full cache bf16": (g4_q, g4_c, bf16, LM_CACHE),
             "g4 chunk edge + 1 f32": (g4_q, g4_c, f32, edge + 1),
         }
-        log(f"  K7 chunks: {K7.plan_split(LM_CACHE, B, Hkv, 1)} at the path shape, "
+        log(f"  K7 chunks: {K7.plan_split(LM_CACHE, B, Hkv, Hq // Hkv)} at the path shape, "
             f"{len(g4_bounds) - 1} at g = 4 (chunk edge {edge})")
         for label, (qs, cs, dt, n) in k7_cases.items():
             q, kc, vc = rnd(qs, dt), rnd(cs, dt), rnd(cs, dt)
@@ -928,8 +927,7 @@ def main() -> int:
                 assert_refused(f"K7 {label} with the last KV tile skipped",
                                ref.flash_decode_ref(q, kc, vc, n_t - LM_KV_TILE), want, *tol)
                 # A combine that drops the middle chunk of the split.
-                bnd = K7.chunk_bounds(cs[1], K7.plan_split(
-                    cs[1], cs[0], cs[2], K7.head_chunks(dt, qs[1] // cs[2])))
+                bnd = K7.chunk_bounds(cs[1], K7.plan_split(cs[1], cs[0], cs[2], qs[1] // cs[2]))
                 lo, hi = bnd[(len(bnd) - 1) // 2], bnd[(len(bnd) - 1) // 2 + 1]
                 keep = torch.cat([torch.arange(lo, device=dev),
                                   torch.arange(hi, cs[1], device=dev)])

@@ -41,11 +41,10 @@
 //    c its c-th chunk; the segment's partial dots meet in a butterfly of
 //    shuffles, and each segment keeps its own (m, l, acc) in registers.  The
 //    segments of a warp, then the warps, meet at the end.
-//  * Grouped bf16 heads (g >= 4) take the tensor-core kernel below, 16
-//    query heads a block.  Otherwise grouped heads take G = 4 a block (q
-//    and acc of 4 heads in registers, about 125 registers at dh 128, so that
-//    several blocks fit an SM; G = 8 took 195 and ran slower); more heads
-//    take more head chunks over the same rows, read through L2.
+//  * Grouped heads take G = 4 a block (q and acc of 4 heads in registers,
+//    about 125 registers at dh 128, so that several blocks fit an SM; G = 8
+//    took 195 and ran slower); more heads take more head chunks over the
+//    same rows, read through L2.
 //  * cache_len is read on the card from an int32 tensor: one build serves
 //    any fill level, and the decode loop never waits on the host.  A chunk
 //    that starts at or past it writes an empty partial (m = -inf, l = 0,
@@ -61,8 +60,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kWarps = 4;
@@ -71,12 +68,6 @@ constexpr int kStages = 4;  // cp.async ring depth of each warp
 constexpr int kStageBytes = 2560;  // K + V bytes of one warp's tile, at most
 constexpr int kGroupHeads = 4;  // query heads a block serves when g > 1
 constexpr int kMaxSplit = 512;  // chunks at most (the combine's shared memory)
-// Grouped bf16 heads from kMmaMinGroup a KV head take the tensor-core kernel:
-// kMmaHeads query heads a block as the rows of mma.sync's m16n8k16.
-constexpr int kMmaMinGroup = 4;
-constexpr int kMmaHeads = 16;  // at most mma's 16 rows
-static_assert(kMmaHeads <= 16, "a block's heads are rows of one m16 tile");
-constexpr int kMmaStages = 3;
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
@@ -190,64 +181,6 @@ __device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long 
     const int j = t / D;
     if (t < gc * D) store(out + bh0 * D + t, o[p] / fmaxf(sm_sum[j], 1e-30f));
   }
-}
-
-// The end of a block: the warps' states (m, l, acc) of its gc query heads,
-// laid out in shared memory as sm_m [kWarps][G], sm_l [kWarps][G] and
-// sm_acc [kWarps][G][D], meet, one thread per (query head, head dim), into
-// the block's partial; with one chunk that is the output, else it goes to
-// the workspace and the last block of the group (ticket `group_id`)
-// combines the chunks.
-template <typename T, int D, int G>
-__device__ void finish(unsigned char* smem, int* sm_last, T* __restrict__ out,
-                       float* __restrict__ ws, int* __restrict__ tickets, long long bh0,
-                       int gc, long long sp, int n_split, long long n_partials,
-                       long long group_id) {
-  const float* sm_m = reinterpret_cast<const float*>(smem);
-  const float* sm_l = sm_m + kWarps * G;
-  const float* sm_acc = sm_l + kWarps * G;
-  // Combine the warps: one thread per (query head, head dim).
-  for (int t = threadIdx.x; t < gc * D; t += kThreads) {
-    const int j = t / D;
-    const int d = t - j * D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + j]);
-    float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = __expf(sm_m[w * G + j] - mx);  // 0 for a warp with no row
-        lsum = fmaf(sm_l[w * G + j], f, lsum);
-        o = fmaf(sm_acc[(w * G + j) * D + d], f, o);
-      }
-    }
-    if (n_split == 1) {
-      store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
-    } else {
-      const long long pi = (bh0 + j) * n_split + sp;
-      ws[pi * D + d] = o;
-      if (d == 0) {
-        ws[n_partials * D + 2 * pi] = mx;
-        ws[n_partials * D + 2 * pi + 1] = lsum;
-      }
-    }
-  }
-  if (n_split == 1) return;
-
-  // The last block of this (batch, KV head, head chunk) combines the chunks.
-  __threadfence();  // this block's partials are visible before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* ticket = tickets + group_id;
-    const bool last = atomicAdd(ticket, 1) == n_split - 1;
-    if (last) *ticket = 0;  // every block of the group has counted: ready for the next call
-    *sm_last = last;
-  }
-  __syncthreads();
-  if (!*sm_last) return;
-  __threadfence();
-  combine<T, D, G>(ws, out, bh0, gc, n_split, n_partials, reinterpret_cast<float*>(smem));
 }
 
 // One block per (KV head, batch, chunk x head chunk of G query heads).
@@ -432,231 +365,48 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  finish<T, D, G>(smem, &sm_last, out, ws, tickets, bh0, gc, sp, n_split, n_partials,
-                  ((long long)b * Hkv + hk) * n_jc + jc);
-}
-
-
-// ------------------------------------------------- grouped bf16 heads: mma
-//
-// With g >= kMmaMinGroup query heads sharing a KV head in bf16, the dot
-// products of the CUDA-core kernel above cost more issue slots than the
-// bytes allow.  Here the 16 query heads of a block are the rows (m) of
-// mma.sync.m16n8k16 (rows past the group are zero and never written): per
-// warp tile of 16 positions, S = Q K^T is two n-tiles of 8 positions over
-// dh / 16 k-steps, and O += P V is dh / 8 n-tiles with the tile's 16
-// positions as k; P leaves S's accumulators as P V's A operand with no
-// shuffle, rounded to bf16 as the reference rounds p to v's dtype, and l
-// sums the unrounded p.  K and V tiles come through a cp.async ring as
-// above, rows padded by 16 bytes so that the fragment loads hit distinct
-// shared-memory banks.  Row maxima take two shuffles (the 4 lanes of a
-// row).  The block's end, the workspace and the combine are those above.
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two values as a bf16x2 register, `lo` in the low half (round to nearest even).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int D>
-struct MmaTile {
-  static constexpr int kPitch = D / 8 + 1;  // 16-byte chunks between rows in shared memory
-  static constexpr int kRows = 16;  // positions a warp tile
-  static constexpr int kStageChunks = 2 * kRows * kPitch;  // K and V
-  static constexpr int kRingBytes = kWarps * kMmaStages * kStageChunks * 16;
-  static constexpr int kSmem = cmax(kRingBytes, cmax(kWarps * kMmaHeads * (D + 2) * 4,
-                                                     (2 * kMmaHeads * kMaxSplit + kMmaHeads) * 4));
-};
-
-// One block per (KV head, batch, chunk x head chunk of kMmaHeads query heads).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ kc,
-                            const __nv_bfloat16* __restrict__ vc,
-                            const int* __restrict__ len_ptr, __nv_bfloat16* __restrict__ out,
-                            float* __restrict__ ws, int* __restrict__ tickets, long long S,
-                            int H, int Hkv, int group, int n_split, float scale) {
-  using M = MmaTile<D>;
-  constexpr int G = kMmaHeads, C = D / 8, P = M::kPitch, ROWS = M::kRows;
-  constexpr int KS = D / 16, NT = D / 8;  // k-steps of Q K^T, n-tiles of P V
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sm_last;
-
-  const int hk = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int n_jc = (group + G - 1) / G;
-  const long long sp = blockIdx.z / n_jc;
-  const int jc = blockIdx.z - (int)sp * n_jc;
-  const int j0 = jc * G;
-  const int gc = min(G, group - j0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;  // the fragments' row (and row + 8)
-  const int tig = lane & 3;  // the fragments' column pair
-
-  long long len = *len_ptr;
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const long long p_begin = sp * S / n_split;
-  const long long p_end = min((sp + 1) * S / n_split, len);
-  const long long bh0 = b * H + (long long)hk * group + j0;
-
-  // Q as the A operand: a0 (row gid, k), a1 (row gid + 8, k), a2 (row gid,
-  // k + 8), a3 (row gid + 8, k + 8), k = 16 kk + 2 tig.
-  uint32_t qa[KS][4];
+  // Combine the warps: one thread per (query head, head dim).
+  for (int t = threadIdx.x; t < gc * D; t += kThreads) {
+    const int j = t / D;
+    const int d = t - j * D;
+    float mx = -INFINITY;
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + j]);
+    float lsum = 0.f, o = 0.f;
+    if (mx != -INFINITY) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = gid + 8 * (i & 1);
-      const int k = kk * 16 + 2 * tig + 8 * (i >> 1);
-      qa[kk][i] = row < gc ? *reinterpret_cast<const uint32_t*>(q + (bh0 + row) * D + k) : 0u;
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = __expf(sm_m[w * G + j] - mx);  // 0 for a warp with no row
+        lsum = fmaf(sm_l[w * G + j], f, lsum);
+        o = fmaf(sm_acc[(w * G + j) * D + d], f, o);
+      }
+    }
+    if (n_split == 1) {
+      store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+    } else {
+      const long long pi = (bh0 + j) * n_split + sp;
+      ws[pi * D + d] = o;
+      if (d == 0) {
+        ws[n_partials * D + 2 * pi] = mx;
+        ws[n_partials * D + 2 * pi + 1] = lsum;
+      }
     }
   }
-  float o[NT][4];  // rows gid (0, 1) and gid + 8 (2, 3), columns 8 j + 2 tig (+1)
-#pragma unroll
-  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows gid, gid + 8
+  if (n_split == 1) return;
 
-  if (p_begin < p_end) {  // the same for the whole block
-    const long long n_tiles = (p_end - p_begin + ROWS - 1) / ROWS;
-    const int n_it = n_tiles > warp ? (int)((n_tiles - warp + kWarps - 1) / kWarps) : 0;
-    uint4* ring = reinterpret_cast<uint4*>(smem) + warp * (kMmaStages * M::kStageChunks);
-    const long long row_stride = (long long)Hkv * D;
-    const __nv_bfloat16* kb = kc + (b * S * Hkv + hk) * D;
-    const __nv_bfloat16* vb = vc + (b * S * Hkv + hk) * D;
-    auto load = [&](int it) {
-      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
-      uint4* st = ring + (it % kMmaStages) * M::kStageChunks;
-#pragma unroll
-      for (int x0 = 0; x0 < ROWS * C; x0 += 32) {
-        const int x = x0 + lane;
-        if (x < ROWS * C) {
-          const int r = x / C;
-          const int cc = x - r * C;
-          const long long pos = r0 + r;
-          const bool ok = pos < p_end;
-          const long long off = ok ? pos * row_stride + cc * 8 : 0;
-          cp_async16(st + r * P + cc, kb + off, ok);
-          cp_async16(st + (ROWS + r) * P + cc, vb + off, ok);
-        }
-      }
-    };
-#pragma unroll
-    for (int s = 0; s < kMmaStages - 1; ++s) {
-      if (s < n_it) load(s);
-      cp_async_commit();
-    }
-    for (int it = 0; it < n_it; ++it) {
-      if (it + kMmaStages - 1 < n_it) load(it + kMmaStages - 1);
-      cp_async_commit();
-      cp_async_wait<kMmaStages - 1>();
-      __syncwarp();
-      const __nv_bfloat16* ks =
-          reinterpret_cast<const __nv_bfloat16*>(ring + (it % kMmaStages) * M::kStageChunks);
-      const __nv_bfloat16* vs = ks + ROWS * P * 8;
-      const long long r0 = p_begin + (warp + (long long)it * kWarps) * ROWS;
-      // S = Q K^T: B (k, n) = K[position n][dim k].
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const __nv_bfloat16* kr = ks + (nt * 8 + gid) * P * 8 + kk * 16 + 2 * tig;
-          mma_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
-      }
-      // s[nt][e]: row gid + 8 (e >> 1), position 8 nt + 2 tig + (e & 1).
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = r0 + nt * 8 + 2 * tig + (e & 1) < p_end;
-          s[nt][e] = valid ? s[nt][e] * scale : -INFINITY;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float mn = fmaxf(m[r], mx[r]);
-        alpha[r] = mn == -INFINITY ? 1.f : __expf(m[r] - mn);  // 0 when m[r] is -inf
-        m[r] = mn;
-        l[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pe = s[nt][e] == -INFINITY ? 0.f : __expf(s[nt][e] - m[e >> 1]);
-          l[e >> 1] += pe;  // l from the unrounded p, as the Pallas kernel
-          s[nt][e] = pe;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-      // P as the A operand (k = position): S's accumulators, rounded to bf16.
-      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-      // O += P V: B (k, n) = V[position k][dim 8 j + n].
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* vr = vs + (2 * tig) * P * 8 + j * 8 + gid;
-        mma_16816(o[j], pa, pack_bf16(vr[0], vr[P * 8]),
-                  pack_bf16(vr[8 * P * 8], vr[9 * P * 8]));
-      }
-      __syncwarp();  // the stage is free for the load of tile it + kMmaStages
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // l over the 4 lanes of each row
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  __syncthreads();  // every warp is done with its ring: it becomes the scratch below
-  float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
-  float* sm_l = sm_m + kWarps * G;  // [kWarps][G]
-  float* sm_acc = sm_l + kWarps * G;  // [kWarps][G][D]
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = gid + 8 * r;
-    if (row >= G) continue;  // an m row past the block's heads
-    if (tig == 0) {
-      sm_m[warp * G + row] = m[r];
-      sm_l[warp * G + row] = l[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      sm_acc[(warp * G + row) * D + 8 * j + 2 * tig] = o[j][2 * r];
-      sm_acc[(warp * G + row) * D + 8 * j + 2 * tig + 1] = o[j][2 * r + 1];
-    }
+  // The last block of this (batch, KV head, head chunk) combines the chunks.
+  __threadfence();  // this block's partials are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ticket = tickets + ((long long)b * Hkv + hk) * n_jc + jc;
+    const bool last = atomicAdd(ticket, 1) == n_split - 1;
+    if (last) *ticket = 0;  // every block of the group has counted: ready for the next call
+    sm_last = last;
   }
   __syncthreads();
-  finish<__nv_bfloat16, D, G>(smem, &sm_last, out, ws, tickets, bh0, gc, sp, n_split,
-                              (long long)gridDim.y * H * n_split,
-                              ((long long)b * Hkv + hk) * n_jc + jc);
+  if (!sm_last) return;
+  __threadfence();
+  combine<T, D, G>(ws, out, bh0, gc, n_split, n_partials, reinterpret_cast<float*>(smem));
 }
 
 template <typename T, int D, int G>
@@ -677,37 +427,12 @@ int launch(const void* q, const void* kc, const void* vc, const int* len, void* 
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_mma(const void* q, const void* kc, const void* vc, const int* len, void* out,
-               void* ws, void* tickets, long long B, long long S, int H, int Hkv,
-               int n_split, void* stream) {
-  const int group = H / Hkv;
-  const int n_jc = (group + kMmaHeads - 1) / kMmaHeads;
-  if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S || n_split > kMaxSplit ||
-      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  constexpr int kSmem = MmaTile<D>::kSmem;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)(n_split * n_jc));
-  flash_decode_mma_kernel<D><<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc, len,
-      (__nv_bfloat16*)out, (float*)ws, (int*)tickets, S, H, Hkv, group, n_split,
-      1.f / sqrtf((float)D));
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int D>
 int by_group(const void* q, const void* kc, const void* vc, const int* len, void* out,
              void* ws, void* tickets, long long B, long long S, int H, int Hkv,
              int n_split, void* stream) {
   if (H / Hkv == 1)
     return launch<T, D, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (H / Hkv >= kMmaMinGroup)
-      return launch_mma<D>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-  }
   return launch<T, D, kGroupHeads>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split,
                                    stream);
 }

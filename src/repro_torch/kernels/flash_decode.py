@@ -37,39 +37,28 @@ _SYMBOLS = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf1
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-# The split over positions.
+# The split over positions (the kernel's kGroupHeads is GROUP_HEADS).
 SMS = 132  # an H100's streaming multiprocessors
 TARGET_BLOCKS = 4 * SMS  # at least four blocks an SM, where S allows
-MIN_CHUNK = 64  # positions: no chunk shorter, unless S is
+MIN_CHUNK = 128  # positions: no chunk shorter, unless S is
 MAX_CHUNK = 1024  # positions: longer caches take more chunks
 MAX_SPLIT = 512  # chunks at most (kMaxSplit: the combine's shared memory)
 MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z = chunks x head chunks
 GROUP_HEADS = 4  # the kernel's kGroupHeads: query heads a block when g > 1
-MMA_MIN_GROUP = 4  # kMmaMinGroup: bf16 groups this large take the tensor-core kernel
-MMA_HEADS = 16  # kMmaHeads: its query heads a block
 
 # (device, stream) -> (f32 workspace, int32 tickets, zeros between launches)
 _scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 _scratch_lock = threading.Lock()
 
 
-def head_chunks(dtype: torch.dtype, group: int) -> int:
-    """The blocks the kernel gives the ``group`` query heads of one KV head
-    at one chunk: one where g = 1, else one per ``MMA_HEADS`` (bf16 from
-    ``MMA_MIN_GROUP`` heads: the tensor-core kernel) or ``GROUP_HEADS``."""
-    if group == 1:
-        return 1
-    per_block = MMA_HEADS if dtype == torch.bfloat16 and group >= MMA_MIN_GROUP else GROUP_HEADS
-    return -(-group // per_block)
-
-
 @functools.lru_cache(maxsize=None)
-def plan_split(S: int, B: int, Hkv: int, head_chunks: int) -> int:
+def plan_split(S: int, B: int, Hkv: int, group: int) -> int:
     """The number of chunks the kernel splits S positions into, for B
-    batches of Hkv KV heads of ``head_chunks`` blocks each: enough that the
+    batches of Hkv KV heads of ``group`` query heads each: enough that the
     grid reaches ``TARGET_BLOCKS`` blocks and no chunk passes ``MAX_CHUNK``,
     as far as chunks of at least ``MIN_CHUNK``, ``MAX_SPLIT`` and the grid's
     limit allow."""
+    head_chunks = 1 if group == 1 else -(-group // GROUP_HEADS)
     want = max(-(-TARGET_BLOCKS // (B * Hkv * head_chunks)), -(-S // MAX_CHUNK))
     return max(1, min(want, S // MIN_CHUNK, MAX_SPLIT, MAX_GRID_Z // head_chunks))
 
@@ -144,7 +133,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"{NAME}: q and the caches must start on 16-byte boundaries")
     B, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    n_split = plan_split(S, B, Hkv, head_chunks(q.dtype, H // Hkv))
+    n_split = plan_split(S, B, Hkv, H // Hkv)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):

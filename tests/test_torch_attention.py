@@ -160,52 +160,38 @@ SPLIT_SHAPES = {  # (S, B, Hkv, group): the decode path, GQA, decode_32k
 }
 
 
-def _blocks(S, B, Hkv, group, dtype=torch.bfloat16):
-    """(blocks, head chunks) of the kernel's grid."""
-    hc = K7.head_chunks(dtype, group)
-    return K7.plan_split(S, B, Hkv, hc) * B * Hkv * hc, hc
+def _blocks(S, B, Hkv, group):
+    head_chunks = 1 if group == 1 else -(-group // K7.GROUP_HEADS)
+    return K7.plan_split(S, B, Hkv, group) * B * Hkv * head_chunks, head_chunks
 
 
 @pytest.mark.parametrize("S,B,Hkv,group", [
     *SPLIT_SHAPES.values(), (4128, 2, 8, 4), (1, 4, 32, 1), (100, 1, 1, 1), (129, 1, 1, 1),
     (1037, 2, 4, 2), (2**31 - 1, 1, 1, 16),
 ], ids=[*SPLIT_SHAPES, "g4", "S1", "S100", "S129", "ragged", "S2^31"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_plan_split_chunks_cover_the_cache(S, B, Hkv, group, dtype):
+def test_plan_split_chunks_cover_the_cache(S, B, Hkv, group):
     """The kernel's chunks cover [0, S) exactly, in order, none shorter than
     MIN_CHUNK (or S), no more than MAX_SPLIT, and the grid stays within
     CUDA's limit."""
-    n = K7.plan_split(S, B, Hkv, K7.head_chunks(dtype, group))
+    n = K7.plan_split(S, B, Hkv, group)
     bounds = K7.chunk_bounds(S, n)
     assert bounds[0] == 0 and bounds[-1] == S and len(bounds) == n + 1
     lengths = np.diff(bounds)
     assert lengths.min() >= min(S, K7.MIN_CHUNK) and lengths.max() - lengths.min() <= 1
-    assert n <= K7.MAX_SPLIT and n * _blocks(S, B, Hkv, group, dtype)[1] <= K7.MAX_GRID_Z
+    assert n <= K7.MAX_SPLIT and n * _blocks(S, B, Hkv, group)[1] <= K7.MAX_GRID_Z
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES.values(), ids=SPLIT_SHAPES.keys())
 def test_plan_split_fills_the_card(shape):
     """At the path, GQA and 32k shapes the grid reaches TARGET_BLOCKS blocks
     (at least four an SM) and no chunk passes MAX_CHUNK positions."""
-    S, B, Hkv, group = shape
+    S = shape[0]
     assert _blocks(*shape)[0] >= K7.TARGET_BLOCKS
-    n = K7.plan_split(S, B, Hkv, K7.head_chunks(torch.bfloat16, group))
-    assert max(np.diff(K7.chunk_bounds(S, n))) <= K7.MAX_CHUNK
+    assert max(np.diff(K7.chunk_bounds(S, K7.plan_split(*shape)))) <= K7.MAX_CHUNK
 
 
 def test_plan_split_one_position_is_one_chunk():
     assert K7.plan_split(1, 4, 32, 1) == 1 and K7.chunk_bounds(1, 1) == [0, 1]
-
-
-@pytest.mark.parametrize("dtype,group,want", [
-    (torch.bfloat16, 1, 1), (torch.bfloat16, 2, 1), (torch.bfloat16, 4, 1),
-    (torch.bfloat16, 8, 1), (torch.bfloat16, 16, 1), (torch.bfloat16, 24, 2),
-    (torch.float32, 1, 1), (torch.float32, 4, 1), (torch.float32, 8, 2),
-])
-def test_head_chunks_follow_the_kernel_that_runs(dtype, group, want):
-    """g = 1 takes one block a KV head; bf16 groups from MMA_MIN_GROUP take
-    the tensor-core kernel's MMA_HEADS a block, the rest GROUP_HEADS."""
-    assert K7.head_chunks(dtype, group) == want
 
 
 def _chunk_partials(q, k, v, cache_len, bounds):
@@ -250,7 +236,7 @@ def test_chunk_partials_combine_to_the_reference(dtypes, where, rng):
     kernel in interpret mode (finite rows past cache_len: it reads them)."""
     jdt, tdt = dtypes
     B, S, H, Hkv, dh = 2, 384, 8, 2, 80
-    bounds = K7.chunk_bounds(S, K7.plan_split(S, B, Hkv, K7.head_chunks(tdt, H // Hkv)))
+    bounds = K7.chunk_bounds(S, K7.plan_split(S, B, Hkv, H // Hkv))
     assert len(bounds) > 2
     n = {"1": 1, "first-chunk": bounds[1] // 2, "chunk-edge": bounds[1],
          "edge+1": bounds[1] + 1, "S": S}[where]
