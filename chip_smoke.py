@@ -147,13 +147,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, flush: torch.Tensor, reps: int = 15, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, L2 flushed before each."""
+def cuda_ms(fn, flush: torch.Tensor, reps: int = 15, warmup: int = 3,
+            read_flush: bool = False) -> float:
+    """Median device time of one call of ``fn``, L2 flushed before each by
+    writing ``flush`` (which leaves up to the L2's 50 MB of dirty lines for
+    ``fn`` to write back) or, with ``read_flush``, by reading it (clean)."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

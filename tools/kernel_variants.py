@@ -5,28 +5,43 @@
 
 on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
 
-    {"kernel": "flash_attention" | "dot_interaction" | "flash_decode" | "scatter_update",
+    {"kernel": "flash_attention" | "dot_interaction" | "flash_decode" | "scatter_update"
+               | "embedding_bag" | "probe_gather_pool",
      "cases": [...],
      "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
 
 with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal), [B, F, D]
 (dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
-NaN past cache_len; a seventh entry "f32" runs it in f32) or [C, D, K]
+NaN past cache_len; a seventh entry "f32" runs it in f32), [C, D, K]
 (scatter_update: K f32 rows of D into distinct random slots of a [C, D] f32
-table, as a hot-cache build writes them).
+table, as a hot-cache build writes them), [bags, nnz, D, live_frac]
+(embedding_bag on dlrm-flexemr's 150,080,000-row f32 table: uniform random
+ids, a slot live with probability live_frac, masked mode; "weighted" as a
+last entry runs the weighted mode), ["forward", B] (embedding_bag on the
+forward's own fused ids and mask at batch B, as chip_smoke.py makes them;
+"weighted" as a third entry), [C, bags, nnz, D, hit_frac]
+(probe_gather_pool over a cache of C f32 slots 40% full: a slot holds a
+resident id with probability hit_frac, a cold id with probability
+hit_frac, else EMPTY_KEY at weight 0, as a masked slot reaches it) or
+["forward", B, C] (probe_gather_pool on the cached forward's query at
+batch B over a cache of C slots holding the hot ids of 4 warm-up batches,
+as chip_smoke.py builds it).
 Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
 replaced by ``new`` (each must occur); the committed source runs as the
 variant ``base``.  A variant may also set ``"attrs"``: attributes of the
 kernel's wrapper module (such as K7's ``MAX_CHUNK``) that hold while it is
-checked and timed.  Every variant of every spec is built at once, one nvcc
+checked and timed, and ``"flush": "read"``: the L2 is flushed before each
+of its timings by reading a 256 MB buffer instead of writing it, so no
+dirty lines are left for the kernel to write back.  Every variant of every spec is built at once, one nvcc
 each, with the flags of ``kernels/build.py``, into ``build/kernel_variants/``,
 and runs through the kernel's own wrapper (``build.use_library``).  At each
 case a variant with ``check`` (the default) is first held against the plain
 version as ``chip_smoke.py`` holds the kernel (K6 bf16 causal by
 ``assert_close_rows``, K2 f32 at 1e-4, K7 as K6 in bf16 and at 2e-5 in f32,
-K4 bit-equal); a variant that cuts work out sets ``"check": false``.  Then
+K4 bit-equal, K1 at 1e-5, K3's miss mask bit-equal and its sums at 1e-5); a variant that cuts work out sets ``"check": false``.  Then
 every variant and the library call (``F.scaled_dot_product_attention``,
-``torch.bmm`` or ``index_copy_``) are timed by CUDA events, L2 flushed, in
+``torch.bmm``, ``index_copy_`` or ``F.embedding_bag``; none for
+probe_gather_pool) are timed by CUDA events, L2 flushed, in
 turns: ``ROUNDS`` rounds, the order reversed every round, the card idle for
 ``PAUSE_S`` before each timing so that every one starts from the same
 clocks rather than from the heat of the last (without it, one build read
@@ -48,22 +63,30 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
+from repro_torch.configs.dlrm_flexemr import make_config  # noqa: E402
+from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.hotcache import kernels as HK  # noqa: E402
 from repro_torch.hotcache import ref as HREF  # noqa: E402
+from repro_torch.hotcache import table as T  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import dot_interaction as K2  # noqa: E402
+from repro_torch.kernels import embedding_bag as K1  # noqa: E402
 from repro_torch.kernels import flash_attention as K6  # noqa: E402
 from repro_torch.kernels import flash_decode as K7  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
 WRAPPERS = {"flash_attention": K6, "dot_interaction": K2, "flash_decode": K7,
-            "scatter_update": HK}
+            "scatter_update": HK, "embedding_bag": K1, "probe_gather_pool": HK}
+MAX_PROBES = 8  # the hot cache's window (hotcache.table.DEFAULT_MAX_PROBES)
 ROUNDS = 10  # pairs of rounds for each two variants
 PAUSE_S = 1.0
+CACHE_FILL = 0.4  # K3 cases: resident ids per slot
+_tables: dict[int, torch.Tensor] = {}  # K1 cases: dlrm-flexemr's table by D
 
 
 def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Path]]]:
@@ -75,7 +98,7 @@ def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Pa
         libs[tag] = {}
         for v in [{"name": "base", "subs": []}, *spec["variants"]]:
             src = src0
-            for old, new in v["subs"]:
+            for old, new in v.get("subs", []):
                 if old not in src:
                     raise ValueError(f"{tag} {v['name']}: {old!r} not in {spec['kernel']}.cu")
                 src = src.replace(old, new)
@@ -95,6 +118,36 @@ def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Pa
             if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  {label}: {line.strip()}", flush=True)
     return libs
+
+
+def forward_inputs(batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """dlrm-flexemr's fused ids [B, 26, 4] int32 and mask of one batch, as
+    ``chip_smoke.py``'s forward makes them (seed 0)."""
+    cfg = make_config()
+    host = syn.recsys_batch(np.random.default_rng(0), cfg.tables, batch, n_dense=cfg.n_dense)
+    fused = cfg.embedding()._fused_rows(cfg.embedding().sharded,
+                                        torch.from_numpy(host["indices"]))
+    return fused.cuda(), torch.from_numpy(host["mask"]).cuda()
+
+
+def hot_ids(batch: int) -> np.ndarray:
+    """Fused ids of 4 warm-up batches (seed 1), hottest first: the cached
+    forward's hot set in ``chip_smoke.py``."""
+    cfg = make_config()
+    emb, warm, ids = cfg.embedding(), np.random.default_rng(1), []
+    for _ in range(4):
+        wb = syn.recsys_batch(warm, cfg.tables, batch, n_dense=cfg.n_dense)
+        ids.append(emb._fused_rows(emb.sharded, torch.from_numpy(wb["indices"])).numpy()[wb["mask"]])
+    uniq, counts = np.unique(np.concatenate(ids), return_counts=True)
+    return uniq[np.argsort(-counts, kind="stable")]
+
+
+def _insert(C: int, ids: np.ndarray) -> np.ndarray:
+    """The keys [C] of an empty cache after inserting ``ids`` (first ones
+    hottest), as ``cache_insert`` places them."""
+    ids = np.asarray(ids[:C], np.int32)
+    return T.insert_plan(np.full((C,), T.EMPTY_KEY, np.int32), np.zeros((C,), np.int32), ids,
+                         np.arange(len(ids), 0, -1, dtype=np.int32), 1, MAX_PROBES)[0]
 
 
 def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
@@ -150,6 +203,59 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
                 lambda n: CS.assert_equal(f"{tag} {n} {case}", HK.scatter_update(
                     torch.zeros_like(values), slots, rows), want),
                 lambda: values.index_copy_(0, slots_l, rows))
+    if kernel == "embedding_bag":
+        forward = case[0] == "forward"
+        D = 64 if forward else case[2]
+        kw = {} if case[-1] == "weighted" else {"masked": True}
+        if D not in _tables:
+            _tables.clear()
+            rows = make_config().num_embedding_rows()
+            _tables[D] = torch.empty((rows, D), device="cuda").normal_(0, 0.01, generator=gen)
+        table = _tables[D]
+        if forward:
+            ids, mask = forward_inputs(case[1])
+            bags, nnz = mask.shape[0] * mask.shape[1], mask.shape[2]
+            ids, w = ids.reshape(-1), mask.reshape(-1).float()
+        else:
+            bags, nnz, D, live = case[:4]
+            ids = torch.randint(0, table.shape[0], (bags * nnz,), device="cuda",
+                                generator=gen, dtype=torch.int32)
+            w = (torch.rand(bags * nnz, device="cuda", generator=gen) < live).float()
+        want = ref.embedding_bag_ref(table, ids, w, bags, **kw)
+        call = lambda: K1.embedding_bag(table, ids, w, bags, **kw)  # noqa: E731
+        return (call,
+                lambda n: CS.assert_close(f"{tag} {n} {case}", call(), want, 1e-5, 1e-5),
+                lambda: F.embedding_bag(ids.view(bags, nnz), table, mode="sum",
+                                        per_sample_weights=w.view(bags, nnz)))
+    if kernel == "probe_gather_pool":
+        if case[0] == "forward":
+            _, B, C = case
+            fused, mask = forward_inputs(B)
+            keys_np = _insert(C, hot_ids(B))
+            bags, D = mask.shape[0] * mask.shape[1], 64
+            ids = torch.where(mask, fused, T.EMPTY_KEY).reshape(-1).contiguous()
+        else:
+            C, bags, nnz, D, hit = case
+            rng = np.random.default_rng(0)
+            keys_np = _insert(C, rng.choice(1 << 30, int(C * CACHE_FILL), replace=False))
+            held = keys_np[keys_np != T.EMPTY_KEY]
+            u = rng.random(bags * nnz)
+            q = np.where(u < hit, rng.choice(held, bags * nnz),
+                         np.where(u < 2 * hit, rng.integers(1 << 30, 1 << 31, bags * nnz),
+                                  T.EMPTY_KEY)).astype(np.int32)
+            ids = torch.from_numpy(q).cuda()
+        keys = torch.from_numpy(keys_np).cuda()
+        values = torch.randn((C, D), device="cuda", generator=gen)
+        w = (ids != T.EMPTY_KEY).float()
+        want = HREF.probe_gather_pool_ref(keys, values, ids, w, bags, MAX_PROBES)
+        call = lambda: HK.probe_gather_pool(keys, values, ids, w, bags, MAX_PROBES)  # noqa: E731
+
+        def check(n):
+            got = call()
+            CS.assert_equal(f"{tag} {n} {case} miss", got[1], want[1])
+            CS.assert_close(f"{tag} {n} {case} pooled", got[0], want[0], 1e-5, 1e-5)
+
+        return call, check, None
     raise ValueError(f"{tag}: no cases for kernel {kernel!r}")
 
 
@@ -181,9 +287,11 @@ def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
         for n, (variant, so) in libs.items():
             if variant.get("check", True):
                 as_variant(variant, so, lambda: check(n))
-        fns = {n: (lambda v=v, so=so: as_variant(v, so, lambda: CS.cuda_ms(call, flush)))
+        fns = {n: (lambda v=v, so=so: as_variant(v, so, lambda: CS.cuda_ms(
+                   call, flush, read_flush=v.get("flush") == "read")))
                for n, (v, so) in libs.items()}
-        fns["library"] = lambda: CS.cuda_ms(library, flush)
+        if library is not None:
+            fns["library"] = lambda: CS.cuda_ms(library, flush)
         times = {n: [] for n in fns}
         order = list(fns)
         for r in range(ROUNDS):
