@@ -12,28 +12,37 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 source, all in parallel, and prints each kernel's -Xptxas -v
                 registers, spills and performance warnings;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the main paths' shapes (TF32 off): K1/K2 in f32 and bf16 (K2
+                the main paths' shapes (TF32 off): K1 in its masked and
+                weighted modes, f32 and bf16, with NaN in the rows behind
+                zero-weight slots (masked: finite; weighted: NaN where the
+                plain version has it), and at nnz 1, 3, 4, 8, 1003 bags,
+                ids outside [0, V), D 17 and 256; K1/K2 in f32 and bf16 (K2
                 also at every serve bucket [32..1024, 17, 64] and at
                 [3, 40, 512], and timed at the buckets beside torch.bmm); K3
                 on dlrm-flexemr's 2048-request batch over a 2^18-slot cache,
-                f32 and bf16 rows; K4 at the cache build's writes and with
+                f32 and bf16 rows, and at nnz 1, 3, 4, 8, 1003 bags, caches
+                of 1, 4 and 1024 slots, ids cold, negative and past every
+                row, D 17; K4 at the cache build's writes and with
                 repeated slots, into f32 and bf16 rows, with slots outside
                 [0, C) mixed in, with one write, from bf16 rows and at a
                 width of 17 (the element-wise copy); K5 in f32 and f64 with
                 ties and -inf.  CUDA-event medians of the kernel, its plain
                 version and one PyTorch call computing the same function
-                (none for K3), beside the bound from bytes and operations;
+                (none for K3), beside the bound from bytes and operations
+                (K1's masked bound counts the live slots' rows, its
+                weighted bound every slot's);
   4. forward  — ``R.forward`` of dlrm-flexemr at its published config
                 (26 fields x 64, 150M-row f32 table made on the card) on
                 2048 synthetic requests: finite scores, allclose to the plain
-                forward, K1 and K2 launched;
+                forward, K1 (every launch in its masked mode) and K2 launched;
   4b. cached_forward — the same model with a 2^18-slot ``HashCacheState``:
                 built by ``make_hash_cache_from_table`` from the hot ids of 4
                 warm-up batches (K4), ``R.forward(..., cache=...)`` on the
-                phase-4 batch (K3, K1, K2) allclose to the uncached forward,
+                phase-4 batch (K3, K1 masked, K2) allclose to the uncached forward,
                 one refresh (``cache_insert`` threshold 2 + ``decay_freq``,
                 K4 again) and a second forward; then device medians of the
-                cached and uncached forward, timed in turns;
+                cached and uncached forward, timed in turns, and each one's
+                device busy time and kernels in a profiled window;
   5. serve    — ``repro_torch.launch.serve.run`` with its defaults (8 servers,
                 pooled engine, depth 2, closed loop) on 400 requests: every
                 request retired, finite scores, K2 launched once per batch;
@@ -75,7 +84,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 on the CPU (plain versions), and the full depth (prefill
                 1,024, 4 decode steps) against one ``forward`` over all
                 1,028 tokens;
- 10. the ``{"kernels": [...]}`` line, then as the last line
+ 10. the ``{"kernels": [...]}`` line (K1's entry adds its weighted mode's
+     times and bound), then as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Each path (4, 4b, 5, 5b, 7, 8) runs with the launch counts set to 0 just
@@ -310,20 +320,24 @@ def main() -> int:
     from repro_torch.utils import tree_size_bytes, tree_to
 
     def launch_counts() -> dict:
-        return {"embedding_bag": K1.launches, "dot_interaction": K2.launches,
+        return {"embedding_bag": K1.launches, "embedding_bag_masked": K1.launches_masked,
+                "dot_interaction": K2.launches,
                 "probe_gather_pool": HK.launches[HK.PROBE],
                 "scatter_update": HK.launches[HK.SCATTER],
                 "topk_neighbor_select": PK.launches,
                 "flash_attention": K6.launches, "flash_decode": K7.launches}
 
     def reset_counts() -> None:
-        K1.launches = K2.launches = PK.launches = K6.launches = K7.launches = 0
+        K1.launches = K1.launches_masked = 0
+        K2.launches = PK.launches = K6.launches = K7.launches = 0
         HK.launches.update(dict.fromkeys(HK.launches, 0))
 
     def require(path: str, counts: dict, names) -> None:
         missing = [n for n in names if counts[n] < 1]
         if missing:
             raise AssertionError(f"{path} did not launch {missing}: {counts}")
+        if "embedding_bag" in names and counts["embedding_bag_masked"] != counts["embedding_bag"]:
+            raise AssertionError(f"{path} launched K1 outside its masked mode: {counts}")
 
     dev = torch.device(DEVICE)
     # ---------------------------------------------------------------- device
@@ -366,8 +380,9 @@ def main() -> int:
     host = syn.recsys_batch(rng, cfg.tables, FORWARD_BATCH, n_dense=cfg.n_dense)
     batch = {k: torch.from_numpy(host[k]).to(dev) for k in ("indices", "mask", "dense")}
     emb = cfg.embedding()
-    # K1's inputs exactly as DisaggEmbedding.lookup hands them to the kernel.
-    fused = emb._fused_rows(emb.sharded, batch["indices"]).clamp_(0, table.shape[0] - 1)
+    # K1's inputs exactly as DisaggEmbedding.lookup hands them to the kernel
+    # (masked mode; a masked slot's id is the padding 0 of its field).
+    fused = emb._fused_rows(emb.sharded, batch["indices"])
     ids = fused.reshape(-1).contiguous()
     wts = batch["mask"].reshape(-1).to(torch.float32).contiguous()
     n_bags = FORWARD_BATCH * cfg.num_fields
@@ -376,16 +391,71 @@ def main() -> int:
 
     # --------------------------------------------------------------- kernels
     log("[kernels] each kernel against its plain version on the card")
-    k1_out = K1.embedding_bag(table, ids, wts, n_bags)
-    k1_err = assert_close(f"K1 embedding_bag f32 [{n_bags} bags x {nnz}, D={table.shape[1]}]",
-                          k1_out, ref.embedding_bag_ref(table, ids, wts, n_bags), 1e-5, 1e-5)
+    k1_out = K1.embedding_bag(table, ids, wts, n_bags, masked=True)
+    k1_err = assert_close(f"K1 embedding_bag masked f32 [{n_bags} bags x {nnz}, "
+                          f"D={table.shape[1]}]", k1_out,
+                          ref.embedding_bag_ref(table, ids, wts, n_bags, masked=True), 1e-5, 1e-5)
+    k1w_err = assert_close("K1 embedding_bag weighted f32 (same bags)",
+                           K1.embedding_bag(table, ids, wts, n_bags),
+                           ref.embedding_bag_ref(table, ids, wts, n_bags), 1e-5, 1e-5)
     small = torch.empty((1 << 20, 64), dtype=torch.bfloat16, device=dev).normal_(
         0, 0.01, generator=torch.Generator(device=dev).manual_seed(1))
     ids_small = (ids % small.shape[0]).to(torch.int32)
-    assert_close("K1 embedding_bag bf16 [1M-row table, same bags]",
-                 K1.embedding_bag(small, ids_small, wts, n_bags),
-                 ref.embedding_bag_ref(small, ids_small, wts, n_bags), 1e-5, 1e-5)
-    del small
+    for masked in (True, False):
+        assert_close(f"K1 embedding_bag {'masked' if masked else 'weighted'} bf16 "
+                     "[1M-row table, same bags]",
+                     K1.embedding_bag(small, ids_small, wts, n_bags, masked=masked),
+                     ref.embedding_bag_ref(small, ids_small, wts, n_bags, masked=masked),
+                     1e-5, 1e-5)
+    # NaN in every row that only zero-weight slots point to: the masked mode
+    # reads none of them, the weighted mode gives NaN where its plain version does.
+    dead = ~torch.isin(ids_small, ids_small[wts != 0]) & (wts == 0)
+    for dt in (torch.float32, torch.bfloat16):
+        nan_tab = small.to(dt)
+        nan_tab[ids_small[dead].long()] = float("nan")
+        got = K1.embedding_bag(nan_tab, ids_small, wts, n_bags, masked=True)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 masked {dtype_name(nan_tab)}: NaN behind w = 0 reached "
+                                 "the output")
+        assert_close(f"K1 embedding_bag masked {dtype_name(nan_tab)}, NaN in the "
+                     f"{int(dead.sum())} zero-weight slots' rows: finite, vs plain", got,
+                     ref.embedding_bag_ref(nan_tab, ids_small, wts, n_bags, masked=True),
+                     1e-5, 1e-5)
+        got = K1.embedding_bag(nan_tab, ids_small, wts, n_bags)
+        want = ref.embedding_bag_ref(nan_tab, ids_small, wts, n_bags)
+        if not torch.equal(got.isnan(), want.isnan()) or not bool(want.isnan().any()):
+            raise AssertionError(f"K1 weighted {dtype_name(nan_tab)}: NaN at other places "
+                                 f"than the plain version's ({int(got.isnan().sum())} vs "
+                                 f"{int(want.isnan().sum())})")
+        fin = ~want.isnan()
+        assert_close(f"K1 embedding_bag weighted {dtype_name(nan_tab)}, same table: NaN in "
+                     f"the same {int((~fin).sum())} outputs, the rest", got[fin], want[fin],
+                     1e-5, 1e-5)
+    del small, nan_tab, got, want, fin, dead
+    # Edge cases: nnz with and without an unrolled loop, 1003 bags (no
+    # multiple of a block's 8, 16 or 32), ids outside [0, V), fractional
+    # weights, rows of 17 (element loads) and 256 (two passes of 32 lanes).
+    egen = torch.Generator(device=dev).manual_seed(4)
+    for nnz_e, width, dt in ((1, 64, torch.float32), (3, 64, torch.float32),
+                             (4, 64, torch.float32), (8, 64, torch.float32),
+                             (1, 64, torch.bfloat16), (3, 64, torch.bfloat16),
+                             (4, 64, torch.bfloat16), (8, 64, torch.bfloat16),
+                             (4, 17, torch.float32), (3, 17, torch.bfloat16),
+                             (4, 256, torch.float32), (8, 256, torch.bfloat16)):
+        V_e, bags_e = 5000, 1003
+        tab = torch.randn((V_e, width), device=dev, generator=egen).to(dt)
+        ids_e = torch.randint(-50, V_e + 50, (bags_e * nnz_e,), device=dev, generator=egen,
+                              dtype=torch.int32)
+        w_e = torch.rand(bags_e * nnz_e, device=dev, generator=egen) + 0.5
+        w_e[torch.rand(bags_e * nnz_e, device=dev, generator=egen) < 0.5] = 0.0
+        for masked in (True, False):
+            assert_close(f"K1 embedding_bag {'masked' if masked else 'weighted'} "
+                         f"{dtype_name(tab)} nnz {nnz_e} D {width} [{bags_e} bags, ids in "
+                         f"[-50, {V_e + 50})]",
+                         K1.embedding_bag(tab, ids_e, w_e, bags_e, masked=masked),
+                         ref.embedding_bag_ref(tab, ids_e, w_e, bags_e, masked=masked),
+                         1e-5, 1e-5)
+    del tab, ids_e, w_e
     gen = torch.Generator(device=dev).manual_seed(2)
     x_fwd = torch.randn((FORWARD_BATCH, cfg.num_fields + 1, cfg.embed_dim),
                         device=dev, generator=gen)
@@ -409,20 +479,25 @@ def main() -> int:
 
     D = table.shape[1]
     live = ids[wts != 0]
-    k1_bytes = (torch.unique(live).numel() * D * 4  # rows the bags need, once
+
+    def k1_bytes(rows):
+        return (torch.unique(rows).numel() * D * 4  # rows the bags need, once
                 + ids.numel() * 8  # ids + weights
                 + n_bags * D * 4)  # pooled output
-    k1_bound, k1_by = bound(k1_bytes, 2 * live.numel() * D)
+
+    k1_bound, k1_by = bound(k1_bytes(live), 2 * live.numel() * D)  # masked: live slots
+    k1w_bound = bound(k1_bytes(ids), 2 * ids.numel() * D)  # weighted: every slot
     B, Fx, Dx = x_fwd.shape
     k2_bound, k2_by = bound(B * Fx * Dx * 4 + B * Fx * Fx * 4, 2 * B * Fx * Fx * Dx)
     ids_2d = ids.view(n_bags, nnz)
+    k1_lib_ms = cuda_ms(lambda: F.embedding_bag(ids_2d, table, mode="sum",
+                                                per_sample_weights=wts.view(n_bags, nnz)),
+                        flush)
     timings = {
         "embedding_bag": (
-            cuda_ms(lambda: K1.embedding_bag(table, ids, wts, n_bags), flush),
-            cuda_ms(lambda: ref.embedding_bag_ref(table, ids, wts, n_bags), flush),
-            cuda_ms(lambda: F.embedding_bag(ids_2d, table, mode="sum",
-                                            per_sample_weights=wts.view(n_bags, nnz)),
-                    flush),
+            cuda_ms(lambda: K1.embedding_bag(table, ids, wts, n_bags, masked=True), flush),
+            cuda_ms(lambda: ref.embedding_bag_ref(table, ids, wts, n_bags, masked=True), flush),
+            k1_lib_ms,
         ),
         "dot_interaction": (
             cuda_ms(lambda: K2.dot_interaction(x_fwd), flush),
@@ -432,9 +507,28 @@ def main() -> int:
     }
     bounds = {"embedding_bag": (k1_bound, k1_by), "dot_interaction": (k2_bound, k2_by)}
     errs = {"embedding_bag": k1_err, "dot_interaction": k2_err}
-    log(f"  bounds: K1 moves {k1_bytes / 1e6:.2f} MB ({torch.unique(live).numel()} "
-        f"unique live rows of {ids.numel()} slots); K2 moves "
+    # K1's weighted mode (the Pallas kernel's contract), beside the masked one
+    # that the main path runs: its own bound reads every slot's row.
+    k1_weighted = {
+        "ms": cuda_ms(lambda: K1.embedding_bag(table, ids, wts, n_bags), flush),
+        "plain_ms": cuda_ms(lambda: ref.embedding_bag_ref(table, ids, wts, n_bags), flush),
+        "library_ms": k1_lib_ms, "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1],
+        "max_abs_err": k1w_err,
+    }
+    # The same launches with the L2 flushed by a read (no dirty lines left
+    # for the kernel to write back), beside the write-flushed medians.
+    k1_weighted["ms_read_flush"] = cuda_ms(
+        lambda: K1.embedding_bag(table, ids, wts, n_bags), flush, read_flush=True)
+    read_flushed = {"embedding_bag": cuda_ms(
+        lambda: K1.embedding_bag(table, ids, wts, n_bags, masked=True), flush, read_flush=True)}
+    log(f"  bounds: K1 masked moves {k1_bytes(live) / 1e6:.2f} MB ({torch.unique(live).numel()} "
+        f"unique live rows of {live.numel()} live slots), weighted {k1_bytes(ids) / 1e6:.2f} MB "
+        f"({torch.unique(ids).numel()} unique rows of {ids.numel()} slots); K2 moves "
         f"{(B * Fx * Dx + B * Fx * Fx) * 4 / 1e6:.2f} MB")
+    log(f"  K1 weighted: kernel {k1_weighted['ms']:.4f} ms, plain {k1_weighted['plain_ms']:.4f} "
+        f"ms, F.embedding_bag {k1_lib_ms:.4f} ms, bound {k1w_bound[0]:.6f} ms (the kernel "
+        f"reaches {k1w_bound[0] / k1_weighted['ms']:.1%} of it); L2 flushed by a read "
+        f"{k1_weighted['ms_read_flush']:.4f} ms")
     k2_rows = []  # K2 at the serve buckets, beside torch.bmm, in turns
     for bucket, x_ in k2_buckets.items():
         Bb, Fb, Db = x_.shape
@@ -533,6 +627,38 @@ def main() -> int:
     assert_close("K3 probe_gather_pool pooled (bf16 rows)", got_bf[0], want_bf[0],
                  1e-5, 1e-5)
     del rows_bf, got_bf, want_bf
+    # Edge cases: nnz 1, 3, 4, 8; 1003 bags; caches of 1 and 4 slots (the
+    # window repeats slots) and of 1024 (some windows wrap past C - 1); ids
+    # resident, cold, negative, past every fused row (2^30 and up) and
+    # EMPTY_KEY; fractional weights; rows of 17 (element loads).
+    kgen = np.random.default_rng(5)
+    for C_e, nnz_e, width, dt in ((1024, 1, 64, torch.float32), (1024, 3, 64, torch.float32),
+                                  (1024, 4, 64, torch.float32), (1024, 8, 64, torch.float32),
+                                  (1024, 4, 64, torch.bfloat16), (1024, 8, 64, torch.bfloat16),
+                                  (4, 3, 64, torch.float32), (1, 4, 64, torch.bfloat16),
+                                  (1024, 4, 17, torch.float32), (1024, 3, 17, torch.bfloat16)):
+        bags_e, n_e = 1003, 1003 * nnz_e
+        res = kgen.choice(1 << 20, max(1, int(C_e * 0.6)), replace=False).astype(np.int32)
+        keys_e = T.insert_plan(np.full((C_e,), T.EMPTY_KEY, np.int32),
+                               np.zeros((C_e,), np.int32), res,
+                               np.ones(len(res), np.int32), 1, MAX_PROBES)[0]
+        held = keys_e[keys_e != T.EMPTY_KEY]
+        pick = kgen.integers(0, 5, n_e)
+        q_np = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                         [kgen.choice(held, n_e), kgen.integers(1 << 20, 1 << 30, n_e),
+                          -kgen.integers(1, 1 << 30, n_e), kgen.integers(1 << 30, (1 << 31) - 1, n_e)],
+                         T.EMPTY_KEY).astype(np.int32)
+        q_e = torch.from_numpy(q_np).to(dev)
+        w_e = torch.from_numpy(kgen.random(n_e).astype(np.float32) + 0.5).to(dev)
+        keys_t = torch.from_numpy(keys_e).to(dev)
+        vals_e = torch.randn((C_e, width), device=dev, generator=gen).to(dt)
+        got = HK.probe_gather_pool(keys_t, vals_e, q_e, w_e, bags_e, MAX_PROBES)
+        want = HREF.probe_gather_pool_ref(keys_t, vals_e, q_e, w_e, bags_e, MAX_PROBES)
+        what = (f"{dtype_name(vals_e)} C {C_e} nnz {nnz_e} D {width} [{bags_e} bags, "
+                f"{int((~want[1]).sum())} hits of {n_e}]")
+        assert_equal(f"K3 probe_gather_pool miss {what}", got[1], want[1])
+        assert_close(f"K3 probe_gather_pool pooled {what}", got[0], want[0], 1e-5, 1e-5)
+    del keys_t, vals_e, q_e, w_e, got, want
     hit = ~k3_out[1]
     n_live = int((query != T.EMPTY_KEY).sum())
     n_hits = int(hit.sum())
@@ -584,6 +710,9 @@ def main() -> int:
                                                    query, wts, n_bags, MAX_PROBES), flush),
         None,  # no single PyTorch call probes a hash table
     )
+    read_flushed["probe_gather_pool"] = cuda_ms(
+        lambda: HK.probe_gather_pool(check_cache.keys, check_cache.rows, query, wts, n_bags,
+                                     MAX_PROBES), flush, read_flush=True)
     timings["scatter_update"] = (
         cuda_ms(lambda: HK.scatter_update(scratch, slots_t, rows_w), flush),
         cuda_ms(lambda: HREF.scatter_update_ref(scratch, slots_t, rows_w), flush),
@@ -602,9 +731,11 @@ def main() -> int:
     for name, (ms, plain_ms, lib_ms) in timings.items():
         bms, by = bounds[name]
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        rf = (f"; L2 flushed by a read {read_flushed[name]:.4f} ms"
+              if name in read_flushed else "")
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib}, bound {bms:.6f} ms (by {by}; the "
-            f"kernel reaches {bms / ms:.1%} of it)")
+            f"kernel reaches {bms / ms:.1%} of it){rf}")
     log(f"  K4 timed at the cache build: {len(w_slots)} writes, {int(keep.sum())} "
         f"survive; K5 timed at the miner's [{MINER_ROWS}, 16] f64, k={k_miner}")
     log(f"  K5 at [4096, 128] f32 k={k_tpu}: kernel {k5_tpu[0]:.4f} ms, plain "
@@ -698,6 +829,9 @@ def main() -> int:
                 c = cache if cached else None
                 turns[cached].append(
                     cuda_ms(lambda: R.forward(cfg, params, batch, cache=c), flush))
+    with torch.no_grad():  # device work of each, one profiled window of 3 calls
+        profiles = {"uncached": device_busy(lambda: R.forward(cfg, params, batch), 3),
+                    "cached": device_busy(lambda: R.forward(cfg, params, batch, cache=cache), 3)}
     log("[cached_forward] " + json.dumps({
         "cache_slots": HOT_SLOTS, "occupancy": int(cache.occupancy()),
         "build_seconds": build_s, "refresh_seconds": refresh_s,
@@ -706,7 +840,7 @@ def main() -> int:
         "cached_forward_ms": statistics.median(turns[True]),
         "uncached_forward_ms": statistics.median(turns[False]),
         "cached_forward_ms_turns": turns[True], "uncached_forward_ms_turns": turns[False],
-        "launches": cached_launches,
+        "launches": cached_launches, "profiles": profiles,
     }))
     del params, table, batch, batch2, fused, ids, wts, ids_2d, live, pooled, pooled_plain
     del scores, scores2, scores_c, scores_c2, pooled_c, cache, ref_rows, query
@@ -1136,6 +1270,15 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "ok": True,
         })
+        if name in read_flushed:
+            kernels[-1]["ms_read_flush"] = read_flushed[name]
+        if name == "embedding_bag":  # timed in the masked mode, the main path's
+            kernels[-1].update({
+                "mode": "masked", "bound_ms_weighted": k1_weighted["bound_ms"],
+                "masked_launches_by_path": {p: c["embedding_bag_masked"]
+                                            for p, c in paths.items()},
+                "weighted": k1_weighted,
+            })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -191,16 +191,19 @@ class DisaggEmbedding:
     def lookup(self, params: dict, indices: torch.Tensor, mask: torch.Tensor,
                cache: HotCacheState | HashCacheState | None = None) -> torch.Tensor:
         """[B, F, nnz] int indices + bool mask -> [B, F, D] f32 pooled
-        embeddings; each group's gather + pool is one launch of kernel K1.
+        embeddings; each group's gather + pool is one launch of kernel K1
+        in its masked mode.
 
-        Masked ids are clamped into the table first, as the reference's
-        masked gather does; the mask rides as the 0/1 slot weights, and mean
+        As the reference's masked gather, a masked slot adds exactly 0 and
+        its row is never read (K1 skips zero-weight slots and clamps ids
+        into the table); the mask rides as the 0/1 slot weights, and mean
         fields are divided by their counts after the sum (folding 1/count
         into the weights would round differently).
 
         With a ``cache``, the sharded fields' hot rows come from it and K1
-        pools only the cold residue; the hot sum is added to the cold one in
-        f32 and mean fields divide by the counts of the original mask."""
+        pools only the cold residue: a hit's table row is not read.  The hot
+        sum is added to the cold one in f32 and mean fields divide by the
+        counts of the original mask."""
         out_groups = []
         for tables, key, fields in self._groups():
             table = params[key]
@@ -211,7 +214,7 @@ class DisaggEmbedding:
             hot = None
             if key == "table" and cache is not None:
                 hot, m_g = self._cache_split(cache, fused, m_g)
-            summed = ops.bag_lookup(table, fused.clamp(0, table.shape[0] - 1), m_g)
+            summed = ops.bag_lookup(table, fused, m_g, masked=True)
             if hot is not None:
                 summed = summed + hot
             out_groups.append(self._pool(summed, counts, fields))

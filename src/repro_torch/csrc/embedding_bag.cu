@@ -4,22 +4,36 @@
 // kernel (pallas_call at :59) that streams one table row per grid step into
 // VMEM by scalar prefetch and accumulates the bag there.
 //
-//   out[b, :] = sum_j w[b*nnz + j] * float(table[idx[b*nnz + j], :])
+//   weighted (the Pallas kernel's contract):
+//     out[b, :] = sum_j w[b*nnz + j] * float(table[idx[b*nnz + j], :])
+//   masked (DisaggEmbedding.lookup, the reference's masked gather):
+//     the same sum over the slots with w != 0 only; a slot whose weight is
+//     0 adds nothing, its id is not used and its row is never loaded.
+//
+// Ids are clamped into [0, V) in both modes: a bad id never reads outside
+// the table.
 //
 // What bounds it on the card: bytes.  Each slot reads one D-wide row of a
 // table far larger than L2 (dlrm-flexemr: 150M x 64 f32, 38 GB) and does two
-// flops per element, so the kernel is a random gather at HBM rate.
+// flops per element, so the kernel is a random gather at HBM rate, and what
+// keeps it from that rate is latency: a row's address is known only once
+// its id has arrived.
 //
-// What the design does about it: a group of D/VEC threads owns one bag and
-// spans its rows with 16-byte vector loads (float4 for f32, 8 x bf16 for
-// bf16); at D = 64 f32 a row is one coalesced 256-byte run read by 16
-// threads.  blockDim.y bags share a block of about 256 threads, so each SM
-// keeps many independent row reads in flight.  The nnz slots run in order in
-// registers with f32 accumulation (every row is multiplied by its weight, as
-// the TPU kernel does; w = 0 masks a slot) and the pooled bag is stored once,
-// so the only traffic is the rows, the ids and weights, and the output.
-// Ids are clamped into [0, V): a bad id can never read outside the table.
-// Callers clamp masked ids themselves, as the reference lookup does.
+// What the design does about it: a group of `lanes` threads (a power of two
+// up to 32, the row's 16-byte vectors rounded up: 16 at D = 64 f32) owns one
+// bag at a time and spans its rows with 16-byte vector loads (float4 for
+// f32, 8 x bf16 for bf16).  Lane j loads slot j's id and weight, once per
+// group and coalesced, and hands them to the group by __shfl_sync.  For
+// the configs' nnz (1, 2, 4, 8) the slot loop is unrolled at compile time
+// and every row load of the bag is issued before the first FMA; in the
+// masked mode a zero-weight slot issues none.  Other nnz take a general
+// loop with four row loads in flight.  The grid is at most one wave of
+// resident blocks (the host computes it from the SM count and the kernel's
+// occupancy, kernels/embedding_bag.py::launch_plan) and strides over the
+// bags; each group loads its next bag's ids and weights before it waits on
+// the current bag's rows.  Sums are f32 in slot order; the pooled bag is
+// stored once, so the only traffic is the rows, the ids and weights, and
+// the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,121 +41,272 @@
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kBatch = 4;  // row loads in flight per lane in the general loop
+constexpr unsigned kFull = 0xffffffffu;
+
+// One lane's part of a row: its raw bytes, loaded once, and the FMA into
+// f32 accumulators.
 template <typename T, int VEC>
-struct RowLoad;
+struct Vec;
 
 template <>
-struct RowLoad<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+struct Vec<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[4]) {
+    acc[0] = fmaf(r.x, w, acc[0]);
+    acc[1] = fmaf(r.y, w, acc[1]);
+    acc[2] = fmaf(r.z, w, acc[2]);
+    acc[3] = fmaf(r.w, w, acc[3]);
   }
 };
 
 template <>
-struct RowLoad<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
-    v[0] = __ldg(p);
+struct Vec<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
+    acc[0] = fmaf(r, w, acc[0]);
   }
 };
 
 template <>
-struct RowLoad<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+struct Vec<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
+      acc[2 * k] = fmaf(f.x, w, acc[2 * k]);
+      acc[2 * k + 1] = fmaf(f.y, w, acc[2 * k + 1]);
     }
   }
 };
 
 template <>
-struct RowLoad<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(p[0]);
+struct Vec<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) { return p[0]; }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
+    acc[0] = fmaf(__bfloat162float(r), w, acc[0]);
   }
 };
 
-template <typename T, int VEC>
-__global__ void embedding_bag_kernel(const T* __restrict__ table,
-                                     const int32_t* __restrict__ idx,
-                                     const float* __restrict__ w,
-                                     float* __restrict__ out,
-                                     int64_t num_bags, int nnz, int dim,
-                                     int64_t num_rows) {
-  const int64_t bag = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (bag >= num_bags) return;
+__device__ __forceinline__ int64_t clamp_row(int32_t id, int64_t num_rows) {
+  const int64_t r = id;
+  return r < 0 ? 0 : (r >= num_rows ? num_rows - 1 : r);
+}
+
+// NNZ > 0: nnz == NNZ <= lanes, every row load of the bag in flight at once.
+// NNZ == 0: any nnz, slots in chunks of `lanes`, kBatch row loads at a time.
+template <typename T, int VEC, int NNZ, bool MASKED>
+__global__ void __launch_bounds__(kThreads)
+embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
+                     const float* __restrict__ w, float* __restrict__ out,
+                     int64_t num_bags, int nnz_rt, int dim, int64_t num_rows,
+                     int lanes) {
+  using V = Vec<T, VEC>;
+  const int nnz = NNZ > 0 ? NNZ : nnz_rt;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int groups = kThreads / lanes;
+  // Groups of one warp hold consecutive bags, so the loop bound is the
+  // same for the whole warp and every __shfl_sync has all 32 lanes.
+  const int64_t group = (int64_t)blockIdx.x * groups + threadIdx.x / lanes;
+  const int64_t warp_group = group - (int64_t)((threadIdx.x & 31) / lanes);
+  const int64_t stride = (int64_t)gridDim.x * groups;
   const int nvec = dim / VEC;
-  const int32_t* bag_idx = idx + bag * nnz;
-  const float* bag_w = w + bag * nnz;
-  for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-    for (int j = 0; j < nnz; ++j) {
-      int64_t row = __ldg(bag_idx + j);
-      row = row < 0 ? 0 : (row >= num_rows ? num_rows - 1 : row);
-      const float wj = __ldg(bag_w + j);
-      float v[VEC];
-      RowLoad<T, VEC>::load(table + row * dim + (int64_t)c * VEC, v);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(v[k], wj, acc[k]);
+
+  // This lane's slot of the group's bag: its id and weight.
+  auto meta = [&](int64_t bag, int slot, int32_t& id, float& wt) {
+    id = 0;
+    wt = 0.f;
+    if (bag < num_bags && slot < nnz) {
+      id = __ldg(idx + bag * nnz + slot);
+      wt = __ldg(w + bag * nnz + slot);
     }
-    float* o = out + bag * dim + (int64_t)c * VEC;
-    if constexpr (VEC % 4 == 0) {
+  };
+
+  int32_t my_id;
+  float my_w;
+  meta(group, lane, my_id, my_w);
+  for (int64_t wb = warp_group; wb < num_bags; wb += stride) {
+    const int64_t bag = wb + (group - warp_group);
+    const bool valid = bag < num_bags;
+    int32_t next_id;
+    float next_w;
+    meta(bag + stride, lane, next_id, next_w);  // in flight under this bag's rows
+    for (int c0 = 0; c0 < nvec; c0 += lanes) {
+      const int c = c0 + lane;
+      const bool col = valid && c < nvec;
+      const T* base = table + (int64_t)c * VEC;
+      float acc[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; k += 4)
-        *reinterpret_cast<float4*>(o + k) =
-            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
-    } else {
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      if constexpr (NNZ > 0) {
+        typename V::Raw raw[NNZ];
+        float wj[NNZ];
+        bool live[NNZ];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+        for (int j = 0; j < NNZ; ++j) {
+          const int32_t id = __shfl_sync(kFull, my_id, j, lanes);
+          wj[j] = __shfl_sync(kFull, my_w, j, lanes);
+          live[j] = col && (!MASKED || wj[j] != 0.f);
+          raw[j] = typename V::Raw{};
+          if (live[j]) raw[j] = V::load(base + clamp_row(id, num_rows) * dim);
+        }
+#pragma unroll
+        for (int j = 0; j < NNZ; ++j)
+          if (live[j]) V::fma(raw[j], wj[j], acc);
+      } else {
+        for (int s0 = 0; s0 < nnz; s0 += lanes) {
+          int32_t sid = my_id;
+          float sw = my_w;
+          if (s0 > 0) meta(bag, s0 + lane, sid, sw);
+          const int n = nnz - s0 < lanes ? nnz - s0 : lanes;
+          for (int j0 = 0; j0 < n; j0 += kBatch) {
+            typename V::Raw raw[kBatch];
+            float wj[kBatch];
+            bool live[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              const int j = j0 + u;
+              const int32_t id = __shfl_sync(kFull, sid, j & (lanes - 1), lanes);
+              wj[u] = __shfl_sync(kFull, sw, j & (lanes - 1), lanes);
+              live[u] = col && j < n && (!MASKED || wj[u] != 0.f);
+              raw[u] = typename V::Raw{};
+              if (live[u]) raw[u] = V::load(base + clamp_row(id, num_rows) * dim);
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u)
+              if (live[u]) V::fma(raw[u], wj[u], acc);
+          }
+        }
+      }
+      if (col) {
+        float* o = out + bag * dim + (int64_t)c * VEC;
+        if constexpr (VEC % 4 == 0) {
+#pragma unroll
+          for (int k = 0; k < VEC; k += 4)
+            *reinterpret_cast<float4*>(o + k) =
+                make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+        }
+      }
     }
+    my_id = next_id;
+    my_w = next_w;
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* table, const void* idx, const void* w, void* out,
-           long long num_bags, int nnz, int dim, long long num_rows,
-           void* stream) {
-  if (num_bags <= 0) return 0;
-  const int nvec = dim / VEC;
-  const int tx = nvec < 256 ? nvec : 256;  // threads along one row
-  const int ty = 256 / tx > 0 ? 256 / tx : 1;  // bags per block
-  const long long blocks = (num_bags + ty - 1) / ty;
-  embedding_bag_kernel<T, VEC><<<(unsigned)blocks, dim3(tx, ty), 0,
-                                 (cudaStream_t)stream>>>(
+template <typename T, int VEC, int NNZ, bool MASKED>
+int launch_one(const void* table, const void* idx, const void* w, void* out,
+               long long num_bags, int nnz, int dim, long long num_rows,
+               int lanes, long long blocks, void* stream) {
+  embedding_bag_kernel<T, VEC, NNZ, MASKED><<<(unsigned)blocks, kThreads, 0,
+                                             (cudaStream_t)stream>>>(
       (const T*)table, (const int32_t*)idx, (const float*)w, (float*)out,
-      num_bags, nnz, dim, num_rows);
+      num_bags, nnz, dim, num_rows, lanes);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+template <typename T, int VEC, int NNZ, bool MASKED>
+int occupancy_one() {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, embedding_bag_kernel<T, VEC, NNZ, MASKED>, kThreads, 0);
+  return err ? -(int)err : blocks;
+}
+
+// The kernel of (vec, nnz_spec, masked), or nullptr: VEC 1 has only the
+// general loop.  F is a functor template called with the instantiation.
+template <typename T, int WIDE, template <typename, int, int, bool> class F,
+          typename... Args>
+int dispatch(int vec, int nnz_spec, int masked, Args... args) {
+#define K1_CASE(V, N)                                                      \
+  if (vec == V && nnz_spec == N)                                           \
+    return masked ? F<T, V, N, true>::run(args...) : F<T, V, N, false>::run(args...);
+  K1_CASE(WIDE, 1)
+  K1_CASE(WIDE, 2)
+  K1_CASE(WIDE, 4)
+  K1_CASE(WIDE, 8)
+  K1_CASE(WIDE, 0)
+  K1_CASE(1, 0)
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int VEC, int NNZ, bool MASKED>
+struct Launch {
+  static int run(const void* table, const void* idx, const void* w, void* out,
+                 long long num_bags, int nnz, int dim, long long num_rows,
+                 int lanes, long long blocks, void* stream) {
+    return launch_one<T, VEC, NNZ, MASKED>(table, idx, w, out, num_bags, nnz, dim,
+                                           num_rows, lanes, blocks, stream);
+  }
+};
+
+template <typename T, int VEC, int NNZ, bool MASKED>
+struct Occupancy {
+  static int run() { return occupancy_one<T, VEC, NNZ, MASKED>(); }
+};
+
+// The host's plan is checked here, not trusted: a wrong one is refused.
+bool plan_ok(const void* table, const void* out, long long num_bags, int nnz,
+             int dim, int vec, int lanes, int nnz_spec, long long blocks) {
+  const bool aligned = (((uintptr_t)table | (uintptr_t)out) & 15u) == 0;
+  return num_bags > 0 && nnz > 0 && dim > 0 && blocks > 0 && blocks < (1ll << 31) &&
+         lanes > 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
+         dim % vec == 0 && (vec == 1 || aligned) &&
+         (nnz_spec == 0 || (nnz_spec == nnz && nnz <= lanes));
+}
 
 }  // namespace
 
 extern "C" {
 
 // table [num_rows, dim], idx [num_bags * nnz] int32, w [num_bags * nnz] f32,
-// out [num_bags, dim] f32.  Returns cudaGetLastError() after the launch.
-int embedding_bag_f32(const void* table, const void* idx, const void* w,
-                      void* out, long long num_bags, int nnz, int dim,
-                      long long num_rows, void* stream) {
-  if (dim % 4 == 0 && aligned16(table) && aligned16(out))
-    return launch<float, 4>(table, idx, w, out, num_bags, nnz, dim, num_rows, stream);
-  return launch<float, 1>(table, idx, w, out, num_bags, nnz, dim, num_rows, stream);
+// out [num_bags, dim] f32.  vec (elements a lane loads at once: 4 or 1 for
+// f32, 8 or 1 for bf16), lanes, nnz_spec (nnz, or 0 for the general loop)
+// and blocks are the host's launch plan; masked is 0 or 1.  Returns
+// cudaGetLastError() after the launch.
+int embedding_bag_f32(const void* table, const void* idx, const void* w, void* out,
+                      long long num_bags, int nnz, int dim, long long num_rows,
+                      int vec, int lanes, int nnz_spec, int masked, long long blocks,
+                      void* stream) {
+  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, blocks))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<float, 4, Launch>(vec, nnz_spec, masked, table, idx, w, out,
+                                    num_bags, nnz, dim, num_rows, lanes, blocks, stream);
 }
 
-int embedding_bag_bf16(const void* table, const void* idx, const void* w,
-                       void* out, long long num_bags, int nnz, int dim,
-                       long long num_rows, void* stream) {
-  if (dim % 8 == 0 && aligned16(table) && aligned16(out))
-    return launch<__nv_bfloat16, 8>(table, idx, w, out, num_bags, nnz, dim, num_rows, stream);
-  return launch<__nv_bfloat16, 1>(table, idx, w, out, num_bags, nnz, dim, num_rows, stream);
+int embedding_bag_bf16(const void* table, const void* idx, const void* w, void* out,
+                       long long num_bags, int nnz, int dim, long long num_rows,
+                       int vec, int lanes, int nnz_spec, int masked, long long blocks,
+                       void* stream) {
+  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, blocks))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16, 8, Launch>(vec, nnz_spec, masked, table, idx, w, out,
+                                            num_bags, nnz, dim, num_rows, lanes, blocks,
+                                            stream);
+}
+
+// Resident blocks per SM of the kernel of (vec, nnz_spec, masked), or minus
+// a CUDA error code.
+int embedding_bag_occupancy_f32(int vec, int nnz_spec, int masked) {
+  return dispatch<float, 4, Occupancy>(vec, nnz_spec, masked);
+}
+
+int embedding_bag_occupancy_bf16(int vec, int nnz_spec, int masked) {
+  return dispatch<__nv_bfloat16, 8, Occupancy>(vec, nnz_spec, masked);
 }
 
 const char* embedding_bag_error_string(int code) {

@@ -23,16 +23,22 @@
 // What bounds it on the card: bytes.  Each live id reads up to max_probes
 // keys (4 bytes each, usually one or two) and, on a hit, one D-wide row of a
 // table of C rows (dlrm-flexemr's cache: 2^18 x 64 f32, 67 MB, larger than
-// L2), two flops per element: a random gather at memory rate.
+// L2), two flops per element: a random gather at memory rate, held back by
+// its chain of dependent loads (id, then keys, then row).
 //
-// What the design does about it: K1's layout.  A group of D/VEC threads owns
-// one bag and spans each hit row with 16-byte vector loads (float4 for f32,
-// 8 x bf16 for bf16); blockDim.y bags share a block of about 256 threads so
-// each SM keeps many independent row reads in flight.  Every thread of the
-// group walks the probe window itself (the key loads coalesce into one
-// broadcast per group), so no shared memory or synchronisation is needed.
-// The bag sum stays in f32 registers and is stored once; thread 0 of the
-// group writes the miss byte of each slot.
+// What the design does about it: K1's geometry (csrc/embedding_bag.cu,
+// kernels/embedding_bag.py::launch_plan).  A group of `lanes` threads owns a
+// bag and spans each hit row with 16-byte vector loads; lane j loads slot
+// j's id and weight and probes it, so all slots of a bag probe at once.
+// Where the window home .. home + max_probes - 1 does not wrap (and C >= 4,
+// max_probes <= 8) the lane reads it as the aligned 16-byte key vectors that
+// cover it, all issued together, and takes the first match; otherwise it
+// steps through the window one key at a time.  The probing lanes write the
+// miss bytes and hand the found slots to the group by __shfl_sync; for the
+// configs' nnz every hit row's load is issued before the first FMA.  The
+// grid is at most one wave and strides over the bags, each group loading
+// its next bag's ids and weights before it waits on the current one.  The
+// bag sum stays in f32 registers, in slot order, and is stored once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,123 +47,275 @@
 namespace {
 
 constexpr int32_t kEmptyKey = 0x7fffffff;
+constexpr int kThreads = 256;
+constexpr int kBatch = 4;  // row loads in flight per lane in the general loop
+constexpr int kWideProbes = 8;  // largest window read as key vectors
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T, int VEC>
-struct RowLoad;
+struct Vec;
 
 template <>
-struct RowLoad<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+struct Vec<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[4]) {
+    acc[0] = fmaf(r.x, w, acc[0]);
+    acc[1] = fmaf(r.y, w, acc[1]);
+    acc[2] = fmaf(r.z, w, acc[2]);
+    acc[3] = fmaf(r.w, w, acc[3]);
   }
 };
 
 template <>
-struct RowLoad<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
-    v[0] = __ldg(p);
+struct Vec<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
+    acc[0] = fmaf(r, w, acc[0]);
   }
 };
 
 template <>
-struct RowLoad<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+struct Vec<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
+      acc[2 * k] = fmaf(f.x, w, acc[2 * k]);
+      acc[2 * k + 1] = fmaf(f.y, w, acc[2 * k + 1]);
     }
   }
 };
 
 template <>
-struct RowLoad<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(p[0]);
+struct Vec<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) { return p[0]; }
+  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
+    acc[0] = fmaf(__bfloat162float(r), w, acc[0]);
   }
 };
 
 // Slot holding `id`, or -1 when it is absent (EMPTY_KEY is always absent).
-__device__ __forceinline__ int64_t probe(const int32_t* __restrict__ keys,
-                                         int32_t id, uint32_t mask, int shift,
-                                         int max_probes) {
+// `wide`: keys is 16-byte aligned and C >= 4, so an aligned 4-key vector
+// that starts inside [0, C) ends inside it.
+__device__ __forceinline__ int32_t probe(const int32_t* __restrict__ keys, int32_t id,
+                                         uint32_t mask, int shift, int max_probes,
+                                         bool wide) {
   if (id == kEmptyKey) return -1;
   const uint32_t h = (uint32_t)id * 2654435761u;
   const uint32_t home = shift >= 32 ? 0u : ((h >> shift) & mask);
+  const uint32_t last = home + (uint32_t)max_probes - 1u;
+  if (wide && max_probes <= kWideProbes && last <= mask) {
+    // The window lies in at most three aligned 4-key vectors from base.
+    const uint32_t base = home & ~3u;
+    int4 q[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      q[k] = make_int4(kEmptyKey, kEmptyKey, kEmptyKey, kEmptyKey);
+      if (base + 4u * k <= last) q[k] = __ldg(reinterpret_cast<const int4*>(keys + base) + k);
+    }
+    int32_t found = -1;
+#pragma unroll
+    for (int k = 2; k >= 0; --k) {  // backwards: the first match is written last
+      const int32_t v[4] = {q[k].x, q[k].y, q[k].z, q[k].w};
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+        const uint32_t pos = base + 4u * k + e;
+        if (pos >= home && pos <= last && v[e] == id) found = (int32_t)pos;
+      }
+    }
+    return found;
+  }
   for (int p = 0; p < max_probes; ++p) {
     const uint32_t s = (home + (uint32_t)p) & mask;
-    if (__ldg(keys + s) == id) return (int64_t)s;
+    if (__ldg(keys + s) == id) return (int32_t)s;
   }
   return -1;
 }
 
-template <typename T, int VEC>
-__global__ void probe_gather_pool_kernel(const int32_t* __restrict__ keys,
-                                         const T* __restrict__ values,
-                                         const int32_t* __restrict__ ids,
-                                         const float* __restrict__ w,
-                                         float* __restrict__ out,
-                                         uint8_t* __restrict__ miss,
-                                         int64_t num_bags, int nnz, int dim,
-                                         uint32_t mask, int shift,
-                                         int max_probes) {
-  const int64_t bag = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (bag >= num_bags) return;
+// NNZ > 0: nnz == NNZ <= lanes, every hit row of the bag in flight at once.
+// NNZ == 0: any nnz, slots in chunks of `lanes`, kBatch row loads at a time.
+template <typename T, int VEC, int NNZ>
+__global__ void __launch_bounds__(kThreads)
+probe_gather_pool_kernel(const int32_t* __restrict__ keys, const T* __restrict__ values,
+                         const int32_t* __restrict__ ids, const float* __restrict__ w,
+                         float* __restrict__ out, uint8_t* __restrict__ miss,
+                         int64_t num_bags, int nnz_rt, int dim, uint32_t mask, int shift,
+                         int max_probes, int lanes, bool wide) {
+  using V = Vec<T, VEC>;
+  const int nnz = NNZ > 0 ? NNZ : nnz_rt;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int groups = kThreads / lanes;
+  // Groups of one warp hold consecutive bags: the loop bound is warp-wide.
+  const int64_t group = (int64_t)blockIdx.x * groups + threadIdx.x / lanes;
+  const int64_t warp_group = group - (int64_t)((threadIdx.x & 31) / lanes);
+  const int64_t stride = (int64_t)gridDim.x * groups;
   const int nvec = dim / VEC;
-  const int32_t* bag_ids = ids + bag * nnz;
-  const float* bag_w = w + bag * nnz;
-  for (int c0 = 0; c0 < nvec; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-    for (int j = 0; j < nnz; ++j) {
-      const int64_t slot = probe(keys, __ldg(bag_ids + j), mask, shift, max_probes);
-      if (c0 == 0 && threadIdx.x == 0) miss[bag * nnz + j] = slot < 0 ? 1 : 0;
-      if (slot < 0 || c >= nvec) continue;
-      const float wj = __ldg(bag_w + j);
-      float v[VEC];
-      RowLoad<T, VEC>::load(values + slot * dim + (int64_t)c * VEC, v);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(v[k], wj, acc[k]);
+
+  auto meta = [&](int64_t bag, int slot, int32_t& id, float& wt) {
+    id = kEmptyKey;
+    wt = 0.f;
+    if (bag < num_bags && slot < nnz) {
+      id = __ldg(ids + bag * nnz + slot);
+      wt = __ldg(w + bag * nnz + slot);
     }
-    if (c >= nvec) continue;
-    float* o = out + bag * dim + (int64_t)c * VEC;
-    if constexpr (VEC % 4 == 0) {
+  };
+  // Probe this lane's slot; the first column chunk writes its miss byte.
+  auto probe_slot = [&](int64_t bag, int slot, int32_t id, bool first) {
+    const int32_t s = probe(keys, id, mask, shift, max_probes, wide);
+    if (first && bag < num_bags && slot < nnz) miss[bag * nnz + slot] = s < 0 ? 1 : 0;
+    return s;
+  };
+
+  int32_t my_id;
+  float my_w;
+  meta(group, lane, my_id, my_w);
+  for (int64_t wb = warp_group; wb < num_bags; wb += stride) {
+    const int64_t bag = wb + (group - warp_group);
+    const bool valid = bag < num_bags;
+    int32_t next_id;
+    float next_w;
+    meta(bag + stride, lane, next_id, next_w);  // in flight under this bag's loads
+    for (int c0 = 0; c0 < nvec; c0 += lanes) {
+      const int c = c0 + lane;
+      const bool col = valid && c < nvec;
+      const T* base = values + (int64_t)c * VEC;
+      float acc[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; k += 4)
-        *reinterpret_cast<float4*>(o + k) =
-            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
-    } else {
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      if constexpr (NNZ > 0) {
+        const int32_t my_slot = probe_slot(bag, lane, my_id, c0 == 0);
+        typename V::Raw raw[NNZ];
+        float wj[NNZ];
+        bool hit[NNZ];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+        for (int j = 0; j < NNZ; ++j) {
+          const int32_t s = __shfl_sync(kFull, my_slot, j, lanes);
+          wj[j] = __shfl_sync(kFull, my_w, j, lanes);
+          hit[j] = col && s >= 0;
+          raw[j] = typename V::Raw{};
+          if (hit[j]) raw[j] = V::load(base + (int64_t)s * dim);
+        }
+#pragma unroll
+        for (int j = 0; j < NNZ; ++j)
+          if (hit[j]) V::fma(raw[j], wj[j], acc);
+      } else {
+        for (int s0 = 0; s0 < nnz; s0 += lanes) {
+          int32_t sid = my_id;
+          float sw = my_w;
+          if (s0 > 0) meta(bag, s0 + lane, sid, sw);
+          const int32_t my_slot = probe_slot(bag, s0 + lane, sid, c0 == 0);
+          const int n = nnz - s0 < lanes ? nnz - s0 : lanes;
+          for (int j0 = 0; j0 < n; j0 += kBatch) {
+            typename V::Raw raw[kBatch];
+            float wj[kBatch];
+            bool hit[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              const int j = j0 + u;
+              const int32_t s = __shfl_sync(kFull, my_slot, j & (lanes - 1), lanes);
+              wj[u] = __shfl_sync(kFull, sw, j & (lanes - 1), lanes);
+              hit[u] = col && j < n && s >= 0;
+              raw[u] = typename V::Raw{};
+              if (hit[u]) raw[u] = V::load(base + (int64_t)s * dim);
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u)
+              if (hit[u]) V::fma(raw[u], wj[u], acc);
+          }
+        }
+      }
+      if (col) {
+        float* o = out + bag * dim + (int64_t)c * VEC;
+        if constexpr (VEC % 4 == 0) {
+#pragma unroll
+          for (int k = 0; k < VEC; k += 4)
+            *reinterpret_cast<float4*>(o + k) =
+                make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+        }
+      }
     }
+    my_id = next_id;
+    my_w = next_w;
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* keys, const void* values, const void* ids,
-           const void* w, void* out, void* miss, long long num_bags, int nnz,
-           int dim, long long num_slots, int shift, int max_probes,
-           void* stream) {
-  if (num_bags <= 0) return 0;
-  const int nvec = dim / VEC;
-  const int tx = nvec < 256 ? nvec : 256;  // threads along one row
-  const int ty = 256 / tx > 0 ? 256 / tx : 1;  // bags per block
-  const long long blocks = (num_bags + ty - 1) / ty;
-  probe_gather_pool_kernel<T, VEC><<<(unsigned)blocks, dim3(tx, ty), 0,
-                                     (cudaStream_t)stream>>>(
-      (const int32_t*)keys, (const T*)values, (const int32_t*)ids,
-      (const float*)w, (float*)out, (uint8_t*)miss, num_bags, nnz, dim,
-      (uint32_t)(num_slots - 1), shift, max_probes);
-  return (int)cudaGetLastError();
+template <typename T, int VEC, int NNZ>
+struct Launch {
+  static int run(const void* keys, const void* values, const void* ids, const void* w,
+                 void* out, void* miss, long long num_bags, int nnz, int dim,
+                 long long num_slots, int shift, int max_probes, int lanes, bool wide,
+                 long long blocks, void* stream) {
+    probe_gather_pool_kernel<T, VEC, NNZ><<<(unsigned)blocks, kThreads, 0,
+                                            (cudaStream_t)stream>>>(
+        (const int32_t*)keys, (const T*)values, (const int32_t*)ids, (const float*)w,
+        (float*)out, (uint8_t*)miss, num_bags, nnz, dim, (uint32_t)(num_slots - 1),
+        shift, max_probes, lanes, wide);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T, int VEC, int NNZ>
+struct Occupancy {
+  static int run() {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, probe_gather_pool_kernel<T, VEC, NNZ>, kThreads, 0);
+    return err ? -(int)err : blocks;
+  }
+};
+
+// The kernel of (vec, nnz_spec); VEC 1 has only the general loop.
+template <typename T, int WIDE, template <typename, int, int> class F, typename... Args>
+int dispatch(int vec, int nnz_spec, Args... args) {
+#define K3_CASE(V, N) \
+  if (vec == V && nnz_spec == N) return F<T, V, N>::run(args...);
+  K3_CASE(WIDE, 1)
+  K3_CASE(WIDE, 2)
+  K3_CASE(WIDE, 4)
+  K3_CASE(WIDE, 8)
+  K3_CASE(WIDE, 0)
+  K3_CASE(1, 0)
+#undef K3_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+// The host's plan is checked here, not trusted: a wrong one is refused.
+bool plan_ok(const void* keys, const void* values, const void* out, long long num_bags,
+             int nnz, int dim, long long num_slots, int max_probes, int vec, int lanes,
+             int nnz_spec, long long blocks) {
+  const bool aligned = (((uintptr_t)values | (uintptr_t)out) & 15u) == 0;
+  return num_bags > 0 && nnz > 0 && dim > 0 && max_probes > 0 && blocks > 0 &&
+         blocks < (1ll << 31) && num_slots > 0 && num_slots <= (1ll << 31) &&
+         (num_slots & (num_slots - 1)) == 0 && lanes > 0 && lanes <= 32 &&
+         (lanes & (lanes - 1)) == 0 && dim % vec == 0 && (vec == 1 || aligned) &&
+         (nnz_spec == 0 || (nnz_spec == nnz && nnz <= lanes)) && keys != nullptr;
+}
+
+template <typename T, int WIDE>
+int run(const void* keys, const void* values, const void* ids, const void* w, void* out,
+        void* miss, long long num_bags, int nnz, int dim, long long num_slots, int shift,
+        int max_probes, int vec, int lanes, int nnz_spec, long long blocks, void* stream) {
+  if (!plan_ok(keys, values, out, num_bags, nnz, dim, num_slots, max_probes, vec, lanes,
+               nnz_spec, blocks))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = num_slots >= 4 && ((uintptr_t)keys & 15u) == 0;
+  return dispatch<T, WIDE, Launch>(vec, nnz_spec, keys, values, ids, w, out, miss,
+                                   num_bags, nnz, dim, num_slots, shift, max_probes,
+                                   lanes, wide, blocks, stream);
+}
 
 }  // namespace
 
@@ -165,30 +323,37 @@ extern "C" {
 
 // keys [num_slots] int32 (a power of two), values [num_slots, dim],
 // ids [num_bags * nnz] int32, w [num_bags * nnz] f32, out [num_bags, dim]
-// f32, miss [num_bags * nnz] bytes (0/1).  shift as in the header note.
-// Returns cudaGetLastError() after the launch.
+// f32, miss [num_bags * nnz] bytes (0/1).  shift as in the header note;
+// vec, lanes, nnz_spec and blocks are the host's launch plan
+// (kernels/embedding_bag.py::launch_plan).  Returns cudaGetLastError()
+// after the launch.
 int probe_gather_pool_f32(const void* keys, const void* values, const void* ids,
-                          const void* w, void* out, void* miss,
-                          long long num_bags, int nnz, int dim,
-                          long long num_slots, int shift, int max_probes,
-                          void* stream) {
-  if (dim % 4 == 0 && aligned16(values) && aligned16(out))
-    return launch<float, 4>(keys, values, ids, w, out, miss, num_bags, nnz, dim,
-                            num_slots, shift, max_probes, stream);
-  return launch<float, 1>(keys, values, ids, w, out, miss, num_bags, nnz, dim,
-                          num_slots, shift, max_probes, stream);
+                          const void* w, void* out, void* miss, long long num_bags,
+                          int nnz, int dim, long long num_slots, int shift,
+                          int max_probes, int vec, int lanes, int nnz_spec,
+                          long long blocks, void* stream) {
+  return run<float, 4>(keys, values, ids, w, out, miss, num_bags, nnz, dim, num_slots,
+                       shift, max_probes, vec, lanes, nnz_spec, blocks, stream);
 }
 
 int probe_gather_pool_bf16(const void* keys, const void* values, const void* ids,
-                           const void* w, void* out, void* miss,
-                           long long num_bags, int nnz, int dim,
-                           long long num_slots, int shift, int max_probes,
-                           void* stream) {
-  if (dim % 8 == 0 && aligned16(values) && aligned16(out))
-    return launch<__nv_bfloat16, 8>(keys, values, ids, w, out, miss, num_bags,
-                                    nnz, dim, num_slots, shift, max_probes, stream);
-  return launch<__nv_bfloat16, 1>(keys, values, ids, w, out, miss, num_bags, nnz,
-                                  dim, num_slots, shift, max_probes, stream);
+                           const void* w, void* out, void* miss, long long num_bags,
+                           int nnz, int dim, long long num_slots, int shift,
+                           int max_probes, int vec, int lanes, int nnz_spec,
+                           long long blocks, void* stream) {
+  return run<__nv_bfloat16, 8>(keys, values, ids, w, out, miss, num_bags, nnz, dim,
+                               num_slots, shift, max_probes, vec, lanes, nnz_spec,
+                               blocks, stream);
+}
+
+// Resident blocks per SM of the kernel of (vec, nnz_spec), or minus a CUDA
+// error code.
+int probe_gather_pool_occupancy_f32(int vec, int nnz_spec) {
+  return dispatch<float, 4, Occupancy>(vec, nnz_spec);
+}
+
+int probe_gather_pool_occupancy_bf16(int vec, int nnz_spec) {
+  return dispatch<__nv_bfloat16, 8, Occupancy>(vec, nnz_spec);
 }
 
 const char* probe_gather_pool_error_string(int code) {

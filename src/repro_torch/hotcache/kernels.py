@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.hotcache import ref
 from repro_torch.kernels import build
+from repro_torch.kernels.embedding_bag import launch_plan, resident_blocks, vec_width
 from repro_torch.kernels.ops import _is_cuda
 
 PROBE = "probe_gather_pool"
@@ -23,16 +24,23 @@ SCATTER = "scatter_update"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PROBE_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p,
 ]
+_PROBE_OCC_ARGS = [ctypes.c_int] * 2
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
 ]
 _PROBE_SYMBOLS = {dt: f"{PROBE}_{s}" for dt, s in _DTYPES.items()}
+_PROBE_OCC_SYMBOLS = {dt: f"{PROBE}_occupancy_{s}" for dt, s in _DTYPES.items()}
+_PROBE_SIGNATURES = {**{s: _PROBE_ARGS for s in _PROBE_SYMBOLS.values()},
+                     **{s: _PROBE_OCC_ARGS for s in _PROBE_OCC_SYMBOLS.values()}}
 _SCATTER_SYMBOLS = {
     (vt, rt): f"{SCATTER}_{vs}_{rs}"
     for vt, vs in _DTYPES.items() for rt, rs in _DTYPES.items()
 }
+
+WAVES = 1  # K3's grid cap in waves of resident blocks (launch_plan)
 
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
 launches = {PROBE: 0, SCATTER: 0}
@@ -83,15 +91,22 @@ def probe_gather_pool(
     if num_bags <= 0 or N % num_bags or max_probes < 1:
         raise ValueError(f"{PROBE}: fixed-nnz layout and max_probes >= 1 "
                          f"required (N={N}, bags={num_bags}, P={max_probes})")
+    if C > 2**31:
+        raise ValueError(f"{PROBE}: at most 2^31 slots, got {C}")
     pooled = torch.empty((num_bags, D), dtype=torch.float32, device=values.device)
     miss = torch.empty((N,), dtype=torch.bool, device=values.device)
     shift = max(1, 33 - C.bit_length())
-    lib = build.load(PROBE, {s: _PROBE_ARGS for s in _PROBE_SYMBOLS.values()})
+    lib = build.load(PROBE, _PROBE_SIGNATURES)
+    vec = vec_width(values.dtype, D, (values.data_ptr() | pooled.data_ptr()) % 16 == 0)
+
     with torch.cuda.device(values.device):
+        plan = launch_plan(num_bags, N // num_bags, D, vec, lambda spec: resident_blocks(
+            lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec), WAVES)
         code = getattr(lib, _PROBE_SYMBOLS[values.dtype])(
             keys.data_ptr(), values.data_ptr(), ids.data_ptr(),
             weights.data_ptr(), pooled.data_ptr(), miss.data_ptr(),
-            num_bags, N // num_bags, D, C, shift, max_probes,
+            num_bags, N // num_bags, D, C, shift, max_probes, plan.vec,
+            plan.lanes, plan.nnz_spec, plan.blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, PROBE, code)

@@ -25,22 +25,28 @@ def _is_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device} (cuda | cpu)")
 
 
-def embedding_bag(table, indices, weights, num_bags):
+def embedding_bag(table, indices, weights, num_bags, masked: bool = False):
+    """K1 in its weighted mode (the Pallas kernel's contract) or, with
+    ``masked``, skipping every slot whose weight is 0 (``ref.embedding_bag_ref``)."""
     if _is_cuda(table):
-        return K1.embedding_bag(table, indices, weights, num_bags)
-    return ref.embedding_bag_ref(table, indices, weights, num_bags)
+        return K1.embedding_bag(table, indices, weights, num_bags, masked=masked)
+    return ref.embedding_bag_ref(table, indices, weights, num_bags, masked=masked)
 
 
 def bag_lookup(
     table: torch.Tensor,
-    indices: torch.Tensor,  # [B, F, nnz], ids already in range
+    indices: torch.Tensor,  # [B, F, nnz]; K1 clamps ids into [0, V)
     mask: torch.Tensor,  # [B, F, nnz] bool
+    masked: bool = False,
 ) -> torch.Tensor:
-    """[B,F,nnz] multi-hot lookup -> [B,F,D] f32 sum-pooled, via kernel K1."""
+    """[B,F,nnz] multi-hot lookup -> [B,F,D] f32 sum-pooled, via kernel K1.
+    The mask rides as 0/1 weights; with ``masked`` a masked slot's row is
+    never read (``DisaggEmbedding.lookup``), without it every row is
+    multiplied by its weight, as the reference's ``ops.bag_lookup``."""
     B, F, nnz = indices.shape
     flat_idx = indices.reshape(-1).to(torch.int32).contiguous()
     flat_w = mask.reshape(-1).to(torch.float32).contiguous()
-    out = embedding_bag(table, flat_idx, flat_w, B * F)
+    out = embedding_bag(table, flat_idx, flat_w, B * F, masked=masked)
     return out.reshape(B, F, table.shape[1])
 
 

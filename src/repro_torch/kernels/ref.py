@@ -13,13 +13,24 @@ import torch
 def embedding_bag_ref(
     table: torch.Tensor,  # [V, D]
     indices: torch.Tensor,  # [N] int32 row ids (N = num_bags * nnz)
-    weights: torch.Tensor,  # [N] f32 per-slot weights (0.0 masks a slot)
+    weights: torch.Tensor,  # [N] f32 per-slot weights
     num_bags: int,
+    masked: bool = False,
 ) -> torch.Tensor:
     """[num_bags, D] f32 weighted sums over fixed-nnz bags (FBGEMM TBE
-    semantics): rows upcast to f32, every row multiplied by its weight."""
-    rows = table.index_select(0, indices.long()).to(torch.float32)
-    rows = rows * weights.to(torch.float32)[:, None]
+    semantics), rows upcast to f32 and ids clamped into [0, V).
+
+    Weighted (the Pallas kernel's contract): every row multiplied by its
+    weight, so a NaN row behind w = 0 gives NaN.  Masked: a slot whose
+    weight is 0 adds exactly 0 and its id is never used, as the reference
+    lookup's masked gather (``where(w != 0, w * row, 0)``)."""
+    w = weights.to(torch.float32)
+    ids = indices.long().clamp(0, table.shape[0] - 1)
+    if masked:
+        ids = torch.where(w != 0, ids, 0)
+    rows = table.index_select(0, ids).to(torch.float32) * w[:, None]
+    if masked:
+        rows = torch.where((w != 0)[:, None], rows, 0.0)
     nnz = indices.shape[0] // num_bags
     return rows.reshape(num_bags, nnz, -1).sum(dim=1)
 

@@ -192,6 +192,9 @@ TABLES = (("big", 40_000, 4), ("mid", 10_000, 2), ("s0", 300, 1), ("s1", 300, 1)
 CFG_KW = dict(name="t", arch="dlrm", embed_dim=16, n_dense=13, bottom_mlp=(64, 16),
               mlp=(64, 32))
 MEM_KW = dict(fixed_bytes=1 << 20, bytes_per_sample=1 << 10, hbm_bytes=1 << 28)
+# The batchers' deadline: longer than any pause of a loaded worker, so a
+# pre-filled queue always yields full batches of 8 (poll returns at 8).
+BATCH_WAIT_S = 5.0
 CTL_KW = dict(field_replication=False, max_rows=128, prefetch_frac=0.5)
 ENGINE_KW = (dict(list_len=8, max_rows=4096, decay=0.99),
              dict(k_neighbors=8, byte_budget=1 << 16, min_score=1.0))
@@ -236,7 +239,7 @@ def test_server_with_prefetcher_matches_reference():
         controller=JaxController(jcfg.tables, jcfg.embed_dim, JaxMemoryModel(**MEM_KW),
                                  **CTL_KW),
         prefetcher=JaxEngine(JaxMiner(**ENGINE_KW[0]), JaxPolicy(**ENGINE_KW[1])),
-        batcher=JaxBatcher(buckets=(8,), max_wait=0.001), registry=JaxRegistry(),
+        batcher=JaxBatcher(buckets=(8,), max_wait=BATCH_WAIT_S), registry=JaxRegistry(),
         **common)
     tserver = FlexEMRServer(
         tcfg, R.params_from_numpy(np_params, "cpu"),
@@ -245,7 +248,7 @@ def test_server_with_prefetcher_matches_reference():
                                            MemoryModel(**MEM_KW), **CTL_KW),
         prefetcher=PrefetchEngine(CooccurrenceMiner(**ENGINE_KW[0], device="cpu"),
                                   PrefetchPolicy(**ENGINE_KW[1])),
-        batcher=BucketBatcher(buckets=(8,), max_wait=0.001), registry=MetricsRegistry(),
+        batcher=BucketBatcher(buckets=(8,), max_wait=BATCH_WAIT_S), registry=MetricsRegistry(),
         device="cpu", **common)
     j_outs, j_sum = _serve_server(jserver, reqs)
     t_outs, t_sum = _serve_server(tserver, reqs)

@@ -35,6 +35,9 @@ TABLES = (("big", 4000, 4), ("mid", 1000, 2), ("small", 64, 1))
 CFG_KW = dict(name="t", arch="dlrm", embed_dim=16, n_dense=13,
               bottom_mlp=(64, 16), mlp=(64, 32))
 MEM_KW = dict(fixed_bytes=1 << 20, bytes_per_sample=1 << 10, hbm_bytes=1 << 28)
+# The batchers' deadline: longer than any pause of a loaded worker, so a
+# pre-filled queue always yields full batches of 8 (poll returns at 8).
+BATCH_WAIT_S = 5.0
 SUMMARY_KEYS = ("requests", "batches", "hit_rate", "network_bytes",
                 "bytes_no_cache", "bytes_request", "bytes_swap_in")
 
@@ -55,10 +58,8 @@ def _serve(server, reqs):
         for r in reqs:
             server.submit(r)
         outs = []
-        while True:
+        while server.metrics.requests < len(reqs):  # no idle poll after the last
             o = server.step()
-            if o is None and server.metrics.requests >= len(reqs):
-                break
             if o is not None:
                 outs.append(o["scores"])
         summary = server.metrics.summary()
@@ -88,7 +89,7 @@ def stream():
         controller=JaxController(jcfg.tables, jcfg.embed_dim, JaxMemoryModel(**MEM_KW),
                                  field_replication=False, max_rows=1024),
         cache_refresh_every=3, pipeline_depth=1, hedge_timeout=None,
-        batcher=JaxBatcher(buckets=(8,), max_wait=0.001), registry=JaxRegistry(),
+        batcher=JaxBatcher(buckets=(8,), max_wait=BATCH_WAIT_S), registry=JaxRegistry(),
     )
     return tcfg, np_params, reqs, _serve(jserver, reqs)
 
@@ -102,7 +103,7 @@ def _port_run(stream, depth, hedge):
             tcfg.tables, tcfg.embed_dim, MemoryModel(**MEM_KW),
             field_replication=False, max_rows=1024),
         cache_refresh_every=3, pipeline_depth=depth, hedge_timeout=hedge,
-        batcher=BucketBatcher(buckets=(8,), max_wait=0.001),
+        batcher=BucketBatcher(buckets=(8,), max_wait=BATCH_WAIT_S),
         registry=MetricsRegistry(), device="cpu",
     )
     return _serve(server, reqs)
