@@ -646,7 +646,8 @@ def main() -> int:
         pick = kgen.integers(0, 5, n_e)
         q_np = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
                          [kgen.choice(held, n_e), kgen.integers(1 << 20, 1 << 30, n_e),
-                          -kgen.integers(1, 1 << 30, n_e), kgen.integers(1 << 30, (1 << 31) - 1, n_e)],
+                          -kgen.integers(1, 1 << 30, n_e),
+                          kgen.integers(1 << 30, (1 << 31) - 1, n_e)],
                          T.EMPTY_KEY).astype(np.int32)
         q_e = torch.from_numpy(q_np).to(dev)
         w_e = torch.from_numpy(kgen.random(n_e).astype(np.float32) + 0.5).to(dev)

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_vec.cuh"
+
 namespace {
 
 constexpr int32_t kEmptyKey = 0x7fffffff;
@@ -51,58 +53,6 @@ constexpr int kThreads = 256;
 constexpr int kBatch = 4;  // row loads in flight per lane in the general loop
 constexpr int kWideProbes = 8;  // largest window read as key vectors
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T, int VEC>
-struct Vec;
-
-template <>
-struct Vec<float, 4> {
-  using Raw = float4;
-  static __device__ __forceinline__ Raw load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[4]) {
-    acc[0] = fmaf(r.x, w, acc[0]);
-    acc[1] = fmaf(r.y, w, acc[1]);
-    acc[2] = fmaf(r.z, w, acc[2]);
-    acc[3] = fmaf(r.w, w, acc[3]);
-  }
-};
-
-template <>
-struct Vec<float, 1> {
-  using Raw = float;
-  static __device__ __forceinline__ Raw load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
-    acc[0] = fmaf(r, w, acc[0]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      acc[2 * k] = fmaf(f.x, w, acc[2 * k]);
-      acc[2 * k + 1] = fmaf(f.y, w, acc[2 * k + 1]);
-    }
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 1> {
-  using Raw = __nv_bfloat16;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) { return p[0]; }
-  static __device__ __forceinline__ void fma(const Raw& r, float w, float (&acc)[1]) {
-    acc[0] = fmaf(__bfloat162float(r), w, acc[0]);
-  }
-};
 
 // Slot holding `id`, or -1 when it is absent (EMPTY_KEY is always absent).
 // `wide`: keys is 16-byte aligned and C >= 4, so an aligned 4-key vector
@@ -277,7 +227,8 @@ struct Occupancy {
   }
 };
 
-// The kernel of (vec, nnz_spec); VEC 1 has only the general loop.
+// F<instantiation of (vec, nnz_spec)>::run(args...), or cudaErrorInvalidValue
+// where there is none (VEC 1 has only the general loop).
 template <typename T, int WIDE, template <typename, int, int> class F, typename... Args>
 int dispatch(int vec, int nnz_spec, Args... args) {
 #define K3_CASE(V, N) \

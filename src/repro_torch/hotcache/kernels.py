@@ -40,8 +40,6 @@ _SCATTER_SYMBOLS = {
     for vt, vs in _DTYPES.items() for rt, rs in _DTYPES.items()
 }
 
-WAVES = 1  # K3's grid cap in waves of resident blocks (launch_plan)
-
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
 launches = {PROBE: 0, SCATTER: 0}
 
@@ -101,7 +99,7 @@ def probe_gather_pool(
 
     with torch.cuda.device(values.device):
         plan = launch_plan(num_bags, N // num_bags, D, vec, lambda spec: resident_blocks(
-            lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec), WAVES)
+            lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec))
         code = getattr(lib, _PROBE_SYMBOLS[values.dtype])(
             keys.data_ptr(), values.data_ptr(), ids.data_ptr(),
             weights.data_ptr(), pooled.data_ptr(), miss.data_ptr(),

@@ -22,7 +22,6 @@ from repro_torch.kernels import build
 NAME = "embedding_bag"
 THREADS = 256  # threads a block (kThreads in the source)
 NNZ_SPECIALISED = (1, 2, 4, 8)  # nnz values with an unrolled slot loop
-WAVES = 1  # the grid's cap in waves of resident blocks (launch_plan)
 _ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -58,20 +57,19 @@ def vec_width(dtype: torch.dtype, dim: int, aligned: bool) -> int:
 
 
 def launch_plan(num_bags: int, nnz: int, dim: int, vec: int,
-                resident: Callable[[int], int], waves: int = 1) -> LaunchPlan:
+                resident: Callable[[int], int]) -> LaunchPlan:
     """The geometry of K1 and K3: ``lanes`` threads own a bag, ``THREADS //
     lanes`` bags share a block; ``nnz`` in ``NNZ_SPECIALISED`` (and no
     larger than ``lanes``) takes its unrolled loop; the grid is the bags'
-    blocks, capped at ``waves`` waves of ``resident(nnz_spec)`` blocks (SMs
-    times the blocks of that kernel an SM holds), over which the kernel
-    strides."""
+    blocks, capped at one wave of ``resident(nnz_spec)`` blocks (SMs times
+    the blocks of that kernel an SM holds), over which the kernel strides."""
     nvec = dim // vec
     lanes = 1
     while lanes < min(nvec, 32):
         lanes *= 2
     nnz_spec = nnz if vec > 1 and nnz in NNZ_SPECIALISED and nnz <= lanes else 0
     need = -(-num_bags // (THREADS // lanes))
-    return LaunchPlan(vec, lanes, nnz_spec, max(1, min(need, waves * resident(nnz_spec))))
+    return LaunchPlan(vec, lanes, nnz_spec, max(1, min(need, resident(nnz_spec))))
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -136,7 +134,7 @@ def embedding_bag(
     vec = vec_width(table.dtype, D, (table.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(table.device):
         plan = launch_plan(num_bags, nnz, D, vec, lambda spec: resident_blocks(
-            lib, NAME, _OCC_SYMBOLS[table.dtype], table.device, vec, spec, int(masked)), WAVES)
+            lib, NAME, _OCC_SYMBOLS[table.dtype], table.device, vec, spec, int(masked)))
         code = getattr(lib, _SYMBOLS[table.dtype])(
             table.data_ptr(), indices.data_ptr(), weights.data_ptr(),
             out.data_ptr(), num_bags, nnz, D, V, plan.vec, plan.lanes,

@@ -37,7 +37,7 @@ from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
 from repro_torch.hotcache import kernels as HK
 from repro_torch.hotcache import table as T
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import embedding_bag as K1
 from repro_torch.models import recsys as R
 

@@ -32,13 +32,15 @@ variant ``base``.  A variant may also set ``"attrs"``: attributes of the
 kernel's wrapper module (such as K7's ``MAX_CHUNK``) that hold while it is
 checked and timed, and ``"flush": "read"``: the L2 is flushed before each
 of its timings by reading a 256 MB buffer instead of writing it, so no
-dirty lines are left for the kernel to write back.  Every variant of every spec is built at once, one nvcc
-each, with the flags of ``kernels/build.py``, into ``build/kernel_variants/``,
-and runs through the kernel's own wrapper (``build.use_library``).  At each
-case a variant with ``check`` (the default) is first held against the plain
-version as ``chip_smoke.py`` holds the kernel (K6 bf16 causal by
-``assert_close_rows``, K2 f32 at 1e-4, K7 as K6 in bf16 and at 2e-5 in f32,
-K4 bit-equal, K1 at 1e-5, K3's miss mask bit-equal and its sums at 1e-5); a variant that cuts work out sets ``"check": false``.  Then
+dirty lines are left for the kernel to write back.  Every variant of every
+spec is built at once, one nvcc each, with the flags of ``kernels/build.py``,
+into ``build/kernel_variants/``, and runs through the kernel's own wrapper
+(``build.use_library``).  At each case a variant with ``check`` (the
+default) is first held against the plain version as ``chip_smoke.py`` holds
+the kernel (K6 bf16 causal by ``assert_close_rows``, K2 f32 at 1e-4, K7 as
+K6 in bf16 and at 2e-5 in f32, K4 bit-equal, K1 at 1e-5, K3's miss mask
+bit-equal and its sums at 1e-5); a variant that cuts work out sets
+``"check": false``.  Then
 every variant and the library call (``F.scaled_dot_product_attention``,
 ``torch.bmm``, ``index_copy_`` or ``F.embedding_bag``; none for
 probe_gather_pool) are timed by CUDA events, L2 flushed, in
@@ -137,7 +139,8 @@ def hot_ids(batch: int) -> np.ndarray:
     emb, warm, ids = cfg.embedding(), np.random.default_rng(1), []
     for _ in range(4):
         wb = syn.recsys_batch(warm, cfg.tables, batch, n_dense=cfg.n_dense)
-        ids.append(emb._fused_rows(emb.sharded, torch.from_numpy(wb["indices"])).numpy()[wb["mask"]])
+        fused = emb._fused_rows(emb.sharded, torch.from_numpy(wb["indices"])).numpy()
+        ids.append(fused[wb["mask"]])
     uniq, counts = np.unique(np.concatenate(ids), return_counts=True)
     return uniq[np.argsort(-counts, kind="stable")]
 
