@@ -26,19 +26,19 @@
 // L2), two flops per element: a random gather at memory rate, held back by
 // its chain of dependent loads (id, then keys, then row).
 //
-// What the design does about it: K1's geometry (csrc/embedding_bag.cu,
-// kernels/embedding_bag.py::launch_plan).  A group of `lanes` threads owns a
-// bag and spans each hit row with 16-byte vector loads; lane j loads slot
-// j's id and weight and probes it, so all slots of a bag probe at once.
-// Where the window home .. home + max_probes - 1 does not wrap (and C >= 4,
-// max_probes <= 8) the lane reads it as the aligned 16-byte key vectors that
-// cover it, all issued together, and takes the first match; otherwise it
-// steps through the window one key at a time.  The probing lanes write the
-// miss bytes and hand the found slots to the group by __shfl_sync; for the
-// configs' nnz every hit row's load is issued before the first FMA.  The
+// What the design does about it: K1's geometry and passes
+// (csrc/embedding_bag.cu, kernels/embedding_bag.py::launch_plan).  A group
+// of `lanes` threads spans a row with 16-byte vector loads and takes
+// several consecutive bags a pass, lane s loading slot s's id and weight
+// and probing it, so all slots of a pass probe at once.  Where the window
+// home .. home + max_probes - 1 does not wrap (and C >= 4, max_probes <= 8)
+// the lane reads it as the aligned 16-byte key vectors that cover it, all
+// issued together, and takes the first match; otherwise it steps through
+// the window one key at a time.  The probing lanes write the miss bytes; a
+// ballot lists the hits, whose rows load four at a time, slots handed out
+// by __shfl_sync, into the f32 sums of their bags, in slot order.  The
 // grid is at most one wave and strides over the bags, each group loading
-// its next bag's ids and weights before it waits on the current one.  The
-// bag sum stays in f32 registers, in slot order, and is stored once.
+// its next pass's ids and weights before it waits on the current loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +50,7 @@ namespace {
 
 constexpr int32_t kEmptyKey = 0x7fffffff;
 constexpr int kThreads = 256;
-constexpr int kBatch = 4;  // row loads in flight per lane in the general loop
+constexpr int kBatch = 4;  // row loads in flight per lane
 constexpr int kWideProbes = 8;  // largest window read as key vectors
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -92,78 +92,126 @@ __device__ __forceinline__ int32_t probe(const int32_t* __restrict__ keys, int32
   return -1;
 }
 
-// NNZ > 0: nnz == NNZ <= lanes, every hit row of the bag in flight at once.
-// NNZ == 0: any nnz, slots in chunks of `lanes`, kBatch row loads at a time.
+// Bags a group takes a pass in the unrolled path: 16 f32 accumulators a lane.
+template <int VEC>
+constexpr int kMaxBags = VEC >= 4 ? 16 / VEC : 1;
+
+// NNZ > 0 (nnz == NNZ, pass_bags * NNZ <= lanes): a pass takes pass_bags
+// consecutive bags, lane s probing slot s % NNZ of bag s / NNZ; a ballot
+// lists the hits, whose rows load kBatch at a time into per-bag sums.
+// NNZ == 0 (pass_bags == 1): any nnz, slots in chunks of `lanes`.
 template <typename T, int VEC, int NNZ>
 __global__ void __launch_bounds__(kThreads)
 probe_gather_pool_kernel(const int32_t* __restrict__ keys, const T* __restrict__ values,
                          const int32_t* __restrict__ ids, const float* __restrict__ w,
                          float* __restrict__ out, uint8_t* __restrict__ miss,
                          int64_t num_bags, int nnz_rt, int dim, uint32_t mask, int shift,
-                         int max_probes, int lanes, bool wide) {
+                         int max_probes, int lanes, int pass_bags, bool wide) {
   using V = Vec<T, VEC>;
   const int nnz = NNZ > 0 ? NNZ : nnz_rt;
   const int lane = threadIdx.x & (lanes - 1);
   const int groups = kThreads / lanes;
   // Groups of one warp hold consecutive bags: the loop bound is warp-wide.
+  const int in_warp = (threadIdx.x & 31) / lanes;
   const int64_t group = (int64_t)blockIdx.x * groups + threadIdx.x / lanes;
-  const int64_t warp_group = group - (int64_t)((threadIdx.x & 31) / lanes);
-  const int64_t stride = (int64_t)gridDim.x * groups;
+  const int64_t stride = (int64_t)gridDim.x * groups * pass_bags;
+  const unsigned seg = lanes == 32 ? kFull : ((1u << lanes) - 1u) << (in_warp * lanes);
   const int nvec = dim / VEC;
+  const int64_t total = num_bags * nnz;
 
-  auto meta = [&](int64_t bag, int slot, int32_t& id, float& wt) {
+  auto meta = [&](int64_t first, int s, int32_t& id, float& wt) {
     id = kEmptyKey;
     wt = 0.f;
-    if (bag < num_bags && slot < nnz) {
-      id = __ldg(ids + bag * nnz + slot);
-      wt = __ldg(w + bag * nnz + slot);
+    const int64_t i = first * nnz + s;
+    if (s < pass_bags * nnz && i < total) {
+      id = __ldg(ids + i);
+      wt = __ldg(w + i);
     }
   };
-  // Probe this lane's slot; the first column chunk writes its miss byte.
-  auto probe_slot = [&](int64_t bag, int slot, int32_t id, bool first) {
-    const int32_t s = probe(keys, id, mask, shift, max_probes, wide);
-    if (first && bag < num_bags && slot < nnz) miss[bag * nnz + slot] = s < 0 ? 1 : 0;
-    return s;
+  // Probe slot s of the pass at `first`, writing its miss byte.
+  auto probe_slot = [&](int64_t first, int s, int32_t id) {
+    const int32_t found = probe(keys, id, mask, shift, max_probes, wide);
+    const int64_t i = first * nnz + s;
+    if (s < pass_bags * nnz && i < total) miss[i] = found < 0 ? 1 : 0;
+    return found;
+  };
+  auto store = [&](int64_t bag, int c, const float (&acc)[VEC]) {
+    float* o = out + bag * dim + (int64_t)c * VEC;
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < VEC; k += 4)
+        *reinterpret_cast<float4*>(o + k) =
+            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+    }
   };
 
   int32_t my_id;
   float my_w;
-  meta(group, lane, my_id, my_w);
-  for (int64_t wb = warp_group; wb < num_bags; wb += stride) {
-    const int64_t bag = wb + (group - warp_group);
-    const bool valid = bag < num_bags;
+  meta(group * pass_bags, lane, my_id, my_w);
+  for (int64_t wb = (group - in_warp) * pass_bags; wb < num_bags; wb += stride) {
+    const int64_t first = wb + (int64_t)in_warp * pass_bags;
     int32_t next_id;
     float next_w;
-    meta(bag + stride, lane, next_id, next_w);  // in flight under this bag's loads
-    for (int c0 = 0; c0 < nvec; c0 += lanes) {
-      const int c = c0 + lane;
-      const bool col = valid && c < nvec;
-      const T* base = values + (int64_t)c * VEC;
-      float acc[VEC];
+    meta(first + stride, lane, next_id, next_w);  // in flight under this pass's loads
+    if constexpr (NNZ > 0) {
+      const int32_t my_slot = probe_slot(first, lane, my_id);
+      const unsigned hits = (__ballot_sync(kFull, my_slot >= 0) & seg) >> (in_warp * lanes);
+      for (int c0 = 0; c0 < nvec; c0 += lanes) {
+        const int c = c0 + lane;
+        const T* base = values + (int64_t)c * VEC;
+        float acc[kMaxBags<VEC>][VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-      if constexpr (NNZ > 0) {
-        const int32_t my_slot = probe_slot(bag, lane, my_id, c0 == 0);
-        typename V::Raw raw[NNZ];
-        float wj[NNZ];
-        bool hit[NNZ];
+        for (int b = 0; b < kMaxBags<VEC>; ++b)
 #pragma unroll
-        for (int j = 0; j < NNZ; ++j) {
-          const int32_t s = __shfl_sync(kFull, my_slot, j, lanes);
-          wj[j] = __shfl_sync(kFull, my_w, j, lanes);
-          hit[j] = col && s >= 0;
-          raw[j] = typename V::Raw{};
-          if (hit[j]) raw[j] = V::load(base + (int64_t)s * dim);
+          for (int k = 0; k < VEC; ++k) acc[b][k] = 0.f;
+        unsigned todo = hits;  // the same in every lane of the group
+        while (todo) {
+          int src[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            src[u] = todo ? __ffs(todo) - 1 : -1;
+            todo &= todo - 1u;
+          }
+          typename V::Raw raw[kBatch];
+          float wj[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int32_t sl = __shfl_sync(seg, my_slot, src[u] < 0 ? 0 : src[u], lanes);
+            wj[u] = __shfl_sync(seg, my_w, src[u] < 0 ? 0 : src[u], lanes);
+            raw[u] = typename V::Raw{};
+            if (src[u] >= 0 && c < nvec) raw[u] = V::load(base + (int64_t)sl * dim);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (src[u] < 0 || c >= nvec) continue;
+#pragma unroll
+            for (int b = 0; b < kMaxBags<VEC>; ++b)
+              if (b == src[u] / NNZ) V::fma(raw[u], wj[u], acc[b]);
+          }
         }
 #pragma unroll
-        for (int j = 0; j < NNZ; ++j)
-          if (hit[j]) V::fma(raw[j], wj[j], acc);
-      } else {
+        for (int b = 0; b < kMaxBags<VEC>; ++b)
+          if (c < nvec && b < pass_bags && first + b < num_bags) store(first + b, c, acc[b]);
+      }
+    } else {
+      const bool valid = first < num_bags;
+      for (int c0 = 0; c0 < nvec; c0 += lanes) {
+        const int c = c0 + lane;
+        const bool col = valid && c < nvec;
+        const T* base = values + (int64_t)c * VEC;
+        float acc[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
         for (int s0 = 0; s0 < nnz; s0 += lanes) {
           int32_t sid = my_id;
           float sw = my_w;
-          if (s0 > 0) meta(bag, s0 + lane, sid, sw);
-          const int32_t my_slot = probe_slot(bag, s0 + lane, sid, c0 == 0);
+          if (s0 > 0) meta(first, s0 + lane, sid, sw);
+          // The first column chunk writes the miss bytes; later ones probe again.
+          const int32_t my_slot = c0 == 0 ? probe_slot(first, s0 + lane, sid)
+                                          : probe(keys, sid, mask, shift, max_probes, wide);
           const int n = nnz - s0 < lanes ? nnz - s0 : lanes;
           for (int j0 = 0; j0 < n; j0 += kBatch) {
             typename V::Raw raw[kBatch];
@@ -172,29 +220,18 @@ probe_gather_pool_kernel(const int32_t* __restrict__ keys, const T* __restrict__
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
               const int j = j0 + u;
-              const int32_t s = __shfl_sync(kFull, my_slot, j & (lanes - 1), lanes);
+              const int32_t sl = __shfl_sync(kFull, my_slot, j & (lanes - 1), lanes);
               wj[u] = __shfl_sync(kFull, sw, j & (lanes - 1), lanes);
-              hit[u] = col && j < n && s >= 0;
+              hit[u] = col && j < n && sl >= 0;
               raw[u] = typename V::Raw{};
-              if (hit[u]) raw[u] = V::load(base + (int64_t)s * dim);
+              if (hit[u]) raw[u] = V::load(base + (int64_t)sl * dim);
             }
 #pragma unroll
             for (int u = 0; u < kBatch; ++u)
               if (hit[u]) V::fma(raw[u], wj[u], acc);
           }
         }
-      }
-      if (col) {
-        float* o = out + bag * dim + (int64_t)c * VEC;
-        if constexpr (VEC % 4 == 0) {
-#pragma unroll
-          for (int k = 0; k < VEC; k += 4)
-            *reinterpret_cast<float4*>(o + k) =
-                make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) o[k] = acc[k];
-        }
+        if (col) store(first, c, acc);
       }
     }
     my_id = next_id;
@@ -206,13 +243,13 @@ template <typename T, int VEC, int NNZ>
 struct Launch {
   static int run(const void* keys, const void* values, const void* ids, const void* w,
                  void* out, void* miss, long long num_bags, int nnz, int dim,
-                 long long num_slots, int shift, int max_probes, int lanes, bool wide,
-                 long long blocks, void* stream) {
+                 long long num_slots, int shift, int max_probes, int lanes, int pass_bags,
+                 bool wide, long long blocks, void* stream) {
     probe_gather_pool_kernel<T, VEC, NNZ><<<(unsigned)blocks, kThreads, 0,
                                             (cudaStream_t)stream>>>(
         (const int32_t*)keys, (const T*)values, (const int32_t*)ids, (const float*)w,
         (float*)out, (uint8_t*)miss, num_bags, nnz, dim, (uint32_t)(num_slots - 1),
-        shift, max_probes, lanes, wide);
+        shift, max_probes, lanes, pass_bags, wide);
     return (int)cudaGetLastError();
   }
 };
@@ -246,26 +283,31 @@ int dispatch(int vec, int nnz_spec, Args... args) {
 // The host's plan is checked here, not trusted: a wrong one is refused.
 bool plan_ok(const void* keys, const void* values, const void* out, long long num_bags,
              int nnz, int dim, long long num_slots, int max_probes, int vec, int lanes,
-             int nnz_spec, long long blocks) {
+             int nnz_spec, int pass_bags, long long blocks) {
   const bool aligned = (((uintptr_t)values | (uintptr_t)out) & 15u) == 0;
+  const int max_bags = vec == 4 ? kMaxBags<4> : (vec == 8 ? kMaxBags<8> : 1);
   return num_bags > 0 && nnz > 0 && dim > 0 && max_probes > 0 && blocks > 0 &&
          blocks < (1ll << 31) && num_slots > 0 && num_slots <= (1ll << 31) &&
          (num_slots & (num_slots - 1)) == 0 && lanes > 0 && lanes <= 32 &&
          (lanes & (lanes - 1)) == 0 && dim % vec == 0 && (vec == 1 || aligned) &&
-         (nnz_spec == 0 || (nnz_spec == nnz && nnz <= lanes)) && keys != nullptr;
+         pass_bags >= 1 &&
+         (nnz_spec == 0 ? pass_bags == 1
+                        : nnz_spec == nnz && pass_bags <= max_bags && pass_bags * nnz <= lanes) &&
+         keys != nullptr;
 }
 
 template <typename T, int WIDE>
 int run(const void* keys, const void* values, const void* ids, const void* w, void* out,
         void* miss, long long num_bags, int nnz, int dim, long long num_slots, int shift,
-        int max_probes, int vec, int lanes, int nnz_spec, long long blocks, void* stream) {
+        int max_probes, int vec, int lanes, int nnz_spec, int pass_bags, long long blocks,
+        void* stream) {
   if (!plan_ok(keys, values, out, num_bags, nnz, dim, num_slots, max_probes, vec, lanes,
-               nnz_spec, blocks))
+               nnz_spec, pass_bags, blocks))
     return (int)cudaErrorInvalidValue;
   const bool wide = num_slots >= 4 && ((uintptr_t)keys & 15u) == 0;
   return dispatch<T, WIDE, Launch>(vec, nnz_spec, keys, values, ids, w, out, miss,
                                    num_bags, nnz, dim, num_slots, shift, max_probes,
-                                   lanes, wide, blocks, stream);
+                                   lanes, pass_bags, wide, blocks, stream);
 }
 
 }  // namespace
@@ -275,26 +317,26 @@ extern "C" {
 // keys [num_slots] int32 (a power of two), values [num_slots, dim],
 // ids [num_bags * nnz] int32, w [num_bags * nnz] f32, out [num_bags, dim]
 // f32, miss [num_bags * nnz] bytes (0/1).  shift as in the header note;
-// vec, lanes, nnz_spec and blocks are the host's launch plan
+// vec, lanes, nnz_spec, pass_bags and blocks are the host's launch plan
 // (kernels/embedding_bag.py::launch_plan).  Returns cudaGetLastError()
 // after the launch.
 int probe_gather_pool_f32(const void* keys, const void* values, const void* ids,
                           const void* w, void* out, void* miss, long long num_bags,
                           int nnz, int dim, long long num_slots, int shift,
                           int max_probes, int vec, int lanes, int nnz_spec,
-                          long long blocks, void* stream) {
+                          int pass_bags, long long blocks, void* stream) {
   return run<float, 4>(keys, values, ids, w, out, miss, num_bags, nnz, dim, num_slots,
-                       shift, max_probes, vec, lanes, nnz_spec, blocks, stream);
+                       shift, max_probes, vec, lanes, nnz_spec, pass_bags, blocks, stream);
 }
 
 int probe_gather_pool_bf16(const void* keys, const void* values, const void* ids,
                            const void* w, void* out, void* miss, long long num_bags,
                            int nnz, int dim, long long num_slots, int shift,
                            int max_probes, int vec, int lanes, int nnz_spec,
-                           long long blocks, void* stream) {
+                           int pass_bags, long long blocks, void* stream) {
   return run<__nv_bfloat16, 8>(keys, values, ids, w, out, miss, num_bags, nnz, dim,
                                num_slots, shift, max_probes, vec, lanes, nnz_spec,
-                               blocks, stream);
+                               pass_bags, blocks, stream);
 }
 
 // Resident blocks per SM of the kernel of (vec, nnz_spec), or minus a CUDA

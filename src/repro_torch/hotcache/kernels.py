@@ -24,7 +24,7 @@ SCATTER = "scatter_update"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PROBE_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p,
 ]
 _PROBE_OCC_ARGS = [ctypes.c_int] * 2
@@ -104,7 +104,7 @@ def probe_gather_pool(
             keys.data_ptr(), values.data_ptr(), ids.data_ptr(),
             weights.data_ptr(), pooled.data_ptr(), miss.data_ptr(),
             num_bags, N // num_bags, D, C, shift, max_probes, plan.vec,
-            plan.lanes, plan.nnz_spec, plan.blocks,
+            plan.lanes, plan.nnz_spec, plan.pass_bags, plan.blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, PROBE, code)

@@ -229,16 +229,18 @@ def test_embedding_bag_odd_nnz_matches_pallas(nnz):
 
 @pytest.mark.parametrize("bags,nnz,dim,vec,want", [
     # dlrm-flexemr's forward: 2048 x 26 bags of 4 slots, D 64 f32 -> 16 lanes,
-    # 16 bags a block, the unrolled nnz-4 loop, one wave of 132 x 6 blocks.
-    (53_248, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 792)),
-    (53_248, 1, 64, 4, K1.LaunchPlan(4, 16, 1, 792)),
-    (10, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 1)),  # fewer bags than a block's
-    (33, 8, 64, 8, K1.LaunchPlan(8, 8, 8, 2)),  # bf16 D 64: 8 lanes, 32 bags a block
-    (33, 16, 64, 8, K1.LaunchPlan(8, 8, 0, 2)),  # nnz above the lanes: general loop
-    (100, 3, 64, 4, K1.LaunchPlan(4, 16, 0, 7)),  # nnz 3 is not unrolled
-    (100, 2, 256, 4, K1.LaunchPlan(4, 32, 2, 13)),  # 64 vectors a row: 32 lanes, 2 passes
-    (100, 4, 17, 1, K1.LaunchPlan(1, 32, 0, 13)),  # element loads: general loop only
-    (100, 4, 4, 4, K1.LaunchPlan(4, 1, 0, 1)),  # one vector a row, nnz above 1 lane
+    # the unrolled nnz-4 path taking 4 bags a pass (16 slots, 16 sums), 16
+    # groups a block, capped at one wave of 132 x 6 blocks.
+    (53_248, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 4, 792)),
+    (53_248, 1, 64, 4, K1.LaunchPlan(4, 16, 1, 4, 792)),  # 4 bags: the sums bound it
+    (10, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 4, 1)),  # fewer bags than a block's
+    (33, 4, 64, 8, K1.LaunchPlan(8, 8, 4, 2, 1)),  # bf16 D 64: 8 lanes, 2 bags of 8 sums
+    (33, 8, 64, 8, K1.LaunchPlan(8, 8, 8, 1, 2)),  # 8 slots fill the 8 lanes
+    (33, 16, 64, 8, K1.LaunchPlan(8, 8, 0, 1, 2)),  # nnz above the lanes: general loop
+    (100, 3, 64, 4, K1.LaunchPlan(4, 16, 0, 1, 7)),  # nnz 3 is not unrolled
+    (100, 2, 256, 4, K1.LaunchPlan(4, 32, 2, 4, 4)),  # 64 vectors a row: 32 lanes, 2 chunks
+    (100, 4, 17, 1, K1.LaunchPlan(1, 32, 0, 1, 13)),  # element loads: general loop only
+    (100, 4, 4, 4, K1.LaunchPlan(4, 1, 0, 1, 1)),  # one vector a row, nnz above 1 lane
 ])
 def test_launch_plan(bags, nnz, dim, vec, want):
     asked = []
@@ -298,8 +300,9 @@ def fake_cuda(monkeypatch):
 
 
 def _k1_launches(lib):
-    """(masked, [num_bags, nnz, dim, V, vec, lanes, nnz_spec, blocks]) per launch."""
-    return [(a[11], list(a[4:11]) + [a[12]]) for _, a in lib.calls]
+    """(masked, [num_bags, nnz, dim, V, vec, lanes, nnz_spec, pass_bags, blocks])
+    per launch."""
+    return [(a[12], list(a[4:12]) + [a[13]]) for _, a in lib.calls]
 
 
 def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
@@ -311,8 +314,8 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
                 torch.from_numpy(b["mask"]))
     lib = fake_cuda[K1.NAME]
     V, V_rep = np_params["table"].shape[0], np_params["rep_table"].shape[0]
-    assert _k1_launches(lib) == [(1, [8 * 2, 4, 16, V, 4, 4, 4, 1]),
-                                 (1, [8 * 1, 4, 16, V_rep, 4, 4, 4, 1])]
+    assert _k1_launches(lib) == [(1, [8 * 2, 4, 16, V, 4, 4, 4, 1, 1]),
+                                 (1, [8 * 1, 4, 16, V_rep, 4, 4, 4, 1, 1])]
     assert [s for s, _ in lib.calls] == ["embedding_bag_f32"] * 2
     lib.calls.clear()
     table = torch.zeros(50, 64)
@@ -320,8 +323,8 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
                    torch.ones(3, 2, 4, dtype=torch.bool))
     ops.embedding_bag(table.to(torch.bfloat16), torch.zeros(6, dtype=torch.int32),
                       torch.ones(6), 6)
-    assert _k1_launches(lib) == [(0, [6, 4, 64, 50, 4, 16, 4, 1]),
-                                 (0, [6, 1, 64, 50, 8, 8, 1, 1])]
+    assert _k1_launches(lib) == [(0, [6, 4, 64, 50, 4, 16, 4, 4, 1]),
+                                 (0, [6, 1, 64, 50, 8, 8, 1, 2, 1])]
     assert [s for s, _ in lib.calls] == ["embedding_bag_f32", "embedding_bag_bf16"]
     assert K1.launches == before + 4
 
@@ -329,22 +332,23 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
 def test_wrappers_launch_one_wave_from_the_occupancy(fake_cuda):
     """Many bags: K1 and K3 launch SMs x the kernel's blocks an SM holds,
     asking the library once per kernel."""
-    bags = 132 * 6 * 16 * 3
+    bags = 132 * 6 * 64 * 2  # two waves of 64 bags a block
     table = torch.zeros(1000, 64)
     ids = torch.zeros(bags * 4, dtype=torch.int32)
     w = torch.ones(bags * 4)
     for _ in range(2):
         K1.embedding_bag(table, ids, w, bags, masked=True)
     lib = fake_cuda[K1.NAME]
-    assert _k1_launches(lib) == [(1, [bags, 4, 64, 1000, 4, 16, 4, 132 * 6])] * 2
+    assert _k1_launches(lib) == [(1, [bags, 4, 64, 1000, 4, 16, 4, 4, 132 * 6])] * 2
     assert lib.occupancy == [("embedding_bag_occupancy_f32", (4, 4, 1))]
     keys = torch.full((1 << 10,), T.EMPTY_KEY, dtype=torch.int32)
     values = torch.zeros(1 << 10, 64, dtype=torch.bfloat16)
     HK.probe_gather_pool(keys, values, ids, w, bags, 8)
     (sym, a), = fake_cuda[HK.PROBE].calls
     assert sym == "probe_gather_pool_bf16"
-    # num_bags, nnz, dim, C, shift, max_probes, vec, lanes, nnz_spec, blocks, stream
-    assert a[6:] == (bags, 4, 64, 1 << 10, 33 - 11, 8, 8, 8, 4, 132 * 6, 77)
+    # num_bags, nnz, dim, C, shift, max_probes, vec, lanes, nnz_spec, pass_bags,
+    # blocks, stream
+    assert a[6:] == (bags, 4, 64, 1 << 10, 33 - 11, 8, 8, 8, 4, 2, 132 * 6, 77)
     assert fake_cuda[HK.PROBE].occupancy == [("probe_gather_pool_occupancy_bf16", (8, 4))]
 
 
