@@ -20,23 +20,20 @@
 // its id has arrived.
 //
 // What the design does about it: a group of `lanes` threads (a power of two
-// up to 32, the row's 16-byte vectors rounded up: 16 at D = 64 f32) spans a
-// row with 16-byte vector loads (float4 for f32, 8 x bf16 for bf16).  For
-// the configs' nnz (1, 2, 4, 8) a group takes several consecutive bags a
-// pass (4 of nnz 4 at D = 64 f32: 16 slots, 16 f32 sums a lane), lane s
-// loading slot s's id and weight, coalesced.  A ballot lists the slots to
-// read (in the masked mode only those of nonzero weight), and their rows
-// load four at a time, ids handed out by __shfl_sync, into the sums of
-// their bags: the registers hold only rows that count, so the 72% of
-// dlrm-flexemr's slots that are padding cost no register and no latency.
-// Other nnz take a general loop, one bag a pass, four rows in flight.  The
-// grid is at most one wave of resident blocks (the host computes it from
-// the SM count and the kernel's occupancy, kernels/embedding_bag.py::
-// launch_plan) and strides over the bags, so 53,248 bags take two passes;
-// each group loads its next pass's ids and weights before it waits on the
-// current rows.  Sums are f32 in slot order; each pooled bag is stored
-// once, so the only traffic is the rows, the ids and weights, and the
-// output.
+// up to 32, the row's 16-byte vectors rounded up: 16 at D = 64 f32) owns one
+// bag at a time and spans its rows with 16-byte vector loads (float4 for
+// f32, 8 x bf16 for bf16).  Lane j loads slot j's id and weight, once per
+// group and coalesced, and hands them to the group by __shfl_sync.  For
+// the configs' nnz (1, 2, 4, 8) the slot loop is unrolled at compile time
+// and every row load of the bag is issued before the first FMA; in the
+// masked mode a zero-weight slot issues none.  Other nnz take a general
+// loop with four row loads in flight.  The grid is at most one wave of
+// resident blocks (the host computes it from the SM count and the kernel's
+// occupancy, kernels/embedding_bag.py::launch_plan) and strides over the
+// bags; each group loads its next bag's ids and weights before it waits on
+// the current bag's rows.  Sums are f32 in slot order; the pooled bag is
+// stored once, so the only traffic is the rows, the ids and weights, and
+// the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +44,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBatch = 4;  // row loads in flight per lane
+constexpr int kBatch = 4;  // row loads in flight per lane in the general loop
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t clamp_row(int32_t id, int64_t num_rows) {
@@ -55,117 +52,71 @@ __device__ __forceinline__ int64_t clamp_row(int32_t id, int64_t num_rows) {
   return r < 0 ? 0 : (r >= num_rows ? num_rows - 1 : r);
 }
 
-// Bags a group takes a pass in the unrolled path: 16 f32 accumulators a lane.
-template <int VEC>
-constexpr int kMaxBags = VEC >= 4 ? 16 / VEC : 1;
-
-// NNZ > 0 (nnz == NNZ, pass_bags * NNZ <= lanes): a pass takes pass_bags
-// consecutive bags, lane s holding slot s % NNZ of bag s / NNZ; a ballot
-// lists the live slots, whose rows load kBatch at a time into per-bag sums.
-// NNZ == 0 (pass_bags == 1): any nnz, slots in chunks of `lanes`.
+// NNZ > 0: nnz == NNZ <= lanes, every row load of the bag in flight at once.
+// NNZ == 0: any nnz, slots in chunks of `lanes`, kBatch row loads at a time.
 template <typename T, int VEC, int NNZ, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
                      const float* __restrict__ w, float* __restrict__ out,
                      int64_t num_bags, int nnz_rt, int dim, int64_t num_rows,
-                     int lanes, int pass_bags) {
+                     int lanes) {
   using V = Vec<T, VEC>;
   const int nnz = NNZ > 0 ? NNZ : nnz_rt;
   const int lane = threadIdx.x & (lanes - 1);
   const int groups = kThreads / lanes;
   // Groups of one warp hold consecutive bags, so the loop bound is the
-  // same for the whole warp and every ballot has all 32 lanes.
-  const int in_warp = (threadIdx.x & 31) / lanes;
+  // same for the whole warp and every __shfl_sync has all 32 lanes.
   const int64_t group = (int64_t)blockIdx.x * groups + threadIdx.x / lanes;
-  const int64_t stride = (int64_t)gridDim.x * groups * pass_bags;
-  const unsigned seg = lanes == 32 ? kFull : ((1u << lanes) - 1u) << (in_warp * lanes);
+  const int64_t warp_group = group - (int64_t)((threadIdx.x & 31) / lanes);
+  const int64_t stride = (int64_t)gridDim.x * groups;
   const int nvec = dim / VEC;
 
-  // Slot s of the pass whose first bag is `first`: its id and weight.
-  auto meta = [&](int64_t first, int s, int32_t& id, float& wt) {
+  // This lane's slot of the group's bag: its id and weight.
+  auto meta = [&](int64_t bag, int slot, int32_t& id, float& wt) {
     id = 0;
     wt = 0.f;
-    const int64_t i = first * nnz + s;
-    if (s < pass_bags * nnz && i < num_bags * nnz) {
-      id = __ldg(idx + i);
-      wt = __ldg(w + i);
-    }
-  };
-  auto store = [&](int64_t bag, int c, const float (&acc)[VEC]) {
-    float* o = out + bag * dim + (int64_t)c * VEC;
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-      for (int k = 0; k < VEC; k += 4)
-        *reinterpret_cast<float4*>(o + k) =
-            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+    if (bag < num_bags && slot < nnz) {
+      id = __ldg(idx + bag * nnz + slot);
+      wt = __ldg(w + bag * nnz + slot);
     }
   };
 
   int32_t my_id;
   float my_w;
-  meta(group * pass_bags, lane, my_id, my_w);
-  for (int64_t wb = (group - in_warp) * pass_bags; wb < num_bags; wb += stride) {
-    const int64_t first = wb + (int64_t)in_warp * pass_bags;
+  meta(group, lane, my_id, my_w);
+  for (int64_t wb = warp_group; wb < num_bags; wb += stride) {
+    const int64_t bag = wb + (group - warp_group);
+    const bool valid = bag < num_bags;
     int32_t next_id;
     float next_w;
-    meta(first + stride, lane, next_id, next_w);  // in flight under this pass's rows
-    if constexpr (NNZ > 0) {
-      const bool live = lane < pass_bags * NNZ && first + lane / NNZ < num_bags &&
-                        (!MASKED || my_w != 0.f);
-      const unsigned lives = (__ballot_sync(kFull, live) & seg) >> (in_warp * lanes);
-      for (int c0 = 0; c0 < nvec; c0 += lanes) {
-        const int c = c0 + lane;
-        const T* base = table + (int64_t)c * VEC;
-        float acc[kMaxBags<VEC>][VEC];
+    meta(bag + stride, lane, next_id, next_w);  // in flight under this bag's rows
+    for (int c0 = 0; c0 < nvec; c0 += lanes) {
+      const int c = c0 + lane;
+      const bool col = valid && c < nvec;
+      const T* base = table + (int64_t)c * VEC;
+      float acc[VEC];
 #pragma unroll
-        for (int b = 0; b < kMaxBags<VEC>; ++b)
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      if constexpr (NNZ > 0) {
+        typename V::Raw raw[NNZ];
+        float wj[NNZ];
+        bool live[NNZ];
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[b][k] = 0.f;
-        unsigned todo = lives;  // the same in every lane of the group
-        while (todo) {
-          int src[kBatch];
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            src[u] = todo ? __ffs(todo) - 1 : -1;
-            todo &= todo - 1u;
-          }
-          typename V::Raw raw[kBatch];
-          float wj[kBatch];
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            const int32_t id = __shfl_sync(seg, my_id, src[u] < 0 ? 0 : src[u], lanes);
-            wj[u] = __shfl_sync(seg, my_w, src[u] < 0 ? 0 : src[u], lanes);
-            raw[u] = typename V::Raw{};
-            if (src[u] >= 0 && c < nvec) raw[u] = V::load(base + clamp_row(id, num_rows) * dim);
-          }
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            if (src[u] < 0 || c >= nvec) continue;
-#pragma unroll
-            for (int b = 0; b < kMaxBags<VEC>; ++b)
-              if (b == src[u] / NNZ) V::fma(raw[u], wj[u], acc[b]);
-          }
+        for (int j = 0; j < NNZ; ++j) {
+          const int32_t id = __shfl_sync(kFull, my_id, j, lanes);
+          wj[j] = __shfl_sync(kFull, my_w, j, lanes);
+          live[j] = col && (!MASKED || wj[j] != 0.f);
+          raw[j] = typename V::Raw{};
+          if (live[j]) raw[j] = V::load(base + clamp_row(id, num_rows) * dim);
         }
 #pragma unroll
-        for (int b = 0; b < kMaxBags<VEC>; ++b)
-          if (c < nvec && b < pass_bags && first + b < num_bags) store(first + b, c, acc[b]);
-      }
-    } else {
-      const bool valid = first < num_bags;
-      for (int c0 = 0; c0 < nvec; c0 += lanes) {
-        const int c = c0 + lane;
-        const bool col = valid && c < nvec;
-        const T* base = table + (int64_t)c * VEC;
-        float acc[VEC];
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+        for (int j = 0; j < NNZ; ++j)
+          if (live[j]) V::fma(raw[j], wj[j], acc);
+      } else {
         for (int s0 = 0; s0 < nnz; s0 += lanes) {
           int32_t sid = my_id;
           float sw = my_w;
-          if (s0 > 0) meta(first, s0 + lane, sid, sw);
+          if (s0 > 0) meta(bag, s0 + lane, sid, sw);
           const int n = nnz - s0 < lanes ? nnz - s0 : lanes;
           for (int j0 = 0; j0 < n; j0 += kBatch) {
             typename V::Raw raw[kBatch];
@@ -185,7 +136,18 @@ embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ id
               if (live[u]) V::fma(raw[u], wj[u], acc);
           }
         }
-        if (col) store(first, c, acc);
+      }
+      if (col) {
+        float* o = out + bag * dim + (int64_t)c * VEC;
+        if constexpr (VEC % 4 == 0) {
+#pragma unroll
+          for (int k = 0; k < VEC; k += 4)
+            *reinterpret_cast<float4*>(o + k) =
+                make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+        }
       }
     }
     my_id = next_id;
@@ -196,11 +158,11 @@ embedding_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ id
 template <typename T, int VEC, int NNZ, bool MASKED>
 int launch_one(const void* table, const void* idx, const void* w, void* out,
                long long num_bags, int nnz, int dim, long long num_rows,
-               int lanes, int pass_bags, long long blocks, void* stream) {
+               int lanes, long long blocks, void* stream) {
   embedding_bag_kernel<T, VEC, NNZ, MASKED><<<(unsigned)blocks, kThreads, 0,
                                              (cudaStream_t)stream>>>(
       (const T*)table, (const int32_t*)idx, (const float*)w, (float*)out,
-      num_bags, nnz, dim, num_rows, lanes, pass_bags);
+      num_bags, nnz, dim, num_rows, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -234,9 +196,9 @@ template <typename T, int VEC, int NNZ, bool MASKED>
 struct Launch {
   static int run(const void* table, const void* idx, const void* w, void* out,
                  long long num_bags, int nnz, int dim, long long num_rows,
-                 int lanes, int pass_bags, long long blocks, void* stream) {
+                 int lanes, long long blocks, void* stream) {
     return launch_one<T, VEC, NNZ, MASKED>(table, idx, w, out, num_bags, nnz, dim,
-                                           num_rows, lanes, pass_bags, blocks, stream);
+                                           num_rows, lanes, blocks, stream);
   }
 };
 
@@ -247,14 +209,12 @@ struct Occupancy {
 
 // The host's plan is checked here, not trusted: a wrong one is refused.
 bool plan_ok(const void* table, const void* out, long long num_bags, int nnz,
-             int dim, int vec, int lanes, int nnz_spec, int pass_bags, long long blocks) {
+             int dim, int vec, int lanes, int nnz_spec, long long blocks) {
   const bool aligned = (((uintptr_t)table | (uintptr_t)out) & 15u) == 0;
-  const int max_bags = vec == 4 ? kMaxBags<4> : (vec == 8 ? kMaxBags<8> : 1);
   return num_bags > 0 && nnz > 0 && dim > 0 && blocks > 0 && blocks < (1ll << 31) &&
          lanes > 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
-         dim % vec == 0 && (vec == 1 || aligned) && pass_bags >= 1 &&
-         (nnz_spec == 0 ? pass_bags == 1
-                        : nnz_spec == nnz && pass_bags <= max_bags && pass_bags * nnz <= lanes);
+         dim % vec == 0 && (vec == 1 || aligned) &&
+         (nnz_spec == 0 || (nnz_spec == nnz && nnz <= lanes));
 }
 
 }  // namespace
@@ -263,28 +223,28 @@ extern "C" {
 
 // table [num_rows, dim], idx [num_bags * nnz] int32, w [num_bags * nnz] f32,
 // out [num_bags, dim] f32.  vec (elements a lane loads at once: 4 or 1 for
-// f32, 8 or 1 for bf16), lanes, nnz_spec (nnz, or 0 for the general loop),
-// pass_bags and blocks are the host's launch plan; masked is 0 or 1.  Returns
+// f32, 8 or 1 for bf16), lanes, nnz_spec (nnz, or 0 for the general loop)
+// and blocks are the host's launch plan; masked is 0 or 1.  Returns
 // cudaGetLastError() after the launch.
 int embedding_bag_f32(const void* table, const void* idx, const void* w, void* out,
                       long long num_bags, int nnz, int dim, long long num_rows,
-                      int vec, int lanes, int nnz_spec, int pass_bags, int masked,
-                      long long blocks, void* stream) {
-  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, pass_bags, blocks))
+                      int vec, int lanes, int nnz_spec, int masked, long long blocks,
+                      void* stream) {
+  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, blocks))
     return (int)cudaErrorInvalidValue;
-  return dispatch<float, 4, Launch>(vec, nnz_spec, masked, table, idx, w, out, num_bags,
-                                    nnz, dim, num_rows, lanes, pass_bags, blocks, stream);
+  return dispatch<float, 4, Launch>(vec, nnz_spec, masked, table, idx, w, out,
+                                    num_bags, nnz, dim, num_rows, lanes, blocks, stream);
 }
 
 int embedding_bag_bf16(const void* table, const void* idx, const void* w, void* out,
                        long long num_bags, int nnz, int dim, long long num_rows,
-                       int vec, int lanes, int nnz_spec, int pass_bags, int masked,
-                       long long blocks, void* stream) {
-  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, pass_bags, blocks))
+                       int vec, int lanes, int nnz_spec, int masked, long long blocks,
+                       void* stream) {
+  if (!plan_ok(table, out, num_bags, nnz, dim, vec, lanes, nnz_spec, blocks))
     return (int)cudaErrorInvalidValue;
   return dispatch<__nv_bfloat16, 8, Launch>(vec, nnz_spec, masked, table, idx, w, out,
-                                            num_bags, nnz, dim, num_rows, lanes, pass_bags,
-                                            blocks, stream);
+                                            num_bags, nnz, dim, num_rows, lanes, blocks,
+                                            stream);
 }
 
 // Resident blocks per SM of the kernel of (vec, nnz_spec, masked), or minus

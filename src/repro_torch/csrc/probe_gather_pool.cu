@@ -26,11 +26,13 @@
 // L2), two flops per element: a random gather at memory rate, held back by
 // its chain of dependent loads (id, then keys, then row).
 //
-// What the design does about it: K1's geometry and passes
-// (csrc/embedding_bag.cu, kernels/embedding_bag.py::launch_plan).  A group
-// of `lanes` threads spans a row with 16-byte vector loads and takes
-// several consecutive bags a pass, lane s loading slot s's id and weight
-// and probing it, so all slots of a pass probe at once.  Where the window
+// What the design does about it: K1's lanes and one-wave grid
+// (csrc/embedding_bag.cu, kernels/embedding_bag.py::launch_plan), and more
+// bags a pass.  A group of `lanes` threads spans a row with 16-byte vector
+// loads and, for the configs' nnz, takes several consecutive bags a pass
+// (4 of nnz 4 at D = 64 f32: 16 slots, 16 f32 sums a lane), lane s loading
+// slot s's id and weight and probing it, so all slots of a pass probe at
+// once and the registers hold only the rows of hits.  Where the window
 // home .. home + max_probes - 1 does not wrap (and C >= 4, max_probes <= 8)
 // the lane reads it as the aligned 16-byte key vectors that cover it, all
 // issued together, and takes the first match; otherwise it steps through

@@ -22,6 +22,7 @@ PROBE = "probe_gather_pool"
 SCATTER = "scatter_update"
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+PASS_FLOATS = 16  # f32 sums a K3 lane keeps for the bags of one pass (kMaxBags)
 _PROBE_ARGS = [ctypes.c_void_p] * 6 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -99,7 +100,8 @@ def probe_gather_pool(
 
     with torch.cuda.device(values.device):
         plan = launch_plan(num_bags, N // num_bags, D, vec, lambda spec: resident_blocks(
-            lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec))
+            lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec),
+            PASS_FLOATS)
         code = getattr(lib, _PROBE_SYMBOLS[values.dtype])(
             keys.data_ptr(), values.data_ptr(), ids.data_ptr(),
             weights.data_ptr(), pooled.data_ptr(), miss.data_ptr(),

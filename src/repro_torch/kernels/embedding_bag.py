@@ -22,11 +22,10 @@ from repro_torch.kernels import build
 NAME = "embedding_bag"
 THREADS = 256  # threads a block (kThreads in the source)
 NNZ_SPECIALISED = (1, 2, 4, 8)  # nnz values with an unrolled slot loop
-PASS_FLOATS = 16  # f32 sums a lane keeps for the bags of one pass (kMaxBags)
 _ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_void_p,
 ]
 _OCC_ARGS = [ctypes.c_int] * 3
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -48,7 +47,7 @@ class LaunchPlan:
     vec: int  # elements a lane loads at once (16 bytes, or 1)
     lanes: int  # threads a bag: the row's vectors rounded up to a power of two, <= 32
     nnz_spec: int  # the unrolled slot count, or 0 for the general loop
-    pass_bags: int  # consecutive bags a group takes a pass (1 in the general loop)
+    pass_bags: int  # consecutive bags a group takes a pass (K3's unrolled path; else 1)
     blocks: int  # at most one wave of resident blocks; the kernel strides over bags
 
 
@@ -59,14 +58,14 @@ def vec_width(dtype: torch.dtype, dim: int, aligned: bool) -> int:
 
 
 def launch_plan(num_bags: int, nnz: int, dim: int, vec: int,
-                resident: Callable[[int], int]) -> LaunchPlan:
+                resident: Callable[[int], int], pass_floats: int = 0) -> LaunchPlan:
     """The geometry of K1 and K3: a group of ``lanes`` threads spans a row,
     ``THREADS // lanes`` groups share a block.  ``nnz`` in
     ``NNZ_SPECIALISED`` (and no larger than ``lanes``) takes the unrolled
-    path, where a group takes ``pass_bags`` consecutive bags a pass, one
-    slot a lane, as many as its lanes and ``PASS_FLOATS`` sums allow;
-    other nnz take the general loop, one bag a pass.  The grid is the
-    passes' blocks, capped at one wave of ``resident(nnz_spec)`` blocks
+    path; K3's (``pass_floats`` f32 sums a lane) takes ``pass_bags``
+    consecutive bags a pass, one slot a lane, as many as its lanes and
+    sums allow; K1 and the general loop take one bag a pass.  The grid is
+    the passes' blocks, capped at one wave of ``resident(nnz_spec)`` blocks
     (SMs times the blocks of that kernel an SM holds), over which the
     kernel strides."""
     nvec = dim // vec
@@ -74,7 +73,7 @@ def launch_plan(num_bags: int, nnz: int, dim: int, vec: int,
     while lanes < min(nvec, 32):
         lanes *= 2
     nnz_spec = nnz if vec > 1 and nnz in NNZ_SPECIALISED and nnz <= lanes else 0
-    pass_bags = max(1, min(PASS_FLOATS // vec, lanes // nnz)) if nnz_spec else 1
+    pass_bags = max(1, min(pass_floats // vec, lanes // nnz)) if nnz_spec else 1
     need = -(-num_bags // (THREADS // lanes * pass_bags))
     return LaunchPlan(vec, lanes, nnz_spec, pass_bags,
                       max(1, min(need, resident(nnz_spec))))
@@ -146,7 +145,7 @@ def embedding_bag(
         code = getattr(lib, _SYMBOLS[table.dtype])(
             table.data_ptr(), indices.data_ptr(), weights.data_ptr(),
             out.data_ptr(), num_bags, nnz, D, V, plan.vec, plan.lanes,
-            plan.nnz_spec, plan.pass_bags, int(masked), plan.blocks,
+            plan.nnz_spec, int(masked), plan.blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, NAME, code)

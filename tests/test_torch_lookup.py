@@ -227,29 +227,32 @@ def test_embedding_bag_odd_nnz_matches_pallas(nnz):
 # ------------------------------------------------ launch plan and wrappers
 
 
-@pytest.mark.parametrize("bags,nnz,dim,vec,want", [
+@pytest.mark.parametrize("bags,nnz,dim,vec,floats,want", [
     # dlrm-flexemr's forward: 2048 x 26 bags of 4 slots, D 64 f32 -> 16 lanes,
-    # the unrolled nnz-4 path taking 4 bags a pass (16 slots, 16 sums), 16
-    # groups a block, capped at one wave of 132 x 6 blocks.
-    (53_248, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 4, 792)),
-    (53_248, 1, 64, 4, K1.LaunchPlan(4, 16, 1, 4, 792)),  # 4 bags: the sums bound it
-    (10, 4, 64, 4, K1.LaunchPlan(4, 16, 4, 4, 1)),  # fewer bags than a block's
-    (33, 4, 64, 8, K1.LaunchPlan(8, 8, 4, 2, 1)),  # bf16 D 64: 8 lanes, 2 bags of 8 sums
-    (33, 8, 64, 8, K1.LaunchPlan(8, 8, 8, 1, 2)),  # 8 slots fill the 8 lanes
-    (33, 16, 64, 8, K1.LaunchPlan(8, 8, 0, 1, 2)),  # nnz above the lanes: general loop
-    (100, 3, 64, 4, K1.LaunchPlan(4, 16, 0, 1, 7)),  # nnz 3 is not unrolled
-    (100, 2, 256, 4, K1.LaunchPlan(4, 32, 2, 4, 4)),  # 64 vectors a row: 32 lanes, 2 chunks
-    (100, 4, 17, 1, K1.LaunchPlan(1, 32, 0, 1, 13)),  # element loads: general loop only
-    (100, 4, 4, 4, K1.LaunchPlan(4, 1, 0, 1, 1)),  # one vector a row, nnz above 1 lane
+    # 16 groups a block, the unrolled nnz-4 path, capped at one wave of 132 x 6
+    # blocks; K1 takes one bag a pass, K3 (16 f32 sums a lane) 4 bags: 16 slots.
+    (53_248, 4, 64, 4, 0, K1.LaunchPlan(4, 16, 4, 1, 792)),
+    (53_248, 4, 64, 4, 16, K1.LaunchPlan(4, 16, 4, 4, 792)),
+    (53_248, 1, 64, 4, 16, K1.LaunchPlan(4, 16, 1, 4, 792)),  # the sums bound it
+    (10, 4, 64, 4, 0, K1.LaunchPlan(4, 16, 4, 1, 1)),  # fewer bags than a block's
+    (10, 4, 64, 4, 16, K1.LaunchPlan(4, 16, 4, 4, 1)),
+    (33, 4, 64, 8, 16, K1.LaunchPlan(8, 8, 4, 2, 1)),  # bf16 D 64: 8 lanes, 2 bags of 8 sums
+    (33, 8, 64, 8, 16, K1.LaunchPlan(8, 8, 8, 1, 2)),  # 8 slots fill the 8 lanes
+    (33, 16, 64, 8, 16, K1.LaunchPlan(8, 8, 0, 1, 2)),  # nnz above the lanes: general loop
+    (100, 3, 64, 4, 16, K1.LaunchPlan(4, 16, 0, 1, 7)),  # nnz 3 is not unrolled
+    (100, 2, 256, 4, 0, K1.LaunchPlan(4, 32, 2, 1, 13)),  # 64 vectors a row: 32 lanes
+    (100, 2, 256, 4, 16, K1.LaunchPlan(4, 32, 2, 4, 4)),
+    (100, 4, 17, 1, 16, K1.LaunchPlan(1, 32, 0, 1, 13)),  # element loads: general loop only
+    (100, 4, 4, 4, 0, K1.LaunchPlan(4, 1, 0, 1, 1)),  # one vector a row, nnz above 1 lane
 ])
-def test_launch_plan(bags, nnz, dim, vec, want):
+def test_launch_plan(bags, nnz, dim, vec, floats, want):
     asked = []
 
     def resident(spec):
         asked.append(spec)
         return 132 * 6
 
-    assert K1.launch_plan(bags, nnz, dim, vec, resident) == want
+    assert K1.launch_plan(bags, nnz, dim, vec, resident, floats) == want
     assert asked == [want.nnz_spec]  # the occupancy of the kernel that runs
 
 
@@ -300,9 +303,8 @@ def fake_cuda(monkeypatch):
 
 
 def _k1_launches(lib):
-    """(masked, [num_bags, nnz, dim, V, vec, lanes, nnz_spec, pass_bags, blocks])
-    per launch."""
-    return [(a[12], list(a[4:12]) + [a[13]]) for _, a in lib.calls]
+    """(masked, [num_bags, nnz, dim, V, vec, lanes, nnz_spec, blocks]) per launch."""
+    return [(a[11], list(a[4:11]) + [a[12]]) for _, a in lib.calls]
 
 
 def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
@@ -314,8 +316,8 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
                 torch.from_numpy(b["mask"]))
     lib = fake_cuda[K1.NAME]
     V, V_rep = np_params["table"].shape[0], np_params["rep_table"].shape[0]
-    assert _k1_launches(lib) == [(1, [8 * 2, 4, 16, V, 4, 4, 4, 1, 1]),
-                                 (1, [8 * 1, 4, 16, V_rep, 4, 4, 4, 1, 1])]
+    assert _k1_launches(lib) == [(1, [8 * 2, 4, 16, V, 4, 4, 4, 1]),
+                                 (1, [8 * 1, 4, 16, V_rep, 4, 4, 4, 1])]
     assert [s for s, _ in lib.calls] == ["embedding_bag_f32"] * 2
     lib.calls.clear()
     table = torch.zeros(50, 64)
@@ -323,8 +325,8 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
                    torch.ones(3, 2, 4, dtype=torch.bool))
     ops.embedding_bag(table.to(torch.bfloat16), torch.zeros(6, dtype=torch.int32),
                       torch.ones(6), 6)
-    assert _k1_launches(lib) == [(0, [6, 4, 64, 50, 4, 16, 4, 4, 1]),
-                                 (0, [6, 1, 64, 50, 8, 8, 1, 2, 1])]
+    assert _k1_launches(lib) == [(0, [6, 4, 64, 50, 4, 16, 4, 1]),
+                                 (0, [6, 1, 64, 50, 8, 8, 1, 1])]
     assert [s for s, _ in lib.calls] == ["embedding_bag_f32", "embedding_bag_bf16"]
     assert K1.launches == before + 4
 
@@ -332,14 +334,14 @@ def test_lookup_launches_k1_masked_and_bag_lookup_weighted(fake_cuda):
 def test_wrappers_launch_one_wave_from_the_occupancy(fake_cuda):
     """Many bags: K1 and K3 launch SMs x the kernel's blocks an SM holds,
     asking the library once per kernel."""
-    bags = 132 * 6 * 64 * 2  # two waves of 64 bags a block
+    bags = 132 * 6 * 64 * 2  # K1: six waves of 16 bags a block, K3: two of 64
     table = torch.zeros(1000, 64)
     ids = torch.zeros(bags * 4, dtype=torch.int32)
     w = torch.ones(bags * 4)
     for _ in range(2):
         K1.embedding_bag(table, ids, w, bags, masked=True)
     lib = fake_cuda[K1.NAME]
-    assert _k1_launches(lib) == [(1, [bags, 4, 64, 1000, 4, 16, 4, 4, 132 * 6])] * 2
+    assert _k1_launches(lib) == [(1, [bags, 4, 64, 1000, 4, 16, 4, 132 * 6])] * 2
     assert lib.occupancy == [("embedding_bag_occupancy_f32", (4, 4, 1))]
     keys = torch.full((1 << 10,), T.EMPTY_KEY, dtype=torch.int32)
     values = torch.zeros(1 << 10, 64, dtype=torch.bfloat16)
