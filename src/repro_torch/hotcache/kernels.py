@@ -97,7 +97,6 @@ def probe_gather_pool(
     shift = max(1, 33 - C.bit_length())
     lib = build.load(PROBE, _PROBE_SIGNATURES)
     vec = vec_width(values.dtype, D, (values.data_ptr() | pooled.data_ptr()) % 16 == 0)
-
     with torch.cuda.device(values.device):
         plan = launch_plan(num_bags, N // num_bags, D, vec, lambda spec: resident_blocks(
             lib, PROBE, _PROBE_OCC_SYMBOLS[values.dtype], values.device, vec, spec),

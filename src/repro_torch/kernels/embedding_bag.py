@@ -45,7 +45,7 @@ _occupancy_lock = threading.Lock()
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     vec: int  # elements a lane loads at once (16 bytes, or 1)
-    lanes: int  # threads a bag: the row's vectors rounded up to a power of two, <= 32
+    lanes: int  # threads spanning a row: its vectors rounded up to a power of two, <= 32
     nnz_spec: int  # the unrolled slot count, or 0 for the general loop
     pass_bags: int  # consecutive bags a group takes a pass (K3's unrolled path; else 1)
     blocks: int  # at most one wave of resident blocks; the kernel strides over bags
@@ -152,4 +152,3 @@ def embedding_bag(
     launches += 1
     launches_masked += int(masked)
     return out
-
