@@ -25,8 +25,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 row, D 17; K4 at the cache build's writes and with
                 repeated slots, into f32 and bf16 rows, with slots outside
                 [0, C) mixed in, with one write, from bf16 rows and at a
-                width of 17 (the element-wise copy); K5 in f32 and f64 with
-                ties and -inf.  CUDA-event medians of the kernel, its plain
+                width of 17 (the element-wise copy); K5 in f32 and f64,
+                bit for bit, on scores with ties, -inf, NaN, -0.0 and
+                +0.0, all-NaN and all -inf rows, at the miner's [64, 16],
+                [2048, 16], the TPU-shaped [4096, 128] and L 1, 15, 16, 17,
+                31, 32, 33, 128 with k 1 and L.  CUDA-event medians of the kernel, its plain
                 version and one PyTorch call computing the same function
                 (none for K3), beside the bound from bytes and operations
                 (K1's masked bound counts the live slots' rows, its
@@ -55,14 +58,16 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 causal in bf16 and f32, at qwen2-72b's GQA heads
                 [1, 4096, 64, 8, 128], at dh 128 without GQA
                 [1, 4096, 32, 32, 128], at a ragged S (bf16 causal at dh
-                64, 80 and 96, bf16 and f32 full); K7 at the decode
+                64, 80 and 96, bf16 full), the same in f32 (3xTF32) and f32
+                at a ragged S causal at dh 64, 80, 96 and full at 128;
+                K7 at the decode
                 path's caches [4, 4128, 32, 80] with NaN past cache_len
                 4097, at cache_len 1, in f32 and with GQA, and at g = 4
                 (q [2, 32, 128], 8 KV heads) with cache_len on an edge of
                 the kernel's split over S, one past it and the whole cache;
                 bf16 to two output ulps plus 2^-5 of the row's RMS, a check
-                shown to refuse planted faults (one KV tile of 64 skipped;
-                K7's middle chunk dropped).
+                shown to refuse planted faults (one KV tile of 64 skipped,
+                bf16 and f32; K7's middle chunk dropped).
                 CUDA-event medians of each kernel, its plain version and
                 ``F.scaled_dot_product_attention`` (timed only, never called
                 by the port), and of kernel and library at the repo's own
@@ -83,14 +88,16 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 same weights (prefill 256, 4 decode steps) against the same
                 on the CPU (plain versions), and the full depth (prefill
                 1,024, 4 decode steps) against one ``forward`` over all
-                1,028 tokens;
+                1,028 tokens; the card's half is the ``lm_f32`` path, which
+                must launch K6 (in f32 only) and K7;
  10. the ``{"kernels": [...]}`` line (K1's entry adds its weighted mode's
-     times and bound), then as the last line
+     times and bound, K6's its f32 times, both bounds and launches), then
+     as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Each path (4, 4b, 5, 5b, 7, 8) runs with the launch counts set to 0 just
-before it and read just after; comparisons and timings run outside those
-windows.
+Each path (4, 4b, 5, 5b, 7, 8, and 9 as ``lm_f32``: K6 and K7 in f32 on
+the card) runs with the launch counts set to 0 just before it and read just
+after; comparisons and timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
 ``src/`` beside it, it exits nonzero before printing any result.
 """
@@ -116,6 +123,7 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_TENSOR_FLOP_PER_S = 495e12  # H100 SXM tf32 tensor cores, dense (K6 f32 runs 3 products)
 FORWARD_BATCH = 2048
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)  # data/pipeline.BucketBatcher's defaults
 SERVE_FIELDS = 17  # dlrm-serve's 16 fields + the bottom MLP's output
@@ -125,6 +133,7 @@ HOT_SLOTS = 1 << 18  # the cached forward's hash cache (67 MB of f32 rows)
 MAX_PROBES = 8
 WARMUP_BATCHES = 4
 MINER_ROWS = 64  # K5's timed shape: about one cache plan's triggers
+K5_EDGE_WIDTHS = (1, 15, 16, 17, 31, 32, 33, 128)
 FORWARD_TURNS = 6  # cached/uncached forward timing pairs, alternating order
 PREFETCH_CACHE_ROWS = 256  # the serve_prefetch controller's row cap
 PREFETCH_REFRESH_EVERY = 4  # batches between cache plans
@@ -278,6 +287,15 @@ def assert_refused(name: str, planted, want, rtol: float, row_tol: float) -> Non
     log(f"  {name}: refused, max abs err {err:.3e}, {share:.3f} of the limit")
 
 
+def assert_refused_close(name: str, planted, want, rtol: float, atol: float) -> None:
+    """The check of ``assert_close`` must fail on a planted fault."""
+    if torch.allclose(planted.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: the check accepts a planted fault (max abs err "
+                             f"{max_err(planted, want):.3e})")
+    log(f"  {name}: refused, max abs err {max_err(planted, want):.3e} (rtol {rtol}, "
+        f"atol {atol})")
+
+
 def assert_equal(name: str, got, want) -> float:
     """Bit-equal (NaN-free inputs: torch.equal counts -inf == -inf)."""
     if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
@@ -285,6 +303,18 @@ def assert_equal(name: str, got, want) -> float:
                              f"version ({tuple(got.shape)} {got.dtype} vs "
                              f"{tuple(want.shape)} {want.dtype})")
     log(f"  {name}: ok, bit-equal")
+    return 0.0
+
+
+def assert_bits(name: str, got, want) -> float:
+    """Bit-equal floats, NaN and the sign of zero included."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(got.view(ints[got.dtype]), want.view(ints[want.dtype]))):
+        raise AssertionError(f"{name}: kernel output is not bit-equal to its plain "
+                             f"version ({tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype})")
+    log(f"  {name}: ok, bit-equal (NaN and signed zeros included)")
     return 0.0
 
 
@@ -325,11 +355,12 @@ def main() -> int:
                 "probe_gather_pool": HK.launches[HK.PROBE],
                 "scatter_update": HK.launches[HK.SCATTER],
                 "topk_neighbor_select": PK.launches,
-                "flash_attention": K6.launches, "flash_decode": K7.launches}
+                "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
+                "flash_decode": K7.launches}
 
     def reset_counts() -> None:
         K1.launches = K1.launches_masked = 0
-        K2.launches = PK.launches = K6.launches = K7.launches = 0
+        K2.launches = PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
         HK.launches.update(dict.fromkeys(HK.launches, 0))
 
     def require(path: str, counts: dict, names) -> None:
@@ -675,9 +706,17 @@ def main() -> int:
 
     # ---- K5: the miner's [M, 16] f64 lists and the TPU-shaped [4096, 128] f32
     def tied_scores(m, width, dtype):
+        """Scores on a grid of 1/4 (ties), with -inf, NaN, -0.0 and +0.0
+        scattered in, an all-NaN row and an all -inf last row (it walks its
+        columns in order)."""
         s = torch.round(torch.randn((m, width), device=dev, generator=gen) * 4) / 4
-        s[torch.rand((m, width), device=dev, generator=gen) < 0.25] = float("-inf")
-        s[-1] = float("-inf")  # an all -inf row walks its columns in order
+        u = torch.rand((m, width), device=dev, generator=gen)
+        s[u < 0.2] = float("-inf")
+        s[(u >= 0.2) & (u < 0.3)] = float("nan")
+        s[(u >= 0.3) & (u < 0.4)] = -0.0
+        s[(u >= 0.4) & (u < 0.5)] = 0.0
+        s[-2] = float("nan")
+        s[-1] = float("-inf")
         return s.to(dtype).contiguous()
 
     k5_cases = {}
@@ -687,9 +726,21 @@ def main() -> int:
             gv, gi = PK.topk_neighbor_select(s, k)
             wv, wi = PREF.topk_neighbor_select_ref(s, k)
             name = f"K5 topk_neighbor_select {str(dt)[6:]} [{m}, {width}] k={k}"
-            assert_equal(f"{name} values", gv, wv)
+            assert_bits(f"{name} values", gv, wv)
             assert_equal(f"{name} indices", gi, wi)
             k5_cases[(m, width, dt)] = (s, k)
+    # Edges of the kernel's row plan: one column, a group of 16 lanes and one
+    # column past it, a whole warp and one column past it (a warp a row), and
+    # 1003 rows (no multiple of a block's rows); k = 1 and k = L.
+    for width in K5_EDGE_WIDTHS:
+        for k in sorted({1, width}):
+            for dt in (torch.float32, torch.float64):
+                s = tied_scores(1003, width, dt)
+                gv, gi = PK.topk_neighbor_select(s, k)
+                wv, wi = PREF.topk_neighbor_select_ref(s, k)
+                name = f"K5 topk_neighbor_select {str(dt)[6:]} [1003, {width}] k={k}"
+                assert_bits(f"{name} values", gv, wv)
+                assert_equal(f"{name} indices", gi, wi)
     errs["topk_neighbor_select"] = 0.0
     errs["scatter_update"] = k4_err
 
@@ -948,10 +999,10 @@ def main() -> int:
     def rnd(shape, dtype):
         return torch.randn(shape, device=dev, generator=lm_gen).to(dtype)
 
-    def k6_bound(q, k, causal):
+    def k6_bound(q, k, causal, rate=None):
         B_, S_, H_, d_ = q.shape
         pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
-        rate = BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S
+        rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S)
         return bound(2 * (q.numel() + k.numel()) * q.element_size(),  # q, k, v, out
                      4 * d_ * B_ * H_ * pairs, rate)
 
@@ -991,6 +1042,14 @@ def main() -> int:
         "ragged dh96 bf16": ((2, LM_RAGGED_SEQ, 4, 96), 2, bf16, True),
         "ragged full bf16": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, bf16, False),
         "ragged full f32": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, f32, False),
+        # f32 (3xTF32 on mma.sync) at every head dim, with GQA, ragged S
+        # causal and full.
+        "gqa f32": ((1, S, LM_GQA_HEADS[0], LM_GQA_HEADS[2]), LM_GQA_HEADS[1], f32, True),
+        "dh128 f32": ((1, S, Hq, LM_GQA_HEADS[2]), Hq, f32, True),
+        "ragged f32": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, f32, True),
+        "ragged dh64 f32": ((2, LM_RAGGED_SEQ, 4, 64), 2, f32, True),
+        "ragged dh96 f32": ((2, LM_RAGGED_SEQ, 4, 96), 2, f32, True),
+        "ragged dh128 full f32": ((2, LM_RAGGED_SEQ, 4, 128), 1, f32, False),
     }
     with torch.no_grad():
         for label, (shape, hkv, dt, causal) in k6_cases.items():
@@ -1003,14 +1062,16 @@ def main() -> int:
             err = check(f"K6 flash_attention {label} {list(shape[:3]) + [hkv, shape[3]]} "
                         f"{'causal' if causal else 'full'}",
                         K6.flash_attention(q, k, v, causal), want, *tol)
-            if label == "path bf16":
+            if label in ("path bf16", "path f32"):
                 # A kernel whose KV loop skips the first tile, seen only on
                 # the later half of the rows, where |out| is smallest.
                 t, h = LM_KV_TILE, S // 2
                 planted = ref.flash_attention_ref(q[:, t:], k[:, t:], v[:, t:], True)
-                assert_refused(f"K6 {label} with the first KV tile skipped, rows {h}+",
-                               planted[:, h - t:], want[:, h:], *tol)
+                refuse = assert_refused if dt == bf16 else assert_refused_close
+                refuse(f"K6 {label} with the first KV tile skipped, rows {h}+",
+                       planted[:, h - t:], want[:, h:], *tol)
                 del planted
+            if label == "path bf16":
                 errs["flash_attention"] = err
                 timings["flash_attention"] = (
                     cuda_ms(lambda: K6.flash_attention(q, k, v, True), flush),
@@ -1018,10 +1079,14 @@ def main() -> int:
                     cuda_ms(lambda: k6_lib(q, k, v, True), flush))
                 bounds["flash_attention"] = k6_bound(q, k, True)
             elif label in ("path f32", "gqa bf16", "dh128 bf16"):
-                time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
-                          lambda: K6.flash_attention(q, k, v, causal),
-                          lambda: ref.flash_attention_ref(q, k, v, causal),
-                          lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal))
+                row = time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
+                                lambda: K6.flash_attention(q, k, v, causal),
+                                lambda: ref.flash_attention_ref(q, k, v, causal),
+                                lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal))
+                if label == "path f32":  # beside the f32 FMA bound, the 3xTF32 one
+                    row["bound_ms_tf32"] = k6_bound(q, k, causal, TF32_TENSOR_FLOP_PER_S / 3)[0]
+                    row["max_abs_err"] = err
+                    k6_f32 = row
             del q, k, v, want
         # K6 at prefill_32k's length, one sequence: kernel and library only.
         Sp = LM_SHAPES["prefill_32k"]["seq"]
@@ -1220,6 +1285,7 @@ def main() -> int:
         return torch.stack(outs), kd, vd
 
     log("[lm_checks] f32 compute, TF32 off")
+    reset_counts()  # the lm_f32 path (the CPU's half takes the plain versions)
     cut_cfg = dataclasses.replace(lm_cfg, n_layers=LM_CUT_LAYERS, compute_dtype=f32)
     cut_params = dict(lm_params, layers={k: v[:LM_CUT_LAYERS]
                                          for k, v in lm_params["layers"].items()})
@@ -1239,6 +1305,11 @@ def main() -> int:
     stepped = prefill_then_decode(deep_cfg, lm_params, deep_toks, LM_DEPTH_PROMPT, dev)[0]
     with torch.no_grad():
         full = TF.forward(deep_cfg, lm_params, deep_toks.to(dev))[0]
+    lm_f32_launches = launch_counts()
+    require("lm_f32", lm_f32_launches, ("flash_attention", "flash_attention_f32",
+                                        "flash_decode"))
+    if lm_f32_launches["flash_attention_f32"] != lm_f32_launches["flash_attention"]:
+        raise AssertionError(f"lm_f32 launched K6 outside f32: {lm_f32_launches}")
     want = full[:, LM_DEPTH_PROMPT - 1:].transpose(0, 1)  # [steps + 1, B, Vp]
     assert_close(f"lm full depth f32: prefill {LM_DEPTH_PROMPT} + {LM_CHECK_STEPS} decode "
                  f"steps vs one forward over {LM_DEPTH_PROMPT + LM_CHECK_STEPS} tokens",
@@ -1258,7 +1329,8 @@ def main() -> int:
     }
     paths = {"forward": fwd_launches, "serve": srv_launches,
              "cached_forward": cached_launches, "serve_prefetch": pf_launches,
-             "lm_prefill": prefill_launches, "lm_decode": decode_launches}
+             "lm_prefill": prefill_launches, "lm_decode": decode_launches,
+             "lm_f32": lm_f32_launches}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]
@@ -1280,6 +1352,13 @@ def main() -> int:
                                             for p, c in paths.items()},
                 "weighted": k1_weighted,
             })
+        if name == "flash_attention":  # timed in bf16 (lm_prefill's); f32 beside it
+            kernels[-1]["f32"] = {
+                **{key: k6_f32[key] for key in ("case", "ms", "plain_ms", "library_ms",
+                                               "bound_ms", "bound_by", "bound_ms_tf32",
+                                               "max_abs_err")},
+                "launches_by_path": {p: c["flash_attention_f32"] for p, c in paths.items()},
+            }
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -91,11 +91,46 @@
 //    memory, spills) for this file.  The consumers hold S (64 f32), O (dh / 2
 //    f32) and P (32 registers); none of the four head dims spills.
 //
-// f32: no TF32 (it keeps about three decimal digits, and the reference holds
-// f32 to 2e-5): scalar FMAs, 256 threads, each owning one query row and every
-// fourth key / head dim; the four threads of a row reduce its max and sum
-// with shuffles.  Its rows are read and written through strides; offsets are
-// 64-bit.
+// f32 (flash_attention_f32_kernel): the reference holds f32 attention to
+// 2e-5, and one TF32 product keeps about three decimal digits; scalar FMAs
+// with a shared-memory load each reach about a quarter of the f32 rate.
+// What bounds it on the card: the tensor cores' TF32 rate, three products
+// of every pair (q . k and p . v), against which it moves 2 * dh * 4 bytes
+// of K and V per key for 128 query rows.
+// What the design does about it ("3xTF32"):
+//  * Every operand is split as x = big + small, big the tf32 part of x (its
+//    low 13 mantissa bits cleared) and small the rest, which the tensor
+//    core reads truncated to tf32; a product is small . big + big . small +
+//    big . big in f32 on mma.sync.m16n8k8 (hopper::mma_3xtf32), which keeps
+//    every product of two f32 values to about 3 * 2^-20 of itself.  The
+//    split is a mask and a subtraction: with cvt.rna.tf32 instead the kernel
+//    took 8.27 ms at the path shape, not 5.65 (PERF.md).
+//    tests/test_torch_attention.py emulates the products in numpy: they meet
+//    2e-5 where one does not.
+//  * mma.sync, not wgmma: tf32 wgmma takes only K-major operands and V is
+//    stored with dh contiguous (MN-major for P . V); mma.sync's fragments are
+//    loaded by hand, so nothing is transposed.
+//  * A CTA of 8 warps owns 128 query rows of one (batch, head), 16 a warp.
+//    K and V come through a 2-stage ring of cp.async copies (zero-filled
+//    past S) in 64-key tiles, so the next tile's copy runs under this one's
+//    products.  Q is read once into registers (into shared memory at dh
+//    128, where registers spilled) and split per k-step; K and V are split
+//    as their fragments leave shared memory, P in registers after the
+//    softmax.
+//  * Fragment orders that need no shuffle.  The order of a reduction is
+//    free as long as both operands follow it: S's k-steps take head dims
+//    16p + 4t + {0, 1} and {2, 3}, so a lane reads Q and K as 16-byte
+//    pieces; P . V's k-step j takes keys 8j + 2t and 8j + 2t + 1 as columns t
+//    and t + 4, so S's accumulator registers are P's A fragment as they
+//    stand (the m16n8 accumulator is not the tf32 A layout), and V's B
+//    fragment reads rows 8j + 2t, 8j + 2t + 1.  Row pitches of D + 16 (D at
+//    dh 80) and D + 4 floats keep both loads free of bank conflicts.
+//  * The online softmax is the bf16 kernel's (softmax_tile), on one tile;
+//    p stays f32 (as its two tf32 parts); out = acc / max(l, 1e-30).
+//  * Causal: the CTA's loop stops at its diagonal, and a warp skips a tile
+//    whose keys all lie after its rows.  Rows are read (16-byte pieces) and
+//    written through the caller's strides, which the wrapper checks are
+//    16-byte multiples; offsets are 64-bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,8 +143,8 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 64;  // query rows per block (f32) and per consumer warpgroup (bf16)
-constexpr int kBK = 64;  // keys per KV tile (f32)
+constexpr int kBQ = 64;  // query rows per consumer warpgroup (bf16)
+constexpr long long kMaxSeq = (1LL << 31) - 256;  // positions (and TMA coordinates) are int32
 
 struct Strides {  // element strides of the [B, S, H, dh] tensors
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -124,7 +159,6 @@ constexpr int kBKV = 128;  // keys per KV tile
 constexpr int kStages = 3;  // K/V ring depth (225 KB of shared memory at dh 128)
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr long long kMaxSeqBf16 = (1LL << 31) - 256;  // positions (and TMA coordinates) are int32
 
 // A tile of `rows` rows of dh bf16 is stored as kMain regions of 64 columns
 // (128-byte rows, 128-byte swizzle) and, where dh % 64 = 16 or 32, one
@@ -222,17 +256,20 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   hopper::wgmma_commit();
 }
 
-// One tile's online softmax on the raw scores of rows row_a, row_b (the
-// scale folds into one FMA per exponent: scale > 0, so the max of s is the
-// max of s * scale).  sc becomes p, unrounded; returns the rescale factors.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], bool masked, int kv0, int row_a,
+// One tile's online softmax on the raw scores of rows row_a, row_b: 2N keys
+// in the m16n8 accumulator layout, N / 4 columns of 8 (the scale folds into
+// one FMA per exponent: scale > 0, so the max of s is the max of s * scale).
+// sc becomes p, unrounded; returns the rescale factors.  Both kernels use
+// it: 128 keys a tile in bf16, 64 in f32.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], bool masked, int kv0, int row_a,
                                              int row_b, int S, int causal, int t4,
                                              float scale_log2, float& m0,
                                              float& m1, float& l0, float& l1, float& a0,
                                              float& a1) {
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     if (masked) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -256,7 +293,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], bool masked, int k
   m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     sc[4 * j] = hopper::ex2(fmaf(sc[4 * j], scale_log2, -mn0));
     sc[4 * j + 1] = hopper::ex2(fmaf(sc[4 * j + 1], scale_log2, -mn0));
     sc[4 * j + 2] = hopper::ex2(fmaf(sc[4 * j + 2], scale_log2, -mn1));
@@ -362,7 +399,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     const int lane = tid & 31;
     const int g = lane >> 2;  // accumulator row within the warp's 16
     const int t4 = lane & 3;  // accumulator column pair
-    const int Sq = (int)S;  // positions fit in 32 bits (S <= kMaxSeqBf16)
+    const int Sq = (int)S;  // positions fit in 32 bits (S <= kMaxSeq)
     const int qw0 = (int)q0 + wg * kBQ;  // this warpgroup's first query row
     const int row_a = qw0 + warp * 16 + g;
     const int row_b = row_a + 8;
@@ -441,110 +478,212 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 
 // ------------------------------------------------------------------- f32
 
+constexpr int kWarpsF32 = 8;  // each owns 16 query rows
+constexpr int kThreadsF32 = 32 * kWarpsF32;
+constexpr int kRowsF32 = 16 * kWarpsF32;  // query rows per CTA
+constexpr int kStagesF32 = 2;  // cp.async ring of K and V tiles
+constexpr int kBK = 64;  // keys per K and V tile
+
+// Shared memory of the f32 kernel: kStagesF32 stages of a K tile [kBK][kLdK]
+// and a V tile [kBK][kLdV], then at dh 128 the CTA's Q [kRowsF32][kLdK]
+// (floats; 215 KB in all).  Below dh 128 Q stays in registers; at dh 128
+// that made ptxas spill (40-64 bytes) and Q moves to shared memory, which
+// measured 11% slower at dh 80 and 2% at dh 128 (PERF.md).  The row pitches keep the fragment loads free of bank conflicts: Q and K
+// are read as 16-byte pieces, 8 lanes a phase over rows g, g + 1 and pieces
+// t = 0..3 (kLdK = 16 mod 32 puts the two rows 16 banks apart); V as single
+// floats at rows 2t, 2t + 1 and column g (kLdV = 4 mod 16 puts the four t 8
+// banks apart).
 template <int D>
-__global__ void __launch_bounds__(256)
+struct LayoutF32 {
+  static constexpr int kLdK = D % 32 == 16 ? D : D + 16;
+  static constexpr int kLdV = D + 4;
+  static constexpr int kStage = kBK * (kLdK + kLdV);  // floats
+  static constexpr bool kQShared = D == 128;
+  static constexpr int kQ = kStagesF32 * kStage;  // Q's offset
+  static constexpr int kBytes = (kQ + (kQShared ? kRowsF32 * kLdK : 0)) * 4;
+};
+
+// The f32 kernel: 3xTF32 on mma.sync (the design note at the top).
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
     flash_attention_f32_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o, long long S, int group,
                                int causal, float scale_log2, Strides st) {
-  constexpr int LDQ = D + 1;  // Q and K rows padded: distinct banks per row
-  constexpr int LDP = kBK + 1;
-  constexpr int DV = D / 4;  // head dims per thread
+  using Ly = LayoutF32<D>;
+  constexpr int ST = kStagesF32;
+  constexpr int KP = D / 16;  // pairs of k-steps of S = Q . K^T
+  constexpr int NV = D / 8;  // n-tiles of O
+  constexpr int CH = D / 4;  // 16-byte pieces per row
   extern __shared__ uint4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [64][D + 1]
-  float* Ks = Qs + kBQ * LDQ;  // [64][D + 1]
-  float* Vs = Ks + kBK * LDQ;  // [64][D]
-  float* Ps = Vs + kBK * D;  // [64][65]
+  float* smem = reinterpret_cast<float*>(smem_raw);
 
-  const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * kBQ;
+  const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * kRowsF32;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int hk = h / group;
-  const int r = threadIdx.x >> 2;  // query row in the tile
-  const int cl = threadIdx.x & 3;  // keys cl + 4i, head dims cl + 4i
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int Sq = (int)S;  // positions fit in 32 bits (S <= kMaxSeq)
+  const int qw0 = (int)q0 + 16 * warp;  // this warp's first query row
+  const int row_a = qw0 + g;
+  const int row_b = row_a + 8;
+  const float* kh = k + b * st.kb + (long long)hk * st.kh;
+  const float* vh = v + b * st.vb + (long long)hk * st.vh;
+  const long long kv_end = causal ? (q0 + kRowsF32 < S ? q0 + kRowsF32 : S) : S;
+  const int n_tiles = (int)((kv_end + kBK - 1) / kBK);
 
-  const float* qh = q + b * st.qb + h * st.qh;
-  const float* kh = k + b * st.kb + hk * st.kh;
-  const float* vh = v + b * st.vb + hk * st.vh;
-
-  for (int e = threadIdx.x; e < kBQ * D; e += 256) {
-    const int rr = e / D;
-    const int d = e - rr * D;
-    Qs[rr * LDQ + d] = (q0 + rr < S) ? qh[(q0 + rr) * st.qs + d] : 0.f;
+  // K and V tile i into stage i % ST, 16 bytes a copy; keys past S are zeros.
+  auto load_tile = [&](int i) {
+    float* ks = smem + (i % ST) * Ly::kStage;
+    float* vs = ks + kBK * Ly::kLdK;
+    for (int e = threadIdx.x; e < kBK * CH; e += kThreadsF32) {
+      const int r = e / CH;
+      const int c = 4 * (e - r * CH);
+      const long long key = (long long)i * kBK + r;
+      const bool in = key < S;
+      const long long kk = in ? key : 0;
+      hopper::cp_async16(ks + r * Ly::kLdK + c, kh + kk * st.ks + c, in);
+      hopper::cp_async16(vs + r * Ly::kLdV + c, vh + kk * st.vs + c, in);
+    }
+  };
+  // Q in the A-fragment order of S's k-steps: k-step 2p takes head dims
+  // 16p + 4t + {0, 1} as its columns t and t + 4, k-step 2p + 1 takes
+  // 16p + 4t + {2, 3}.  (The order of the reduction is free as long as K's
+  // fragments follow it: each lane then reads Q and K as 16-byte pieces.)
+  // Below dh 128 each lane holds its pieces of rows row_a and row_b in
+  // registers; at dh 128 the CTA's rows are copied into shared memory with
+  // the first tile (zeros past S) and read per k-step.
+  const float* qh = q + b * st.qb + (long long)h * st.qh;
+  float* qs = smem + Ly::kQ;
+  if constexpr (Ly::kQShared) {
+    for (int e = threadIdx.x; e < kRowsF32 * CH; e += kThreadsF32) {
+      const int r = e / CH;
+      const int c = 4 * (e - r * CH);
+      const bool in = q0 + r < S;
+      hopper::cp_async16(qs + r * Ly::kLdK + c, qh + (in ? q0 + r : 0) * st.qs + c, in);
+    }
   }
-  float m = kNegInf, l = 0.f;
-  float acc[DV];
 #pragma unroll
-  for (int i = 0; i < DV; ++i) acc[i] = 0.f;
-
-  const long long row = q0 + r;
-  const long long kv_end = causal ? (q0 + kBQ < S ? q0 + kBQ : S) : S;
-  for (long long kv0 = 0; kv0 < kv_end; kv0 += kBK) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kBK * D; e += 256) {
-      const int rr = e / D;
-      const int d = e - rr * D;
-      const bool in = kv0 + rr < S;
-      Ks[rr * LDQ + d] = in ? kh[(kv0 + rr) * st.ks + d] : 0.f;
-      Vs[rr * D + d] = in ? vh[(kv0 + rr) * st.vs + d] : 0.f;
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    hopper::cp_async_commit();
+  }
+  float4 qa[Ly::kQShared ? 1 : KP], qb[Ly::kQShared ? 1 : KP];  // rows row_a, row_b
+  if constexpr (!Ly::kQShared) {
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      const int c = 16 * p + 4 * t4;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      qa[p] = row_a < Sq ? *reinterpret_cast<const float4*>(qh + row_a * st.qs + c) : zero;
+      qb[p] = row_b < Sq ? *reinterpret_cast<const float4*>(qh + row_b * st.qs + c) : zero;
     }
-    __syncthreads();
+  }
 
-    float s[16];
+  float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units), rows row_a, row_b
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of the running sums
+  float acc[4 * NV];  // O: n-tile n holds head dims 8n + 2t + {0, 1}
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = 0.f;
-    const float* qr = Qs + r * LDQ;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d];
+  for (int i = 0; i < 4 * NV; ++i) acc[i] = 0.f;
+  float sc[32];  // S of the tile (64 keys), then its p
+  float a0, a1;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    hopper::cp_async_wait<ST - 2>();  // tile i has landed (this thread's copies)
+    __syncthreads();  // every thread's copies, and tile i - 1's readers are done
+    if (i + ST - 1 < n_tiles) load_tile(i + ST - 1);
+    hopper::cp_async_commit();  // possibly empty: the wait above counts groups
+    const int kv0 = i * kBK;
+    if (qw0 >= Sq || (causal && kv0 > qw0 + 15)) continue;  // no key of the tile counts here
+    const float* ks = smem + (i % ST) * Ly::kStage;
+    const float* vs = ks + kBK * Ly::kLdK;
+
+    // S = Q . K^T: 8 n-tiles of 8 keys, 2 KP k-steps of 8 head dims.
 #pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] = fmaf(qv, Ks[(4 * i + cl) * LDQ + d], s[i]);
-    }
-    const bool masked = (kv0 + kBK > S) || (causal && kv0 + kBK - 1 > q0);
-    float mx = kNegInf;
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      float x = s[i] * scale_log2;
-      if (masked) {
-        const long long key = kv0 + 4 * i + cl;
-        if (key >= S || (causal && key > row)) x = kNegInf;
+    for (int p = 0; p < KP; ++p) {
+      float4 xa, xb;  // Q's pieces of rows row_a and row_b
+      if constexpr (Ly::kQShared) {
+        const float* qr = qs + (16 * warp + g) * Ly::kLdK + 16 * p + 4 * t4;
+        xa = *reinterpret_cast<const float4*>(qr);
+        xb = *reinterpret_cast<const float4*>(qr + 8 * Ly::kLdK);
+      } else {
+        xa = qa[p];
+        xb = qb[p];
       }
-      s[i] = x;
-      mx = fmaxf(mx, x);
+      uint32_t ab[2][4], as[2][4];  // A big / small of k-steps 2p, 2p + 1
+      hopper::split_tf32(xa.x, ab[0][0], as[0][0]);
+      hopper::split_tf32(xb.x, ab[0][1], as[0][1]);
+      hopper::split_tf32(xa.y, ab[0][2], as[0][2]);
+      hopper::split_tf32(xb.y, ab[0][3], as[0][3]);
+      hopper::split_tf32(xa.z, ab[1][0], as[1][0]);
+      hopper::split_tf32(xb.z, ab[1][1], as[1][1]);
+      hopper::split_tf32(xa.w, ab[1][2], as[1][2]);
+      hopper::split_tf32(xb.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(ks + (8 * j + g) * Ly::kLdK + 16 * p + 4 * t4);
+        uint32_t bb[4], bs[4];
+        hopper::split_tf32(kv.x, bb[0], bs[0]);
+        hopper::split_tf32(kv.y, bb[1], bs[1]);
+        hopper::split_tf32(kv.z, bb[2], bs[2]);
+        hopper::split_tf32(kv.w, bb[3], bs[3]);
+        float(&c)[4] = *reinterpret_cast<float(*)[4]>(&sc[4 * j]);
+        hopper::mma_3xtf32(c, ab[0], as[0], bb[0], bb[1], bs[0], bs[1]);
+        hopper::mma_3xtf32(c, ab[1], as[1], bb[2], bb[3], bs[2], bs[3]);
+      }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m, mx);
-    const float alpha = exp2f(m - mn);
-    m = mn;
-    float rs = 0.f;
-    float* pr = Ps + r * LDP;
+    const bool masked = (kv0 + kBK > Sq) || (causal && kv0 + kBK - 1 > qw0);
+    softmax_tile(sc, masked, kv0, row_a, row_b, Sq, causal, t4, scale_log2, m0, m1, l0, l1,
+                 a0, a1);
+    rescale(acc, a0, a1);
+
+    // O += P . V, p in f32 as two tf32 parts.  k-step j covers keys 8j..8j+7
+    // in the order 2t -> column t, 2t + 1 -> column t + 4, so S's accumulator
+    // registers of n-tile j are the A fragment as they stand (no shuffle):
+    // a0 = p(g, 8j + 2t), a1 = p(g + 8, 8j + 2t), a2 = p(g, 8j + 2t + 1),
+    // a3 = p(g + 8, 8j + 2t + 1).  V's B fragment follows: rows 8j + 2t and
+    // 8j + 2t + 1, column 8n + g.
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float p = exp2f(s[i] - mn);
-      rs += p;
-      pr[4 * i + cl] = p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-    __syncwarp();  // a warp reads back only the P rows it wrote
+    for (int j = 0; j < 8; ++j) {
+      uint32_t pb[4], ps[4];
+      hopper::split_tf32(sc[4 * j], pb[0], ps[0]);
+      hopper::split_tf32(sc[4 * j + 2], pb[1], ps[1]);
+      hopper::split_tf32(sc[4 * j + 1], pb[2], ps[2]);
+      hopper::split_tf32(sc[4 * j + 3], pb[3], ps[3]);
+      const float* v0 = vs + (8 * j + 2 * t4) * Ly::kLdV + g;
 #pragma unroll
-    for (int i = 0; i < DV; ++i) acc[i] *= alpha;
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float p = pr[c];
-      const float* vr = Vs + c * D + cl;
-#pragma unroll
-      for (int i = 0; i < DV; ++i) acc[i] = fmaf(p, vr[4 * i], acc[i]);
+      for (int n = 0; n < NV; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        hopper::split_tf32(v0[8 * n], bb0, bs0);
+        hopper::split_tf32(v0[Ly::kLdV + 8 * n], bb1, bs1);
+        hopper::mma_3xtf32(*reinterpret_cast<float(*)[4]>(&acc[4 * n]), pb, ps, bb0, bb1, bs0,
+                           bs1);
+      }
     }
   }
-  if (row < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = o + b * st.ob + h * st.oh + row * st.os;
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  float* oh_ = o + b * st.ob + (long long)h * st.oh + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < DV; ++i) orow[4 * i + cl] = acc[i] * inv;
+  for (int n = 0; n < NV; ++n) {
+    if (row_a < Sq)
+      *reinterpret_cast<float2*>(oh_ + row_a * st.os + 8 * n) =
+          make_float2(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (row_b < Sq)
+      *reinterpret_cast<float2*>(oh_ + row_b * st.os + 8 * n) =
+          make_float2(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
   }
 }
 
@@ -602,7 +741,7 @@ int make_map(CUtensorMap* map, const void* ptr, long long B, long long S, int he
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, long long B, long long S,
                 int H, int Hkv, int causal, const Strides& st, void* stream) {
-  if (S > kMaxSeqBf16) return (int)cudaErrorInvalidValue;
+  if (S > kMaxSeq) return (int)cudaErrorInvalidValue;
   Maps maps;
   constexpr int kRem = Layout<D>::kRem;
   int err = 0;
@@ -629,14 +768,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, long long 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, long long B, long long S,
                int H, int Hkv, int causal, const Strides& st, void* stream) {
-  constexpr size_t smem =
-      (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * (kBK + 1)) * sizeof(float);
+  if (S > kMaxSeq) return (int)cudaErrorInvalidValue;
+  constexpr int smem = LayoutF32<D>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = kLog2e / sqrtf((float)D);
-  const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_attention_f32_kernel<D><<<grid, 256, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((S + kRowsF32 - 1) / kRowsF32), (unsigned)H, (unsigned)B);
+  flash_attention_f32_kernel<D><<<grid, kThreadsF32, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H / Hkv, causal,
       scale_log2, st);
   return (int)cudaGetLastError();
@@ -675,9 +814,9 @@ extern "C" {
 
 // q [B, S, H, D], k and v [B, S, Hkv, D], o [B, S, H, D], one dtype; strides
 // holds the 12 element strides (b, s, h) of q, k, v, o; the last dim is
-// contiguous.  D in {64, 80, 96, 128}.  bf16 also needs q, k and v on
-// 16-byte boundaries with 16-byte multiples as strides (TMA), and S below
-// 2^31 - 256.  Returns
+// contiguous.  D in {64, 80, 96, 128}.  Both need q, k and v on 16-byte
+// boundaries with 16-byte multiples as strides (TMA in bf16, 16-byte copies
+// and loads in f32), and S below 2^31 - 256.  Returns
 // cudaGetLastError(), or 10000 + a CUresult when a tensor map is refused.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          long long B, long long S, int H, int Hkv, int D,

@@ -1,5 +1,6 @@
 // PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads, wgmma and
-// its shared-memory descriptors, register reallocation and named barriers.
+// its shared-memory descriptors, register reallocation and named barriers;
+// cp.async and the tf32 mma.sync with its error-compensated (3xTF32) form.
 // Included by the kernels that use them (flash_attention.cu); it has no
 // host code and no state.
 #pragma once
@@ -216,6 +217,63 @@ __device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// 16 bytes from global to shared memory; with `full` false nothing is read
+// and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------- mma.sync, tf32
+// Fragments of mma.sync.m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8,
+// row) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8,
+// col) b0 (k = t, n = g), b1 (k = t + 4, n = g); C (16 x 8) c0, c1 (g,
+// 2t + {0, 1}), c2, c3 (g + 8, 2t + {0, 1}).
+
+// x = big + small exactly: big is x with the low 13 mantissa bits cleared
+// (a tf32 value), small = x - big.  The tensor core reads a tf32 operand's
+// top 19 bits only, so small counts as itself truncated to tf32: within
+// 2^-20 |x|.  One integer and one float operation an element: two
+// cvt.rna.tf32.f32 in their place made flash_attention's f32 kernel 1.46x
+// slower on an H100 (PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += A . B, m16n8k8, tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A . B in three tf32 products, the smallest terms first: A_small .
+// B_big + A_big . B_small + A_big . B_big (A_small . B_small, below 2^-20 of
+// the product, is left out).  A product of two tf32 values is exact in f32,
+// so the three keep every product of A . B to about 3 * 2^-20 of itself.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
 }
 
 }  // namespace hopper

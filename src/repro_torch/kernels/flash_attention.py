@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations (multiples of 16)
-MAX_SEQ_BF16 = 2**31 - 256  # the bf16 kernel's positions and TMA coordinates are int32
+MAX_SEQ = 2**31 - 256  # the kernels' positions (and the bf16 TMA coordinates) are int32
 _ARGS = [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
@@ -27,15 +27,21 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_f32 = 0  # of those, launches of the f32 kernel
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernel does not take: a dtype other than f32/bf16
     or mixed dtypes, shapes other than q [B,S,H,dh], k = v [B,S,Hkv,dh] with
     Hkv dividing H, a head dim outside ``HEAD_DIMS``, a last dim that is not
-    contiguous, or rows not on 16-byte boundaries: a start or a stride that
-    is no multiple of 16 bytes (the bf16 kernel loads its tiles with TMA,
-    which requires both); in bf16 also an S past ``MAX_SEQ_BF16``."""
+    contiguous, rows not on 16-byte boundaries: a start or a stride that is
+    no multiple of 16 bytes (the bf16 kernel loads its tiles with TMA, the
+    f32 kernel with 16-byte copies; both require both), or an S past
+    ``MAX_SEQ``."""
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{NAME}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                         "want one of f32 / bf16 for q, k and v")
@@ -48,10 +54,10 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          " (same B, S, dh; Hkv divides H)")
     if dh not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and S > MAX_SEQ_BF16:
-        raise ValueError(f"{NAME}: S = {S} past the bf16 kernel's {MAX_SEQ_BF16} positions")
+    if S > MAX_SEQ:
+        raise ValueError(f"{NAME}: S = {S} past the kernel's {MAX_SEQ} positions")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
+        if t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError(f"{NAME}: {name} strides {t.stride()} — want a contiguous "
                              "head dim and rows on 16-byte boundaries")
         if t.data_ptr() % 16:
@@ -63,9 +69,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B,S,H,dh], k/v [B,S,Hkv,dh], f32 | bf16 CUDA tensors -> [B,S,H,dh]
     in q's dtype: softmax(q k^T / sqrt(dh)) v per head, query head h reading
     KV head h // (H // Hkv), keys after the query masked when ``causal``."""
-    global launches
+    global launches, launches_f32
     check_inputs(q, k, v)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not _on_cuda(q) or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors, got {q.device}, {k.device}, {v.device}; "
             "ops.flash_attention routes CPU tensors to the plain version"
@@ -83,4 +89,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     build.check(lib, NAME, code)
     launches += 1
+    launches_f32 += q.dtype == torch.float32
     return out

@@ -315,9 +315,11 @@ class CooccurrenceMiner:
         k = min(k, self.list_len)
         cand = torch.from_numpy(np.where(nbr == _NO_NEIGHBOR, -np.inf, score))
         sel_score, sel_idx = topk_neighbor_select(cand.to(self.device), k)
-        sel_score = sel_score.cpu().numpy()
-        out_ids = np.take_along_axis(nbr, sel_idx.cpu().numpy().astype(np.int64),
-                                     axis=1)
+        # One copy back and one synchronisation: the f64 scores' bits and the
+        # int32 indices side by side in one int32 tensor.
+        both = torch.cat([sel_score.view(torch.int32), sel_idx], dim=1).cpu().numpy()
+        sel_score = np.ascontiguousarray(both[:, :2 * k]).view(np.float64)
+        out_ids = np.take_along_axis(nbr, both[:, 2 * k:].astype(np.int64), axis=1)
         ok = np.isfinite(sel_score) & (sel_score >= min_score)
         return (
             np.where(ok, out_ids, _NO_NEIGHBOR),

@@ -9,7 +9,9 @@ versions on the card by chip_smoke.py.  Tolerances are the reference's own:
 f32 2e-5, bf16 3e-2 (both sides round the bf16 inputs alike but sum in
 different orders and round p at different points).
 """
+import contextlib
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -271,6 +273,153 @@ def test_scratch_is_kept_per_device_and_stream(monkeypatch):
     more_tickets = K7._scratch_for(dev, 1, 10, 100)
     assert more_tickets[0] is more_ws[0] and more_tickets[1].numel() >= 100
     assert not more_tickets[1].any()
+
+
+# ------------------------------------------------------ K6 f32: 3xTF32
+
+TF32_MASK = np.uint32(0xFFFFE000)  # tf32 keeps 10 of f32's 23 mantissa bits
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """f32 as the tensor core reads a tf32 operand: the low 13 mantissa bits
+    dropped."""
+    return (np.asarray(x, np.float32).view(np.uint32) & TF32_MASK).view(np.float32)
+
+
+def _dot_1xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b on f32 operands read as tf32, summed in f32."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """hopper::split_tf32: big = x's tf32 part, small = x - big (exact)."""
+    big = _tf32(x)
+    return big, np.asarray(x, np.float32) - big
+
+
+def _dot_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b as csrc/hopper.cuh's mma_3xtf32 forms it: each operand split
+    into big + small, small . big + big . small + big . big with every
+    operand read as tf32, each product of tf32 values exact in f32, summed
+    in f32."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return _tf32(as_) @ bb + ab @ _tf32(bs) + ab @ bb
+
+
+def _attend_row(q, k, v, dot):
+    """One query row against every key (no mask), the kernel's arithmetic
+    in f32 with both products by ``dot``: s, the softmax in f32 (p stays
+    f32), p . v, out = acc / l."""
+    s = dot(q[None], k.T)[0] / np.float32(np.sqrt(q.shape[0]))
+    p = np.exp(s - s.max()).astype(np.float32)
+    return (dot(p[None], v)[0] / p.sum(dtype=np.float32)).astype(np.float32)
+
+
+def test_3xtf32_meets_the_f32_tolerance_where_one_tf32_product_does_not(rng):
+    """Why the f32 kernel splits its operands: one query row against 4,096
+    keys at dh 80 (the LM path's head dim), emulated in numpy with tf32 as a
+    mask of the low 13 mantissa bits.  Three products stay within the
+    reference's 2e-5 of an f64 computation; one product misses it."""
+    S, dh = 4096, 80
+    q = rng.normal(size=dh).astype(np.float32)
+    k = rng.normal(size=(S, dh)).astype(np.float32)
+    v = rng.normal(size=(S, dh)).astype(np.float32)
+    s64 = k.astype(np.float64) @ q.astype(np.float64) / np.sqrt(dh)
+    p64 = np.exp(s64 - s64.max())
+    want = p64 @ v.astype(np.float64) / p64.sum()
+    three = _attend_row(q, k, v, _dot_3xtf32)
+    one = _attend_row(q, k, v, _dot_1xtf32)
+    np.testing.assert_allclose(three, want, rtol=2e-5, atol=2e-5)
+    assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)
+    assert np.abs(one - want).max() > 20 * np.abs(three - want).max()
+
+
+def test_tf32_split_keeps_x_to_2_pow_minus_20(rng):
+    """big + small is x exactly, and big + small as the tensor core reads
+    them (small truncated to tf32) is within 2^-20 of x; a product of two
+    tf32 values is exact in f32."""
+    x = (rng.normal(size=10_000) * 1e3).astype(np.float32)
+    big, small = _split(x)
+    assert np.array_equal(_tf32(big), big) and np.array_equal(big + small, x)
+    rel = np.abs(big.astype(np.float64) + _tf32(small) - x) / np.abs(x)
+    assert rel.max() < 2.0**-20
+    y = _tf32(rng.normal(size=10_000).astype(np.float32))
+    assert np.array_equal((big * y).astype(np.float64), big.astype(np.float64) * y)
+
+
+class _FakeLib:
+    """A kernel library that records each launch's symbol and arguments."""
+
+    def __init__(self, prefix):
+        self.prefix, self.calls = prefix, []
+
+    def __getattr__(self, sym):
+        if not sym.startswith(self.prefix):
+            raise AttributeError(sym)
+        return lambda *args: self.calls.append((sym, args)) or 0
+
+
+@pytest.fixture
+def fake_k6(monkeypatch):
+    """The CUDA branch of the K6 wrapper on CPU tensors, with the library,
+    the device and the stream faked."""
+    lib = _FakeLib(K6.NAME)
+    monkeypatch.setattr(K6, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "check", lambda lib_, name, code: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=55))
+    before = (K6.launches, K6.launches_f32)
+    yield lib
+    K6.launches, K6.launches_f32 = before
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_f32_passes_the_callers_strides(fake_k6, causal):
+    """q, k and v as views ([B, H, S, dh] storage transposed, rows of 84
+    floats: 16-byte multiples, no 32-byte ones) reach the f32 kernel with
+    their own strides, uncopied; the output is a new contiguous [B, S, H,
+    dh]; the launch counts as an f32 one."""
+    B, S, H, Hkv, dh = 2, 37, 4, 2, 80
+    q = torch.zeros(B, H, S, 84)[..., :dh].transpose(1, 2)
+    k = torch.zeros(B, Hkv, S, 84)[..., :dh].transpose(1, 2)
+    v = torch.zeros(B, S, Hkv, dh)
+    before = (K6.launches, K6.launches_f32)
+    out = K6.flash_attention(q, k, v, causal)
+    ((sym, a),) = fake_k6.calls
+    assert sym == "flash_attention_f32"
+    assert a[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert a[4:10] == (B, S, H, Hkv, dh, int(causal)) and a[11] == 55
+    assert list(a[10]) == [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                           *out.stride()[:3]]
+    assert q.stride()[:3] == (H * S * 84, 84, S * 84)
+    assert out.shape == (B, S, H, dh) and out.is_contiguous() and out.dtype == torch.float32
+    assert (K6.launches, K6.launches_f32) == (before[0] + 1, before[1] + 1)
+
+
+def test_flash_attention_counts_bf16_launches_apart(fake_k6):
+    before = (K6.launches, K6.launches_f32)
+    K6.flash_attention(*_qkv())
+    assert [s for s, _ in fake_k6.calls] == ["flash_attention_bf16"]
+    assert (K6.launches, K6.launches_f32) == (before[0] + 1, before[1])
+
+
+def test_model_prefill_f32_reaches_the_f32_kernel(fake_k6, monkeypatch):
+    """The model path's f32 q, k and v (rotary and reshape of the
+    projections, as models/transformer.py forms them) pass the wrapper's
+    checks at every head dim the kernel takes."""
+    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
+    B, S, H, Hkv = 1, 13, 4, 2
+    for dh in K6.HEAD_DIMS:
+        x = torch.randn(B, S, (H + 2 * Hkv) * dh)
+        q, k, v = x.split((H * dh, Hkv * dh, Hkv * dh), dim=-1)
+        pos = torch.arange(S)[None]
+        q = L.apply_rope(q.reshape(B, S, H, dh), pos, 10_000.0)
+        k = L.apply_rope(k.reshape(B, S, Hkv, dh), pos, 10_000.0)
+        L.gqa_prefill_attention(q, k, v.reshape(B, S, Hkv, dh), causal=True)
+    assert [a[8] for _, a in fake_k6.calls] == list(K6.HEAD_DIMS)
+    assert {s for s, _ in fake_k6.calls} == {"flash_attention_f32"}
 
 
 # ------------------------------------------------------- wrapper refusals

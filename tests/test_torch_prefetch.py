@@ -8,7 +8,9 @@ card.  Tolerances:
     tier's per-batch outputs and stats, the server's prefetch counters;
   * server scores rtol 1e-4, atol 1e-5 (BLAS summation order).
 """
+import contextlib
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -97,6 +99,108 @@ def test_topk_select_f64_keeps_distinct_scores_apart(rng):
     np.testing.assert_array_equal(gi.numpy(), wi)
 
 
+def _edge_scores(rng, M, L, dtype):
+    """Scores on a grid of 1/4 with -inf, NaN, -0.0 and +0.0 scattered in,
+    an all-NaN row and an all -inf last row (chip_smoke.py's K5 inputs)."""
+    s = np.round(rng.normal(size=(M, L)) * 4) / 4
+    u = rng.random((M, L))
+    s[u < 0.2] = -np.inf
+    s[(u >= 0.2) & (u < 0.3)] = np.nan
+    s[(u >= 0.3) & (u < 0.4)] = -0.0
+    s[(u >= 0.4) & (u < 0.5)] = 0.0
+    s[-2] = np.nan
+    s[-1] = -np.inf
+    return s.astype(dtype)
+
+
+def _sort_keys(s: np.ndarray) -> np.ndarray:
+    """K5's sort_key: an unsigned key whose order is the selection order
+    (a larger key first; NaN 0, below -inf; -0.0 as +0.0)."""
+    u = {np.float32: np.uint32, np.float64: np.uint64}[s.dtype.type]
+    sign = u(1) << u(8 * s.itemsize - 1)
+    bits = np.where(s == 0, np.zeros((), s.dtype), s).view(u)
+    keys = np.where(bits & sign, ~bits, bits | sign)
+    return np.where(np.isnan(s), u(0), keys)
+
+
+def _rank_select(s: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """K5's rank select in numpy: column c's rank is the number of columns
+    before it (a larger key, or an equal key at a lower column); the column
+    of rank r < k is output r."""
+    key = _sort_keys(s)
+    col = np.arange(s.shape[1])
+    before = (key[:, :, None] > key[:, None, :]) | (
+        (key[:, :, None] == key[:, None, :]) & (col[:, None] < col[None, :]))
+    rank = before.sum(1)  # [M, L]: columns j before column c
+    vals = np.empty((s.shape[0], k), s.dtype)
+    idx = np.empty((s.shape[0], k), np.int32)
+    rows, cols = np.nonzero(rank < k)
+    vals[rows, rank[rows, cols]] = s[rows, cols]
+    idx[rows, rank[rows, cols]] = cols
+    return vals, idx
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 31, 32, 33, 128])
+def test_rank_select_order_bit_equal_with_reference(L, dtype, rng):
+    """The kernel's rank order, emulated, against the plain version and the
+    numpy twin at the kernel's row-plan edges, with NaN, signed zeros, ties
+    and all -inf / all-NaN rows: values bit for bit, indices equal."""
+    s = _edge_scores(rng, 40, L, dtype)
+    for k in sorted({1, L}):
+        gv, gi = _rank_select(s, k)
+        rv, ri = topk_neighbor_select_ref(torch.from_numpy(s), k)
+        nv, ni = topk_select_np(s, k)
+        np.testing.assert_array_equal(gi, ri.numpy())
+        np.testing.assert_array_equal(gi, ni)
+        assert gv.tobytes() == rv.numpy().tobytes() == nv.tobytes()
+    np.testing.assert_array_equal(gi[-1], np.arange(L))  # all -inf: in order
+    np.testing.assert_array_equal(gi[-2], np.arange(L))  # all NaN: in order
+
+
+class _FakeTopkLib:
+    """K5's library, recording each launch's symbol and arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, sym):
+        if not sym.startswith(PK.NAME):
+            raise AttributeError(sym)
+        return lambda *args: self.calls.append((sym, args)) or 0
+
+
+@pytest.mark.parametrize("dtype,sym", [(torch.float32, "topk_neighbor_select_f32"),
+                                       (torch.float64, "topk_neighbor_select_f64")])
+def test_topk_wrapper_launch_arguments(monkeypatch, dtype, sym):
+    """The CUDA branch of the K5 wrapper with the library and the CUDA calls
+    faked: the scores' and outputs' pointers, M, L, k and the stream; the
+    outputs [M, k] in the scores' dtype and int32; one launch counted."""
+    lib = _FakeTopkLib()
+    monkeypatch.setattr(PK, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "check", lambda lib_, name, code: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=99))
+    before = PK.launches
+    scores = torch.zeros(64, 16, dtype=dtype)
+    vals, idx = PK.topk_neighbor_select(scores, 12)
+    ((got_sym, a),) = lib.calls
+    assert got_sym == sym
+    assert a == (scores.data_ptr(), vals.data_ptr(), idx.data_ptr(), 64, 16, 12, 99)
+    assert vals.shape == idx.shape == (64, 12)
+    assert vals.dtype == dtype and idx.dtype == torch.int32
+    assert PK.launches == before + 1
+    PK.topk_neighbor_select(torch.zeros(0, 16, dtype=dtype), 3)  # nothing to launch
+    assert len(lib.calls) == 1 and PK.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.topk_neighbor_select(torch.zeros(16, 64, dtype=dtype).T, 3)
+    with pytest.raises(ValueError, match="exceeds"):
+        PK.topk_neighbor_select(scores, 17)
+    PK.launches = before
+
+
 def test_topk_select_rejects_k_too_large():
     with pytest.raises(ValueError):
         topk_neighbor_select(torch.zeros(2, 4), 5)
@@ -138,6 +242,31 @@ def test_miner_state_bit_equal_with_reference():
         np.testing.assert_array_equal(got_ids, want_ids)
         np.testing.assert_array_equal(got_sc, want_sc)
     assert (got_ids >= 0).any()
+
+
+def test_neighbors_copies_back_once(monkeypatch):
+    """``neighbors`` brings the selection back in one copy (values and
+    indices side by side), with results bit-equal to the reference miner."""
+    wl = _workload(batch=32, alpha=1.05, cooccur_frac=0.7, pool_size=64, seed=5)
+    kw = dict(list_len=16, max_rows=512, decay=0.9, seed=2)
+    jm, tm = JaxMiner(**kw), CooccurrenceMiner(**kw, device="cpu")
+    offsets = np.array([0, 40_000])
+    for _ in range(6):
+        b = wl.next_batch()
+        fused = b["indices"].astype(np.int64) + offsets[None, :, None]
+        jm.observe(fused, b["mask"])
+        tm.observe(fused, b["mask"])
+    copies = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **kw: copies.append(self.shape) or real_cpu(self, *a, **kw))
+    ids = tm._row_ids[:64]
+    got = tm.neighbors(ids, 12, 1.0)
+    assert len(copies) == 1
+    want = jm.neighbors(ids, 12, 1.0)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1].tobytes() == want[1].tobytes()
+    assert (got[0] >= 0).any()
 
 
 # --------------------------------------------------- tier with a prefetcher

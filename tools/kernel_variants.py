@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Time text variants of a CUDA kernel of the port against its committed source.
 
-    python3 tools/kernel_variants.py tools/kernel_variants/k6_stages.json [...]
+    python3 tools/kernel_variants.py [--against DIR] tools/kernel_variants/k6_stages.json [...]
 
 on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
 
     {"kernel": "flash_attention" | "dot_interaction" | "flash_decode" | "scatter_update"
-               | "embedding_bag" | "probe_gather_pool",
+               | "embedding_bag" | "probe_gather_pool" | "topk_neighbor_select",
      "cases": [...],
      "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
 
-with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal), [B, F, D]
+with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal; a sixth entry
+"f32" runs it in f32), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
+scores on a grid of 1/4 with -inf, NaN and -0.0 scattered in), [B, F, D]
 (dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
 NaN past cache_len; a seventh entry "f32" runs it in f32), [C, D, K]
 (scatter_update: K f32 rows of D into distinct random slots of a [C, D] f32
@@ -28,29 +30,32 @@ batch B over a cache of C slots holding the hot ids of 4 warm-up batches,
 as chip_smoke.py builds it).
 Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
 replaced by ``new`` (each must occur); the committed source runs as the
-variant ``base``.  A variant may also set ``"attrs"``: attributes of the
-kernel's wrapper module (such as K7's ``MAX_CHUNK``) that hold while it is
-checked and timed, and ``"flush": "read"``: the L2 is flushed before each
-of its timings by reading a 256 MB buffer instead of writing it, so no
-dirty lines are left for the kernel to write back.  Every variant of every
-spec is built at once, one nvcc each, with the flags of ``kernels/build.py``,
-into ``build/kernel_variants/``, and runs through the kernel's own wrapper
-(``build.use_library``).  At each case a variant with ``check`` (the
-default) is first held against the plain version as ``chip_smoke.py`` holds
-the kernel (K6 bf16 causal by ``assert_close_rows``, K2 f32 at 1e-4, K7 as
-K6 in bf16 and at 2e-5 in f32, K4 bit-equal, K1 at 1e-5, K3's miss mask
-bit-equal and its sums at 1e-5); a variant that cuts work out sets
-``"check": false``.  Then
-every variant and the library call (``F.scaled_dot_product_attention``,
-``torch.bmm``, ``index_copy_`` or ``F.embedding_bag``; none for
-probe_gather_pool) are timed by CUDA events, L2 flushed, in
-turns: ``ROUNDS`` rounds, the order reversed every round, the card idle for
-``PAUSE_S`` before each timing so that every one starts from the same
-clocks rather than from the heat of the last (without it, one build read
-slower round after round of one call).  One
-JSON line per case gives each one's median in ms over the rounds and its
-time in every round, so that pairs of rounds can be counted, with the card's
-name and power limit.
+variant ``base``.  ``--against DIR`` adds to every spec the variant
+``against``: the kernel's source in another checkout unpacked at ``DIR``
+(its ``src/repro_torch/csrc/``, headers included), built alike and run
+through this checkout's wrapper, so two designs with one C interface are
+timed in turns in one process.  A variant may also set ``"attrs"``:
+attributes of the kernel's wrapper module (such as K7's ``MAX_CHUNK``) that
+hold while it is checked and timed, and ``"flush": "read"``: the L2 is
+flushed before each of its timings by reading a 256 MB buffer instead of
+writing it, so no dirty lines are left for the kernel to write back.  Every
+variant of every spec is built at once, one nvcc each, with the flags of
+``kernels/build.py``, into ``build/kernel_variants/``, and runs through the
+kernel's own wrapper (``build.use_library``).  At each case a variant with
+``check`` (the default) is first held against the plain version as
+``chip_smoke.py`` holds the kernel (K6 and K7 in bf16 by
+``assert_close_rows`` and at 2e-5 in f32, K2 f32 at 1e-4, K4 bit-equal, K1
+at 1e-5, K3's miss mask bit-equal and its sums at 1e-5, K5 bit-equal); a
+variant that cuts work out sets ``"check": false``.  Then every variant and
+the library call (``F.scaled_dot_product_attention``, ``torch.bmm``,
+``index_copy_``, ``F.embedding_bag`` or ``torch.topk``; none for
+probe_gather_pool) are timed by CUDA events, L2 flushed, in turns:
+``ROUNDS`` rounds, the order reversed every round, the card idle for
+``PAUSE_S`` before each timing so that every one starts from the same clocks
+rather than from the heat of the last (without it, one build read slower
+round after round of one call).  One JSON line per case gives each one's
+median in ms over the rounds and its time in every round, so that pairs of
+rounds can be counted, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -80,10 +85,14 @@ from repro_torch.kernels import dot_interaction as K2  # noqa: E402
 from repro_torch.kernels import embedding_bag as K1  # noqa: E402
 from repro_torch.kernels import flash_attention as K6  # noqa: E402
 from repro_torch.kernels import flash_decode as K7  # noqa: E402
+from repro_torch.prefetch import kernels as PK  # noqa: E402
+from repro_torch.prefetch import ref as PREF  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
+CSRC_REL = Path("src/repro_torch/csrc")
 WRAPPERS = {"flash_attention": K6, "dot_interaction": K2, "flash_decode": K7,
-            "scatter_update": HK, "embedding_bag": K1, "probe_gather_pool": HK}
+            "scatter_update": HK, "embedding_bag": K1, "probe_gather_pool": HK,
+            "topk_neighbor_select": PK}
 MAX_PROBES = 8  # the hot cache's window (hotcache.table.DEFAULT_MAX_PROBES)
 ROUNDS = 10  # pairs of rounds for each two variants
 PAUSE_S = 1.0
@@ -91,15 +100,18 @@ CACHE_FILL = 0.4  # K3 cases: resident ids per slot
 _tables: dict[int, torch.Tensor] = {}  # K1 cases: dlrm-flexemr's table by D
 
 
-def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Path]]]:
-    """{spec: {variant: (variant, library path)}}, the committed source as ``base``."""
+def build_variants(specs: dict[str, dict],
+                   against: Path | None = None) -> dict[str, dict[str, tuple[dict, Path]]]:
+    """{spec: {variant: (variant, library path)}}, the committed source as
+    ``base``, the source of the checkout at ``against`` as ``against``."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs, libs = [], {}
     for tag, spec in specs.items():
-        src0 = (build.CSRC / f"{spec['kernel']}.cu").read_text()
         libs[tag] = {}
-        for v in [{"name": "base", "subs": []}, *spec["variants"]]:
-            src = src0
+        extra = [] if against is None else [{"name": "against", "csrc": against / CSRC_REL}]
+        for v in [{"name": "base", "subs": []}, *spec["variants"], *extra]:
+            csrc = v.get("csrc", build.CSRC)
+            src = (csrc / f"{spec['kernel']}.cu").read_text()
             for old, new in v.get("subs", []):
                 if old not in src:
                     raise ValueError(f"{tag} {v['name']}: {old!r} not in {spec['kernel']}.cu")
@@ -107,7 +119,7 @@ def build_variants(specs: dict[str, dict]) -> dict[str, dict[str, tuple[dict, Pa
             cu = OUT / f"{tag}_{v['name']}.cu"
             cu.write_text(src)
             so = cu.with_suffix(".so")
-            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC),
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc),
                    "-o", str(so), str(cu)]
             procs.append((f"{tag} {v['name']}", subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -158,15 +170,17 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
     ``check(name)``, which calls it on fresh inputs where it writes in place
     and holds the output against the plain version, and the library call."""
     if kernel == "flash_attention":
-        B, S, H, Hkv, dh = case
-        q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        B, S, H, Hkv, dh = case[:5]
+        dt = torch.float32 if case[5:] == ["f32"] else torch.bfloat16
+        q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(dt)
         k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen)
-                .to(torch.bfloat16) for _ in range(2))
+                .to(dt) for _ in range(2))
         want = ref.flash_attention_ref(q, k, v, True)
+        close, tol = ((CS.assert_close_rows, CS.LM_BF16_TOL) if dt == torch.bfloat16
+                      else (CS.assert_close, CS.LM_F32_TOL))
         call = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
         return (call,
-                lambda n: CS.assert_close_rows(f"{tag} {n} {case}", call(), want,
-                                               *CS.LM_BF16_TOL),
+                lambda n: close(f"{tag} {n} {case}", call(), want, *tol),
                 lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=True, enable_gqa=True))
@@ -259,6 +273,23 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
             CS.assert_close(f"{tag} {n} {case} pooled", got[0], want[0], 1e-5, 1e-5)
 
         return call, check, None
+    if kernel == "topk_neighbor_select":
+        M, L, k, dt = case
+        s = torch.round(torch.randn((M, L), device="cuda", generator=gen) * 4) / 4
+        u = torch.rand((M, L), device="cuda", generator=gen)
+        s[u < 0.2] = float("-inf")
+        s[(u >= 0.2) & (u < 0.3)] = float("nan")
+        s[(u >= 0.3) & (u < 0.4)] = -0.0
+        s = s.to({"f32": torch.float32, "f64": torch.float64}[dt]).contiguous()
+        want = PREF.topk_neighbor_select_ref(s, k)
+        call = lambda: PK.topk_neighbor_select(s, k)  # noqa: E731
+
+        def check(n):
+            got = call()
+            CS.assert_bits(f"{tag} {n} {case} values", got[0], want[0])
+            CS.assert_equal(f"{tag} {n} {case} indices", got[1], want[1])
+
+        return call, check, lambda: torch.topk(s, k, dim=1)
     raise ValueError(f"{tag}: no cases for kernel {kernel!r}")
 
 
@@ -314,8 +345,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    specs = {Path(p).stem: json.loads(Path(p).read_text()) for p in sys.argv[1:]}
-    libs = build_variants(specs)
+    args = sys.argv[1:]
+    against = None
+    if args[:1] == ["--against"]:
+        against, args = Path(args[1]).resolve(), args[2:]
+    specs = {Path(p).stem: json.loads(Path(p).read_text()) for p in args}
+    libs = build_variants(specs, against)
     flush = torch.empty(CS.L2_FLUSH_BYTES // 4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for tag, spec in specs.items():
