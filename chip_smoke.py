@@ -55,7 +55,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 request retired, finite scores, rows prefetched, K5 launched;
   6. lm_kernels — after the DLRM state is freed: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
-                causal in bf16 and f32, at qwen2-72b's GQA heads
+                causal in bf16 and f32, at lm_f32's [2, 1024, 32, 32, 80]
+                causal in f32, at qwen2-72b's GQA heads
                 [1, 4096, 64, 8, 128], at dh 128 without GQA
                 [1, 4096, 32, 32, 128], at a ragged S (bf16 causal at dh
                 64, 80 and 96, bf16 full), the same in f32 (3xTF32) and f32
@@ -91,7 +92,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 1,028 tokens; the card's half is the ``lm_f32`` path, which
                 must launch K6 (in f32 only) and K7;
  10. the ``{"kernels": [...]}`` line (K1's entry adds its weighted mode's
-     times and bound, K6's its f32 times, both bounds and launches), then
+     times and bound, K6's its f32 times at lm_f32's shape and at
+     lm_prefill's, each with the 3xTF32 bound and the f32 FMA one, and its
+     f32 launches), then
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -1035,6 +1038,8 @@ def main() -> int:
     k6_cases = {
         "path bf16": ((B, S, Hq, dh), Hkv, bf16, True),
         "path f32": ((B, S, Hq, dh), Hkv, f32, True),
+        # lm_f32's own prefill layer: the full-depth check's 2 x 1,024 tokens.
+        "lm_f32 f32": ((2, LM_DEPTH_PROMPT, Hq, dh), Hkv, f32, True),
         "gqa bf16": ((1, S, LM_GQA_HEADS[0], LM_GQA_HEADS[2]), LM_GQA_HEADS[1], bf16, True),
         "dh128 bf16": ((1, S, Hq, LM_GQA_HEADS[2]), Hq, bf16, True),
         "ragged bf16": ((2, LM_RAGGED_SEQ, Hq, dh), Hkv, bf16, True),
@@ -1051,6 +1056,7 @@ def main() -> int:
         "ragged dh96 f32": ((2, LM_RAGGED_SEQ, 4, 96), 2, f32, True),
         "ragged dh128 full f32": ((2, LM_RAGGED_SEQ, 4, 128), 1, f32, False),
     }
+    k6_f32 = {}  # f32 timing rows by label
     with torch.no_grad():
         for label, (shape, hkv, dt, causal) in k6_cases.items():
             q = rnd(shape, dt)
@@ -1078,15 +1084,18 @@ def main() -> int:
                     cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), flush),
                     cuda_ms(lambda: k6_lib(q, k, v, True), flush))
                 bounds["flash_attention"] = k6_bound(q, k, True)
-            elif label in ("path f32", "gqa bf16", "dh128 bf16"):
+            elif label in ("path f32", "lm_f32 f32", "gqa bf16", "dh128 bf16"):
+                # f32's bound is its design's: three tf32 products; the f32
+                # FMA bound stands beside it.
+                rate = TF32_TENSOR_FLOP_PER_S / 3 if dt == f32 else None
                 row = time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
                                 lambda: K6.flash_attention(q, k, v, causal),
                                 lambda: ref.flash_attention_ref(q, k, v, causal),
-                                lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal))
-                if label == "path f32":  # beside the f32 FMA bound, the 3xTF32 one
-                    row["bound_ms_tf32"] = k6_bound(q, k, causal, TF32_TENSOR_FLOP_PER_S / 3)[0]
+                                lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal, rate))
+                if dt == f32:
+                    row["bound_ms_fma"] = k6_bound(q, k, causal)[0]
                     row["max_abs_err"] = err
-                    k6_f32 = row
+                    k6_f32[label] = row
             del q, k, v, want
         # K6 at prefill_32k's length, one sequence: kernel and library only.
         Sp = LM_SHAPES["prefill_32k"]["seq"]
@@ -1353,11 +1362,12 @@ def main() -> int:
                 "weighted": k1_weighted,
             })
         if name == "flash_attention":  # timed in bf16 (lm_prefill's); f32 beside it
-            kernels[-1]["f32"] = {
-                **{key: k6_f32[key] for key in ("case", "ms", "plain_ms", "library_ms",
-                                               "bound_ms", "bound_by", "bound_ms_tf32",
-                                               "max_abs_err")},
+            f32_keys = ("case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                        "bound_ms_fma", "max_abs_err")
+            kernels[-1]["f32"] = {  # at lm_f32's shape, then at lm_prefill's
+                **{key: k6_f32["lm_f32 f32"][key] for key in f32_keys},
                 "launches_by_path": {p: c["flash_attention_f32"] for p, c in paths.items()},
+                "prefill_shape": {key: k6_f32["path f32"][key] for key in f32_keys},
             }
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

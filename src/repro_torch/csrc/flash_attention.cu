@@ -113,10 +113,11 @@
 //  * A CTA of 8 warps owns 128 query rows of one (batch, head), 16 a warp.
 //    K and V come through a 2-stage ring of cp.async copies (zero-filled
 //    past S) in 64-key tiles, so the next tile's copy runs under this one's
-//    products.  Q is read once into registers (into shared memory at dh
-//    128, where registers spilled) and split per k-step; K and V are split
-//    as their fragments leave shared memory, P in registers after the
-//    softmax.
+//    products.  Q is read once into registers at every dh and split per
+//    k-step; K and V are split as their fragments leave shared memory, P in
+//    registers after the softmax.  At dh 128 ptxas spills 64 bytes; Q in
+//    shared memory there had no spill and ran 6.4% faster, but no path runs
+//    f32 at dh 128, so one Q path serves every dh (PERF.md, ROADMAP).
 //  * Fragment orders that need no shuffle.  The order of a reduction is
 //    free as long as both operands follow it: S's k-steps take head dims
 //    16p + 4t + {0, 1} and {2, 3}, so a lane reads Q and K as 16-byte
@@ -485,10 +486,8 @@ constexpr int kStagesF32 = 2;  // cp.async ring of K and V tiles
 constexpr int kBK = 64;  // keys per K and V tile
 
 // Shared memory of the f32 kernel: kStagesF32 stages of a K tile [kBK][kLdK]
-// and a V tile [kBK][kLdV], then at dh 128 the CTA's Q [kRowsF32][kLdK]
-// (floats; 215 KB in all).  Below dh 128 Q stays in registers; at dh 128
-// that made ptxas spill (40-64 bytes) and Q moves to shared memory, which
-// measured 11% slower at dh 80 and 2% at dh 128 (PERF.md).  The row pitches keep the fragment loads free of bank conflicts: Q and K
+// and a V tile [kBK][kLdV] (floats; 147 KB at dh 128).  The row pitches keep
+// the fragment loads free of bank conflicts: Q and K
 // are read as 16-byte pieces, 8 lanes a phase over rows g, g + 1 and pieces
 // t = 0..3 (kLdK = 16 mod 32 puts the two rows 16 banks apart); V as single
 // floats at rows 2t, 2t + 1 and column g (kLdV = 4 mod 16 puts the four t 8
@@ -498,9 +497,7 @@ struct LayoutF32 {
   static constexpr int kLdK = D % 32 == 16 ? D : D + 16;
   static constexpr int kLdV = D + 4;
   static constexpr int kStage = kBK * (kLdK + kLdV);  // floats
-  static constexpr bool kQShared = D == 128;
-  static constexpr int kQ = kStagesF32 * kStage;  // Q's offset
-  static constexpr int kBytes = (kQ + (kQShared ? kRowsF32 * kLdK : 0)) * 4;
+  static constexpr int kBytes = kStagesF32 * kStage * 4;
 };
 
 // The f32 kernel: 3xTF32 on mma.sync (the design note at the top).
@@ -554,33 +551,20 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
   // 16p + 4t + {0, 1} as its columns t and t + 4, k-step 2p + 1 takes
   // 16p + 4t + {2, 3}.  (The order of the reduction is free as long as K's
   // fragments follow it: each lane then reads Q and K as 16-byte pieces.)
-  // Below dh 128 each lane holds its pieces of rows row_a and row_b in
-  // registers; at dh 128 the CTA's rows are copied into shared memory with
-  // the first tile (zeros past S) and read per k-step.
-  const float* qh = q + b * st.qb + (long long)h * st.qh;
-  float* qs = smem + Ly::kQ;
-  if constexpr (Ly::kQShared) {
-    for (int e = threadIdx.x; e < kRowsF32 * CH; e += kThreadsF32) {
-      const int r = e / CH;
-      const int c = 4 * (e - r * CH);
-      const bool in = q0 + r < S;
-      hopper::cp_async16(qs + r * Ly::kLdK + c, qh + (in ? q0 + r : 0) * st.qs + c, in);
-    }
-  }
+  // Each lane holds its pieces of rows row_a and row_b in registers.
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
     if (s < n_tiles) load_tile(s);
     hopper::cp_async_commit();
   }
-  float4 qa[Ly::kQShared ? 1 : KP], qb[Ly::kQShared ? 1 : KP];  // rows row_a, row_b
-  if constexpr (!Ly::kQShared) {
+  const float* qh = q + b * st.qb + (long long)h * st.qh;
+  float4 qa[KP], qb[KP];  // rows row_a, row_b
 #pragma unroll
-    for (int p = 0; p < KP; ++p) {
-      const int c = 16 * p + 4 * t4;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      qa[p] = row_a < Sq ? *reinterpret_cast<const float4*>(qh + row_a * st.qs + c) : zero;
-      qb[p] = row_b < Sq ? *reinterpret_cast<const float4*>(qh + row_b * st.qs + c) : zero;
-    }
+  for (int p = 0; p < KP; ++p) {
+    const int c = 16 * p + 4 * t4;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    qa[p] = row_a < Sq ? *reinterpret_cast<const float4*>(qh + row_a * st.qs + c) : zero;
+    qb[p] = row_b < Sq ? *reinterpret_cast<const float4*>(qh + row_b * st.qs + c) : zero;
   }
 
   float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units), rows row_a, row_b
@@ -606,15 +590,7 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
     for (int j = 0; j < 32; ++j) sc[j] = 0.f;
 #pragma unroll
     for (int p = 0; p < KP; ++p) {
-      float4 xa, xb;  // Q's pieces of rows row_a and row_b
-      if constexpr (Ly::kQShared) {
-        const float* qr = qs + (16 * warp + g) * Ly::kLdK + 16 * p + 4 * t4;
-        xa = *reinterpret_cast<const float4*>(qr);
-        xb = *reinterpret_cast<const float4*>(qr + 8 * Ly::kLdK);
-      } else {
-        xa = qa[p];
-        xb = qb[p];
-      }
+      const float4 xa = qa[p], xb = qb[p];  // Q's pieces of rows row_a and row_b
       uint32_t ab[2][4], as[2][4];  // A big / small of k-steps 2p, 2p + 1
       hopper::split_tf32(xa.x, ab[0][0], as[0][0]);
       hopper::split_tf32(xb.x, ab[0][1], as[0][1]);

@@ -30,9 +30,10 @@
 // columns from every other column's key, fetched by shuffles that do not
 // wait on one another, and a lane whose rank is below k writes vals and idx
 // at that rank: each output is written once, whatever k is.
-//  * L <= 32 (the miner's lists): a row takes a group of G lanes, the power
-//    of two >= L, so two rows of 16 share a warp; each lane loads one column
-//    (one coalesced load a row) and takes L shuffles within its group.
+//  * L <= 32 (the miner's lists): a row takes a group of G lanes, 16 for
+//    L <= 16 (two rows share a warp) and 32 above; each lane loads one
+//    column (one coalesced load a row) and takes L shuffles within its
+//    group.
 //  * L > 32 (the TPU-shaped check, [4096, 128] f32, k = 32): a warp takes a
 //    row, kCols columns a lane a pass; the row's keys come by shuffles,
 //    kCols * 32 at a time, so any L works without shared memory.
@@ -79,7 +80,7 @@ __device__ __forceinline__ int before(U kj, int j, U ki, int i) {
   return (kj > ki) | ((kj == ki) & (j < i));
 }
 
-// Rows of at most G <= 32 columns: a group of G lanes a row.
+// Rows of at most G (16 or 32) columns: a group of G lanes a row.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
     topk_narrow_kernel(const T* __restrict__ scores, T* __restrict__ vals,
@@ -172,11 +173,7 @@ int launch(const void* scores_, void* vals_, void* idx_, long long rows, int wid
   T* vals = (T*)vals_;
   int32_t* idx = (int32_t*)idx_;
   const cudaStream_t stream = (cudaStream_t)stream_;
-  if (width <= 1) launch_narrow<T, 1>(scores, vals, idx, rows, width, k, stream);
-  else if (width <= 2) launch_narrow<T, 2>(scores, vals, idx, rows, width, k, stream);
-  else if (width <= 4) launch_narrow<T, 4>(scores, vals, idx, rows, width, k, stream);
-  else if (width <= 8) launch_narrow<T, 8>(scores, vals, idx, rows, width, k, stream);
-  else if (width <= 16) launch_narrow<T, 16>(scores, vals, idx, rows, width, k, stream);
+  if (width <= 16) launch_narrow<T, 16>(scores, vals, idx, rows, width, k, stream);
   else if (width <= 32) launch_narrow<T, 32>(scores, vals, idx, rows, width, k, stream);
   else {
     const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
