@@ -53,6 +53,21 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 builds it, plus a ``PrefetchEngine`` whose miner selects on
                 the card (K5), on 400 requests of co-occurrence traffic: every
                 request retired, finite scores, rows prefetched, K5 launched;
+  5c. serve_open_loop — ``launch.serve.run`` with ``--arrival poisson`` at half
+                of phase 5's measured rate for 2 s: every arrival retired or
+                shed, finite scores, K2 launched once per batch; offered and
+                achieved rate, p50/p99, the driver's lag, the SLO summary;
+  5d. serve_chaos — launch.serve's server on dlrm-serve over one bucket of 64,
+                12 batches pre-filled from seed 0, driven by explicit admits
+                and retires, fault-free and then under a kill-engine,
+                drop-and-restore-shard, straggler-storm (x8) and reshard
+                8 -> 16 schedule: scores bit-equal batch by batch, every
+                fault fired once and recovered, the reshard's moved rows
+                equal to ``reshard_tables``' count on the host, and a second
+                run of the schedule with the same firing log;
+  5e. serve_reshard — ``launch.serve.run --chaos-seed 0 --reshard-to 12`` on
+                400 requests: every request retired with a finite score and
+                the reshard to 12 in ``out["chaos"]``;
   6. lm_kernels — after the DLRM state is freed: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
                 causal in bf16 and f32, at lm_f32's [2, 1024, 32, 32, 80]
@@ -98,9 +113,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Each path (4, 4b, 5, 5b, 7, 8, and 9 as ``lm_f32``: K6 and K7 in f32 on
-the card) runs with the launch counts set to 0 just before it and read just
-after; comparisons and timings run outside those windows.
+Each path (4, 4b, 5, 5b, 5c, 5d's run under faults, 5e, 7, 8, and 9 as
+``lm_f32``: K6 and K7 in f32 on the card) runs with the launch counts set
+to 0 just before it and read just after; comparisons and timings run
+outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
 ``src/`` beside it, it exits nonzero before printing any result.
 """
@@ -141,6 +157,14 @@ FORWARD_TURNS = 6  # cached/uncached forward timing pairs, alternating order
 PREFETCH_CACHE_ROWS = 256  # the serve_prefetch controller's row cap
 PREFETCH_REFRESH_EVERY = 4  # batches between cache plans
 PREFETCH_BURST = 8  # requests submitted between serving steps
+OPEN_LOOP_SECONDS = 2  # serve_open_loop's --duration; --qps is half of serve's rate
+CHAOS_BUCKET = 64  # serve_chaos's one batcher bucket
+CHAOS_BATCHES = 12  # batches pre-filled for each serve_chaos run
+CHAOS_SHARDS = 8  # launch.serve's --num-servers default
+CHAOS_RESHARD_TO = 16
+CHAOS_WAIT_S = 5.0  # batcher deadline: a pre-filled queue always gives full buckets
+CHAOS_WATCHDOG_S = 10.0  # ChaosInjector's retire watchdog (raises after 2x this)
+RESHARD_TO = 12  # serve_reshard's --reshard-to
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -330,10 +354,12 @@ def main() -> int:
     from repro_torch.configs.dlrm_flexemr import make_config
     from repro_torch.configs.lm_common import LM_SHAPES, serving_config
     from repro_torch.configs.stablelm_3b import make_config as make_lm_config
+    from repro_torch import chaos as CH
     from repro_torch.core.adaptive_cache import AdaptiveCacheController, MemoryModel
     from repro_torch.core.embedding import make_hash_cache_from_table
     from repro_torch.core.sharding import make_fused_tables
     from repro_torch.data import synthetic as syn
+    from repro_torch.data.pipeline import BucketBatcher
     from repro_torch.hotcache import kernels as HK
     from repro_torch.hotcache import ref as HREF
     from repro_torch.hotcache import table as T
@@ -349,7 +375,8 @@ def main() -> int:
     from repro_torch.prefetch import CooccurrenceMiner, PrefetchEngine, PrefetchPolicy
     from repro_torch.prefetch import kernels as PK
     from repro_torch.prefetch import ref as PREF
-    from repro_torch.runtime.serving import FlexEMRServer
+    from repro_torch.runtime.elastic import reshard_tables
+    from repro_torch.runtime.serving import ATTR_STAGES, FlexEMRServer
     from repro_torch.utils import tree_size_bytes, tree_to
 
     def launch_counts() -> dict:
@@ -921,6 +948,7 @@ def main() -> int:
         "p99_latency_ms": out["p99_latency_ms"], "dense_seconds": out["dense_seconds"],
         "dense_ms_per_batch": 1e3 * out["dense_seconds"] / out["batches"],
         "lookup_seconds": out["lookup_seconds"], "hit_rate": out["hit_rate"],
+        "attr_mean_ms": {k: 1e3 * out["attr"][k]["mean"] for k in ATTR_STAGES},
         "launches": srv_launches,
     }))
 
@@ -986,7 +1014,176 @@ def main() -> int:
         "miner_pairs_observed": engine.miner.pairs_observed,
         "prefetch_triggers": engine.stats.triggers, "launches": pf_launches,
     }))
-    del sparams, server, controller, engine, reqs, wl
+
+    # ------------------------------------------------------- serve_open_loop
+    qps = int(out["throughput_rps"] / 2)  # half of the closed loop's rate above
+    args = launch_serve.parse_args(["--arrival", "poisson", "--qps", str(qps),
+                                    "--duration", str(OPEN_LOOP_SECONDS)])
+    t0 = time.perf_counter()
+    reset_counts()
+    ol = launch_serve.run(args)
+    ol_launches = launch_counts()
+    ol_seconds = time.perf_counter() - t0
+    lg = ol["loadgen"]
+    if ol["requests"] + lg["shed"] != lg["submitted"] or ol["requests"] == 0:
+        raise AssertionError(f"serve_open_loop retired {ol['requests']} and shed "
+                             f"{lg['shed']} of {lg['submitted']} arrivals")
+    if ol["nonfinite_scores"]:
+        raise AssertionError(f"{ol['nonfinite_scores']} non-finite serve_open_loop scores")
+    if ol_launches["dot_interaction"] < ol["batches"]:
+        raise AssertionError(f"K2 launched {ol_launches['dot_interaction']} times "
+                             f"for {ol['batches']} batches")
+    log("[serve_open_loop] " + json.dumps({
+        "device": ol["device"], "qps_arg": qps, "offered_qps": lg["offered_qps"],
+        "achieved_qps": lg["achieved_qps"], "arrivals": lg["submitted"],
+        "shed": lg["shed"], "requests": ol["requests"], "batches": ol["batches"],
+        "p50_latency_ms": ol["p50_latency_ms"], "p99_latency_ms": ol["p99_latency_ms"],
+        "submit_lag_mean_ms": 1e3 * lg["submit_lag_mean_s"],
+        "submit_lag_max_ms": 1e3 * lg["submit_lag_max_s"], "driver_wall_s": lg["wall_s"],
+        "driver_steps": lg["steps"],
+        "queue_wait_p50_ms": 1e3 * ol["queue_wait"]["p50"],
+        "queue_wait_p99_ms": 1e3 * ol["queue_wait"]["p99"],
+        "attr_mean_ms": {k: 1e3 * ol["attr"][k]["mean"] for k in ATTR_STAGES},
+        "slo": {k: ol["slo"][k] for k in ("requests", "good_fraction", "breaches",
+                                          "throughput_rps", "goodput_rps", "burn_fast",
+                                          "burn_slow", "alerting", "alerts_fired")},
+        "slo_target_ms": 1e3 * ol["slo"]["objective"]["latency_target_s"],
+        "phase_seconds": ol_seconds, "launches": ol_launches,
+    }))
+
+    # ----------------------------------------------------------- serve_chaos
+    crng = np.random.default_rng(0)
+    cb = syn.recsys_batch(crng, scfg.tables, CHAOS_BATCHES * CHAOS_BUCKET,
+                          n_dense=scfg.n_dense)
+    chaos_reqs = [{"indices": cb["indices"][i], "mask": cb["mask"][i],
+                   "dense": cb["dense"][i]} for i in range(len(cb["dense"]))]
+    chaos_tables = make_fused_tables(scfg.tables, scfg.embed_dim, CHAOS_SHARDS)
+    scenario = CH.FaultSchedule(faults=(  # one fault of each kind
+        CH.FaultSpec(CH.FAULT_KILL_ENGINE, at_batch=2, target=1),
+        CH.FaultSpec(CH.FAULT_DROP_SHARD, at_batch=3, target=0, duration_batches=2),
+        CH.FaultSpec(CH.FAULT_STRAGGLER_STORM, at_batch=4, target=1,
+                     duration_batches=2, latency_mult=8.0),
+        CH.FaultSpec(CH.FAULT_RESHARD, at_batch=5, target=CHAOS_RESHARD_TO),
+    ), seed=0)
+
+    def drive_chaos(schedule):
+        """launch.serve's server (depth 2, 4 engines) over one fixed bucket,
+        the queue pre-filled, driven by explicit admits and retires: every
+        run forms the same batches, so the dense stage's GEMMs see the same
+        shapes and their bits can be compared."""
+        injector = (None if schedule is None
+                    else CH.ChaosInjector(schedule, watchdog_s=CHAOS_WATCHDOG_S))
+        server = FlexEMRServer(
+            scfg, sparams, chaos_tables,
+            controller=AdaptiveCacheController(
+                scfg.tables, scfg.embed_dim,
+                MemoryModel(fixed_bytes=2 << 28, bytes_per_sample=1 << 14,
+                            hbm_bytes=1 << 30),
+                max_rows=65536, field_replication=False),
+            num_engines=4, pipeline_depth=2,
+            batcher=BucketBatcher(buckets=(CHAOS_BUCKET,), max_wait=CHAOS_WAIT_S),
+            chaos=injector, registry=MetricsRegistry(), device=dev)
+        outs = []
+        try:
+            for r in chaos_reqs:
+                server.submit(r)
+            t0 = time.perf_counter()
+            admitted = 0
+            while True:
+                while len(server._pipeline) < server.pipeline_depth \
+                        and admitted < CHAOS_BATCHES:
+                    if not server._admit_next():
+                        raise AssertionError("serve_chaos: a pre-filled poll came back empty")
+                    admitted += 1
+                if not server._pipeline:
+                    break
+                outs.append(server._retire_oldest()["scores"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            vlat = np.asarray(server.service.virtual_latencies)
+            eng = server.engine_summary()
+        finally:
+            server.close()
+        return outs, injector, wall, vlat, eng
+
+    t0 = time.perf_counter()
+    clean, _, clean_wall, _, _ = drive_chaos(None)
+    reset_counts()
+    faulty, injector, chaos_wall, chaos_vlat, chaos_eng = drive_chaos(scenario)
+    chaos_launches = launch_counts()
+    again, injector2, _, _, _ = drive_chaos(scenario)
+    chaos_seconds = time.perf_counter() - t0
+    cs = injector.summary()
+    if not len(clean) == len(faulty) == len(again) == CHAOS_BATCHES:
+        raise AssertionError(f"serve_chaos retired {len(clean)}, {len(faulty)} and "
+                             f"{len(again)} batches (wanted {CHAOS_BATCHES})")
+    for i, (a, b) in enumerate(zip(clean, faulty)):
+        if not (a.shape == b.shape and a.dtype == b.dtype == np.float32
+                and np.array_equal(a.view(np.int32), b.view(np.int32))):
+            raise AssertionError(f"serve_chaos: batch {i}'s scores under faults are not "
+                                 f"bit-equal to the fault-free run's "
+                                 f"(max abs diff {np.abs(a - b).max():.3e})")
+        if not np.isfinite(a).all():
+            raise AssertionError(f"serve_chaos: non-finite scores in batch {i}")
+    log(f"  serve_chaos: {CHAOS_BATCHES} batches of {CHAOS_BUCKET}, scores under "
+        "faults bit-equal to the fault-free run's, batch by batch")
+    if cs["by_kind"] != {k: 1 for k in CH.FAULT_KINDS} or cs["faults_skipped"] \
+            or [k for (_, k, _) in cs["firing_log"]] != list(CH.FAULT_KINDS):
+        raise AssertionError(f"serve_chaos: not every fault fired once: {cs}")
+    if cs["restores"] != 1 or cs["active_drops"] or chaos_eng["killed_threads"] != 1:
+        raise AssertionError(f"serve_chaos: a fault did not recover: {cs}, {chaos_eng}")
+    want_moved = reshard_tables(chaos_tables, sparams["emb"]["table"].cpu().numpy(),
+                                CHAOS_RESHARD_TO).moved_rows
+    if cs["moved_rows"] != want_moved or cs["reshards"] != 1:
+        raise AssertionError(f"serve_chaos: reshard moved {cs['moved_rows']} rows, "
+                             f"reshard_tables counts {want_moved}")
+    if injector2.summary()["firing_log"] != cs["firing_log"]:
+        raise AssertionError(f"serve_chaos: a second run fired "
+                             f"{injector2.summary()['firing_log']}, the first "
+                             f"{cs['firing_log']}")
+    if chaos_launches["dot_interaction"] < CHAOS_BATCHES:
+        raise AssertionError(f"K2 launched {chaos_launches['dot_interaction']} times "
+                             f"for {CHAOS_BATCHES} batches")
+    log("[serve_chaos] " + json.dumps({
+        "batches": CHAOS_BATCHES, "bucket": CHAOS_BUCKET,
+        "clean_wall_s": clean_wall, "chaos_wall_s": chaos_wall,
+        "firing_log": cs["firing_log"], "moved_rows": cs["moved_rows"],
+        "moved_rows_host": want_moved, "inflight_invalidated": cs["inflight_invalidated"],
+        "rows_re_replicated": cs["rows_re_replicated"], "restores": cs["restores"],
+        "wall": cs["wall"], "virtual_p50_us": 1e6 * float(np.median(chaos_vlat)),
+        "virtual_p99_us": 1e6 * float(np.quantile(chaos_vlat, 0.99)),
+        "same_firing_log_twice": True, "phase_seconds": chaos_seconds,
+        "launches": chaos_launches,
+    }))
+
+    # --------------------------------------------------------- serve_reshard
+    args = launch_serve.parse_args(["--requests", str(SERVE_REQUESTS), "--chaos-seed", "0",
+                                    "--reshard-to", str(RESHARD_TO)])
+    t0 = time.perf_counter()
+    reset_counts()
+    rs = launch_serve.run(args)
+    rs_launches = launch_counts()
+    rs_seconds = time.perf_counter() - t0
+    if not rs["requests"] == rs["submitted"] == SERVE_REQUESTS:
+        raise AssertionError(f"serve_reshard served {rs['requests']} of {rs['submitted']} "
+                             f"(wanted {SERVE_REQUESTS})")
+    if rs["nonfinite_scores"]:
+        raise AssertionError(f"{rs['nonfinite_scores']} non-finite serve_reshard scores")
+    rc = rs["chaos"]
+    if ("reshard", RESHARD_TO) not in [(k, t) for (_, k, t) in rc["firing_log"]] \
+            or rc["moved_rows"] <= 0 or rc["active_drops"]:
+        raise AssertionError(f"serve_reshard: no reshard to {RESHARD_TO} reported: {rc}")
+    if rs_launches["dot_interaction"] < rs["batches"]:
+        raise AssertionError(f"K2 launched {rs_launches['dot_interaction']} times "
+                             f"for {rs['batches']} batches")
+    log("[serve_reshard] " + json.dumps({
+        "requests": rs["requests"], "batches": rs["batches"],
+        "throughput_rps": rs["throughput_rps"], "p50_latency_ms": rs["p50_latency_ms"],
+        "p99_latency_ms": rs["p99_latency_ms"], "chaos": rc,
+        "phase_seconds": rs_seconds, "launches": rs_launches,
+    }))
+    del sparams, server, controller, engine, reqs, wl, chaos_reqs, cb
+    del clean, faulty, again, injector, injector2
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[lm] DLRM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
@@ -1338,6 +1535,8 @@ def main() -> int:
     }
     paths = {"forward": fwd_launches, "serve": srv_launches,
              "cached_forward": cached_launches, "serve_prefetch": pf_launches,
+             "serve_open_loop": ol_launches, "serve_chaos": chaos_launches,
+             "serve_reshard": rs_launches,
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
              "lm_f32": lm_f32_launches}
     kernels = []

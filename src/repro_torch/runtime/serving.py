@@ -3,8 +3,7 @@ together at host level.  Port of ``repro/runtime/serving.py``: the host side
 (batcher, tier, engine pool, controller, admission, prefetcher, metrics)
 is the reference's, and the dense stage runs in torch on ``device`` — on the
 card its dot interaction is kernel K2, and a prefetcher whose miner runs on
-the card selects neighbors with kernel K5.  Chaos injection and live
-``reshard`` wait for later slices of the port.
+the card selects neighbors with kernel K5.
 
   request queue (BucketBatcher)      — the task queue of Fig 5
   SlidingWindowLoadMonitor           — §3.1.1 temporal-dynamics tracing
@@ -255,6 +254,11 @@ class FlexEMRServer:
         slo=None,  # obs.slo.SloMonitor | None: fed one observation per
         # retired request (latency + deadline verdict when the request
         # carried one); its summary() registers under the slo.* namespace.
+        chaos=None,  # repro_torch.chaos.ChaosInjector | None: seeded fault
+        # injection + live elasticity.  The injector fires at batch admits
+        # (on_admit), watchdogs the retire wait (guarded_wait), and is
+        # drained first on close; its summary() registers under chaos.*.
+        # Pooled engine only — the fault surface is the rdma pool.
         admission: AdmissionController | None = None,  # deadline-aware
         # overload shedding + adaptive pipeline depth at the submit
         # boundary (runtime.admission); None = admit everything, the
@@ -380,6 +384,16 @@ class FlexEMRServer:
             self.registry.register_provider(
                 "prefetch", prefetcher.stats.summary
             )
+        self.chaos = chaos
+        if chaos is not None:
+            if engine != "pooled":
+                raise ValueError(
+                    "chaos injection requires the pooled engine"
+                )
+            if not chaos.tracer.enabled and self.tracer.enabled:
+                chaos.tracer = self.tracer
+            chaos.bind(self)
+            self.registry.register_provider("chaos", chaos.summary)
         self.slo = slo
         if slo is not None:
             # A monitor built without a tracer inherits the server's, so
@@ -570,6 +584,11 @@ class FlexEMRServer:
         if self.admission is not None:
             with self._queue_lock:
                 self._queued = max(0, self._queued - len(reqs))
+        if self.chaos is not None:
+            # Fault triggers count admitted batches: a fault at batch k
+            # fires here, before batch k's own lookup posts, so its WRs
+            # already see the degraded world.
+            self.chaos.on_admit()
         tracer = self.tracer
         t_adm = tracer.now() if tracer.enabled else 0.0
         t0 = time.perf_counter()
@@ -605,7 +624,12 @@ class FlexEMRServer:
         self.metrics.pipeline_occupancy = len(self._pipeline)
         tracer = self.tracer
         t_wait = time.perf_counter()
-        pooled = pending.wait()
+        if self.chaos is not None:
+            # Watchdogged wait: a batch stuck on a still-dropped shard gets
+            # a forced restore instead of hanging the serving loop.
+            pooled = self.chaos.guarded_wait(pending)
+        else:
+            pooled = pending.wait()
         t_wait_end = time.perf_counter()
         stall = t_wait_end - t_wait
         if self.engine == "pooled":
@@ -782,12 +806,50 @@ class FlexEMRServer:
         logger.info("cache plan applied: %s", plan.reason)
 
     def reshard(self, new_num_shards: int) -> dict:
-        """Quiesce-free live reshard of the reference server; it needs
-        ``runtime/elastic.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "live reshard waits for the port of runtime/elastic.py "
-            "(ROADMAP queue 1, item 10)"
+        """Quiesce-free live reshard: re-partition the embedding tier to
+        ``new_num_shards`` servers while lookups stay in flight.
+
+        Fused row ids are invariant across shard counts (``FusedTables``
+        pads the fused space at the end), so cache keys, dedup ids, and
+        controller heat all survive; only *ownership* changes.  The service
+        swaps its router/servers/pool map atomically; WRs already posted
+        keep their submit-time epoch binding and read the old shard
+        objects (dual-read handoff window), so retired outputs stay
+        bit-equal with a fault-free run.  In-flight dedup-table entries
+        for migrated rows are invalidated, and the engine heat deal is
+        re-derived on the new shard map.  Pooled engine only.
+        """
+        if self.engine != "pooled":
+            raise ValueError("live reshard requires the pooled engine")
+        if new_num_shards < 1:
+            raise ValueError("new_num_shards must be >= 1")
+        from repro_torch.runtime.elastic import reshard_tables
+
+        res = reshard_tables(self.tables, self.table_np, new_num_shards)
+        invalidated = self.service.apply_reshard_live(res.tables, res.table)
+        self.tables = res.tables
+        self.table_np = res.table
+        self._offsets = res.tables.field_offsets_array()
+        if self.controller is not None:
+            # Heat re-deal on the new map: per-shard heat is re-binned from
+            # the same per-row tracker, so hot rows keep spreading across
+            # engine threads under the new ownership.
+            heat = self.controller.shard_heat(
+                res.tables.rows_per_shard, res.tables.num_shards
+            )
+            self.service.set_shard_affinity(
+                heat if heat.sum() > 0 else None
+            )
+        logger.info(
+            "live reshard -> %d shards (%d rows moved, %d in-flight "
+            "entries invalidated)",
+            new_num_shards, res.moved_rows, invalidated,
         )
+        return {
+            "num_shards": new_num_shards,
+            "moved_rows": res.moved_rows,
+            "inflight_invalidated": invalidated,
+        }
 
     def _admission_summary(self) -> dict:
         """serve.admission.*: controller counters + the live queue gauge."""
@@ -819,6 +881,10 @@ class FlexEMRServer:
         in flight is logged, not raised: close must always reach
         service.close() or the engine-pool threads leak."""
         try:
+            if self.chaos is not None:
+                # Recover every live fault first so the drain below runs
+                # against healthy shards (parked WRs release and resolve).
+                self.chaos.drain()
             while self._pipeline:
                 entry = self._pipeline.popleft()
                 try:

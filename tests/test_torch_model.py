@@ -81,6 +81,25 @@ def test_dlrm_forward_matches_reference(rng):
     )
 
 
+@pytest.mark.parametrize("batch", [8, 24])
+def test_dlrm_forward_bf16_matches_reference(batch, rng):
+    """bf16 params and compute: the dense stage's dot interaction takes K2's
+    plain version on the CPU.  Scores are bf16, within the reference's bf16
+    tolerance (2e-2) relative to the largest score."""
+    jcfg, tcfg = _tiny_cfgs((jnp.bfloat16, torch.bfloat16))
+    np_params = _np_params(jcfg, seed=2)
+    b = syn.recsys_batch(rng, tcfg.tables, batch, n_dense=tcfg.n_dense)
+    want = np.asarray(JR.forward(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, np_params),
+        {k: jnp.asarray(v) for k, v in b.items()})).astype(np.float32)
+    got = R.forward(tcfg, R.params_from_numpy(np_params, "cpu"),
+                    {k: torch.from_numpy(v) for k, v in b.items()})
+    assert got.shape == (batch,) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * float(np.abs(want).max()))
+
+
 def test_params_from_numpy_carries_bf16_bits():
     jcfg, _ = _tiny_cfgs((jnp.bfloat16, torch.bfloat16))
     np_params = _np_params(jcfg)
