@@ -68,6 +68,26 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
   5e. serve_reshard — ``launch.serve.run --chaos-seed 0 --reshard-to 12`` on
                 400 requests: every request retired with a finite score and
                 the reshard to 12 in ``out["chaos"]``;
+  5f. train  — dlrm-100m (``launch.train``'s model: 26 fields x 64, 1,272,000
+                rows): K1' (the table's gradient) against its plain version
+                on the trainer's batch of 256 (masked, repeated rows, twice
+                bit-equal, rows padding alone names left 0; bit for bit
+                against the plain version on the CPU, K1's tolerance against
+                the card's, whose index_add_ adds with atomics) and at nnz 1, 3,
+                4, 1003 bags, ids outside [0, V), D 17 and 64 (masked: NaN
+                in the all-padding bags' gradient); K2' at
+                [256, 27, 64] and every serve bucket; each timed beside its
+                plain version, ``index_add_`` / ``torch.bmm`` and its bound;
+                one train step on the card (K1 masked, K1', K2, K2' once
+                each) against the same step on the CPU with NaN in the rows
+                padding alone names: finite loss, every gradient leaf, then
+                params and optimizer state; the step's device time in a
+                profiled window; 12 steps on two alternating fixed batches
+                (the loss must fall); ``launch.train`` at its defaults (200
+                steps, K1 masked, K1', K2 and K2' once a step), and the
+                restart through its flags: ``--steps 100 --ckpt-dir`` saves
+                step 99, ``--resume --steps 200`` runs 100-199 and ends at
+                the straight run's last loss (rtol 1e-5);
   6. lm_kernels — after the DLRM state is freed: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
                 causal in bf16 and f32, at lm_f32's [2, 1024, 32, 32, 80]
@@ -106,14 +126,15 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 1,024, 4 decode steps) against one ``forward`` over all
                 1,028 tokens; the card's half is the ``lm_f32`` path, which
                 must launch K6 (in f32 only) and K7;
- 10. the ``{"kernels": [...]}`` line (K1's entry adds its weighted mode's
+ 10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
+     ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
      times and bound, K6's its f32 times at lm_f32's shape and at
      lm_prefill's, each with the 3xTF32 bound and the f32 FMA one, and its
      f32 launches), then
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Each path (4, 4b, 5, 5b, 5c, 5d's run under faults, 5e, 7, 8, and 9 as
+Each path (4, 4b, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run, 7, 8, and 9 as
 ``lm_f32``: K6 and K7 in f32 on the card) runs with the launch counts set
 to 0 just before it and read just after; comparisons and timings run
 outside those windows.
@@ -126,6 +147,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,6 +187,17 @@ CHAOS_RESHARD_TO = 16
 CHAOS_WAIT_S = 5.0  # batcher deadline: a pre-filled queue always gives full buckets
 CHAOS_WATCHDOG_S = 10.0  # ChaosInjector's retire watchdog (raises after 2x this)
 RESHARD_TO = 12  # serve_reshard's --reshard-to
+TRAIN_STEPS = 200  # launch.train's defaults: dlrm-100m, batch 256, 200 steps
+TRAIN_BATCH = 256
+TRAIN_RESUME_AT = 100  # the restart check: --steps 100, then --resume --steps 200
+TRAIN_FIT_STEPS = 12  # two alternating fixed batches (tests/test_system.py's design)
+TRAIN_GRAD_TOL = (1e-5, 1e-6)  # loss and gradients, card vs CPU: f32, other sum orders
+# K1' against its plain version on the card, whose index_add_ adds with
+# atomics in a varying order: rows of up to 49 unit-scale terms differ by a
+# few 1e-6 (K1's own tolerance); against the plain version on the CPU, which
+# adds in slot order as K1' does, bit for bit.
+K1B_TOL = (1e-5, 1e-5)
+TRAIN_STEP_TOL = (1e-4, 1e-6)  # params and optimizer state after the step
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -223,10 +256,11 @@ def bound(bytes_moved: float, flops: float,
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_busy(fn, calls: int) -> dict:
+def device_busy(fn, calls: int, kernels: tuple = ()) -> dict:
     """Run ``fn`` ``calls`` times under ``torch.profiler``: the device time
     its kernels took (summed; one stream, so they do not overlap), how many
-    kernels and copies ran, and the kernels with the most of the time.
+    kernels and copies ran, the kernels with the most of the time and, for
+    each name in ``kernels``, the time of the kernels whose name holds it.
     ``device_busy_ms`` is None when the trace holds no device events.  The
     profiler slows the host, so the window's own wall time is not reported;
     compare with an unprofiled run."""
@@ -244,19 +278,26 @@ def device_busy(fn, calls: int) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
             n_ops += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"calls": calls,
-            "device_busy_ms": sum(by_name.values()) / calls if by_name else None,
-            "device_ops_per_call": n_ops / calls,
-            "top_kernels_ms_per_call": [[n[:70], ms / calls] for n, ms in top]}
+    out = {"calls": calls,
+           "device_busy_ms": sum(by_name.values()) / calls if by_name else None,
+           "device_ops_per_call": n_ops / calls,
+           "top_kernels_ms_per_call": [[n[:70], ms / calls] for n, ms in top]}
+    if kernels:
+        out["kernels_ms_per_call"] = {
+            k: sum(ms for n, ms in by_name.items() if k in n) / calls for k in kernels}
+    return out
 
 
 def kernel_name(mangled: str) -> str:
     """``flash_decode_kernel<bf16, 80, 1>`` from a mangled entry-function
-    name: the kernel and its type and integer template arguments."""
-    for m in re.finditer(r"_kernelI", mangled):  # <length><name>I<args>E
+    name: the kernel and its type and integer template arguments (none for
+    a kernel that is not a template)."""
+    for m in re.finditer(r"_kernel[IE]", mangled):  # <length><name>I<args>E or E<params>
         end = m.start() + len("_kernel")
         n = next((n for n in range(1, end) if mangled[:end - n].endswith(str(n))), 0)
         name, rest = mangled[end - n:end], mangled[end:]
+        if n and rest[0] == "E":
+            return name
         if n:
             args, rest = [], rest[1:]
             for tok, label in ((r"13__nv_bfloat16", "bf16"), (r"f", "f32"), (r"d", "f64"),
@@ -345,6 +386,34 @@ def assert_bits(name: str, got, want) -> float:
     return 0.0
 
 
+def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
+    """Two trees of tensors with the same key strings in JAX's flatten order,
+    no leaf missing, each leaf of the same shape and dtype and allclose (NaN
+    where the other has NaN).  Returns the largest abs error over the
+    finite elements."""
+    from repro_torch.utils import keystr, tree_flatten_with_path
+
+    got, want = tree_flatten_with_path(got), tree_flatten_with_path(want)
+    keys = [keystr(p) for p, _ in got]
+    if keys != [keystr(p) for p, _ in want]:
+        raise AssertionError(f"{name}: leaves differ: {keys} vs "
+                             f"{[keystr(p) for p, _ in want]}")
+    worst = 0.0
+    for key, (_, g), (_, w) in zip(keys, got, want):
+        if not isinstance(g, torch.Tensor) or g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {key}: {g!r:.80} against {tuple(w.shape)} {w.dtype}")
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        fin = torch.isfinite(w)
+        err = max_err(g[fin], w[fin])
+        if not torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
+            raise AssertionError(f"{name} {key}: card and CPU disagree (max abs err "
+                                 f"{err:.3e}, rtol {rtol}, atol {atol})")
+        worst = max(worst, err)
+    log(f"  {name}: ok, {len(keys)} leaves, max abs err {worst:.3e} (rtol {rtol}, "
+        f"atol {atol})")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU present", file=sys.stderr)
@@ -368,7 +437,9 @@ def main() -> int:
     from repro_torch.kernels import embedding_bag as K1
     from repro_torch.kernels import flash_attention as K6
     from repro_torch.kernels import flash_decode as K7
+    from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import recsys as R
     from repro_torch.models import transformer as TF
     from repro_torch.obs.metrics import MetricsRegistry
@@ -377,7 +448,7 @@ def main() -> int:
     from repro_torch.prefetch import ref as PREF
     from repro_torch.runtime.elastic import reshard_tables
     from repro_torch.runtime.serving import ATTR_STAGES, FlexEMRServer
-    from repro_torch.utils import tree_size_bytes, tree_to
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_size_bytes, tree_to
 
     def launch_counts() -> dict:
         return {"embedding_bag": K1.launches, "embedding_bag_masked": K1.launches_masked,
@@ -386,11 +457,14 @@ def main() -> int:
                 "scatter_update": HK.launches[HK.SCATTER],
                 "topk_neighbor_select": PK.launches,
                 "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
-                "flash_decode": K7.launches}
+                "flash_decode": K7.launches,
+                "embedding_bag_backward": K1.launches_backward,
+                "dot_interaction_backward": K2.launches_backward}
 
     def reset_counts() -> None:
-        K1.launches = K1.launches_masked = 0
-        K2.launches = PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
+        K1.launches = K1.launches_masked = K1.launches_backward = 0
+        K2.launches = K2.launches_backward = 0
+        PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
         HK.launches.update(dict.fromkeys(HK.launches, 0))
 
     def require(path: str, counts: dict, names) -> None:
@@ -1182,6 +1256,235 @@ def main() -> int:
         "p99_latency_ms": rs["p99_latency_ms"], "chaos": rc,
         "phase_seconds": rs_seconds, "launches": rs_launches,
     }))
+    # ----------------------------------------------------------------- train
+    t_train = time.perf_counter()
+    tcfg = launch_train.make_dlrm_100m()
+    temb = tcfg.embedding()
+    tparams = R.init_params(tcfg, seed=0, device=dev)
+    table_t = tparams["emb"]["table"]
+    V_t, D_t = table_t.shape
+    # the trainer's batch of step 0 (seed 0), and K1's and K1''s inputs as the
+    # lookup hands them over (masked mode, a masked slot's id the padding 0
+    # of its field)
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in syn.recsys_batch(
+        np.random.default_rng(0), tcfg.tables, TRAIN_BATCH, n_dense=tcfg.n_dense).items()}
+    nnz_t = tbatch["indices"].shape[2]
+    ids_t = temb._fused_rows(temb.sharded, tbatch["indices"]).reshape(-1).contiguous()
+    w_t = tbatch["mask"].reshape(-1).to(torch.float32).contiguous()
+    bags_t = ids_t.numel() // nnz_t
+    live_t = ids_t[w_t != 0]
+    live_rows, live_counts = torch.unique(live_t, return_counts=True)
+    pad_rows = torch.unique(ids_t[w_t == 0])
+    pad_only = pad_rows[~torch.isin(pad_rows, live_t)].long()
+    log(f"[train] {tcfg.name} table {tuple(table_t.shape)} f32 "
+        f"({table_t.numel() * 4 / 1e6:.1f} MB); the batch of {TRAIN_BATCH}: "
+        f"{ids_t.numel()} slots, {live_t.numel()} live over {live_rows.numel()} rows "
+        f"({int((live_counts > 1).sum())} rows named more than once, one "
+        f"{int(live_counts.max())} times); {pad_only.numel()} rows named by padding alone")
+    tgen = torch.Generator(device=dev).manual_seed(5)
+    g_t = torch.randn((bags_t, D_t), device=dev, generator=tgen)
+    def check_k1b(name, got, g, ids, w, V, masked) -> float:
+        assert_bits(f"{name} vs its plain version on the CPU (slot order)", got.cpu(),
+                    ref.embedding_bag_backward_ref(g.cpu(), ids.cpu(), w.cpu(), V,
+                                                   masked=masked))
+        return assert_close(f"{name} vs its plain version on the card (atomics)", got,
+                            ref.embedding_bag_backward_ref(g, ids, w, V, masked=masked),
+                            *K1B_TOL)
+
+    k1b_out = K1.embedding_bag_backward(g_t, ids_t, w_t, V_t, masked=True)
+    assert_equal("K1' twice on the same inputs (no atomics: deterministic)",
+                 K1.embedding_bag_backward(g_t, ids_t, w_t, V_t, masked=True), k1b_out)
+    k1b_err = check_k1b(f"K1' embedding_bag_backward masked f32 [{bags_t} bags x {nnz_t}] "
+                        f"-> [{V_t}, {D_t}]", k1b_out, g_t, ids_t, w_t, V_t, True)
+    if bool(k1b_out[pad_only].ne(0).any()):
+        raise AssertionError("K1' wrote to a row that only padding names")
+    log(f"  the {pad_only.numel()} rows padding alone names stay 0")
+    egen = torch.Generator(device=dev).manual_seed(6)
+    for nnz_e, width in ((1, 64), (3, 64), (4, 64), (1, 17), (3, 17), (4, 17)):
+        V_e, bags_e = 5000, 1003
+        ids_e = torch.randint(-50, V_e + 50, (bags_e * nnz_e,), device=dev, generator=egen,
+                              dtype=torch.int32)
+        w_e = torch.rand(bags_e * nnz_e, device=dev, generator=egen) + 0.5
+        w_e[torch.rand(bags_e * nnz_e, device=dev, generator=egen) < 0.4] = 0.0
+        g_e = torch.randn((bags_e, width), device=dev, generator=egen)
+        check_k1b(f"K1' weighted nnz {nnz_e} D {width} [{bags_e} bags, ids in "
+                  f"[-50, {V_e + 50})]", K1.embedding_bag_backward(g_e, ids_e, w_e, V_e),
+                  g_e, ids_e, w_e, V_e, False)
+        # masked: NaN in the gradient of every bag whose slots all weigh 0
+        g_e[(w_e.view(bags_e, nnz_e) == 0).all(dim=1)] = float("nan")
+        got = K1.embedding_bag_backward(g_e, ids_e, w_e, V_e, masked=True)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("K1' masked: the gradient of an all-padding bag reached a row")
+        check_k1b(f"K1' masked nnz {nnz_e} D {width} [{bags_e} bags, ids in "
+                  f"[-50, {V_e + 50}), NaN in the all-padding bags' gradient]", got,
+                  g_e, ids_e, w_e, V_e, True)
+    F_t = tcfg.num_fields + 1
+    x_tr = torch.randn((TRAIN_BATCH, F_t, D_t), device=dev, generator=tgen)
+    gt_tr = torch.randn((TRAIN_BATCH, F_t * (F_t + 1) // 2), device=dev, generator=tgen)
+    k2b_err = assert_close(f"K2' dot_interaction_backward f32 {list(x_tr.shape)}",
+                           K2.dot_interaction_backward(x_tr, gt_tr),
+                           ref.dot_interaction_backward_ref(x_tr, gt_tr), 1e-5, 1e-5)
+    for bucket in SERVE_BUCKETS:
+        x_b = torch.randn((bucket, SERVE_FIELDS, D_t), device=dev, generator=tgen)
+        g_b = torch.randn((bucket, SERVE_FIELDS * (SERVE_FIELDS + 1) // 2), device=dev,
+                          generator=tgen)
+        assert_close(f"K2' dot_interaction_backward f32 {list(x_b.shape)} (serve bucket)",
+                     K2.dot_interaction_backward(x_b, g_b),
+                     ref.dot_interaction_backward_ref(x_b, g_b), 1e-5, 1e-5)
+    # timings: the kernel, its plain version and one PyTorch call, L2 cold
+    tflush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    live_idx = live_t.long()
+    contrib = (g_t.repeat_interleave(nnz_t, dim=0) * w_t[:, None])[w_t != 0]
+    iu, ju = torch.triu_indices(F_t, F_t, device=dev)
+    g_full = torch.zeros((TRAIN_BATCH, F_t, F_t), device=dev)
+    g_full[:, iu, ju] = gt_tr
+    s_full = g_full + g_full.transpose(1, 2)
+    backward = {
+        "embedding_bag": {
+            "ms": cuda_ms(lambda: K1.embedding_bag_backward(g_t, ids_t, w_t, V_t, masked=True),
+                          tflush),
+            "plain_ms": cuda_ms(lambda: ref.embedding_bag_backward_ref(
+                g_t, ids_t, w_t, V_t, masked=True), tflush),
+            "library_ms": cuda_ms(lambda: torch.zeros((V_t, D_t), device=dev).index_add_(
+                0, live_idx, contrib), tflush),
+            "max_abs_err": k1b_err, "bit_equal_to_cpu_plain": True,
+            "case": f"masked, [{bags_t} bags x {nnz_t}] -> [{V_t}, {D_t}] f32",
+        },
+        "dot_interaction": {
+            "ms": cuda_ms(lambda: K2.dot_interaction_backward(x_tr, gt_tr), tflush),
+            "plain_ms": cuda_ms(lambda: ref.dot_interaction_backward_ref(x_tr, gt_tr), tflush),
+            "library_ms": cuda_ms(lambda: torch.bmm(s_full, x_tr), tflush),
+            "max_abs_err": k2b_err, "case": f"f32 {list(x_tr.shape)}",
+        },
+    }
+    backward["embedding_bag"]["bound_ms"], backward["embedding_bag"]["bound_by"] = bound(
+        V_t * D_t * 4 + g_t.numel() * 4 + ids_t.numel() * 8, 2 * live_t.numel() * D_t)
+    n_tri = F_t * (F_t + 1) // 2
+    backward["dot_interaction"]["bound_ms"], backward["dot_interaction"]["bound_by"] = bound(
+        2 * x_tr.numel() * 4 + TRAIN_BATCH * n_tri * 4, 2 * TRAIN_BATCH * F_t * F_t * D_t)
+    log("[train] backward kernels: " + json.dumps(backward))
+    del tflush, contrib, live_idx, g_full, s_full, x_tr, gt_tr, k1b_out, got
+
+    # one train step on the card against the same step on the CPU (plain
+    # versions), from the same params, with NaN in the rows padding alone names
+    table_t[pad_only] = float("nan")
+    cpu_params = tree_to(tparams, "cpu")
+    cpu_batch = {k: v.cpu() for k, v in tbatch.items()}
+    topt = launch_train.make_optimizer()
+    reset_counts()
+    loss_c, grads_c = R.loss_and_grads(tcfg, tparams, tbatch)
+    torch.cuda.synchronize()
+    step_launches = launch_counts()
+    if any(step_launches[k] != 1 for k in ("embedding_bag_masked", "embedding_bag_backward",
+                                            "dot_interaction", "dot_interaction_backward")):
+        raise AssertionError(f"one step's gradient did not run K1 masked, K1', K2 and K2' "
+                             f"once each: {step_launches}")
+    loss_h, grads_h = R.loss_and_grads(tcfg, cpu_params, cpu_batch)
+    if not bool(torch.isfinite(loss_c)):
+        raise AssertionError(f"train step loss not finite with NaN behind padding: {loss_c}")
+    for path, g in tree_flatten_with_path(grads_c):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient {keystr(path)} not finite")
+    if bool(grads_c["emb"]["table"][pad_only].ne(0).any()):
+        raise AssertionError("the table's gradient is not 0 on a row padding alone names")
+    assert_close("train step loss, card vs CPU", loss_c.cpu(), loss_h, *TRAIN_GRAD_TOL)
+    grad_err = assert_trees_close("train step gradients, card vs CPU", grads_c, grads_h,
+                                  *TRAIN_GRAD_TOL)
+    # The step's update from the card's gradients, on the card and on the
+    # CPU.  Each side's own gradients are compared above and not fed on:
+    # Adam's first step moves a parameter by lr g / (|g| + eps), which at
+    # |g| near eps = 1e-8 turns a gradient difference of 1e-11 into one of
+    # lr / eps * 1e-11 = 1e-6 in the parameter (reported below).
+    step_fn = R.make_train_step(tcfg, topt)
+    st_c, st_h = topt.init(tparams), topt.init(cpu_params)
+    p1c, s1c = topt.update(grads_c, st_c, tparams)
+    p1h, s1h = topt.update(tree_to(grads_c, "cpu"), st_h, cpu_params)
+    step_err = assert_trees_close("params and optimizer state after the step (the card's "
+                                  "gradients), card vs CPU", (p1c, s1c), (p1h, s1h),
+                                  *TRAIN_STEP_TOL)
+    p1s, s1s, _ = step_fn(tparams, st_c, tbatch)  # the card's own step function
+    assert_trees_close("the card's train step against that update", (p1s, s1s), (p1c, s1c),
+                       *TRAIN_STEP_TOL)
+    step_bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for (_, a), (_, b) in zip(tree_flatten_with_path((p1s, s1s)),
+                                              tree_flatten_with_path((p1c, s1c))))
+    p1o, _, _ = step_fn(cpu_params, st_h, cpu_batch)  # the CPU's step, its own gradients
+    own = []
+    for (path, a), (_, b), (_, g) in zip(tree_flatten_with_path(p1s),
+                                         tree_flatten_with_path(p1o),
+                                         tree_flatten_with_path(grads_c)):
+        d = (a.cpu() - b).abs().nan_to_num(0.0)
+        i = int(d.argmax())
+        own.append((float(d.reshape(-1)[i]), keystr(path), float(g.reshape(-1)[i])))
+    own_err, own_leaf, own_grad = max(own)
+    log(f"  the card's step bit-equal to the update from its gradients: {step_bits}; each "
+        f"side's step from its own gradients differs by at most {own_err:.3e} at {own_leaf}, "
+        f"where the gradient is {own_grad:.3e}")
+    del cpu_params, cpu_batch, grads_h, p1h, s1h, grads_c, p1c, s1c, p1s, s1s, p1o
+    table_t.normal_(0.0, 0.01, generator=tgen)  # no NaN in the timed window
+    train_profile = device_busy(lambda: step_fn(tparams, st_c, tbatch), 3, kernels=(
+        "embedding_bag_kernel", "bag_backward_keys_kernel", "bag_backward_kernel<",
+        "DeviceRadixSort", "dot_interaction_kernel", "dot_interaction_backward_kernel",
+        "FillFunctor", "gemm"))
+    # the trainer's step function learns: two alternating fixed batches
+    fit_batches = [{k: torch.from_numpy(v).to(dev) for k, v in syn.recsys_batch(
+        np.random.default_rng(i), tcfg.tables, TRAIN_BATCH, n_dense=tcfg.n_dense).items()}
+        for i in range(2)]
+    fp, fs, fit_losses = tparams, st_c, []
+    for i in range(TRAIN_FIT_STEPS):
+        fp, fs, m = step_fn(fp, fs, fit_batches[i % 2])
+        fit_losses.append(float(m["loss"]))
+    if not fit_losses[-1] < fit_losses[0]:
+        raise AssertionError(f"two alternating fixed batches: loss did not fall: {fit_losses}")
+    del tparams, st_c, fp, fs, fit_batches, table_t
+
+    # launch.train at its defaults, then the restart through its own flags
+    reset_counts()
+    tout = launch_train.train_recsys(launch_train.parse_args([]))
+    train_launches = launch_counts()
+    steps = tout["steps"]
+    if steps != TRAIN_STEPS or not all(np.isfinite(tout["step_seconds"])) \
+            or not np.isfinite([tout["first_loss"], tout["final_loss"]]).all():
+        raise AssertionError(f"launch.train at its defaults: {tout['steps']} steps, losses "
+                             f"{tout['first_loss']} -> {tout['final_loss']}")
+    per_step = ("embedding_bag", "embedding_bag_masked", "embedding_bag_backward",
+                "dot_interaction", "dot_interaction_backward")
+    if any(train_launches[k] != steps for k in per_step):
+        raise AssertionError(f"train did not launch {per_step} once a step: {train_launches}")
+    ck = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    first = launch_train.train_recsys(launch_train.parse_args(
+        ["--steps", str(TRAIN_RESUME_AT), "--ckpt-dir", str(ck)]))
+    if CheckpointManager(ck).latest_step() != TRAIN_RESUME_AT - 1:
+        raise AssertionError(f"--steps {TRAIN_RESUME_AT} left step "
+                             f"{CheckpointManager(ck).latest_step()} as the latest")
+    resumed = launch_train.train_recsys(launch_train.parse_args(
+        ["--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ck), "--resume"]))
+    shutil.rmtree(ck, ignore_errors=True)
+    if resumed["steps"] != TRAIN_STEPS - TRAIN_RESUME_AT:
+        raise AssertionError(f"--resume ran {resumed['steps']} steps")
+    if not np.isclose(resumed["final_loss"], tout["final_loss"], rtol=1e-5, atol=0.0):
+        raise AssertionError(f"resumed run's last loss {resumed['final_loss']} != the straight "
+                             f"run's {tout['final_loss']} (rtol 1e-5)")
+    log("[train] " + json.dumps({
+        "model": tcfg.name, "batch": TRAIN_BATCH, "steps": steps,
+        "first_loss": tout["first_loss"], "final_loss": tout["final_loss"],
+        "final_below_first": tout["final_loss"] < tout["first_loss"],
+        "median_step_ms": 1e3 * statistics.median(tout["step_seconds"]),
+        "first_step_ms": 1e3 * tout["step_seconds"][0],
+        "step_device": train_profile,
+        "fit_two_batches_losses": fit_losses,
+        "resume": {"first_run_steps": first["steps"], "resumed_steps": resumed["steps"],
+                   "resumed_final_loss": resumed["final_loss"],
+                   "bit_equal": resumed["final_loss"] == tout["final_loss"]},
+        "grad_max_abs_err": grad_err, "step_max_abs_err": step_err,
+        "step_bit_equal_to_update": step_bits,
+        "own_gradient_steps": {"max_abs_err": own_err, "leaf": own_leaf, "grad": own_grad},
+        "launches": train_launches, "phase_seconds": time.perf_counter() - t_train,
+    }))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     del sparams, server, controller, engine, reqs, wl, chaos_reqs, cb
     del clean, faulty, again, injector, injector2
     gc.collect()
@@ -1536,7 +1839,7 @@ def main() -> int:
     paths = {"forward": fwd_launches, "serve": srv_launches,
              "cached_forward": cached_launches, "serve_prefetch": pf_launches,
              "serve_open_loop": ol_launches, "serve_chaos": chaos_launches,
-             "serve_reshard": rs_launches,
+             "serve_reshard": rs_launches, "train": train_launches,
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
              "lm_f32": lm_f32_launches}
     kernels = []
@@ -1553,6 +1856,11 @@ def main() -> int:
         })
         if name in read_flushed:
             kernels[-1]["ms_read_flush"] = read_flushed[name]
+        if name in backward:  # K1' and K2', the train path's backward kernels
+            kernels[-1]["backward"] = {
+                **backward[name], "name": f"{name}_backward",
+                "launches_by_path": {p: c[f"{name}_backward"] for p, c in paths.items()},
+            }
         if name == "embedding_bag":  # timed in the masked mode, the main path's
             kernels[-1].update({
                 "mode": "masked", "bound_ms_weighted": k1_weighted["bound_ms"],

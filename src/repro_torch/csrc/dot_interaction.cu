@@ -47,6 +47,24 @@
 //    opt-in; the wrapper
 //    refuses one past the 227 KB a block can hold.  Any batch size: the last
 //    group may be short.
+//
+// Kernel K2' (dot_interaction_backward): the gradient of K2's upper
+// triangle, which the Pallas kernel never needed (the reference trains
+// through XLA's autodiff of its einsum and triangle gather).
+//
+//   dx[b] = (G[b] + G[b]^T) x[b],   G[b] = the triangle's gradient laid into
+//   [F, F] (zero below the diagonal), so it counts twice on the diagonal.
+//
+// What bounds it on the card: bytes.  Per sample it reads F*D inputs and
+// F(F+1)/2 gradients and writes F*D outputs for 2*F*F*D flops, about 6.5
+// flops a byte at F = 27, D = 64, under the card's f32 ridge.
+//
+// What the design does about it: one block of 128 threads a sample at a
+// time (a grid-stride loop over at most 16 blocks an SM).  The block copies
+// the sample's rows and builds S = G + G^T in shared memory, then each
+// thread computes outputs (i, d) in the order of the output, so a warp's
+// stores and its reads of x[j, d] are consecutive and its reads of S[i, j]
+// one broadcast address.  Sums run over j in order in f32 FMAs, no TF32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,6 +263,62 @@ int launch(const void* x, void* out, long long batch, int F, int D, void* stream
   return (int)cudaGetLastError();
 }
 
+// ---- K2': dot_interaction_backward
+
+constexpr int kBwdThreads = 128;
+constexpr int kBwdBlocksPerSm = 16;
+
+size_t backward_smem(int F, int D) { return (size_t)(F * F + F * D) * sizeof(float); }
+
+__global__ void __launch_bounds__(kBwdThreads)
+    dot_interaction_backward_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ grad_tri,
+                                    float* __restrict__ dx, long long batch, int F, int D) {
+  extern __shared__ float bwd_smem[];
+  float* S = bwd_smem;           // [F, F]: G + G^T
+  float* xs = bwd_smem + F * F;  // [F, D]: the sample's rows
+  const int FD = F * D;
+  const int T = F * (F + 1) / 2;
+  for (long long b = blockIdx.x; b < batch; b += gridDim.x) {
+    const float* xb = x + b * FD;
+    const float* gb = grad_tri + b * T;
+    for (int e = threadIdx.x; e < FD; e += kBwdThreads) xs[e] = xb[e];
+    for (int e = threadIdx.x; e < F * F; e += kBwdThreads) {
+      const int i = e / F, j = e - i * F;
+      const int lo = i < j ? i : j, hi = i < j ? j : i;
+      const float g = gb[lo * F - lo * (lo - 1) / 2 + (hi - lo)];  // np.triu_indices order
+      S[e] = i == j ? g + g : g;
+    }
+    __syncthreads();
+    float* ob = dx + b * FD;
+    for (int e = threadIdx.x; e < FD; e += kBwdThreads) {
+      const int i = e / D, d = e - i * D;
+      const float* si = S + i * F;
+      float acc = 0.f;
+      for (int j = 0; j < F; ++j) acc = fmaf(si[j], xs[j * D + d], acc);
+      ob[e] = acc;
+    }
+    __syncthreads();  // S and xs are free for the next sample
+  }
+}
+
+int launch_backward(const void* x, const void* grad_tri, void* dx, long long batch, int F,
+                    int D, void* stream) {
+  if (batch <= 0) return 0;
+  const size_t smem = backward_smem(F, D);
+  if (F <= 0 || D <= 0 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(dot_interaction_backward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (long long)sm_count() * kBwdBlocksPerSm;
+  if (blocks > batch) blocks = batch;
+  dot_interaction_backward_kernel<<<(unsigned)blocks, kBwdThreads, smem,
+                                    (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)grad_tri, (float*)dx, batch, F, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,6 +333,13 @@ int dot_interaction_f32(const void* x, void* out, long long batch, int F,
 int dot_interaction_bf16(const void* x, void* out, long long batch, int F,
                          int D, void* stream) {
   return launch<__nv_bfloat16>(x, out, batch, F, D, stream);
+}
+
+// K2': x [batch, F, D] f32, grad_tri [batch, F(F+1)/2] f32 (np.triu_indices
+// order), dx [batch, F, D] f32.  Returns cudaGetLastError().
+int dot_interaction_backward_f32(const void* x, const void* grad_tri, void* dx,
+                                 long long batch, int F, int D, void* stream) {
+  return launch_backward(x, grad_tri, dx, batch, F, D, stream);
 }
 
 const char* dot_interaction_error_string(int code) {

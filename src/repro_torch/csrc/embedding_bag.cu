@@ -34,6 +34,28 @@
 // the current bag's rows.  Sums are f32 in slot order; the pooled bag is
 // stored once, so the only traffic is the rows, the ids and weights, and
 // the output.
+//
+// Kernel K1' (embedding_bag_backward): the gradient of K1 with respect to
+// the table, which the Pallas kernel never needed (the reference trains
+// through XLA's autodiff of its plain lookup, a scatter-add).
+//
+//   grad[clamp(idx[s]), :] += w[s] * grad_out[s / nnz, :]   (dense [V, D] f32)
+//
+// In the masked mode a slot with w == 0 adds nothing and its id is not used.
+//
+// What bounds it on the card: bytes, and the dense output most: V * D f32
+// written once (326 MB for dlrm-100m's table), against a few MB of slots.
+// The wrapper zeroes the output (torch.zeros), so every row that no slot
+// names is right before the kernel runs.
+//
+// What the design does about it: it is deterministic, so a training run
+// replays bit for bit.  A first kernel writes each slot's key (its clamped
+// row, or V for a masked slot); the wrapper sorts the keys (torch.sort,
+// stable, so the slots of one row stay in slot order); then one group of
+// lanes owns each run of equal keys and sums its slots in slot order,
+// w * grad_out rounded and then added, as the reference's scatter-add does,
+// with no atomics.  The group spans the row with 16-byte vectors and keeps
+// four slots' loads in flight.  Only the touched rows are written by it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -217,6 +239,88 @@ bool plan_ok(const void* table, const void* out, long long num_bags, int nnz,
          (nnz_spec == 0 || (nnz_spec == nnz && nnz <= lanes));
 }
 
+// ---- K1': embedding_bag_backward
+
+// keys[s] = clamp(idx[s], 0, V - 1), or V for a masked slot (masked && w == 0).
+__global__ void bag_backward_keys_kernel(const int32_t* __restrict__ idx,
+                                         const float* __restrict__ w,
+                                         int32_t* __restrict__ keys, long long n,
+                                         long long num_rows, int masked) {
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x)
+    keys[s] = masked && w[s] == 0.f ? (int32_t)num_rows
+                                    : (int32_t)clamp_row(idx[s], num_rows);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+// keys: sorted ascending; perm[j]: the slot of sorted position j.  A group
+// of `lanes` threads takes one sorted position at a time; the first position
+// of each run of a row below V sums the run and writes the row.  No
+// shuffles, so groups of one warp may leave their loops at different times.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+bag_backward_kernel(const float* __restrict__ grad_out, const int32_t* __restrict__ keys,
+                    const int64_t* __restrict__ perm, const float* __restrict__ w,
+                    float* __restrict__ grad, long long n, int nnz, int dim,
+                    long long num_rows, int lanes) {
+  const int lane = threadIdx.x & (lanes - 1);
+  const int groups = kThreads / lanes;
+  const long long stride = (long long)gridDim.x * groups;
+  const int nvec = dim / VEC;
+  for (long long pos = (long long)blockIdx.x * groups + threadIdx.x / lanes; pos < n;
+       pos += stride) {
+    const int32_t key = __ldg(keys + pos);
+    if (key >= num_rows || (pos > 0 && __ldg(keys + pos - 1) == key)) continue;
+    for (int c = lane; c < nvec; c += lanes) {
+      float acc[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+      for (long long j0 = pos;; j0 += kBatch) {
+        float v[kBatch][VEC];
+        float wj[kBatch];
+        bool live[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const long long j = j0 + u;
+          live[u] = j < n && __ldg(keys + j) == key;
+          wj[u] = 0.f;
+          if (live[u]) {
+            const long long s = __ldg(reinterpret_cast<const long long*>(perm) + j);
+            wj[u] = __ldg(w + s);
+            load_vec<VEC>(grad_out + (s / nnz) * dim + (long long)c * VEC, v[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (live[u])
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wj[u], v[u][k]));
+        if (!live[kBatch - 1]) break;  // sorted: the run ended in this batch
+      }
+      float* o = grad + (long long)key * dim + (long long)c * VEC;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,6 +359,46 @@ int embedding_bag_occupancy_f32(int vec, int nnz_spec, int masked) {
 
 int embedding_bag_occupancy_bf16(int vec, int nnz_spec, int masked) {
   return dispatch<__nv_bfloat16, 8, Occupancy>(vec, nnz_spec, masked);
+}
+
+// K1' step 1: keys [n] int32 from idx [n] int32 and w [n] f32 (num_rows <
+// 2^31 - 1, so the masked key V fits).  Returns cudaGetLastError().
+int embedding_bag_backward_keys(const void* idx, const void* w, void* keys, long long n,
+                                long long num_rows, int masked, long long blocks,
+                                void* stream) {
+  if (n <= 0 || num_rows <= 0 || num_rows >= 0x7fffffffll || blocks <= 0 ||
+      blocks >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  bag_backward_keys_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const float*)w, (int32_t*)keys, n, num_rows, masked);
+  return (int)cudaGetLastError();
+}
+
+// K1' step 2: grad [num_rows, dim] f32 (zeroed by the caller) from
+// grad_out [n / nnz, dim] f32, the sorted keys [n] int32, perm [n] int64 (the
+// slot of each sorted key) and w [n] f32.  vec is 4 (dim % 4 == 0, grad_out
+// and grad on 16-byte boundaries) or 1; lanes a power of two <= 32.
+int embedding_bag_backward_f32(const void* grad_out, const void* keys, const void* perm,
+                               const void* w, void* grad, long long n, int nnz, int dim,
+                               long long num_rows, int vec, int lanes, long long blocks,
+                               void* stream) {
+  const bool aligned = (((uintptr_t)grad_out | (uintptr_t)grad) & 15u) == 0;
+  if (n <= 0 || nnz <= 0 || n % nnz || dim <= 0 || num_rows <= 0 ||
+      num_rows >= 0x7fffffffll || blocks <= 0 || blocks >= (1ll << 31) || lanes <= 0 ||
+      lanes > 32 || (lanes & (lanes - 1)) || dim % vec || (vec == 4 && !aligned))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4) {
+    bag_backward_kernel<4><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)grad_out, (const int32_t*)keys, (const int64_t*)perm,
+        (const float*)w, (float*)grad, n, nnz, dim, num_rows, lanes);
+  } else if (vec == 1) {
+    bag_backward_kernel<1><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)grad_out, (const int32_t*)keys, (const int64_t*)perm,
+        (const float*)w, (float*)grad, n, nnz, dim, num_rows, lanes);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* embedding_bag_error_string(int code) {

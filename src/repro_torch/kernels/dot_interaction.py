@@ -5,6 +5,10 @@ its design note are ``csrc/dot_interaction.cu``.  ``dot_interaction``
 launches the kernel on CUDA tensors only; ``ops.dot_interaction_triu`` routes
 a CPU tensor to the plain version (``ref.dot_interaction_ref``).  Unlike the
 TPU kernel it takes any batch size: there is no ``block_b``.
+
+``dot_interaction_backward`` is kernel K2' (same source): the gradient of the
+gram matrix's upper triangle, ``dx = (G + G^T) x``; ``ops.dot_interaction_triu``
+wires K2 and K2' into autograd for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -22,7 +26,13 @@ _SYMBOLS = {torch.float32: "dot_interaction_f32",
 
 MAX_SMEM = 232448  # bytes of shared memory one block can hold (227 KB)
 
+BWD_SYMBOL = "dot_interaction_backward_f32"
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+_SIGNATURES = {**{sym: _ARGS for sym in _SYMBOLS.values()}, BWD_SYMBOL: _BWD_ARGS}
+
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_backward = 0  # K2' launches
 
 
 def sample_smem_bytes(F: int, D: int, itemsize: int) -> int:
@@ -65,7 +75,7 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
         )
     B, F, D = x.shape
     out = torch.empty((B, F, F), dtype=torch.float32, device=x.device)
-    lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
+    lib = build.load(NAME, _SIGNATURES)
     with torch.cuda.device(x.device):
         code = getattr(lib, _SYMBOLS[x.dtype])(
             x.data_ptr(), out.data_ptr(), B, F, D,
@@ -74,3 +84,45 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     build.check(lib, NAME, code)
     launches += 1
     return out
+
+
+def backward_smem_bytes(F: int, D: int) -> int:
+    """Shared memory K2' needs for one sample: S = G + G^T [F, F] and the
+    sample's rows [F, D], f32 (``backward_smem`` in the source)."""
+    return (F * F + F * D) * 4
+
+
+def dot_interaction_backward(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.Tensor:
+    """``[B, F, D]`` f32 gradient of ``x`` from the gradient of its gram
+    matrix's upper triangle ``grad_tri`` ``[B, F(F+1)/2]`` f32 (the order of
+    ``np.triu_indices(F)``), kernel K2'."""
+    global launches_backward
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"{NAME}_backward kernel takes CUDA tensors, got {x.device}; "
+            "on the CPU autograd differentiates the plain version"
+        )
+    if x.dtype != torch.float32 or grad_tri.dtype != torch.float32:
+        raise TypeError(f"{NAME}_backward: x and grad_tri must be f32, got "
+                        f"{x.dtype} and {grad_tri.dtype}")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{NAME}_backward: want a contiguous [B, F, D], got {tuple(x.shape)}")
+    B, F, D = x.shape
+    if grad_tri.shape != (B, F * (F + 1) // 2) or not grad_tri.is_contiguous() \
+            or grad_tri.device != x.device:
+        raise ValueError(f"{NAME}_backward: want a contiguous [{B}, {F * (F + 1) // 2}] "
+                         f"grad_tri on {x.device}, got {tuple(grad_tri.shape)}")
+    if backward_smem_bytes(F, D) > MAX_SMEM:
+        raise ValueError(f"{NAME}_backward: one [F={F}, D={D}] sample needs "
+                         f"{backward_smem_bytes(F, D)} bytes of shared memory, over the "
+                         f"{MAX_SMEM} a block holds")
+    dx = torch.empty_like(x)
+    lib = build.load(NAME, _SIGNATURES)
+    with torch.cuda.device(x.device):
+        code = getattr(lib, BWD_SYMBOL)(
+            x.data_ptr(), grad_tri.data_ptr(), dx.data_ptr(), B, F, D,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, NAME, code)
+    launches_backward += 1
+    return dx

@@ -7,6 +7,11 @@ plain version (``ref.embedding_bag_ref``).  Two modes, one source: weighted
 (every row times its weight, the Pallas kernel's contract) and ``masked``
 (zero-weight slots skipped, their rows never loaded).  ``launch_plan`` is
 the launch geometry, computed here on the host.
+
+``embedding_bag_backward`` is kernel K1', the table's gradient (same source):
+a keys kernel, ``torch.sort`` of the keys, and a kernel that sums each row's
+slots in slot order, so the gradient is the same bit for bit on every run.
+``ops.embedding_bag`` wires both into autograd for CUDA tables.
 """
 from __future__ import annotations
 
@@ -31,12 +36,25 @@ _OCC_ARGS = [ctypes.c_int] * 3
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SYMBOLS = {dt: f"{NAME}_{s}" for dt, s in _DTYPES.items()}
 _OCC_SYMBOLS = {dt: f"{NAME}_occupancy_{s}" for dt, s in _DTYPES.items()}
-_SIGNATURES = {**{s: _ARGS for s in _SYMBOLS.values()},
-               **{s: _OCC_ARGS for s in _OCC_SYMBOLS.values()}}
+BWD_KEYS_SYMBOL = f"{NAME}_backward_keys"  # K1'
+BWD_SYMBOL = f"{NAME}_backward_f32"
+_SIGNATURES = {
+    **{s: _ARGS for s in _SYMBOLS.values()},
+    **{s: _OCC_ARGS for s in _OCC_SYMBOLS.values()},
+    BWD_KEYS_SYMBOL: [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p],
+    BWD_SYMBOL: [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+}
 _WIDE_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
+BWD_BLOCKS_PER_SM = 8  # the backward kernels' grid cap: 8 blocks of 256 threads an SM
+MAX_ROWS = 2**31 - 2  # K1' keys are int32, with V itself marking a masked slot
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_masked = 0  # those of them in the masked mode
+launches_backward = 0  # K1' launches
 
 _occupancy: dict[tuple, int] = {}  # blocks an SM holds, by resident_blocks' key
 _occupancy_lock = threading.Lock()
@@ -57,6 +75,15 @@ def vec_width(dtype: torch.dtype, dim: int, aligned: bool) -> int:
     return wide if aligned and dim % wide == 0 else 1
 
 
+def row_lanes(dim: int, vec: int) -> int:
+    """Threads spanning a row of ``dim`` in vectors of ``vec``: the vectors
+    rounded up to a power of two, at most 32."""
+    lanes = 1
+    while lanes < min(dim // vec, 32):
+        lanes *= 2
+    return lanes
+
+
 def launch_plan(num_bags: int, nnz: int, dim: int, vec: int,
                 resident: Callable[[int], int], pass_floats: int = 0) -> LaunchPlan:
     """The geometry of K1 and K3: a group of ``lanes`` threads spans a row,
@@ -68,10 +95,7 @@ def launch_plan(num_bags: int, nnz: int, dim: int, vec: int,
     the passes' blocks, capped at one wave of ``resident(nnz_spec)`` blocks
     (SMs times the blocks of that kernel an SM holds), over which the
     kernel strides."""
-    nvec = dim // vec
-    lanes = 1
-    while lanes < min(nvec, 32):
-        lanes *= 2
+    lanes = row_lanes(dim, vec)
     nnz_spec = nnz if vec > 1 and nnz in NNZ_SPECIALISED and nnz <= lanes else 0
     pass_bags = max(1, min(pass_floats // vec, lanes // nnz)) if nnz_spec else 1
     need = -(-num_bags // (THREADS // lanes * pass_bags))
@@ -152,3 +176,60 @@ def embedding_bag(
     launches += 1
     launches_masked += int(masked)
     return out
+
+
+def embedding_bag_backward(
+    grad_out: torch.Tensor,  # [num_bags, D] f32, CUDA, contiguous
+    indices: torch.Tensor,  # [N] int32, N = num_bags * nnz
+    weights: torch.Tensor,  # [N] f32
+    num_rows: int,
+    masked: bool = False,
+) -> torch.Tensor:
+    """``[num_rows, D]`` f32 gradient of K1's table, kernel K1':
+    ``grad[clamp(idx[s])] += w[s] * grad_out[s // nnz]`` in slot order, every
+    row no slot names left 0; with ``masked`` a slot whose weight is 0 adds
+    nothing and its id is not used."""
+    global launches_backward
+    if not _on_cuda(grad_out):
+        raise ValueError(
+            f"{NAME}_backward kernel takes CUDA tensors, got {grad_out.device}; "
+            "on the CPU autograd differentiates the plain version"
+        )
+    if grad_out.dtype != torch.float32 or grad_out.dim() != 2:
+        raise TypeError(f"{NAME}_backward: grad_out must be [num_bags, D] f32, got "
+                        f"{tuple(grad_out.shape)} {grad_out.dtype}")
+    if indices.dtype != torch.int32 or weights.dtype != torch.float32 \
+            or indices.dim() != 1 or weights.shape != indices.shape:
+        raise TypeError(f"{NAME}_backward: want indices [N] int32 and weights [N] f32")
+    for name, t in (("grad_out", grad_out), ("indices", indices), ("weights", weights)):
+        if t.device != grad_out.device or not t.is_contiguous():
+            raise ValueError(f"{NAME}_backward: {name} must be contiguous on {grad_out.device}")
+    num_bags, D = grad_out.shape
+    N = indices.shape[0]
+    if num_bags <= 0 or N % num_bags or D == 0:
+        raise ValueError(f"{NAME}_backward: fixed-nnz layout required (N={N}, "
+                         f"bags={num_bags}, D={D})")
+    if not 0 < num_rows <= MAX_ROWS:
+        raise ValueError(f"{NAME}_backward: {num_rows} rows outside (0, {MAX_ROWS}]")
+    grad = torch.zeros((num_rows, D), dtype=torch.float32, device=grad_out.device)
+    if N == 0:
+        return grad
+    lib = build.load(NAME, _SIGNATURES)
+    vec = vec_width(torch.float32, D, (grad_out.data_ptr() | grad.data_ptr()) % 16 == 0)
+    lanes = row_lanes(D, vec)
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        cap = sm_count(grad_out.device) * BWD_BLOCKS_PER_SM
+        keys = torch.empty(N, dtype=torch.int32, device=grad_out.device)
+        code = getattr(lib, BWD_KEYS_SYMBOL)(
+            indices.data_ptr(), weights.data_ptr(), keys.data_ptr(), N, num_rows,
+            int(masked), min(-(-N // THREADS), cap), stream)
+        build.check(lib, NAME, code)
+        keys, perm = torch.sort(keys, stable=True)
+        code = getattr(lib, BWD_SYMBOL)(
+            grad_out.data_ptr(), keys.data_ptr(), perm.data_ptr(), weights.data_ptr(),
+            grad.data_ptr(), N, N // num_bags, D, num_rows, vec, lanes,
+            min(-(-N // (THREADS // lanes)), cap), stream)
+    build.check(lib, NAME, code)
+    launches_backward += 1
+    return grad

@@ -5,6 +5,14 @@ A CUDA tensor goes to the hand-written kernel (``embedding_bag.py``,
 tensor to the plain version in ``ref.py``;
 any other device raises.  There is no switch and no fallback: on the card
 the plain version is never taken, and a failed build or launch raises.
+
+Gradients: on the card, where a gradient is needed, K1 and K2 run inside
+``torch.autograd.Function``s whose backwards are the hand-written kernels
+K1' (``embedding_bag.embedding_bag_backward``) and K2'
+(``dot_interaction.dot_interaction_backward``); on the CPU autograd
+differentiates the plain versions.  On both, a gradient for K1's weights,
+for a table that is not f32 or for a K2 input that is not f32 raises: no
+trainer trains them.
 """
 from __future__ import annotations
 
@@ -25,10 +33,40 @@ def _is_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device} (cuda | cpu)")
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    """K1 forward, K1' backward: the table's gradient only."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights, num_bags, masked):
+        ctx.save_for_backward(indices, weights)
+        ctx.num_rows, ctx.masked = table.shape[0], masked
+        return K1.embedding_bag(table, indices, weights, num_bags, masked=masked)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indices, weights = ctx.saved_tensors
+        grad = K1.embedding_bag_backward(grad_out.contiguous(), indices, weights,
+                                         ctx.num_rows, masked=ctx.masked)
+        return grad, None, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def embedding_bag(table, indices, weights, num_bags, masked: bool = False):
     """K1 in its weighted mode (the Pallas kernel's contract) or, with
-    ``masked``, skipping every slot whose weight is 0 (``ref.embedding_bag_ref``)."""
+    ``masked``, skipping every slot whose weight is 0 (``ref.embedding_bag_ref``).
+    Differentiable in the table (f32 only) on both devices."""
+    if _needs_grad(weights):
+        raise ValueError("embedding_bag: no gradient for the weights (K1' computes "
+                         "the table's only); pass weights that do not require grad")
+    if _needs_grad(table) and table.dtype != torch.float32:
+        raise TypeError(f"embedding_bag: a {table.dtype} table that requires grad; "
+                        "only f32 tables train")
     if _is_cuda(table):
+        if _needs_grad(table):
+            return _EmbeddingBag.apply(table, indices, weights, num_bags, masked)
         return K1.embedding_bag(table, indices, weights, num_bags, masked=masked)
     return ref.embedding_bag_ref(table, indices, weights, num_bags, masked=masked)
 
@@ -50,14 +88,39 @@ def bag_lookup(
     return out.reshape(B, F, table.shape[1])
 
 
+def _triu(prods: torch.Tensor) -> torch.Tensor:
+    F = prods.shape[1]
+    iu, ju = torch.triu_indices(F, F, device=prods.device)
+    return prods[:, iu, ju]
+
+
+class _DotInteractionTriu(torch.autograd.Function):
+    """K2 and the triangle gather forward, K2' backward from the triangle's
+    gradient (no [B, F, F] scatter)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _triu(K2.dot_interaction(x))
+
+    @staticmethod
+    def backward(ctx, grad_tri):
+        (x,) = ctx.saved_tensors
+        return K2.dot_interaction_backward(x, grad_tri.contiguous())
+
+
 def dot_interaction_triu(x: torch.Tensor) -> torch.Tensor:
     """[B,F,D] -> [B, F*(F+1)/2] upper-triangle (incl. diag) pairwise dots,
     row-major as ``np.triu_indices(F)`` orders them; the gram matrix comes
-    from kernel K2."""
-    prods = K2.dot_interaction(x) if _is_cuda(x) else ref.dot_interaction_ref(x)
-    F = x.shape[1]
-    iu, ju = torch.triu_indices(F, F, device=x.device)
-    return prods[:, iu, ju]
+    from kernel K2.  Differentiable (f32 only) on both devices."""
+    if _needs_grad(x) and x.dtype != torch.float32:
+        raise TypeError(f"dot_interaction_triu: a {x.dtype} input that requires grad; "
+                        "K2' takes f32 only")
+    if _is_cuda(x):
+        if _needs_grad(x):
+            return _DotInteractionTriu.apply(x)
+        return _triu(K2.dot_interaction(x))
+    return _triu(ref.dot_interaction_ref(x))
 
 
 def flash_attention(q, k, v, causal: bool = True):

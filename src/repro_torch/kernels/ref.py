@@ -10,6 +10,11 @@ import math
 import torch
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 accumulation for f32 and bf16 inputs; f64 for f64 (gradient checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def embedding_bag_ref(
     table: torch.Tensor,  # [V, D]
     indices: torch.Tensor,  # [N] int32 row ids (N = num_bags * nnz)
@@ -18,17 +23,18 @@ def embedding_bag_ref(
     masked: bool = False,
 ) -> torch.Tensor:
     """[num_bags, D] f32 weighted sums over fixed-nnz bags (FBGEMM TBE
-    semantics), rows upcast to f32 and ids clamped into [0, V).
+    semantics), rows upcast to f32 (f64 stays f64) and ids clamped into [0, V).
 
     Weighted (the Pallas kernel's contract): every row multiplied by its
     weight, so a NaN row behind w = 0 gives NaN.  Masked: a slot whose
     weight is 0 adds exactly 0 and its id is never used, as the reference
     lookup's masked gather (``where(w != 0, w * row, 0)``)."""
-    w = weights.to(torch.float32)
+    acc = _acc_dtype(table)
+    w = weights.to(acc)
     ids = indices.long().clamp(0, table.shape[0] - 1)
     if masked:
         ids = torch.where(w != 0, ids, 0)
-    rows = table.index_select(0, ids).to(torch.float32) * w[:, None]
+    rows = table.index_select(0, ids).to(acc) * w[:, None]
     if masked:
         rows = torch.where((w != 0)[:, None], rows, 0.0)
     nnz = indices.shape[0] // num_bags
@@ -36,9 +42,44 @@ def embedding_bag_ref(
 
 
 def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
-    """[B, F, D] -> [B, F, F] pairwise dot (gram) matrix, f32 accumulation."""
-    xf = x.to(torch.float32)
+    """[B, F, D] -> [B, F, F] pairwise dot (gram) matrix, f32 accumulation
+    (f64 stays f64)."""
+    xf = x.to(_acc_dtype(x))
     return torch.bmm(xf, xf.transpose(1, 2))
+
+
+def embedding_bag_backward_ref(
+    grad_out: torch.Tensor,  # [num_bags, D]
+    indices: torch.Tensor,  # [N] int32
+    weights: torch.Tensor,  # [N] f32
+    num_rows: int,
+    masked: bool = False,
+) -> torch.Tensor:
+    """[num_rows, D] f32 (f64 stays f64) gradient of ``embedding_bag_ref``'s table:
+    ``grad[clamp(idx[s])] += w[s] * grad_out[s // nnz]``, in slot order.
+    Masked: a slot whose weight is 0 adds nothing and its id is not used."""
+    acc = _acc_dtype(grad_out)
+    w = weights.to(acc)
+    nnz = indices.shape[0] // grad_out.shape[0]
+    ids = indices.long().clamp(0, num_rows - 1)
+    contrib = grad_out.to(acc).repeat_interleave(nnz, dim=0) * w[:, None]
+    if masked:
+        live = w != 0
+        ids, contrib = ids[live], contrib[live]
+    grad = torch.zeros((num_rows, grad_out.shape[1]), dtype=acc, device=grad_out.device)
+    return grad.index_add_(0, ids, contrib)
+
+
+def dot_interaction_backward_ref(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.Tensor:
+    """[B, F, D] f32 (f64 stays f64) gradient of x from the gradient of its gram matrix's
+    upper triangle [B, F(F+1)/2] (``np.triu_indices`` order): (G + G^T) x,
+    G the triangle laid into [F, F]."""
+    B, F, _ = x.shape
+    iu, ju = torch.triu_indices(F, F, device=x.device)
+    acc = _acc_dtype(x)
+    g = torch.zeros((B, F, F), dtype=acc, device=x.device)
+    g[:, iu, ju] = grad_tri.to(acc)
+    return torch.bmm(g + g.transpose(1, 2), x.to(acc))
 
 
 NEG_INF = -1e30  # the masked score of the reference's attention

@@ -4,9 +4,11 @@ Port of ``repro/models/recsys.py`` for ``arch="dlrm"`` on one device: the
 paper's Fig-1 reference model — bottom MLP on dense features, embedding bags
 (``core.embedding.DisaggEmbedding.lookup``, kernel K1 on the card, with the
 hot-row cache's kernel K3 in front when ``forward`` is given a cache),
-pairwise dot interaction (kernel K2 on the card), top MLP.  The other archs
-(wide_deep, autoint, mind, two_tower, dcn, deepfm), the mesh paths, training
-steps and retrieval wait for later slices of the port.
+pairwise dot interaction (kernel K2 on the card), top MLP, and its training
+step (``make_train_step``: torch autograd, whose backward runs K1' and K2'
+on the card).  The other archs (wide_deep, autoint, mind, two_tower, dcn,
+deepfm) and retrieval wait for ROADMAP queue 1, item 3; the mesh paths for
+item 2.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.core.embedding import DisaggEmbedding
 from repro_torch.core.sharding import TableSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.utils import numpy_to_tensor, resolve_device, tree_map
+from repro_torch.utils import (numpy_to_tensor, resolve_device, tree_flatten_with_path,
+                               tree_map, tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +32,7 @@ class RecsysConfig:
     other archs' fields come back with the slices that port them."""
 
     name: str
-    arch: str  # only "dlrm" is ported (ROADMAP queue 1, item 13)
+    arch: str  # only "dlrm" is ported (the others: ROADMAP queue 1, item 3)
     tables: tuple[TableSpec, ...]
     embed_dim: int
     n_dense: int = 0
@@ -42,7 +45,7 @@ class RecsysConfig:
     def __post_init__(self):
         if self.arch != "dlrm":
             raise NotImplementedError(
-                f"arch {self.arch!r} is not ported yet (ROADMAP queue 1, item 13)"
+                f"arch {self.arch!r} is not ported yet (ROADMAP queue 1, item 3)"
             )
         if self.bottom_mlp[-1] != self.embed_dim:
             raise ValueError(
@@ -140,3 +143,39 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         logits.clamp_min(0) - logits * labels
         + torch.log1p(torch.exp(-logits.abs()))
     )
+
+
+# ------------------------------------------------------------------ training
+
+
+def loss_and_grads(cfg: RecsysConfig, params: dict, batch: dict):
+    """``(loss, grads)``: the BCE loss of ``forward`` on ``batch`` (indices,
+    mask, dense and labels on the params' device) as a 0-dim f32 tensor, and
+    its gradient with respect to every leaf of ``params``, shaped as
+    ``params`` (the reference's ``jax.value_and_grad``).  On the card the
+    lookup's and the interaction's backward are kernels K1' and K2'; a leaf
+    the loss does not reach raises (``torch.autograd.grad``)."""
+    leaves = [leaf.detach().requires_grad_(True)
+              for _, leaf in tree_flatten_with_path(params)]
+    with torch.enable_grad():
+        loss = bce_loss(forward(cfg, tree_unflatten(params, leaves), batch),
+                        batch["labels"])
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: RecsysConfig, optimizer, mesh=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss": loss})``, the reference's ``make_train_step`` for dlrm on one
+    device: :func:`loss_and_grads`, then ``optimizer.update``.  Nothing
+    waits for the device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...) is not ported yet (ROADMAP queue 1, item 2)")
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(cfg, params, batch)
+        new_params, new_state = optimizer.update(grads, opt_state, params)
+        return new_params, new_state, {"loss": loss}
+
+    return train_step

@@ -1,0 +1,261 @@
+"""Optimizers as transforms of nested params: port of ``repro/optim/optimizers.py``.
+
+Production mix used by the trainer:
+  * adam            — default for dense parameters.
+  * adafactor       — factored second moments, so optimizer state stays
+                      O(rows + cols) per matrix.
+  * rowwise_adagrad — the embedding-table optimizer (one accumulator per
+                      *row*, so a table carries only O(rows) extra state),
+                      as FBGEMM/TorchRec.
+  * composite       — key-path routing, e.g. tables -> rowwise_adagrad,
+                      dense -> adam.
+
+Params, grads and state are nested dicts, lists and tuples of tensors.
+Every tree is walked in JAX's flatten order (``utils.tree_flatten_with_path``:
+dict keys sorted), so a state has the reference's structure and a
+checkpoint's leaf keys match the reference's.  ``update`` is functional, as
+the reference's: it returns new params and state and changes none of its
+arguments.  It runs under ``torch.no_grad()`` on the params' device and never
+waits for the device: step counts and bias corrections stay tensors there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.utils import keystr, tree_flatten_with_path, tree_unflatten
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], tuple[Any, Any]]  # (grads, state, params)
+
+
+def _leaves(tree) -> list:
+    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(_leaves(tree), *map(_leaves, rest))])
+
+
+def _unzip(tree, outs: list, n: int) -> list:
+    """``n`` trees shaped as ``tree`` from a list of n-tuples, one a leaf."""
+    return [tree_unflatten(tree, [o[k] for o in outs]) for k in range(n)]
+
+
+def _device(tree) -> torch.device:
+    leaves = _leaves(tree)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def _step_count(tree) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=_device(tree))
+
+
+def make_sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return _map(torch.zeros_like, params)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if momentum == 0.0:
+            return _map(lambda p, g: p - lr * g.to(p.dtype), params, grads), state
+        new_state = _map(lambda m, g: momentum * m + g, state, grads)
+        new_params = _map(lambda p, m: p - lr * m.to(p.dtype), params, new_state)
+        return new_params, new_state
+
+    return Optimizer(init, update)
+
+
+def make_adam(
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> Optimizer:
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, dtype=F32)  # noqa: E731
+        return {"m": _map(zeros, params), "v": _map(zeros, params),
+                "t": _step_count(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        t = state["t"] + 1
+        bc1 = 1.0 - b1 ** t.to(F32)
+        bc2 = 1.0 - b2 ** t.to(F32)
+
+        def upd(p, g, m, v):
+            g = g.to(F32)
+            m1 = b1 * m + (1 - b1) * g
+            v1 = b2 * v + (1 - b2) * g * g
+            step = lr * (m1 / bc1) / (torch.sqrt(v1 / bc2) + eps)
+            if weight_decay:
+                step = step + lr * weight_decay * p.to(F32)
+            return (p.to(F32) - step).to(p.dtype), m1, v1
+
+        outs = [upd(*xs) for xs in zip(_leaves(params), _leaves(grads),
+                                        _leaves(state["m"]), _leaves(state["v"]))]
+        new_p, new_m, new_v = _unzip(params, outs, 3)
+        return new_p, {"m": new_m, "v": new_v, "t": t}
+
+    return Optimizer(init, update)
+
+
+def make_adafactor(
+    lr: float = 1e-2,
+    decay: float = 0.8,
+    eps: float = 1e-30,
+    clip_threshold: float = 1.0,
+) -> Optimizer:
+    """Adafactor (Shazeer & Stern) without momentum: factored 2nd moments for
+    params with ndim >= 2 (over the last two dims), full accumulator otherwise.
+    A stacked parameter (ndim >= 3) is updated layer by layer, a loop over its
+    leading dim, as the reference's ``lax.map``: each layer clips by its own RMS."""
+
+    def init(params):
+        def one(p):
+            if p.ndim >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], dtype=F32, device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=F32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=F32)}
+
+        return {"s": _map(one, params), "t": _step_count(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        t = state["t"] + 1
+        beta = 1.0 - t.to(F32) ** (-decay)
+
+        def upd_one(p, g, s):
+            """One logical (<= 2D-factored) parameter."""
+            g = g.to(F32)
+            g2 = g * g + eps
+            if "vr" in s:
+                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
+                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+                denom = vr.mean(dim=-1, keepdim=True)
+                r = (vr / torch.clamp_min(denom, eps))[..., None]
+                c = vc[..., None, :]
+                u = g * torch.rsqrt(torch.clamp_min(r * c, eps))
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = beta * s["v"] + (1 - beta) * g2
+                u = g * torch.rsqrt(torch.clamp_min(v, eps))
+                new_s = {"v": v}
+            rms_u = torch.sqrt(torch.mean(u * u) + eps)
+            u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
+            return (p.to(F32) - lr * u).to(p.dtype), new_s
+
+        def upd(p, g, s):
+            if p.ndim >= 3:
+                layers = [upd_one(p[i], g[i], {k: v[i] for k, v in s.items()})
+                          for i in range(p.shape[0])]
+                return (torch.stack([lp for lp, _ in layers]),
+                        {k: torch.stack([ls[k] for _, ls in layers]) for k in s})
+            return upd_one(p, g, s)
+
+        outs = [upd(*xs) for xs in zip(_leaves(params), _leaves(grads),
+                                        _subtrees(params, state["s"]))]
+        new_p, new_s = _unzip(params, outs, 2)
+        return new_p, {"s": new_s, "t": t}
+
+    return Optimizer(init, update)
+
+
+def _subtrees(prefix, tree) -> list:
+    """The subtrees of ``tree`` at the leaves of ``prefix``, whose nesting
+    ``tree`` extends (Adafactor's state dict of each parameter), in flatten
+    order: the reference's ``tree_map`` over params and state."""
+    if isinstance(prefix, dict):
+        return [x for k in sorted(prefix) for x in _subtrees(prefix[k], tree[k])]
+    if isinstance(prefix, (list, tuple)):
+        return [x for p, t in zip(prefix, tree) for x in _subtrees(p, t)]
+    return [] if prefix is None else [tree]
+
+
+def make_rowwise_adagrad(lr: float = 0.05, eps: float = 1e-8) -> Optimizer:
+    """One accumulator per embedding row (FBGEMM-style)."""
+
+    def init(params):
+        return _map(lambda p: torch.zeros(p.shape[:1], dtype=F32, device=p.device), params)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        def upd(p, g, a):
+            g = g.to(F32)
+            sq = g * g
+            if g.ndim > 1:
+                sq = sq.mean(dim=tuple(range(1, g.ndim)))
+            a1 = a + sq
+            shape = a1.shape + (1,) * (g.ndim - 1)
+            step = lr * g * torch.rsqrt(a1.reshape(shape) + eps)
+            return (p.to(F32) - step).to(p.dtype), a1
+
+        outs = [upd(*xs) for xs in zip(_leaves(params), _leaves(grads), _leaves(state))]
+        return tuple(_unzip(params, outs, 2))
+
+    return Optimizer(init, update)
+
+
+def make_composite(rules: list[tuple[str, Optimizer]]) -> Optimizer:
+    """Route params to optimizers by regex over the key path
+    (``utils.keystr``, e.g. ``"['emb']['table']"``).
+
+    rules: ordered [(pattern, optimizer)]; first match wins; last rule should
+    be a catch-all ('.*', default_opt).  The state is a list with one entry
+    per rule, each its optimizer's state over the list of its leaves."""
+
+    def _split(params):
+        flat = tree_flatten_with_path(params)
+        groups: list[list[int]] = [[] for _ in rules]
+        for i, (path, _) in enumerate(flat):
+            name = keystr(path)
+            for r, (pat, _) in enumerate(rules):
+                if re.search(pat, name):
+                    groups[r].append(i)
+                    break
+            else:
+                raise ValueError(f"no optimizer rule matches {name}")
+        return [leaf for _, leaf in flat], groups
+
+    def init(params):
+        leaves, groups = _split(params)
+        return [opt.init([leaves[i] for i in idxs])
+                for (_, opt), idxs in zip(rules, groups)]
+
+    def update(grads, state, params):
+        pleaves, groups = _split(params)
+        gleaves = _leaves(grads)
+        new_leaves: list = [None] * len(pleaves)
+        new_states = []
+        for (_, opt), idxs, st in zip(rules, groups, state):
+            new_p, new_s = opt.update([gleaves[i] for i in idxs], st,
+                                      [pleaves[i] for i in idxs])
+            for j, i in enumerate(idxs):
+                new_leaves[i] = new_p[j]
+            new_states.append(new_s)
+        return tree_unflatten(params, new_leaves), new_states
+
+    return Optimizer(init, update)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads * min(1, max_norm / norm), norm)``, norm the global L2 norm
+    as a 0-dim f32 tensor on the grads' device."""
+    leaves = _leaves(grads)
+    norm = torch.sqrt(sum(torch.sum(leaf.to(F32) ** 2) for leaf in leaves))
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    return _map(lambda g: g * scale.to(g.dtype), grads), norm

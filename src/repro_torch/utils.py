@@ -47,6 +47,58 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_flatten_with_path(tree: Any, is_leaf=None,
+                           _path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``[(path, leaf), ...]`` in JAX's flatten order: dict keys sorted,
+    lists and tuples by index; ``None`` and empty containers hold no leaf;
+    a subtree for which ``is_leaf`` is true is a leaf.  A path is the tuple
+    of keys and indices from the root, as
+    ``jax.tree_util.tree_flatten_with_path`` gives (``keystr`` prints it)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(_path, tree)]
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_flatten_with_path(tree[k], is_leaf, _path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in tree_flatten_with_path(v, is_leaf, _path + (i,))]
+    if tree is None:
+        return []
+    return [(_path, tree)]
+
+
+def keystr(path: tuple) -> str:
+    """The key string ``jax.tree_util.keystr`` gives for a path of
+    :func:`tree_flatten_with_path`: ``"['emb']['table']"``, ``"[0]"``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_unflatten(template: Any, leaves) -> Any:
+    """``template``'s nesting with its leaves replaced, in the order of
+    :func:`tree_flatten_with_path`, by ``leaves``; dicts keep the
+    template's insertion order."""
+    it = iter(leaves)
+    end = object()
+
+    def fill(t):
+        if isinstance(t, dict):
+            out = {k: fill(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)([fill(v) for v in t])
+        if t is None:
+            return None
+        leaf = next(it, end)
+        if leaf is end:
+            raise ValueError("fewer leaves than the template holds")
+        return leaf
+
+    out = fill(template)
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
 def tree_map(fn, tree: Any) -> Any:
     """Apply ``fn`` to every leaf, keeping the nesting."""
     if isinstance(tree, dict):
