@@ -9,7 +9,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 K3 (hot-cache probe + gather + pool), K4 (swap-in scatter),
                 K5 (top-k neighbor select), K6 (flash attention) and K7
                 (flash decode) from src/repro_torch/csrc/, one nvcc per
-                source, all in parallel, and prints each kernel's -Xptxas -v
+                source, all in parallel (with K1''s planted fault for phase
+                5f beside them), and prints each kernel's -Xptxas -v
                 registers, spills and performance warnings;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (TF32 off): K1 in its masked and
@@ -75,15 +76,21 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 against the plain version on the CPU, K1's tolerance against
                 the card's, whose index_add_ adds with atomics) and at nnz 1, 3,
                 4, 1003 bags, ids outside [0, V), D 17 and 64 (masked: NaN
-                in the all-padding bags' gradient); K2' at
+                in the all-padding bags' gradient); K1' into a buffer
+                filled with NaN first (its output is torch.empty: every row
+                must be written), and a planted fault that the bit check
+                must refuse (a build whose fill skips the last row, which
+                no live slot names); one row named by every slot (a run of
+                26,624), every slot masked (all zeros), a table of
+                16,777,216 rows (4.3 GB); K2' at
                 [256, 27, 64] and every serve bucket; each timed beside its
                 plain version, ``index_add_`` / ``torch.bmm`` and its bound;
                 one train step on the card (K1 masked, K1', K2, K2' once
                 each) against the same step on the CPU with NaN in the rows
                 padding alone names: finite loss, every gradient leaf, then
                 params and optimizer state; the step's device time in a
-                profiled window; 12 steps on two alternating fixed batches
-                (the loss must fall); ``launch.train`` at its defaults (200
+                profiled window (K1' one kernel, no library sort in it); 12
+                steps on two alternating fixed batches (the loss must fall); ``launch.train`` at its defaults (200
                 steps, K1 masked, K1', K2 and K2' once a step), and the
                 restart through its flags: ``--steps 100 --ckpt-dir`` saves
                 step 99, ``--resume --steps 200`` runs 100-199 and ends at
@@ -197,6 +204,11 @@ TRAIN_GRAD_TOL = (1e-5, 1e-6)  # loss and gradients, card vs CPU: f32, other sum
 # few 1e-6 (K1's own tolerance); against the plain version on the CPU, which
 # adds in slot order as K1' does, bit for bit.
 K1B_TOL = (1e-5, 1e-5)
+# K1''s planted fault: its fill made to skip the table's last row, which no
+# live slot of the trainer's batch names (the phase checks that)
+K1B_PLANT = ("      if (jq < total && !((word >> (r & 31)) & 1u))",
+             "      if (jq < total && !((word >> (r & 31)) & 1u) && r != a.num_rows - 1)")
+K1B_BIG_ROWS = 16_777_216  # K1' into a 4.3 GB table: a bitmap of 2^24 rows
 TRAIN_STEP_TOL = (1e-4, 1e-6)  # params and optimizer state after the step
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
@@ -386,6 +398,32 @@ def assert_bits(name: str, got, want) -> float:
     return 0.0
 
 
+def assert_bits_refused(name: str, planted, want) -> None:
+    """The check of ``assert_bits`` must fail on a planted fault."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    rows = (planted.view(ints[planted.dtype]) != want.view(ints[want.dtype])).any(-1)
+    if not bool(rows.any()):
+        raise AssertionError(f"{name}: the bit check accepts a planted fault")
+    log(f"  {name}: refused, {int(rows.sum())} row(s) differ, first at "
+        f"{int(rows.nonzero()[0, 0])}")
+
+
+def start_planted_build(build) -> tuple[subprocess.Popen, Path]:
+    """nvcc of ``embedding_bag.cu`` with K1''s fill made to skip the last
+    row (``K1B_PLANT``), started beside the kernels' own builds."""
+    out = ROOT / "build" / "chip_smoke_planted"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (build.CSRC / "embedding_bag.cu").read_text()
+    if src.count(K1B_PLANT[0]) != 1:
+        raise AssertionError("K1''s planted fault: its anchor is not once in embedding_bag.cu")
+    cu = out / "embedding_bag.cu"
+    cu.write_text(src.replace(*K1B_PLANT))
+    so = out / "libembedding_bag_planted.so"
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
 def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
     """Two trees of tensors with the same key strings in JAX's flatten order,
     no leaf missing, each leaf of the same shape and dtype and allclose (NaN
@@ -490,6 +528,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
+    planted_build, planted_so = start_planted_build(build)  # used in phase 5f
     report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME, K6.NAME,
                           K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
@@ -1318,6 +1357,68 @@ def main() -> int:
         check_k1b(f"K1' masked nnz {nnz_e} D {width} [{bags_e} bags, ids in "
                   f"[-50, {V_e + 50}), NaN in the all-padding bags' gradient]", got,
                   g_e, ids_e, w_e, V_e, True)
+    # torch.empty and one write a row: K1' into a buffer filled with NaN
+    # first (the caching allocator hands the freed buffer back), and a
+    # planted fault, a fill that skips the last row, which the check refuses
+    k1b_cpu = ref.embedding_bag_backward_ref(g_t.cpu(), ids_t.cpu(), w_t.cpu(), V_t,
+                                             masked=True)
+
+    def k1b_into_nan() -> torch.Tensor:
+        buf = torch.full((V_t, D_t), float("nan"), device=dev)
+        ptr = buf.data_ptr()
+        del buf
+        out = K1.embedding_bag_backward(g_t, ids_t, w_t, V_t, masked=True)
+        if out.data_ptr() != ptr:
+            raise AssertionError("K1''s output is not the NaN-filled buffer just freed")
+        return out
+
+    assert_bits("K1' into a NaN-filled buffer vs its plain version on the CPU",
+                k1b_into_nan().cpu(), k1b_cpu)
+    if bool((live_t == V_t - 1).any()):
+        raise AssertionError(f"row {V_t - 1} is live: the planted fault needs an untouched row")
+    plant_log, _ = planted_build.communicate()
+    if planted_build.returncode:
+        raise RuntimeError(f"nvcc failed for K1''s planted fault:\n{plant_log}")
+    build.use_library(K1.NAME, planted_so)
+    try:
+        planted = k1b_into_nan().cpu()
+    finally:
+        build.use_library(K1.NAME, build.library_path(K1.NAME))
+    assert_bits_refused(f"K1' with its fill made to skip row {V_t - 1}, into a NaN-filled "
+                        "buffer", planted, k1b_cpu)
+    del planted, k1b_cpu
+    # one row named by every slot: a run of all 26,624
+    hot_ids = torch.full_like(ids_t, V_t // 2)
+    hot_w = torch.ones_like(w_t)
+    hot = K1.embedding_bag_backward(g_t, hot_ids, hot_w, V_t, masked=True)
+    assert_equal("K1' one row named by every slot, twice",
+                 K1.embedding_bag_backward(g_t, hot_ids, hot_w, V_t, masked=True), hot)
+    assert_bits(f"K1' one row named by all {hot_ids.numel()} slots vs its plain version on "
+                "the CPU", hot.cpu(), ref.embedding_bag_backward_ref(
+                    g_t.cpu(), hot_ids.cpu(), hot_w.cpu(), V_t, masked=True))
+    del hot
+    # every slot masked, NaN in every bag's gradient: all zeros
+    none = K1.embedding_bag_backward(torch.full_like(g_t, float("nan")), ids_t,
+                                     torch.zeros_like(w_t), V_t, masked=True)
+    assert_bits("K1' every slot masked, NaN in every bag's gradient: all zeros", none,
+                torch.zeros_like(none))
+    del none
+    # a table of 16,777,216 rows (4.3 GB): touched rows against the plain
+    # version on the card, every other row exactly 0
+    ids_big = torch.randint(0, K1B_BIG_ROWS, ids_t.shape, device=dev, generator=egen,
+                            dtype=torch.int32)
+    big = K1.embedding_bag_backward(g_t, ids_big, w_t, K1B_BIG_ROWS, masked=True)
+    rows_big = torch.unique(ids_big[w_t != 0].long())
+    assert_close(f"K1' into [{K1B_BIG_ROWS}, {D_t}] ({big.numel() * 4 / 1e9:.1f} GB), its "
+                 f"{rows_big.numel()} touched rows", big[rows_big], ref.embedding_bag_backward_ref(
+                     g_t, ids_big, w_t, K1B_BIG_ROWS, masked=True)[rows_big], *K1B_TOL)
+    norms = torch.linalg.vector_norm(big, 1, dim=1)
+    norms[rows_big] = 0.0
+    if bool(norms.any()):
+        raise AssertionError(f"K1' left {int((norms != 0).sum())} untouched rows of the "
+                             f"{K1B_BIG_ROWS}-row table nonzero")
+    log(f"  the other {K1B_BIG_ROWS - rows_big.numel()} rows are exactly 0")
+    del big, norms
     F_t = tcfg.num_fields + 1
     x_tr = torch.randn((TRAIN_BATCH, F_t, D_t), device=dev, generator=tgen)
     gt_tr = torch.randn((TRAIN_BATCH, F_t * (F_t + 1) // 2), device=dev, generator=tgen)
@@ -1349,6 +1450,11 @@ def main() -> int:
                 0, live_idx, contrib), tflush),
             "max_abs_err": k1b_err, "bit_equal_to_cpu_plain": True,
             "case": f"masked, [{bags_t} bags x {nnz_t}] -> [{V_t}, {D_t}] f32",
+            "hot_row_ms": cuda_ms(lambda: K1.embedding_bag_backward(
+                g_t, hot_ids, hot_w, V_t, masked=True), tflush, reps=5, warmup=1),
+            "big_table": {"rows": K1B_BIG_ROWS, "ms": cuda_ms(lambda: K1.embedding_bag_backward(
+                g_t, ids_big, w_t, K1B_BIG_ROWS, masked=True), tflush, reps=5, warmup=1),
+                "bound_ms": bound(K1B_BIG_ROWS * D_t * 4, 0)[0]},
         },
         "dot_interaction": {
             "ms": cuda_ms(lambda: K2.dot_interaction_backward(x_tr, gt_tr), tflush),
@@ -1364,6 +1470,7 @@ def main() -> int:
         2 * x_tr.numel() * 4 + TRAIN_BATCH * n_tri * 4, 2 * TRAIN_BATCH * F_t * F_t * D_t)
     log("[train] backward kernels: " + json.dumps(backward))
     del tflush, contrib, live_idx, g_full, s_full, x_tr, gt_tr, k1b_out, got
+    del hot_ids, hot_w, ids_big, rows_big
 
     # one train step on the card against the same step on the CPU (plain
     # versions), from the same params, with NaN in the rows padding alone names
@@ -1423,9 +1530,12 @@ def main() -> int:
     del cpu_params, cpu_batch, grads_h, p1h, s1h, grads_c, p1c, s1c, p1s, s1s, p1o
     table_t.normal_(0.0, 0.01, generator=tgen)  # no NaN in the timed window
     train_profile = device_busy(lambda: step_fn(tparams, st_c, tbatch), 3, kernels=(
-        "embedding_bag_kernel", "bag_backward_keys_kernel", "bag_backward_kernel<",
-        "DeviceRadixSort", "dot_interaction_kernel", "dot_interaction_backward_kernel",
-        "FillFunctor", "gemm"))
+        "embedding_bag_kernel", "bag_backward_kernel<", "dot_interaction_kernel",
+        "dot_interaction_backward_kernel", "FillFunctor", "DeviceRadixSort", "gemm"))
+    if train_profile["kernels_ms_per_call"]["bag_backward_kernel<"] <= 0 \
+            or train_profile["kernels_ms_per_call"]["DeviceRadixSort"] > 0:
+        raise AssertionError("the step's profile shows no K1' kernel, or a library sort: "
+                             f"{train_profile['kernels_ms_per_call']}")
     # the trainer's step function learns: two alternating fixed batches
     fit_batches = [{k: torch.from_numpy(v).to(dev) for k, v in syn.recsys_batch(
         np.random.default_rng(i), tcfg.tables, TRAIN_BATCH, n_dense=tcfg.n_dense).items()}

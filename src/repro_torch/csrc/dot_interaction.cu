@@ -55,16 +55,29 @@
 //   dx[b] = (G[b] + G[b]^T) x[b],   G[b] = the triangle's gradient laid into
 //   [F, F] (zero below the diagonal), so it counts twice on the diagonal.
 //
-// What bounds it on the card: bytes.  Per sample it reads F*D inputs and
-// F(F+1)/2 gradients and writes F*D outputs for 2*F*F*D flops, about 6.5
-// flops a byte at F = 27, D = 64, under the card's f32 ridge.
+// What bounds it on the card: bytes on paper.  Per sample it reads F*D
+// inputs and F(F+1)/2 gradients and writes F*D outputs for 2*F*F*D flops,
+// about 6.5 flops a byte at F = 27, D = 64, under the card's f32 ridge; at
+// the trainer's [256, 27, 64] the bytes take 1.2 us.  In practice latency
+// decides it: a block's chain of loading its sample, computing and storing,
+// and how many such chains are in flight.
 //
-// What the design does about it: one block of 128 threads a sample at a
-// time (a grid-stride loop over at most 16 blocks an SM).  The block copies
-// the sample's rows and builds S = G + G^T in shared memory, then each
-// thread computes outputs (i, d) in the order of the output, so a warp's
-// stores and its reads of x[j, d] are consecutive and its reads of S[i, j]
-// one broadcast address.  Sums run over j in order in f32 FMAs, no TF32.
+// What the design does about it:
+//  * More work in flight.  A block takes one sample and a block of rows i
+//    (the host's plan, kernels/dot_interaction.py::backward_plan): at
+//    [256, 27, 64] 4 blocks of 8 rows a sample, 1,024 blocks of 64 threads,
+//    all resident at once, against one 128-thread block a sample before.
+//  * 16-byte cp.async of the sample's rows into shared memory (4-byte
+//    pieces for the triangle's gradient, whose rows are not 16-byte
+//    aligned, and for rows that are not whole 16-byte vectors).
+//  * No unpack of S = G + G^T.  A thread reads S[i][j] straight from the
+//    triangle: below the diagonal at off(j) + i - j, on and above it at
+//    off(i) + j - i, off(r) = r F - r (r - 1) / 2 kept as j runs, the
+//    diagonal doubled; no division, no [F, F] copy, no second barrier.
+//  * Registers hold the sums.  A thread owns one 16-byte column vector of
+//    RT rows i, so each x[j] vector it reads feeds 4 RT FMAs, and stores
+//    dx as float4.  Each output is fmaf over j ascending from 0, as in the
+//    one-block-a-sample design before it, so the bits are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,58 +278,146 @@ int launch(const void* x, void* out, long long batch, int F, int D, void* stream
 
 // ---- K2': dot_interaction_backward
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdBlocksPerSm = 16;
+constexpr int kBwdMaxThreads = 128;  // the plan's threads a block, at most
 
-size_t backward_smem(int F, int D) { return (size_t)(F * F + F * D) * sizeof(float); }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
 
-__global__ void __launch_bounds__(kBwdThreads)
+size_t backward_smem(int F, int D) {
+  return (size_t)((long long)F * D + (long long)F * (F + 1) / 2) * sizeof(float);
+}
+
+// Block: sample blockIdx.x / row_blocks, rows [rb RB, rb RB + RB) with
+// RB = row_threads RT.  Thread (ct, rt): column vectors ct, ct +
+// col_threads, ... of rows rb RB + rt + k row_threads, k < RT.
+template <int VEC, int RT>
+__global__ void __launch_bounds__(kBwdMaxThreads)
     dot_interaction_backward_kernel(const float* __restrict__ x,
                                     const float* __restrict__ grad_tri,
-                                    float* __restrict__ dx, long long batch, int F, int D) {
-  extern __shared__ float bwd_smem[];
-  float* S = bwd_smem;           // [F, F]: G + G^T
-  float* xs = bwd_smem + F * F;  // [F, D]: the sample's rows
+                                    float* __restrict__ dx, int F, int D, int col_threads,
+                                    int row_threads, int row_blocks) {
+  extern __shared__ float4 bwd_smem[];
+  float* xs = reinterpret_cast<float*>(bwd_smem);  // [F, D]: the sample's rows
+  float* tri = xs + F * D;                         // [F(F+1)/2]: its triangle's gradient
   const int FD = F * D;
   const int T = F * (F + 1) / 2;
-  for (long long b = blockIdx.x; b < batch; b += gridDim.x) {
-    const float* xb = x + b * FD;
-    const float* gb = grad_tri + b * T;
-    for (int e = threadIdx.x; e < FD; e += kBwdThreads) xs[e] = xb[e];
-    for (int e = threadIdx.x; e < F * F; e += kBwdThreads) {
-      const int i = e / F, j = e - i * F;
-      const int lo = i < j ? i : j, hi = i < j ? j : i;
-      const float g = gb[lo * F - lo * (lo - 1) / 2 + (hi - lo)];  // np.triu_indices order
-      S[e] = i == j ? g + g : g;
+  const long long b = blockIdx.x / row_blocks;
+  const int rb = (int)(blockIdx.x - b * row_blocks);
+  const int threads = col_threads * row_threads;
+  const int t = threadIdx.x;
+  const float* xb = x + b * FD;
+  const float* gb = grad_tri + b * T;
+  if constexpr (VEC == 4) {
+    for (int e = t; e < FD / 4; e += threads) cp_async16(xs + 4 * e, xb + 4 * e);
+  } else {
+    for (int e = t; e < FD; e += threads) cp_async4(xs + e, xb + e);
+  }
+  for (int e = t; e < T; e += threads) cp_async4(tri + e, gb + e);
+  cp_async_commit();
+
+  const int ct = t % col_threads, rt = t / col_threads;
+  int rows[RT], off[RT];
+  bool ok[RT];
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    const int i = (rb * RT + k) * row_threads + rt;
+    ok[k] = i < F;
+    rows[k] = ok[k] ? i : F - 1;
+    off[k] = rows[k] * F - rows[k] * (rows[k] - 1) / 2;  // where row i starts in the triangle
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* ob = dx + b * FD;
+  const int nv = D / VEC;
+  for (int c = ct; c < nv; c += col_threads) {
+    float acc[RT][VEC];
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[k][v] = 0.f;
+    int offj = 0;  // off(j)
+#pragma unroll 4
+    for (int j = 0; j < F; ++j) {
+      float xv[VEC];
+      if constexpr (VEC == 4) {
+        const float4 f = *reinterpret_cast<const float4*>(xs + j * D + 4 * c);
+        xv[0] = f.x;
+        xv[1] = f.y;
+        xv[2] = f.z;
+        xv[3] = f.w;
+      } else {
+        xv[0] = xs[j * D + c];
+      }
+#pragma unroll
+      for (int k = 0; k < RT; ++k) {
+        const int i = rows[k];
+        float s = j < i ? tri[offj + i - j] : tri[off[k] + j - i];  // np.triu_indices order
+        if (j == i) s = s + s;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[k][v] = fmaf(s, xv[v], acc[k][v]);
+      }
+      offj += F - j;
     }
-    __syncthreads();
-    float* ob = dx + b * FD;
-    for (int e = threadIdx.x; e < FD; e += kBwdThreads) {
-      const int i = e / D, d = e - i * D;
-      const float* si = S + i * F;
-      float acc = 0.f;
-      for (int j = 0; j < F; ++j) acc = fmaf(si[j], xs[j * D + d], acc);
-      ob[e] = acc;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      if (!ok[k]) continue;
+      float* o = ob + rows[k] * D + c * VEC;
+      if constexpr (VEC == 4)
+        *reinterpret_cast<float4*>(o) = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      else
+        o[0] = acc[k][0];
     }
-    __syncthreads();  // S and xs are free for the next sample
   }
 }
 
+template <int VEC, int RT>
+int launch_backward_one(const void* x, const void* grad_tri, void* dx, long long batch, int F,
+                        int D, int col_threads, int row_threads, int row_blocks, size_t smem,
+                        void* stream) {
+  auto kernel = dot_interaction_backward_kernel<VEC, RT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)(batch * row_blocks), col_threads * row_threads, smem,
+           (cudaStream_t)stream>>>((const float*)x, (const float*)grad_tri, (float*)dx, F, D,
+                                   col_threads, row_threads, row_blocks);
+  return (int)cudaGetLastError();
+}
+
+// The host's plan is checked here, not trusted: a wrong one is refused.
 int launch_backward(const void* x, const void* grad_tri, void* dx, long long batch, int F,
-                    int D, void* stream) {
+                    int D, int vec, int rows_per_thread, int col_threads, int row_threads,
+                    int row_blocks, void* stream) {
   if (batch <= 0) return 0;
   const size_t smem = backward_smem(F, D);
-  if (F <= 0 || D <= 0 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(dot_interaction_backward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (long long)sm_count() * kBwdBlocksPerSm;
-  if (blocks > batch) blocks = batch;
-  dot_interaction_backward_kernel<<<(unsigned)blocks, kBwdThreads, smem,
-                                    (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)grad_tri, (float*)dx, batch, F, D);
-  return (int)cudaGetLastError();
+  const bool aligned = (((uintptr_t)x | (uintptr_t)dx) & 15u) == 0;
+  const int threads = col_threads * row_threads;
+  if (F <= 0 || D <= 0 || smem > (size_t)kMaxSmem || (vec != 1 && vec != 4) || D % vec ||
+      (vec == 4 && !aligned) || col_threads <= 0 || row_threads <= 0 || threads > kBwdMaxThreads ||
+      row_blocks <= 0 || (long long)row_blocks * row_threads * rows_per_thread < F ||
+      batch * row_blocks >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+#define K2B_CASE(V, R)                                                                      \
+  if (vec == V && rows_per_thread == R)                                                     \
+    return launch_backward_one<V, R>(x, grad_tri, dx, batch, F, D, col_threads, row_threads, \
+                                     row_blocks, smem, stream);
+  K2B_CASE(4, 1)
+  K2B_CASE(4, 2)
+  K2B_CASE(4, 3)
+  K2B_CASE(4, 4)
+  K2B_CASE(1, 1)
+  K2B_CASE(1, 2)
+  K2B_CASE(1, 3)
+  K2B_CASE(1, 4)
+#undef K2B_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -336,10 +437,15 @@ int dot_interaction_bf16(const void* x, void* out, long long batch, int F,
 }
 
 // K2': x [batch, F, D] f32, grad_tri [batch, F(F+1)/2] f32 (np.triu_indices
-// order), dx [batch, F, D] f32.  Returns cudaGetLastError().
+// order), dx [batch, F, D] f32.  vec (4: D % 4 == 0 and x, dx on 16-byte
+// boundaries; or 1), rows_per_thread (1-4), col_threads, row_threads and
+// row_blocks are the host's plan.  Returns cudaGetLastError().
 int dot_interaction_backward_f32(const void* x, const void* grad_tri, void* dx,
-                                 long long batch, int F, int D, void* stream) {
-  return launch_backward(x, grad_tri, dx, batch, F, D, stream);
+                                 long long batch, int F, int D, int vec, int rows_per_thread,
+                                 int col_threads, int row_threads, int row_blocks,
+                                 void* stream) {
+  return launch_backward(x, grad_tri, dx, batch, F, D, vec, rows_per_thread, col_threads,
+                         row_threads, row_blocks, stream);
 }
 
 const char* dot_interaction_error_string(int code) {

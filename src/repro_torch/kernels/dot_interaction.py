@@ -7,12 +7,14 @@ a CPU tensor to the plain version (``ref.dot_interaction_ref``).  Unlike the
 TPU kernel it takes any batch size: there is no ``block_b``.
 
 ``dot_interaction_backward`` is kernel K2' (same source): the gradient of the
-gram matrix's upper triangle, ``dx = (G + G^T) x``; ``ops.dot_interaction_triu``
-wires K2 and K2' into autograd for CUDA tensors.
+gram matrix's upper triangle, ``dx = (G + G^T) x``, a block a sample and a
+block of rows (``backward_plan``, the host's launch plan);
+``ops.dot_interaction_triu`` wires K2 and K2' into autograd for CUDA tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,12 +29,18 @@ _SYMBOLS = {torch.float32: "dot_interaction_f32",
 MAX_SMEM = 232448  # bytes of shared memory one block can hold (227 KB)
 
 BWD_SYMBOL = "dot_interaction_backward_f32"
-_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
+BWD_THREADS = 64  # threads a K2' block (at most kBwdMaxThreads = 128)
+BWD_ROWS_PER_THREAD = 2  # rows i a thread sums (1-4: the source's instantiations)
 _SIGNATURES = {**{sym: _ARGS for sym in _SYMBOLS.values()}, BWD_SYMBOL: _BWD_ARGS}
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_backward = 0  # K2' launches
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def sample_smem_bytes(F: int, D: int, itemsize: int) -> int:
@@ -68,7 +76,7 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     """``[B, F, D]`` f32 | bf16 CUDA tensor -> ``[B, F, F]`` f32, kernel K2."""
     global launches
     check_inputs(x)
-    if x.device.type != "cuda":
+    if not _on_cuda(x):
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors, got {x.device}; "
             "ops.dot_interaction_triu routes CPU tensors to the plain version"
@@ -87,9 +95,33 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
 
 
 def backward_smem_bytes(F: int, D: int) -> int:
-    """Shared memory K2' needs for one sample: S = G + G^T [F, F] and the
-    sample's rows [F, D], f32 (``backward_smem`` in the source)."""
-    return (F * F + F * D) * 4
+    """Shared memory a K2' block needs: the sample's rows [F, D] and its
+    triangle's gradient [F(F+1)/2], f32 (``backward_smem`` in the source)."""
+    return (F * D + F * (F + 1) // 2) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    vec: int  # f32 a thread loads and stores at once: 4 (16 bytes) or 1
+    col_threads: int  # threads across a row's vectors: a power of two, <= 32
+    row_threads: int  # threads down the rows; a block is col_threads x row_threads
+    rows_per_thread: int  # rows i a thread sums, row_threads apart
+    row_blocks: int  # blocks a sample: each takes row_threads x rows_per_thread rows
+
+
+def backward_plan(F: int, D: int, aligned: bool) -> BackwardPlan:
+    """K2''s launch: ``BWD_THREADS`` threads a block, ``col_threads`` of them
+    across a row's 16-byte vectors (4-byte where D or the pointers are not
+    16-byte multiples; a power of two up to 32, looping over wider rows),
+    the rest down the rows, ``BWD_ROWS_PER_THREAD`` rows each; a sample takes
+    as many blocks as its F rows need."""
+    vec = 4 if aligned and D % 4 == 0 else 1
+    cols = 1
+    while cols < min(D // vec, 32):
+        cols *= 2
+    rows = max(1, BWD_THREADS // cols)
+    per = BWD_ROWS_PER_THREAD
+    return BackwardPlan(vec, cols, rows, per, -(-F // (rows * per)))
 
 
 def dot_interaction_backward(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.Tensor:
@@ -97,11 +129,6 @@ def dot_interaction_backward(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.T
     matrix's upper triangle ``grad_tri`` ``[B, F(F+1)/2]`` f32 (the order of
     ``np.triu_indices(F)``), kernel K2'."""
     global launches_backward
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"{NAME}_backward kernel takes CUDA tensors, got {x.device}; "
-            "on the CPU autograd differentiates the plain version"
-        )
     if x.dtype != torch.float32 or grad_tri.dtype != torch.float32:
         raise TypeError(f"{NAME}_backward: x and grad_tri must be f32, got "
                         f"{x.dtype} and {grad_tri.dtype}")
@@ -116,11 +143,18 @@ def dot_interaction_backward(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.T
         raise ValueError(f"{NAME}_backward: one [F={F}, D={D}] sample needs "
                          f"{backward_smem_bytes(F, D)} bytes of shared memory, over the "
                          f"{MAX_SMEM} a block holds")
+    if not _on_cuda(x):
+        raise ValueError(
+            f"{NAME}_backward kernel takes CUDA tensors, got {x.device}; "
+            "on the CPU autograd differentiates the plain version"
+        )
     dx = torch.empty_like(x)
     lib = build.load(NAME, _SIGNATURES)
+    plan = backward_plan(F, D, (x.data_ptr() | dx.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
         code = getattr(lib, BWD_SYMBOL)(
-            x.data_ptr(), grad_tri.data_ptr(), dx.data_ptr(), B, F, D,
+            x.data_ptr(), grad_tri.data_ptr(), dx.data_ptr(), B, F, D, plan.vec,
+            plan.rows_per_thread, plan.col_threads, plan.row_threads, plan.row_blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, NAME, code)

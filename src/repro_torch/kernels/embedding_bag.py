@@ -9,8 +9,13 @@ plain version (``ref.embedding_bag_ref``).  Two modes, one source: weighted
 the launch geometry, computed here on the host.
 
 ``embedding_bag_backward`` is kernel K1', the table's gradient (same source):
-a keys kernel, ``torch.sort`` of the keys, and a kernel that sums each row's
-slots in slot order, so the gradient is the same bit for bit on every run.
+one cooperative launch that writes every row of the dense gradient once,
+zeros where no live slot names the row and elsewhere the row's slots summed
+in slot order, so the gradient is the same bit for bit on every run.  It
+groups the slots by row itself (a bitmap, a hash table and a slot list kept
+per (device, stream) in ``_bwd_scratch``); ``backward_scratch_sizes``,
+``backward_table_bits``, ``backward_blocks`` and ``BackwardState`` are its
+host-side plan.
 ``ops.embedding_bag`` wires both into autograd for CUDA tables.
 """
 from __future__ import annotations
@@ -36,21 +41,28 @@ _OCC_ARGS = [ctypes.c_int] * 3
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SYMBOLS = {dt: f"{NAME}_{s}" for dt, s in _DTYPES.items()}
 _OCC_SYMBOLS = {dt: f"{NAME}_occupancy_{s}" for dt, s in _DTYPES.items()}
-BWD_KEYS_SYMBOL = f"{NAME}_backward_keys"  # K1'
-BWD_SYMBOL = f"{NAME}_backward_f32"
+BWD_SYMBOL = f"{NAME}_backward_f32"  # K1'
+BWD_OCC_SYMBOL = f"{NAME}_backward_occupancy"
 _SIGNATURES = {
     **{s: _ARGS for s in _SYMBOLS.values()},
     **{s: _OCC_ARGS for s in _OCC_SYMBOLS.values()},
-    BWD_KEYS_SYMBOL: [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p],
-    BWD_SYMBOL: [ctypes.c_void_p] * 5 + [
+    BWD_SYMBOL: [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_void_p],
+    BWD_OCC_SYMBOL: [ctypes.c_int],
 }
 _WIDE_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
-BWD_BLOCKS_PER_SM = 8  # the backward kernels' grid cap: 8 blocks of 256 threads an SM
-MAX_ROWS = 2**31 - 2  # K1' keys are int32, with V itself marking a masked slot
+# K1''s launch: one wave of 256-thread blocks (warps 0-1 group, the other
+# warps fill, all sum), at most BWD_BLOCKS_PER_SM an SM (2 ran faster than
+# 3 or 4: fewer barrier arrivals, the fill's loads ahead of its stores)
+BWD_BLOCKS_PER_SM = 2
+BWD_SORT_CAP = 128  # runs up to this long are ordered by rank (kSortCap)
+BWD_WINDOW = 32 * BWD_SORT_CAP  # longer runs: slots a bitmap window spans (kWindow)
+BWD_COUNTERS = 8 * 32  # grid-wide counts, one 128-byte line each (kCounters)
+MAX_ROWS = 2**31 - 2  # K1' keeps rows + 1 and slots as 32-bit words
+MAX_SLOTS = 2**30  # the slot table holds at least 2N entries, at most 2^31
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_masked = 0  # those of them in the masked mode
@@ -58,6 +70,15 @@ launches_backward = 0  # K1' launches
 
 _occupancy: dict[tuple, int] = {}  # blocks an SM holds, by resident_blocks' key
 _occupancy_lock = threading.Lock()
+# K1''s scratch by (device, stream): {name: tensor}, see backward_scratch_sizes,
+# and the next launch's number and bitmap half (BackwardState)
+_bwd_scratch: dict[tuple, dict[str, torch.Tensor]] = {}
+_bwd_state: dict[tuple, "BackwardState"] = {}
+_bwd_scratch_lock = threading.Lock()
+# the parts made as zeros: K1' leaves the counters, keys and counts at zero,
+# clears each bitmap half the launch after it marks it, and releases a
+# phase by writing its launch number (never 0) into the flags
+BWD_ZEROED = ("counters", "flags", "bitmap", "keys", "counts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +199,77 @@ def embedding_bag(
     return out
 
 
+def backward_table_bits(n_slots: int) -> int:
+    """log2 of K1''s slot table: the least power of two with at least
+    ``2 n_slots`` entries (and at least 2), so an open-addressed insert of
+    every slot's row finds a free entry within a few probes."""
+    return max(1, (2 * n_slots - 1).bit_length())
+
+
+def backward_scratch_sizes(n_slots: int, num_rows: int, blocks: int) -> dict[str, int]:
+    """The int32 elements of each part of K1''s scratch for ``n_slots``
+    slots into ``num_rows`` rows on a grid of ``blocks`` (each at least 1):
+    the grid-wide counters, a 128-byte flag line a block, two halves of a
+    bitmap of the rows, the slot table's keys, counts and run starts, and
+    per slot the entries in use, their runs (4 words each), each slot's
+    entry and the slot list."""
+    table = 1 << backward_table_bits(n_slots)
+    n = max(1, n_slots)
+    return {"counters": BWD_COUNTERS, "flags": 32 * blocks, "bitmap": 2 * -(-num_rows // 32),
+            "keys": table, "counts": table, "ebase": table, "elist": n, "runs": 4 * n,
+            "slot_entry": n, "list": n}
+
+
+def backward_blocks(sms: int, per_sm: int) -> int:
+    """K1''s grid: one wave of resident blocks (its cooperative launch takes
+    no more), at most ``BWD_BLOCKS_PER_SM`` an SM."""
+    return sms * max(1, min(per_sm, BWD_BLOCKS_PER_SM))
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardState:
+    """What one K1' launch on a scratch hands the next.  ``epoch`` is the
+    launch's number (never 0), which its barriers write into the flags, so
+    no flag is ever reset.  The bitmap is two halves: a launch marks half
+    ``parity``, which is all zero, and clears the first
+    ``dirty[1 - parity]`` words of the other, the marks of the launch
+    before it, so no fill warp waits for every other to be done with a word
+    before the word is cleared."""
+    epoch: int = 1
+    parity: int = 0
+    dirty: tuple[int, int] = (0, 0)
+
+    def stale_words(self) -> int:
+        return self.dirty[1 - self.parity]
+
+    def after(self, words: int) -> "BackwardState":
+        """The state once this launch has marked ``words`` words of its half."""
+        dirty = [0, 0]
+        dirty[self.parity] = words
+        return BackwardState(self.epoch % 0xFFFFFFFF + 1, 1 - self.parity, tuple(dirty))
+
+
+def backward_scratch(device: torch.device, stream: int, n_slots: int, num_rows: int,
+                     blocks: int) -> dict[str, torch.Tensor]:
+    """K1''s scratch kept for (device, stream), each part made or grown (to
+    twice its size at least) when a launch needs more.  The parts in
+    ``BWD_ZEROED`` are zeroed only when made (a new bitmap's halves start
+    clean; the launch numbers go on).  Call with ``_bwd_scratch_lock`` held."""
+    need = backward_scratch_sizes(n_slots, num_rows, blocks)
+    key = (device, stream)
+    parts = _bwd_scratch.setdefault(key, {})
+    state = _bwd_state.setdefault(key, BackwardState())
+    for name, size in need.items():
+        have = parts.get(name)
+        if have is None or have.numel() < size:
+            size = max(size, 2 * (0 if have is None else have.numel()))
+            make = torch.zeros if name in BWD_ZEROED else torch.empty
+            parts[name] = make((size,), dtype=torch.int32, device=device)
+            if name == "bitmap":
+                _bwd_state[key] = BackwardState(epoch=state.epoch)
+    return dict(parts)
+
+
 def embedding_bag_backward(
     grad_out: torch.Tensor,  # [num_bags, D] f32, CUDA, contiguous
     indices: torch.Tensor,  # [N] int32, N = num_bags * nnz
@@ -211,25 +303,29 @@ def embedding_bag_backward(
                          f"bags={num_bags}, D={D})")
     if not 0 < num_rows <= MAX_ROWS:
         raise ValueError(f"{NAME}_backward: {num_rows} rows outside (0, {MAX_ROWS}]")
-    grad = torch.zeros((num_rows, D), dtype=torch.float32, device=grad_out.device)
-    if N == 0:
-        return grad
+    if N > MAX_SLOTS:
+        raise ValueError(f"{NAME}_backward: {N} slots over {MAX_SLOTS}")
+    grad = torch.empty((num_rows, D), dtype=torch.float32, device=grad_out.device)
     lib = build.load(NAME, _SIGNATURES)
     vec = vec_width(torch.float32, D, (grad_out.data_ptr() | grad.data_ptr()) % 16 == 0)
-    lanes = row_lanes(D, vec)
-    with torch.cuda.device(grad_out.device):
+    with torch.cuda.device(grad_out.device), _bwd_scratch_lock:
         stream = torch.cuda.current_stream().cuda_stream
-        cap = sm_count(grad_out.device) * BWD_BLOCKS_PER_SM
-        keys = torch.empty(N, dtype=torch.int32, device=grad_out.device)
-        code = getattr(lib, BWD_KEYS_SYMBOL)(
-            indices.data_ptr(), weights.data_ptr(), keys.data_ptr(), N, num_rows,
-            int(masked), min(-(-N // THREADS), cap), stream)
-        build.check(lib, NAME, code)
-        keys, perm = torch.sort(keys, stable=True)
+        sms = sm_count(grad_out.device)
+        blocks = backward_blocks(
+            sms, resident_blocks(lib, NAME, BWD_OCC_SYMBOL, grad_out.device, vec) // sms)
+        sc = backward_scratch(grad_out.device, stream, N, num_rows, blocks)
+        key = (grad_out.device, stream)
+        state = _bwd_state[key]
+        half = sc["bitmap"].numel() // 2
         code = getattr(lib, BWD_SYMBOL)(
-            grad_out.data_ptr(), keys.data_ptr(), perm.data_ptr(), weights.data_ptr(),
-            grad.data_ptr(), N, N // num_bags, D, num_rows, vec, lanes,
-            min(-(-N // (THREADS // lanes)), cap), stream)
-    build.check(lib, NAME, code)
+            grad_out.data_ptr(), indices.data_ptr(), weights.data_ptr(), grad.data_ptr(),
+            N, N // num_bags, D, num_rows, int(masked), vec, blocks, sc["counters"].data_ptr(),
+            sc["flags"].data_ptr(), state.epoch, sc["bitmap"][state.parity * half:].data_ptr(),
+            sc["bitmap"][(1 - state.parity) * half:].data_ptr(), state.stale_words(),
+            *(sc[k].data_ptr() for k in ("keys", "counts", "ebase", "elist", "runs",
+                                         "slot_entry", "list")),
+            backward_table_bits(N), stream)
+        build.check(lib, NAME, code)
+        _bwd_state[key] = state.after(-(-num_rows // 32))
     launches_backward += 1
     return grad

@@ -347,7 +347,7 @@ def test_train_recsys_resumes_the_references_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("mod,symbols", [
-    (K1, (K1.BWD_KEYS_SYMBOL, K1.BWD_SYMBOL)), (K2, (K2.BWD_SYMBOL,))],
+    (K1, (K1.BWD_SYMBOL, K1.BWD_OCC_SYMBOL)), (K2, (K2.BWD_SYMBOL,))],
     ids=["embedding_bag_backward", "dot_interaction_backward"])
 def test_backward_symbols_exist_in_source(mod, symbols):
     """K1' and K2' are exported by their forward's .cu source, and the

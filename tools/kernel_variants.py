@@ -27,14 +27,22 @@ resident id with probability hit_frac, a cold id with probability
 hit_frac, else EMPTY_KEY at weight 0, as a masked slot reaches it) or
 ["forward", B, C] (probe_gather_pool on the cached forward's query at
 batch B over a cache of C slots holding the hot ids of 4 warm-up batches,
-as chip_smoke.py builds it).
+as chip_smoke.py builds it).  The backward kernels: ["backward", B]
+(embedding_bag's K1' on dlrm-100m's lookup of the trainer's batch of B, as
+chip_smoke.py's train phase builds it: masked, a random gradient),
+["backward", bags, nnz, D, V, live_frac] (K1', masked, uniform ids in
+[0, V), a slot live with probability live_frac) and ["backward", B, F, D]
+(dot_interaction's K2' on random x and triangle gradients, f32).
 Each variant is ``src/repro_torch/csrc/<kernel>.cu`` with every ``old``
 replaced by ``new`` (each must occur); the committed source runs as the
 variant ``base``.  ``--against DIR`` adds to every spec the variant
 ``against``: the kernel's source in another checkout unpacked at ``DIR``
 (its ``src/repro_torch/csrc/``, headers included), built alike and run
 through this checkout's wrapper, so two designs with one C interface are
-timed in turns in one process.  A variant may also set ``"attrs"``:
+timed in turns in one process; where that checkout's wrapper of a
+backward kernel has another C interface (K1' and K2' before their
+redesign), the variant runs through that checkout's own wrapper function
+(``PARENT_WRAPPED``), loaded from its file.  A variant may also set ``"attrs"``:
 attributes of the kernel's wrapper module (such as K7's ``MAX_CHUNK``) that
 hold while it is checked and timed, and ``"flush": "read"``: the L2 is
 flushed before each of its timings by reading a 256 MB buffer instead of
@@ -45,11 +53,15 @@ kernel's own wrapper (``build.use_library``).  At each case a variant with
 ``check`` (the default) is first held against the plain version as
 ``chip_smoke.py`` holds the kernel (K6 and K7 in bf16 by
 ``assert_close_rows`` and at 2e-5 in f32, K2 f32 at 1e-4, K4 bit-equal, K1
-at 1e-5, K3's miss mask bit-equal and its sums at 1e-5, K5 bit-equal); a
+at 1e-5, K3's miss mask bit-equal and its sums at 1e-5, K5 bit-equal, K1'
+twice bit-equal, bit-equal to its plain version on the CPU and within
+``K1B_TOL`` of it on the card, K2' at 1e-5); a
 variant that cuts work out sets ``"check": false``.  Then every variant and
 the library call (``F.scaled_dot_product_attention``, ``torch.bmm``,
-``index_copy_``, ``F.embedding_bag`` or ``torch.topk``; none for
-probe_gather_pool) are timed by CUDA events, L2 flushed, in turns:
+``index_copy_``, ``F.embedding_bag`` or ``torch.topk``; for K1'
+``index_add_`` of the live slots' weighted rows into a zeroed table, for
+K2' ``torch.bmm`` of G + G^T and x; none for probe_gather_pool) are timed
+by CUDA events, L2 flushed, in turns:
 ``ROUNDS`` rounds, the order reversed every round, the card idle for
 ``PAUSE_S`` before each timing so that every one starts from the same clocks
 rather than from the heat of the last (without it, one build read slower
@@ -59,6 +71,7 @@ rounds can be counted, with the card's name and power limit.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -85,6 +98,7 @@ from repro_torch.kernels import dot_interaction as K2  # noqa: E402
 from repro_torch.kernels import embedding_bag as K1  # noqa: E402
 from repro_torch.kernels import flash_attention as K6  # noqa: E402
 from repro_torch.kernels import flash_decode as K7  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.prefetch import kernels as PK  # noqa: E402
 from repro_torch.prefetch import ref as PREF  # noqa: E402
 
@@ -98,6 +112,10 @@ ROUNDS = 10  # pairs of rounds for each two variants
 PAUSE_S = 1.0
 CACHE_FILL = 0.4  # K3 cases: resident ids per slot
 _tables: dict[int, torch.Tensor] = {}  # K1 cases: dlrm-flexemr's table by D
+# wrapper functions whose C interface changed with the backward kernels'
+# redesign: an ``--against`` checkout's own function runs its library
+PARENT_WRAPPED = {"embedding_bag": ("embedding_bag_backward",),
+                  "dot_interaction": ("dot_interaction_backward",)}
 
 
 def build_variants(specs: dict[str, dict],
@@ -108,7 +126,9 @@ def build_variants(specs: dict[str, dict],
     procs, libs = [], {}
     for tag, spec in specs.items():
         libs[tag] = {}
-        extra = [] if against is None else [{"name": "against", "csrc": against / CSRC_REL}]
+        extra = [] if against is None else [{
+            "name": "against", "csrc": against / CSRC_REL,
+            "attrs": parent_functions(against, spec["kernel"])}]
         for v in [{"name": "base", "subs": []}, *spec["variants"], *extra]:
             csrc = v.get("csrc", build.CSRC)
             src = (csrc / f"{spec['kernel']}.cu").read_text()
@@ -132,6 +152,75 @@ def build_variants(specs: dict[str, dict],
             if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  {label}: {line.strip()}", flush=True)
     return libs
+
+
+def parent_functions(root: Path, kernel: str) -> dict:
+    """The functions of ``PARENT_WRAPPED[kernel]`` from the wrapper module of
+    the checkout at ``root`` (its ``kernels/<kernel>.py``, loaded under
+    another name; it binds the library ``build.use_library`` names)."""
+    names = PARENT_WRAPPED.get(kernel, ())
+    if not names:
+        return {}
+    path = root / "src/repro_torch/kernels" / f"{kernel}.py"
+    spec = importlib.util.spec_from_file_location(f"against_{kernel}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return {n: getattr(mod, n) for n in names}
+
+
+def train_inputs(batch: int) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+    """dlrm-100m's fused ids and 0/1 weights of the trainer's batch of step 0
+    (seed 0), flat, its rows and its slots a bag, as ``chip_smoke.py``'s
+    train phase makes them."""
+    cfg = launch_train.make_dlrm_100m()
+    emb = cfg.embedding()
+    host = syn.recsys_batch(np.random.default_rng(0), cfg.tables, batch, n_dense=cfg.n_dense)
+    ids = emb._fused_rows(emb.sharded, torch.from_numpy(host["indices"])).reshape(-1)
+    w = torch.from_numpy(host["mask"]).reshape(-1).to(torch.float32)
+    return (ids.contiguous().cuda(), w.contiguous().cuda(), cfg.num_embedding_rows(),
+            host["indices"].shape[2])
+
+
+def backward_setup(tag: str, kernel: str, case: list, gen: torch.Generator):
+    """(call, check, library) of a K1' or K2' case (see ``setup``)."""
+    if kernel == "dot_interaction":
+        _, B, F, D = case
+        x = torch.randn((B, F, D), device="cuda", generator=gen)
+        tri = torch.randn((B, F * (F + 1) // 2), device="cuda", generator=gen)
+        want = ref.dot_interaction_backward_ref(x, tri)
+        iu, ju = torch.triu_indices(F, F, device="cuda")
+        g_full = torch.zeros((B, F, F), device="cuda")
+        g_full[:, iu, ju] = tri
+        s_full = g_full + g_full.transpose(1, 2)
+        call = lambda: K2.dot_interaction_backward(x, tri)  # noqa: E731
+        return (call,
+                lambda n: CS.assert_close(f"{tag} {n} {case}", call(), want, 1e-5, 1e-5),
+                lambda: torch.bmm(s_full, x))
+    if len(case) == 2:
+        ids, w, V, nnz = train_inputs(case[1])
+    else:
+        _, bags, nnz, _, V, live = case
+        ids = torch.randint(0, V, (bags * nnz,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        w = (torch.rand(bags * nnz, device="cuda", generator=gen) < live).float()
+    D = 64 if len(case) == 2 else case[3]
+    bags = ids.numel() // nnz
+    g = torch.randn((bags, D), device="cuda", generator=gen)
+    want = ref.embedding_bag_backward_ref(g, ids, w, V, masked=True)
+    want_cpu = ref.embedding_bag_backward_ref(g.cpu(), ids.cpu(), w.cpu(), V, masked=True)
+    live_idx = ids[w != 0].long()
+    contrib = (g.repeat_interleave(nnz, dim=0) * w[:, None])[w != 0]
+    call = lambda: K1.embedding_bag_backward(g, ids, w, V, masked=True)  # noqa: E731
+
+    def check(n):
+        got = call()
+        CS.assert_equal(f"{tag} {n} {case} twice", call(), got)
+        CS.assert_bits(f"{tag} {n} {case} vs the CPU", got.cpu(), want_cpu)
+        CS.assert_close(f"{tag} {n} {case}", got, want, *CS.K1B_TOL)
+
+    return (call, check,
+            lambda: torch.zeros((V, D), device="cuda").index_add_(0, live_idx, contrib))
 
 
 def forward_inputs(batch: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -169,6 +258,8 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
     """(call, check, library) of one case: the kernel through its wrapper,
     ``check(name)``, which calls it on fresh inputs where it writes in place
     and holds the output against the plain version, and the library call."""
+    if case[0] == "backward":
+        return backward_setup(tag, kernel, case, gen)
     if kernel == "flash_attention":
         B, S, H, Hkv, dh = case[:5]
         dt = torch.float32 if case[5:] == ["f32"] else torch.bfloat16
