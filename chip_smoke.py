@@ -47,6 +47,31 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 K4 again) and a second forward; then device medians of the
                 cached and uncached forward, timed in turns, and each one's
                 device busy time and kernels in a profiled window;
+  4c. sharded_forward — with phase 4's table, batch, cache and outputs
+                shared through CUDA IPC (the table held once), 4 ranks
+                spawned by ``launch.mesh.spawn`` on the one card over gloo
+                (collectives staged through host memory), mesh (data 1,
+                model 4): the 2^18-slot hash cache built from each rank's
+                shard (``gather_rows`` over model, K4) bit-equal to the build
+                from the whole table; each rank's lookup and
+                ``R.forward(mesh=...)`` in
+                baseline, hierarchical at num_chunks 1 and 2, mesh2d, and
+                hierarchical with the 2^18-slot hash cache, its pooled
+                block and scores slice allclose to phase 4's (rtol 1e-5,
+                atol 1e-6); K1 (not on baseline's raw-row path) and K2 on
+                every rank, K3 with the cache; the bytes counted at the
+                collectives: the ring model's, baseline exactly 4x (the
+                padded nnz) hierarchical; each case's wall time (host
+                staging: no interconnect time); then the hierarchical lookup
+                at one NCCL rank, bit-equal to the one-device lookup;
+  4d. sharded_train — in the same 4 ranks, mesh (data 2, model 2):
+                dlrm-100m at the global batch of 256, 3 steps of
+                ``make_train_step(mesh=...)`` in the paper layout and in
+                mesh2d against 3 one-device steps on the card (params and
+                optimizer state, rtol 1e-4, atol 1e-6; K1, K1', K2, K2' on
+                every rank); the one-device run's checkpoint of step 1
+                restored under the mesh is bit-equal to the same state cut
+                from memory, and so are both after one more step;
   5. serve    — ``repro_torch.launch.serve.run`` with its defaults (8 servers,
                 pooled engine, depth 2, closed loop) on 400 requests: every
                 request retired, finite scores, K2 launched once per batch;
@@ -141,10 +166,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Each path (4, 4b, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run, 7, 8, and 9 as
-``lm_f32``: K6 and K7 in f32 on the card) runs with the launch counts set
-to 0 just before it and read just after; comparisons and timings run
-outside those windows.
+Each path (4, 4b, 4c and 4d on each rank, summed over the ranks in the
+kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run, 7,
+8, and 9 as ``lm_f32``: K6 and K7 in f32 on the card) runs with the launch
+counts set to 0 just before it and read just after; comparisons and
+timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
 ``src/`` beside it, it exits nonzero before printing any result.
 """
@@ -153,17 +179,21 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+IMPORTED_AT = time.time()  # a spawned rank's start, before its arguments arrive
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -210,6 +240,25 @@ K1B_PLANT = ("      if (jq < total && !((word >> (r & 31)) & 1u))",
              "      if (jq < total && !((word >> (r & 31)) & 1u) && r != a.num_rows - 1)")
 K1B_BIG_ROWS = 16_777_216  # K1' into a 4.3 GB table: a bitmap of 2^24 rows
 TRAIN_STEP_TOL = (1e-4, 1e-6)  # params and optimizer state after the step
+# sharded_forward: dlrm-flexemr's lookup and forward on 4 gloo ranks of the
+# one card, mesh (data 1, model 4), each case against phase 4's one-device
+# pooled embeddings and scores
+SHARDED_RANKS = 4
+SHARDED_FWD_MESH = (1, 4)
+SHARDED_FWD_CASES = (  # (name, mode, num_chunks, with phase 4b's hash cache)
+    ("baseline", "baseline", 1, False),
+    ("hierarchical", "hierarchical", 1, False),
+    ("hierarchical_chunks2", "hierarchical", 2, False),
+    ("mesh2d", "mesh2d", 1, False),
+    ("hierarchical_hash_cache", "hierarchical", 1, True),
+)
+SHARDED_FWD_TOL = (1e-5, 1e-6)
+# sharded_train: dlrm-100m at the trainer's global batch of 256, mesh
+# (data 2, model 2), 3 steps in the paper layout and in mesh2d against 3
+# steps on one device on the card (phase 5f's step tolerance)
+SHARDED_TRAIN_MESH = (2, 2)
+SHARDED_TRAIN_STEPS = 3
+SHARDED_TIMEOUT_S = 300
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -424,6 +473,40 @@ def start_planted_build(build) -> tuple[subprocess.Popen, Path]:
                             text=True), so
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from repro_torch.hotcache import kernels as HK
+    from repro_torch.kernels import dot_interaction as K2
+    from repro_torch.kernels import embedding_bag as K1
+    from repro_torch.kernels import flash_attention as K6
+    from repro_torch.kernels import flash_decode as K7
+    from repro_torch.prefetch import kernels as PK
+
+    return {"embedding_bag": K1.launches, "embedding_bag_masked": K1.launches_masked,
+            "dot_interaction": K2.launches,
+            "probe_gather_pool": HK.launches[HK.PROBE],
+            "scatter_update": HK.launches[HK.SCATTER],
+            "topk_neighbor_select": PK.launches,
+            "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
+            "flash_decode": K7.launches,
+            "embedding_bag_backward": K1.launches_backward,
+            "dot_interaction_backward": K2.launches_backward}
+
+
+def reset_counts() -> None:
+    from repro_torch.hotcache import kernels as HK
+    from repro_torch.kernels import dot_interaction as K2
+    from repro_torch.kernels import embedding_bag as K1
+    from repro_torch.kernels import flash_attention as K6
+    from repro_torch.kernels import flash_decode as K7
+    from repro_torch.prefetch import kernels as PK
+
+    K1.launches = K1.launches_masked = K1.launches_backward = 0
+    K2.launches = K2.launches_backward = 0
+    PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
+    HK.launches.update(dict.fromkeys(HK.launches, 0))
+
+
 def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
     """Two trees of tensors with the same key strings in JAX's flatten order,
     no leaf missing, each leaf of the same shape and dtype and allclose (NaN
@@ -440,16 +523,182 @@ def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
     for key, (_, g), (_, w) in zip(keys, got, want):
         if not isinstance(g, torch.Tensor) or g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name} {key}: {g!r:.80} against {tuple(w.shape)} {w.dtype}")
-        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        g, w = g.detach().float(), w.detach().float().to(g.device)
         fin = torch.isfinite(w)
         err = max_err(g[fin], w[fin])
         if not torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
-            raise AssertionError(f"{name} {key}: card and CPU disagree (max abs err "
+            raise AssertionError(f"{name} {key}: the trees disagree (max abs err "
                                  f"{err:.3e}, rtol {rtol}, atol {atol})")
         worst = max(worst, err)
     log(f"  {name}: ok, {len(keys)} leaves, max abs err {worst:.3e} (rtol {rtol}, "
         f"atol {atol})")
     return worst
+
+
+def trees_bit_equal(a, b) -> bool:
+    from repro_torch.utils import tree_flatten_with_path
+
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    return len(fa) == len(fb) and all(
+        pa == pb and x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                        y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for (pa, x), (pb, y) in zip(fa, fb))
+
+
+def sharded_rank(rank: int, world: int, fwd: dict, train: dict) -> dict:
+    """One rank of the sharded_forward and sharded_train phases (spawned by
+    ``launch.mesh.spawn`` over gloo; the arguments' CUDA tensors are phase
+    4's and the one-device run's, shared with the main process, never
+    copied).  Every check runs here on the card and raises on failure; the
+    result holds this rank's launch counts, bytes, errors and wall times."""
+    import dataclasses as dc
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.dlrm_flexemr import make_config
+    from repro_torch.core.embedding import make_hash_cache_from_table
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.hotcache.table import HashCacheState
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import sharding_rules as SR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores
+    out: dict = {"forward": {}, "train": {},
+                 "stamps": {"imported": IMPORTED_AT, "start": time.time()}}
+
+    # ------------------------------------------------------ sharded_forward
+    mesh = M.make_debug_mesh(*SHARDED_FWD_MESH)
+    out["stamps"]["forward_mesh"] = time.time()
+    batch = fwd["batch"]
+    cache = HashCacheState(*fwd["cache"])
+    base = make_config()
+    whole = {"emb": {"table": fwd["table"]}, **fwd["dense"]}
+    # the hash cache built from the sharded table (gather_rows over model,
+    # K4's writes) against the same build from the whole table
+    emb = base.embedding(mesh.shape["model"])
+    shard = R.shard_params(whole, R.param_specs(base, mesh.shape["model"]), mesh)["emb"]
+    hot_ids = fwd["hot_ids"].cpu().numpy()
+    out["stamps"]["shard_params"] = time.time()
+    emb.gather_rows(shard, fwd["hot_ids"], mesh)
+    torch.cuda.synchronize()
+    out["stamps"]["gather_rows"] = time.time()
+    reset_counts()
+    built = make_hash_cache_from_table(emb, shard, hot_ids, HOT_SLOTS, mesh=mesh,
+                                       max_probes=MAX_PROBES, device=fwd["table"].device)
+    torch.cuda.synchronize()
+    out["cache_build"] = {"launches": launch_counts()}
+    want = HashCacheState(*fwd["built_cache"])
+    for field in ("keys", "rows", "freq"):
+        assert_equal(f"[sharded_forward] rank {rank} hash cache built from the sharded "
+                     f"table, {field}", getattr(built, field), getattr(want, field))
+    del built, want, shard
+    out["stamps"]["cache_built"] = time.time()
+    reset_counts()
+    for name, mode, chunks, cached in SHARDED_FWD_CASES:
+        cfg = dc.replace(base, mode=mode, num_chunks=chunks)
+        ns = cfg.num_shards_for(mesh)
+        emb = cfg.embedding(ns)
+        params = R.shard_params(whole, R.param_specs(cfg, ns), mesh)
+        c = cache if cached else None
+        before = M.comm_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pooled = emb.lookup(params["emb"], batch["indices"], batch["mask"], mesh=mesh,
+                                cache=c, num_chunks=chunks)
+        torch.cuda.synchronize()
+        t_lookup = time.perf_counter() - t0
+        sent = {op: v - before.get(op, 0.0) for op, v in M.comm_bytes().items()
+                if v != before.get(op, 0.0)}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            scores = R.forward(cfg, params, batch, mesh, cache=c)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        counts = launch_counts()
+        want_pooled = L.constrain(fwd["pooled"], P(emb.output_axes(("data",))), mesh)
+        want_scores = L.constrain(fwd["scores"], P(("data", "model")), mesh)
+        if pooled.shape != want_pooled.shape or scores.shape != want_scores.shape \
+                or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"rank {rank} {name}: pooled {tuple(pooled.shape)}, scores "
+                                 f"{tuple(scores.shape)} against {tuple(want_pooled.shape)}, "
+                                 f"{tuple(want_scores.shape)}")
+        errs = {"pooled": assert_close(f"[sharded_forward] rank {rank} {name} pooled "
+                                       f"{list(pooled.shape)} vs one-device lookup", pooled,
+                                       want_pooled, *SHARDED_FWD_TOL),
+                "scores": assert_close(f"[sharded_forward] rank {rank} {name} scores "
+                                       f"{list(scores.shape)} vs one-device forward", scores,
+                                       want_scores, *SHARDED_FWD_TOL)}
+        out["forward"][name] = {"launches": counts, "bytes": sent, "max_abs_err": errs,
+                                "lookup_wall_s": t_lookup, "forward_wall_s": t_fwd}
+    del whole, params, pooled, scores, cache, batch
+    out["stamps"]["forward_cases"] = time.time()
+
+    # ------------------------------------------------------- sharded_train
+    mesh = M.make_debug_mesh(*SHARDED_TRAIN_MESH)
+    out["stamps"]["train_mesh"] = time.time()
+    tcfg = launch_train.make_dlrm_100m()
+    dev = train["batches"][0]["indices"].device
+    for layout in ("hierarchical", "mesh2d"):
+        cfg = dc.replace(tcfg, mode=layout)
+        ns = cfg.num_shards_for(mesh)
+        pspecs = R.param_specs(cfg, ns)
+        shapes = R.abstract_params(cfg, ns)
+        opt = launch_train.make_optimizer()
+        sspecs = SR.composite_state_specs([("emb", "rowwise"), (".*", "adam")], pspecs, shapes)
+        step = R.make_train_step(cfg, opt, mesh)
+        batches = [{k: L.constrain(v, P(("data",)), mesh) for k, v in b.items()}
+                   for b in train["batches"]]
+        p = R.shard_params(train["params0"], pspecs, mesh)
+        st = opt.init(p)
+        out["stamps"][f"train_{layout}_sharded"] = time.time()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"rank {rank} {layout}: losses {losses}")
+        out["stamps"][f"train_{layout}_steps"] = time.time()
+        want_p, want_s = train["p3s3"]
+        tag = f"[sharded_train] rank {rank} {layout}"
+        err = assert_trees_close(f"{tag}: params and state after {len(batches)} steps vs "
+                                 "one device", (p, st),
+                                 (R.shard_params(want_p, pspecs, mesh),
+                                  R.shard_params(want_s, sspecs, mesh)), *TRAIN_STEP_TOL)
+        out["stamps"][f"train_{layout}_checked"] = time.time()
+        # the one-device checkpoint of step 1, restored under the mesh, against
+        # the same state cut from memory: both go on one more step
+        (pr, sr), _ = CheckpointManager(train["ckpt"]).restore(
+            (shapes, opt.init(shapes)), step=1, mesh=mesh, specs=(pspecs, sspecs), device=dev)
+        p1, s1 = train["p1s1"]
+        pm, sm = R.shard_params(p1, pspecs, mesh), R.shard_params(s1, sspecs, mesh)
+        restored_equal = trees_bit_equal((pr, sr), (pm, sm))
+        out["stamps"][f"train_{layout}_restored"] = time.time()
+        pr, sr, _ = step(pr, sr, batches[1])
+        pm, sm, _ = step(pm, sm, batches[1])
+        continued_equal = trees_bit_equal((pr, sr), (pm, sm))
+        if not (restored_equal and continued_equal):
+            raise AssertionError(f"{tag}: the restored checkpoint is not bit-equal to the "
+                                 f"state it holds ({restored_equal}) or its steps to that "
+                                 f"state's ({continued_equal})")
+        out["train"][layout] = {"launches": counts, "losses": losses, "max_abs_err": err,
+                                "steps_wall_s": wall, "restored_bit_equal": restored_equal,
+                                "continued_bit_equal": continued_equal}
+    out["stamps"]["train"] = time.time()
+    return out
 
 
 def main() -> int:
@@ -476,6 +725,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as K6
     from repro_torch.kernels import flash_decode as K7
     from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch import mesh as M
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import recsys as R
@@ -487,23 +737,6 @@ def main() -> int:
     from repro_torch.runtime.elastic import reshard_tables
     from repro_torch.runtime.serving import ATTR_STAGES, FlexEMRServer
     from repro_torch.utils import keystr, tree_flatten_with_path, tree_size_bytes, tree_to
-
-    def launch_counts() -> dict:
-        return {"embedding_bag": K1.launches, "embedding_bag_masked": K1.launches_masked,
-                "dot_interaction": K2.launches,
-                "probe_gather_pool": HK.launches[HK.PROBE],
-                "scatter_update": HK.launches[HK.SCATTER],
-                "topk_neighbor_select": PK.launches,
-                "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
-                "flash_decode": K7.launches,
-                "embedding_bag_backward": K1.launches_backward,
-                "dot_interaction_backward": K2.launches_backward}
-
-    def reset_counts() -> None:
-        K1.launches = K1.launches_masked = K1.launches_backward = 0
-        K2.launches = K2.launches_backward = 0
-        PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
-        HK.launches.update(dict.fromkeys(HK.launches, 0))
 
     def require(path: str, counts: dict, names) -> None:
         missing = [n for n in names if counts[n] < 1]
@@ -988,6 +1221,9 @@ def main() -> int:
                                        max_probes=MAX_PROBES, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # the state as built, which sharded_forward's build from the sharded table
+    # must equal (cache_insert below returns a new state and leaves this one)
+    built = cache
     with torch.no_grad():
         scores_c = R.forward(cfg, params, batch, cache=cache)
     hit1 = hit_rate(cache, batch)
@@ -1037,10 +1273,143 @@ def main() -> int:
         "cached_forward_ms_turns": turns[True], "uncached_forward_ms_turns": turns[False],
         "launches": cached_launches, "profiles": profiles,
     }))
+    # -------------------------------------------- sharded_forward, sharded_train
+    # Both phases run on SHARDED_RANKS processes of this one card, spawned
+    # once, over gloo (NCCL refuses two ranks on one GPU): collectives stage
+    # CUDA tensors through host memory, so their wall times are no
+    # interconnect's.  The ranks read phase 4's table, batch, cache and
+    # outputs and the one-device run's states below through CUDA IPC: the
+    # 38.4 GB table is held once.  sharded_train's one-device reference
+    # first: dlrm-100m, 3 steps on the card, the state after step 1 saved.
+    t_sh = time.perf_counter()
+    shcfg = launch_train.make_dlrm_100m()
+    sh_p0 = R.init_params(shcfg, seed=0, device=dev)
+    sh_opt = launch_train.make_optimizer()
+    sh_batches = [{k: torch.from_numpy(v).to(dev) for k, v in syn.recsys_batch(
+        np.random.default_rng(i), shcfg.tables, TRAIN_BATCH, n_dense=shcfg.n_dense).items()}
+        for i in range(SHARDED_TRAIN_STEPS)]
+    sh_ck = ROOT / "build" / "chip_smoke_sharded_ckpt"
+    shutil.rmtree(sh_ck, ignore_errors=True)
+    sh_step = R.make_train_step(shcfg, sh_opt)
+    sh_p, sh_s = sh_p0, sh_opt.init(sh_p0)
+    sh_losses = []
+    for i, b in enumerate(sh_batches):
+        sh_p, sh_s, m = sh_step(sh_p, sh_s, b)
+        sh_losses.append(float(m["loss"]))
+        if i == 0:
+            sh_p1s1 = (sh_p, sh_s)
+            CheckpointManager(sh_ck).save(1, sh_p1s1, blocking=True)
+    t_spawn, sh_main = time.time(), {"one_device_reference_s": time.perf_counter() - t_sh}
+    sh_out = M.spawn(sharded_rank, SHARDED_RANKS, (
+        {"table": table, "dense": {k: v for k, v in params.items() if k != "emb"},
+         "batch": batch, "cache": (cache.keys, cache.rows, cache.freq),
+         "pooled": pooled, "scores": scores,
+         "hot_ids": torch.from_numpy(hot_ids).to(dev),  # a handle: big pickles block the spawn
+         "built_cache": (built.keys, built.rows, built.freq)},
+        {"params0": sh_p0, "p1s1": sh_p1s1, "p3s3": (sh_p, sh_s), "batches": sh_batches,
+         "ckpt": str(sh_ck)}), timeout=SHARDED_TIMEOUT_S)
+    shutil.rmtree(sh_ck, ignore_errors=True)
+    # seconds from the spawn to each rank's start and to the ends of its parts
+    sh_stamps = [{k: v - t_spawn for k, v in r["stamps"].items()} for r in sh_out]
+    sh_main["spawn_s"] = time.time() - t_spawn
+
+    def summed(phase: str, key: str) -> dict:
+        """Launch counts of every rank's runs, summed."""
+        total: dict = {}
+        for r in sh_out:
+            for run in r[phase].values():
+                for k, v in run[key].items():
+                    total[k] = total.get(k, 0) + v
+        return total
+
+    for r, res in enumerate(sh_out):
+        require(f"sharded_forward rank {r} cache build", res["cache_build"]["launches"],
+                ("scatter_update",))
+        for name, mode, _, cached in SHARDED_FWD_CASES:
+            # the baseline gathers raw rows by indexing: no K1 on its path
+            need = (("dot_interaction",) + (("embedding_bag",) if mode != "baseline" else ())
+                    + (("probe_gather_pool",) if cached else ()))
+            require(f"sharded_forward rank {r} {name}", res["forward"][name]["launches"], need)
+        for layout, run in res["train"].items():
+            require(f"sharded_train rank {r} {layout}", run["launches"],
+                    ("embedding_bag", "embedding_bag_backward", "dot_interaction",
+                     "dot_interaction_backward"))
+        fb = {n: res["forward"][n]["bytes"] for n, _, _, _ in SHARDED_FWD_CASES}
+        nnz_pad = cfg.max_nnz
+        if fb["baseline"]["all_reduce"] != nnz_pad * fb["hierarchical"]["all_reduce"]:
+            raise AssertionError(f"rank {r}: baseline bytes {fb['baseline']} are not "
+                                 f"{nnz_pad} x hierarchical's {fb['hierarchical']}")
+        g = SHARDED_FWD_MESH[1]
+        ring = 2 * FORWARD_BATCH * cfg.num_fields * cfg.embed_dim * 4 * (g - 1) / g
+        if fb["hierarchical"] != {"all_reduce": ring} \
+                or fb["hierarchical_chunks2"] != fb["hierarchical"]:
+            raise AssertionError(f"rank {r}: hierarchical bytes {fb['hierarchical']}, "
+                                 f"{fb['hierarchical_chunks2']} != the ring model's {ring}")
+    sh_fwd_launches, sh_train_launches = summed("forward", "launches"), summed("train",
+                                                                                "launches")
+    for r in sh_out:
+        sh_fwd_launches["scatter_update"] += r["cache_build"]["launches"]["scatter_update"]
+    # the hierarchical lookup at one rank over NCCL: bit-equal to one device
+    t_nccl = time.perf_counter()
+    nccl_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    dist.init_process_group("nccl", init_method=f"file://{nccl_dir / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        emb1 = cfg.embedding(1)
+        with torch.no_grad():
+            nccl_pooled = emb1.lookup(params["emb"], batch["indices"], batch["mask"],
+                                      mesh=M.make_debug_mesh(1, 1))
+            one_pooled = emb1.lookup(params["emb"], batch["indices"], batch["mask"])
+        torch.cuda.synchronize()
+        assert_equal("[sharded_forward] hierarchical lookup at one NCCL rank vs one-device "
+                     "lookup", nccl_pooled, one_pooled)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(nccl_dir, ignore_errors=True)
+    sh_main["nccl_check_s"] = time.perf_counter() - t_nccl
+    sh_seconds = time.perf_counter() - t_sh
+    log("[sharded_forward] " + json.dumps({
+        "config": cfg.name, "batch": FORWARD_BATCH, "mesh": {"data": SHARDED_FWD_MESH[0],
+                                                            "model": SHARDED_FWD_MESH[1]},
+        "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect)",
+        "cases": {name: {
+            "bytes_per_rank": sh_out[0]["forward"][name]["bytes"],
+            "max_abs_err": [r["forward"][name]["max_abs_err"] for r in sh_out],
+            "launches_per_rank": [{k: v for k, v in r["forward"][name]["launches"].items() if v}
+                                  for r in sh_out],
+            "lookup_wall_s_per_rank": [r["forward"][name]["lookup_wall_s"] for r in sh_out],
+            "forward_wall_s_per_rank": [r["forward"][name]["forward_wall_s"] for r in sh_out],
+        } for name, _, _, _ in SHARDED_FWD_CASES},
+        "baseline_over_hierarchical_bytes": sh_out[0]["forward"]["baseline"]["bytes"][
+            "all_reduce"] / sh_out[0]["forward"]["hierarchical"]["bytes"]["all_reduce"],
+        "nccl_one_rank_bit_equal": True, "sharded_cache_build_bit_equal": True,
+        "cache_build_launches_per_rank": [{k: v for k, v in r["cache_build"]["launches"].items()
+                                           if v} for r in sh_out],
+        "launches": sh_fwd_launches,
+    }))
+    log("[sharded_train] " + json.dumps({
+        "config": shcfg.name, "global_batch": TRAIN_BATCH, "steps": SHARDED_TRAIN_STEPS,
+        "mesh": {"data": SHARDED_TRAIN_MESH[0], "model": SHARDED_TRAIN_MESH[1]},
+        "one_device_losses": sh_losses,
+        "layouts": {layout: {
+            "losses_per_rank": [r["train"][layout]["losses"] for r in sh_out],
+            "max_abs_err_per_rank": [r["train"][layout]["max_abs_err"] for r in sh_out],
+            "steps_wall_s_per_rank": [r["train"][layout]["steps_wall_s"] for r in sh_out],
+            "restored_checkpoint_bit_equal": all(r["train"][layout]["continued_bit_equal"]
+                                                 for r in sh_out),
+            "launches_per_rank": [{k: v for k, v in r["train"][layout]["launches"].items() if v}
+                                  for r in sh_out],
+        } for layout in sh_out[0]["train"]},
+        "launches": sh_train_launches, "phases_seconds": sh_seconds,
+        "seconds_after_spawn_per_rank": sh_stamps, "main_seconds": sh_main,
+    }))
+    del sh_p0, sh_p1s1, sh_p, sh_s, sh_batches, sh_out, nccl_pooled, one_pooled, built
     del params, table, batch, batch2, fused, ids, wts, ids_2d, live, pooled, pooled_plain
     del scores, scores2, scores_c, scores_c2, pooled_c, cache, ref_rows, query
     del flush
     torch.cuda.empty_cache()
+    log(f"[sharded] card memory after the phases: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
 
     # ----------------------------------------------------------------- serve
     args = launch_serve.parse_args(["--requests", str(SERVE_REQUESTS)])
@@ -1950,6 +2319,7 @@ def main() -> int:
              "cached_forward": cached_launches, "serve_prefetch": pf_launches,
              "serve_open_loop": ol_launches, "serve_chaos": chaos_launches,
              "serve_reshard": rs_launches, "train": train_launches,
+             "sharded_forward": sh_fwd_launches, "sharded_train": sh_train_launches,
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
              "lm_f32": lm_f32_launches}
     kernels = []

@@ -1,5 +1,5 @@
-"""Asynchronous checkpoints with the reference's on-disk layout: port of
-``repro/ckpt/checkpoint.py`` on one device.
+"""Asynchronous, reshardable checkpoints with the reference's on-disk
+layout: port of ``repro/ckpt/checkpoint.py``.
 
 Layout: <dir>/step_<N>/
   manifest.json        — step, per-leaf key/file/shape/dtype, sharding spec
@@ -17,10 +17,15 @@ written by either package restores in the other.
   * atomicity: writes land in step_<N>.tmp, renamed at the end; a crashed
     save never shadows the previous checkpoint (restart safety).
   * restore places each leaf on its template leaf's device in its dtype.
+  * restore is *resharding*: the files hold logical arrays, and under a
+    ``launch.mesh.Mesh`` each rank reads only its block of a leaf that has
+    a spec (``np.load(mmap_mode="r")`` and a slice), whatever mesh saved
+    it.  ``save(mesh=...)`` gathers each sharded leaf whole (collectives on
+    every rank) and rank 0 writes.
 
 f32 and int32 leaves are the training path's; a bfloat16 leaf raises (the
 reference stores bfloat16 through ``ml_dtypes``, which numpy alone cannot
-read back).  Restoring under a mesh waits for ROADMAP queue 1, item 2.
+read back).
 """
 from __future__ import annotations
 
@@ -34,16 +39,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import PartitionSpec, is_spec
+from repro_torch.launch import mesh as M
 from repro_torch.utils import keystr, logger, tree_flatten_with_path, tree_unflatten
 
-
-class PartitionSpec(tuple):
-    """The mesh axes of each dimension of a leaf (a name, a tuple of names,
-    or None), as ``jax.sharding.PartitionSpec`` holds them: a leaf of the
-    ``specs`` tree handed to :meth:`CheckpointManager.save`."""
-
-    def __new__(cls, *axes):
-        return super().__new__(cls, axes)
+__all__ = ["CheckpointManager", "PartitionSpec"]
 
 
 def _flatten(tree: Any, is_leaf=None) -> list[tuple[str, Any]]:
@@ -55,6 +55,23 @@ def _spec_to_json(spec: PartitionSpec | None):
     if spec is None:
         return None
     return [list(el) if isinstance(el, (tuple, list)) else el for el in spec]
+
+
+def _spec_from_json(obj) -> PartitionSpec:
+    if obj is None:
+        return PartitionSpec()
+    return PartitionSpec(*[tuple(e) if isinstance(e, list) else e for e in obj])
+
+
+def _gather_whole(leaf: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """The logical array of which ``leaf`` is this rank's block under ``spec``."""
+    for d in range(leaf.ndim):
+        axes = spec.axes_of(d)
+        if axes:
+            if mesh.axes(axes) != axes:
+                raise ValueError(f"spec {spec}: dim {d}'s axes are not in the mesh's order")
+            leaf = M.all_gather(leaf, axes, mesh, dim=d)
+    return leaf
 
 
 def _to_host(key: str, leaf) -> np.ndarray:
@@ -84,11 +101,24 @@ class CheckpointManager:
         specs: Any = None,
         extra: dict | None = None,
         blocking: bool = False,
+        mesh=None,
     ) -> None:
-        """Snapshot to host memory, then serialize in the background."""
+        """Snapshot to host memory, then serialize in the background.
+
+        Under a ``mesh`` every rank calls it with its blocks: each leaf with
+        a spec is gathered whole, rank 0 writes, and a blocking save ends
+        at a barrier (every rank may then restore it)."""
         self.wait()
-        spec_map = dict(_flatten(specs, lambda x: isinstance(x, PartitionSpec)))
-        host = [(k, _to_host(k, v)) for k, v in _flatten(tree)]
+        spec_map = dict(_flatten(specs, is_spec))
+        flat = _flatten(tree)
+        if mesh is not None:
+            flat = [(k, _gather_whole(v, spec_map[k], mesh) if k in spec_map else v)
+                    for k, v in flat]
+            if mesh.rank != 0:
+                if blocking:
+                    mesh.barrier()
+                return
+        host = [(k, _to_host(k, v)) for k, v in flat]
 
         def _write():
             t0 = time.time()
@@ -127,6 +157,8 @@ class CheckpointManager:
         self._thread.start()
         if blocking:
             self.wait()
+            if mesh is not None:
+                mesh.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -152,22 +184,24 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: int | None = None, mesh=None,
-                specs: Any = None) -> tuple[Any, dict]:
+                specs: Any = None, device=None) -> tuple[Any, dict]:
         """Restore into ``template``'s structure (tensors, or anything with
-        ``shape``, ``dtype`` and ``device``): each leaf in its template
-        leaf's dtype on its device.  ``specs`` is accepted as the
-        reference's and unused on one device; the specs recorded at save
-        stay in the manifest."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(mesh=...) is not ported yet "
-                "(ROADMAP queue 1, item 2)")
+        ``shape``, ``dtype`` and ``device``, such as ``meta`` tensors of
+        ``abstract_params``; shapes are the logical arrays'): each leaf in
+        its template leaf's dtype, on ``device`` or else the template leaf's
+        (a ``meta`` template needs ``device``: restoring onto meta raises).
+
+        Under a ``mesh`` a leaf with a spec (from ``specs``, else the one
+        recorded at save) comes back as this rank's block, read from the
+        file by a memory map and a slice: a rank reads its rows only.
+        Without a mesh ``specs`` is unused and every leaf comes back whole."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+        spec_map = dict(_flatten(specs, is_spec))
         leaves = []
         for key, tmpl in _flatten(template):
             if key not in by_key:
@@ -176,10 +210,19 @@ class CheckpointManager:
             if rec["dtype"] == "bfloat16" or tmpl.dtype == torch.bfloat16:
                 raise TypeError(f"{key}: bfloat16 leaves are not restored by this "
                                 "package (the reference stores them through ml_dtypes)")
-            arr = np.load(d / rec["file"])
+            arr = np.load(d / rec["file"], mmap_mode="r")
             if list(arr.shape) != list(tmpl.shape):
                 raise ValueError(
                     f"{key}: checkpoint shape {arr.shape} != template {tuple(tmpl.shape)}"
                 )
-            leaves.append(torch.from_numpy(arr).to(device=tmpl.device, dtype=tmpl.dtype))
+            spec = spec_map.get(key)
+            if spec is None and rec["spec"] is not None:
+                spec = _spec_from_json(rec["spec"])
+            if mesh is not None and spec is not None:
+                arr = arr[M.block_slices(arr.shape, spec, mesh)]
+            dest = torch.device(device) if device is not None else tmpl.device
+            if dest.type == "meta":
+                raise ValueError(f"{key}: the template leaf is on the meta device, which "
+                                 "holds no data; pass device= to restore onto")
+            leaves.append(torch.from_numpy(np.array(arr)).to(device=dest, dtype=tmpl.dtype))
         return tree_unflatten(template, leaves), manifest["extra"]

@@ -24,4 +24,5 @@ def make_config() -> RecsysConfig:
         n_dense=13,
         bottom_mlp=(512, 256, 64),
         mlp=(512, 256),
+        mode="hierarchical",
     )

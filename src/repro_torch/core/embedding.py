@@ -1,23 +1,38 @@
-"""DisaggEmbedding — FlexEMR's disaggregated embedding layer, single device.
+"""DisaggEmbedding — FlexEMR's disaggregated embedding layer.
 
-Port of ``repro/core/embedding.py`` for one device: the fused table layout
-(``core.sharding``), per-field sum/mean pooling, field replication into a
-second fused table, the plain oracle ``lookup_reference``, ``gather_rows``
-and ``lookup``, which pools through kernel K1 (``kernels.ops.bag_lookup``)
-on the card.
+Port of ``repro/core/embedding.py``.  The fused table (``core.sharding``)
+plays the paper's *embedding servers*: row-range shards on the ``model``
+mesh axis own disjoint row ranges, the range routing table of
+``core.sharding``.  Per-field sum/mean pooling, field replication into a
+second fused table, the plain oracle ``lookup_reference`` and the lookups:
 
-Adaptive caching (§3.1.1) on the device: ``lookup(..., cache=...)`` serves
-the sharded fields' hot rows from a replicated cache and pools only the cold
-residue from the table, computing what the reference's one-shard
-hierarchical ``lookup(mesh=..., cache=...)`` computes (``_shard_local`` +
-``_combine``).  Two cache structures are accepted: the flat sorted
-``HotCacheState`` slab (binary search, plain torch) and the
-``hotcache.HashCacheState`` open-addressing table, whose probe + gather +
-pool + miss mask is kernel K3 on the card.  Replicated fields never use the
-cache.
+``mesh=None``            one device: each group's gather + pool is kernel
+                         K1 in its masked mode.
+``mode="baseline"``      Fig 4(a) under a ``launch.mesh.Mesh``: every shard
+                         contributes the *raw rows* it owns (indexing and
+                         ``torch.where``); the row-level ``[B, F, nnz, D]``
+                         tensor crosses the network (one all-reduce over
+                         ``model``) and the ranker pools it.
+``mode="hierarchical"``  Fig 4(b): every shard pools its own rows first
+                         (kernel K1, masked, on the shard) and only
+                         ``[B, F, D]`` partials cross the network, an
+                         ``nnz``-fold reduction in collective bytes.
+``mode="mesh2d"``        rows sharded over the whole mesh (every row exists
+                         once): indices all-gathered over the data axes,
+                         each rank pools its rows for the global batch (K1)
+                         and chained reduce-scatters hand every rank its
+                         slice of the dense stage's batch.
 
-The sharded lookup modes (baseline / hierarchical / mesh2d over a device
-mesh) and ``lookup_rows`` wait for the port's multi-device slice.
+Under a mesh each rank passes its own block: the table rows it owns and its
+slice of the batch over the data axes (``launch.mesh``, SPMD).
+
+Adaptive caching (§3.1.1): ``lookup(..., cache=...)`` serves the sharded
+fields' hot rows from a replicated cache and pools only the cold residue
+from the table; the hot sum is added after the collective.  Two cache
+structures are accepted: the flat sorted ``HotCacheState`` slab (binary
+search, plain torch) and the ``hotcache.HashCacheState`` open-addressing
+table, whose probe + gather + pool + miss mask is kernel K3 on the card.
+Replicated fields never use the cache.
 """
 from __future__ import annotations
 
@@ -27,7 +42,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.sharding import FusedTables, TableSpec, make_fused_tables
+from repro_torch.core.sharding import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    FusedTables,
+    PartitionSpec as P,
+    TableSpec,
+    make_fused_tables,
+)
 from repro_torch.hotcache import kernels as HK
 from repro_torch.hotcache.table import (
     DEFAULT_MAX_PROBES,
@@ -37,7 +59,10 @@ from repro_torch.hotcache.table import (
     empty_hash_cache,
 )
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.utils import resolve_device
+
+MODES = ("baseline", "hierarchical", "mesh2d")
 
 ROW_ID_PAD = np.iinfo(np.int32).max  # fused row ids are < 2^31 for all configs
 
@@ -66,26 +91,31 @@ def empty_cache(capacity: int, dim: int, dtype=torch.float32,
 
 @dataclasses.dataclass
 class DisaggEmbedding:
-    """Fused, field-pooled embedding bag.
+    """Sharded, cached, pooling-pushdown embedding bag.
 
     Args:
       specs: one TableSpec per sparse field (order defines the F axis).
       dim: embedding dim (shared — fused-table requirement).
-      num_shards: number of embedding servers the fused table is padded for.
-      replicated_fields: indices into `specs` kept in a second fused table.
+      num_shards: number of embedding servers: the ``model`` axis's size
+        (``mesh2d``: the whole mesh's).
+      mode: 'baseline' | 'hierarchical' | 'mesh2d' (see module docstring).
+      replicated_fields: indices into `specs` kept whole on every rank.
+      comm_dtype: optional dtype of the cross-shard partials (None: the
+        partials' own dtype).
       param_dtype: table storage dtype.
-
-    The reference's ``mode`` and ``comm_dtype`` steer its sharded lookups and
-    come back with the multi-device slice.
     """
 
     specs: Sequence[TableSpec]
     dim: int
     num_shards: int
+    mode: str = "hierarchical"
     replicated_fields: tuple[int, ...] = ()
+    comm_dtype: torch.dtype | None = None
     param_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown lookup mode {self.mode!r}")
         self.specs = tuple(self.specs)
         rep = set(self.replicated_fields)
         if not rep.issubset(range(len(self.specs))):
@@ -133,13 +163,41 @@ class DisaggEmbedding:
     def init(self, gen: torch.Generator, scale: float = 0.01,
              device="cuda") -> dict:
         """N(0, scale^2) tables, drawn in place on ``device`` (a table of
-        tens of GB is never staged on the host)."""
+        tens of GB is never staged on the host; ``meta`` tensors hold no
+        numbers and draw none)."""
         params = {}
         for tables, key, _ in self._groups():
             t = torch.empty((tables.total_rows, self.dim),
                             dtype=self.param_dtype, device=device)
-            params[key] = t.normal_(0.0, scale, generator=gen)
+            params[key] = t if t.is_meta else t.normal_(0.0, scale, generator=gen)
         return params
+
+    def param_specs(self, batch_axes=(AXIS_DATA,)) -> dict:
+        """PartitionSpecs: the fused table row-sharded on ``model`` (paper
+        layout) or over the whole mesh (``mesh2d``, where every row exists
+        once, so table gradients stay on their shard); ``rep_table`` whole."""
+        specs = {}
+        if self.sharded is not None:
+            if self.mode == "mesh2d":
+                specs["table"] = P(tuple(batch_axes) + (AXIS_MODEL,), None)
+            else:
+                specs["table"] = P(AXIS_MODEL, None)
+        if self.replicated is not None:
+            specs["rep_table"] = P(None, None)
+        return specs
+
+    def abstract_params(self) -> dict:
+        """The params' global shapes and dtypes as tensors on the ``meta``
+        device (no memory)."""
+        return {key: torch.empty((tables.total_rows, self.dim), dtype=self.param_dtype,
+                                 device="meta")
+                for tables, key, _ in self._groups()}
+
+    def output_axes(self, batch_axes=(AXIS_DATA,)) -> tuple[str, ...]:
+        """The mesh axes a mesh lookup's output batch is split over."""
+        if self.mode == "mesh2d":
+            return tuple(batch_axes) + (AXIS_MODEL,)
+        return tuple(batch_axes)
 
     # ------------------------------------------------------------- local math
 
@@ -189,24 +247,44 @@ class DisaggEmbedding:
         return self._unpermute(out)
 
     def lookup(self, params: dict, indices: torch.Tensor, mask: torch.Tensor,
-               cache: HotCacheState | HashCacheState | None = None) -> torch.Tensor:
+               mesh: M.Mesh | None = None,
+               cache: HotCacheState | HashCacheState | None = None,
+               batch_axes: tuple[str, ...] = (AXIS_DATA,),
+               num_chunks: int = 1) -> torch.Tensor:
         """[B, F, nnz] int indices + bool mask -> [B, F, D] f32 pooled
-        embeddings; each group's gather + pool is one launch of kernel K1
-        in its masked mode.
+        embeddings.
 
-        As the reference's masked gather, a masked slot adds exactly 0 and
-        its row is never read (K1 skips zero-weight slots and clamps ids
-        into the table); the mask rides as the 0/1 slot weights, and mean
-        fields are divided by their counts after the sum (folding 1/count
-        into the weights would round differently).
+        Without a mesh each group's gather + pool is one launch of kernel
+        K1 in its masked mode.  As the reference's masked gather, a masked
+        slot adds exactly 0 and its row is never read (K1 skips zero-weight
+        slots and clamps ids into the table); the mask rides as the 0/1
+        slot weights, and mean fields are divided by their counts after the
+        sum (folding 1/count into the weights would round differently).
 
-        With a ``cache``, the sharded fields' hot rows come from it and K1
-        pools only the cold residue: a hit's table row is not read.  The hot
-        sum is added to the cold one in f32 and mean fields divide by the
-        counts of the original mask."""
+        With a ``mesh`` this rank passes its block (``params``: the rows it
+        owns; ``indices``/``mask``: its slice of the batch over
+        ``batch_axes``) and gets its block of the output: its batch slice,
+        whole over ``model`` (``mesh2d``: its slice over ``batch_axes`` x
+        ``model``, ``output_axes``).  ``num_chunks`` > 1 splits the sharded
+        fields into that many lookups, one collective each.
+
+        With a ``cache``, the sharded fields' hot rows come from it and the
+        table pools only the cold residue: a hit's table row is not read.
+        The hot sum is added to the cold one in f32 (under a mesh, after the
+        collective) and mean fields divide by the counts of the original
+        mask."""
+        if mesh is not None and self.mode == "mesh2d":
+            if cache is not None:
+                raise NotImplementedError(
+                    "mesh2d takes no hot-row cache (the reference's mesh2d lookup drops it)")
+            return self._lookup_mesh2d(params, indices, mask, mesh, batch_axes)
         out_groups = []
         for tables, key, fields in self._groups():
             table = params[key]
+            if mesh is not None and key == "table":
+                out_groups.append(self._lookup_sharded(table, indices, mask, mesh, cache,
+                                                       num_chunks))
+                continue
             idx_g = indices[:, list(fields), :]
             m_g = mask[:, list(fields), :]
             fused = self._fused_rows(tables, idx_g)
@@ -220,6 +298,126 @@ class DisaggEmbedding:
             out_groups.append(self._pool(summed, counts, fields))
         out = torch.cat(out_groups, dim=1) if len(out_groups) > 1 else out_groups[0]
         return self._unpermute(out)
+
+    # --------------------------------------------------------- sharded lookup
+
+    def _shard_local(self, table_shard: torch.Tensor, idx_g: torch.Tensor,
+                     m_g: torch.Tensor, cache, offsets: np.ndarray, shard: int):
+        """Per-shard compute for (a chunk of) the sharded field group.
+
+        ``offsets`` are the parent fused-table row offsets of the chunk's
+        fields, so chunked lookups keep the parent routing geometry.
+        Returns (to_reduce, hot, counts): the tensor that crosses the
+        network (raw rows in baseline, K1's pooled partials otherwise),
+        the pooled hot-cache sum (replicated) or None, and the per-(B, Fg)
+        valid counts."""
+        rps = self.sharded.rows_per_shard
+        offs = torch.as_tensor(offsets.astype(np.int32), device=idx_g.device)
+        fused = idx_g.to(torch.int32) + offs[None, :, None]
+        counts = m_g.sum(dim=2).to(torch.float32)
+        hot = None
+        if cache is not None:
+            hot, m_g = self._cache_split(cache, fused, m_g)
+        local = fused - shard * rps
+        hit = (local >= 0) & (local < rps) & m_g
+        if self.mode == "baseline":
+            to_reduce = self._gather_masked(table_shard, local, hit)  # fig 4(a)
+        else:
+            to_reduce = ops.bag_lookup(table_shard, local, hit, masked=True)  # fig 4(b)
+        if self.comm_dtype is not None:
+            to_reduce = to_reduce.to(self.comm_dtype)
+        return to_reduce, hot, counts
+
+    def _combine(self, reduced: torch.Tensor, hot, counts: torch.Tensor,
+                 fields) -> torch.Tensor:
+        """Ranker-side combine after the collective."""
+        summed = reduced.to(torch.float32)
+        if self.mode == "baseline":
+            summed = summed.sum(dim=2)
+        if hot is not None:
+            summed = summed + hot.to(torch.float32)
+        return self._pool(summed, counts, fields)
+
+    def _check_shard(self, table_shard: torch.Tensor) -> None:
+        """A rank's table block must be one shard of this layout's rows."""
+        if table_shard.shape[0] != self.sharded.rows_per_shard:
+            raise ValueError(f"table shard of {table_shard.shape[0]} rows; this layout's "
+                             f"shards hold {self.sharded.rows_per_shard} "
+                             f"({self.sharded.total_rows} rows / {self.num_shards})")
+
+    def _lookup_sharded(self, table_shard, indices, mask, mesh, cache, num_chunks):
+        """The sharded group's lookup under the paper layout, one model-axis
+        all-reduce per chunk of fields."""
+        self._check_shard(table_shard)
+        fields = np.asarray(self.sharded_idx)
+        all_offs = self.sharded.field_offsets_array()
+        shard = mesh.coords[AXIS_MODEL]
+        nchunk = max(1, min(num_chunks, len(fields)))
+        outs = []
+        for pos in np.array_split(np.arange(len(fields)), nchunk):
+            sub = list(fields[pos])
+            to_reduce, hot, counts = self._shard_local(
+                table_shard, indices[:, sub, :], mask[:, sub, :], cache, all_offs[pos], shard)
+            reduced = M.all_reduce(to_reduce, AXIS_MODEL, mesh)
+            outs.append(self._combine(reduced, hot, counts, tuple(sub)))
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+    def _lookup_mesh2d(self, params: dict, indices: torch.Tensor, mask: torch.Tensor,
+                       mesh: M.Mesh, batch_axes: tuple[str, ...]) -> torch.Tensor:
+        """Beyond-paper layout: rows sharded over the whole mesh (every row
+        exists once).  Indices (int32, and the mask as one byte a slot) are
+        all-gathered across the data axes, inner axis first; every rank
+        pools the rows it owns for the *global* batch (K1) and a chain of
+        reduce-scatters, outer axis first as ``P(all_axes)`` orders the
+        blocks, leaves each rank its slice of the pooled batch.
+
+        Collective bytes per step: the index all-gather + the [B,F,D]
+        reduce-scatters (+ their all-gather transposes in backward); the
+        table-sized data-parallel gradient all-reduce of the paper layout
+        disappears because gradients land in locally owned rows only."""
+        if self.replicated is not None:
+            raise NotImplementedError("mesh2d: plain sharded fields only")
+        tables = self.sharded
+        self._check_shard(params["table"])
+        all_axes = tuple(batch_axes) + (AXIS_MODEL,)
+        idx, m = indices, mask.to(torch.uint8)
+        for ax in reversed(batch_axes):  # the global batch, inner axes first
+            idx = M.all_gather(idx, ax, mesh)
+            m = M.all_gather(m, ax, mesh)
+        m = m.bool()
+        fused = self._fused_rows(tables, idx)
+        local = fused - mesh.index(all_axes) * tables.rows_per_shard
+        hit = (local >= 0) & (local < tables.rows_per_shard) & m
+        partial = ops.bag_lookup(params["table"], local, hit, masked=True)  # [B, F, D]
+        if self.comm_dtype is not None:
+            partial = partial.to(self.comm_dtype)
+        counts = m.sum(dim=2).to(torch.float32)
+        for ax in all_axes:  # outer to inner: matches P(all_axes)
+            partial = M.reduce_scatter(partial, ax, mesh)
+            n = counts.shape[0] // mesh.shape[ax]
+            counts = counts[mesh.coords[ax] * n:(mesh.coords[ax] + 1) * n]
+        return self._pool(partial.to(torch.float32), counts, self.sharded_idx)
+
+    def lookup_rows(self, params: dict, indices: torch.Tensor, mask: torch.Tensor,
+                    mesh: M.Mesh | None = None,
+                    batch_axes: tuple[str, ...] = (AXIS_DATA,)) -> torch.Tensor:
+        """Unpooled lookup: [B, F, nnz] -> [B, F, nnz, D] raw rows (masked
+        slots are zero): the fig-4(a) traffic pattern, for models that need
+        per-item embeddings (sequence/interest models like MIND).  Under a
+        mesh (paper layout) each shard gathers the rows it owns and one
+        all-reduce over ``model`` assembles them; ``batch_axes`` is the
+        reference's and names the batch's split."""
+        if self.replicated is not None:
+            raise NotImplementedError("lookup_rows with replicated fields")
+        tables = self.sharded
+        fused = self._fused_rows(tables, indices)
+        if mesh is None:
+            return self._gather_masked(params["table"], fused, mask)
+        self._check_shard(params["table"])
+        local = fused - mesh.coords[AXIS_MODEL] * tables.rows_per_shard
+        hit = (local >= 0) & (local < tables.rows_per_shard) & mask
+        rows = self._gather_masked(params["table"], local, hit)
+        return M.all_reduce(rows, AXIS_MODEL, mesh)
 
     @staticmethod
     def _cache_split(cache, fused: torch.Tensor, m_g: torch.Tensor):
@@ -247,25 +445,39 @@ class DisaggEmbedding:
 
     # ----------------------------------------------------------- cache refresh
 
-    def gather_rows(self, params: dict, row_ids: torch.Tensor) -> torch.Tensor:
+    def gather_rows(self, params: dict, row_ids: torch.Tensor,
+                    mesh: M.Mesh | None = None) -> torch.Tensor:
         """Fused-table rows by global id (used to materialize the cache).
 
-        row_ids: [K] (ids >= total_rows, e.g. INT_MAX padding, give zero rows)."""
+        row_ids: [K], the same on every rank (ids >= total_rows, e.g.
+        INT_MAX padding, give zero rows).  Under a mesh (paper layout) each
+        shard gathers the rows it owns and one all-reduce over ``model``
+        assembles them on every rank."""
         tables = self.sharded
         if tables is None:
             raise ValueError("no sharded table to gather from")
         table = params["table"]
+        zero = torch.zeros((), dtype=table.dtype, device=table.device)
         valid = row_ids < tables.total_rows
-        rows = table[row_ids.clamp(0, tables.total_rows - 1).long()]
-        return torch.where(valid[:, None], rows,
-                           torch.zeros((), dtype=rows.dtype, device=rows.device))
+        if mesh is None:
+            rows = table[row_ids.clamp(0, tables.total_rows - 1).long()]
+            return torch.where(valid[:, None], rows, zero)
+        if self.mode == "mesh2d":
+            raise NotImplementedError("gather_rows(mesh=...) reads the paper layout")
+        self._check_shard(table)
+        rps = tables.rows_per_shard
+        local = row_ids - mesh.coords[AXIS_MODEL] * rps
+        hit = (local >= 0) & (local < rps) & valid
+        rows = torch.where(hit[:, None], table[local.clamp(0, rps - 1).long()], zero)
+        return M.all_reduce(rows, AXIS_MODEL, mesh)
 
 
-def _gather_hot(emb: DisaggEmbedding, params: dict, ids: np.ndarray) -> torch.Tensor:
+def _gather_hot(emb: DisaggEmbedding, params: dict, ids: np.ndarray,
+                mesh: M.Mesh | None = None) -> torch.Tensor:
     """Rows of fused ids ``ids`` (int32) from the sharded table; ids past the
     table give zero rows."""
     ids_t = torch.from_numpy(ids).to(params["table"].device)
-    return emb.gather_rows(params, ids_t)
+    return emb.gather_rows(params, ids_t, mesh)
 
 
 def make_hash_cache_from_table(
@@ -275,15 +487,18 @@ def make_hash_cache_from_table(
     num_slots: int,
     freqs: np.ndarray | None = None,
     admission_threshold: int = 1,
+    mesh: M.Mesh | None = None,
     max_probes: int = DEFAULT_MAX_PROBES,
     device="cuda",
 ) -> HashCacheState:
     """A ``HashCacheState`` on ``device`` holding ``hot_ids`` (fused ids).
 
-    Rows come from the authoritative table (``gather_rows``), so cached
-    lookups stay equal to uncached ones.  ``freqs`` seeds the LFU counters
-    (default: rank order, the hottest id gets the largest counter, so window
-    conflicts resolve the right way).  The rows are written by kernel K4."""
+    Rows come from the authoritative table (``gather_rows``; under a
+    ``mesh`` each rank passes its shard and gets the whole, replicated
+    cache), so cached lookups stay equal to uncached ones.  ``freqs`` seeds
+    the LFU counters (default: rank order, the hottest id gets the largest
+    counter, so window conflicts resolve the right way).  The rows are
+    written by kernel K4."""
     hot_ids = np.asarray(hot_ids)[:num_slots]
     if freqs is None:
         freqs = np.arange(len(hot_ids), 0, -1, dtype=np.int32)
@@ -291,7 +506,7 @@ def make_hash_cache_from_table(
     if len(hot_ids) == 0:
         return state
     ids = hot_ids.astype(np.int32)
-    state, _ = cache_insert(state, ids, _gather_hot(emb, params, ids),
+    state, _ = cache_insert(state, ids, _gather_hot(emb, params, ids, mesh),
                             np.asarray(freqs).astype(np.int32),
                             admission_threshold, max_probes)
     return state
@@ -302,13 +517,15 @@ def make_cache_from_table(
     params: dict,
     hot_ids: np.ndarray,
     capacity: int,
+    mesh: M.Mesh | None = None,
     device="cuda",
 ) -> HotCacheState:
     """A flat ``HotCacheState`` on ``device`` holding ``hot_ids`` (fused row
-    ids), sorted and padded with ROW_ID_PAD."""
+    ids), sorted and padded with ROW_ID_PAD (under a ``mesh``, from this
+    rank's shard: replicated)."""
     dev = resolve_device(device)
     ids = np.full((capacity,), ROW_ID_PAD, dtype=np.int32)
     k = min(capacity, len(hot_ids))
     ids[:k] = np.sort(np.asarray(hot_ids)[:k]).astype(np.int32)
-    rows = _gather_hot(emb, params, ids)
+    rows = _gather_hot(emb, params, ids, mesh)
     return HotCacheState(ids=torch.from_numpy(ids).to(dev), rows=rows.to(dev))

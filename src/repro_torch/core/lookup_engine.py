@@ -12,8 +12,9 @@ connections on different engines share units and serialize — the contention of
 paper Fig 6 (left).  With the *mapping-aware* assignment, connections are
 grouped by unit so each engine owns its units exclusively (Fig 6 right).
 
-**SPMD layer.**  The reference's `chunked_lookup` (field-chunked collectives
-overlapped with dense compute) waits for the port's multi-device slice.
+**SPMD layer.**  `chunked_lookup`: the sharded fields split into
+independent lookups, one collective each (``DisaggEmbedding.lookup``'s
+``num_chunks``), the SPMD counterpart of several RDMA engines at once.
 """
 from __future__ import annotations
 
@@ -491,3 +492,18 @@ class HostLookupService:
         re-running ``np.unique`` for byte accounting)."""
         D = self.servers[0].rows.shape[1]
         return len(uniq) * (4 + D * self.servers[0].rows.dtype.itemsize)
+
+
+# --------------------------------------------------------------------- SPMD
+
+
+def chunked_lookup(emb, params: dict, indices, mask, mesh, num_chunks: int,
+                   cache=None, batch_axes: tuple[str, ...] = ("data",)):
+    """Split the F axis of ``emb``'s (a ``core.embedding.DisaggEmbedding``)
+    sharded fields into ``num_chunks`` independent lookups under ``mesh``.
+
+    Each chunk's all-reduce is a collective of its own, which a rank can
+    overlap with dense work issued between chunks: the SPMD counterpart of
+    multiple RDMA engines working concurrently (§3.2)."""
+    return emb.lookup(params, indices, mask, mesh=mesh, cache=cache,
+                      batch_axes=batch_axes, num_chunks=num_chunks)

@@ -29,6 +29,34 @@ AXIS_DATA = "data"
 AXIS_MODEL = "model"
 
 
+class PartitionSpec(tuple):
+    """The mesh axes of each dimension of an array (a name, a tuple of
+    names, or None), as ``jax.sharding.PartitionSpec`` holds them: the
+    layout of a leaf under a ``launch.mesh.Mesh``, and what a checkpoint
+    records for it.  Dimensions past the spec's length are replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def axes_of(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes dimension ``dim`` is split over, outer first."""
+        if dim >= len(self) or self[dim] is None:
+            return ()
+        el = self[dim]
+        return tuple(el) if isinstance(el, (tuple, list)) else (el,)
+
+    def mesh_axes(self) -> tuple[str, ...]:
+        """Every mesh axis the spec splits a dimension over."""
+        return tuple(a for d in range(len(self)) for a in self.axes_of(d))
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
 @dataclasses.dataclass(frozen=True)
 class TableSpec:
     """One logical embedding table (one sparse field)."""

@@ -9,8 +9,9 @@
   miss_path  — HostHashCache mirror + TieredLookupService: only cache
                misses become HostLookupService subrequests.
 
-Port of ``repro/hotcache``; the reference's ``cache_partition_spec`` waits
-for the multi-device slice.  Importing this package builds no kernel.
+Port of ``repro/hotcache``; ``cache_partition_spec`` gives the cache's
+layout under a ``launch.mesh.Mesh`` (replicated on every rank).  Importing
+this package builds no kernel.
 """
 from repro_torch.hotcache.kernels import probe_gather_pool, scatter_update
 from repro_torch.hotcache.miss_path import (
@@ -23,6 +24,7 @@ from repro_torch.hotcache.table import (
     EMPTY_KEY,
     HashCacheState,
     cache_insert,
+    cache_partition_spec,
     cache_lookup,
     decay_freq,
     empty_hash_cache,
@@ -40,6 +42,7 @@ __all__ = [
     "TieredLookupService",
     "TieredStats",
     "cache_insert",
+    "cache_partition_spec",
     "cache_lookup",
     "decay_freq",
     "empty_hash_cache",

@@ -19,8 +19,8 @@ write of the batch in one launch of kernel K4 (``hotcache.kernels.
 scatter_update``), where the last write to a slot wins, as in the sequential
 order.  Lookups (``cache_lookup``) are pure reads.
 
-``cache_partition_spec`` (the reference's replicated shard_map spec) has no
-counterpart until the port's multi-device slice.
+``cache_partition_spec`` gives the cache's layout under a mesh: whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import PartitionSpec as P
 from repro_torch.hotcache import kernels
 from repro_torch.utils import numpy_to_tensor, resolve_device
 
@@ -69,6 +70,12 @@ class HashCacheState:
     def occupancy(self) -> torch.Tensor:
         """Number of live entries (a 0-d tensor on the cache's device)."""
         return (self.keys != EMPTY_KEY).sum()
+
+
+def cache_partition_spec() -> "HashCacheState":
+    """The cache's layout under a mesh, a ``HashCacheState`` of specs:
+    replicated on every rank (each rank holds the whole cache)."""
+    return HashCacheState(keys=P(None), rows=P(None, None), freq=P(None))
 
 
 def empty_hash_cache(num_slots: int, dim: int, dtype=torch.float32,

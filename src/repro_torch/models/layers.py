@@ -1,14 +1,13 @@
 """Shared dense layers: MLPs, RMS norm, rotary, GQA attention (prefill and
 decode), the KV-cache write and the token embedding.
 
-Port of ``repro/models/layers.py`` for one device: ``dense_init``,
+Port of ``repro/models/layers.py``: ``constrain`` (this rank's block of
+a layout under a ``launch.mesh.Mesh``), ``dense_init``,
 ``mlp_params``, ``mlp_apply``, ``rms_norm``, ``rope_frequencies``,
 ``apply_rope``, ``gqa_prefill_attention`` (kernel K6 on the card),
 ``flash_decode_shard`` (kernel K7 on the card; no cross-shard combine yet),
 ``kv_cache_update_shard`` (no shard offset yet) and ``sharded_vocab_embed``
-(``mesh=None`` only).
-``constrain`` has no counterpart (no mesh); ``layer_norm`` waits for a
-model that uses it.
+(``mesh=None`` only).  ``layer_norm`` waits for a model that uses it.
 """
 from __future__ import annotations
 
@@ -19,7 +18,23 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import PartitionSpec
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import block_slices
+
+# --------------------------------------------------------------------- utils
+
+
+def constrain(x: torch.Tensor, spec: PartitionSpec | None, mesh=None,
+              have: PartitionSpec | None = None) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (the reference's
+    ``with_sharding_constraint``): ``x`` is already split as ``have``
+    (default: whole on every rank), and each dimension is cut further
+    along the axes ``spec`` adds, a view.  The identity without a mesh or
+    a spec; its gradient is zero outside the block."""
+    if mesh is None or spec is None:
+        return x
+    return x[block_slices(x.shape, spec, mesh, have)]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -27,7 +42,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
     """[d_in, d_out] weight, uniform in +-1/sqrt(d_in)."""
     scale = 1.0 / math.sqrt(d_in)
     w = torch.empty((d_in, d_out), dtype=dtype, device=device)
-    return w.uniform_(-scale, scale, generator=gen)
+    return w if w.is_meta else w.uniform_(-scale, scale, generator=gen)
 
 
 def mlp_params(gen: torch.Generator, sizes: Sequence[int], dtype=torch.float32,

@@ -8,10 +8,10 @@ Parameters are a nested dict of tensors with the reference's keys and its
 reference's weights across unchanged.  The layers run as a Python loop (no
 scan, no remat: serving keeps no activations for a backward pass).
 
-Not ported yet (ROADMAP queue 1, item 14): experts (``moe``), the training
+Not ported yet (ROADMAP queue 1, item 4): experts (``moe``), the training
 path (``lm_loss``, ``make_train_step``), the mesh paths (``param_specs``,
 ``cache_specs``, tensor and sequence parallelism, the sequence-sharded
-decode combine).
+decode combine), on the mesh layer that item 2 ported (``launch.mesh``).
 """
 from __future__ import annotations
 

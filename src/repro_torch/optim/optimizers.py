@@ -26,6 +26,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.sharding import is_spec
+from repro_torch.launch.mesh import all_reduce
 from repro_torch.utils import keystr, tree_flatten_with_path, tree_unflatten
 
 F32 = torch.float32
@@ -252,10 +254,23 @@ def make_composite(rules: list[tuple[str, Optimizer]]) -> Optimizer:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     """``(grads * min(1, max_norm / norm), norm)``, norm the global L2 norm
-    as a 0-dim f32 tensor on the grads' device."""
+    as a 0-dim f32 tensor on the grads' device.
+
+    Under a ``mesh`` each rank holds its blocks of the (already reduced)
+    gradients laid out as ``specs`` (a tree of PartitionSpecs shaped as
+    ``grads``): a leaf's squared sum is summed over the mesh axes its spec
+    splits it over, so a sharded leaf counts every shard and a replicated
+    one counts once."""
     leaves = _leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(leaf.to(F32) ** 2) for leaf in leaves))
+    sq = [torch.sum(leaf.to(F32) ** 2) for leaf in leaves]
+    if mesh is not None:
+        by_axes: dict[tuple, torch.Tensor] = {}
+        for s, (_, spec) in zip(sq, tree_flatten_with_path(specs, is_spec)):
+            axes = mesh.axes(spec.mesh_axes())
+            by_axes[axes] = by_axes.get(axes, 0) + s
+        sq = [all_reduce(v, axes, mesh) if axes else v for axes, v in by_axes.items()]
+    norm = torch.sqrt(sum(sq))
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return _map(lambda g: g * scale.to(g.dtype), grads), norm

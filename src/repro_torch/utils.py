@@ -73,14 +73,23 @@ def keystr(path: tuple) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
-def tree_unflatten(template: Any, leaves) -> Any:
+def tree_unflatten(template: Any, leaves, is_leaf=None) -> Any:
     """``template``'s nesting with its leaves replaced, in the order of
     :func:`tree_flatten_with_path`, by ``leaves``; dicts keep the
-    template's insertion order."""
+    template's insertion order; a subtree for which ``is_leaf`` is true is
+    a leaf."""
     it = iter(leaves)
     end = object()
 
+    def take():
+        leaf = next(it, end)
+        if leaf is end:
+            raise ValueError("fewer leaves than the template holds")
+        return leaf
+
     def fill(t):
+        if is_leaf is not None and is_leaf(t):
+            return take()
         if isinstance(t, dict):
             out = {k: fill(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}
@@ -88,10 +97,7 @@ def tree_unflatten(template: Any, leaves) -> Any:
             return type(t)([fill(v) for v in t])
         if t is None:
             return None
-        leaf = next(it, end)
-        if leaf is end:
-            raise ValueError("fewer leaves than the template holds")
-        return leaf
+        return take()
 
     out = fill(template)
     if next(it, end) is not end:

@@ -1,0 +1,164 @@
+"""The reference's side of tests/test_torch_sharded.py, run as a script:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/_jax_sharded_reference.py inputs.npz outputs.npz
+
+Reads the inputs the test wrote (a .npz whose ``meta`` entry is the JSON case
+list) and runs the JAX package's sharded paths once under its (2, 4) mesh:
+every lookup case (its whole output, and the collective bytes
+``launch.hlo_analysis.analyze`` reads from its compiled HLO), ``lookup_rows``,
+``chunked_lookup``, ``cache_partition_spec``, ``gather_rows``, ``jax.grad`` of the lookup (also under a (2, 2, 2) mesh
+with two batch axes), ``R.forward``, the loss and its
+gradients (global norm clipping) and one ``make_train_step``, on the
+test's params.  Outputs are the whole logical arrays, keyed as the port's
+side keys its blocks."""
+from __future__ import annotations
+
+import json
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.compat import make_mesh
+from repro.core.embedding import (DisaggEmbedding, make_cache_from_table,
+                                  make_hash_cache_from_table)
+from repro.core.lookup_engine import chunked_lookup
+from repro.core.sharding import TableSpec
+from repro.hotcache.table import cache_partition_spec
+from repro.launch.hlo_analysis import analyze
+from repro.models import recsys as R
+from repro.optim import optimizers as O
+
+BATCH_AXES = ("data",)
+
+
+def specs_of(rows):
+    return [TableSpec(n, v, nnz=k, pooling=p) for n, v, k, p in rows]
+
+
+def nest(flat: dict, prefix: str) -> dict:
+    out: dict = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix + "|"):
+            continue
+        node = out
+        *path, leaf = key[len(prefix) + 1:].split("|")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(arr)
+    return out
+
+
+def flat_np(tree) -> dict:
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
+
+
+def compiled(fn, *args):
+    """(outputs, analyze(...) of the compiled HLO) of ``jax.jit(fn)(*args)``."""
+    c = jax.jit(fn).lower(*args).compile()
+    return c(*args), analyze(c.as_text(), 8)
+
+
+def main(inputs_path: str, outputs_path: str) -> None:
+    d = dict(np.load(inputs_path))
+    meta = json.loads(str(d["meta"]))
+    mesh = make_mesh(tuple(meta["mesh"]), ("data", "model"))
+    idx, msk = jnp.asarray(d["idx"]), jnp.asarray(d["mask"])
+    out: dict = {}
+
+    def emb_for(case):
+        return DisaggEmbedding(specs_of(meta["emb_specs"]), dim=meta["dim"],
+                               num_shards=case["num_shards"], mode=case["mode"],
+                               replicated_fields=tuple(case["replicated"]),
+                               comm_dtype=jnp.bfloat16 if case["comm"] == "bf16" else None)
+
+    for name, case in meta["lookup_cases"].items():
+        emb = emb_for(case)
+        params = nest(d, case["params"])
+        cache = None
+        if case["cache"] == "flat":
+            cache = make_cache_from_table(emb, params, d["hot"], meta["flat_slots"], mesh=mesh)
+        elif case["cache"] == "hash":
+            cache = make_hash_cache_from_table(emb, params, d["hot"], meta["hash_slots"],
+                                               mesh=mesh)
+        nc = case["num_chunks"]
+        got, terms = compiled(
+            lambda p, i, m, c, emb=emb, nc=nc: emb.lookup(p, i, m, mesh=mesh, cache=c,
+                                                          batch_axes=BATCH_AXES, num_chunks=nc),
+            params, idx, msk, cache)
+        out[f"lookup|{name}"] = np.asarray(got)
+        out[f"hlo_bytes|{name}"] = np.float64(terms.collective_bytes_per_device)
+        for op, n in terms.collective_counts.items():
+            out[f"hlo_calls|{name}|{op}"] = np.int64(n)
+    case = meta["lookup_cases"]["hierarchical"]
+    emb, params = emb_for(case), nest(d, case["params"])
+    got, terms = compiled(lambda p, i, m: emb.lookup_rows(p, i, m, mesh=mesh), params, idx, msk)
+    out["lookup_rows"] = np.asarray(got)
+    out["hlo_bytes|lookup_rows"] = np.float64(terms.collective_bytes_per_device)
+    out["chunked_lookup"] = np.asarray(jax.jit(lambda p, i, m: chunked_lookup(
+        emb, p, i, m, mesh, 2, batch_axes=BATCH_AXES))(params, idx, msk))
+    spec = cache_partition_spec()
+    out["cache_partition_spec"] = np.array(json.dumps(
+        {f: list(getattr(spec, f)) for f in ("keys", "rows", "freq")}))
+    got, terms = compiled(lambda p, r: emb.gather_rows(p, r, mesh=mesh), params,
+                          jnp.asarray(d["row_ids"]))
+    out["gather_rows"] = np.asarray(got)
+    out["hlo_bytes|gather_rows"] = np.float64(terms.collective_bytes_per_device)
+
+    for mode in meta["grad_modes"]:
+        case = meta["lookup_cases"][mode]
+        emb, params = emb_for(case), nest(d, case["params"])
+        g = jax.jit(jax.grad(lambda p, emb=emb: emb.lookup(p, idx, msk, mesh=mesh).sum()))(params)
+        out[f"grad|{mode}"] = np.asarray(g["table"])
+
+    mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    axes3 = ("pod", "data")
+    for name, case in meta["pod_cases"].items():
+        emb, params = emb_for(case), nest(d, case["params"])
+        got, terms = compiled(
+            lambda p, i, m, emb=emb: emb.lookup(p, i, m, mesh=mesh3, batch_axes=axes3),
+            params, idx, msk)
+        out[f"pod_lookup|{name}"] = np.asarray(got)
+        out[f"hlo_bytes|pod|{name}"] = np.float64(terms.collective_bytes_per_device)
+        g = jax.jit(jax.grad(lambda p, emb=emb: emb.lookup(
+            p, idx, msk, mesh=mesh3, batch_axes=axes3).sum()))(params)
+        out[f"pod_grad|{name}"] = np.asarray(g["table"])
+
+    batch = {k: jnp.asarray(d[f"dlrm_batch|{k}"]) for k in ("indices", "mask", "dense", "labels")}
+    for mode in meta["dlrm_modes"]:
+        cfg = R.RecsysConfig(name="t", arch="dlrm", tables=tuple(specs_of(meta["dlrm_specs"])),
+                             embed_dim=meta["dim"], n_dense=meta["n_dense"],
+                             bottom_mlp=tuple(meta["bottom_mlp"]), mlp=tuple(meta["mlp"]),
+                             mode=mode)
+        params = nest(d, f"dlrm{cfg.num_shards_for(mesh)}")
+        out[f"forward|{mode}"] = np.asarray(
+            jax.jit(lambda p, b, cfg=cfg: R.forward(cfg, p, b, mesh, BATCH_AXES))(params, batch))
+        if mode not in meta["train_modes"]:
+            continue
+
+        def loss_fn(p, cfg=cfg):
+            return R.bce_loss(R.forward(cfg, p, batch, mesh, BATCH_AXES), batch["labels"])
+
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+        clipped, norm = O.clip_by_global_norm(grads, meta["max_norm"])
+        out[f"loss|{mode}"] = np.asarray(loss)
+        out[f"norm|{mode}"] = np.asarray(norm)
+        for k, v in flat_np(clipped).items():
+            out[f"clipped|{mode}|{k}"] = v
+        opt = O.make_composite([("emb", O.make_rowwise_adagrad(0.05)),
+                                (".*", O.make_adam(1e-3))])
+        step = jax.jit(R.make_train_step(cfg, opt, mesh, BATCH_AXES))
+        new_p, new_s, m = step(params, opt.init(params), batch)
+        out[f"step_loss|{mode}"] = np.asarray(m["loss"])
+        for k, v in flat_np(new_p).items():
+            out[f"step_params|{mode}|{k}"] = v
+        for k, v in flat_np(new_s).items():
+            out[f"step_state|{mode}|{k}"] = v
+    np.savez(outputs_path, **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

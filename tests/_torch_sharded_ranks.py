@@ -1,0 +1,250 @@
+"""The port's side of tests/test_torch_sharded.py: one rank of a (data 2,
+model 4) mesh over gloo on the CPU.  ``run`` reads the inputs the test wrote
+(a .npz whose ``meta`` entry is the JSON case list), runs every case on this
+rank's blocks and returns host arrays: this rank's blocks of each output,
+its mesh coordinates and the collective bytes it counted per case.
+
+It imports torch and the port only (no jax), so it starts quickly in a
+spawned process."""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.core.embedding import (DisaggEmbedding, make_cache_from_table,
+                                        make_hash_cache_from_table)
+from repro_torch.core.lookup_engine import chunked_lookup
+from repro_torch.core.sharding import AXIS_DATA, PartitionSpec as P, TableSpec
+from repro_torch.hotcache.table import cache_partition_spec
+from repro_torch.launch import mesh as M
+from repro_torch.models import layers as L
+from repro_torch.models import recsys as R
+from repro_torch.optim import optimizers as O
+from repro_torch.utils import keystr, tree_flatten_with_path
+
+BATCH_AXES = (AXIS_DATA,)
+
+
+def specs_of(rows) -> list[TableSpec]:
+    return [TableSpec(n, v, nnz=k, pooling=p) for n, v, k, p in rows]
+
+
+def nest(flat: dict, prefix: str) -> dict:
+    """``{"a|b": x}`` entries under ``prefix|`` as nested dicts of tensors."""
+    out: dict = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix + "|"):
+            continue
+        node = out
+        *path, leaf = key[len(prefix) + 1:].split("|")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def flat_np(tree) -> dict:
+    return {keystr(p): x.detach().cpu().numpy() for p, x in tree_flatten_with_path(tree)}
+
+
+def dlrm_cfg(meta: dict, mode: str) -> R.RecsysConfig:
+    return R.RecsysConfig(name="t", arch="dlrm", tables=tuple(specs_of(meta["dlrm_specs"])),
+                          embed_dim=meta["dim"], n_dense=meta["n_dense"],
+                          bottom_mlp=tuple(meta["bottom_mlp"]), mlp=tuple(meta["mlp"]),
+                          mode=mode)
+
+
+def optimizer() -> O.Optimizer:
+    return O.make_composite([("emb", O.make_rowwise_adagrad(0.05)), (".*", O.make_adam(1e-3))])
+
+
+def _bytes_since(before: dict) -> dict:
+    now = M.comm_bytes()
+    return {op: v - before.get(op, 0.0) for op, v in now.items() if v != before.get(op, 0.0)}
+
+
+def run(rank: int, world: int, inputs_path: str) -> dict:
+    torch.set_num_threads(1)
+    d = dict(np.load(inputs_path))
+    meta = json.loads(str(d["meta"]))
+    mesh = M.make_debug_mesh(*meta["mesh"])
+    out: dict = {"coords": dict(mesh.coords), "outputs": {}, "bytes": {}, "errors": {}}
+    batch_p = P(BATCH_AXES)
+    idx = L.constrain(torch.from_numpy(d["idx"]), batch_p, mesh)
+    msk = L.constrain(torch.from_numpy(d["mask"]), batch_p, mesh)
+
+    def emb_for(case: dict) -> DisaggEmbedding:
+        return DisaggEmbedding(specs_of(meta["emb_specs"]), dim=meta["dim"],
+                               num_shards=case["num_shards"], mode=case["mode"],
+                               replicated_fields=tuple(case["replicated"]),
+                               comm_dtype=torch.bfloat16 if case["comm"] == "bf16" else None)
+
+    def local_params(emb: DisaggEmbedding, key: str) -> dict:
+        whole = nest(d, key)
+        specs = emb.param_specs(BATCH_AXES)
+        return {k: L.constrain(v, specs[k], mesh) for k, v in whole.items()}
+
+    # ---- lookups, the cache builds, lookup_rows and gather_rows
+    for name, case in meta["lookup_cases"].items():
+        emb = emb_for(case)
+        params = local_params(emb, case["params"])
+        cache = None
+        if case["cache"] == "flat":
+            cache = make_cache_from_table(emb, params, d["hot"], meta["flat_slots"], mesh=mesh,
+                                          device="cpu")
+        elif case["cache"] == "hash":
+            cache = make_hash_cache_from_table(emb, params, d["hot"], meta["hash_slots"],
+                                               mesh=mesh, device="cpu")
+        before = M.comm_bytes()
+        got = emb.lookup(params, idx, msk, mesh=mesh, cache=cache, batch_axes=BATCH_AXES,
+                         num_chunks=case["num_chunks"])
+        out["bytes"][name] = _bytes_since(before)
+        out["outputs"][f"lookup|{name}"] = got.numpy()
+    emb = emb_for(meta["lookup_cases"]["hierarchical"])
+    params = local_params(emb, meta["lookup_cases"]["hierarchical"]["params"])
+    before = M.comm_bytes()
+    out["outputs"]["lookup_rows"] = emb.lookup_rows(params, idx, msk, mesh=mesh).numpy()
+    out["bytes"]["lookup_rows"] = _bytes_since(before)
+    before = M.comm_bytes()
+    out["outputs"]["chunked_lookup"] = chunked_lookup(emb, params, idx, msk, mesh, 2,
+                                                      batch_axes=BATCH_AXES).numpy()
+    out["bytes"]["chunked_lookup"] = _bytes_since(before)
+    spec = cache_partition_spec()
+    out["cache_partition_spec"] = {f: list(getattr(spec, f)) for f in ("keys", "rows", "freq")}
+    before = M.comm_bytes()
+    out["outputs"]["gather_rows"] = emb.gather_rows(
+        params, torch.from_numpy(d["row_ids"]), mesh=mesh).numpy()
+    out["bytes"]["gather_rows"] = _bytes_since(before)
+
+    # ---- the table's gradient of the lookup's sum, each output row once
+    for mode in meta["grad_modes"]:
+        case = meta["lookup_cases"][mode]
+        emb = emb_for(case)
+        table = local_params(emb, case["params"])["table"].clone().requires_grad_(True)
+        before = M.comm_bytes()
+        pooled = emb.lookup({"table": table}, idx, msk, mesh=mesh, batch_axes=BATCH_AXES)
+        loss = R.dense_shard(pooled, BATCH_AXES, mesh, have=emb.output_axes(BATCH_AXES)).sum()
+        (g,) = torch.autograd.grad(loss, table)
+        if mode != "mesh2d":  # the paper layout's table is replicated over data
+            g = M.all_reduce(g, BATCH_AXES, mesh)
+        out["bytes"][f"grad|{mode}"] = _bytes_since(before)
+        out["outputs"][f"grad|{mode}"] = g.numpy()
+
+    # ---- a (pod 2, data 2, model 2) mesh: two batch axes, gathered inner
+    # first and scattered outer first by mesh2d; lookup and table gradient
+    mesh3 = M.make_debug_mesh(2, 2, pod=2)
+    axes3 = M.batch_axes_for(mesh3)
+    out["coords3"] = dict(mesh3.coords)
+    idx3, msk3 = (L.constrain(torch.from_numpy(d[k]), P(axes3), mesh3) for k in ("idx", "mask"))
+    for name, case in meta["pod_cases"].items():
+        emb = emb_for(case)
+        spec = emb.param_specs(axes3)["table"]
+        table = L.constrain(nest(d, case["params"])["table"], spec, mesh3).clone()
+        table.requires_grad_(True)
+        before = M.comm_bytes()
+        pooled = emb.lookup({"table": table}, idx3, msk3, mesh=mesh3, batch_axes=axes3)
+        out["bytes"][f"pod|{name}"] = _bytes_since(before)
+        out["outputs"][f"pod_lookup|{name}"] = pooled.detach().numpy()
+        loss = R.dense_shard(pooled, axes3, mesh3, have=emb.output_axes(axes3)).sum()
+        (g,) = torch.autograd.grad(loss, table)
+        if case["mode"] != "mesh2d":
+            g = M.all_reduce(g, axes3, mesh3)
+        out["outputs"][f"pod_grad|{name}"] = g.numpy()
+
+    # ---- the tiny DLRM: forward, loss and gradients with clipping, one step
+    batch = {k: L.constrain(torch.from_numpy(d[f"dlrm_batch|{k}"]), batch_p, mesh)
+             for k in ("indices", "mask", "dense", "labels")}
+    for mode in meta["dlrm_modes"]:
+        cfg = dlrm_cfg(meta, mode)
+        ns = cfg.num_shards_for(mesh)
+        specs = R.param_specs(cfg, ns, BATCH_AXES)
+        params = R.shard_params(nest(d, f"dlrm{ns}"), specs, mesh)
+        with torch.no_grad():
+            scores = R.forward(cfg, params, batch, mesh, BATCH_AXES)
+            out["outputs"][f"forward|{mode}"] = scores.numpy()
+            out["outputs"][f"forward_gathered|{mode}"] = R.gather_scores(
+                scores, mesh, BATCH_AXES).numpy()
+        if mode not in meta["train_modes"]:
+            continue
+        loss, grads = R.loss_and_grads(cfg, params, batch, mesh, BATCH_AXES)
+        clipped, norm = O.clip_by_global_norm(grads, meta["max_norm"], mesh, specs)
+        out["outputs"][f"loss|{mode}"] = loss.numpy()
+        out["outputs"][f"norm|{mode}"] = norm.numpy()
+        for k, v in flat_np(clipped).items():
+            out["outputs"][f"clipped|{mode}|{k}"] = v
+        opt = optimizer()
+        step = R.make_train_step(cfg, opt, mesh, BATCH_AXES)
+        new_p, new_s, m = step(params, opt.init(params), batch)
+        out["outputs"][f"step_loss|{mode}"] = m["loss"].numpy()
+        for k, v in flat_np(new_p).items():
+            out["outputs"][f"step_params|{mode}|{k}"] = v
+        for k, v in flat_np(new_s).items():
+            out["outputs"][f"step_state|{mode}|{k}"] = v
+
+    # ---- refusals
+    try:
+        M.make_production_mesh()
+    except ValueError as e:
+        out["errors"]["production_mesh"] = str(e)
+    emb = DisaggEmbedding(specs_of(meta["emb_specs"]), dim=meta["dim"], num_shards=8,
+                          mode="mesh2d", replicated_fields=(2,))
+    try:
+        emb.lookup(local_params(emb, "emb|rep|8"), idx, msk, mesh=mesh)
+    except NotImplementedError as e:
+        out["errors"]["mesh2d_replicated"] = str(e)
+    return out
+
+
+def echo_coords(rank: int, world: int, shape) -> dict:
+    return dict(M.Mesh(shape, ("data", "model")).coords)
+
+
+def fail_on_rank_1(rank: int, world: int) -> int:
+    if rank == 1:
+        raise RuntimeError("rank 1 failed on purpose")
+    M.make_debug_mesh(1, world).barrier()  # rank 0 waits for rank 1 and is killed
+    return rank
+
+
+def sleep(rank: int, world: int, seconds: float) -> None:
+    import time
+    time.sleep(seconds)
+
+
+def restore_rank(rank: int, world: int, ckpt_dir: str, shape) -> dict:
+    """A one-process checkpoint (step 1) restored under a mesh of ``shape``:
+    the params by the specs recorded at save, the optimizer state by
+    ``sharding_rules``; then saved again from the mesh as step 2."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.optim import sharding_rules as SR
+
+    torch.set_num_threads(1)
+    mesh = M.Mesh(shape, ("data", "model"))
+    cfg = R.RecsysConfig(name="t", arch="dlrm", tables=tuple(specs_of(
+        [("big", 4000, 4, "sum"), ("mid", 1000, 1, "sum")])), embed_dim=8, n_dense=3,
+        bottom_mlp=(8,), mlp=(8,))
+    ns = cfg.num_shards_for(mesh)
+    pshapes = R.abstract_params(cfg, ns)
+    opt = optimizer()
+    state_shapes = opt.init(pshapes)
+    state_specs = SR.composite_state_specs([("emb", "rowwise"), (".*", "adam")],
+                                           R.param_specs(cfg, ns), pshapes)
+    mgr = CheckpointManager(ckpt_dir)
+    (params, state), extra = mgr.restore((pshapes, state_shapes), step=1, mesh=mesh,
+                                         specs=(None, state_specs), device="cpu")
+    mgr.save(2, (params, state), specs=(R.param_specs(cfg, ns), state_specs), extra=extra,
+             blocking=True, mesh=mesh)
+    return {"coords": dict(mesh.coords), "params": flat_np(params), "state": flat_np(state)}
+
+
+def compress_psum_rank(rank: int, world: int, x: np.ndarray) -> dict:
+    """``compress_psum`` over the one axis of a (1, world) mesh of rank's
+    share ``x * (rank + 1)``, and the bytes it counted."""
+    from repro_torch.optim import grad_compress as GC
+
+    mesh = M.make_debug_mesh(1, world)
+    before = M.comm_bytes()
+    got = GC.compress_psum(torch.from_numpy(x) * (rank + 1), "model", mesh)
+    return {"sum": got.numpy(), "bytes": _bytes_since(before)}

@@ -19,11 +19,15 @@ from repro.ckpt.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.models import recsys as JR
 from repro.optim import optimizers as JO
 from repro_torch.ckpt.checkpoint import CheckpointManager, PartitionSpec
+from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
+from repro_torch.launch import mesh as M
 from repro_torch.models import recsys as R
 from repro_torch.optim import optimizers as O
+from repro_torch.optim import sharding_rules as SR
 from repro_torch.utils import keystr, tree_flatten_with_path
 
+import _torch_sharded_ranks as ranks
 from test_torch_train import _cfgs, _jax_batch, _torch_batch, assert_trees_close
 
 
@@ -107,19 +111,52 @@ def test_manifest_matches_the_references(tmp_path):
         ["[0]['bottom']['w0']", "[0]['emb']['table']"]
 
 
+class _ModelAxisOf4:
+    """Rank 1 of a mesh of one axis, ``model`` of 4, for ``block_slices``."""
+
+    def axis_size(self, axes):
+        return 4
+
+    def index(self, axes):
+        return 1
+
+
 def test_refusals(tmp_path):
     mgr = CheckpointManager(tmp_path)
     with pytest.raises(TypeError, match="bfloat16"):
         mgr.save(0, {"a": torch.ones(2, dtype=torch.bfloat16)}, blocking=True)
     mgr.save(1, {"a": torch.ones(2)}, blocking=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        mgr.restore({"a": torch.zeros(2)}, mesh=object())
+    with pytest.raises(ValueError, match="does not split 4 ways"):
+        mgr.restore({"a": torch.zeros(2)}, mesh=_ModelAxisOf4(),
+                    specs={"a": PartitionSpec("model")})
     with pytest.raises(TypeError, match="bfloat16"):
         mgr.restore({"a": torch.zeros(2, dtype=torch.bfloat16)})
     with pytest.raises(KeyError, match="missing leaf"):
         mgr.restore({"b": torch.zeros(2)})
     with pytest.raises(FileNotFoundError):
         CheckpointManager(tmp_path / "empty").restore({"a": torch.zeros(2)})
+
+
+def test_restore_into_abstract_params(tmp_path):
+    """``abstract_params``' meta tensors are a template for shapes and dtypes
+    only: without ``device=`` the restore raises rather than return meta
+    tensors that hold none of the checkpoint; with it, every leaf comes back
+    bit-equal."""
+    cfg = R.RecsysConfig(name="t", arch="dlrm", tables=(
+        TableSpec("big", 400, nnz=4), TableSpec("mid", 100, nnz=1)), embed_dim=8,
+        n_dense=3, bottom_mlp=(8,), mlp=(8,))
+    params = R.init_params(cfg, seed=3, num_shards=2, device="cpu")
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, params, blocking=True)
+    with pytest.raises(ValueError, match="meta device"):
+        mgr.restore(R.abstract_params(cfg, 2))
+    with pytest.raises(ValueError, match="meta device"):
+        mgr.restore(params, device="meta")
+    restored, _ = mgr.restore(R.abstract_params(cfg, 2), device="cpu")
+    for (pa, a), (pb, b) in zip(tree_flatten_with_path(params),
+                                tree_flatten_with_path(restored)):
+        assert pa == pb and b.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b), keystr(pa)
 
 
 def _train_setup():
@@ -169,3 +206,48 @@ def test_checkpoint_crosses_packages(writer, tmp_path):
         tp, ts, tm = tstep(tp, ts, _torch_batch(b))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5, atol=1e-6)
     assert_trees_close((tp, ts), (jp, js), 1e-5, 1e-6)
+
+
+def test_restore_under_a_mesh_and_back(tmp_path):
+    """A checkpoint of params and optimizer state saved by one process
+    restores on 4 gloo ranks of a (data 2, model 2) mesh, each rank holding
+    its block of every leaf (rows of the table and of its accumulator by the
+    model axis; the rest whole) bit for bit; saved again from the mesh
+    (gathered, rank 0 writes), it restores in one process bit-equal to the
+    first."""
+    cfg = R.RecsysConfig(name="t", arch="dlrm", tables=(
+        TableSpec("big", 4000, nnz=4), TableSpec("mid", 1000, nnz=1)), embed_dim=8,
+        n_dense=3, bottom_mlp=(8,), mlp=(8,))
+    params = R.init_params(cfg, seed=3, num_shards=2, device="cpu")
+    opt = ranks.optimizer()
+    state = opt.init(params)
+    b = syn.recsys_batch(np.random.default_rng(0), cfg.tables, 8, n_dense=3)
+    params, state, _ = R.make_train_step(cfg, opt)(params, state, _torch_batch(b))
+    pspecs = R.param_specs(cfg, 2)
+    CheckpointManager(tmp_path).save(1, (params, state), specs=(pspecs, None),
+                                     extra={"step": 1}, blocking=True)
+    out = M.spawn(ranks.restore_rank, 4, (str(tmp_path), (2, 2)), timeout=120)
+    state_specs = SR.composite_state_specs([("emb", "rowwise"), (".*", "adam")], pspecs,
+                                           R.abstract_params(cfg, 2))
+    whole = {"params": dict(tree_flatten_with_path(params)),
+             "state": dict(tree_flatten_with_path(state))}
+    is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+    spec_of = {"params": dict(tree_flatten_with_path(pspecs, is_spec)),
+               "state": dict(tree_flatten_with_path(state_specs, is_spec))}
+    for r in out:
+        m = r["coords"]["model"]
+        for part in ("params", "state"):
+            for path, leaf in whole[part].items():
+                want = leaf.numpy()
+                if spec_of[part][path].axes_of(0) == ("model",):
+                    n = want.shape[0] // 2
+                    want = want[m * n:(m + 1) * n]
+                got = r[part][keystr(path)]
+                assert got.dtype == want.dtype and got.shape == want.shape
+                np.testing.assert_array_equal(got, want, err_msg=keystr(path))
+    assert sum(spec_of["params"][p].axes_of(0) == ("model",) for p in whole["params"]) == 1
+    (p2, s2), extra = CheckpointManager(tmp_path).restore((params, state), step=2)
+    assert extra == {"step": 1}
+    for (pa, a), (pb, b_) in zip(tree_flatten_with_path((params, state)),
+                                 tree_flatten_with_path((p2, s2))):
+        assert pa == pb and a.dtype == b_.dtype and torch.equal(a, b_)

@@ -47,6 +47,19 @@ def test_every_module_imports_without_jax():
     assert f"imported {len(names)}" in res.stdout
 
 
+SHARDED_MODULES = ["repro_torch.launch.mesh", "repro_torch.optim.grad_compress",
+                   "repro_torch.optim.sharding_rules", "repro_torch.core.embedding",
+                   "repro_torch.models.recsys", "repro_torch.ckpt.checkpoint",
+                   "repro_torch.core.lookup_engine", "repro_torch.models.layers"]
+
+
+@pytest.mark.parametrize("name", SHARDED_MODULES)
+def test_sharded_path_modules_are_checked(name):
+    """The modules of the sharded path are among those imported without jax
+    above and scanned for imports below."""
+    assert name in [_module_name(p) for p in PORT_FILES]
+
+
 def _imported_modules(path: Path) -> list[str]:
     mods = []
     for node in ast.walk(ast.parse(path.read_text())):

@@ -12,9 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from jax.sharding import PartitionSpec as JP
+
+from repro.optim import grad_compress as JGC
 from repro.optim import optimizers as JO
+from repro.optim import sharding_rules as JSR
+from repro_torch.core.sharding import PartitionSpec as P
+from repro_torch.launch import mesh as M
+from repro_torch.optim import grad_compress as GC
 from repro_torch.optim import optimizers as O
+from repro_torch.optim import sharding_rules as SR
 from repro_torch.utils import keystr, tree_flatten_with_path, tree_unflatten
+
+import _torch_sharded_ranks as ranks
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -179,3 +189,87 @@ def test_flatten_order_and_key_strings_match_jax():
         tree_unflatten(tree, [1])
     with pytest.raises(ValueError, match="more"):
         tree_unflatten(tree, list(range(12)))
+
+
+# the params of SHAPES laid out on a (data, model) mesh: the table's rows on
+# model, a matrix split over both axes on its columns, the rest replicated
+PSPECS = {"emb": {"table": ("model", None)},
+          "mlp": [{"w": (None, ("data", "model")), "b": (None,)}, {"w": (None, None), "b": ()}],
+          "stack": ("data", None, None), "bias": (None,)}
+RULES = {
+    "adam": lambda m, ps, sh: m.adam_state_specs(ps, sh),
+    "sgd": lambda m, ps, sh: m.sgd_state_specs(ps, sh),
+    "sgd_momentum": lambda m, ps, sh: m.sgd_state_specs(ps, sh, momentum=0.9),
+    "adafactor": lambda m, ps, sh: m.adafactor_state_specs(ps, sh),
+    "rowwise_adagrad": lambda m, ps, sh: m.rowwise_adagrad_state_specs(ps, sh),
+    "composite": lambda m, ps, sh: m.composite_state_specs(
+        [("emb", "rowwise"), (r"\['stack'\]", "adafactor"), (".*", "adam")], ps, sh),
+}
+
+
+def _specs(tree, cls):
+    if isinstance(tree, dict):
+        return {k: _specs(v, cls) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_specs(v, cls) for v in tree]
+    return cls(*tree)
+
+
+def _as_tuples(tree):
+    """Spec trees of either package as nested plain data, specs as tuples."""
+    if isinstance(tree, dict):
+        return {k: _as_tuples(v) for k, v in tree.items()}
+    if isinstance(tree, (P, JP)):
+        return ("spec",) + tuple(tuple(e) if isinstance(e, (list, tuple)) else e for e in tree)
+    if isinstance(tree, (list, tuple)):
+        return [_as_tuples(v) for v in tree]
+    return tree
+
+
+@pytest.mark.parametrize("rule", sorted(RULES))
+def test_state_specs_match_reference(rule):
+    """Optimizer-state specs from the parameter specs, as the reference
+    derives them: Adam's moments inherit the param's spec, rowwise Adagrad
+    keeps the row axis, Adafactor drops the reduced one."""
+    shapes = _np_tree(np.random.default_rng(0), SHAPES)
+    got = RULES[rule](SR, _specs(PSPECS, P), _to_torch(shapes))
+    want = RULES[rule](JSR, _specs(PSPECS, JP), jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), shapes))
+    assert _as_tuples(got) == _as_tuples(want)
+    opt = OPTIMIZERS.get(rule)
+    if opt is not None:  # the specs are shaped as the optimizer's state
+        state = opt(O).init(_to_torch(shapes))
+        assert len(tree_flatten_with_path(state)) == len(
+            tree_flatten_with_path(got, lambda x: isinstance(x, P)))
+
+
+def test_int8_codec_matches_reference_bit_for_bit():
+    """Three rounds of encode with error feedback, then decode: payload,
+    scales, residuals and decoded values equal the reference's bits (round
+    half to even on both; a row of zeros takes the 1e-12 floor)."""
+    rng = np.random.default_rng(7)
+    jres = tres = None
+    for i in range(3):
+        x = rng.normal(size=(6, 5, 3)).astype(np.float32)
+        x[2] = 0.0
+        x[4, 0, 0] = 127.5 * (i + 1)  # ties at the row's maximum scale
+        jcoded, jres = JGC.int8_encode(jnp.asarray(x), jres)
+        tcoded, tres = GC.int8_encode(torch.from_numpy(x), tres)
+        for got, want in ((tcoded.q, jcoded.q), (tcoded.scale, jcoded.scale), (tres, jres),
+                          (GC.int8_decode(tcoded), JGC.int8_decode(jcoded))):
+            assert got.numpy().dtype == np.asarray(want).dtype
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert GC.compressed_bytes(torch.from_numpy(x)) == JGC.compressed_bytes(jnp.asarray(x))
+
+
+def test_compress_psum_over_two_ranks():
+    """The bf16 all-reduce of two gloo ranks: the sum of the bf16 payloads,
+    cast back to f32, and half the f32 bytes on the wire."""
+    x = np.random.default_rng(2).normal(size=(4, 8)).astype(np.float32)
+    out = M.spawn(ranks.compress_psum_rank, 2, (x,), timeout=60)
+    t = torch.from_numpy(x)
+    want = (t.to(torch.bfloat16) + (2 * t).to(torch.bfloat16)).to(torch.float32)
+    for r in out:
+        assert r["sum"].dtype == np.float32
+        np.testing.assert_array_equal(r["sum"], want.numpy())
+        assert r["bytes"] == {"all_reduce": 2 * x.size * 2 * (2 - 1) / 2}

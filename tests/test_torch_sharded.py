@@ -1,0 +1,388 @@
+"""repro_torch's sharded embedding path against the JAX package's, on the CPU.
+
+The reference runs once, in a subprocess with 8 forced host devices
+(``tests/_jax_sharded_reference.py``, the pattern of test_sharded_paths.py),
+under its (data 2, model 4) mesh; the port runs at the same time on 8 gloo
+ranks of the same mesh (``tests/_torch_sharded_ranks.py`` through
+``launch.mesh.spawn``).  Both read the same seeded numpy inputs; params
+cross to the port with ``params_from_numpy``'s conversion.  Each rank's
+blocks are held against the same blocks of the reference's whole outputs.
+
+Tolerances: f32 rtol 1e-5, atol 1e-6 (other summation orders: the
+collective's against XLA's); ``comm_dtype=bf16`` rtol and atol 2e-2, the
+reference's own for bf16 partials.  Collective bytes are exact: each
+rank's ``comm.bytes.*`` counters equal the ring model's formula for the
+case's shapes, and equal the collective bytes ``analyze`` reads from the
+reference's compiled HLO.  XLA combines the two chunks' all-reduces of
+``num_chunks=2`` into one tuple all-reduce (same bytes, one call against the
+port's two), and its CPU backend promotes a bf16 collective to f32 (the
+HLO moves twice the bytes of the port's bf16 payload).
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.embedding import DisaggEmbedding
+from repro_torch.core.sharding import PartitionSpec as P
+from repro_torch.core.sharding import TableSpec
+from repro_torch.data import synthetic as syn
+from repro_torch.launch import mesh as M
+from repro_torch.models import recsys as R
+from repro_torch.optim import sharding_rules as SR
+from repro_torch.utils import keystr, tree_flatten_with_path
+
+import _torch_sharded_ranks as ranks
+
+ROOT = Path(__file__).resolve().parent.parent
+RTOL, ATOL = 1e-5, 1e-6
+BF16_TOL = 2e-2
+REF_TIMEOUT_S = 240
+SPAWN_TIMEOUT_S = 240
+MESH = (2, 4)  # (data, model)
+B, DIM = 16, 16
+EMB_SPECS = [("a", 1000, 4, "sum"), ("b", 500, 2, "mean"), ("c", 64, 1, "sum")]
+DLRM_SPECS = [("big", 4000, 4, "sum"), ("mid", 1000, 1, "sum"), ("small", 64, 1, "sum")]
+
+
+def _case(mode, num_chunks=1, cache=None, replicated=(), comm=None):
+    ns = 8 if mode == "mesh2d" else 4
+    return dict(mode=mode, num_chunks=num_chunks, cache=cache, replicated=list(replicated),
+                comm=comm, num_shards=ns,
+                params=f"emb|{ns}|{'rep' if replicated else 'plain'}")
+
+
+LOOKUP_CASES = {
+    "baseline": _case("baseline"),
+    "hierarchical": _case("hierarchical"),
+    "hierarchical_chunks2": _case("hierarchical", num_chunks=2),
+    "hierarchical_flat_cache": _case("hierarchical", cache="flat"),
+    "hierarchical_hash_cache": _case("hierarchical", cache="hash"),
+    "baseline_hash_cache": _case("baseline", cache="hash"),
+    "hierarchical_replicated": _case("hierarchical", replicated=(2,)),
+    "hierarchical_bf16": _case("hierarchical", comm="bf16"),
+    "mesh2d": _case("mesh2d"),
+    "mesh2d_bf16": _case("mesh2d", comm="bf16"),
+}
+GRAD_MODES = ["baseline", "hierarchical", "mesh2d"]
+# a (pod 2, data 2, model 2) mesh: two batch axes
+POD_MESH = {"pod": 2, "data": 2, "model": 2}
+POD_CASES = {"hierarchical": dict(_case("hierarchical"), num_shards=2, params="emb|2|plain"),
+             "mesh2d": _case("mesh2d")}
+DLRM_MODES = ["baseline", "hierarchical", "mesh2d"]
+TRAIN_MODES = ["hierarchical", "mesh2d"]
+META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS, n_dense=13,
+            bottom_mlp=[64, DIM], mlp=[64, 32], lookup_cases=LOOKUP_CASES,
+            grad_modes=GRAD_MODES, pod_cases=POD_CASES, dlrm_modes=DLRM_MODES, train_modes=TRAIN_MODES,
+            flat_slots=64, hash_slots=128, max_norm=0.05)
+
+
+def _inputs(rng) -> dict:
+    """Seeded numpy inputs: the lookup batch (masked slots hold random ids),
+    tables for each layout, hot ids, gathered ids and the tiny DLRM's params
+    (test_system's shapes) and batch."""
+    d = {"meta": np.array(json.dumps(META))}
+    specs = ranks.specs_of(EMB_SPECS)
+    idx = np.zeros((B, len(specs), 4), np.int32)
+    msk = np.zeros((B, len(specs), 4), bool)
+    for f, s in enumerate(specs):
+        idx[:, f, :] = rng.integers(0, s.vocab, (B, 4))
+        msk[:, f, :s.nnz] = np.arange(s.nnz)[None, :] < rng.integers(1, s.nnz + 1, (B, 1))
+    d["idx"], d["mask"] = idx, msk
+    for ns in (2, 4, 8):
+        for rep in ((), (2,)):
+            emb = DisaggEmbedding(specs, dim=DIM, num_shards=ns, replicated_fields=rep)
+            for key, t in emb.abstract_params().items():
+                d[f"emb|{ns}|{'rep' if rep else 'plain'}|{key}"] = (
+                    rng.standard_normal(tuple(t.shape)) * 0.1).astype(np.float32)
+    fused = DisaggEmbedding(specs, dim=DIM, num_shards=4)._fused_rows(
+        DisaggEmbedding(specs, dim=DIM, num_shards=4).sharded, torch.from_numpy(idx)).numpy()
+    d["hot"] = rng.permutation(np.unique(fused[msk]))[:96].astype(np.int32)
+    # ids in the table's padding rows (1564-1567), then past its 1568 rows
+    d["row_ids"] = np.concatenate([rng.integers(0, 1564, 20),
+                                   [1564, 1567, 1568, 5000, np.iinfo(np.int32).max]]
+                                  ).astype(np.int32)
+    cfg = ranks.dlrm_cfg(META, "hierarchical")
+    for ns in (4, 8):
+        for path, t in tree_flatten_with_path(R.abstract_params(cfg, ns)):
+            scale = 0.1 if path[0] == "emb" else 1.0 / np.sqrt(t.shape[0])
+            d["|".join([f"dlrm{ns}", *path])] = (
+                rng.standard_normal(tuple(t.shape)) * scale).astype(np.float32)
+    b = syn.recsys_batch(rng, cfg.tables, B, n_dense=13)
+    for k in ("indices", "mask", "dense", "labels"):
+        d[f"dlrm_batch|{k}"] = b[k]
+    return d
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(reference outputs, the 8 ranks' results): the reference's subprocess
+    and the port's ranks run at the same time on the same inputs."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    inputs, outputs = tmp / "inputs.npz", tmp / "outputs.npz"
+    np.savez(inputs, **_inputs(np.random.default_rng(0)))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    ref = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_jax_sharded_reference.py"),
+                            str(inputs), str(outputs)], env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        port = M.spawn(ranks.run, MESH[0] * MESH[1], (str(inputs),), timeout=SPAWN_TIMEOUT_S)
+        _, err = ref.communicate(timeout=REF_TIMEOUT_S)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, err[-4000:]
+    return dict(np.load(outputs)), port
+
+
+class _Coords:
+    """A rank's place on the mesh, for ``M.block_slices`` on numpy arrays."""
+
+    def __init__(self, coords: dict, shape: dict):
+        self.coords, self.shape = coords, shape
+
+    def axis_size(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def _block(arr: np.ndarray, spec: P, coords: dict,
+           shape: dict = dict(zip(("data", "model"), MESH))) -> np.ndarray:
+    return arr[M.block_slices(arr.shape, spec, _Coords(coords, shape))]
+
+
+def _close(got, want, tol=(RTOL, ATOL)):
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               rtol=tol[0], atol=tol[1])
+
+
+def _tol(case: dict):
+    return (BF16_TOL, BF16_TOL) if case["comm"] == "bf16" else (RTOL, ATOL)
+
+
+def _out_spec(mode: str) -> P:
+    return P(("data", "model")) if mode == "mesh2d" else P("data")
+
+
+def _table_spec(mode: str) -> P:
+    return P(("data", "model")) if mode == "mesh2d" else P("model")
+
+
+def _ring_bytes(case: dict) -> dict:
+    """The ring model's per-device bytes of one lookup, from the shapes."""
+    F = len(EMB_SPECS) - len(case["replicated"])
+    b_local, g_model = B // MESH[0], MESH[1]
+    item = 2 if case["comm"] == "bf16" else 4
+    if case["mode"] == "mesh2d":  # idx + mask all-gathers, then RS over data, model
+        return {"all_gather": (B * 3 * 4 * 4 + B * 3 * 4) * (MESH[0] - 1) / MESH[0],
+                "reduce_scatter": (B // MESH[0] * F * DIM * item) * (MESH[0] - 1)
+                + (B // (MESH[0] * MESH[1]) * F * DIM * item) * (MESH[1] - 1)}
+    payload = b_local * F * DIM * item * (4 if case["mode"] == "baseline" else 1)
+    return {"all_reduce": 2 * payload * (g_model - 1) / g_model}
+
+
+@pytest.mark.parametrize("name", sorted(LOOKUP_CASES))
+def test_lookup_matches_reference(runs, name):
+    ref, port = runs
+    case = LOOKUP_CASES[name]
+    for r in port:
+        got = r["outputs"][f"lookup|{name}"]
+        want = _block(ref[f"lookup|{name}"], _out_spec(case["mode"]), r["coords"])
+        assert got.shape == want.shape and got.dtype == np.float32
+        _close(got, want, _tol(case))
+
+
+@pytest.mark.parametrize("name", sorted(LOOKUP_CASES))
+def test_lookup_bytes_follow_the_ring_model(runs, name):
+    """Every rank counts the formula's bytes, which are the bytes of the
+    reference's compiled collectives."""
+    ref, port = runs
+    case = LOOKUP_CASES[name]
+    want = _ring_bytes(case)
+    for r in port:
+        assert r["bytes"][name] == want
+    # XLA's CPU backend runs a bf16 collective in f32: its HLO moves f32 bytes
+    hlo = _ring_bytes(dict(case, comm=None)) if case["comm"] == "bf16" else want
+    assert sum(hlo.values()) == float(ref[f"hlo_bytes|{name}"])
+    calls = {k.split("|")[2]: int(v) for k, v in ref.items()
+             if k.startswith(f"hlo_calls|{name}|")}
+    assert set(calls) == {op.replace("_", "-") for op in want}
+    if name == "hierarchical_chunks2":  # XLA merged the chunks' all-reduces
+        assert calls == {"all-reduce": 1}
+
+
+def test_baseline_moves_nnz_times_the_hierarchical_bytes(runs):
+    _, port = runs
+    nnz = max(s[2] for s in EMB_SPECS)
+    for r in port:
+        assert r["bytes"]["baseline"]["all_reduce"] == nnz * r["bytes"]["hierarchical"][
+            "all_reduce"]
+
+
+@pytest.mark.parametrize("which", ["lookup_rows", "gather_rows"])
+def test_lookup_rows_and_gather_rows(runs, which):
+    ref, port = runs
+    spec = P("data") if which == "lookup_rows" else P()
+    for r in port:
+        _close(r["outputs"][which], _block(ref[which], spec, r["coords"]))
+        want = float(ref[f"hlo_bytes|{which}"])
+        assert sum(r["bytes"][which].values()) == want
+        assert list(r["bytes"][which]) == ["all_reduce"]
+    if which == "gather_rows":  # ids past the table give zero rows
+        assert np.all(ref[which][-3:] == 0) and np.all(ref[which][-5:-3] != 0)
+
+
+def test_chunked_lookup_and_cache_partition_spec(runs):
+    """``lookup_engine.chunked_lookup`` at 2 chunks against the reference's
+    (the bytes of ``num_chunks=2``), and ``hotcache.table.cache_partition_spec``
+    against the reference's: the cache replicated on every rank."""
+    ref, port = runs
+    for r in port:
+        _close(r["outputs"]["chunked_lookup"], _block(ref["chunked_lookup"], P("data"),
+                                                      r["coords"]))
+        assert r["bytes"]["chunked_lookup"] == _ring_bytes(LOOKUP_CASES["hierarchical_chunks2"])
+        assert r["cache_partition_spec"] == json.loads(str(ref["cache_partition_spec"]))
+    assert port[0]["cache_partition_spec"] == {"keys": [None], "rows": [None, None],
+                                               "freq": [None]}
+
+
+@pytest.mark.parametrize("mode", GRAD_MODES)
+def test_lookup_gradient_matches_jax_grad(runs, mode):
+    """The table's gradient of the lookup's sum: no factor of any axis size."""
+    ref, port = runs
+    for r in port:
+        _close(r["outputs"][f"grad|{mode}"],
+               _block(ref[f"grad|{mode}"], _table_spec(mode), r["coords"]))
+    # forward collectives, their transposes, and the data-axis gradient sum
+    fwd = _ring_bytes(LOOKUP_CASES[mode])
+    got = port[0]["bytes"][f"grad|{mode}"]
+    if mode == "mesh2d":  # no gradient sum: every row exists once
+        assert got == {"all_gather": fwd["all_gather"] + _mesh2d_backward_gather(),
+                       "reduce_scatter": fwd["reduce_scatter"]}
+    else:
+        rows = ref[f"grad|{mode}"].shape[0] // MESH[1]
+        table_bytes = 2 * rows * DIM * 4 * (MESH[0] - 1) / MESH[0]
+        assert got == {"all_reduce": 2 * fwd["all_reduce"] + table_bytes}
+
+
+def _mesh2d_backward_gather() -> float:
+    """The all-gathers that transpose mesh2d's reduce-scatters: over model
+    into [B/data, F, D], then over data into [B, F, D]."""
+    F = len(EMB_SPECS)
+    return (B // MESH[0] * F * DIM * 4) * (MESH[1] - 1) / MESH[1] + (
+        B * F * DIM * 4) * (MESH[0] - 1) / MESH[0]
+
+
+@pytest.mark.parametrize("name", sorted(POD_CASES))
+def test_two_batch_axes_match_reference(runs, name):
+    """Under (pod 2, data 2, model 2) with batch axes (pod, data): mesh2d
+    gathers the indices inner axis first and scatters outer axis first, so
+    a wrong order would permute rows; each rank's rows, its table
+    gradient's rows and its bytes against the reference's."""
+    ref, port = runs
+    mode = POD_CASES[name]["mode"]
+    batch = ("pod", "data") + (("model",) if mode == "mesh2d" else ())
+    table = ("pod", "data", "model") if mode == "mesh2d" else ("model",)
+    for r in port:
+        _close(r["outputs"][f"pod_lookup|{name}"],
+               _block(ref[f"pod_lookup|{name}"], P(batch), r["coords3"], POD_MESH))
+        _close(r["outputs"][f"pod_grad|{name}"],
+               _block(ref[f"pod_grad|{name}"], P(table), r["coords3"], POD_MESH))
+        assert sum(r["bytes"][f"pod|{name}"].values()) == float(ref[f"hlo_bytes|pod|{name}"])
+
+
+@pytest.mark.parametrize("mode", DLRM_MODES)
+def test_forward_matches_reference(runs, mode):
+    ref, port = runs
+    want = ref[f"forward|{mode}"]
+    for r in port:
+        _close(r["outputs"][f"forward|{mode}"], _block(want, P(("data", "model")), r["coords"]))
+        _close(r["outputs"][f"forward_gathered|{mode}"], want)
+
+
+def _param_spec_of(mode: str) -> dict:
+    cfg = ranks.dlrm_cfg(META, mode)
+    ns = 8 if mode == "mesh2d" else 4
+    return {keystr(p): s for p, s in tree_flatten_with_path(
+        R.param_specs(cfg, ns, ("data",)), lambda x: isinstance(x, P))}
+
+
+@pytest.mark.parametrize("mode", TRAIN_MODES)
+def test_loss_and_clipped_grads_match_reference(runs, mode):
+    """``loss_and_grads(mesh=...)`` and ``clip_by_global_norm(mesh=...)``
+    against ``jax.value_and_grad`` under the reference's mesh and its clip:
+    the norm counts each table shard once and each replicated leaf once."""
+    ref, port = runs
+    spec_of = _param_spec_of(mode)
+    for r in port:
+        _close(r["outputs"][f"loss|{mode}"], ref[f"loss|{mode}"])
+        _close(r["outputs"][f"norm|{mode}"], ref[f"norm|{mode}"])
+        for key, spec in spec_of.items():
+            _close(r["outputs"][f"clipped|{mode}|{key}"],
+                   _block(ref[f"clipped|{mode}|{key}"], spec, r["coords"]))
+    assert float(ref[f"norm|{mode}"]) > META["max_norm"]  # the clip bites
+
+
+@pytest.mark.parametrize("mode", TRAIN_MODES)
+def test_train_step_matches_reference(runs, mode):
+    """One ``make_train_step(mesh=...)`` step: loss, params, and the
+    optimizer state laid out by ``sharding_rules.composite_state_specs``."""
+    ref, port = runs
+    cfg = ranks.dlrm_cfg(META, mode)
+    ns = 8 if mode == "mesh2d" else 4
+    pspecs = R.param_specs(cfg, ns, ("data",))
+    state_specs = SR.composite_state_specs([("emb", "rowwise"), (".*", "adam")], pspecs,
+                                           R.abstract_params(cfg, ns))
+    state_spec_of = {keystr(p): s for p, s in tree_flatten_with_path(
+        state_specs, lambda x: isinstance(x, P))}
+    for r in port:
+        _close(r["outputs"][f"step_loss|{mode}"], ref[f"step_loss|{mode}"])
+        for key, spec in _param_spec_of(mode).items():
+            _close(r["outputs"][f"step_params|{mode}|{key}"],
+                   _block(ref[f"step_params|{mode}|{key}"], spec, r["coords"]))
+        keys = [k[len(f"step_state|{mode}|"):] for k in r["outputs"]
+                if k.startswith(f"step_state|{mode}|")]
+        assert sorted(keys) == sorted(state_spec_of)
+        for key in keys:
+            _close(r["outputs"][f"step_state|{mode}|{key}"],
+                   _block(ref[f"step_state|{mode}|{key}"], state_spec_of[key], r["coords"]))
+
+
+def test_ranks_sit_row_major_and_refuse(runs):
+    _, port = runs
+    for rank, r in enumerate(port):
+        assert r["coords"] == {"data": rank // MESH[1], "model": rank % MESH[1]}
+        assert "needs 256 ranks; the world has 8" in r["errors"]["production_mesh"]
+        assert "plain sharded fields only" in r["errors"]["mesh2d_replicated"]
+
+
+def test_refusals_in_one_process():
+    with pytest.raises(ValueError, match="unknown lookup mode"):
+        DisaggEmbedding([TableSpec("a", 10)], dim=4, num_shards=1, mode="ring")
+    for multi_pod, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks; the world has 1"):
+            M.make_production_mesh(multi_pod=multi_pod)
+    with pytest.raises(ValueError, match="needs that many ranks"):
+        M.make_debug_mesh(2, 4)
+
+
+def test_spawn_returns_per_rank_and_fails_loudly():
+    assert M.spawn(ranks.echo_coords, 4, ((2, 2),), timeout=60) == [
+        {"data": 0, "model": 0}, {"data": 0, "model": 1},
+        {"data": 1, "model": 0}, {"data": 1, "model": 1}]
+    with pytest.raises(Exception, match="rank 1 failed on purpose"):
+        M.spawn(ranks.fail_on_rank_1, 2, timeout=60)
+    with pytest.raises(TimeoutError, match="killed"):
+        M.spawn(ranks.sleep, 1, (60,), timeout=3)

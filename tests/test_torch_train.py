@@ -296,9 +296,10 @@ def test_no_gradient_for_weights_or_bf16():
 
 
 def test_mesh_and_lm_refused():
+    """The mesh step is ported (tests/test_torch_sharded.py holds it against
+    the reference's); the LM trainer is still refused."""
     _, tcfg = _cfgs("tiny")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        R.make_train_step(tcfg, O.make_sgd(0.1), mesh=object())
+    assert callable(R.make_train_step(tcfg, O.make_sgd(0.1), mesh=object()))
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         ttrain.main(["--model", "lm", "--device", "cpu"])
 
