@@ -120,7 +120,31 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 restart through its flags: ``--steps 100 --ckpt-dir`` saves
                 step 99, ``--resume --steps 200`` runs 100-199 and ends at
                 the straight run's last loss (rtol 1e-5);
-  6. lm_kernels — after the DLRM state is freed: K6 against its plain
+  5g. recsys_archs — after the DLRM state is freed: K1 (masked and
+                weighted) and K1' against their plain versions at the other
+                archs' widths and bag shapes (D 8, 16, 32, 40, 256; nnz 8
+                and 1; serve_p99's batch of 512 and train_batch's 65,536);
+                then wide-deep, two-tower-retrieval, mind, autoint, dcn-v2
+                and deepfm from the registry, each at its published config
+                (tables made on the card, 78.98 GB for wide-deep), one
+                ``R.forward`` on 512 requests: finite scores, the lookup
+                against ``lookup_reference`` (mind: its raw rows against
+                indexing), the scores against the plain lookup and the
+                dense stage on the CPU, K1 masked once a lookup (twice for
+                wide-deep and deepfm, none for mind), the device median
+                and, in a profiled window, the busy time and K1's share;
+                K1 timed at wide-deep's and two-tower's forward shapes
+                beside ``F.embedding_bag``; ``retrieval_topk`` (8 queries,
+                1,000,448 candidates of 256) and ``mind_retrieval`` (1
+                user, 1,000,448 distinct items), k 100, values and each
+                index's score against the CPU's scores; then one
+                ``make_train_step`` of each at 65,536 with every table
+                capped at 1,000,000 rows (finite loss and gradients, K1
+                and K1' once a lookup, the step's device time and peak
+                memory; K1' timed at wide-deep's and two-tower's step
+                beside ``index_add_``), and the loss and gradients at
+                1,024 with 100,000-row tables against the CPU;
+  6. lm_kernels — after phase 5g: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
                 causal in bf16 and f32, at lm_f32's [2, 1024, 32, 32, 80]
                 causal in f32, at qwen2-72b's GQA heads
@@ -160,15 +184,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 must launch K6 (in f32 only) and K7;
  10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
      ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
-     times and bound, K6's its f32 times at lm_f32's shape and at
+     times and bound, its times at 5g's forward shapes (``forward_shapes``)
+     and K1''s at 5g's train steps (``backward.train_shapes``), K6's its f32 times at lm_f32's shape and at
      lm_prefill's, each with the 3xTF32 bound and the f32 FMA one, and its
      f32 launches), then
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Each path (4, 4b, 4c and 4d on each rank, summed over the ranks in the
-kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run, 7,
-8, and 9 as ``lm_f32``: K6 and K7 in f32 on the card) runs with the launch
+kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
+5g's ``recsys_forward.<arch>``, ``recsys_train.<arch>``,
+``retrieval.two_tower`` and ``retrieval.mind``, 7, 8, and 9 as
+``lm_f32``: K6 and K7 in f32 on the card) runs with the launch
 counts set to 0 just before it and read just after; comparisons and
 timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
@@ -259,6 +286,16 @@ SHARDED_FWD_TOL = (1e-5, 1e-6)
 SHARDED_TRAIN_MESH = (2, 2)
 SHARDED_TRAIN_STEPS = 3
 SHARDED_TIMEOUT_S = 300
+# recsys_archs: the six other recsys archs of the registry at their published
+# configs (largest table first: wide-deep's 79 GB must find the card empty)
+RECSYS_ARCH_IDS = ("wide-deep", "two-tower-retrieval", "mind", "autoint", "dcn-v2", "deepfm")
+RECSYS_TRAIN_ROWS = 1_000_000  # each table capped for the train_batch step
+RECSYS_CHECK_BATCH = 1024  # the card-vs-CPU step: batch and table cap
+RECSYS_CHECK_ROWS = 100_000
+# K1 and K1' at this slice's widths and bag shapes, (D, nnz, fields): the
+# wide table, autoint/dcn/deepfm, wide-deep's emb, fuse_wide's 40, two-tower
+RECSYS_K1_WIDTHS = ((8, 8, 40), (16, 1, 39), (32, 8, 40), (40, 8, 40), (256, 1, 4))
+RECSYS_K1_ROWS = 1_000_000
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -507,11 +544,14 @@ def reset_counts() -> None:
     HK.launches.update(dict.fromkeys(HK.launches, 0))
 
 
-def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
+def assert_trees_close(name: str, got, want, rtol: float, atol: float,
+                       scaled: bool = False) -> float:
     """Two trees of tensors with the same key strings in JAX's flatten order,
     no leaf missing, each leaf of the same shape and dtype and allclose (NaN
-    where the other has NaN).  Returns the largest abs error over the
-    finite elements."""
+    where the other has NaN).  With ``scaled`` a leaf's atol is times its
+    largest magnitude where that passes 1 (a gradient of ~10 sums terms of
+    that size, and an element near 0 carries their rounding).  Returns the
+    largest abs error over the finite elements."""
     from repro_torch.utils import keystr, tree_flatten_with_path
 
     got, want = tree_flatten_with_path(got), tree_flatten_with_path(want)
@@ -526,12 +566,13 @@ def assert_trees_close(name: str, got, want, rtol: float, atol: float) -> float:
         g, w = g.detach().float(), w.detach().float().to(g.device)
         fin = torch.isfinite(w)
         err = max_err(g[fin], w[fin])
-        if not torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
+        tol = atol * max(1.0, float(w[fin].abs().max())) if scaled and bool(fin.any()) else atol
+        if not torch.allclose(g, w, rtol=rtol, atol=tol, equal_nan=True):
             raise AssertionError(f"{name} {key}: the trees disagree (max abs err "
                                  f"{err:.3e}, rtol {rtol}, atol {atol})")
         worst = max(worst, err)
     log(f"  {name}: ok, {len(keys)} leaves, max abs err {worst:.3e} (rtol {rtol}, "
-        f"atol {atol})")
+        f"atol {atol}{' times a leaf largest magnitude past 1' if scaled else ''})")
     return worst
 
 
@@ -698,6 +739,320 @@ def sharded_rank(rank: int, world: int, fwd: dict, train: dict) -> dict:
                                 "steps_wall_s": wall, "restored_bit_equal": restored_equal,
                                 "continued_bit_equal": continued_equal}
     out["stamps"]["train"] = time.time()
+    return out
+
+
+def recsys_archs(dev: torch.device) -> dict:
+    """Phase 5g: the six other recsys archs on the card.  K1 and K1' at this
+    slice's widths against their plain versions; each arch's forward at its
+    published config on ``serve_p99``'s batch (checked against the plain
+    lookup and the dense stage on the CPU, timed, profiled); both
+    retrievals against the same scores on the CPU; one train step of each
+    at ``train_batch`` with every table capped, and the loss and gradients
+    at a small batch against the CPU.  Raises on any failure; returns the
+    numbers and each path's launch counts."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.configs.recsys_common import (N_CANDIDATES, RECSYS_SHAPES, RETRIEVAL_K,
+                                                   make_recsys_optimizer)
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import embedding_bag as K1
+    from repro_torch.kernels import ref
+    from repro_torch.models import recsys as R
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_to
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    serve_b = RECSYS_SHAPES["serve_p99"]["batch"]
+    train_b = RECSYS_SHAPES["train_batch"]["batch"]
+    out: dict = {"forward": {}, "retrieval": {}, "train": {}, "paths": {},
+                 "k1_forward_shapes": {}, "k1b_train_shapes": {}}
+
+    def make(arch_id: str, cap: int | None = None) -> R.RecsysConfig:
+        cfg = getattr(configs, arch_id.replace("-", "_")).make_config()
+        if cap is None:
+            return cfg
+        return dataclasses.replace(cfg, tables=tuple(
+            dataclasses.replace(t, vocab=min(t.vocab, cap)) for t in cfg.tables))
+
+    def batch_of(cfg, b: int) -> dict:
+        rng = np.random.default_rng(0)
+        host = (syn.mind_batch(rng, cfg.tables[0].vocab, b, cfg.hist_len) if cfg.arch == "mind"
+                else syn.recsys_batch(rng, cfg.tables, b, n_dense=cfg.n_dense))
+        return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+    def lookups(cfg) -> int:
+        return 0 if cfg.arch == "mind" else 2 if cfg.separate_wide else 1
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- K1 (masked and weighted) and K1' at this slice's widths and bag
+    # shapes, half the slots at weight 0; at the serve batch ids outside
+    # [0, V) too.  At the train batch the ids stay inside: K1''s plain
+    # version on the card adds with atomics, whose order K1B_TOL covers for
+    # rows of tens of terms, and a clamped id names row 0 or V - 1 from
+    # hundreds of slots (phases 3 and 5f hold clamping at 1003 bags)
+    log("[recsys_archs] K1 and K1' at the archs' widths against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for D, nnz, fields in RECSYS_K1_WIDTHS:
+        tab = torch.randn((RECSYS_K1_ROWS, D), device=dev, generator=gen)
+        for bags in (serve_b * fields, train_b * fields):
+            n = bags * nnz
+            edge = 50 if bags == serve_b * fields else 0
+            ids = torch.randint(-edge, RECSYS_K1_ROWS + edge, (n,), device=dev, generator=gen,
+                                dtype=torch.int32)
+            w = torch.rand(n, device=dev, generator=gen) + 0.5
+            w[torch.rand(n, device=dev, generator=gen) < 0.5] = 0.0
+            for masked in (True, False):
+                mode = "masked" if masked else "weighted"
+                assert_close(f"K1 {mode} D {D} nnz {nnz} [{bags} bags, ids in "
+                             f"[{-edge}, {RECSYS_K1_ROWS + edge})]",
+                             K1.embedding_bag(tab, ids, w, bags, masked=masked),
+                             ref.embedding_bag_ref(tab, ids, w, bags, masked=masked), 1e-5, 1e-5)
+            if bags == serve_b * fields:
+                continue
+            g = torch.randn((bags, D), device=dev, generator=gen)
+            for masked in (True, False):
+                mode = "masked" if masked else "weighted"
+                assert_close(f"K1' {mode} D {D} nnz {nnz} [{bags} bags] -> "
+                             f"[{RECSYS_K1_ROWS}, {D}]",
+                             K1.embedding_bag_backward(g, ids, w, RECSYS_K1_ROWS, masked=masked),
+                             ref.embedding_bag_backward_ref(g, ids, w, RECSYS_K1_ROWS,
+                                                            masked=masked), *K1B_TOL)
+        del tab, ids, w, g
+        free()
+
+    def k1_times(table, ids, w, bags) -> dict:
+        """K1 masked, its plain version and F.embedding_bag on the lookup's
+        own inputs, beside the bound of the live slots' rows."""
+        live = ids[w != 0]
+        D = table.shape[1]
+        ms = bound(torch.unique(live).numel() * D * 4 + ids.numel() * 8 + bags * D * 4,
+                   2 * live.numel() * D)
+        ids2, w2 = ids.view(bags, -1), w.view(bags, -1)
+        return {"case": f"masked f32 [{bags} bags x {ids.numel() // bags}] of "
+                        f"[{table.shape[0]}, {D}]",
+                "ms": cuda_ms(lambda: K1.embedding_bag(table, ids, w, bags, masked=True), flush),
+                "plain_ms": cuda_ms(lambda: ref.embedding_bag_ref(table, ids, w, bags,
+                                                                  masked=True), flush),
+                "library_ms": cuda_ms(lambda: F.embedding_bag(
+                    ids2, table, mode="sum", per_sample_weights=w2), flush),
+                "bound_ms": ms[0], "bound_by": ms[1]}
+
+    # ---- forward at the published configs, and the two retrievals
+    for arch_id in RECSYS_ARCH_IDS:
+        cfg = make(arch_id)
+        t0 = time.perf_counter()
+        params = R.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        table_gb = sum(params[k]["table"].numel() * 4 for k in ("emb", "wide") if k in params) / 1e9
+        log(f"[recsys_archs] {arch_id}: tables {table_gb:.2f} GB f32 made on the card in "
+            f"{init_s:.2f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        batch = batch_of(cfg, serve_b)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            scores = R.forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        counts = out["paths"][f"recsys_forward.{cfg.arch}"] = launch_counts()
+        n = lookups(cfg)
+        if counts["embedding_bag"] != n or counts["embedding_bag_masked"] != n:
+            raise AssertionError(f"{arch_id} forward: K1 (masked) {n} times expected: {counts}")
+        if scores.shape != (serve_b,) or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"{arch_id} forward: scores {tuple(scores.shape)} not finite")
+        emb = cfg.embedding()
+        with torch.no_grad():
+            if cfg.arch == "mind":
+                table = params["emb"]["table"]
+                rows, tgt, hm = R.mind_lookup(cfg, emb, params, batch, None, ())
+                rows_plain = torch.where(batch["hist_mask"][..., None],
+                                         table[batch["hist"].long()], 0.0)
+                tgt_plain = table[batch["target"].long()]
+                assert_close(f"{arch_id} lookup_rows [{serve_b}, {cfg.hist_len}, "
+                             f"{cfg.embed_dim}] vs indexing", rows, rows_plain, 1e-5, 1e-5)
+                assert_close(f"{arch_id} target rows vs indexing", tgt, tgt_plain, 1e-5, 1e-5)
+                dense_cpu = tree_to({k: v for k, v in params.items() if k != "emb"}, "cpu")
+                want = R.mind_dense_stage(cfg, dense_cpu, rows_plain.cpu(), tgt_plain.cpu(),
+                                          batch["hist_mask"].cpu())
+                del rows, tgt, hm, rows_plain, tgt_plain
+            else:
+                idx, msk = batch["indices"], batch["mask"]
+                pooled_plain = emb.lookup_reference(params["emb"], idx, msk)
+                assert_close(f"{arch_id} lookup {list(pooled_plain.shape)} vs lookup_reference",
+                             emb.lookup(params["emb"], idx, msk), pooled_plain, 1e-5, 1e-5)
+                wide_plain = None
+                if cfg.separate_wide:
+                    wemb = cfg.wide_embedding()
+                    wide_plain = wemb.lookup_reference(params["wide"], idx, msk)
+                    assert_close(f"{arch_id} wide lookup {list(wide_plain.shape)} vs "
+                                 "lookup_reference", wemb.lookup(params["wide"], idx, msk),
+                                 wide_plain, 1e-5, 1e-5)
+                    wide_plain = wide_plain.cpu()
+                dense_cpu = tree_to({k: v for k, v in params.items()
+                                     if k not in ("emb", "wide")}, "cpu")
+                want = R.dense_stage(cfg, dense_cpu, pooled_plain.cpu(),
+                                     batch["dense"].cpu() if cfg.n_dense else None, wide_plain)
+                del pooled_plain
+        err = assert_close(f"{arch_id} forward scores [{serve_b}] vs the plain lookup and "
+                           "the dense stage on the CPU", scores.cpu(), want, 1e-4, 1e-5)
+
+        def fwd():
+            with torch.no_grad():
+                return R.forward(cfg, params, batch)
+
+        prof = device_busy(fwd, 3, kernels=("embedding_bag_kernel",))
+        k1_ms = prof["kernels_ms_per_call"]["embedding_bag_kernel"]
+        out["forward"][arch_id] = {
+            "table_gb": table_gb, "init_s": init_s, "first_call_ms": first_ms,
+            "device_ms": cuda_ms(fwd, flush), "device_busy_ms": prof["device_busy_ms"],
+            "k1_ms": k1_ms, "k1_share": (k1_ms / prof["device_busy_ms"]
+                                         if prof["device_busy_ms"] else None),
+            "device_ops_per_call": prof["device_ops_per_call"],
+            "top_kernels_ms_per_call": prof["top_kernels_ms_per_call"],
+            "scores_max_abs_err": err, "launches": {k: v for k, v in counts.items() if v}}
+        if arch_id in ("wide-deep", "two-tower-retrieval"):  # K1 at the forward's shape
+            fused = emb._fused_rows(emb.sharded, batch["indices"]).reshape(-1).contiguous()
+            wts = batch["mask"].reshape(-1).to(torch.float32).contiguous()
+            out["k1_forward_shapes"][arch_id] = k1_times(
+                params["emb"]["table"], fused, wts, serve_b * cfg.num_fields)
+            del fused, wts
+
+        if cfg.arch == "two_tower":  # 8 queries against N_CANDIDATES item vectors
+            queries = {k: v for k, v in batch_of(cfg, 8).items() if k in ("indices", "mask")}
+            cands = torch.randn((N_CANDIDATES, cfg.mlp[-1]), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+            reset_counts()
+            vals, top = R.retrieval_topk(cfg, params, queries, cands, k=RETRIEVAL_K)
+            torch.cuda.synchronize()
+            counts = out["paths"]["retrieval.two_tower"] = launch_counts()
+            with torch.no_grad():
+                pooled = emb.lookup_reference(params["emb"], queries["indices"],
+                                              queries["mask"]).cpu()
+                u, _ = R.two_tower_encode(cfg, dense_cpu, pooled)
+                host_scores = u @ cands.cpu().T
+            rt = lambda: R.retrieval_topk(cfg, params, queries, cands, k=RETRIEVAL_K)  # noqa: E731
+            name = "two_tower"
+        elif cfg.arch == "mind":  # one user against N_CANDIDATES distinct items
+            user = {k: v[:1] for k, v in batch.items() if k in ("hist", "hist_mask")}
+            user["cand_ids"] = torch.randperm(
+                cfg.tables[0].vocab, device=dev, generator=torch.Generator(device=dev).manual_seed(0)
+            )[:N_CANDIDATES].to(torch.int32)
+            reset_counts()
+            vals, top = R.mind_retrieval(cfg, params, user, k=RETRIEVAL_K)
+            torch.cuda.synchronize()
+            counts = out["paths"]["retrieval.mind"] = launch_counts()
+            with torch.no_grad():
+                table = params["emb"]["table"]
+                rows = torch.where(user["hist_mask"][..., None], table[user["hist"].long()], 0.0)
+                interests = R.mind_interests(cfg, dense_cpu, rows.cpu(), user["hist_mask"].cpu())
+                host_scores = torch.einsum("nd,bkd->bnk", table[user["cand_ids"].long()].cpu(),
+                                           interests).amax(dim=-1)
+            rt = lambda: R.mind_retrieval(cfg, params, user, k=RETRIEVAL_K)  # noqa: E731
+            name = "mind"
+        if cfg.arch in ("two_tower", "mind"):
+            if counts["embedding_bag"] != n:
+                raise AssertionError(f"retrieval.{name}: K1 {n} times expected: {counts}")
+            want_v, _ = torch.topk(host_scores, RETRIEVAL_K, dim=-1)
+            verr = assert_close(f"retrieval.{name} top-{RETRIEVAL_K} values of "
+                                f"{host_scores.shape[1]} candidates vs the CPU's scores",
+                                vals.cpu(), want_v, 1e-5, 1e-5)
+            assert_close(f"retrieval.{name}: each index's score on the CPU vs its value",
+                         host_scores.gather(1, top.cpu()), vals.cpu(), 1e-5, 1e-5)
+            out["retrieval"][name] = {
+                "queries": int(vals.shape[0]), "candidates": int(host_scores.shape[1]),
+                "k": RETRIEVAL_K, "device_ms": cuda_ms(rt, flush), "max_abs_err": verr,
+                "launches": {k: v for k, v in counts.items() if v}}
+            del vals, top, host_scores
+        del params, batch, scores, want, dense_cpu, emb
+        free()
+
+    # ---- train: one step at train_batch with each table capped; the loss
+    # and gradients at a small batch against the same on the CPU
+    for arch_id in RECSYS_ARCH_IDS:
+        cfg = make(arch_id, RECSYS_TRAIN_ROWS)
+        params = R.init_params(cfg, seed=0, device=dev)
+        opt = make_recsys_optimizer()
+        state = opt.init(params)
+        batch = batch_of(cfg, train_b)
+        step = R.make_train_step(cfg, opt)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        counts = out["paths"][f"recsys_train.{cfg.arch}"] = launch_counts()
+        n = lookups(cfg)
+        if any(counts[k] != n for k in ("embedding_bag", "embedding_bag_masked",
+                                         "embedding_bag_backward")):
+            raise AssertionError(f"{arch_id} train step: K1 (masked) and K1' {n} times "
+                                 f"expected: {counts}")
+        loss = float(m["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{arch_id} train step: loss {loss}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _, grads = R.loss_and_grads(cfg, params, batch)
+        for path, g in tree_flatten_with_path(grads):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{arch_id} train step: gradient {keystr(path)} not finite")
+        del grads, m
+        prof = device_busy(lambda: step(params, state, batch), 1,
+                           kernels=("embedding_bag_kernel", "bag_backward_kernel<"))
+        out["train"][arch_id] = {
+            "batch": train_b, "rows_cap": RECSYS_TRAIN_ROWS, "loss": loss,
+            "first_call_ms": first_ms, "device_busy_ms": prof["device_busy_ms"],
+            "kernels_ms": prof["kernels_ms_per_call"], "peak_gb": peak_gb,
+            "top_kernels_ms_per_call": prof["top_kernels_ms_per_call"],
+            "launches": {k: v for k, v in counts.items() if v}}
+        log(f"[recsys_archs] {arch_id} train step at {train_b}: loss {loss:.6f}, device busy "
+            f"{prof['device_busy_ms']} ms, peak {peak_gb:.2f} GB, top kernels "
+            + json.dumps(prof["top_kernels_ms_per_call"]))
+        if arch_id in ("wide-deep", "two-tower-retrieval"):  # K1' at the step's shape
+            emb = cfg.embedding()
+            ids = emb._fused_rows(emb.sharded, batch["indices"]).reshape(-1).contiguous()
+            w = batch["mask"].reshape(-1).to(torch.float32).contiguous()
+            bags = train_b * cfg.num_fields
+            V, D = params["emb"]["table"].shape
+            g = torch.randn((bags, D), device=dev, generator=gen)
+            live = w != 0
+            contrib = (g.repeat_interleave(ids.numel() // bags, dim=0) * w[:, None])[live]
+            live_idx = ids[live].long()
+            ms = bound(V * D * 4 + g.numel() * 4 + ids.numel() * 8, 2 * live_idx.numel() * D)
+            out["k1b_train_shapes"][arch_id] = {
+                "case": f"masked [{bags} bags x {ids.numel() // bags}] -> [{V}, {D}] f32",
+                "ms": cuda_ms(lambda: K1.embedding_bag_backward(g, ids, w, V, masked=True),
+                              flush, reps=3, warmup=1),
+                "plain_ms": cuda_ms(lambda: ref.embedding_bag_backward_ref(
+                    g, ids, w, V, masked=True), flush, reps=3, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.zeros((V, D), device=dev).index_add_(
+                    0, live_idx, contrib), flush, reps=3, warmup=1),
+                "bound_ms": ms[0], "bound_by": ms[1]}
+            del g, contrib, live_idx, ids, w, live
+        del params, state, batch, step, opt
+        free()
+
+        scfg = make(arch_id, RECSYS_CHECK_ROWS)
+        sparams = R.init_params(scfg, seed=0, device=dev)
+        sbatch = batch_of(scfg, RECSYS_CHECK_BATCH)
+        loss_c, grads_c = R.loss_and_grads(scfg, sparams, sbatch)
+        loss_h, grads_h = R.loss_and_grads(scfg, tree_to(sparams, "cpu"),
+                                           {k: v.cpu() for k, v in sbatch.items()})
+        assert_close(f"{arch_id} loss at {RECSYS_CHECK_BATCH}, card vs CPU", loss_c.cpu(),
+                     loss_h, *TRAIN_GRAD_TOL)
+        out["train"][arch_id]["grad_max_abs_err"] = assert_trees_close(
+            f"{arch_id} gradients at {RECSYS_CHECK_BATCH}, tables capped at "
+            f"{RECSYS_CHECK_ROWS} rows, card vs CPU", grads_c, grads_h, *TRAIN_GRAD_TOL,
+            scaled=True)
+        del sparams, sbatch, grads_c, grads_h
+        free()
+    out["phase_seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1968,8 +2323,12 @@ def main() -> int:
     del clean, faulty, again, injector, injector2
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[lm] DLRM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
-        "allocated on the card")
+    log(f"[recsys_archs] DLRM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated on the card")
+
+    # ---------------------------------------------------------- recsys_archs
+    archs = recsys_archs(dev)
+    log("[recsys_archs] " + json.dumps({k: v for k, v in archs.items() if k != "paths"}))
 
     # ------------------------------------------------------------ lm kernels
     lm_cfg = serving_config(make_lm_config())
@@ -2321,7 +2680,7 @@ def main() -> int:
              "serve_reshard": rs_launches, "train": train_launches,
              "sharded_forward": sh_fwd_launches, "sharded_train": sh_train_launches,
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
-             "lm_f32": lm_f32_launches}
+             "lm_f32": lm_f32_launches, **archs["paths"]}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]
@@ -2342,7 +2701,9 @@ def main() -> int:
                 "launches_by_path": {p: c[f"{name}_backward"] for p, c in paths.items()},
             }
         if name == "embedding_bag":  # timed in the masked mode, the main path's
+            kernels[-1]["backward"]["train_shapes"] = archs["k1b_train_shapes"]
             kernels[-1].update({
+                "forward_shapes": archs["k1_forward_shapes"],
                 "mode": "masked", "bound_ms_weighted": k1_weighted["bound_ms"],
                 "masked_launches_by_path": {p: c["embedding_bag_masked"]
                                             for p, c in paths.items()},

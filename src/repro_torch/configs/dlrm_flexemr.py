@@ -2,9 +2,10 @@
 
 26 sparse fields x dim 64 (Criteo-DLRM layout), 13 dense features, bottom MLP
 512-256-64, pairwise dot interaction, top MLP 512-256-1.  ~150M rows / 38 GB
-of f32 table.  Port of ``repro/configs/dlrm_flexemr.py``; the config registry
-of ``recsys_common.py`` waits for a later slice.
+of f32 table.  Port of ``repro/configs/dlrm_flexemr.py``, registered as the
+reference registers it.
 """
+from repro_torch.configs.recsys_common import register_recsys
 from repro_torch.core.sharding import TableSpec
 from repro_torch.models.recsys import RecsysConfig
 
@@ -26,3 +27,6 @@ def make_config() -> RecsysConfig:
         mlp=(512, 256),
         mode="hierarchical",
     )
+
+
+register_recsys("dlrm-flexemr", make_config, notes="paper reference model")

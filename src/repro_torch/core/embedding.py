@@ -413,6 +413,8 @@ class DisaggEmbedding:
         fused = self._fused_rows(tables, indices)
         if mesh is None:
             return self._gather_masked(params["table"], fused, mask)
+        if self.mode == "mesh2d":
+            raise NotImplementedError("lookup_rows(mesh=...) reads the paper layout")
         self._check_shard(params["table"])
         local = fused - mesh.coords[AXIS_MODEL] * tables.rows_per_shard
         hit = (local >= 0) & (local < tables.rows_per_shard) & mask

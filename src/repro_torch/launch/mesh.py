@@ -127,6 +127,30 @@ class Mesh:
         dist.barrier()
 
 
+class AbstractMesh:
+    """A mesh's shape and axis names with no ranks behind it: the
+    counterpart of ``repro.compat.abstract_mesh``.  It describes a layout
+    (the 16x16 production pod) to code that only reads ``shape``,
+    ``axis_names`` and ``axis_size``, such as the config registry's cell
+    builds; it has no coordinates, groups or collectives."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError("one size per axis name")
+        self.shape = dict(zip(axis_names, (int(n) for n in shape)))
+        self.axis_names = tuple(axis_names)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+    def axis_size(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in the mesh {tuple(self.shape)}")
+        return math.prod(self.shape[a] for a in axes)
+
+
 def make_debug_mesh(data: int = 2, model: int = 4, pod: int | None = None) -> Mesh:
     """A small mesh for CPU tests and one-card runs: ``(data, model)`` or
     ``(pod, data, model)``."""

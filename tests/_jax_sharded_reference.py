@@ -10,7 +10,8 @@ every lookup case (its whole output, and the collective bytes
 ``chunked_lookup``, ``cache_partition_spec``, ``gather_rows``, ``jax.grad`` of the lookup (also under a (2, 2, 2) mesh
 with two batch axes), ``R.forward``, the loss and its
 gradients (global norm clipping) and one ``make_train_step``, on the
-test's params.  Outputs are the whole logical arrays, keyed as the port's
+test's params; then the other recsys archs' forward, loss, gradients and one
+step, and ``retrieval_topk`` and ``mind_retrieval``.  Outputs are the whole logical arrays, keyed as the port's
 side keys its blocks."""
 from __future__ import annotations
 
@@ -157,7 +158,56 @@ def main(inputs_path: str, outputs_path: str) -> None:
             out[f"step_params|{mode}|{k}"] = v
         for k, v in flat_np(new_s).items():
             out[f"step_state|{mode}|{k}"] = v
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    recsys_opt = O.make_composite([("emb|wide", O.make_rowwise_adagrad(0.05)),
+                                   (".*", O.make_adam(1e-3))])
+    arch_params = {}
+    for name in meta["arch_forward"]:
+        cfg = arch_cfg(meta, name)
+        params = arch_params[name] = nest(d, f"arch|{name}")
+        abatch = nest(d, f"arch_batch|{cfg.arch}")
+        out[f"arch_forward|{name}"] = np.asarray(jax.jit(
+            lambda p, b, cfg=cfg: R.forward(cfg, p, b, mesh, BATCH_AXES))(params, abatch))
+        if name not in meta["arch_train"]:
+            continue
+        grads, _, m = jax.jit(R.make_train_step(cfg, grads_of, mesh, BATCH_AXES))(
+            params, (), abatch)
+        out[f"arch_loss|{name}"] = np.asarray(m["loss"])
+        for k, v in flat_np(grads).items():
+            out[f"arch_grads|{name}|{k}"] = v
+        new_p, new_s, m = jax.jit(R.make_train_step(cfg, recsys_opt, mesh, BATCH_AXES))(
+            params, recsys_opt.init(params), abatch)
+        out[f"arch_step_loss|{name}"] = np.asarray(m["loss"])
+        for k, v in flat_np(new_p).items():
+            out[f"arch_step_params|{name}|{k}"] = v
+        for k, v in flat_np(new_s).items():
+            out[f"arch_step_state|{name}|{k}"] = v
+
+    k = meta["retrieval_k"]
+    tt, mind = arch_cfg(meta, "two_tower"), arch_cfg(meta, "mind")
+    queries, mind_b = nest(d, "tt_query"), nest(d, "mind_query")
+    cands = jnp.asarray(d["cands"])
+    for name, fn, args in (
+        ("two_tower", lambda p, b, c: R.retrieval_topk(tt, p, b, c, k, mesh, ()),
+         (arch_params["two_tower"], queries, cands)),
+        ("two_tower_split", lambda p, b, c: R.retrieval_topk(tt, p, b, c, k, mesh, BATCH_AXES),
+         (arch_params["two_tower"], queries, cands)),
+        ("mind", lambda p, b: R.mind_retrieval(mind, p, b, k, mesh, BATCH_AXES),
+         (arch_params["mind"], mind_b)),
+    ):
+        vals, idx = jax.jit(fn)(*args)
+        out[f"retrieval|{name}|values"] = np.asarray(vals)
+        out[f"retrieval|{name}|indices"] = np.asarray(idx)
     np.savez(outputs_path, **out)
+
+
+def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
+    case = meta["arch_cases"][name]
+    kw = dict(meta["arch_specs"][case["arch"]])
+    tables = tuple(specs_of(kw.pop("tables")))
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    return R.RecsysConfig(name=name, tables=tables, embed_dim=meta["dim"], mode=case["mode"],
+                          **kw, **case["over"])
 
 
 if __name__ == "__main__":

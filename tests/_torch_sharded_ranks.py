@@ -56,8 +56,24 @@ def dlrm_cfg(meta: dict, mode: str) -> R.RecsysConfig:
                           mode=mode)
 
 
+def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
+    """The recsys arch case ``name`` of ``meta["arch_cases"]``."""
+    case = meta["arch_cases"][name]
+    kw = dict(meta["arch_specs"][case["arch"]])
+    tables = tuple(specs_of(kw.pop("tables")))
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    return R.RecsysConfig(name=name, tables=tables, embed_dim=meta["dim"], mode=case["mode"],
+                          **kw, **case["over"])
+
+
 def optimizer() -> O.Optimizer:
     return O.make_composite([("emb", O.make_rowwise_adagrad(0.05)), (".*", O.make_adam(1e-3))])
+
+
+def recsys_optimizer() -> O.Optimizer:
+    """The registry's mix: rowwise AdaGrad on both tables, Adam elsewhere."""
+    return O.make_composite([("emb|wide", O.make_rowwise_adagrad(0.05)),
+                             (".*", O.make_adam(1e-3))])
 
 
 def _bytes_since(before: dict) -> dict:
@@ -182,6 +198,52 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
             out["outputs"][f"step_params|{mode}|{k}"] = v
         for k, v in flat_np(new_s).items():
             out["outputs"][f"step_state|{mode}|{k}"] = v
+
+    # ---- the other recsys archs: forward, loss and gradients, one step
+    arch_params = {}
+    for name in meta["arch_forward"]:
+        cfg = arch_cfg(meta, name)
+        arch = cfg.arch
+        specs = R.param_specs(cfg, cfg.num_shards_for(mesh), BATCH_AXES)
+        params = arch_params[name] = R.shard_params(nest(d, f"arch|{name}"), specs, mesh)
+        abatch = {k: L.constrain(v, batch_p, mesh)
+                  for k, v in nest(d, f"arch_batch|{arch}").items()}
+        with torch.no_grad():
+            out["outputs"][f"arch_forward|{name}"] = R.forward(
+                cfg, params, abatch, mesh, BATCH_AXES).numpy()
+        if name not in meta["arch_train"]:
+            continue
+        loss, grads = R.loss_and_grads(cfg, params, abatch, mesh, BATCH_AXES)
+        out["outputs"][f"arch_loss|{name}"] = loss.numpy()
+        for k, v in flat_np(grads).items():
+            out["outputs"][f"arch_grads|{name}|{k}"] = v
+        opt = recsys_optimizer()
+        new_p, new_s, m = R.make_train_step(cfg, opt, mesh, BATCH_AXES)(
+            params, opt.init(params), abatch)
+        out["outputs"][f"arch_step_loss|{name}"] = m["loss"].numpy()
+        for k, v in flat_np(new_p).items():
+            out["outputs"][f"arch_step_params|{name}|{k}"] = v
+        for k, v in flat_np(new_s).items():
+            out["outputs"][f"arch_step_state|{name}|{k}"] = v
+
+    # ---- retrieval: candidates split over every axis (two_tower, queries
+    # whole and split over data) and over data (mind)
+    k = meta["retrieval_k"]
+    tt = arch_cfg(meta, "two_tower")
+    cands = L.constrain(torch.from_numpy(d["cands"]), P(mesh.axis_names, None), mesh)
+    queries = nest(d, "tt_query")
+    split = {key: L.constrain(v, batch_p, mesh) for key, v in queries.items()}
+    mind_b = nest(d, "mind_query")
+    mind_b["cand_ids"] = L.constrain(mind_b["cand_ids"], batch_p, mesh)
+    for name, (vals, idx) in {
+        "two_tower": R.retrieval_topk(tt, arch_params["two_tower"], queries, cands, k, mesh, ()),
+        "two_tower_split": R.retrieval_topk(tt, arch_params["two_tower"], split, cands, k, mesh,
+                                            BATCH_AXES),
+        "mind": R.mind_retrieval(arch_cfg(meta, "mind"), arch_params["mind"], mind_b, k, mesh,
+                                 BATCH_AXES),
+    }.items():
+        out["outputs"][f"retrieval|{name}|values"] = vals.numpy()
+        out["outputs"][f"retrieval|{name}|indices"] = idx.numpy()
 
     # ---- refusals
     try:

@@ -53,10 +53,17 @@ SHARDED_MODULES = ["repro_torch.launch.mesh", "repro_torch.optim.grad_compress",
                    "repro_torch.core.lookup_engine", "repro_torch.models.layers"]
 
 
-@pytest.mark.parametrize("name", SHARDED_MODULES)
+REGISTRY_MODULES = ["repro_torch.configs", "repro_torch.configs.recsys_common",
+                    "repro_torch.configs.dlrm_flexemr", "repro_torch.configs.wide_deep",
+                    "repro_torch.configs.autoint", "repro_torch.configs.two_tower_retrieval",
+                    "repro_torch.configs.dcn_v2", "repro_torch.configs.deepfm",
+                    "repro_torch.configs.mind"]
+
+
+@pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES)
 def test_sharded_path_modules_are_checked(name):
-    """The modules of the sharded path are among those imported without jax
-    above and scanned for imports below."""
+    """The modules of the sharded path and of the config registry are among
+    those imported without jax above and scanned for imports below."""
     assert name in [_module_name(p) for p in PORT_FILES]
 
 
@@ -110,6 +117,13 @@ def test_launch_serve_defaults_to_cuda_and_raises_without_gpu(no_gpu):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         launch_serve.run(args)
+
+
+def test_registry_smoke_defaults_to_cuda_and_raises_without_gpu(no_gpu):
+    from repro_torch import configs
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        configs.get("mind").smoke()
 
 
 def test_params_from_numpy_raises_without_gpu(no_gpu):

@@ -163,12 +163,13 @@ def test_dlrm_flexemr_config_matches_reference():
 
 
 @pytest.mark.parametrize("kw, err", [
-    (dict(arch="dcn"), NotImplementedError),
+    (dict(arch="ranknet"), ValueError),
     (dict(bottom_mlp=(32, 8)), ValueError),
 ])
 def test_config_rejects_what_the_dlrm_path_cannot_run(kw, err):
-    """A config the ported path cannot serve fails when it is made, not
-    later inside forward."""
+    """A config no path can run (an unknown arch, a dlrm whose bottom MLP
+    misses the embedding width) fails when it is made, not later inside
+    forward."""
     base = dict(name="t", arch="dlrm", tables=(TableSpec("a", 50, nnz=2),),
                 embed_dim=16, n_dense=3, bottom_mlp=(32, 16), mlp=(8,))
     with pytest.raises(err):

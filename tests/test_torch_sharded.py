@@ -7,6 +7,10 @@ ranks of the same mesh (``tests/_torch_sharded_ranks.py`` through
 ``launch.mesh.spawn``).  Both read the same seeded numpy inputs; params
 cross to the port with ``params_from_numpy``'s conversion.  Each rank's
 blocks are held against the same blocks of the reference's whole outputs.
+Besides the lookup and the DLRM, the same spawn runs the other recsys
+archs (wide_deep in mesh2d with a separate and a fused wide table; deepfm,
+two_tower and mind forward, loss, gradients and one step in the paper
+layout) and both retrievals under the mesh.
 
 Tolerances: f32 rtol 1e-5, atol 1e-6 (other summation orders: the
 collective's against XLA's); ``comm_dtype=bf16`` rtol and atol 2e-2, the
@@ -76,10 +80,32 @@ POD_CASES = {"hierarchical": dict(_case("hierarchical"), num_shards=2, params="e
              "mesh2d": _case("mesh2d")}
 DLRM_MODES = ["baseline", "hierarchical", "mesh2d"]
 TRAIN_MODES = ["hierarchical", "mesh2d"]
+# the other recsys archs: wide_deep and deepfm on the DLRM's tables and batch
+TT_SPECS = [("u", 1000, 1, "sum"), ("ug", 64, 1, "sum"), ("i", 1000, 1, "sum"),
+            ("ic", 32, 1, "sum")]
+ARCH_SPECS = {
+    "wide_deep": dict(arch="wide_deep", tables=DLRM_SPECS, n_dense=13, mlp=[32, 16],
+                      use_wide=True),
+    "deepfm": dict(arch="deepfm", tables=DLRM_SPECS, n_dense=13, mlp=[32, 16]),
+    "two_tower": dict(arch="two_tower", tables=TT_SPECS, user_tables=2, mlp=[32, 16]),
+    "mind": dict(arch="mind", tables=[("item", 2000, 1, "sum")], hist_len=10, n_interests=3),
+}
+ARCH_CASES = {
+    "wide_deep_mesh2d": dict(arch="wide_deep", mode="mesh2d", over={}),
+    "wide_deep_fused_mesh2d": dict(arch="wide_deep", mode="mesh2d", over={"fuse_wide": True}),
+    "deepfm": dict(arch="deepfm", mode="hierarchical", over={}),
+    "two_tower": dict(arch="two_tower", mode="hierarchical", over={}),
+    "mind": dict(arch="mind", mode="hierarchical", over={}),
+}
+ARCH_TRAIN = ["deepfm", "two_tower", "mind"]
+RETRIEVALS = ["two_tower", "two_tower_split", "mind"]
+N_CANDS, MIND_CANDS, TT_QUERIES = 256, 512, 8
 META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS, n_dense=13,
             bottom_mlp=[64, DIM], mlp=[64, 32], lookup_cases=LOOKUP_CASES,
             grad_modes=GRAD_MODES, pod_cases=POD_CASES, dlrm_modes=DLRM_MODES, train_modes=TRAIN_MODES,
-            flat_slots=64, hash_slots=128, max_norm=0.05)
+            flat_slots=64, hash_slots=128, max_norm=0.05, arch_specs=ARCH_SPECS,
+            arch_cases=ARCH_CASES, arch_forward=list(ARCH_CASES), arch_train=ARCH_TRAIN,
+            retrieval_k=10)
 
 
 def _inputs(rng) -> dict:
@@ -116,7 +142,43 @@ def _inputs(rng) -> dict:
     b = syn.recsys_batch(rng, cfg.tables, B, n_dense=13)
     for k in ("indices", "mask", "dense", "labels"):
         d[f"dlrm_batch|{k}"] = b[k]
+        for arch in ("wide_deep", "deepfm"):
+            d[f"arch_batch|{arch}|{k}"] = b[k]
+    _arch_inputs(rng, d)
     return d
+
+
+def _arch_inputs(rng, d: dict) -> None:
+    """Params of every arch case (tables N(0, 0.1^2), mind's N(0, 1) so its
+    scores and gradients are far from rounding; two_tower's temperature
+    the reference's 0.05), two_tower's and mind's batches (two_tower's with
+    ``log_q``) and the retrieval inputs."""
+    for name in ARCH_CASES:
+        cfg = ranks.arch_cfg(META, name)
+        ns = 8 if cfg.mode == "mesh2d" else 4
+        for path, t in tree_flatten_with_path(R.abstract_params(cfg, ns)):
+            if path == ("temp",):
+                arr = np.float32(0.05)
+            elif path[0] in ("emb", "wide"):
+                arr = rng.standard_normal(tuple(t.shape)) * (1.0 if cfg.arch == "mind" else 0.1)
+            else:
+                arr = rng.standard_normal(tuple(t.shape)) / np.sqrt(t.shape[0])
+            d["|".join([f"arch|{name}", *map(str, path)])] = np.asarray(arr, np.float32)
+    tt = ranks.specs_of(TT_SPECS)
+    b = syn.recsys_batch(rng, tt, B)
+    b["log_q"] = np.log(rng.uniform(0.01, 1.0, B)).astype(np.float32)
+    for k in ("indices", "mask", "labels", "log_q"):
+        d[f"arch_batch|two_tower|{k}"] = b[k]
+    mind = ARCH_SPECS["mind"]
+    for k, v in syn.mind_batch(rng, mind["tables"][0][1], B, mind["hist_len"]).items():
+        d[f"arch_batch|mind|{k}"] = v
+    q = syn.recsys_batch(rng, tt, TT_QUERIES)
+    d["tt_query|indices"], d["tt_query|mask"] = q["indices"], q["mask"]
+    d["cands"] = rng.standard_normal((N_CANDS, ARCH_SPECS["two_tower"]["mlp"][-1])).astype(
+        np.float32)
+    m = syn.mind_batch(rng, mind["tables"][0][1], 1, mind["hist_len"])
+    d["mind_query|hist"], d["mind_query|hist_mask"] = m["hist"], m["hist_mask"]
+    d["mind_query|cand_ids"] = rng.permutation(mind["tables"][0][1])[:MIND_CANDS].astype(np.int32)
 
 
 @pytest.fixture(scope="module")
@@ -358,6 +420,71 @@ def test_train_step_matches_reference(runs, mode):
         for key in keys:
             _close(r["outputs"][f"step_state|{mode}|{key}"],
                    _block(ref[f"step_state|{mode}|{key}"], state_spec_of[key], r["coords"]))
+
+
+@pytest.mark.parametrize("name", list(ARCH_CASES))
+def test_arch_forward_matches_reference(runs, name):
+    """wide_deep in mesh2d with a separate and a fused wide table; deepfm,
+    two_tower and mind in the paper layout: each rank's slice of the scores."""
+    ref, port = runs
+    for r in port:
+        _close(r["outputs"][f"arch_forward|{name}"],
+               _block(ref[f"arch_forward|{name}"], P(("data", "model")), r["coords"]))
+
+
+def _arch_spec_of(name: str) -> dict:
+    cfg = ranks.arch_cfg(META, name)
+    return {keystr(p): s for p, s in tree_flatten_with_path(
+        R.param_specs(cfg, 4, ("data",)), lambda x: isinstance(x, P))}
+
+
+@pytest.mark.parametrize("name", ARCH_TRAIN)
+def test_arch_train_step_matches_reference(runs, name):
+    """deepfm (its ``wide`` table laid out and reduced as a table), two_tower
+    (in-batch logits over the global batch, ``log_q`` gathered) and mind (the
+    BPR negative rolled across ranks): the loss, every gradient block and
+    one step's params and optimizer state against the reference's GSPMD."""
+    ref, port = runs
+    spec_of = _arch_spec_of(name)
+    if name == "deepfm":
+        assert spec_of["['wide']['table']"] == P("model", None)
+    cfg = ranks.arch_cfg(META, name)
+    state_specs = SR.composite_state_specs([("emb|wide", "rowwise"), (".*", "adam")],
+                                           R.param_specs(cfg, 4, ("data",)),
+                                           R.abstract_params(cfg, 4))
+    state_spec_of = {keystr(p): s for p, s in tree_flatten_with_path(
+        state_specs, lambda x: isinstance(x, P))}
+    for r in port:
+        out = r["outputs"]
+        _close(out[f"arch_loss|{name}"], ref[f"arch_loss|{name}"])
+        _close(out[f"arch_step_loss|{name}"], ref[f"arch_step_loss|{name}"])
+        for key, spec in spec_of.items():
+            _close(out[f"arch_grads|{name}|{key}"],
+                   _block(ref[f"arch_grads|{name}|{key}"], spec, r["coords"]))
+            _close(out[f"arch_step_params|{name}|{key}"],
+                   _block(ref[f"arch_step_params|{name}|{key}"], spec, r["coords"]))
+        keys = [k[len(f"arch_step_state|{name}|"):] for k in out
+                if k.startswith(f"arch_step_state|{name}|")]
+        assert sorted(keys) == sorted(state_spec_of)
+        for key in keys:
+            _close(out[f"arch_step_state|{name}|{key}"],
+                   _block(ref[f"arch_step_state|{name}|{key}"], state_spec_of[key],
+                          r["coords"]))
+
+
+@pytest.mark.parametrize("name", RETRIEVALS)
+def test_retrieval_under_the_mesh_matches_reference(runs, name):
+    """``retrieval_topk`` (candidates over every axis; queries whole, then
+    split over data) and ``mind_retrieval`` (candidates over data): every
+    rank holds the global top-k, values allclose and indices equal on
+    tie-free scores."""
+    ref, port = runs
+    want_v, want_i = ref[f"retrieval|{name}|values"], ref[f"retrieval|{name}|indices"]
+    assert want_v.shape[1] == META["retrieval_k"]
+    assert len(np.unique(want_v)) == want_v.size
+    for r in port:
+        _close(r["outputs"][f"retrieval|{name}|values"], want_v)
+        np.testing.assert_array_equal(r["outputs"][f"retrieval|{name}|indices"], want_i)
 
 
 def test_ranks_sit_row_major_and_refuse(runs):
