@@ -157,9 +157,22 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 4097, at cache_len 1, in f32 and with GQA, and at g = 4
                 (q [2, 32, 128], 8 KV heads) with cache_len on an edge of
                 the kernel's split over S, one past it and the whole cache;
+                K6 and K7 at each MoE / wide path's own layer (olmoe's 16/16
+                heads in bf16 and lm_moe_f32's f32, arctic's 56/8: groups of
+                7, qwen2's 64/8, llama3's 128/8, all at dh 128);
                 bf16 to two output ulps plus 2^-5 of the row's RMS, a check
                 shown to refuse planted faults (one KV tile of 64 skipped,
-                bf16 and f32; K7's middle chunk dropped).
+                bf16 and f32; K7's middle chunk dropped); K7's shard mode
+                (``flash_decode_partial``) in f32 and bf16 on
+                lm_sharded_decode's [4, 1032, 16, 128] shard starting
+                below, inside, at and past cache_len, NaN from cache_len
+                on: its max and sum, and its sum over its sum, against the
+                plain version; an empty shard must give m = -inf, l = 0,
+                acc = 0; timed by events and by the profiler (the kernel's
+                own device time: the events also hold the wrapper's
+                enqueue when the host trails), beside
+                ``aten._scaled_dot_product_efficient_attention`` with its
+                logsumexp (= m + log l) on the same shard.
                 CUDA-event medians of each kernel, its plain version and
                 ``F.scaled_dot_product_attention`` (timed only, never called
                 by the port), and of kernel and library at the repo's own
@@ -182,12 +195,49 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 1,024, 4 decode steps) against one ``forward`` over all
                 1,028 tokens; the card's half is the ``lm_f32`` path, which
                 must launch K6 (in f32 only) and K7;
+  9b. lm_moe_prefill — olmoe-1b-7b at full width and depth (6,919,096,320
+                parameters, 13.84 GB in bf16, made on the card from seed
+                0), ``prefill`` of 4 prompts of 4,096 tokens (capacity
+                2,560 a expert, about 33 TFLOP of expert products): finite
+                logits, K6 once a layer; first-call wall, device median,
+                tokens/s, the kernels' time in a profiled call, and the
+                share of dropped assignments (one more call under
+                ``RoutingLog``);
+  9c. lm_moe_decode — 32 greedy ``decode_step``s against caches of 4,128
+                positions: K7 16 x 32 times, finite logits; step wall
+                median, device busy time, beside the bound of reading every
+                expert (12.9 GB) once a step;
+  9d. lm_moe_checks — f32 compute, TF32 off: a 2-layer cut at olmoe's
+                widths on the card against the same on the CPU, then the
+                full depth's decode against one ``forward`` (capacity
+                factor E / K: nothing drops); routing first (a token whose
+                top-k set or kept experts differ is a near tie, counted
+                with its margin and left out), the rest at 1e-4 and 1e-3
+                (the ``lm_moe_f32`` path: K6 in f32 only, and K7);
+  9e. lm_sharded_decode — olmoe's widths at 2 layers in f32 on 4 gloo
+                ranks of the one card (``launch.mesh.spawn``, the params
+                and caches shared through CUDA IPC): mesh (1, 4) at B = 4,
+                positions over model, and (2, 2) at B = 1, positions over
+                both axes (long_500k's layout) against 32,768 positions,
+                with full, partial and empty shards and NaN past the steps'
+                rows; 8 ``decode_step``s under the mesh, each rank's logits
+                block against one device's decode on the card at 1e-4, K7's
+                shard mode once a layer a step on every rank, the bytes the
+                ring model's;
+  9f. lm_moe_wide — each with everything before it freed: arctic-480b cut to
+                2 of its 35 layers (55.4 GB: 56 heads in groups of 7, 128
+                experts top-2 beside the dense FFN), qwen2-72b to 2 of 80
+                (QKV bias, 64/8 heads) and llama3-405b to 1 of 126, at full
+                width: prefill of 1 x 4,096 (K6 once a layer), 8 decode
+                steps (K7 once a layer a step), finite logits; device
+                median, step wall median and busy time beside the bound of
+                reading the weights;
  10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
      ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
      times and bound, its times at 5g's forward shapes (``forward_shapes``)
      and K1''s at 5g's train steps (``backward.train_shapes``), K6's its f32 times at lm_f32's shape and at
      lm_prefill's, each with the 3xTF32 bound and the f32 FMA one, and its
-     f32 launches), then
+     f32 launches, K7's its shard mode's times and launches as ``partial``), then
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -195,7 +245,9 @@ Each path (4, 4b, 4c and 4d on each rank, summed over the ranks in the
 kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
 5g's ``recsys_forward.<arch>``, ``recsys_train.<arch>``,
 ``retrieval.two_tower`` and ``retrieval.mind``, 7, 8, and 9 as
-``lm_f32``: K6 and K7 in f32 on the card) runs with the launch
+``lm_f32``: K6 and K7 in f32 on the card, 9b, 9c, 9d as ``lm_moe_f32``,
+9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
+``lm_wide_decode.<arch>``) runs with the launch
 counts set to 0 just before it and read just after; comparisons and
 timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
@@ -206,6 +258,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -318,6 +371,33 @@ LM_RAGGED_SEQ = 1037  # no multiple of a 64-row tile
 LM_F32_TOL = (2e-5, 2e-5)
 LM_BF16_TOL = (1.6e-2, 3.2e-2)
 LM_KV_TILE = 64  # the KV tile of the planted faults
+# The MoE LM paths (olmoe-1b-7b at full width and depth; the same prompts,
+# steps and cache as lm_prefill / lm_decode) and their checks: routing
+# first (a token whose top-k set or kept experts differ is a near tie,
+# counted and left out), then the outputs at the lm_checks tolerances.
+MOE_CUT_TOL = (1e-4, 1e-4)
+# A routing difference is a near tie only where the k-th router probability
+# leads the next by under this (f32 compute), and near ties are rare: at
+# most this share of the tokens may differ.
+MOE_TIE_MARGIN = 1e-4
+MOE_TIE_SHARE = 0.01
+MOE_DEPTH_TOL = (1e-3, 1e-3)
+# lm_moe_wide: the wide configs at full width, depth cut to fit the card
+WIDE_CUTS = (("arctic-480b", 2), ("qwen2-72b", 2), ("llama3-405b", 1))
+WIDE_BATCH, WIDE_DECODE_STEPS = 1, 8  # prompts of LM_PROMPT tokens
+WIDE_CACHE = 4112  # the prompt + 8, padded to 16
+# lm_sharded_decode: olmoe's widths at 2 layers in f32 compute on 4 gloo
+# ranks of the one card, 8 steps each, the logits' blocks against one
+# device's decode on the card.  (name, mesh, batch, batch axes, sequence
+# axes, cache positions, first position: shards full, partial and empty)
+SHARDED_DECODE_LAYERS = 2
+SHARDED_DECODE_STEPS = 8
+SHARDED_DECODE_CASES = (
+    ("model_b4", (1, 4), 4, ("data",), ("model",), 4128, 2500),
+    ("all_axes_b1", (2, 2), 1, (), ("data", "model"), 32768, 20000),
+)
+SHARDED_DECODE_TOL = (1e-4, 1e-4)
+K7P_SHARD = 1032  # K7's shard mode checked and timed on model_b4's shard
 
 
 def log(msg: str) -> None:
@@ -525,7 +605,7 @@ def launch_counts() -> dict:
             "scatter_update": HK.launches[HK.SCATTER],
             "topk_neighbor_select": PK.launches,
             "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
-            "flash_decode": K7.launches,
+            "flash_decode": K7.launches, "flash_decode_partial": K7.launches_partial,
             "embedding_bag_backward": K1.launches_backward,
             "dot_interaction_backward": K2.launches_backward}
 
@@ -540,7 +620,7 @@ def reset_counts() -> None:
 
     K1.launches = K1.launches_masked = K1.launches_backward = 0
     K2.launches = K2.launches_backward = 0
-    PK.launches = K6.launches = K6.launches_f32 = K7.launches = 0
+    PK.launches = K6.launches = K6.launches_f32 = K7.launches = K7.launches_partial = 0
     HK.launches.update(dict.fromkeys(HK.launches, 0))
 
 
@@ -585,6 +665,164 @@ def trees_bit_equal(a, b) -> bool:
         and torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
                         y.view(torch.int32) if y.dtype == torch.float32 else y)
         for (pa, x), (pb, y) in zip(fa, fb))
+
+
+class RoutingLog:
+    """Records the routing of every ``moe_apply_local`` call while it is
+    entered (``models.moe``'s function wrapped; the call itself runs
+    unchanged): per token, its top-k experts sorted, the experts it was
+    kept at (-1 for a dropped assignment), and the margin of its k-th
+    router probability over the next."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        real = self.real = self.moe.moe_apply_local
+
+        def wrapped(params, x, cfg, n_shards, shard):
+            _, top_e, slots, _ = self.moe.moe_route(params["router"], x, cfg, n_shards, shard)
+            probs = torch.softmax((x @ params["router"].to(x.dtype)).float(), -1)
+            srt = probs.sort(-1, descending=True).values
+            sentinel = cfg.num_experts // n_shards * self.moe.moe_capacity(cfg, x.shape[0])
+            kept = torch.where((slots != sentinel).T, top_e, -1)
+            self.calls.append((top_e.sort(-1).values.cpu(), kept.sort(-1).values.cpu(),
+                               (srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]).cpu()))
+            return real(params, x, cfg, n_shards, shard)
+
+        self.moe.moe_apply_local = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply_local = self.real
+
+    def by_position(self, n_layers: int, batch: int, prompt: int, steps: int,
+                    forward: bool = False) -> list:
+        """Per layer, (top-k sets, kept sets, margins) laid out [B, P + steps]:
+        from a prefill of ``prompt`` then ``steps`` decode steps, or from one
+        ``forward`` over all the positions."""
+        layers = []
+        for li in range(n_layers):
+            if forward:
+                parts = [[t.reshape(batch, prompt + steps, *t.shape[1:])
+                          for t in self.calls[li]]]
+            else:
+                parts = [[t.reshape(batch, prompt, *t.shape[1:]) for t in self.calls[li]]]
+                parts += [[t.reshape(batch, 1, *t.shape[1:]) for t in self.calls[
+                    n_layers * (1 + s) + li]] for s in range(steps)]
+            layers.append([torch.cat(ts, 1) for ts in zip(*parts)])
+        return layers
+
+
+def routing_differs(name: str, a: list, b: list) -> tuple[torch.Tensor, list]:
+    """[B, positions] bool: where two ``RoutingLog.by_position`` layouts route
+    a token otherwise at some layer, and the k-th margins of the near ties
+    that start it.  A token's first difference must be one of: its top-k
+    set, with both sides' margins under MOE_TIE_MARGIN (a near tie); a
+    consequence of a token flagged at an earlier layer and position of its
+    sequence (attention carries it on); or its kept experts alone (capacity
+    ranks the call's tokens, so a tie moves other tokens' slots).  Raises
+    otherwise, or if more than MOE_TIE_SHARE of the tokens differ: a wrong
+    kernel moves hidden states, and with them every later router."""
+    flagged = torch.zeros(a[0][0].shape[:2], dtype=torch.bool)
+    margins = []
+    for li, ((sa, ka, ma), (sb, kb, mb)) in enumerate(zip(a, b)):
+        topk = (sa != sb).any(-1)
+        first = (topk | (ka != kb).any(-1)) & ~flagged
+        downstream = (flagged.cumsum(1) - flagged.long()) > 0  # flagged earlier in the row
+        tie = first & topk & ~downstream
+        margin = torch.maximum(ma, mb)
+        wide = tie & (margin >= MOE_TIE_MARGIN)
+        if wide.any():
+            raise AssertionError(f"{name}: layer {li}: {int(wide.sum())} token(s) routed "
+                                 f"otherwise at k-th margins {margin[wide].tolist()[:8]}, "
+                                 f"no near tie (< {MOE_TIE_MARGIN})")
+        margins += margin[tie].tolist()
+        flagged |= first
+    if int(flagged.sum()) > MOE_TIE_SHARE * flagged.numel():
+        raise AssertionError(f"{name}: {int(flagged.sum())} of {flagged.numel()} tokens routed "
+                             f"otherwise, over the {MOE_TIE_SHARE:.0%} that near ties explain")
+    return flagged, margins
+
+
+def lm_decode_ring_bytes(cfg, b_local: int, g_seq: int, g_model: int, steps: int,
+                         heads: int) -> dict:
+    """A rank's bytes over ``steps`` sharded decode steps by the ring model:
+    the token embedding's all-reduce over model; each layer's max all-reduce
+    of the row maxima [B_l, H] and all-reduce of the scaled sums
+    [B_l, H, dh + 1] over the sequence axes, and the experts' all-reduce
+    [B_l, D] over model, f32 (the compute dtype)."""
+    model = 2 * b_local * cfg.d_model * 4 * (g_model - 1) / g_model
+    seq = 2 * b_local * heads * 4 * (g_seq - 1) / g_seq
+    return {"all_reduce": steps * (model + cfg.n_layers * (model + seq * (cfg.d_head + 1))),
+            "all_reduce_max": steps * cfg.n_layers * seq}
+
+
+def sharded_decode_config(base):
+    """lm_sharded_decode's config: olmoe's widths, cut to 2 layers, f32."""
+    return dataclasses.replace(base, n_layers=SHARDED_DECODE_LAYERS, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def lm_sharded_rank(rank: int, world: int, params: dict, cases: list) -> dict:
+    """One rank of the lm_sharded_decode phase (spawned by ``launch.mesh.spawn``
+    over gloo; ``params`` and each case's caches, tokens and one-device
+    logits are the main process's CUDA tensors, shared, never copied):
+    for each case its mesh, its blocks of the params
+    (``decode_param_specs``) and caches (``cache_specs``, copied: the steps
+    write them), SHARDED_DECODE_STEPS ``decode_step``s under the mesh with
+    the launch counts and bytes read around them, then its logits' blocks
+    against the one-device logits."""
+    from repro_torch.configs.olmoe_1b_7b import make_config
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as TF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    cfg = sharded_decode_config(make_config())
+    out: dict = {}
+    for case in cases:
+        name, batch_axes, seq_axes = case["name"], case["batch_axes"], case["seq_axes"]
+        mesh = M.Mesh(case["mesh"], ("data", "model"))
+        p = R.shard_params(params, TF.decode_param_specs(cfg), mesh)
+        spec = TF.cache_specs(cfg, batch_axes, seq_axes)
+        cache = tuple(L.constrain(c, spec, mesh).clone(memory_format=torch.contiguous_format)
+                      for c in case["cache"])
+        toks = L.constrain(case["tokens"], P(None, batch_axes or None), mesh)
+        pos = torch.tensor(case["pos"], dtype=torch.int32, device=toks.device)
+        logits = []
+        reset_counts()
+        before = M.comm_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(SHARDED_DECODE_STEPS):
+                lg, cache = TF.decode_step(cfg, p, cache, toks[i], pos, mesh, batch_axes,
+                                           seq_axes)
+                logits.append(lg)
+                pos += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        sent = {op: v - before.get(op, 0.0) for op, v in M.comm_bytes().items()
+                if v != before.get(op, 0.0)}
+        got = torch.stack(logits)
+        want = L.constrain(case["want"], P(None, batch_axes or None, "model"), mesh)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[lm_sharded_decode] rank {rank} {name}: logits not finite")
+        err = assert_close(f"[lm_sharded_decode] rank {rank} {name} {dict(mesh.coords)} "
+                           f"logits block {list(got.shape)} over {SHARDED_DECODE_STEPS} steps "
+                           "vs one device's decode", got, want, *SHARDED_DECODE_TOL)
+        out[name] = {"coords": dict(mesh.coords), "launches": counts, "bytes": sent,
+                     "max_abs_err": err, "wall_s": wall,
+                     "cache_block": list(cache[0].shape)}
+        del p, cache, toks, logits, got, want
+    return out
 
 
 def sharded_rank(rank: int, world: int, fwd: dict, train: dict) -> dict:
@@ -1065,6 +1303,8 @@ def main() -> int:
     from repro_torch.configs.dlrm_flexemr import make_config
     from repro_torch.configs.lm_common import LM_SHAPES, serving_config
     from repro_torch.configs.stablelm_3b import make_config as make_lm_config
+    from repro_torch.configs import arctic_480b, llama3_405b, qwen2_72b
+    from repro_torch.configs.olmoe_1b_7b import make_config as make_olmoe
     from repro_torch import chaos as CH
     from repro_torch.core.adaptive_cache import AdaptiveCacheController, MemoryModel
     from repro_torch.core.embedding import make_hash_cache_from_table
@@ -1083,6 +1323,7 @@ def main() -> int:
     from repro_torch.launch import mesh as M
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe as MOE
     from repro_torch.models import recsys as R
     from repro_torch.models import transformer as TF
     from repro_torch.obs.metrics import MetricsRegistry
@@ -2362,12 +2603,20 @@ def main() -> int:
         return F.scaled_dot_product_attention(q[:, :, None], kc[:, :n].transpose(1, 2),
                                               vc[:, :n].transpose(1, 2), enable_gqa=True)
 
+    def k7p_lib(q, kc, vc, n):
+        # The shard's output and its logsumexp (= m + log l, all the combine
+        # needs) from one call; K7's shard mode has no GQA case here.
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q[:, :, None], kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2), None, True)
+
     lm_rows = []
+    k7p_rows = {}  # K7's shard mode timed, by dtype
 
     def time_case(label, kern, plain, lib, bnd):
         row = {"case": label, "ms": cuda_ms(kern, flush),
                "plain_ms": None if plain is None else cuda_ms(plain, flush),
-               "library_ms": cuda_ms(lib, flush), "bound_ms": bnd[0], "bound_by": bnd[1]}
+               "library_ms": None if lib is None else cuda_ms(lib, flush),
+               "bound_ms": bnd[0], "bound_by": bnd[1]}
         lm_rows.append(row)
         return row
 
@@ -2394,6 +2643,20 @@ def main() -> int:
         "ragged dh96 f32": ((2, LM_RAGGED_SEQ, 4, 96), 2, f32, True),
         "ragged dh128 full f32": ((2, LM_RAGGED_SEQ, 4, 128), 1, f32, False),
     }
+    # Each MoE / wide path's own prefill and decode layer: olmoe's 16/16
+    # heads (bf16, and lm_moe_f32's f32 layer), arctic's 56/8 (groups of 7:
+    # K7 takes its heads in chunks of 4, so the second chunk is partial),
+    # qwen2's 64/8 and llama3's 128/8, all at head dim 128.
+    olmoe = make_olmoe()
+    wide_configs = {"arctic-480b": arctic_480b.make_config, "qwen2-72b": qwen2_72b.make_config,
+                    "llama3-405b": llama3_405b.make_config}
+    new_paths = {"lm_moe bf16": (LM_BATCH, LM_PROMPT, LM_CACHE, olmoe, bf16),
+                 "lm_moe_f32 f32": (2, LM_DEPTH_PROMPT, LM_DEPTH_PROMPT + LM_CHECK_STEPS,
+                                    olmoe, f32)}
+    new_paths.update({f"lm_wide.{arch} bf16": (WIDE_BATCH, LM_PROMPT, WIDE_CACHE, make(), bf16)
+                      for arch, make in wide_configs.items()})
+    for label, (b_, s_, _, c_, dt_) in new_paths.items():
+        k6_cases[label] = ((b_, s_, c_.n_heads, c_.d_head), c_.n_kv_heads, dt_, True)
     k6_f32 = {}  # f32 timing rows by label
     with torch.no_grad():
         for label, (shape, hkv, dt, causal) in k6_cases.items():
@@ -2461,6 +2724,9 @@ def main() -> int:
             "g4 full cache bf16": (g4_q, g4_c, bf16, LM_CACHE),
             "g4 chunk edge + 1 f32": (g4_q, g4_c, f32, edge + 1),
         }
+        for label, (b_, s_, cache_, c_, dt_) in new_paths.items():  # the first step's length
+            k7_cases[label] = ((b_, c_.n_heads, c_.d_head),
+                               (b_, cache_, c_.n_kv_heads, c_.d_head), dt_, s_ + 1)
         log(f"  K7 chunks: {K7.plan_split(LM_CACHE, B, Hkv, Hq // Hkv)} at the path shape, "
             f"{len(g4_bounds) - 1} at g = 4 (chunk edge {edge})")
         for label, (qs, cs, dt, n) in k7_cases.items():
@@ -2509,6 +2775,71 @@ def main() -> int:
                   f"{Sl} (decode_32k, B = {Bl})", lambda: K7.flash_decode(q, kc, vc, n_t),
                   None, lambda: k7_lib(q, kc, vc, Sl), k7_bound(q, kc, Sl))
         del q, kc, vc
+
+        # K7's shard mode on lm_sharded_decode's model_b4 shard (olmoe's 16
+        # heads of 128, 1,032 positions): the shard wholly below cache_len,
+        # cache_len inside it, at its start (empty) and before it (empty),
+        # NaN from cache_len on (an empty shard is NaN throughout and must
+        # give m = -inf, l = 0, acc = 0).  The normalised acc / l against the
+        # plain version's at the output tolerances, m and l at f32's.
+        sq, sc = (LM_BATCH, 16, 128), (LM_BATCH, K7P_SHARD, 16, 128)
+        n_glob = K7P_SHARD + K7P_SHARD // 2
+        partial_cases = {"below cache_len": 0, "cache_len inside": K7P_SHARD,
+                         "cache_len at the start": n_glob, "past cache_len": 2 * K7P_SHARD}
+        k7p_errs = {}
+        for dt in (f32, bf16):
+            for label, start in partial_cases.items():
+                q, kc, vc = rnd(sq, dt), rnd(sc, dt), rnd(sc, dt)
+                live = max(0, min(n_glob - start, K7P_SHARD))
+                kc[:, live:] = float("nan")
+                vc[:, live:] = float("nan")
+                n_t = torch.tensor(n_glob, dtype=torch.int32, device=dev)
+                s_t = torch.tensor(start, dtype=torch.int32, device=dev)
+                o, m, l_ = K7.flash_decode_partial(q, kc, vc, n_t, s_t)
+                wo, wm, wl = ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t)
+                name = (f"K7 shard mode {dtype_name(q)} q {list(sq)} shard {list(sc)} start "
+                        f"{start} cache_len {n_glob} ({label}, {live} rows)")
+                if not (bool(torch.isfinite(o).all()) and not bool(torch.isnan(m).any())
+                        and bool(torch.isfinite(l_).all())):
+                    raise AssertionError(f"{name}: NaN or inf in the partials")
+                if live == 0:
+                    if not (bool((m == float("-inf")).all()) and not l_.any() and not o.any()):
+                        raise AssertionError(f"{name}: an empty shard must give m = -inf, "
+                                             "l = 0, acc = 0")
+                    log(f"  {name}: ok, m = -inf, l = 0, acc = 0")
+                    continue
+                assert_close(f"{name}: m", m, wm, *LM_F32_TOL)
+                assert_close(f"{name}: l", l_, wl, *LM_F32_TOL)
+                check = assert_close_rows if dt == bf16 else assert_close
+                k7p_errs[(dtype_name(q), label)] = check(
+                    f"{name}: acc / l", o / l_[..., None], wo / wl[..., None],
+                    *(LM_BF16_TOL if dt == bf16 else LM_F32_TOL))
+                if label == "below cache_len":
+                    bnd = bound(2 * kc.numel() * kc.element_size() + q.numel() * q.element_size()
+                                + o.numel() * 4 + 2 * m.numel() * 4,
+                                4 * sq[2] * sq[0] * sq[1] * live)
+                    row = time_case(f"K7 shard mode {dtype_name(q)} q {list(sq)} shard "
+                                    f"{list(sc)}, every row valid",
+                                    lambda: K7.flash_decode_partial(q, kc, vc, n_t, s_t),
+                                    lambda: ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t),
+                                    lambda: k7p_lib(q, kc, vc, live), bnd)
+                    row["max_abs_err"] = k7p_errs[(dtype_name(q), label)]
+                    # The yardstick's own partial: its lse against m + log l,
+                    # its output against acc / l (reported, not gated).
+                    lo, lse = k7p_lib(q, kc, vc, live)[:2]
+                    row["library_partial_err"] = {
+                        "lse": max_err(lse[..., 0], m + torch.log(l_)),
+                        "out": max_err(lo[:, :, 0].float(), o / l_[..., None])}
+                    # The event pair above also holds the wrapper's enqueue
+                    # when the host trails the flush: the kernel's own device
+                    # time, L2 flushed before each call, from the profiler.
+                    row["kernel_device_ms"] = device_busy(
+                        lambda: (flush.zero_(), K7.flash_decode_partial(q, kc, vc, n_t, s_t)),
+                        15, kernels=("flash_decode_kernel",))["kernels_ms_per_call"][
+                        "flash_decode_kernel"]
+                    k7p_rows[dtype_name(q)] = row
+                del o, m, l_, wo, wm, wl
+            del q, kc, vc
     for name in ("flash_attention", "flash_decode"):
         ms, plain_ms, lib_ms = timings[name]
         bms, by = bounds[name]
@@ -2557,61 +2888,70 @@ def main() -> int:
     }))
 
     # ------------------------------------------------------------- lm_decode
-    k_cache, v_cache = TF.init_decode_cache(lm_cfg, LM_BATCH, LM_CACHE, device=dev)
-    k_cache[:, :, :LM_PROMPT] = kc
-    v_cache[:, :, :LM_PROMPT] = vc
+    def run_decode(cfg, params, last, kv, batch, cache_len, steps, busy_calls, kernels=()):
+        """``steps`` greedy ``decode_step``s after a prefill (its last logits
+        and caches ``kv``) against caches of ``cache_len`` positions, launch
+        counts reset before them, one event pair a step and no host sync in
+        the loop; then ``busy_calls`` more steps under the profiler from the
+        first position again.  Checks that the steps' logits are finite;
+        returns them, the tokens generated, the launches and the summary."""
+        prompt = kv[0].shape[2]
+        cache = TF.init_decode_cache(cfg, batch, cache_len, device=dev)
+        for c, c_ in zip(cache, kv):
+            c[:, :, :prompt] = c_
+        tok = last[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        pos = torch.tensor(prompt, dtype=torch.int32, device=dev)
+        events, generated = [], []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(steps):  # no host sync inside the loop
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, cache = TF.decode_step(cfg, params, cache, tok, pos)
+                end.record()
+                events.append((start, end))
+                tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+                generated.append(tok)
+                pos += 1
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if logits.shape != (batch, cfg.padded_vocab()) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name} decode logits not finite: {tuple(logits.shape)}")
+        if int(pos) != prompt + steps:
+            raise AssertionError(f"{cfg.name} decode ended at position {int(pos)}")
+        step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+        pos.fill_(prompt)
+
+        def step():
+            tok_ = TF.decode_step(cfg, params, cache, tok, pos)[0]
+            pos.add_(1)
+            return tok_
+
+        with torch.no_grad():
+            busy = device_busy(step, busy_calls, kernels=kernels)
+        del cache
+        return logits, generated, launches, {
+            "steps": steps, "wall_s": wall_s, "step_wall_median_ms": statistics.median(step_ms),
+            "step_wall_ms_min_max": [min(step_ms), max(step_ms)],
+            "step_device_busy_ms": busy["device_busy_ms"],
+            "decode_tokens_per_s": batch * steps / wall_s, "launches": launches,
+            "profile": busy}
+
+    logits, generated, decode_launches, decode_run = run_decode(
+        lm_cfg, lm_params, last, (kc, vc), LM_BATCH, LM_CACHE, LM_DECODE_STEPS, 2)
     del kc, vc
-    tok = last[:, :lm_cfg.vocab].argmax(-1).to(torch.int32)
-    pos = torch.tensor(LM_PROMPT, dtype=torch.int32, device=dev)
-    step_events, generated = [], []
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        for _ in range(LM_DECODE_STEPS):  # no host sync inside the loop
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, (k_cache, v_cache) = TF.decode_step(lm_cfg, lm_params,
-                                                        (k_cache, v_cache), tok, pos)
-            end.record()
-            step_events.append((start, end))
-            tok = logits[:, :lm_cfg.vocab].argmax(-1).to(torch.int32)
-            generated.append(tok)
-            pos += 1
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    decode_launches = launch_counts()
     want_launches = lm_cfg.n_layers * LM_DECODE_STEPS
     if decode_launches["flash_decode"] != want_launches:
         raise AssertionError(f"lm_decode launched K7 {decode_launches['flash_decode']} "
                              f"times, want {want_launches}")
-    if logits.shape != (LM_BATCH, Vp) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"lm_decode logits not finite: {tuple(logits.shape)}")
-    if int(pos) != LM_PROMPT + LM_DECODE_STEPS:
-        raise AssertionError(f"lm_decode ended at position {int(pos)}")
-    step_ms = [s_.elapsed_time(e_) for s_, e_ in step_events]
-    # Two more steps under the profiler, at the first two positions again.
-    pos.fill_(LM_PROMPT)
-
-    def step():
-        tok_ = TF.decode_step(lm_cfg, lm_params, (k_cache, v_cache), tok, pos)[0]
-        pos.add_(1)
-        return tok_
-
-    with torch.no_grad():
-        decode_busy = device_busy(step, 2)
     log("[lm_decode] " + json.dumps({
-        "model": lm_cfg.name, "batch": LM_BATCH, "cache": LM_CACHE,
-        "steps": LM_DECODE_STEPS, "wall_s": decode_s,
-        "step_wall_median_ms": statistics.median(step_ms),
-        "step_wall_ms_min_max": [min(step_ms), max(step_ms)],
-        "step_device_busy_ms": decode_busy["device_busy_ms"],
-        "decode_tokens_per_s": LM_BATCH * LM_DECODE_STEPS / decode_s,
-        "first_tokens_generated": torch.stack(generated[:4], 1).tolist(),
-        "launches": decode_launches, "profile": decode_busy,
-    }))
-    del k_cache, v_cache, logits, last, tokens
+        "model": lm_cfg.name, "batch": LM_BATCH, "cache": LM_CACHE, **decode_run,
+        "first_tokens_generated": torch.stack(generated[:4], 1).tolist()}))
+    del logits, last, tokens
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- lm_checks
@@ -2664,6 +3004,266 @@ def main() -> int:
     del stepped, full, want, lm_params
     torch.cuda.empty_cache()
 
+    # -------------------------------------------------------- lm_moe_prefill
+    moe_cfg = serving_config(make_olmoe())
+    E_, K_, F_ = moe_cfg.moe.num_experts, moe_cfg.moe.top_k, moe_cfg.moe.d_ff
+    D_, L_ = moe_cfg.d_model, moe_cfg.n_layers
+    t0 = time.perf_counter()
+    moe_params = TF.init_params(moe_cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    expert_bytes = sum(moe_params["layers"][k].numel() * 2 for k in ("xg", "xu", "xd"))
+    log(f"[lm_moe_prefill] {moe_cfg.name}: {moe_cfg.num_params():,} parameters in bf16 "
+        f"({tree_size_bytes(moe_params) / 1e9:.2f} GB, experts {expert_bytes / 1e9:.2f} GB) "
+        f"made on the card in {time.perf_counter() - t0:.2f}s")
+    tokens = torch.from_numpy(syn.lm_batch(np.random.default_rng(0), moe_cfg.vocab, LM_BATCH,
+                                           LM_PROMPT)["tokens"]).to(dev)
+    cap = MOE.moe_capacity(moe_cfg.moe, LM_BATCH * LM_PROMPT)
+    expert_flop = 2 * 3 * E_ * cap * D_ * F_ * L_
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, (kc, vc) = TF.prefill(moe_cfg, moe_params, tokens)
+    torch.cuda.synchronize()
+    moe_prefill_s = time.perf_counter() - t0
+    moe_prefill_launches = launch_counts()
+    if moe_prefill_launches["flash_attention"] != L_:
+        raise AssertionError(f"lm_moe_prefill launched K6 "
+                             f"{moe_prefill_launches['flash_attention']} times, want {L_}")
+    Vp = moe_cfg.padded_vocab()
+    if last.shape != (LM_BATCH, Vp) or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"lm_moe_prefill last logits not finite [{LM_BATCH}, {Vp}]")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        moe_prefill_ms = cuda_ms(lambda: TF.prefill(moe_cfg, moe_params, tokens), flush,
+                                 reps=5, warmup=1)
+        moe_prefill_busy = device_busy(lambda: TF.prefill(moe_cfg, moe_params, tokens), 1,
+                                       kernels=("flash_attention", "gemm", "sort"))
+        with RoutingLog() as routing:  # one more call, uncounted: the drops
+            TF.prefill(moe_cfg, moe_params, tokens)
+    dropped = sum(int((kept < 0).sum()) for _, kept, _ in routing.calls)
+    log("[lm_moe_prefill] " + json.dumps({
+        "model": moe_cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT, "capacity": cap,
+        "expert_tflop": expert_flop / 1e12,
+        "dropped_assignment_share": dropped / (L_ * LM_BATCH * LM_PROMPT * K_),
+        "first_call_wall_ms": moe_prefill_s * 1e3, "device_median_ms": moe_prefill_ms,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / (moe_prefill_ms / 1e3),
+        "expert_tflop_per_s_at_the_median": expert_flop / 1e12 / (moe_prefill_ms / 1e3),
+        "peak_memory_gb": peak_gb, "launches": moe_prefill_launches,
+        "profile": moe_prefill_busy,
+    }))
+    del routing
+
+    # --------------------------------------------------------- lm_moe_decode
+    logits, _, moe_decode_launches, moe_decode_run = run_decode(
+        moe_cfg, moe_params, last, (kc, vc), LM_BATCH, LM_CACHE, LM_DECODE_STEPS, 2,
+        kernels=("flash_decode_kernel", "gemm"))
+    del kc, vc
+    if moe_decode_launches["flash_decode"] != L_ * LM_DECODE_STEPS:
+        raise AssertionError(f"lm_moe_decode launched K7 {moe_decode_launches['flash_decode']} "
+                             f"times, want {L_ * LM_DECODE_STEPS}")
+    # A step runs every expert on its C = 8 slots: it reads all the experts.
+    log("[lm_moe_decode] " + json.dumps({
+        "model": moe_cfg.name, "batch": LM_BATCH, "cache": LM_CACHE,
+        "capacity": MOE.moe_capacity(moe_cfg.moe, LM_BATCH),
+        "expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3, **moe_decode_run}))
+    del logits, last, tokens
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- lm_moe_checks
+    log("[lm_moe_checks] f32 compute, TF32 off; routing compared first")
+    reset_counts()  # the lm_moe_f32 path (the CPU's half takes the plain versions)
+    cut_cfg = dataclasses.replace(moe_cfg, n_layers=LM_CUT_LAYERS, compute_dtype=f32)
+    cut_params = dict(moe_params, layers={k: v[:LM_CUT_LAYERS]
+                                          for k, v in moe_params["layers"].items()})
+    cut_toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(1), moe_cfg.vocab, 2,
+                                             LM_CUT_PROMPT + LM_CHECK_STEPS)["tokens"])
+    with RoutingLog() as card_routes:
+        on_card = prefill_then_decode(cut_cfg, cut_params, cut_toks, LM_CUT_PROMPT, dev)
+    with RoutingLog() as cpu_routes:
+        on_cpu = prefill_then_decode(cut_cfg, tree_to(cut_params, "cpu"), cut_toks,
+                                     LM_CUT_PROMPT, "cpu")
+    lay = (LM_CUT_LAYERS, 2, LM_CUT_PROMPT, LM_CHECK_STEPS)
+    flagged, margins = routing_differs(f"lm_moe {LM_CUT_LAYERS}-layer cut, card vs CPU",
+                                       card_routes.by_position(*lay),
+                                       cpu_routes.by_position(*lay))
+    log(f"  {LM_CUT_LAYERS}-layer cut: routing of {flagged.numel()} tokens x "
+        f"{LM_CUT_LAYERS} layers, card vs CPU: {int(flagged.sum())} token(s) differ (left "
+        f"out below; k-th margins of the near ties that start them: {margins})")
+    rows = ~flagged[:, LM_CUT_PROMPT - 1:].T  # [steps + 1, B]: the compared logits
+    moe_cut_err = {}
+    for what, got, want in zip(("logits", "k cache", "v cache"), on_card, on_cpu):
+        keep = rows if what == "logits" else ~flagged
+        got = got.cpu()
+        if what != "logits":  # [L, B, S, Hkv, dh] -> [B, S, L, Hkv, dh]
+            got, want = got.permute(1, 2, 0, 3, 4), want.permute(1, 2, 0, 3, 4)
+        moe_cut_err[what] = assert_close(
+            f"lm_moe {LM_CUT_LAYERS}-layer cut, full width, prefill {LM_CUT_PROMPT} + "
+            f"{LM_CHECK_STEPS} decode steps: {what} on the card (K6/K7) vs the CPU (plain "
+            f"versions), {int(keep.sum())} of {keep.numel()} positions", got[keep],
+            want[keep], *MOE_CUT_TOL)
+    del on_card, on_cpu, cut_params, card_routes, cpu_routes
+    # Decode against one forward: the forward routes all 2 x 1,028 tokens at
+    # once, each decode step 2, so a capacity that drops nothing (factor
+    # E / K: C >= T) makes them the same function.
+    deep_cfg = dataclasses.replace(moe_cfg, compute_dtype=f32, moe=dataclasses.replace(
+        moe_cfg.moe, capacity_factor=E_ / K_))
+    deep_toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(2), moe_cfg.vocab, 2,
+                                              LM_DEPTH_PROMPT + LM_CHECK_STEPS)["tokens"])
+    with RoutingLog() as step_routes:
+        stepped = prefill_then_decode(deep_cfg, moe_params, deep_toks, LM_DEPTH_PROMPT, dev)[0]
+    with RoutingLog() as fwd_routes, torch.no_grad():
+        full = TF.forward(deep_cfg, moe_params, deep_toks.to(dev))[0]
+    lm_moe_f32_launches = launch_counts()
+    require("lm_moe_f32", lm_moe_f32_launches, ("flash_attention", "flash_attention_f32",
+                                                "flash_decode"))
+    if lm_moe_f32_launches["flash_attention_f32"] != lm_moe_f32_launches["flash_attention"]:
+        raise AssertionError(f"lm_moe_f32 launched K6 outside f32: {lm_moe_f32_launches}")
+    lay = (L_, 2, LM_DEPTH_PROMPT, LM_CHECK_STEPS)
+    flagged, margins = routing_differs("lm_moe full depth, decode path vs forward",
+                                       step_routes.by_position(*lay),
+                                       fwd_routes.by_position(*lay, forward=True))
+    log(f"  full depth: routing of {flagged.numel()} tokens x {L_} layers, decode path vs "
+        f"forward: {int(flagged.sum())} token(s) differ (near-tie margins {margins})")
+    want = full[:, LM_DEPTH_PROMPT - 1:].transpose(0, 1)  # [steps + 1, B, Vp]
+    rows = ~flagged[:, LM_DEPTH_PROMPT - 1:].T.to(dev)
+    moe_depth_err = assert_close(
+        f"lm_moe full depth f32: prefill {LM_DEPTH_PROMPT} + {LM_CHECK_STEPS} decode steps vs "
+        f"one forward over {LM_DEPTH_PROMPT + LM_CHECK_STEPS} tokens, {int(rows.sum())} of "
+        f"{rows.numel()} positions", stepped[rows], want[rows], *MOE_DEPTH_TOL)
+    log("[lm_moe_checks] " + json.dumps({
+        "cut_max_abs_err": moe_cut_err, "depth_max_abs_err": moe_depth_err,
+        "launches": lm_moe_f32_launches}))
+    del stepped, full, want, step_routes, fwd_routes, moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- lm_sharded_decode
+    sd_cfg = sharded_decode_config(make_olmoe())
+    sd_mesh = M.AbstractMesh(SHARDED_DECODE_CASES[0][1], ("data", "model"))
+    sd_params = TF.init_params(sd_cfg, seed=0, device=dev, mesh=sd_mesh)
+    sd_gen = torch.Generator(device=dev).manual_seed(4)
+    sd_cases = []
+    t_sd = time.perf_counter()
+    for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
+        cache = TF.init_decode_cache(sd_cfg, b, S_, device=dev)
+        for c in cache:  # the prompt's rows random, NaN past the steps' rows: never read
+            c[:, :, :pos0].normal_(generator=sd_gen)
+            c[:, :, pos0 + SHARDED_DECODE_STEPS:] = float("nan")
+        toks = torch.randint(0, sd_cfg.vocab, (SHARDED_DECODE_STEPS, b), generator=sd_gen,
+                             device=dev, dtype=torch.int32)
+        work = tuple(c.clone() for c in cache)
+        pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
+        want = []
+        with torch.no_grad():
+            for i in range(SHARDED_DECODE_STEPS):
+                want.append(TF.decode_step(sd_cfg, sd_params, work, toks[i], pos)[0])
+                pos += 1
+        del work
+        sd_cases.append({"name": name, "mesh": shape, "batch_axes": batch_axes,
+                         "seq_axes": seq_axes, "cache": cache, "tokens": toks, "pos": pos0,
+                         "want": torch.stack(want)})
+    torch.cuda.synchronize()
+    sd_one_device_s = time.perf_counter() - t_sd
+    sd_out = M.spawn(lm_sharded_rank, SHARDED_RANKS, (sd_params, sd_cases),
+                     timeout=SHARDED_TIMEOUT_S)
+    sd_launches = {}
+    for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
+        sizes = dict(zip(("data", "model"), shape))
+        b_l = b // math.prod(sizes[a] for a in batch_axes)
+        g_seq = math.prod(sizes[a] for a in seq_axes)
+        ring = lm_decode_ring_bytes(sd_cfg, b_l, g_seq, sizes["model"], SHARDED_DECODE_STEPS,
+                                    sd_cfg.padded_heads(sd_mesh))
+        for r, res in enumerate(sd_out):
+            run = res[name]
+            want_k7 = sd_cfg.n_layers * SHARDED_DECODE_STEPS
+            if run["launches"]["flash_decode_partial"] != want_k7 \
+                    or run["launches"]["flash_decode"] != want_k7:
+                raise AssertionError(f"lm_sharded_decode rank {r} {name}: K7 launched "
+                                     f"{run['launches']}, want {want_k7} in its shard mode")
+            if run["bytes"] != ring:
+                raise AssertionError(f"lm_sharded_decode rank {r} {name}: bytes {run['bytes']}"
+                                     f" != the ring model's {ring}")
+            for k, v in run["launches"].items():
+                sd_launches[k] = sd_launches.get(k, 0) + v
+    log("[lm_sharded_decode] " + json.dumps({
+        "config": f"{sd_cfg.name} widths, {sd_cfg.n_layers} layers, f32",
+        "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect)",
+        "one_device_reference_s": sd_one_device_s,
+        "cases": {name: {
+            "mesh": {"data": shape[0], "model": shape[1]}, "batch": b,
+            "batch_axes": list(batch_axes), "seq_axes": list(seq_axes), "cache": S_,
+            "first_position": pos0, "steps": SHARDED_DECODE_STEPS,
+            "coords_per_rank": [r[name]["coords"] for r in sd_out],
+            "cache_block_per_rank": [r[name]["cache_block"] for r in sd_out],
+            "bytes_per_rank": sd_out[0][name]["bytes"],
+            "max_abs_err_per_rank": [r[name]["max_abs_err"] for r in sd_out],
+            "steps_wall_s_per_rank": [r[name]["wall_s"] for r in sd_out],
+        } for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES},
+        "launches": sd_launches,
+    }))
+    del sd_params, sd_cases, sd_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- lm_moe_wide
+    wide, wide_launches = {}, {}
+    for arch, n_layers in WIDE_CUTS:
+        wcfg = dataclasses.replace(serving_config(wide_configs[arch]()), n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wparams = TF.init_params(wcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        wtok = torch.from_numpy(syn.lm_batch(np.random.default_rng(3), wcfg.vocab, WIDE_BATCH,
+                                             LM_PROMPT)["tokens"]).to(dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            wlast, (kc, vc) = TF.prefill(wcfg, wparams, wtok)
+        torch.cuda.synchronize()
+        wprefill_s = time.perf_counter() - t0
+        wprefill_launches = launch_counts()
+        if wprefill_launches["flash_attention"] != n_layers \
+                or not bool(torch.isfinite(wlast).all()):
+            raise AssertionError(f"lm_moe_wide {arch} prefill: K6 "
+                                 f"{wprefill_launches['flash_attention']} times (want "
+                                 f"{n_layers}), finite {bool(torch.isfinite(wlast).all())}")
+        with torch.no_grad():
+            wprefill_ms = cuda_ms(lambda: TF.prefill(wcfg, wparams, wtok), flush, reps=3,
+                                  warmup=1)
+        wlogits, _, wdecode_launches, wdecode_run = run_decode(
+            wcfg, wparams, wlast, (kc, vc), WIDE_BATCH, WIDE_CACHE, WIDE_DECODE_STEPS, 1,
+            kernels=("flash_decode_kernel", "gemm"))
+        del kc, vc
+        if wdecode_launches["flash_decode"] != n_layers * WIDE_DECODE_STEPS:
+            raise AssertionError(f"lm_moe_wide {arch} decode: K7 "
+                                 f"{wdecode_launches['flash_decode']} times (want "
+                                 f"{n_layers * WIDE_DECODE_STEPS})")
+        wbytes = tree_size_bytes(wparams)
+        # a step reads every weight once, but of the token table B rows only
+        step_bytes = wbytes - wparams["embed"].numel() * wparams["embed"].element_size()
+        wide[arch] = {
+            "layers": f"{n_layers} of {wide_configs[arch]().n_layers}",
+            "params": wcfg.num_params(), "param_gb": wbytes / 1e9, "made_s": made_s,
+            "heads": [wcfg.n_heads, wcfg.n_kv_heads, wcfg.d_head],
+            "prefill_first_call_wall_ms": wprefill_s * 1e3,
+            "prefill_device_median_ms": wprefill_ms,
+            "prefill_tokens_per_s": WIDE_BATCH * LM_PROMPT / (wprefill_ms / 1e3),
+            "step_weights_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefill_launches": {k: v for k, v in wprefill_launches.items() if v},
+            **wdecode_run, "launches": {k: v for k, v in wdecode_launches.items() if v},
+        }
+        log(f"[lm_moe_wide] {arch} " + json.dumps(wide[arch]))
+        wide_launches.update({f"lm_wide_prefill.{arch}": wprefill_launches,
+                              f"lm_wide_decode.{arch}": wdecode_launches})
+        del wparams, wlast, wlogits, wtok
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- kernels line
     sources = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:38",
@@ -2680,7 +3280,9 @@ def main() -> int:
              "serve_reshard": rs_launches, "train": train_launches,
              "sharded_forward": sh_fwd_launches, "sharded_train": sh_train_launches,
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
-             "lm_f32": lm_f32_launches, **archs["paths"]}
+             "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
+             "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
+             "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"]}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]
@@ -2709,6 +3311,11 @@ def main() -> int:
                                             for p, c in paths.items()},
                 "weighted": k1_weighted,
             })
+        if name == "flash_decode":  # the shard mode, timed on lm_sharded_decode's shard
+            kernels[-1]["partial"] = {
+                "name": "flash_decode_partial", "times_by_dtype": k7p_rows,
+                "launches_by_path": {p: c["flash_decode_partial"] for p, c in paths.items()},
+            }
         if name == "flash_attention":  # timed in bf16 (lm_prefill's); f32 beside it
             f32_keys = ("case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                         "bound_ms_fma", "max_abs_err")

@@ -8,7 +8,10 @@ Port of ``repro/configs/__init__.py``.  Interface:
 
 The port registers what it has ported: the seven recsys archs.  The LM and
 GNN ids of ``ASSIGNED`` wait for ROADMAP queue 1, item 4; ``get`` of one
-raises ``KeyError`` saying so.
+raises ``KeyError`` saying so.  The five LM configs exist
+(``configs/<arch>.py``'s ``make_config``), but an LM registration smokes a
+train step (the reference's ``lm_smoke``), so it waits for the LM training
+slice.
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ def register(arch: ArchDef) -> ArchDef:
 def get(arch_id: str) -> ArchDef:
     if arch_id in NOT_PORTED:
         raise KeyError(f"arch {arch_id!r} is not registered in the port yet "
-                       "(ROADMAP queue 1, item 4: the LM and GNN registrations)")
+                       "(ROADMAP queue 1, item 4: the LM registrations wait for the LM "
+                       "training slice, the GNN's for models/gnn.py)")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]

@@ -54,6 +54,20 @@
 //    (cp.async with source size 0 reads nothing) and scored -inf.
 //  * Offsets are 64-bit, since a whole [L, B, S, Hkv, dh] cache passes 2^31
 //    elements and the per-layer slice starts far into it.
+//
+// Shard mode (kPartial), for the sequence-sharded decode (the reference's
+// layers.flash_decode_shard, src/repro/models/layers.py:168-220): the cache
+// is one shard of the positions, starting at shard_start, a device int32
+// that the kernel reads beside cache_len, so its valid length
+// clamp(cache_len - shard_start, 0, S) never reaches the host.  The kernel
+// then stops short of the division: it writes the shard's f32 sum
+// acc = sum_p round(exp(s_p - m)) v_p, un-normalised, and beside it the
+// row max m and l = sum_p exp(s_p - m) of each (b, h), for the caller's
+// combine across shards (a max, then sums scaled by exp(m - max)).  acc
+// stays f32 for bf16 caches too: the reference combines in f32.  A shard
+// with no valid row writes m = -inf, l = 0, acc = 0, never NaN.  The same
+// kernel, one template flag: the split over positions, the ring and the
+// chunk combine are shared, only the length and the last stores differ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,16 +142,28 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// The output's element type: the caches' in the normal mode, f32 in shard mode.
+template <typename T, bool kPartial>
+struct Out {
+  using type = T;
+};
+template <typename T>
+struct Out<T, true> {
+  using type = float;
+};
+
 // Partials of query head h, chunk i: acc at ws[(h' * n_split + i) * D],
 // (m, l) at ws[B H n_split D + 2 (h' * n_split + i)], h' = b * H + h.  The
 // last block of a group combines its gc heads: every (m, l) into shared
 // memory at once, per head the max and the weights exp(m_i - max) (0 for an
 // empty chunk) and l summed in chunk order, then out = sum over chunks, in
 // order, of acc_i w_i, over max(l, 1e-30), with the loads of 4 chunks in
-// flight at a time.
-template <typename T, int D, int G>
-__device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long long bh0,
-                        int gc, int n_split, long long n_partials, float* sm) {
+// flight at a time.  In shard mode out is the sum un-divided and (max, l)
+// go to stats.
+template <typename T, int D, int G, bool kPartial>
+__device__ void combine(const float* __restrict__ ws, typename Out<T, kPartial>::type* __restrict__ out,
+                        float* __restrict__ stats, long long bh0, int gc, int n_split,
+                        long long n_partials, float* sm) {
   const float* ml = ws + n_partials * D;
   float* sm_w = sm;  // [gc][n_split]: m, then the weights
   float* sm_l = sm + G * kMaxSplit;  // [gc][n_split]
@@ -158,6 +184,10 @@ __device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long 
       lsum = fmaf(lp[i], w[i], lsum);
     }
     sm_sum[threadIdx.x] = lsum;
+    if constexpr (kPartial) {
+      stats[2 * (bh0 + threadIdx.x)] = mx;
+      stats[2 * (bh0 + threadIdx.x) + 1] = lsum;
+    }
   }
   __syncthreads();
   constexpr int P = (G * D + kThreads - 1) / kThreads;  // (head, dim) pairs a thread
@@ -179,16 +209,18 @@ __device__ void combine(const float* __restrict__ ws, T* __restrict__ out, long 
   for (int p = 0; p < P; ++p) {
     const int t = threadIdx.x + p * kThreads;
     const int j = t / D;
-    if (t < gc * D) store(out + bh0 * D + t, o[p] / fmaxf(sm_sum[j], 1e-30f));
+    if (t < gc * D) store(out + bh0 * D + t, kPartial ? o[p] : o[p] / fmaxf(sm_sum[j], 1e-30f));
   }
 }
 
 // One block per (KV head, batch, chunk x head chunk of G query heads).
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ len_ptr,
-                        T* __restrict__ out, float* __restrict__ ws,
+                        const int* __restrict__ start_ptr,
+                        typename Out<T, kPartial>::type* __restrict__ out,
+                        float* __restrict__ ml, float* __restrict__ ws,
                         int* __restrict__ tickets, long long S, int H, int Hkv,
                         int group, int n_split, float scale) {
   using L = Tile<T, D>;
@@ -214,6 +246,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool active = c < C;
 
   long long len = *len_ptr;
+  if constexpr (kPartial) len -= *start_ptr;  // this shard's positions before cache_len
   len = len < 0 ? 0 : (len > S ? S : len);
   const long long p_begin = sp * S / n_split;
   const long long p_end = min((sp + 1) * S / n_split, len);
@@ -382,7 +415,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (n_split == 1) {
-      store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+      if constexpr (kPartial) {
+        store(out + (bh0 + j) * D + d, o);
+        if (d == 0) {
+          ml[2 * (bh0 + j)] = mx;
+          ml[2 * (bh0 + j) + 1] = lsum;
+        }
+      } else {
+        store(out + (bh0 + j) * D + d, o / fmaxf(lsum, 1e-30f));
+      }
     } else {
       const long long pi = (bh0 + j) * n_split + sp;
       ws[pi * D + d] = o;
@@ -406,13 +447,15 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  combine<T, D, G>(ws, out, bh0, gc, n_split, n_partials, reinterpret_cast<float*>(smem));
+  combine<T, D, G, kPartial>(ws, out, ml, bh0, gc, n_split, n_partials,
+                             reinterpret_cast<float*>(smem));
 }
 
-template <typename T, int D, int G>
-int launch(const void* q, const void* kc, const void* vc, const int* len, void* out,
-           void* ws, void* tickets, long long B, long long S, int H, int Hkv,
-           int n_split, void* stream) {
+template <typename T, int D, int G, bool kPartial>
+int launch(const void* q, const void* kc, const void* vc, const int* len, const int* start,
+           void* out, void* ml, void* ws, void* tickets, long long B, long long S, int H,
+           int Hkv, int n_split, void* stream) {
+  using O = typename Out<T, kPartial>::type;
   const int group = H / Hkv;
   const int n_jc = (group + G - 1) / G;
   if (B > 65535 || (long long)n_split * n_jc > 65535 || n_split > S || n_split > kMaxSplit ||
@@ -421,62 +464,79 @@ int launch(const void* q, const void* kc, const void* vc, const int* len, void* 
   const dim3 grid((unsigned)Hkv, (unsigned)B, (unsigned)(n_split * n_jc));
   const float scale = 1.f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
-  flash_decode_kernel<T, D, G><<<grid, kThreads, 0, st>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, len, (T*)out, (float*)ws, (int*)tickets,
-      S, H, Hkv, group, n_split, scale);
+  flash_decode_kernel<T, D, G, kPartial><<<grid, kThreads, 0, st>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, len, start, (O*)out, (float*)ml, (float*)ws,
+      (int*)tickets, S, H, Hkv, group, n_split, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int by_group(const void* q, const void* kc, const void* vc, const int* len, void* out,
-             void* ws, void* tickets, long long B, long long S, int H, int Hkv,
-             int n_split, void* stream) {
+template <typename T, int D, bool kPartial>
+int by_group(const void* q, const void* kc, const void* vc, const int* len, const int* start,
+             void* out, void* ml, void* ws, void* tickets, long long B, long long S, int H,
+             int Hkv, int n_split, void* stream) {
   if (H / Hkv == 1)
-    return launch<T, D, 1>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-  return launch<T, D, kGroupHeads>(q, kc, vc, len, out, ws, tickets, B, S, H, Hkv, n_split,
-                                   stream);
+    return launch<T, D, 1, kPartial>(q, kc, vc, len, start, out, ml, ws, tickets, B, S, H,
+                                     Hkv, n_split, stream);
+  return launch<T, D, kGroupHeads, kPartial>(q, kc, vc, len, start, out, ml, ws, tickets, B,
+                                             S, H, Hkv, n_split, stream);
+}
+
+template <typename T, bool kPartial>
+int by_dim(const void* q, const void* kc, const void* vc, const int* n, const int* start,
+           void* out, void* ml, void* ws, void* tickets, long long B, long long S, int H,
+           int Hkv, int D, int n_split, void* stream) {
+  switch (D) {
+    case 64: return by_group<T, 64, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 80: return by_group<T, 80, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 96: return by_group<T, 96, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 128: return by_group<T, 128, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-int dispatch(const void* q, const void* kc, const void* vc, const void* len, void* out,
-             void* ws, void* tickets, long long B, long long S, int H, int Hkv, int D,
-             int n_split, void* stream) {
+int dispatch(const void* q, const void* kc, const void* vc, const void* len,
+             const void* shard_start, void* out, void* ml, void* ws, void* tickets,
+             long long B, long long S, int H, int Hkv, int D, int n_split, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv || S <= 0 || n_split < 1) return (int)cudaErrorInvalidValue;
   const int* n = (const int*)len;
-  switch (D) {
-    case 64: return by_group<T, 64>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-    case 80: return by_group<T, 80>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-    case 96: return by_group<T, 96>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-    case 128: return by_group<T, 128>(q, kc, vc, n, out, ws, tickets, B, S, H, Hkv, n_split, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int* start = (const int*)shard_start;
+  if (start == nullptr)
+    return by_dim<T, false>(q, kc, vc, n, nullptr, out, nullptr, ws, tickets, B, S, H, Hkv, D,
+                            n_split, stream);
+  if (ml == nullptr) return (int)cudaErrorInvalidValue;
+  return by_dim<T, true>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, D, n_split,
+                         stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, H, D], k_cache and v_cache [B, S, Hkv, D], out [B, H, D], all
-// contiguous and of one dtype; cache_len a device int32 scalar; D in
-// {64, 80, 96, 128}.  n_split chunks of the positions (1 <= n_split <= S);
-// for n_split > 1, ws an f32 workspace of B H n_split (D + 2) elements and
-// tickets B H int32 zeros that the kernel leaves at zero.  Returns
-// cudaGetLastError().
+// q [B, H, D], k_cache and v_cache [B, S, Hkv, D], all contiguous and of one
+// dtype; cache_len a device int32 scalar; D in {64, 80, 96, 128}.  n_split
+// chunks of the positions (1 <= n_split <= S); for n_split > 1, ws an f32
+// workspace of B H n_split (D + 2) elements and tickets B H int32 zeros that
+// the kernel leaves at zero.  shard_start null: out [B, H, D] in the
+// caches' dtype, normalised, ml unused.  shard_start a device int32 scalar
+// (shard mode): out [B, H, D] f32, the un-normalised sum over this shard's
+// positions below cache_len, and ml [B, H, 2] f32, each row's (max, l).
+// Returns cudaGetLastError().
 int flash_decode_bf16(const void* q, const void* kc, const void* vc,
-                      const void* cache_len, void* out, void* ws, void* tickets,
-                      long long B, long long S, int H, int Hkv, int D, int n_split,
-                      void* stream) {
-  return dispatch<__nv_bfloat16>(q, kc, vc, cache_len, out, ws, tickets, B, S, H, Hkv, D,
-                                 n_split, stream);
+                      const void* cache_len, const void* shard_start, void* out, void* ml,
+                      void* ws, void* tickets, long long B, long long S, int H, int Hkv,
+                      int D, int n_split, void* stream) {
+  return dispatch<__nv_bfloat16>(q, kc, vc, cache_len, shard_start, out, ml, ws, tickets, B, S,
+                                 H, Hkv, D, n_split, stream);
 }
 
 int flash_decode_f32(const void* q, const void* kc, const void* vc,
-                     const void* cache_len, void* out, void* ws, void* tickets,
-                     long long B, long long S, int H, int Hkv, int D, int n_split,
-                     void* stream) {
-  return dispatch<float>(q, kc, vc, cache_len, out, ws, tickets, B, S, H, Hkv, D, n_split,
-                         stream);
+                     const void* cache_len, const void* shard_start, void* out, void* ml,
+                     void* ws, void* tickets, long long B, long long S, int H, int Hkv, int D,
+                     int n_split, void* stream) {
+  return dispatch<float>(q, kc, vc, cache_len, shard_start, out, ml, ws, tickets, B, S, H, Hkv,
+                         D, n_split, stream);
 }
 
 const char* flash_decode_error_string(int code) {

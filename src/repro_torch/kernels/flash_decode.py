@@ -9,6 +9,12 @@ int32 tensor that the kernel reads itself (the TPU kernel's scalar
 prefetch), so a decode loop never waits on the host.  Unlike the TPU kernel
 it takes any S (no ``block_k``); head dims ``HEAD_DIMS`` only.
 
+``flash_decode_partial`` runs the same kernel in its shard mode, for the
+sequence-sharded decode: the caches are one shard of the positions, whose
+start is a second device int32 tensor, and the kernel returns the shard's
+un-normalised f32 sum with each row's max and sum of exponentials, for the
+combine across shards (``models.layers.flash_decode_shard``).
+
 The kernel splits the positions into chunks (``plan_split``, from the shapes
 alone, so the host never reads ``cache_len``); each block writes a partial
 (m, l, acc) to an f32 workspace and the last block of each group combines
@@ -29,13 +35,14 @@ from repro_torch.kernels import build
 
 NAME = "flash_decode"
 HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations
-_ARGS = [ctypes.c_void_p] * 7 + [
+_ARGS = [ctypes.c_void_p] * 9 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _SYMBOLS = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf16"}
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_partial = 0  # of those, launches in the shard mode
 
 # The split over positions (the kernel's kGroupHeads is GROUP_HEADS).
 SMS = 132  # an H100's streaming multiprocessors
@@ -69,6 +76,10 @@ def chunk_bounds(S: int, n_split: int) -> list[int]:
     return [i * S // n_split for i in range(n_split + 1)]
 
 
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def _scratch_for(device: torch.device, stream: int, ws_elems: int,
                  n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The workspace (at least ``ws_elems`` f32) and tickets (at least
@@ -90,11 +101,12 @@ def _scratch_for(device: torch.device, stream: int, ws_elems: int,
 
 
 def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 cache_len: torch.Tensor) -> None:
+                 cache_len: torch.Tensor, shard_start: torch.Tensor | None = None) -> None:
     """Raise on what the kernel does not take: a dtype other than f32/bf16
     or mixed dtypes, shapes other than q [B,H,dh], caches [B,S,Hkv,dh] with
     Hkv dividing H, a head dim outside ``HEAD_DIMS``, non-contiguous
-    tensors, or a ``cache_len`` that is not one int32 element."""
+    tensors, or a ``cache_len`` (or ``shard_start``) that is not one int32
+    element."""
     if q.dtype not in _SYMBOLS or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(f"{NAME}: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}; "
                         "want one of f32 / bf16 for q and both caches")
@@ -110,21 +122,17 @@ def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{NAME}: q and the caches must be contiguous")
-    if not isinstance(cache_len, torch.Tensor) or cache_len.dtype != torch.int32 \
-            or cache_len.numel() != 1:
-        raise TypeError(f"{NAME}: cache_len must be an int32 tensor of one element")
+    for name, t in (("cache_len", cache_len), ("shard_start", shard_start)):
+        if t is not None and (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                              or t.numel() != 1):
+            raise TypeError(f"{NAME}: {name} must be an int32 tensor of one element")
 
 
-def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 cache_len: torch.Tensor) -> torch.Tensor:
-    """q [B,H,dh], caches [B,S,Hkv,dh] (f32 | bf16), ``cache_len`` an int32
-    CUDA tensor of one element -> [B,H,dh] in q's dtype: each query head
-    attends to positions ``< cache_len`` of its KV head; nothing at or past
-    ``cache_len`` is read."""
-    global launches
-    check_inputs(q, k_cache, v_cache, cache_len)
-    devs = {t.device for t in (q, k_cache, v_cache, cache_len)}
-    if q.device.type != "cuda" or len(devs) != 1:
+def _launch(q, k_cache, v_cache, cache_len, shard_start, out, ml) -> None:
+    """One launch of the kernel, in shard mode when ``shard_start`` is given."""
+    global launches, launches_partial
+    devs = {t.device for t in (q, k_cache, v_cache, cache_len, shard_start) if t is not None}
+    if not _on_cuda(q) or len(devs) != 1:
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors on one device, got {sorted(map(str, devs))}; "
             "ops.flash_decode routes CPU tensors to the plain version"
@@ -134,7 +142,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     B, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     n_split = plan_split(S, B, Hkv, H // Hkv)
-    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -144,8 +151,40 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 q.device, stream, B * H * n_split * (dh + 2), B * H))
         code = getattr(lib, _SYMBOLS[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            out.data_ptr(), ws, tickets, B, S, H, Hkv, dh, n_split, stream,
+            None if shard_start is None else shard_start.data_ptr(), out.data_ptr(),
+            None if ml is None else ml.data_ptr(), ws, tickets, B, S, H, Hkv, dh, n_split,
+            stream,
         )
     build.check(lib, NAME, code)
     launches += 1
+    launches_partial += shard_start is not None
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cache_len: torch.Tensor) -> torch.Tensor:
+    """q [B,H,dh], caches [B,S,Hkv,dh] (f32 | bf16), ``cache_len`` an int32
+    CUDA tensor of one element -> [B,H,dh] in q's dtype: each query head
+    attends to positions ``< cache_len`` of its KV head; nothing at or past
+    ``cache_len`` is read."""
+    check_inputs(q, k_cache, v_cache, cache_len)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k_cache, v_cache, cache_len, None, out, None)
     return out
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         cache_len: torch.Tensor, shard_start: torch.Tensor):
+    """The kernel's shard mode: the caches [B,S,Hkv,dh] hold positions
+    ``shard_start ..`` of a longer cache (``shard_start`` an int32 CUDA
+    tensor of one element), of which those ``< cache_len`` are valid.
+    Returns ``(acc [B,H,dh] f32, m [B,H] f32, l [B,H] f32)``: the sum of
+    ``round(exp(s - m)) v`` over the valid positions, not divided by ``l``,
+    the row max ``m`` of the scaled scores and ``l``, the sum of
+    ``exp(s - m)``; a shard with no valid position gives ``m = -inf``,
+    ``l = 0``, ``acc = 0``.  Nothing at or past ``cache_len`` is read."""
+    check_inputs(q, k_cache, v_cache, cache_len, shard_start)
+    B, H, dh = q.shape
+    out = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=q.device)
+    _launch(q, k_cache, v_cache, cache_len, shard_start, out, ml)
+    return out, ml[..., 0], ml[..., 1]

@@ -138,3 +138,14 @@ def flash_decode(q, k_cache, v_cache, cache_len):
     if _is_cuda(q):
         return K7.flash_decode(q, k_cache, v_cache, cache_len)
     return ref.flash_decode_ref(q, k_cache, v_cache, cache_len)
+
+
+def flash_decode_partial(q, k_local, v_local, cache_len, shard_start):
+    """One shard's partials for the sequence-sharded decode: q [B,H,dh]
+    against caches [B,S,Hkv,dh] that hold positions ``shard_start ..`` of
+    the whole cache, valid below ``cache_len`` (both int32 tensors of one
+    element on the caches' device) -> ``(o [B,H,dh] f32, m [B,H] f32,
+    l [B,H] f32)``, un-normalised: kernel K7's shard mode on the card."""
+    if _is_cuda(q):
+        return K7.flash_decode_partial(q, k_local, v_local, cache_len, shard_start)
+    return ref.flash_decode_partial_ref(q, k_local, v_local, cache_len, shard_start)

@@ -149,3 +149,35 @@ def flash_decode_ref(
     o = torch.einsum("bhgs,bshd->bhgd", probs.to(v_cache.dtype).to(torch.float32), vf)
     out = o / torch.clamp_min(l_sum[..., None], 1e-30)
     return out.reshape(B, H, dh).to(q.dtype)
+
+
+def flash_decode_partial_ref(
+    q: torch.Tensor,  # [B, H, dh]
+    k_local: torch.Tensor,  # [B, S, Hkv, dh]: positions shard_start ..
+    v_local: torch.Tensor,
+    cache_len,  # int or one-element int tensor: the valid prefix of the whole cache
+    shard_start,  # int or one-element int tensor: the global position of row 0
+):
+    """The shard's partials of the reference's ``layers.flash_decode_shard``
+    before its combine (src/repro/models/layers.py:189-207):
+    ``(o [B,H,dh] f32, m [B,H] f32, l [B,H] f32)``, with positions
+    ``shard_start + i < cache_len`` valid, f32 scores, ``m`` their max (-inf
+    on a shard with no valid row), ``p = exp(s - m)`` (0 where masked), ``l``
+    the sum of ``p`` and ``o`` the f32 sum of ``p`` rounded to v's dtype times
+    the rows.  Rows at or past ``cache_len`` never reach the output."""
+    B, S, Hkv, dh = k_local.shape
+    H = q.shape[1]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qr = q.to(torch.float32).reshape(B, Hkv, g, dh)
+    start = torch.as_tensor(shard_start, device=q.device).reshape(())
+    pos = start + torch.arange(S, device=q.device)
+    valid = pos < torch.as_tensor(cache_len, device=q.device).reshape(())
+    scores = torch.einsum("bhgd,bshd->bhgs", qr, k_local.to(torch.float32)) * scale
+    scores = scores.masked_fill(~valid, float("-inf"))
+    local_max = scores.amax(dim=-1)  # [B,Hkv,g]
+    safe_max = torch.where(torch.isfinite(local_max), local_max, 0.0)
+    probs = torch.where(valid, torch.exp(scores - safe_max[..., None]), 0.0)
+    vf = torch.where(valid[None, :, None, None], v_local, 0).to(torch.float32)
+    o = torch.einsum("bhgs,bshd->bhgd", probs.to(v_local.dtype).to(torch.float32), vf)
+    return o.reshape(B, H, dh), local_max.reshape(B, H), probs.sum(dim=-1).reshape(B, H)

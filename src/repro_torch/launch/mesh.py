@@ -27,7 +27,8 @@ Every call adds the bytes one device moves under the ring model of the
 reference's ``launch/hlo_analysis.py`` to ``comm.bytes.<op>`` in the
 process's metrics registry, backward calls included:
 
-    all-reduce      2 * bytes * (G-1)/G
+    all-reduce      2 * bytes * (G-1)/G     (a sum; a max counts apart,
+                                            as all_reduce_max, alike)
     all-gather      out_bytes * (G-1)/G
     reduce-scatter  out_bytes * G * (G-1)/G      (input-sized)
 
@@ -213,7 +214,7 @@ def ring_bytes(op: str, nbytes: int, group_size: int) -> float:
     is the all-reduce's tensor, the all-gather's output or the
     reduce-scatter's output on one device."""
     g = group_size
-    if op == "all_reduce":
+    if op in ("all_reduce", "all_reduce_max"):
         return 2 * nbytes * (g - 1) / g
     if op == "all_gather":
         return nbytes * (g - 1) / g
@@ -226,16 +227,24 @@ def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda
 
 
-def _all_reduce_raw(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+def _all_reduce_raw(x: torch.Tensor, axes, mesh: Mesh, op=dist.ReduceOp.SUM,
+                    counter: str = "all_reduce") -> torch.Tensor:
     g = mesh.axis_size(axes)
-    _count("all_reduce", ring_bytes("all_reduce", x.numel() * x.element_size(), g))
+    _count(counter, ring_bytes(counter, x.numel() * x.element_size(), g))
     if _staged(mesh, x):
         h = x.detach().to("cpu", copy=True)
-        dist.all_reduce(h, group=mesh.group(axes))
+        dist.all_reduce(h, op=op, group=mesh.group(axes))
         return h.to(x.device)
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.group(axes))
+    dist.all_reduce(out, op=op, group=mesh.group(axes))
     return out
+
+
+def all_reduce_max(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """Elementwise max of ``x`` over the ranks along ``axes`` (the
+    reference's ``pmax``), with no gradient: the sequence-sharded decode's
+    row maxima.  Its bytes count under ``comm.bytes.all_reduce_max``."""
+    return _all_reduce_raw(x, mesh.axes(axes), mesh, dist.ReduceOp.MAX, "all_reduce_max")
 
 
 def _all_gather_raw(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:

@@ -1,13 +1,15 @@
-"""Shared dense layers: MLPs, RMS norm, rotary, GQA attention (prefill and
-decode), the KV-cache write and the token embedding.
+"""Shared dense layers: MLPs, RMS and layer norm, rotary, GQA attention
+(prefill and decode), the KV-cache write and the token embedding.
 
 Port of ``repro/models/layers.py``: ``constrain`` (this rank's block of
 a layout under a ``launch.mesh.Mesh``), ``dense_init``,
-``mlp_params``, ``mlp_apply``, ``rms_norm``, ``rope_frequencies``,
-``apply_rope``, ``gqa_prefill_attention`` (kernel K6 on the card),
-``flash_decode_shard`` (kernel K7 on the card; no cross-shard combine yet),
-``kv_cache_update_shard`` (no shard offset yet) and ``sharded_vocab_embed``
-(``mesh=None`` only).  ``layer_norm`` waits for a model that uses it.
+``mlp_params``, ``mlp_apply``, ``rms_norm``, ``layer_norm``,
+``rope_frequencies``, ``apply_rope``, ``gqa_prefill_attention`` (kernel K6
+on the card), ``flash_decode_shard`` (kernel K7 on the card; on a sequence
+shard its shard mode, then the combine across ``combine_axes``),
+``kv_cache_update_shard`` and ``sharded_vocab_embed`` (with and without a
+mesh).  Under a mesh each rank holds its own blocks and the reference's
+``shard_map`` collectives become ``launch.mesh``'s.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.sharding import PartitionSpec
+from repro_torch.core.sharding import AXIS_MODEL, PartitionSpec
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.launch.mesh import block_slices
 
 # --------------------------------------------------------------------- utils
@@ -80,6 +83,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (xf * torch.rsqrt(var + eps) * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim (biased variance), computed in f32 and
+    cast back to x's dtype; ``bias`` may be None."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------- rotary
 
 
@@ -124,37 +140,56 @@ def gqa_prefill_attention(
 
 
 def flash_decode_shard(
-    q: torch.Tensor,  # [B, H, dh]
-    k_local: torch.Tensor,  # [B, S, Hkv, dh]
+    q: torch.Tensor,  # [B, H, dh]: whole heads
+    k_local: torch.Tensor,  # [B, S_loc, Hkv, dh]: this rank's sequence shard
     v_local: torch.Tensor,
-    cache_len: torch.Tensor,  # [] int32: valid prefix length
-    shard_start: int = 0,
+    cache_len: torch.Tensor,  # [] int32: valid prefix length of the whole cache
+    shard_start: torch.Tensor | int = 0,  # [] int32: global position of row 0
     combine_axes: tuple[str, ...] = (),
+    mesh=None,
 ) -> torch.Tensor:
-    """One query token per head against the whole cache: kernel K7 on the
-    card.  Only the single-device case is ported (``shard_start`` 0, no
-    ``combine_axes``); the sequence-sharded combine waits for the
-    multi-device slice."""
-    if combine_axes or shard_start != 0:
-        raise NotImplementedError(
-            "flash_decode_shard: only the single-device case (shard_start=0, "
-            "combine_axes=()) is ported; the sequence-sharded combine waits"
-        )
-    return ops.flash_decode(q, k_local, v_local, cache_len)
+    """Flash decoding: one query token per head against the cache.
+
+    With ``shard_start`` 0 and no ``combine_axes`` the cache is whole and
+    kernel K7 returns the output.  Otherwise the cache is one sequence
+    shard: K7's shard mode gives the shard's partial softmax (its row max,
+    sum and un-normalised output, in f32), and the partials combine across
+    the ranks of ``combine_axes`` on ``mesh`` with the reference's algebra
+    (src/repro/models/layers.py:209-219): a max all-reduce of the row maxima,
+    then one all-reduce of the output and sum scaled by exp(max - global
+    max), 0 on a shard with no valid row; out = sum / max(l, 1e-30) in q's
+    dtype.  Each rank reduces what it owns; only [B, H, dh + 1] partials
+    cross the network (hierarchical pooling applied to attention)."""
+    if combine_axes and mesh is None:
+        raise ValueError("flash_decode_shard: combine_axes need the mesh they name")
+    if not combine_axes and isinstance(shard_start, int) and shard_start == 0:
+        return ops.flash_decode(q, k_local, v_local, cache_len)
+    if isinstance(shard_start, int):
+        shard_start = torch.full((), shard_start, dtype=torch.int32, device=q.device)
+    o, m, l_sum = ops.flash_decode_partial(q, k_local, v_local, cache_len, shard_start)
+    g_max = M.all_reduce_max(m, combine_axes, mesh) if combine_axes else m
+    scale = torch.where(torch.isfinite(m), torch.exp(m - g_max), 0.0)
+    ol = torch.cat([o * scale[..., None], (l_sum * scale)[..., None]], dim=-1)
+    if combine_axes:
+        ol = M.all_reduce(ol, combine_axes, mesh)
+    dh = q.shape[-1]
+    return (ol[..., :dh] / torch.clamp_min(ol[..., dh:], 1e-30)).to(q.dtype)
 
 
 def kv_cache_update_shard(
-    cache: torch.Tensor,  # [B, S, Hkv, dh]
+    cache: torch.Tensor,  # [B, S_loc, Hkv, dh]: this rank's shard
     new_kv: torch.Tensor,  # [B, Hkv, dh]
-    pos: torch.Tensor,  # [] int32 write position, on the cache's device
+    pos: torch.Tensor,  # [] int32 global write position, on the cache's device
+    shard_start: torch.Tensor | int = 0,  # [] int32: global position of row 0
 ) -> torch.Tensor:
-    """Write one token into the cache at ``pos`` **in place** and return the
-    cache; a position outside [0, S) leaves it as it was (the reference's
-    clamped dynamic_update_slice of the current value): five tensor ops, no
-    host sync.  Only the single-device case is ported: the owner-shard
-    offset (``shard_start``) comes back with the sequence-sharded decode."""
-    idx = pos.clamp(0, cache.shape[1] - 1).reshape(1)
-    row = torch.where(idx == pos, new_kv.to(cache.dtype), cache[:, idx][:, 0])
+    """Write one token into the owner shard at ``pos - shard_start`` **in
+    place** and return the cache; a position outside the shard leaves it as
+    it was (the reference's clamped dynamic_update_slice of the current
+    value), so every rank of a sequence-sharded cache can call it: tensor
+    ops only, no host sync."""
+    local = pos if isinstance(shard_start, int) and shard_start == 0 else pos - shard_start
+    idx = local.clamp(0, cache.shape[1] - 1).reshape(1)
+    row = torch.where(idx == local, new_kv.to(cache.dtype), cache[:, idx][:, 0])
     cache[:, idx] = row[:, None]
     return cache
 
@@ -163,15 +198,22 @@ def kv_cache_update_shard(
 
 
 def sharded_vocab_embed(
-    table: torch.Tensor,  # [V_padded, D]
-    tokens: torch.Tensor,  # [B, S]
+    table: torch.Tensor,  # [V_padded, D], or this rank's row block of it under a mesh
+    tokens: torch.Tensor,  # [B, S]: this rank's batch block under a mesh
     mesh=None,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Token embedding: a row gather (the reference's ``jnp.take``) cast to
-    ``out_dtype``.  Only ``mesh=None`` is ported; the psum-combined sharded
-    lookup waits for the multi-device slice."""
-    if mesh is not None:
-        raise NotImplementedError("sharded_vocab_embed: only mesh=None is ported")
-    flat = table.index_select(0, tokens.reshape(-1).to(torch.int64))
-    return flat.reshape(*tokens.shape, table.shape[1]).to(out_dtype)
+    ``out_dtype``.  Under a mesh, the table is split by rows over `model`
+    and this is the disaggregated lookup with nnz 1 (the paper's
+    hierarchical combine): each rank gathers the rows it owns, in
+    ``out_dtype``, zeroes the others and all-reduces over `model`."""
+    if mesh is None:
+        flat = table.index_select(0, tokens.reshape(-1).to(torch.int64))
+        return flat.reshape(*tokens.shape, table.shape[1]).to(out_dtype)
+    rows = table.shape[0]
+    local = tokens.to(torch.int64) - mesh.coords[AXIS_MODEL] * rows
+    hit = (local >= 0) & (local < rows)
+    emb = table.index_select(0, local.clamp(0, rows - 1).reshape(-1)).to(out_dtype)
+    emb = torch.where(hit.reshape(-1, 1), emb, 0).reshape(*tokens.shape, table.shape[1])
+    return M.all_reduce(emb, (AXIS_MODEL,), mesh)

@@ -11,8 +11,10 @@ every lookup case (its whole output, and the collective bytes
 with two batch axes), ``R.forward``, the loss and its
 gradients (global norm clipping) and one ``make_train_step``, on the
 test's params; then the other recsys archs' forward, loss, gradients and one
-step, and ``retrieval_topk`` and ``mind_retrieval``.  Outputs are the whole logical arrays, keyed as the port's
-side keys its blocks."""
+step, and ``retrieval_topk`` and ``mind_retrieval``; the LM's
+``sharded_vocab_embed`` and ``transformer.decode_step`` under the mesh, a
+few steps of each decode case.  Outputs are the whole logical arrays, keyed
+as the port's side keys its blocks."""
 from __future__ import annotations
 
 import json
@@ -29,7 +31,10 @@ from repro.core.lookup_engine import chunked_lookup
 from repro.core.sharding import TableSpec
 from repro.hotcache.table import cache_partition_spec
 from repro.launch.hlo_analysis import analyze
+from repro.models import layers as JL
 from repro.models import recsys as R
+from repro.models import transformer as JT
+from repro.models.moe import MoEConfig
 from repro.optim import optimizers as O
 
 BATCH_AXES = ("data",)
@@ -198,6 +203,25 @@ def main(inputs_path: str, outputs_path: str) -> None:
         vals, idx = jax.jit(fn)(*args)
         out[f"retrieval|{name}|values"] = np.asarray(vals)
         out[f"retrieval|{name}|indices"] = np.asarray(idx)
+
+    out["vocab_embed"] = np.asarray(jax.jit(lambda t, tok: JL.sharded_vocab_embed(
+        t, tok, mesh, BATCH_AXES, out_dtype=jnp.float32))(jnp.asarray(d["embed_table"]),
+                                                          jnp.asarray(d["embed_tokens"])))
+    cfg = JT.TransformerConfig(**meta["lm"], moe=MoEConfig(**meta["lm_moe"]),
+                               compute_dtype=jnp.float32, remat_groups=1)
+    lm_params = nest(d, "lm")
+    for name, (_, batch_axes, seq_axes) in meta["lm_decode_cases"].items():
+        step = jax.jit(lambda p, c, t, pos, ba=tuple(batch_axes), sa=tuple(seq_axes):
+                       JT.decode_step(cfg, p, c, t, pos, mesh, ba, sa))
+        cache = (jnp.asarray(d[f"lm_cache|{name}|k"]), jnp.asarray(d[f"lm_cache|{name}|v"]))
+        logits = []
+        for i, toks in enumerate(d[f"lm_tokens|{name}"]):
+            lg, cache = step(lm_params, cache, jnp.asarray(toks),
+                             jnp.asarray(meta["lm_pos"] + i, jnp.int32))
+            logits.append(np.asarray(lg))
+        out[f"lm_decode|{name}|logits"] = np.stack(logits)
+        out[f"lm_decode|{name}|k"] = np.asarray(cache[0])
+        out[f"lm_decode|{name}|v"] = np.asarray(cache[1])
     np.savez(outputs_path, **out)
 
 

@@ -20,7 +20,9 @@ from repro_torch.core.sharding import AXIS_DATA, PartitionSpec as P, TableSpec
 from repro_torch.hotcache.table import cache_partition_spec
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 from repro_torch.utils import keystr, tree_flatten_with_path
 
@@ -64,6 +66,12 @@ def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
     return R.RecsysConfig(name=name, tables=tables, embed_dim=meta["dim"], mode=case["mode"],
                           **kw, **case["over"])
+
+
+def lm_cfg(meta: dict) -> T.TransformerConfig:
+    """The tiny MoE LM of the sharded decode cases, f32 compute."""
+    return T.TransformerConfig(**meta["lm"], moe=MOE.MoEConfig(**meta["lm_moe"]),
+                               compute_dtype=torch.float32)
 
 
 def optimizer() -> O.Optimizer:
@@ -244,6 +252,35 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
     }.items():
         out["outputs"][f"retrieval|{name}|values"] = vals.numpy()
         out["outputs"][f"retrieval|{name}|indices"] = idx.numpy()
+
+    # ---- the LM: sharded_vocab_embed, then decode_step under the mesh
+    before = M.comm_bytes()
+    out["outputs"]["vocab_embed"] = L.sharded_vocab_embed(
+        L.constrain(torch.from_numpy(d["embed_table"]), P("model", None), mesh),
+        L.constrain(torch.from_numpy(d["embed_tokens"]), batch_p, mesh), mesh,
+        out_dtype=torch.float32).numpy()
+    out["bytes"]["vocab_embed"] = _bytes_since(before)
+    cfg = lm_cfg(meta)
+    lm_params = R.shard_params(nest(d, "lm"), T.decode_param_specs(cfg), mesh)
+    for name, (_, batch_axes, seq_axes) in meta["lm_decode_cases"].items():
+        batch_axes, seq_axes = tuple(batch_axes), tuple(seq_axes)
+        spec = T.cache_specs(cfg, batch_axes, seq_axes)
+        cache = tuple(L.constrain(torch.from_numpy(d[f"lm_cache|{name}|{kv}"]), spec,
+                                  mesh).contiguous() for kv in ("k", "v"))
+        toks = L.constrain(torch.from_numpy(d[f"lm_tokens|{name}"]),
+                           P(None, batch_axes or None), mesh)
+        logits = []
+        before = M.comm_bytes()
+        with torch.no_grad():
+            for i in range(meta["lm_steps"]):
+                pos = torch.tensor(meta["lm_pos"] + i, dtype=torch.int32)
+                lg, cache = T.decode_step(cfg, lm_params, cache, toks[i], pos, mesh,
+                                          batch_axes, seq_axes)
+                logits.append(lg)
+        out["bytes"][f"lm_decode|{name}"] = _bytes_since(before)
+        out["outputs"][f"lm_decode|{name}|logits"] = torch.stack(logits).numpy()
+        out["outputs"][f"lm_decode|{name}|k"] = cache[0].numpy()
+        out["outputs"][f"lm_decode|{name}|v"] = cache[1].numpy()
 
     # ---- refusals
     try:

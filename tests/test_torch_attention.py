@@ -503,10 +503,17 @@ def test_ops_reject_other_devices():
 
 
 def test_flash_decode_shard_refuses_the_sharded_combine():
-    with pytest.raises(NotImplementedError, match="single-device"):
+    """A combine over mesh axes needs the mesh; a shard offset alone is one
+    shard's own softmax: positions shard_start .. of the whole cache."""
+    with pytest.raises(ValueError, match="need the mesh"):
         L.flash_decode_shard(*_decode_args(dtype=torch.float32), combine_axes=("model",))
-    with pytest.raises(NotImplementedError, match="single-device"):
-        L.flash_decode_shard(*_decode_args(dtype=torch.float32), shard_start=8)
+    q, k, v, _ = _decode_args(S=16, dtype=torch.float32)
+    for t in (q, k, v):
+        t.normal_(generator=torch.Generator().manual_seed(0))
+    n = torch.tensor(13, dtype=torch.int32)
+    got = L.flash_decode_shard(q, k[:, 8:], v[:, 8:], n, shard_start=8)
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k[:, 8:], v[:, 8:], 5),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("mod", [K6, K7], ids=["flash_attention", "flash_decode"])

@@ -60,10 +60,16 @@ REGISTRY_MODULES = ["repro_torch.configs", "repro_torch.configs.recsys_common",
                     "repro_torch.configs.mind"]
 
 
-@pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES)
+MOE_LM_MODULES = ["repro_torch.models.moe", "repro_torch.models.transformer",
+                  "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.arctic_480b",
+                  "repro_torch.configs.qwen2_72b", "repro_torch.configs.llama3_405b"]
+
+
+@pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES + MOE_LM_MODULES)
 def test_sharded_path_modules_are_checked(name):
-    """The modules of the sharded path and of the config registry are among
-    those imported without jax above and scanned for imports below."""
+    """The modules of the sharded path, of the config registry and of the
+    MoE LM serving path are among those imported without jax above and
+    scanned for imports below."""
     assert name in [_module_name(p) for p in PORT_FILES]
 
 
@@ -153,3 +159,11 @@ def test_lm_params_from_numpy_raises_without_gpu(no_gpu):
     np_params["layers"] = {"ln1": np.ones((2, 16), np.float32)}
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         T.params_from_numpy(cfg, np_params, "cuda")
+
+
+def test_moe_init_raises_without_gpu(no_gpu):
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(num_experts=4, top_k=2, d_ff=8)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        moe.moe_init(torch.Generator().manual_seed(0), cfg, d_model=8)

@@ -10,7 +10,12 @@ blocks are held against the same blocks of the reference's whole outputs.
 Besides the lookup and the DLRM, the same spawn runs the other recsys
 archs (wide_deep in mesh2d with a separate and a fused wide table; deepfm,
 two_tower and mind forward, loss, gradients and one step in the paper
-layout) and both retrievals under the mesh.
+layout), both retrievals under the mesh, and the LM's sequence-sharded
+decode: a tiny MoE transformer with the dense residual (6 heads padded to 8
+and vocab 128 to 512 at tp 4), 4 decode steps by ``transformer.decode_step``
+under the mesh at B = 4 (batch over data, positions over model) and in the
+long_500k layout at B = 1 (positions over both axes), across a shard
+boundary and with empty shards, and ``layers.sharded_vocab_embed``.
 
 Tolerances: f32 rtol 1e-5, atol 1e-6 (other summation orders: the
 collective's against XLA's); ``comm_dtype=bf16`` rtol and atol 2e-2, the
@@ -38,6 +43,7 @@ from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
 from repro_torch.launch import mesh as M
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.optim import sharding_rules as SR
 from repro_torch.utils import keystr, tree_flatten_with_path
 
@@ -100,12 +106,23 @@ ARCH_CASES = {
 ARCH_TRAIN = ["deepfm", "two_tower", "mind"]
 RETRIEVALS = ["two_tower", "two_tower_split", "mind"]
 N_CANDS, MIND_CANDS, TT_QUERIES = 256, 512, 8
+# the LM's sharded decode: a tiny MoE config with the dense residual, f32
+LM_CFG = dict(name="tiny-moe", n_layers=2, d_model=32, n_heads=6, n_kv_heads=2, d_ff=64,
+              vocab=128, d_head=8, moe_dense_residual=True)
+LM_MOE = dict(num_experts=8, top_k=2, d_ff=48, capacity_factor=1.25)
+LM_CACHE, LM_POS, LM_STEPS = 32, 13, 4  # steps write positions 13-16
+LM_DECODE_CASES = {  # name: (batch, batch axes, sequence axes)
+    "b4_model": (4, ["data"], ["model"]),
+    "long_500k_b1": (1, [], ["data", "model"]),
+}
+EMBED_SHAPE = (16, 5)
 META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS, n_dense=13,
             bottom_mlp=[64, DIM], mlp=[64, 32], lookup_cases=LOOKUP_CASES,
             grad_modes=GRAD_MODES, pod_cases=POD_CASES, dlrm_modes=DLRM_MODES, train_modes=TRAIN_MODES,
             flat_slots=64, hash_slots=128, max_norm=0.05, arch_specs=ARCH_SPECS,
             arch_cases=ARCH_CASES, arch_forward=list(ARCH_CASES), arch_train=ARCH_TRAIN,
-            retrieval_k=10)
+            retrieval_k=10, lm=LM_CFG, lm_moe=LM_MOE, lm_pos=LM_POS, lm_steps=LM_STEPS,
+            lm_decode_cases=LM_DECODE_CASES)
 
 
 def _inputs(rng) -> dict:
@@ -145,7 +162,33 @@ def _inputs(rng) -> dict:
         for arch in ("wide_deep", "deepfm"):
             d[f"arch_batch|{arch}|{k}"] = b[k]
     _arch_inputs(rng, d)
+    _lm_inputs(rng, d)
     return d
+
+
+def _lm_inputs(rng, d: dict) -> None:
+    """The tiny MoE LM's params in the mesh's geometry (numpy normals at the
+    reference's scales, norms near 1), each decode case's caches (random
+    rows throughout: the reference multiplies the rows past cache_len by 0,
+    so they must be finite) and tokens, and the embedding table and tokens
+    of the sharded lookup."""
+    cfg = ranks.lm_cfg(META)
+    shapes = T.init_params(cfg, device="cpu", mesh=M.AbstractMesh(MESH, ("data", "model")))
+    for path, t in tree_flatten_with_path(shapes):
+        if path[-1] in ("ln1", "ln2", "final_ln"):
+            arr = 1.0 + 0.1 * rng.standard_normal(tuple(t.shape))
+        else:
+            fan_in = 1.0 if path == ("embed",) else t.shape[-2]
+            arr = rng.standard_normal(tuple(t.shape)) / np.sqrt(fan_in)
+        d["|".join(["lm", *path])] = np.asarray(arr, np.float32)
+    for name, (b, _, _) in LM_DECODE_CASES.items():
+        shape = (cfg.n_layers, b, LM_CACHE, cfg.n_kv_heads, cfg.d_head)
+        for kv in ("k", "v"):
+            d[f"lm_cache|{name}|{kv}"] = rng.standard_normal(shape).astype(np.float32)
+        d[f"lm_tokens|{name}"] = rng.integers(0, cfg.vocab, (LM_STEPS, b)).astype(np.int32)
+    d["embed_table"] = rng.standard_normal((cfg.padded_vocab(M.AbstractMesh(
+        MESH, ("data", "model"))), DIM)).astype(np.float32)
+    d["embed_tokens"] = rng.integers(0, cfg.vocab, EMBED_SHAPE).astype(np.int32)
 
 
 def _arch_inputs(rng, d: dict) -> None:
@@ -485,6 +528,68 @@ def test_retrieval_under_the_mesh_matches_reference(runs, name):
     for r in port:
         _close(r["outputs"][f"retrieval|{name}|values"], want_v)
         np.testing.assert_array_equal(r["outputs"][f"retrieval|{name}|indices"], want_i)
+
+
+def _lm_ring_bytes(name: str) -> dict:
+    """One rank's bytes over the decode steps by the ring model: the token
+    embedding's all-reduce over model; each layer's max all-reduce of the
+    row maxima [B_l, Hp] and all-reduce of the scaled sums [B_l, Hp, dh + 1]
+    over the sequence axes, and the experts' all-reduce [B_l, D] over
+    model."""
+    b, batch_axes, seq_axes = LM_DECODE_CASES[name]
+    sizes = dict(zip(("data", "model"), MESH))
+    b_l = b // int(np.prod([sizes[a] for a in batch_axes]))
+    g_seq, g_model = int(np.prod([sizes[a] for a in seq_axes])), sizes["model"]
+    cfg = ranks.lm_cfg(META)
+    hp = cfg.padded_heads(M.AbstractMesh(MESH, ("data", "model")))
+    model = 2 * b_l * cfg.d_model * 4 * (g_model - 1) / g_model
+    per_step = {"all_reduce": model + cfg.n_layers * (
+        model + 2 * b_l * hp * (cfg.d_head + 1) * 4 * (g_seq - 1) / g_seq),
+        "all_reduce_max": cfg.n_layers * 2 * b_l * hp * 4 * (g_seq - 1) / g_seq}
+    return {op: LM_STEPS * v for op, v in per_step.items()}
+
+
+@pytest.mark.parametrize("name", list(LM_DECODE_CASES))
+def test_lm_sharded_decode_matches_reference(runs, name):
+    """``decode_step`` under the mesh against the reference's ``decode_step``
+    under its mesh: every step's logits block (batch over the batch axes,
+    vocab over model) and the caches' blocks after the steps, whose new rows
+    land in the owner shard only (position 16 starts a new shard); f32 at
+    rtol and atol 1e-5."""
+    ref, port = runs
+    b, batch_axes, seq_axes = LM_DECODE_CASES[name]
+    cfg = ranks.lm_cfg(META)
+    logit_spec = P(None, tuple(batch_axes) or None, "model")
+    cache_spec = T.cache_specs(cfg, tuple(batch_axes), tuple(seq_axes))
+    want = ref[f"lm_decode|{name}|logits"]
+    assert want.shape == (LM_STEPS, b, 512) and np.isfinite(want).all()
+    for r in port:
+        got = r["outputs"][f"lm_decode|{name}|logits"]
+        _close(got, _block(want, logit_spec, r["coords"]), (1e-5, 1e-5))
+        for kv in ("k", "v"):
+            _close(r["outputs"][f"lm_decode|{name}|{kv}"],
+                   _block(ref[f"lm_decode|{name}|{kv}"], cache_spec, r["coords"]), (1e-5, 1e-5))
+
+
+@pytest.mark.parametrize("name", list(LM_DECODE_CASES))
+def test_lm_sharded_decode_bytes_follow_the_ring_model(runs, name):
+    _, port = runs
+    want = _lm_ring_bytes(name)
+    for r in port:
+        assert r["bytes"][f"lm_decode|{name}"] == want
+
+
+def test_vocab_embed_under_the_mesh_matches_reference(runs):
+    """``sharded_vocab_embed`` with the table by rows over model and the
+    tokens by batch over data: each rank's block of the reference's lookup,
+    bit-equal (one rank owns each row, the others add zeros), and the ring
+    model's bytes of one all-reduce over model."""
+    ref, port = runs
+    for r in port:
+        got = r["outputs"]["vocab_embed"]
+        np.testing.assert_array_equal(got, _block(ref["vocab_embed"], P("data"), r["coords"]))
+        nbytes = EMBED_SHAPE[0] // MESH[0] * EMBED_SHAPE[1] * DIM * 4
+        assert r["bytes"]["vocab_embed"] == {"all_reduce": 2 * nbytes * (MESH[1] - 1) / MESH[1]}
 
 
 def test_ranks_sit_row_major_and_refuse(runs):

@@ -10,6 +10,7 @@ On the CPU attention takes the plain versions of K6/K7; chip_smoke.py runs
 the same path on the card through the kernels.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from repro_torch.configs.lm_common import LM_SHAPES, serving_config
 from repro_torch.configs.stablelm_3b import make_config
 from repro_torch.kernels import flash_attention as K6
 from repro_torch.kernels import flash_decode as K7
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -105,7 +107,7 @@ def test_kv_cache_update_matches_jax(rng):
         np.testing.assert_array_equal(got_t.numpy(), np.asarray(want))
 
 
-def test_vocab_embed_matches_jax(rng):
+def test_vocab_embed_matches_jax(rng, monkeypatch):
     table = rng.normal(size=(40, 16)).astype(np.float32)
     tok = rng.integers(0, 40, (3, 7)).astype(np.int32)
     want = JL.sharded_vocab_embed(jnp.asarray(table), jnp.asarray(tok), None,
@@ -113,8 +115,18 @@ def test_vocab_embed_matches_jax(rng):
     got = L.sharded_vocab_embed(torch.from_numpy(table), torch.from_numpy(tok), None,
                                 out_dtype=torch.float32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        L.sharded_vocab_embed(torch.from_numpy(table), torch.from_numpy(tok), mesh=object())
+    # Under a mesh each `model` rank gathers the rows of its block, zeroes
+    # the others and all-reduces: with the all-reduce replaced by the sum
+    # over the 4 ranks' outputs, the whole gather again (the spawn of
+    # tests/test_torch_sharded.py runs the real collective).
+    monkeypatch.setattr(M, "all_reduce", lambda x, axes, mesh: x)
+    parts = [L.sharded_vocab_embed(torch.from_numpy(table[10 * r:10 * (r + 1)]),
+                                   torch.from_numpy(tok), types.SimpleNamespace(
+                                       coords={"data": 0, "model": r}),
+                                   out_dtype=torch.float32) for r in range(4)]
+    assert all(int((p != 0).any(-1).sum()) == int(((tok // 10) == r).sum())
+               for r, p in enumerate(parts))
+    np.testing.assert_array_equal(sum(parts).numpy(), np.asarray(want))
 
 
 # ------------------------------------------------------------------ model
