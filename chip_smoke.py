@@ -7,10 +7,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
   1. device   — torch's device name and nvidia-smi's name and power limit;
   2. build    — nvcc builds kernels K1 (embedding bag), K2 (dot interaction),
                 K3 (hot-cache probe + gather + pool), K4 (swap-in scatter),
-                K5 (top-k neighbor select), K6 (flash attention) and K7
-                (flash decode) from src/repro_torch/csrc/, one nvcc per
-                source, all in parallel (with K1''s planted fault for phase
-                5f beside them), and prints each kernel's -Xptxas -v
+                K5 (top-k neighbor select), K6 (flash attention), K6' (its
+                backward) and K7 (flash decode) from src/repro_torch/csrc/,
+                one nvcc per source, all in parallel (with K1''s planted
+                fault for phase 5f and K6''s for phase 9g beside them), and
+                prints each kernel's -Xptxas -v
                 registers, spills and performance warnings;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (TF32 off): K1 in its masked and
@@ -232,12 +233,50 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 steps (K7 once a layer a step), finite logits; device
                 median, step wall median and busy time beside the bound of
                 reading the weights;
+ 9g. lm_train_kernels — K6 writing its row logsumexp and K6' (its
+                backward, ``flash_attention_backward.cu``) against their
+                plain versions: lm-small's layer [8, 128, 8, 4, 32] f32,
+                lm_smoke's head dim 16 (4 and 1 KV heads), stablelm-3b's
+                train layer [2, 4096, 32, 32, 80] and olmoe-1b-7b's
+                [1, 4096, 16, 16, 128] in bf16, f32 at dh 80, ragged S (45,
+                1000), full attention, groups 1, 2, 4 and 8, every head dim
+                of each dtype; f32 at 2e-5, bf16 by ``assert_close_rows``;
+                the logsumexp at 2e-5; K6' twice bit-equal, and a planted
+                build whose dK/dV loop skips a query tile refused (f32 and
+                bf16); timed beside its plain version, the backward alone
+                of ``F.scaled_dot_product_attention(..., enable_gqa=True)``
+                and its bound (five products of 2 B H dh a kept pair; f32
+                at three tf32 products each, the FMA bound beside it), and
+                K6 with and without its logsumexp;
+  9h. lm_train_small — lm-small (``launch.train.make_lm_small``): one
+                step's loss and every gradient leaf on the card against the
+                CPU (64 sequences of the trainer's first batch, rtol 1e-5,
+                atol 1e-6 times a leaf's largest magnitude past 1), K6 and
+                K6' as the remat predicts (3 L - G and L a step, here 10
+                and 4); then ``launch.train --model lm`` for 50 steps of 256
+                x 128 tokens, whose closing assert needs the loss to fall;
+  9i. lm_train — stablelm-3b at full width and depth, f32 params (the
+                train cell's rule), bf16 compute, Adam updating in place,
+                3 steps on one fixed batch of 2 x 4,096 (train_4k's 256
+                sequences cut to 2): the loss must fall; K6 88 and K6' 32
+                times a step; step wall, tokens/s, peak memory, one
+                profiled step's busy time and K6/K6''s share; then a
+                2-layer f32 cut of the trained weights, card vs CPU;
+  9j. lm_moe_train — olmoe-1b-7b at full width, 4 of its 16 layers, its 2
+                microbatches, 2 steps of 2 x 4,096 (K6 16 and K6' 8 a
+                step), the same report; a 2-layer f32 cut card vs CPU,
+                its routing compared first (``routing_differs``);
+  9k. lm_registry — ``smoke("cuda")`` of each of the five LM ids: a train
+                step (K6 and K6' in f32 at head dim 16) and a decode step
+                (K7 in f32 at head dim 16);
  10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
      ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
      times and bound, its times at 5g's forward shapes (``forward_shapes``)
      and K1''s at 5g's train steps (``backward.train_shapes``), K6's its f32 times at lm_f32's shape and at
      lm_prefill's, each with the 3xTF32 bound and the f32 FMA one, and its
-     f32 launches, K7's its shard mode's times and launches as ``partial``), then
+     f32 launches and its times with and without the row logsumexp (``lse``),
+     K7's its shard mode's times and launches as ``partial``; K6' has an
+     entry of its own, ``flash_attention_backward``, with its cases), then
      as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -247,7 +286,8 @@ kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
 ``retrieval.two_tower`` and ``retrieval.mind``, 7, 8, and 9 as
 ``lm_f32``: K6 and K7 in f32 on the card, 9b, 9c, 9d as ``lm_moe_f32``,
 9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
-``lm_wide_decode.<arch>``) runs with the launch
+``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9i's and 9j's steps,
+9k as ``lm_registry.<arch>``) runs with the launch
 counts set to 0 just before it and read just after; comparisons and
 timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
@@ -398,6 +438,48 @@ SHARDED_DECODE_CASES = (
 )
 SHARDED_DECODE_TOL = (1e-4, 1e-4)
 K7P_SHARD = 1032  # K7's shard mode checked and timed on model_b4's shard
+# LM training (phases 9g-9k).  K6 with its row logsumexp and K6' against
+# their plain versions, (B, S, H, Hkv, dh, dtype, causal, timed): the
+# trainer's lm-small layer, lm_smoke's head dim 16 (GQA as the registry's
+# smokes cut it), stablelm-3b's and olmoe-1b-7b's train layers at 2 x 4,096
+# and 1 x 4,096, f32 at dh 80, ragged S, full attention, groups 1 to 8, and
+# every head dim each dtype takes.
+LMT_KERNEL_CASES = {
+    "lm-small f32": (8, 128, 8, 4, 32, "f32", True, True),
+    "lm_smoke f32": (4, 16, 4, 4, 16, "f32", True, False),
+    "lm_smoke gqa f32": (4, 16, 4, 1, 16, "f32", True, False),
+    "stablelm bf16": (2, 4096, 32, 32, 80, "bf16", True, True),
+    "olmoe bf16": (1, 4096, 16, 16, 128, "bf16", True, True),
+    "dh80 f32": (2, 1024, 32, 32, 80, "f32", True, True),
+    "ragged 45 f32": (2, 45, 8, 2, 32, "f32", True, False),
+    "ragged 1000 bf16": (2, 1000, 8, 2, 64, "bf16", True, False),
+    "ragged 1000 dh16 f32": (1, 1000, 4, 2, 16, "f32", True, False),
+    "full bf16": (2, 1000, 8, 8, 80, "bf16", False, False),
+    "full f32": (2, 45, 4, 2, 16, "f32", False, False),
+    "full dh96 f32": (1, 300, 4, 4, 96, "f32", False, False),
+    "groups 1 bf16": (1, 512, 8, 8, 64, "bf16", True, False),
+    "groups 2 dh96 bf16": (1, 512, 8, 4, 96, "bf16", True, False),
+    "groups 4 bf16": (1, 512, 8, 2, 64, "bf16", True, False),
+    "groups 8 dh128 bf16": (1, 512, 8, 1, 128, "bf16", True, False),
+    "groups 8 dh64 f32": (1, 300, 8, 1, 64, "f32", True, False),
+    "dh128 f32": (1, 512, 4, 2, 128, "f32", True, False),
+}
+# K6''s bf16 gradients: LM_BF16_TOL plus a floor (``limit_share``'s
+# ``head_floor``) of 2^-12 of the RMS of the element's (b, head), for rows
+# that are 0 exactly: causal dq's first row, one key, where dP = D and both
+# versions leave f32 noise (about 5e-7 at stablelm's layer, 2^-17 of the
+# head's RMS); the floor stands 16x above that and 16x below bf16's ulp of a
+# typical element.
+K6B_FLOOR = 2.0**-12
+# K6''s planted fault: its dK/dV loops (f32 and bf16) skip the first query
+# tile they visit (a causal key tile's diagonal tile)
+K6B_PLANT = ("  return causal ? j * ratio : 0;", "  return (causal ? j * ratio : 0) + 1;")
+LMT_SMALL_STEPS, LMT_SMALL_BATCH, LMT_SMALL_SEQ = 50, 256, 128  # launch.train --model lm
+LMT_SMALL_CHECK = 64  # sequences of the trainer's first batch in the card-vs-CPU step
+LMT_BATCH, LMT_SEQ, LMT_STEPS = 2, 4096, 3  # stablelm-3b: train_4k's batch of 256 cut to 2
+LMT_MOE_LAYERS, LMT_MOE_STEPS = 4, 2  # olmoe-1b-7b at full width, 4 of its 16 layers
+LMT_CUT_LAYERS, LMT_CUT_BATCH, LMT_CUT_SEQ = 2, 1, 256  # the f32 cuts, card vs CPU
+LM_IDS = ("stablelm-3b", "olmoe-1b-7b", "qwen2-72b", "arctic-480b", "llama3-405b")
 
 
 def log(msg: str) -> None:
@@ -505,28 +587,35 @@ def assert_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def limit_share(got, want, rtol: float, row_tol: float) -> float:
+def limit_share(got, want, rtol: float, row_tol: float, head_floor: float = 0.0) -> float:
     """Largest |got - want| / (rtol |want| + row_tol rms(want's row)) over
-    the elements, a row being the last dim: at most 1 is a pass."""
+    the elements, a row being the last dim: at most 1 is a pass.  A
+    ``head_floor`` adds that share of the RMS of the element's (b, head) of a
+    [B, S, heads, dh] tensor to the limit (K6''s gradients: a row can be 0
+    exactly, where f32 sums in another order leave noise far below bf16's ulp)."""
     g, w = got.float(), want.float()
-    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
-    return float(((g - w).abs() / (rtol * w.abs() + row_tol * rms).clamp_min(1e-30)).max())
+    lim = rtol * w.abs() + row_tol * w.pow(2).mean(-1, keepdim=True).sqrt()
+    if head_floor:
+        lim = lim + head_floor * w.pow(2).mean(dim=(1, 3), keepdim=True).sqrt()
+    return float(((g - w).abs() / lim.clamp_min(1e-30)).max())
 
 
-def assert_close_rows(name: str, got, want, rtol: float, row_tol: float) -> float:
-    err, share = max_err(got, want), limit_share(got, want, rtol, row_tol)
+def assert_close_rows(name: str, got, want, rtol: float, row_tol: float,
+                      head_floor: float = 0.0) -> float:
+    err, share = max_err(got, want), limit_share(got, want, rtol, row_tol, head_floor)
+    limit = f"rtol {rtol}, {row_tol} of the row's RMS" + (
+        f", {head_floor} of the head's" if head_floor else "")
     if not share <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs "
-                             f"err {err:.3e}, {share:.3f} of the limit: rtol {rtol}, "
-                             f"{row_tol} of the row's RMS)")
-    log(f"  {name}: ok, max abs err {err:.3e}, {share:.3f} of the limit (rtol {rtol}, "
-        f"{row_tol} of the row's RMS)")
+                             f"err {err:.3e}, {share:.3f} of the limit: {limit})")
+    log(f"  {name}: ok, max abs err {err:.3e}, {share:.3f} of the limit ({limit})")
     return err
 
 
-def assert_refused(name: str, planted, want, rtol: float, row_tol: float) -> None:
+def assert_refused(name: str, planted, want, rtol: float, row_tol: float,
+                   head_floor: float = 0.0) -> None:
     """The check of ``assert_close_rows`` must fail on a planted fault."""
-    err, share = max_err(planted, want), limit_share(planted, want, rtol, row_tol)
+    err, share = max_err(planted, want), limit_share(planted, want, rtol, row_tol, head_floor)
     if share <= 1.0:
         raise AssertionError(f"{name}: the check accepts a planted fault (max abs err "
                              f"{err:.3e}, {share:.3f} of the limit)")
@@ -574,17 +663,20 @@ def assert_bits_refused(name: str, planted, want) -> None:
         f"{int(rows.nonzero()[0, 0])}")
 
 
-def start_planted_build(build) -> tuple[subprocess.Popen, Path]:
-    """nvcc of ``embedding_bag.cu`` with K1''s fill made to skip the last
-    row (``K1B_PLANT``), started beside the kernels' own builds."""
+def start_planted_build(build, name: str = "embedding_bag",
+                        plant: tuple = K1B_PLANT) -> tuple[subprocess.Popen, Path]:
+    """nvcc of ``csrc/<name>.cu`` with ``plant``'s text substituted (K1''s
+    fill made to skip the last row, ``K1B_PLANT``; K6''s dK/dV loop made to
+    skip a query tile, ``K6B_PLANT``), started beside the kernels' own
+    builds."""
     out = ROOT / "build" / "chip_smoke_planted"
     out.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / "embedding_bag.cu").read_text()
-    if src.count(K1B_PLANT[0]) != 1:
-        raise AssertionError("K1''s planted fault: its anchor is not once in embedding_bag.cu")
-    cu = out / "embedding_bag.cu"
-    cu.write_text(src.replace(*K1B_PLANT))
-    so = out / "libembedding_bag_planted.so"
+    src = (build.CSRC / f"{name}.cu").read_text()
+    if src.count(plant[0]) != 1:
+        raise AssertionError(f"a planted fault: its anchor is not once in {name}.cu")
+    cu = out / f"{name}.cu"
+    cu.write_text(src.replace(*plant))
+    so = out / f"lib{name}_planted.so"
     cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), so
@@ -607,7 +699,9 @@ def launch_counts() -> dict:
             "flash_attention": K6.launches, "flash_attention_f32": K6.launches_f32,
             "flash_decode": K7.launches, "flash_decode_partial": K7.launches_partial,
             "embedding_bag_backward": K1.launches_backward,
-            "dot_interaction_backward": K2.launches_backward}
+            "dot_interaction_backward": K2.launches_backward,
+            "flash_attention_backward": K6.launches_bwd,
+            "flash_attention_backward_f32": K6.launches_bwd_f32}
 
 
 def reset_counts() -> None:
@@ -621,6 +715,7 @@ def reset_counts() -> None:
     K1.launches = K1.launches_masked = K1.launches_backward = 0
     K2.launches = K2.launches_backward = 0
     PK.launches = K6.launches = K6.launches_f32 = K7.launches = K7.launches_partial = 0
+    K6.launches_bwd = K6.launches_bwd_f32 = 0
     HK.launches.update(dict.fromkeys(HK.launches, 0))
 
 
@@ -1294,6 +1389,302 @@ def recsys_archs(dev: torch.device) -> dict:
     return out
 
 
+def lm_train(dev: torch.device, planted) -> dict:
+    """Phases 9g-9k, LM training on the card (the docstring at the top):
+    lm_train_kernels, lm_train_small, lm_train, lm_moe_train and lm_registry.
+    ``planted`` is the nvcc process and library of K6''s planted fault.
+    Returns the launches of each path, K6''s rows and the paths' summaries."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.olmoe_1b_7b import make_config as make_olmoe
+    from repro_torch.configs.stablelm_3b import make_config as make_stablelm
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as K6
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import tree_to
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dtypes = {"bf16": bf16, "f32": f32}
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=f32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"paths": {}}
+
+    def launches_per_step(cfg) -> tuple[int, int]:
+        """K6 and K6' launches of one train step under the two-level remat:
+        each layer's forward, each group's recompute up to its last layer
+        (non-reentrant checkpoints stop recomputing once the saved tensors
+        they need are back), each layer's own recompute; K6' once a layer;
+        per microbatch."""
+        L_, M_ = cfg.n_layers, max(1, cfg.microbatches)
+        return M_ * (3 * L_ - cfg.groups()), M_ * L_
+
+    def check_step_launches(name: str, counts: dict, cfg, steps: int = 1) -> None:
+        k6, k6b = launches_per_step(cfg)
+        f32_ = cfg.compute_dtype == f32
+        want = {"flash_attention": steps * k6, "flash_attention_backward": steps * k6b,
+                "flash_attention_f32": steps * k6 * f32_,
+                "flash_attention_backward_f32": steps * k6b * f32_}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, the remat predicts {want}")
+        log(f"  {name}: K6 x {got['flash_attention']}, K6' x "
+            f"{got['flash_attention_backward']} ({steps} step(s), as the remat predicts)")
+
+    def grads_card_vs_cpu(name: str, cfg, params, toks, labs, routing: bool = False) -> float:
+        """One step's loss and every gradient leaf on the card against the
+        same step on the CPU (plain versions), at TRAIN_GRAD_TOL with atol
+        times a leaf's largest magnitude past 1; with ``routing`` the MoE
+        routing of a plain forward first, which must agree token for token."""
+        cpu_params = tree_to(params, "cpu")
+        if routing:
+            with RoutingLog() as card_routes, torch.no_grad():
+                TF.forward(cfg, params, toks)
+            with RoutingLog() as cpu_routes, torch.no_grad():
+                TF.forward(cfg, cpu_params, toks.cpu())
+            lay = (cfg.n_layers, toks.shape[0], toks.shape[1], 0)
+            flagged, margins = routing_differs(name, card_routes.by_position(*lay, forward=True),
+                                               cpu_routes.by_position(*lay, forward=True))
+            if flagged.any():  # every gradient leaf mixes every token
+                raise AssertionError(f"{name}: {int(flagged.sum())} token(s) routed otherwise "
+                                     f"(near ties, margins {margins}): no leaf compares")
+            log(f"  {name}: routing of {flagged.numel()} tokens x {cfg.n_layers} layers, card "
+                "vs CPU: the same")
+        reset_counts()
+        loss_c, grads_c = TF.loss_and_grads(cfg, params, toks, labs)
+        torch.cuda.synchronize()
+        check_step_launches(f"{name}, card", launch_counts(), cfg)
+        calls = [0]
+        plain = ref.flash_attention_ref
+
+        def counted(*args, **kwargs):
+            calls[0] += 1
+            return plain(*args, **kwargs)
+
+        ref.flash_attention_ref = counted
+        try:
+            loss_p, grads_p = TF.loss_and_grads(cfg, cpu_params, toks.cpu(), labs.cpu())
+        finally:
+            ref.flash_attention_ref = plain
+        if calls[0] != launches_per_step(cfg)[0] // max(1, cfg.microbatches):
+            raise AssertionError(f"{name}: the CPU's step ran attention {calls[0]} times")
+        assert_close(f"{name}: loss, card vs CPU", loss_c.cpu(), loss_p, *TRAIN_GRAD_TOL)
+        return assert_trees_close(f"{name}: gradients, card vs CPU", tree_to(grads_c, "cpu"),
+                                  grads_p, *TRAIN_GRAD_TOL, scaled=True)
+
+    # ---------------------------------------------------- lm_train_kernels
+    log("[lm_train_kernels] K6 with its logsumexp and K6' against their plain versions")
+
+    def sdpa_backward(q, k, v, do, causal):
+        # The yardstick, timed here and never called by the port: the
+        # backward alone of one SDPA call on the same tensors.
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        g = do.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
+
+    def k6b_bound(q, k, causal, rate=None):
+        B_, S_, H_, d_ = q.shape
+        pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
+        flops = 5 * 2 * B_ * H_ * d_ * pairs  # S, dP, dV, dK, dQ over the pairs kept
+        moved = 4 * (q.numel() + k.numel()) * q.element_size() + B_ * H_ * S_ * 4
+        rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S)
+        return bound(moved, flops, rate)
+
+    plant_log, _ = planted[0].communicate()
+    if planted[0].returncode:
+        raise RuntimeError(f"nvcc failed for K6''s planted fault:\n{plant_log}")
+    planted_so = planted[1]
+    rows, errs = [], {}
+    for label, (B, S, H, Hkv, dh, dt, causal, timed) in LMT_KERNEL_CASES.items():
+        dt = dtypes[dt]
+        q = torch.randn((B, S, H, dh), device=dev, generator=gen).to(dt)
+        k, v = (torch.randn((B, S, Hkv, dh), device=dev, generator=gen).to(dt) for _ in "kv")
+        do = torch.randn((B, S, H, dh), device=dev, generator=gen).to(dt)
+        shape = f"[{B}, {S}, {H}, {Hkv}, {dh}] {'causal' if causal else 'full'}"
+        check = assert_close_rows if dt == bf16 else assert_close
+        tol = LM_BF16_TOL if dt == bf16 else LM_F32_TOL
+        lse = torch.empty((B, H, S), dtype=f32, device=dev)
+        o_k = K6.flash_attention(q, k, v, causal, lse=lse)
+        o, want_lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
+        check(f"K6 {label} {shape}: output", o_k, o, *tol)
+        assert_close(f"K6 {label} {shape}: row logsumexp", lse, want_lse, *LM_F32_TOL)
+        got = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
+        want = ref.flash_attention_backward_ref(q, k, v, o, want_lse, do, causal)
+        floor = (K6B_FLOOR,) if dt == bf16 else ()
+        errs[label] = max(check(f"K6' {label} {shape}: {n}", g, w, *tol, *floor)
+                          for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        if label in ("lm-small f32", "stablelm bf16"):
+            again = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"K6' {label}: two launches differ")
+            log(f"  K6' {label}: two launches bit-equal")
+            build.use_library(K6.NAME_BWD, planted_so)
+            try:
+                bad = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
+            finally:
+                build.use_library(K6.NAME_BWD, build.library_path(K6.NAME_BWD))
+            name = f"K6' {label} with its dK/dV loop skipping a query tile: dk"
+            refuse = assert_refused if dt == bf16 else assert_refused_close
+            refuse(name, bad[1], want[1], *tol, *floor)
+            del bad, again
+        if timed:
+            # f32's bound is that of three tf32 products, which reach f32's
+            # accuracy on this card (as K6 f32's); the FMA bound stands beside it.
+            bnd = k6b_bound(q, k, causal, TF32_TENSOR_FLOP_PER_S / 3 if dt == f32 else None)
+            row = {"case": f"{label} {shape}", "max_abs_err": errs[label],
+                   "ms": cuda_ms(lambda: K6.flash_attention_backward(q, k, v, o, want_lse, do,
+                                                                     causal), flush),
+                   "plain_ms": cuda_ms(lambda: ref.flash_attention_backward_ref(
+                       q, k, v, o, want_lse, do, causal), flush, reps=5, warmup=1),
+                   "library_ms": cuda_ms(sdpa_backward(q, k, v, do, causal), flush),
+                   "bound_ms": bnd[0], "bound_by": bnd[1],
+                   "k6_forward_ms": cuda_ms(lambda: K6.flash_attention(q, k, v, causal), flush),
+                   "k6_forward_lse_ms": cuda_ms(lambda: K6.flash_attention(q, k, v, causal,
+                                                                           lse=lse), flush)}
+            if dt == f32:
+                row["bound_ms_fma"] = k6b_bound(q, k, causal)[0]
+            rows.append(row)
+            log(f"  K6' {label}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
+                f"backward {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+                f"{row['bound_by']}: {row['bound_ms'] / row['ms']:.1%} of it)")
+        del q, k, v, do, o, o_k, lse, want_lse, got, want
+    torch.cuda.empty_cache()
+    out["k6b_rows"], out["k6b_errs"] = rows, errs
+    log("[lm_train_kernels] " + json.dumps(rows))
+
+    # ------------------------------------------------------- lm_train_small
+    small = launch_train.make_lm_small()
+    log(f"[lm_train_small] {small.name}: one step card vs CPU on {LMT_SMALL_CHECK} sequences "
+        "of the trainer's first batch, from its init")
+    params = TF.init_params(small, seed=0, device=dev)
+    host = syn.lm_batch(np.random.default_rng(0), small.vocab, LMT_SMALL_BATCH, LMT_SMALL_SEQ)
+    toks, labs = (torch.from_numpy(host[k][:LMT_SMALL_CHECK]).to(dev) for k in ("tokens", "labels"))
+    small_err = grads_card_vs_cpu("lm_train_small step", small, params, toks, labs)
+    del params
+    reset_counts()
+    t0 = time.perf_counter()
+    run = launch_train.main(["--model", "lm", "--steps", str(LMT_SMALL_STEPS), "--batch",
+                             str(LMT_SMALL_BATCH), "--seq", str(LMT_SMALL_SEQ), "--log-every",
+                             "10"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    out["paths"]["lm_train_small"] = launch_counts()
+    check_step_launches("lm_train_small", out["paths"]["lm_train_small"], small, LMT_SMALL_STEPS)
+    median_s = statistics.median(run["step_seconds"][1:])
+    out["lm_train_small"] = {
+        "model": small.name, "steps": run["steps"], "batch": LMT_SMALL_BATCH,
+        "seq": LMT_SMALL_SEQ, "first_loss": run["first_loss"], "final_loss": run["final_loss"],
+        "wall_s": wall_s, "first_step_s": run["step_seconds"][0],
+        "step_wall_median_ms": median_s * 1e3,
+        "tokens_per_s": LMT_SMALL_BATCH * LMT_SMALL_SEQ / median_s,
+        "grads_max_abs_err": small_err}
+    log("[lm_train_small] " + json.dumps(out["lm_train_small"]))
+
+    # ------------------------------------------------------------- lm_train
+    def train_path(name, cfg, steps, batch_seed, fall: bool, kernels: tuple):
+        """``steps`` train steps of ``cfg`` (f32 params from seed 0, Adam
+        3e-4 in place) on one fixed batch of LMT_BATCH x LMT_SEQ tokens,
+        launches checked each step; then one profiled step.  Returns the
+        params and the summary."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, seed=0, device=dev)
+        opt, _ = lm_common.make_optimizer("adam")  # the train cell's: in place
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        host = syn.lm_batch(np.random.default_rng(batch_seed), cfg.vocab, LMT_BATCH, LMT_SEQ)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        step = TF.make_train_step(cfg, opt)
+        losses, walls, counts = [], [], {}
+        for i in range(steps):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+            counts = {k: counts.get(k, 0) + v for k, v in launch_counts().items()}
+            check_step_launches(f"{name} step {i}", launch_counts(), cfg)
+        if not all(np.isfinite(losses)) or (fall and not losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses} (must be finite"
+                                 f"{' and fall on the fixed batch' if fall else ''})")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = device_busy(lambda: step(params, state, batch), 1, kernels=kernels)
+        k6_ms = sum(busy["kernels_ms_per_call"].values())
+        summary = {
+            "model": cfg.name, "layers": cfg.n_layers, "params": cfg.num_params(),
+            "param_gb": cfg.num_params() * 4 / 1e9, "batch": LMT_BATCH, "seq": LMT_SEQ,
+            "microbatches": cfg.microbatches, "remat_groups": cfg.groups(),
+            "made_s": made_s, "losses": losses, "step_wall_s": walls,
+            "step_wall_median_s": statistics.median(walls),
+            "tokens_per_s": LMT_BATCH * LMT_SEQ / statistics.median(walls),
+            "step_device_busy_ms": busy["device_busy_ms"],
+            "k6_and_k6b_share_of_busy": None if not busy["device_busy_ms"]
+            else k6_ms / busy["device_busy_ms"],
+            "peak_memory_gb": peak, "profile": busy}
+        return params, counts, summary
+
+    cfg = dataclasses.replace(make_stablelm(), param_dtype=f32)  # build_lm_cell's train rule
+    log(f"[lm_train] {cfg.name} at full width and depth: f32 params, bf16 compute, Adam, "
+        f"{LMT_STEPS} steps of {LMT_BATCH} x {LMT_SEQ} tokens")
+    params, out["paths"]["lm_train"], summary = train_path(
+        "lm_train", cfg, LMT_STEPS, 0, True,
+        ("flash_attention_bf16_kernel", "flash_attention_bwd"))
+    cut = dataclasses.replace(cfg, n_layers=LMT_CUT_LAYERS, compute_dtype=f32,
+                              remat_groups=LMT_CUT_LAYERS)
+    cut_params = dict(params, layers={k: v[:LMT_CUT_LAYERS] for k, v in params["layers"].items()})
+    host = syn.lm_batch(np.random.default_rng(1), cfg.vocab, LMT_CUT_BATCH, LMT_CUT_SEQ)
+    summary["cut_grads_max_abs_err"] = grads_card_vs_cpu(
+        f"lm_train {LMT_CUT_LAYERS}-layer f32 cut", cut, cut_params,
+        *(torch.from_numpy(host[k]).to(dev) for k in ("tokens", "labels")))
+    out["lm_train"] = summary
+    log("[lm_train] " + json.dumps(summary))
+    del params, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- lm_moe_train
+    cfg = dataclasses.replace(make_olmoe(), n_layers=LMT_MOE_LAYERS, param_dtype=f32)
+    log(f"[lm_moe_train] {cfg.name} at full width, {LMT_MOE_LAYERS} of 16 layers: f32 params, "
+        f"bf16 compute, Adam, microbatches {cfg.microbatches}, {LMT_MOE_STEPS} steps of "
+        f"{LMT_BATCH} x {LMT_SEQ} tokens")
+    params, out["paths"]["lm_moe_train"], summary = train_path(
+        "lm_moe_train", cfg, LMT_MOE_STEPS, 0, False,
+        ("flash_attention_bf16_kernel", "flash_attention_bwd"))
+    cut = dataclasses.replace(cfg, n_layers=LMT_CUT_LAYERS, compute_dtype=f32,
+                              remat_groups=LMT_CUT_LAYERS, microbatches=1)
+    cut_params = dict(params, layers={k: v[:LMT_CUT_LAYERS] for k, v in params["layers"].items()})
+    host = syn.lm_batch(np.random.default_rng(1), cfg.vocab, LMT_CUT_BATCH, LMT_CUT_SEQ // 2)
+    summary["cut_grads_max_abs_err"] = grads_card_vs_cpu(
+        f"lm_moe_train {LMT_CUT_LAYERS}-layer f32 cut", cut, cut_params,
+        *(torch.from_numpy(host[k]).to(dev) for k in ("tokens", "labels")), routing=True)
+    out["lm_moe_train"] = summary
+    log("[lm_moe_train] " + json.dumps(summary))
+    del params, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- lm_registry
+    out["lm_registry"] = {}
+    for arch_id in LM_IDS:
+        reset_counts()
+        res = configs.get(arch_id).smoke(str(dev))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for key in ("flash_attention_f32", "flash_attention_backward_f32", "flash_decode"):
+            if counts[key] < 1:
+                raise AssertionError(f"lm_registry {arch_id}: smoke launched no {key}: {counts}")
+        out["paths"][f"lm_registry.{arch_id}"] = counts
+        out["lm_registry"][arch_id] = {**res, "launches": {k: v for k, v in counts.items() if v}}
+    log("[lm_registry] " + json.dumps(out["lm_registry"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU present", file=sys.stderr)
@@ -1358,8 +1749,9 @@ def main() -> int:
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
     planted_build, planted_so = start_planted_build(build)  # used in phase 5f
+    k6b_planted = start_planted_build(build, K6.NAME_BWD, K6B_PLANT)  # used in phase 9g
     report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME, K6.NAME,
-                          K7.NAME], ptxas_verbose=True)
+                          K6.NAME_BWD, K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
     for name, r in report.items():  # nvcc -Xptxas -v: registers, spills, warnings
@@ -3264,6 +3656,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- lm_train .. lm_registry
+    lmt = lm_train(dev, k6b_planted)
+
     # ---------------------------------------------------------- kernels line
     sources = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:38",
@@ -3282,7 +3677,8 @@ def main() -> int:
              "lm_prefill": prefill_launches, "lm_decode": decode_launches,
              "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
-             "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"]}
+             "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
+             **lmt["paths"]}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]
@@ -3324,6 +3720,29 @@ def main() -> int:
                 "launches_by_path": {p: c["flash_attention_f32"] for p, c in paths.items()},
                 "prefill_shape": {key: k6_f32["path f32"][key] for key in f32_keys},
             }
+            # with its row logsumexp (the train path's forward, K6''s input),
+            # beside the same launch without it, at phase 9g's timed cases
+            kernels[-1]["lse"] = [{key: r[key] for key in ("case", "k6_forward_ms",
+                                                           "k6_forward_lse_ms")}
+                                  for r in lmt["k6b_rows"]]
+    # K6', the backward of K6: no Pallas kernel; the reference differentiates
+    # its jnp attention with XLA.  Timed at lm_train's layer (stablelm-3b).
+    k6b_path = next(r for r in lmt["k6b_rows"] if r["case"].startswith("stablelm bf16"))
+    k6b_by_path = {p: c["flash_attention_backward"] for p, c in paths.items()}
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_backward.cu",
+        "replaces": "none: XLA's autodiff of src/repro/models/layers.py:109 "
+                    "(gqa_prefill_attention), no pallas_call",
+        "launches": sum(k6b_by_path.values()), "launches_by_path": k6b_by_path,
+        "f32_launches_by_path": {p: c["flash_attention_backward_f32"]
+                                 for p, c in paths.items()},
+        "max_abs_err": max(lmt["k6b_errs"].values()), "ms": k6b_path["ms"],
+        "plain_ms": k6b_path["plain_ms"], "bound_ms": k6b_path["bound_ms"],
+        "bound_by": k6b_path["bound_by"], "library_ms": k6b_path["library_ms"],
+        "case": k6b_path["case"], "cases": lmt["k6b_rows"], "max_abs_err_by_case":
+            lmt["k6b_errs"], "ok": True,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

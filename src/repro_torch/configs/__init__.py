@@ -6,12 +6,9 @@ Port of ``repro/configs/__init__.py``.  Interface:
   ArchDef.build_cell(shape, mesh, multi_pod) -> CellBuild  (meta tensors)
   ArchDef.smoke(device="cuda") -> dict of metrics  (tiny config, real compute)
 
-The port registers what it has ported: the seven recsys archs.  The LM and
-GNN ids of ``ASSIGNED`` wait for ROADMAP queue 1, item 4; ``get`` of one
-raises ``KeyError`` saying so.  The five LM configs exist
-(``configs/<arch>.py``'s ``make_config``), but an LM registration smokes a
-train step (the reference's ``lm_smoke``), so it waits for the LM training
-slice.
+The port registers what it has ported: the seven recsys archs and the five
+LM archs.  The GNN id of ``ASSIGNED`` waits for ROADMAP queue 1, item 4
+(``models/gnn.py``); ``get`` of it raises ``KeyError`` saying so.
 """
 from __future__ import annotations
 
@@ -57,9 +54,8 @@ ASSIGNED = [
     "wide-deep",
     "two-tower-retrieval",
 ]
-# assigned ids whose registration waits for the LM and GNN registry slice
-NOT_PORTED = ("stablelm-3b", "llama3-405b", "qwen2-72b", "arctic-480b", "olmoe-1b-7b",
-              "graphsage-reddit")
+# assigned ids whose registration waits for the GNN slice
+NOT_PORTED = ("graphsage-reddit",)
 
 
 def register(arch: ArchDef) -> ArchDef:
@@ -70,8 +66,8 @@ def register(arch: ArchDef) -> ArchDef:
 def get(arch_id: str) -> ArchDef:
     if arch_id in NOT_PORTED:
         raise KeyError(f"arch {arch_id!r} is not registered in the port yet "
-                       "(ROADMAP queue 1, item 4: the LM registrations wait for the LM "
-                       "training slice, the GNN's for models/gnn.py)")
+                       "(ROADMAP queue 1, item 4: the GNN's registration waits for "
+                       "models/gnn.py)")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
@@ -92,13 +88,18 @@ def input_specs(arch_id: str, shape: str, mesh=None, multi_pod: bool = False):
     return get(arch_id).build_cell(shape, mesh, multi_pod).args
 
 
-# Populate the registry (the ported recsys archs).
+# Populate the registry (the ported recsys and LM archs).
 from repro_torch.configs import (  # noqa: E402,F401
+    arctic_480b,
     autoint,
     dcn_v2,
     deepfm,
     dlrm_flexemr,
+    llama3_405b,
     mind,
+    olmoe_1b_7b,
+    qwen2_72b,
+    stablelm_3b,
     two_tower_retrieval,
     wide_deep,
 )

@@ -2,9 +2,10 @@
 
 [hf:stabilityai/stablelm-2-1_6b family; unverified]  d_head = 2560/32 = 80.
 RMSNorm+SwiGLU+full-RoPE stand-ins for StableLM's LN/partial-rotary; dims
-are exact.  Port of ``repro/configs/stablelm_3b.py``; the registry entry
-waits with ``configs/lm_common.py``'s registry.
+are exact.  Small enough to train with Adam and serve fully TP-sharded.
+Port of ``repro/configs/stablelm_3b.py``.
 """
+from repro_torch.configs.lm_common import register_lm
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -19,4 +20,17 @@ def make_config() -> TransformerConfig:
         vocab=50304,
         d_head=80,
         rope_theta=10000.0,
+        seq_shard=False,
+        remat_groups=8,
     )
+
+
+register_lm(
+    "stablelm-3b",
+    make_config(),
+    opt_kind="adam",
+    fsdp_serve=False,
+    kind="lm-dense",
+    notes="RMSNorm+SwiGLU+full-RoPE stand-ins for StableLM's LN/partial-rotary "
+    "(DESIGN.md §6); dims are exact.",
+)

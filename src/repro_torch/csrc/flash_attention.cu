@@ -9,6 +9,12 @@
 //   future (causal) or past the sequence; m, l, acc updated online;
 //   p rounded to v's dtype before p . v; out = acc / max(l, 1e-30) in q's dtype.
 //   Query head h reads KV head h / (H / Hkv): GQA by index, KV never repeated.
+//   For training, each row's logsumexp m + log l (natural log, scaled scores)
+//   goes to an optional [B, H, S] f32 output that the backward kernel K6'
+//   (flash_attention_backward.cu) reads; without it the launch is the
+//   serving one, unchanged.  Head dims 64, 80, 96 and 128 in both dtypes;
+//   the f32 kernel also 16 and 32 (the LM trainer's and the registry's
+//   smoke configs), while the bf16 kernel's 64-column TMA boxes refuse them.
 //
 // What bounds it on the card: operations.  Every valid (q, k) pair costs
 // 4 * dh FLOP (q . k and p . v) against 2 * dh bytes of K and V that a
@@ -327,12 +333,23 @@ __device__ __forceinline__ void rescale(float (&acc)[N], float a0, float a1) {
   }
 }
 
+// Rows row_a and row_b of one (b, h)'s [S] logsumexp, from the running max
+// m (log2 units of the scaled score) and the quad-summed l: ln of the sum of
+// exp(s / sqrt(dh)) over the row's keys, m ln 2 + ln l (K6's backward, K6',
+// reads it; the serving launch passes no pointer and skips this).
+__device__ __forceinline__ void store_lse(float* row0, int row_a, int row_b, int S, float m0,
+                                          float m1, float l0, float l1) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  if (row_a < S) row0[row_a] = fmaf(m0, kLn2, logf(l0));
+  if (row_b < S) row0[row_b] = fmaf(m1, kLn2, logf(l1));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
     flash_attention_bf16_kernel(const __grid_constant__ Maps maps,
                                 __nv_bfloat16* __restrict__ o, long long S, int group,
                                 int causal, float scale_log2, long long ob, long long os,
-                                long long oh) {
+                                long long oh, float* __restrict__ lse) {
   using Ly = Layout<D>;
   constexpr int ST = kStages;
   constexpr int NO = D / 2;  // O accumulator registers per thread
@@ -452,6 +469,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && t4 == 0)
+      store_lse(lse + ((long long)b * gridDim.y + h) * S, row_a, row_b, Sq, m0, m1, l0, l1);
     // Stage the warpgroup's [64][D] bf16 output in its own Q region (its last
     // reader, the final S product, has completed), then 16-byte stores.
     __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(qs);
@@ -507,7 +526,8 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o, long long S, int group,
-                               int causal, float scale_log2, Strides st) {
+                               int causal, float scale_log2, Strides st,
+                               float* __restrict__ lse) {
   using Ly = LayoutF32<D>;
   constexpr int ST = kStagesF32;
   constexpr int KP = D / 16;  // pairs of k-steps of S = Q . K^T
@@ -651,6 +671,8 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t4 == 0)
+    store_lse(lse + (b * gridDim.y + h) * S, row_a, row_b, Sq, m0, m1, l0, l1);
   float* oh_ = o + b * st.ob + (long long)h * st.oh + 2 * t4;
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
@@ -716,7 +738,7 @@ int make_map(CUtensorMap* map, const void* ptr, long long B, long long S, int he
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, long long B, long long S,
-                int H, int Hkv, int causal, const Strides& st, void* stream) {
+                int H, int Hkv, int causal, const Strides& st, void* stream, float* lse) {
   if (S > kMaxSeq) return (int)cudaErrorInvalidValue;
   Maps maps;
   constexpr int kRem = Layout<D>::kRem;
@@ -737,13 +759,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, long long 
   const float scale_log2 = kLog2e / sqrtf((float)D);
   const dim3 grid((unsigned)((S + kRowsCta - 1) / kRowsCta), (unsigned)H, (unsigned)B);
   flash_attention_bf16_kernel<D><<<grid, kThreadsBf16, smem, (cudaStream_t)stream>>>(
-      maps, (__nv_bfloat16*)o, S, H / Hkv, causal, scale_log2, st.ob, st.os, st.oh);
+      maps, (__nv_bfloat16*)o, S, H / Hkv, causal, scale_log2, st.ob, st.os, st.oh, lse);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, long long B, long long S,
-               int H, int Hkv, int causal, const Strides& st, void* stream) {
+               int H, int Hkv, int causal, const Strides& st, void* stream, float* lse) {
   if (S > kMaxSeq) return (int)cudaErrorInvalidValue;
   constexpr int smem = LayoutF32<D>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -753,21 +775,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, long long B
   const dim3 grid((unsigned)((S + kRowsF32 - 1) / kRowsF32), (unsigned)H, (unsigned)B);
   flash_attention_f32_kernel<D><<<grid, kThreadsF32, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H / Hkv, causal,
-      scale_log2, st);
+      scale_log2, st, lse);
   return (int)cudaGetLastError();
 }
 
 template <bool kBf16, int D>
 int launch(const void* q, const void* k, const void* v, void* o, long long B, long long S,
-           int H, int Hkv, int causal, const Strides& st, void* stream) {
-  if constexpr (kBf16) return launch_bf16<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-  else return launch_f32<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+           int H, int Hkv, int causal, const Strides& st, void* stream, float* lse) {
+  if constexpr (kBf16) return launch_bf16<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+  else return launch_f32<D>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
 }
 
 template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, void* o, long long B,
              long long S, int H, int Hkv, int D, int causal,
-             const long long* strides, void* stream) {
+             const long long* strides, void* stream, float* lse) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
   Strides st;
@@ -775,11 +797,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, long long B,
   st.kb = strides[3]; st.ks = strides[4]; st.kh = strides[5];
   st.vb = strides[6]; st.vs = strides[7]; st.vh = strides[8];
   st.ob = strides[9]; st.os = strides[10]; st.oh = strides[11];
+  if constexpr (!kBf16) {  // the bf16 layout's TMA boxes are 64 columns: f32 only
+    switch (D) {
+      case 16: return launch<kBf16, 16>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+      case 32: return launch<kBf16, 32>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+      default: break;
+    }
+  }
   switch (D) {
-    case 64: return launch<kBf16, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 80: return launch<kBf16, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 96: return launch<kBf16, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
-    case 128: return launch<kBf16, 128>(q, k, v, o, B, S, H, Hkv, causal, st, stream);
+    case 64: return launch<kBf16, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+    case 80: return launch<kBf16, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+    case 96: return launch<kBf16, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+    case 128: return launch<kBf16, 128>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -790,20 +819,22 @@ extern "C" {
 
 // q [B, S, H, D], k and v [B, S, Hkv, D], o [B, S, H, D], one dtype; strides
 // holds the 12 element strides (b, s, h) of q, k, v, o; the last dim is
-// contiguous.  D in {64, 80, 96, 128}.  Both need q, k and v on 16-byte
+// contiguous.  D in {64, 80, 96, 128}, and in f32 also 16 and 32.  lse, when
+// not null, is a [B, H, S] f32 output: each row's logsumexp of the scaled
+// scores (null: the serving launch, unchanged).  Both need q, k and v on 16-byte
 // boundaries with 16-byte multiples as strides (TMA in bf16, 16-byte copies
 // and loads in f32), and S below 2^31 - 256.  Returns
 // cudaGetLastError(), or 10000 + a CUresult when a tensor map is refused.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          long long B, long long S, int H, int Hkv, int D,
-                         int causal, const long long* strides, void* stream) {
-  return dispatch<true>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
+                         int causal, const long long* strides, void* stream, float* lse) {
+  return dispatch<true>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream, lse);
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         long long B, long long S, int H, int Hkv, int D,
-                        int causal, const long long* strides, void* stream) {
-  return dispatch<false>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream);
+                        int causal, const long long* strides, void* stream, float* lse) {
+  return dispatch<false>(q, k, v, o, B, S, H, Hkv, D, causal, strides, stream, lse);
 }
 
 const char* flash_attention_error_string(int code) {

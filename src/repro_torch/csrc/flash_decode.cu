@@ -485,6 +485,13 @@ template <typename T, bool kPartial>
 int by_dim(const void* q, const void* kc, const void* vc, const int* n, const int* start,
            void* out, void* ml, void* ws, void* tickets, long long B, long long S, int H,
            int Hkv, int D, int n_split, void* stream) {
+  if constexpr (sizeof(T) == 4) {  // f32 also at the LM smoke configs' head dims
+    switch (D) {
+      case 16: return by_group<T, 16, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+      case 32: return by_group<T, 32, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+      default: break;
+    }
+  }
   switch (D) {
     case 64: return by_group<T, 64, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
     case 80: return by_group<T, 80, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
@@ -515,7 +522,8 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* len,
 extern "C" {
 
 // q [B, H, D], k_cache and v_cache [B, S, Hkv, D], all contiguous and of one
-// dtype; cache_len a device int32 scalar; D in {64, 80, 96, 128}.  n_split
+// dtype; cache_len a device int32 scalar; D in {64, 80, 96, 128}, and in f32
+// also 16 and 32 (a row of 4 or 8 chunks: a segment of 8 lanes).  n_split
 // chunks of the positions (1 <= n_split <= S); for n_split > 1, ws an f32
 // workspace of B H n_split (D + 2) elements and tickets B H int32 zeros that
 // the kernel leaves at zero.  shard_start null: out [B, H, D] in the

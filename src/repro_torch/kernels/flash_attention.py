@@ -1,12 +1,16 @@
-"""Kernel K6: causal or full GQA flash attention (forward), CUDA for Hopper.
+"""Kernel K6: causal or full GQA flash attention (forward), and its backward
+K6', CUDA for Hopper.
 
-Port of ``repro/kernels/flash_attention.py::flash_attention``; the source and
-its design note are ``csrc/flash_attention.cu``.  ``flash_attention``
-launches the kernel on CUDA tensors only; ``ops.flash_attention`` routes a
-CPU tensor to the plain version (``ref.flash_attention_ref``).  Unlike the
-TPU kernel it takes any S (no ``block_q``/``block_k``), reads the
-``[B, S, H, dh]`` layout through strides, and takes head dims
-``HEAD_DIMS`` only.
+Port of ``repro/kernels/flash_attention.py::flash_attention``; the sources
+and their design notes are ``csrc/flash_attention.cu`` (K6) and
+``csrc/flash_attention_backward.cu`` (K6', which has no Pallas counterpart:
+the reference trains through XLA's autodiff of its jnp attention).
+``flash_attention`` and ``flash_attention_backward`` launch on CUDA tensors
+only; ``ops.flash_attention`` routes a CPU tensor to the plain versions
+(``ref.flash_attention_ref``, ``ref.flash_attention_backward_ref``) and
+wires the two kernels into autograd on the card.  Unlike the TPU kernel K6
+takes any S (no ``block_q``/``block_k``), reads the ``[B, S, H, dh]``
+layout through strides, and takes the head dims ``HEAD_DIMS[dtype]`` only.
 """
 from __future__ import annotations
 
@@ -17,17 +21,30 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations (multiples of 16)
+NAME_BWD = "flash_attention_backward"
+# The kernels' instantiations (multiples of 16), by dtype: the bf16 kernel's
+# TMA boxes are 64 columns wide, so it refuses 16 and 32.
+HEAD_DIMS = {torch.float32: (16, 32, 64, 80, 96, 128),
+             torch.bfloat16: (64, 80, 96, 128)}
 MAX_SEQ = 2**31 - 256  # the kernels' positions (and the bf16 TMA coordinates) are int32
 _ARGS = [ctypes.c_void_p] * 4 + [
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+    ctypes.c_void_p,
+]
+_ARGS_BWD = [ctypes.c_void_p] * 10 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
 ]
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_SYMBOLS_BWD = {torch.float32: "flash_attention_backward_f32",
+                torch.bfloat16: "flash_attention_backward_bf16"}
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_f32 = 0  # of those, launches of the f32 kernel
+launches_bwd = 0  # K6' calls (each three kernels: D, dK/dV, dQ)
+launches_bwd_f32 = 0  # of those, f32 ones
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -41,7 +58,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     contiguous, rows not on 16-byte boundaries: a start or a stride that is
     no multiple of 16 bytes (the bf16 kernel loads its tiles with TMA, the
     f32 kernel with 16-byte copies; both require both), or an S past
-    ``MAX_SEQ``."""
+    ``MAX_SEQ``.  K6' takes the same."""
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{NAME}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                         "want one of f32 / bf16 for q, k and v")
@@ -52,8 +69,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, dh) or H % k.shape[2]:
         raise ValueError(f"{NAME}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
                          " (same B, S, dh; Hkv divides H)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
+    if dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS[q.dtype]} for "
+                         f"{str(q.dtype)[6:]}")
     if S > MAX_SEQ:
         raise ValueError(f"{NAME}: S = {S} past the kernel's {MAX_SEQ} positions")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -64,30 +82,91 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{NAME}: {name} must start on a 16-byte boundary")
 
 
+def _check_devices(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if not _on_cuda(tensors[0]) or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name} kernel takes CUDA tensors on one device, got "
+            f"{', '.join(str(t.device) for t in tensors)}; ops.flash_attention routes CPU "
+            "tensors to the plain versions")
+
+
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, lse: torch.Tensor | None = None) -> torch.Tensor:
     """q [B,S,H,dh], k/v [B,S,Hkv,dh], f32 | bf16 CUDA tensors -> [B,S,H,dh]
     in q's dtype: softmax(q k^T / sqrt(dh)) v per head, query head h reading
-    KV head h // (H // Hkv), keys after the query masked when ``causal``."""
+    KV head h // (H // Hkv), keys after the query masked when ``causal``.
+    With ``lse``, a contiguous [B, H, S] f32 CUDA tensor, the kernel also
+    writes each row's logsumexp of the scaled scores there: the input of
+    K6', the backward."""
     global launches, launches_f32
     check_inputs(q, k, v)
-    if not _on_cuda(q) or k.device != q.device or v.device != q.device:
-        raise ValueError(
-            f"{NAME} kernel takes CUDA tensors, got {q.device}, {k.device}, {v.device}; "
-            "ops.flash_attention routes CPU tensors to the plain version"
-        )
+    _check_devices(NAME, q, k, v)
     B, S, H, dh = q.shape
+    if lse is not None:
+        if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous() \
+                or lse.device != q.device:
+            raise ValueError(f"{NAME}: lse must be a contiguous [B, H, S] = {[B, H, S]} f32 "
+                             f"tensor on {q.device}, got {tuple(lse.shape)} {lse.dtype} "
+                             f"on {lse.device}")
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):
         code = getattr(lib, _SYMBOLS[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], dh, int(causal), strides,
+            B, S, H, k.shape[2], dh, int(causal), _strides(q, k, v, out),
             torch.cuda.current_stream().cuda_stream,
+            None if lse is None else lse.data_ptr(),
         )
     build.check(lib, NAME, code)
     launches += 1
     launches_f32 += q.dtype == torch.float32
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True):
+    """Kernel K6': ``(dq, dk, dv)``, the gradients of ``flash_attention``'s
+    q, k and v from its output ``o``, its row logsumexp ``lse`` ([B, H, S]
+    f32, contiguous) and ``do``, the gradient of ``o``; all CUDA tensors of
+    q's dtype but ``lse``, ``o`` and ``do`` shaped as q and taken by strides
+    as K6 takes q.  Returns new contiguous tensors in q's dtype, dk and dv
+    summed over each KV head's group of query heads.  Deterministic: no
+    atomics."""
+    global launches_bwd, launches_bwd_f32
+    check_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{NAME_BWD}: {name} {tuple(t.shape)} {t.dtype} must match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+        if t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{NAME_BWD}: {name} strides {t.stride()} — want a contiguous "
+                             "head dim and rows on 16-byte boundaries")
+    B, S, H, dh = q.shape
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{NAME_BWD}: lse must be a contiguous [B, H, S] = {[B, H, S]} f32 "
+                         f"tensor, got {tuple(lse.shape)} {lse.dtype}")
+    _check_devices(NAME_BWD, q, k, v, o, lse, do)
+    dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = build.load(NAME_BWD, {sym: _ARGS_BWD for sym in _SYMBOLS_BWD.values()})
+    with torch.cuda.device(q.device):
+        code = getattr(lib, _SYMBOLS_BWD[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, H, k.shape[2], dh, int(causal), _strides(q, k, v, o, do),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, NAME_BWD, code)
+    launches_bwd += 1
+    launches_bwd_f32 += q.dtype == torch.float32
+    return dq, dk, dv

@@ -7,7 +7,7 @@ kernel on CUDA tensors only; ``ops.flash_decode`` routes a CPU tensor to the
 plain version (``ref.flash_decode_ref``).  The valid length is a device
 int32 tensor that the kernel reads itself (the TPU kernel's scalar
 prefetch), so a decode loop never waits on the host.  Unlike the TPU kernel
-it takes any S (no ``block_k``); head dims ``HEAD_DIMS`` only.
+it takes any S (no ``block_k``); head dims ``HEAD_DIMS[dtype]`` only.
 
 ``flash_decode_partial`` runs the same kernel in its shard mode, for the
 sequence-sharded decode: the caches are one shard of the positions, whose
@@ -34,7 +34,10 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_decode"
-HEAD_DIMS = (64, 80, 96, 128)  # the kernel's instantiations
+# The kernel's instantiations, by dtype (f32 also at the LM smoke configs' 16
+# and 32, which lm_smoke's decode step runs on the card).
+HEAD_DIMS = {torch.float32: (16, 32, 64, 80, 96, 128),
+             torch.bfloat16: (64, 80, 96, 128)}
 _ARGS = [ctypes.c_void_p] * 9 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -118,8 +121,9 @@ def check_inputs(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if (k_cache.shape[0], k_cache.shape[3]) != (B, dh) or H % k_cache.shape[2]:
         raise ValueError(f"{NAME}: caches {tuple(k_cache.shape)} do not fit q "
                          f"{tuple(q.shape)} (same B, dh; Hkv divides H)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS}")
+    if dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS[q.dtype]} for "
+                         f"{str(q.dtype)[6:]}")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{NAME}: q and the caches must be contiguous")
     for name, t in (("cache_len", cache_len), ("shard_start", shard_start)):

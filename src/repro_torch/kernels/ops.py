@@ -6,13 +6,14 @@ tensor to the plain version in ``ref.py``;
 any other device raises.  There is no switch and no fallback: on the card
 the plain version is never taken, and a failed build or launch raises.
 
-Gradients: on the card, where a gradient is needed, K1 and K2 run inside
-``torch.autograd.Function``s whose backwards are the hand-written kernels
-K1' (``embedding_bag.embedding_bag_backward``) and K2'
-(``dot_interaction.dot_interaction_backward``); on the CPU autograd
-differentiates the plain versions.  On both, a gradient for K1's weights,
-for a table that is not f32 or for a K2 input that is not f32 raises: no
-trainer trains them.
+Gradients: on the card, where a gradient is needed, K1, K2 and K6 run
+inside ``torch.autograd.Function``s whose backwards are the hand-written
+kernels K1' (``embedding_bag.embedding_bag_backward``), K2'
+(``dot_interaction.dot_interaction_backward``) and K6'
+(``flash_attention.flash_attention_backward``, from K6's output and row
+logsumexp); on the CPU autograd differentiates the plain versions.  On
+both, a gradient for K1's weights, for a table that is not f32 or for a K2
+input that is not f32 raises: no trainer trains them.
 """
 from __future__ import annotations
 
@@ -123,10 +124,34 @@ def dot_interaction_triu(x: torch.Tensor) -> torch.Tensor:
     return _triu(ref.dot_interaction_ref(x))
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K6 forward, writing each row's logsumexp beside its output; K6'
+    backward from q, k, v, the output and the logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = K6.flash_attention(q, k, v, causal, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = K6.flash_attention_backward(q, k, v, out, lse, grad_out.contiguous(),
+                                                 ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """q [B,S,H,dh], k/v [B,S,Hkv,dh] -> [B,S,H,dh] GQA attention, kernel K6
-    on the card."""
+    on the card; differentiable in q, k and v on both devices (K6' on the
+    card)."""
     if _is_cuda(q):
+        if _needs_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v, causal)
         return K6.flash_attention(q, k, v, causal)
     return ref.flash_attention_ref(q, k, v, causal)
 

@@ -91,34 +91,99 @@ def flash_attention_ref(
     v: torch.Tensor,  # [B, S, Hkv, dh]
     causal: bool = True,
     q_block: int = 512,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """[B, S, H, dh] in q's dtype: exact GQA attention chunked over blocks of
     ``q_block`` queries, as the reference's ``layers.gqa_prefill_attention``
     (f32 scores scaled by 1/sqrt(dh), masked to -1e30, softmax, probs rounded
     to v's dtype, f32 accumulation).  Query head h reads KV head
     h // (H // Hkv) by reshape, KV is never repeated.  A causal block scores
     only the keys up to its last query: the keys it skips are masked, and
-    their exp(-1e30 - max) is exactly 0 either way."""
+    their exp(-1e30 - max) is exactly 0 either way.  With ``return_lse``
+    also each row's logsumexp ``[B, H, S]`` f32 of the scaled scores, m +
+    log l (m the row's max, l the sum of exp(s - m)), as K6 writes it for
+    its backward."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     scale = 1.0 / math.sqrt(dh)
-    kt = k.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]  # [B,Hkv,1,dh,S]
+    acc = _acc_dtype(q)
+    kt = k.to(acc).permute(0, 2, 3, 1)[:, :, None]  # [B,Hkv,1,dh,S]
     vt = v.permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,S,dh]
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=acc, device=q.device) if return_lse else None
     for s0 in range(0, S, q_block):
         n = min(q_block, S - s0)
         n_keys = s0 + n if causal else S
-        qb = q[:, s0:s0 + n].to(torch.float32).reshape(B, n, Hkv, g, dh)
+        qb = q[:, s0:s0 + n].to(acc).reshape(B, n, Hkv, g, dh)
         scores = qb.permute(0, 2, 3, 1, 4) @ kt[..., :n_keys] * scale  # [B,Hkv,g,n,keys]
         if causal:
             qpos = torch.arange(s0, s0 + n, device=q.device)
             kpos = torch.arange(n_keys, device=q.device)
             scores = scores.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype).to(torch.float32)
-        ob = probs @ vt[:, :, :, :n_keys].to(torch.float32)  # [B,Hkv,g,n,dh]
+        probs = torch.softmax(scores, dim=-1).to(v.dtype).to(acc)
+        ob = probs @ vt[:, :, :, :n_keys].to(acc)  # [B,Hkv,g,n,dh]
         out[:, s0:s0 + n] = ob.permute(0, 3, 1, 2, 4).reshape(B, n, H, dh).to(q.dtype)
-    return out
+        if lse is not None:
+            m = scores.amax(dim=-1, keepdim=True)
+            l_sum = torch.exp(scores - m).sum(dim=-1)
+            lse[:, :, s0:s0 + n] = (m[..., 0] + torch.log(l_sum)).reshape(B, H, n)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_ref(
+    q: torch.Tensor,  # [B, S, H, dh]
+    k: torch.Tensor,  # [B, S, Hkv, dh]
+    v: torch.Tensor,  # [B, S, Hkv, dh]
+    o: torch.Tensor,  # [B, S, H, dh]: the forward's output
+    lse: torch.Tensor,  # [B, H, S] f32: the forward's row logsumexp
+    do: torch.Tensor,  # [B, S, H, dh]: the gradient of o
+    causal: bool = True,
+    k_block: int = 512,
+):
+    """``(dq, dk, dv)`` in q's dtype: the gradient of ``flash_attention_ref``
+    by the flash-attention backward's algebra, in f32 (f64 stays f64),
+    chunked over blocks of ``k_block`` keys: D = rowsum(do o); per key
+    block P = exp(q k^T / sqrt(dh) - lse) (0 where masked), dV = P^T do with
+    P rounded to v's dtype as the forward's P . V takes it, dP = do v^T,
+    dS = P (dP - D), dQ += dS k / sqrt(dh), dK = dS^T q / sqrt(dh).  dK and
+    dV sum over each KV head's group of query heads.  Kernel K6' computes
+    the same."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    acc = _acc_dtype(q)
+
+    def heads(t):  # [B, S, H, dh] -> [B, Hkv, g, S, dh]
+        return t.to(acc).reshape(B, S, Hkv, g, dh).permute(0, 2, 3, 1, 4)
+
+    qh, gh = heads(q), heads(do)
+    delta = (gh * heads(o)).sum(-1)  # [B, Hkv, g, S]
+    lse_h = lse.to(acc).reshape(B, Hkv, g, S)
+    kh = k.to(acc).permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, S, dh]
+    vh = v.to(acc).permute(0, 2, 1, 3)[:, :, None]
+    dq = torch.zeros_like(qh)
+    dk = torch.empty((B, Hkv, S, dh), dtype=acc, device=q.device)
+    dv = torch.empty_like(dk)
+    qpos = torch.arange(S, device=q.device)
+    for k0 in range(0, S, k_block):
+        n = min(k_block, S - k0)
+        r0 = k0 if causal else 0  # rows before the block see none of its keys
+        kb, vb = kh[:, :, :, k0:k0 + n], vh[:, :, :, k0:k0 + n]
+        qb, gb = qh[:, :, :, r0:], gh[:, :, :, r0:]
+        s = qb @ kb.transpose(-1, -2) * scale  # [B, Hkv, g, S - r0, n]
+        p = torch.exp(s - lse_h[..., r0:, None])
+        if causal:
+            kpos = torch.arange(k0, k0 + n, device=q.device)
+            p = p.masked_fill(kpos[None, :] > qpos[r0:, None], 0.0)
+        dv[:, :, k0:k0 + n] = (p.to(v.dtype).to(acc).transpose(-1, -2) @ gb).sum(2)
+        ds = p * (gb @ vb.transpose(-1, -2) - delta[..., r0:, None])
+        dq[:, :, :, r0:] += ds @ kb * scale
+        dk[:, :, k0:k0 + n] = (ds.transpose(-1, -2) @ qb).sum(2) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(q.dtype),
+            dv.permute(0, 2, 1, 3).to(q.dtype))
 
 
 def flash_decode_ref(

@@ -1,11 +1,14 @@
-"""End-to-end DLRM trainer: port of ``repro/launch/train.py`` on one
-device.
+"""End-to-end trainer of the DLRM and the small LM: port of
+``repro/launch/train.py`` on one device.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model dlrm --steps 200
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 --batch 32
   PYTHONPATH=src python -m repro_torch.launch.train --steps 40 --resume \\
       --ckpt-dir /tmp/ck   # kill it mid-run, rerun: it restarts
+  PYTHONPATH=src python -m repro_torch.launch.train --model lm --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --model lm --device cpu --steps 6 \\
+      --batch 8 --seq 16
 
 Features exercised: synthetic zipf pipeline with prefetch, composite
 optimizer (rowwise adagrad + adam), async checkpointing with restart,
@@ -13,8 +16,10 @@ elastic embedding-tier resharding (--reshard-at), loss logging.  On the card
 the step's lookup runs K1 (masked mode) and K2 forward and K1' and K2'
 backward.  A checkpoint written by the reference's trainer resumes here and
 the reverse: the batch of step s comes from ``default_rng(seed * 100_003 +
-s)`` in both.  ``--model lm`` waits for a backward of K6 (ROADMAP queue 1,
-item 4).
+s)`` in both.  ``--model lm`` trains ``make_lm_small`` (4 layers,
+d_model 256, head dim 32, f32 compute) with Adam on ``lm_batch``es seeded
+``seed * 999 + step``, as the reference's ``train_lm``; on the card its
+attention runs K6 (with the row logsumexp) forward and K6' backward.
 """
 from __future__ import annotations
 
@@ -25,10 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs import lm_common
 from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
 from repro_torch.data.pipeline import PrefetchIterator
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.runtime.elastic import reshard_params
 from repro_torch.utils import logger, resolve_device, tree_num_params
@@ -49,6 +56,21 @@ def make_dlrm_100m() -> R.RecsysConfig:
         n_dense=13,
         bottom_mlp=(512, 256, 64),
         mlp=(512, 256),
+    )
+
+
+def make_lm_small() -> T.TransformerConfig:
+    return T.TransformerConfig(
+        name="lm-small",
+        n_layers=4,
+        d_model=256,
+        n_heads=8,
+        n_kv_heads=4,
+        d_ff=1024,
+        vocab=8192,
+        d_head=32,
+        compute_dtype=torch.float32,
+        remat_groups=2,
     )
 
 
@@ -111,11 +133,48 @@ def train_recsys(args) -> dict:
             "device": str(dev), "step_seconds": step_seconds}
 
 
+def train_lm(args) -> dict:
+    """Train lm-small for ``args.steps`` steps of ``args.batch`` sequences of
+    ``args.seq`` tokens with the LM cells' Adam (3e-4, in place:
+    ``lm_common.make_optimizer``) from ``init_params`` seeded
+    ``args.seed``; returns the first and final loss, every step's loss, the
+    steps run and the wall time of each (host clock; each step ends in
+    reading its loss)."""
+    dev = resolve_device(args.device)
+    cfg = make_lm_small()
+    optimizer, _ = lm_common.make_optimizer("adam")
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    logger.info("lm params: %.1fM on %s", tree_num_params(params) / 1e6, dev)
+    state = optimizer.init(params)
+
+    def make_batch(step):  # on the prefetch thread: host arrays only
+        r = np.random.default_rng(args.seed * 999 + step)
+        return syn.lm_batch(r, cfg.vocab, args.batch, args.seq)
+
+    it = PrefetchIterator(make_batch, 0)
+    step_fn = T.make_train_step(cfg, optimizer, None)
+    losses, step_seconds = [], []
+    try:
+        for step in range(args.steps):
+            t_step = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            params, state, metrics = step_fn(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            step_seconds.append(time.perf_counter() - t_step)
+            if step % args.log_every == 0:
+                logger.info("step %d loss %.4f", step, losses[-1])
+    finally:
+        it.close()
+    return {"final_loss": losses[-1], "first_loss": losses[0], "losses": losses,
+            "steps": len(losses), "device": str(dev), "step_seconds": step_seconds}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=["dlrm", "lm"], default="dlrm")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--seq", type=int, default=128, help="tokens a sequence (--model lm)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -129,12 +188,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.model == "lm":
-        raise NotImplementedError(
-            "--model lm is not ported yet: LM training needs a backward of kernel K6 "
-            "(ROADMAP queue 1, item 4)")
-    out = train_recsys(args)
-    logger.info("done: %s", {k: v for k, v in out.items() if k != "step_seconds"})
+    out = train_recsys(args) if args.model == "dlrm" else train_lm(args)
+    logger.info("done: %s", {k: v for k, v in out.items() if k not in ("step_seconds", "losses")})
     if not out["final_loss"] < out["first_loss"]:
         raise AssertionError(f"loss must improve: {out['first_loss']} -> {out['final_loss']}")
     return out

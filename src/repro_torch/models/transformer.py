@@ -1,14 +1,23 @@
-"""Decoder-only LM family (dense GQA and MoE variants): the serving path.
+"""Decoder-only LM family (dense GQA and MoE variants): serving and
+training.
 
-Port of ``repro/models/transformer.py``'s serving path: ``forward`` and
-``prefill`` (a whole prompt on one device; attention is kernel K6 on the
-card) and ``decode_step`` (one token against the KV cache; attention is
-kernel K7), with the experts of ``cfg.moe`` (``models/moe.py``) beside or
+Port of ``repro/models/transformer.py``: ``forward`` and ``prefill`` (a
+whole prompt on one device; attention is kernel K6 on the card),
+``decode_step`` (one token against the KV cache; attention is kernel K7),
+and training: ``lm_loss`` and ``make_train_step`` (gradient accumulation
+over ``cfg.microbatches``, ``cfg.bf16_grads``), whose ``forward`` runs the
+reference's two-level remat and whose attention backward is kernel K6' on
+the card.  The experts of ``cfg.moe`` (``models/moe.py``) run beside or
 instead of the dense SwiGLU FFN.  Parameters are a nested dict of tensors
 with the reference's keys and its ``[L, ...]``-stacked layer layout, so
 ``params_from_numpy`` carries the reference's weights across unchanged,
-experts included.  The layers run as a Python loop (no scan, no remat:
-serving keeps no activations for a backward pass).
+experts included; ``abstract_params`` gives them as ``meta`` tensors and
+``param_specs`` the reference's GSPMD layout of them.  The layers run as a
+Python loop; under autograd they run inside ``torch.utils.checkpoint``
+(non-reentrant) around groups of ``cfg.groups()`` and again around each
+layer, as the reference's ``jax.checkpoint`` around its two scans: the
+backward of a group recomputes its layers' inputs, then each layer's
+internals, one layer at a time.
 
 Under a ``launch.mesh.Mesh``, ``decode_step`` is the reference's
 sequence-sharded decode: each rank holds its block of the KV caches (batch
@@ -23,32 +32,45 @@ the reference's GSPMD computes the same values with tensor-parallel
 weights.  The geometry methods of ``TransformerConfig`` take the mesh
 (heads and vocab padded to the `model` axis); without one, tp is 1.
 
-Waiting for the LM training slice (ROADMAP queue 1, item 4): ``lm_loss``,
-``make_train_step``, ``abstract_params``, ``param_specs``, tensor and
-sequence parallelism of ``forward``/``prefill`` under a mesh, and the
-reference's remat, microbatch, FSDP and ``seq_shard`` fields.
+Waiting for the tensor- and sequence-parallel slice (ROADMAP queue 1, item
+4): ``forward``, ``prefill`` and ``make_train_step`` under a mesh (the
+reference's GSPMD layouts of ``param_specs``, FSDP, ``grad_specs`` and
+``seq_shard``); they raise ``NotImplementedError`` given one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, PartitionSpec
+from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, AXIS_POD, PartitionSpec
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.utils import numpy_to_tensor, resolve_device, round_up, tree_map
+from repro_torch.utils import (numpy_to_tensor, resolve_device, round_up, tree_flatten_with_path,
+                               tree_map, tree_unflatten)
+
+P = PartitionSpec
+# The reference's mesh parameters stand here as placeholders, so that a cell
+# is built as the reference builds it: ``prefill``'s ``mesh`` and
+# ``batch_axes``, ``make_train_step``'s ``mesh``, ``batch_axes`` and
+# ``grad_specs``, and the config's ``q_block``, ``seq_shard`` and ``fsdp``
+# (read by ``param_specs`` only).  A mesh raises, naming this slice.
+MESH_SLICE = ("the tensor- and sequence-parallel slice (ROADMAP queue 1, item 4) has not "
+              "ported the GSPMD layouts of forward, prefill and the train step")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config cut to the fields the serving path reads; the
-    training fields (remat, microbatches, FSDP, sequence parallelism) come
-    back with the LM training slice."""
+    """The reference's config, every field with its default.  ``q_block``
+    (the reference's remat block of queries in its jnp attention) has no
+    effect here: K6 and its plain version tile themselves.  ``seq_shard``
+    and ``fsdp`` are layouts under a mesh (``param_specs``)."""
 
     name: str
     n_layers: int
@@ -65,6 +87,14 @@ class TransformerConfig:
     moe_dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    q_block: int = 512
+    seq_shard: bool = False  # sequence-parallel residual stream
+    remat_groups: int = 0  # 0 -> auto (~sqrt(L))
+    fsdp: bool = True  # shard weight rows over `data` too
+    microbatches: int = 1  # gradient-accumulation splits of the per-step batch
+    # Differentiate through a copy of the weights in the compute dtype (cast
+    # once per step); the f32 master lives only in the optimizer.
+    bf16_grads: bool = False
 
     # ---- mesh-dependent geometry (a launch.mesh.Mesh or AbstractMesh) ----
     def tp(self, mesh=None) -> int:
@@ -80,6 +110,19 @@ class TransformerConfig:
 
     def padded_vocab(self, mesh=None) -> int:
         return round_up(self.vocab, 128 * self.tp(mesh))
+
+    def groups(self) -> int:
+        """Remat groups: ``remat_groups``, or the largest divisor of the
+        layer count at most sqrt(L)."""
+        if self.remat_groups:
+            return self.remat_groups
+        g = max(1, int(math.sqrt(self.n_layers)))
+        while self.n_layers % g:
+            g -= 1
+        return g
+
+    def batch_axes(self, multi_pod: bool) -> tuple[str, ...]:
+        return (AXIS_POD, AXIS_DATA) if multi_pod else (AXIS_DATA,)
 
     def dense_ffn(self) -> bool:
         """Whether the layers have the dense SwiGLU FFN (no experts, or
@@ -111,7 +154,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda", mesh=None)
     differ from the reference's ``jax.random``; parity tests carry the
     reference's weights across with :func:`params_from_numpy`."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # meta tensors (abstract_params) hold no numbers and take no generator
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     D, dh, Hp, Hkv = cfg.d_model, cfg.d_head, cfg.padded_heads(mesh), cfg.n_kv_heads
     Lyr, Vp, dt = cfg.n_layers, cfg.padded_vocab(mesh), cfg.param_dtype
 
@@ -150,6 +194,46 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda", mesh=None)
         "final_ln": ones((D,)),
         "head": nrm((Vp, D), D),
     }
+
+
+def abstract_params(cfg: TransformerConfig, mesh=None) -> dict:
+    """The params' global shapes and dtypes as ``meta`` tensors (the
+    reference's ``jax.eval_shape`` of its init): no allocation."""
+    return init_params(cfg, 0, device="meta", mesh=mesh)
+
+
+def param_specs(cfg: TransformerConfig, mesh, training: bool = True,
+                fsdp_axes: tuple[str, ...] = (AXIS_DATA,)) -> dict:
+    """The reference's PartitionSpecs of every parameter (its GSPMD layout):
+    tensor parallelism over `model` (columns of wq/wk/wv/wg/wu, rows of
+    wo/wd, experts), weight rows also over ``fsdp_axes`` when training with
+    ``cfg.fsdp``, KV columns over `model` only where the KV heads divide tp,
+    the token table and the head by rows over `model`."""
+    fsdp = fsdp_axes if (cfg.fsdp and training) else None
+    kv_col = AXIS_MODEL if cfg.kv_sharded(mesh) else None
+    lyr = {
+        "ln1": P(None, None),
+        "ln2": P(None, None),
+        "wq": P(None, fsdp, AXIS_MODEL),
+        "wk": P(None, fsdp, kv_col),
+        "wv": P(None, fsdp, kv_col),
+        "wo": P(None, AXIS_MODEL, fsdp),
+    }
+    if cfg.qkv_bias:
+        lyr["bq"] = P(None, AXIS_MODEL)
+        lyr["bk"] = P(None, kv_col)
+        lyr["bv"] = P(None, kv_col)
+    if cfg.dense_ffn():
+        lyr["wg"] = P(None, fsdp, AXIS_MODEL)
+        lyr["wu"] = P(None, fsdp, AXIS_MODEL)
+        lyr["wd"] = P(None, AXIS_MODEL, fsdp)
+    if cfg.moe is not None:
+        lyr["router"] = P(None, None, None)
+        lyr["xg"] = P(None, AXIS_MODEL, fsdp, None)
+        lyr["xu"] = P(None, AXIS_MODEL, fsdp, None)
+        lyr["xd"] = P(None, AXIS_MODEL, None, fsdp)
+    return {"embed": P(AXIS_MODEL, None), "layers": lyr, "final_ln": P(None),
+            "head": P(AXIS_MODEL, None)}
 
 
 def params_from_numpy(cfg: TransformerConfig, np_params: dict, device) -> dict:
@@ -258,15 +342,54 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
     return x + ffn, k, v, aux
 
 
+def _remat_layers(cfg: TransformerConfig, layers: dict, x: torch.Tensor,
+                  positions: torch.Tensor):
+    """The layers under the reference's two-level remat: a non-reentrant
+    ``torch.utils.checkpoint`` around each group of ``L / cfg.groups()``
+    layers, which keeps only the group's input, and inside it one around
+    each layer, which keeps only the layer's input; so a group's backward
+    recomputes its layers' inputs and then one layer's internals at a time.
+    Returns the last hidden state and the summed aux loss."""
+    G = cfg.groups()
+    per = cfg.n_layers // G
+    if per * G != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {G} remat groups do not divide {cfg.n_layers} layers")
+    # One view a layer of each stacked weight: unbind's backward stacks the L
+    # gradients once (indexing would add L zero-filled [L, ...] tensors).
+    names = list(layers)
+    per_layer = [dict(zip(names, ts)) for ts in zip(*(layers[n].unbind(0) for n in names))]
+    ckpt = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+
+    def one_layer(x, aux, lp):
+        x, _, _, aux_l = _layer_forward(cfg, x, lp, positions)
+        return x, aux if aux_l is None else aux + aux_l
+
+    def one_group(x, aux, g):
+        for lp in per_layer[g * per:(g + 1) * per]:
+            x, aux = ckpt(one_layer, x, aux, lp)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        x, aux = ckpt(one_group, x, aux, g)
+    return x, aux
+
+
 def _hidden(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-            return_cache: bool):
+            return_cache: bool, remat: bool = False):
     """Final-normed hidden states [B,S,D], the experts' aux loss summed
     over the layers and, if asked, the KV caches [L,B,S,Hkv,dh] in the
-    compute dtype."""
+    compute dtype; with ``remat`` the layers run under
+    :func:`_remat_layers` (no caches)."""
     dt = cfg.compute_dtype
     B, S = tokens.shape
     x = L.sharded_vocab_embed(params["embed"], tokens, None, out_dtype=dt)
     positions = torch.arange(S, device=tokens.device)[None, :]
+    if remat:
+        if return_cache:
+            raise ValueError("remat keeps no caches")
+        x, aux = _remat_layers(cfg, params["layers"], x, positions)
+        return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux, None
     caches = None
     if return_cache:
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
@@ -283,24 +406,115 @@ def _hidden(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux, caches
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+def _needs_grad(params: dict) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for _, t in tree_flatten_with_path(params))
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None,
             return_cache: bool = False):
     """Full-sequence forward over tokens [B, S] on the params' device.
     Returns ``(logits [B,S,Vp], aux_loss)`` and, with ``return_cache``, the
     KV caches ``(k_cache, v_cache)`` [L,B,S,Hkv,dh] as a third element.
     ``aux_loss`` is the experts' Switch loss summed over the layers (0
-    without experts)."""
-    x, aux, caches = _hidden(cfg, params, tokens, return_cache)
+    without experts).  Whenever autograd will differentiate the params and
+    no caches are asked for, the layers run under the reference's two-level
+    remat; it changes no value.  A mesh raises: its layouts wait for the
+    tensor- and sequence-parallel slice."""
+    if mesh is not None:
+        raise NotImplementedError(f"forward under a mesh: {MESH_SLICE}")
+    remat = not return_cache and _needs_grad(params)
+    x, aux, caches = _hidden(cfg, params, tokens, return_cache, remat)
     logits = x @ params["head"].to(cfg.compute_dtype).T
     return (logits, aux, caches) if return_cache else (logits, aux)
 
 
-def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None,
+            batch_axes: tuple[str, ...] = (AXIS_DATA,)):
     """Prefill: last-position logits [B, Vp] and the KV caches
     [L,B,S,Hkv,dh].  Only the last position goes through the LM head (the
-    reference computes every position's logits and keeps the last)."""
+    reference computes every position's logits and keeps the last).  A mesh
+    raises, as in :func:`forward`."""
+    if mesh is not None:
+        raise NotImplementedError(f"prefill under a mesh: {MESH_SLICE}")
     x, _, caches = _hidden(cfg, params, tokens, return_cache=True)
     return x[:, -1] @ params["head"].to(cfg.compute_dtype).T, caches
+
+
+# ------------------------------------------------------------------ training
+
+
+def lm_loss(cfg: TransformerConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Causal-LM cross entropy in f32 over logits [B,S,Vp] (the padded vocab
+    columns included, as the reference's); labels [B,S] with -1 masked; the
+    mean over the unmasked labels (0 when none is)."""
+    logits = logits.to(torch.float32)
+    mask = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    return nll.sum() / mask.sum().clamp_min(1)
+
+
+def loss_and_grads(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+                   labels: torch.Tensor):
+    """``(loss, grads)``: ``lm_loss`` of ``forward`` (remat on) plus the
+    experts' aux loss, and its gradient with respect to every leaf of
+    ``params``, shaped as ``params`` (the reference's ``jax.value_and_grad``
+    of its ``loss_fn``).  On the card attention's backward is kernel K6'."""
+    leaves = [leaf.detach().requires_grad_(True)
+              for _, leaf in tree_flatten_with_path(params)]
+    with torch.enable_grad():
+        logits, aux = forward(cfg, tree_unflatten(params, leaves), tokens)
+        loss = lm_loss(cfg, logits, labels) + aux
+        del logits
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer, mesh=None,
+                    batch_axes: tuple[str, ...] = (AXIS_DATA,), grad_specs=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss": loss})``, the reference's: with ``cfg.bf16_grads`` the gradient
+    is taken through a copy of the params of two or more dims in the compute
+    dtype; with ``cfg.microbatches`` M > 1 the batch of ``tokens`` and
+    ``labels`` [B, S] splits into M blocks of B / M rows, whose losses and
+    gradients are summed (gradients in f32, from zeros) and divided by M;
+    then ``optimizer.update``.  Nothing waits for the device.  Under a
+    ``mesh`` (with ``batch_axes`` and ``grad_specs``, the reference's
+    gradient layout) the step raises when called: its layouts wait for the
+    tensor- and sequence-parallel slice."""
+
+    def train_step(params, opt_state, batch):
+        if mesh is not None:
+            raise NotImplementedError(f"the LM train step under a mesh: {MESH_SLICE}")
+        M = cfg.microbatches
+        diff = params
+        if cfg.bf16_grads:
+            diff = tree_map(lambda p: p.to(cfg.compute_dtype) if p.dim() >= 2 else p, params)
+        tokens, labels = batch["tokens"], batch["labels"]
+        if M <= 1:
+            loss, grads = loss_and_grads(cfg, diff, tokens, labels)
+        else:
+            B = tokens.shape[0]
+            toks = tokens.reshape(M, B // M, -1)
+            labs = labels.reshape(M, B // M, -1)
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            acc = [t for _, t in tree_flatten_with_path(grads)]
+            for i in range(M):
+                loss_i, g = loss_and_grads(cfg, diff, toks[i], labs[i])
+                for a, b in zip(acc, (t for _, t in tree_flatten_with_path(g))):
+                    a.add_(b.to(a.dtype))
+                loss = loss + loss_i
+                del g
+            loss = loss / M
+            grads = tree_map(lambda g: g.div_(M), grads)
+        new_params, new_state = optimizer.update(grads, opt_state, params)
+        return new_params, new_state, {"loss": loss}
+
+    return train_step
 
 
 # ------------------------------------------------------------------- decode

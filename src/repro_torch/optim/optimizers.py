@@ -15,8 +15,9 @@ Every tree is walked in JAX's flatten order (``utils.tree_flatten_with_path``:
 dict keys sorted), so a state has the reference's structure and a
 checkpoint's leaf keys match the reference's.  ``update`` is functional, as
 the reference's: it returns new params and state and changes none of its
-arguments.  It runs under ``torch.no_grad()`` on the params' device and never
-waits for the device: step counts and bias corrections stay tensors there.
+arguments (but ``make_adam(..., in_place=True)``'s, which donates them).
+It runs under ``torch.no_grad()`` on the params' device and never waits for
+the device: step counts and bias corrections stay tensors there.
 """
 from __future__ import annotations
 
@@ -85,7 +86,17 @@ def make_adam(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    in_place: bool = False,
 ) -> Optimizer:
+    """Adam.  With ``in_place`` the update writes the new params and moments
+    into the tensors it is given (the reference's ``donate_argnums=(0, 1)``
+    of a train cell) and returns them: the same values as the functional
+    update, computed leaf by leaf, so only one leaf's temporaries live
+    beside the params, gradients and moments (a model whose params,
+    gradients and two copies of the state would not fit the card).  The
+    LM's optimizer (``configs.lm_common.make_optimizer``, which
+    ``launch.train --model lm`` and the LM cells take) selects it."""
+
     def init(params):
         zeros = lambda p: torch.zeros_like(p, dtype=F32)  # noqa: E731
         return {"m": _map(zeros, params), "v": _map(zeros, params),
@@ -106,9 +117,13 @@ def make_adam(
                 step = step + lr * weight_decay * p.to(F32)
             return (p.to(F32) - step).to(p.dtype), m1, v1
 
-        outs = [upd(*xs) for xs in zip(_leaves(params), _leaves(grads),
-                                        _leaves(state["m"]), _leaves(state["v"]))]
-        new_p, new_m, new_v = _unzip(params, outs, 3)
+        leaves = zip(_leaves(params), _leaves(grads), _leaves(state["m"]), _leaves(state["v"]))
+        if in_place:
+            for p, g, m, v in leaves:
+                for old, new in zip((p, m, v), upd(p, g, m, v)):
+                    old.copy_(new)
+            return params, {"m": state["m"], "v": state["v"], "t": t}
+        new_p, new_m, new_v = _unzip(params, [upd(*xs) for xs in leaves], 3)
         return new_p, {"m": new_m, "v": new_v, "t": t}
 
     return Optimizer(init, update)

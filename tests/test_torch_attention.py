@@ -411,14 +411,14 @@ def test_model_prefill_f32_reaches_the_f32_kernel(fake_k6, monkeypatch):
     checks at every head dim the kernel takes."""
     monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
     B, S, H, Hkv = 1, 13, 4, 2
-    for dh in K6.HEAD_DIMS:
+    for dh in K6.HEAD_DIMS[torch.float32]:
         x = torch.randn(B, S, (H + 2 * Hkv) * dh)
         q, k, v = x.split((H * dh, Hkv * dh, Hkv * dh), dim=-1)
         pos = torch.arange(S)[None]
         q = L.apply_rope(q.reshape(B, S, H, dh), pos, 10_000.0)
         k = L.apply_rope(k.reshape(B, S, Hkv, dh), pos, 10_000.0)
         L.gqa_prefill_attention(q, k, v.reshape(B, S, Hkv, dh), causal=True)
-    assert [a[8] for _, a in fake_k6.calls] == list(K6.HEAD_DIMS)
+    assert [a[8] for _, a in fake_k6.calls] == list(K6.HEAD_DIMS[torch.float32])
     assert {s for s, _ in fake_k6.calls} == {"flash_attention_f32"}
 
 
@@ -525,6 +525,6 @@ def test_bound_symbols_exist_in_source(mod):
     exported = set(re.findall(r"^(?:int|const char\*) (\w+)\(", src, re.M))
     assert set(mod._SYMBOLS.values()) | {f"{mod.NAME}_error_string"} <= exported
     cases = {int(d) for d in re.findall(r"case (\d+):", src)}
-    assert set(mod.HEAD_DIMS) == cases
+    assert set().union(*mod.HEAD_DIMS.values()) == cases
     path = build.library_path(mod.NAME)
     assert re.fullmatch(rf"lib{mod.NAME}-[0-9a-f]{{16}}\.so", path.name)

@@ -297,11 +297,15 @@ def test_no_gradient_for_weights_or_bf16():
 
 def test_mesh_and_lm_refused():
     """The mesh step is ported (tests/test_torch_sharded.py holds it against
-    the reference's); the LM trainer is still refused."""
+    the reference's), and so is the LM trainer, refused no more: ``--model
+    lm`` trains lm-small (tests/test_torch_lm_train.py holds it against the
+    reference's)."""
     _, tcfg = _cfgs("tiny")
     assert callable(R.make_train_step(tcfg, O.make_sgd(0.1), mesh=object()))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        ttrain.main(["--model", "lm", "--device", "cpu"])
+    args = ttrain.parse_args(["--model", "lm", "--device", "cpu", "--steps", "2",
+                              "--batch", "2", "--seq", "8"])
+    out = ttrain.train_lm(args)
+    assert out["steps"] == 2 and all(np.isfinite(out["losses"]))
 
 
 def test_train_defaults_to_cuda_and_raises_without_gpu():
