@@ -247,7 +247,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 of ``F.scaled_dot_product_attention(..., enable_gqa=True)``
                 and its bound (five products of 2 B H dh a kept pair; f32
                 at three tf32 products each, the FMA bound beside it), and
-                K6 with and without its logsumexp;
+                K6 with and without its logsumexp; each of K6''s three
+                launches (D, dK/dV, dQ) timed from a profiler window;
   9h. lm_train_small — lm-small (``launch.train.make_lm_small``): one
                 step's loss and every gradient leaf on the card against the
                 CPU (64 sequences of the trainer's first batch, rtol 1e-5,
@@ -474,6 +475,8 @@ K6B_FLOOR = 2.0**-12
 # K6''s planted fault: its dK/dV loops (f32 and bf16) skip the first query
 # tile they visit (a causal key tile's diagonal tile)
 K6B_PLANT = ("  return causal ? j * ratio : 0;", "  return (causal ? j * ratio : 0) + 1;")
+# K6''s three launches by the names of their kernels (device_busy's filter)
+K6B_LAUNCHES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 LMT_SMALL_STEPS, LMT_SMALL_BATCH, LMT_SMALL_SEQ = 50, 256, 128  # launch.train --model lm
 LMT_SMALL_CHECK = 64  # sequences of the trainer's first batch in the card-vs-CPU step
 LMT_BATCH, LMT_SEQ, LMT_STEPS = 2, 4096, 3  # stablelm-3b: train_4k's batch of 256 cut to 2
@@ -520,7 +523,9 @@ def device_busy(fn, calls: int, kernels: tuple = ()) -> dict:
     """Run ``fn`` ``calls`` times under ``torch.profiler``: the device time
     its kernels took (summed; one stream, so they do not overlap), how many
     kernels and copies ran, the kernels with the most of the time and, for
-    each name in ``kernels``, the time of the kernels whose name holds it.
+    each name in ``kernels``, the time of the kernels whose name holds it, a
+    call and (``kernels_ms_each``) a launch, over the launches the trace
+    holds (a window of a few short calls can miss its first ones).
     ``device_busy_ms`` is None when the trace holds no device events.  The
     profiler slows the host, so the window's own wall time is not reported;
     compare with an unprofiled run."""
@@ -532,10 +537,12 @@ def device_busy(fn, calls: int, kernels: tuple = ()) -> dict:
             fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    count: dict = {}
     n_ops = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
             n_ops += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"calls": calls,
@@ -545,7 +552,24 @@ def device_busy(fn, calls: int, kernels: tuple = ()) -> dict:
     if kernels:
         out["kernels_ms_per_call"] = {
             k: sum(ms for n, ms in by_name.items() if k in n) / calls for k in kernels}
+        seen = {k: sum(c for n, c in count.items() if k in n) for k in kernels}
+        out["kernels_ms_each"] = {
+            k: sum(ms for n, ms in by_name.items() if k in n) / seen[k] if seen[k] else None
+            for k in kernels}
+        out["kernels_launches"] = seen
     return out
+
+
+def sdpa_backward(q, k, v, do, causal: bool):
+    """K6''s yardstick, timed and never called by the port: a function that
+    runs the backward alone of one ``F.scaled_dot_product_attention`` call
+    (GQA) on the same [B, S, heads, dh] tensors."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    g = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
 
 
 def kernel_name(mangled: str) -> str:
@@ -1394,8 +1418,6 @@ def lm_train(dev: torch.device, planted) -> dict:
     lm_train_kernels, lm_train_small, lm_train, lm_moe_train and lm_registry.
     ``planted`` is the nvcc process and library of K6''s planted fault.
     Returns the launches of each path, K6''s rows and the paths' summaries."""
-    import torch.nn.functional as F
-
     from repro_torch import configs
     from repro_torch.configs import lm_common
     from repro_torch.configs.olmoe_1b_7b import make_config as make_olmoe
@@ -1478,14 +1500,6 @@ def lm_train(dev: torch.device, planted) -> dict:
     # ---------------------------------------------------- lm_train_kernels
     log("[lm_train_kernels] K6 with its logsumexp and K6' against their plain versions")
 
-    def sdpa_backward(q, k, v, do, causal):
-        # The yardstick, timed here and never called by the port: the
-        # backward alone of one SDPA call on the same tensors.
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
-        g = do.transpose(1, 2)
-        return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
-
     def k6b_bound(q, k, causal, rate=None):
         B_, S_, H_, d_ = q.shape
         pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
@@ -1510,7 +1524,18 @@ def lm_train(dev: torch.device, planted) -> dict:
         lse = torch.empty((B, H, S), dtype=f32, device=dev)
         o_k = K6.flash_attention(q, k, v, causal, lse=lse)
         o, want_lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
-        check(f"K6 {label} {shape}: output", o_k, o, *tol)
+        try:
+            check(f"K6 {label} {shape}: output", o_k, o, *tol)
+        except AssertionError as e:
+            # Which side is off, and does it repeat: both against an f64
+            # plain version, and each run once more on the same inputs.
+            exact = ref.flash_attention_ref(q.double(), k.double(), v.double(), causal)
+            same_k = torch.equal(K6.flash_attention(q, k, v, causal), o_k)
+            same_p = torch.equal(ref.flash_attention_ref(q, k, v, causal), o)
+            raise AssertionError(
+                f"{e}; against f64: kernel {max_err(o_k, exact):.3e}, plain "
+                f"{max_err(o, exact):.3e}; run again bit-equal: kernel {same_k}, plain "
+                f"{same_p}") from None
         assert_close(f"K6 {label} {shape}: row logsumexp", lse, want_lse, *LM_F32_TOL)
         got = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
         want = ref.flash_attention_backward_ref(q, k, v, o, want_lse, do, causal)
@@ -1547,10 +1572,18 @@ def lm_train(dev: torch.device, planted) -> dict:
                                                                            lse=lse), flush)}
             if dt == f32:
                 row["bound_ms_fma"] = k6b_bound(q, k, causal)[0]
+            # K6''s three launches (D, dK/dV, dQ), device time a launch from
+            # a profiler window of 10 calls (L2 not flushed): which pass sets
+            # the pace.
+            busy = device_busy(lambda: K6.flash_attention_backward(q, k, v, o, want_lse, do,
+                                                                   causal), 10, K6B_LAUNCHES)
+            row["launch_ms"] = busy.get("kernels_ms_each")
+            row["launches_traced"] = busy.get("kernels_launches")
             rows.append(row)
             log(f"  K6' {label}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
                 f"backward {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-                f"{row['bound_by']}: {row['bound_ms'] / row['ms']:.1%} of it)")
+                f"{row['bound_by']}: {row['bound_ms'] / row['ms']:.1%} of it); launches "
+                f"{row['launch_ms']}")
         del q, k, v, do, o, o_k, lse, want_lse, got, want
     torch.cuda.empty_cache()
     out["k6b_rows"], out["k6b_errs"] = rows, errs

@@ -18,42 +18,101 @@
 // is f32; the outputs are q's dtype, [B, S, heads, dh] contiguous.
 //
 // What bounds it on the card: operations.  Five products of 2 dh FLOP per
-// (query, key) pair kept (S, dP, dV, dK, dQ; this design recomputes S and dP
-// once more in the dQ pass: seven, and in bf16 runs dK and dQ twice, nine),
+// (query, key) pair kept (S, dP, dV, dK, dQ; both designs recompute S and
+// dP once more in the dQ pass: seven, and in bf16 run dK and dQ twice, nine),
 // against 2 dh elements of K and V a key
 // and 3 dh of q, o, do a query row, so at S = 4096 it does thousands of FLOP
 // per byte: far above the ridge.
 //
-// What the design does about it: a first, simple design whose point is
-// determinism and exactness; PERF.md holds its times beside SDPA's
-// backward and its bound.
-//  * Three launches: D (a warp a row); dK/dV with one block per (b, KV head,
-//    64-key tile) looping over the group's query heads and over the query
-//    tiles at or after the key tile when causal; dQ with one block per (b,
-//    head, 64-row query tile) looping over the key tiles up to its
-//    diagonal.  Each output element is owned by one thread of one block and
-//    summed in a fixed order: no atomics, two launches give equal bits (a
-//    training resume stays bit-equal).
-//  * P is recomputed from q, k and lse in both passes; dP from do and v.
-//  * bf16 runs the products on the tensor cores with mma.sync m16n8k16
-//    (the section "bf16 on mma.sync" below).
-//  * f32 runs them as scalar f32 FMAs from shared memory, which keeps every
-//    product exact to f32 rounding (the reference holds f32 attention to
-//    2e-5) at a fraction of the f32 FMA rate (67 TFLOP/s).  Tiles live in
-//    shared memory as f32 with a row pitch of dh + 1 floats (dh is a
-//    multiple of 16: the pitch is odd, so 16 threads reading 16 rows at one
-//    column hit 16 banks); P and dS at a pitch of 65.  A thread holds a
-//    4 x 4 block of S and dP (rows ty + 16a, keys tx + 16b, ty = tid / 16,
-//    tx = tid % 16) and 4 rows x dh / 16 columns of each accumulator (rows
-//    ty + 16a, columns tx + 16e).
-//  * Any S: rows and keys past S load as zeros and are masked; rows past S
-//    are not stored.  Offsets are 64-bit.
+// What the design does about it.  Both dtypes: three launches, D (a warp a
+// row), dK/dV with one CTA per (b, KV head, key tile) looping over the
+// group's query heads in order and over the query tiles at or after the key
+// tile (first_query_tile) when causal, and dQ with one CTA per (b, head,
+// query tile) looping over the key tiles up to its diagonal.  Each output
+// element is owned by one thread of one CTA and summed in a fixed order: no
+// atomics, two launches give equal bits (a training resume stays
+// bit-equal).  P is recomputed from q, k and lse in both passes; dP from do
+// and v.  Any S: rows and keys past S load as zeros and are masked; rows
+// past S are not stored.
+//
+// bf16 on Hopper (FlashAttention-3's shape, without its atomics; the
+// section "bf16 on wgmma" below):
+//  * A warp-specialised CTA of 384 threads owns 128 rows: keys in the dK/dV
+//    pass, query rows in the dQ pass, 64 for each of two consumer
+//    warpgroups.  One thread of the producer warpgroup loads the CTA's two
+//    owned tiles (K and V, or Q and dO) once by TMA and streams the other
+//    two (Q and dO in query tiles of 64, or K and V in key tiles of 64)
+//    through a ring of 2 stages with full and empty mbarriers.  The dK/dV
+//    consumers read each step's lse (times log2 e) and D into a
+//    per-warpgroup shared buffer a step ahead; the dQ consumers read their
+//    two rows' once.
+//  * dK/dV, a consumer warpgroup a step: S^T = K Q^T and dP^T = V dO^T are
+//    wgmma with both operands in shared memory, K-major (m64n64, dh / 16
+//    k-steps); P^T and dS^T are formed in registers on the accumulator
+//    layout while dP^T still runs, and pack into the register A fragment of
+//    the next products (as K6's P does): dV += P^T dO and dK += dS^T Q are
+//    wgmma with A from registers and dO, Q read MN-major through the
+//    descriptor's transpose bit.  dQ: S = Q K^T, dP = dO V^T shared-shared,
+//    dS in registers, dQ += dS K with K MN-major.
+//  * Numerics as the mma.sync design before it: P rounded to bf16 for dV
+//    (as K6's P . V takes it); dS as two bf16 parts, hi = bf16(dS) and lo =
+//    bf16(dS - hi), each product run twice, lo first (rounded once, dS put
+//    dq 1.56e-2 off the f32 plain version at stablelm's layer, PERF.md);
+//    every sum f32.  This design still forms S and dP in both passes and
+//    runs dK and dQ twice: nine products a kept pair against the bound's
+//    five.
+//  * Causal: only the diagonal and ragged tiles mask; a warpgroup skips a
+//    step that is wholly masked for it (the other warpgroup's keys or rows
+//    need the tile), and no tile that both skip is loaded.  Longest work
+//    first: key tile 0 first in dK/dV, the last query tile first in dQ.
+//
+// Where the trouble was, and how it was met:
+//  * Registers.  dK and dV of 64 keys at dh 128 are 128 f32 a thread beside
+//    S^T and dP^T (64): past the 168 that a CTA of 288 or 384 threads
+//    gives each thread (an SM's four schedulers each hold a quarter of the
+//    register file and a CTA's warps go to them in turn, so a producer
+//    warp beside 8 consumer warps costs a warpgroup's registers; a launch
+//    at 184-202 was refused).  setmaxnreg moves the producer warpgroup's
+//    registers to the consumers (40 and 232, K6's split), but ptxas gives
+//    the code after setmaxnreg.inc its registers only when no trap sits in
+//    it inline: with hopper::mbar_wait's inline trap dK/dV spilled 52-1016
+//    bytes at dh 80-128 and ptxas serialised its wgmma (C7512); with the
+//    trap out of line (hopper::mbar_wait<true>) nothing spills.  Without
+//    a producer (256 threads, thread 0 issuing the loads between its own
+//    products) nothing spilled either, but it ran 1.33x slower at
+//    stablelm's layer.
+//  * One tile, two majors.  Q and dO (dK/dV) and K (dQ) are read K-major by
+//    one product and MN-major by another, from one layout: 64-column
+//    regions with a 128-byte swizzle (and dh 96's last 32 columns with a
+//    64-byte one), or at dh 80 five 16-column regions with a 32-byte
+//    swizzle (K6 keeps its V so): a K-major k-step is 32 bytes of each row
+//    of one region, an MN-major k-step 16 whole rows of every region.
+//  * Product shapes: shared-shared m64n64 (new in hopper.cuh) and
+//    register-A n64, n32 and n80.
+//  * Tensor maps: tensor_map.cuh, shared with K6.
+//
+// f32 runs the products as scalar f32 FMAs from shared memory, which keeps
+// every product exact to f32 rounding (the reference holds f32 attention to
+// 2e-5) at a fraction of the f32 FMA rate (67 TFLOP/s).  Tiles live in
+// shared memory as f32 with a row pitch of dh + 1 floats (dh is a multiple
+// of 16: the pitch is odd, so 16 threads reading 16 rows at one column hit
+// 16 banks); P and dS at a pitch of 65.  A thread holds a 4 x 4 block of S
+// and dP (rows ty + 16a, keys tx + 16b, ty = tid / 16, tx = tid % 16) and 4
+// rows x dh / 16 columns of each accumulator (rows ty + 16a, columns tx +
+// 16e).  Offsets are 64-bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "tensor_map.cuh"
+
 namespace {
+
+using tensor_map::kEncodeError;
+using tensor_map::make_map;
 
 constexpr int kTile = 64;  // query rows and keys per tile
 constexpr int kThreads = 256;
@@ -375,47 +434,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------- bf16 on mma.sync
-//
-// The bf16 kernels run the five products on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate): 4 warps a block, 16 rows a
-// warp.  dK/dV: a block owns 64 keys (16 a warp) and streams the group's
-// query tiles of 32 rows; the warp forms S^T = K Q^T and dP^T = V dO^T (16
-// keys x 32 queries), then P^T and dS^T in the accumulator layout, which
-// packs to bf16 as the A operand of dV += P^T dO and dK += dS^T Q (the
-// forward's trick for P . V).  dQ: a block owns 64 query rows (16 a warp)
-// and streams key tiles of 64: S = Q K^T, dP = dO V^T, then dQ += dS K.
-// Tiles sit in shared memory as bf16 rows of dh + 8 elements (16-byte
-// aligned for ldmatrix, and the 8 rows of a fragment load fall in distinct
-// banks); A and K-major B fragments are 32-bit loads, the B operands read
-// along the tile's rows (dO, Q, K as the second factor) come by
-// ldmatrix.trans.  P is rounded to bf16 for dV (as K6 rounds it for P . V).
-// dS is not: rounded to bf16 (as FlashAttention-2 takes it), dQ at
-// stablelm-3b's layer differed from the plain version's f32 dS by up to
-// 1.6e-2 on the card (a row's sum over thousands of keys cancels), 3.9e-3
-// split (PERF.md); so dS = hi + lo, two bf16 parts, and each of those
-// products is two mma.sync (lo first), which keeps dS to about 2^-17 of
-// itself.  Every sum stays f32.  No atomics:
-// each output element belongs to one warp and is summed in a fixed order.
-
-constexpr int kWarpsMma = 4;
-constexpr int kThreadsMma = 32 * kWarpsMma;
-constexpr int kOwnMma = 16 * kWarpsMma;  // keys (dK/dV) or query rows (dQ) a block owns
-constexpr int kQStepMma = 32;  // query rows a dK/dV iteration streams
-constexpr int kKStepMma = 64;  // keys a dQ iteration streams
-static_assert(kOwnMma == kTile, "both designs tile S by 64: one grid formula");
-
-template <int D>
-struct SmemMma {  // four bf16 tiles of kOwnMma rows, then lse and D of the query rows
-  static constexpr int kPitch = D + 8;
-  static constexpr int kTile = kOwnMma * kPitch;
-  static constexpr int kBytes = 4 * kTile * 2 + 2 * kOwnMma * 4;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -431,364 +449,619 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& big, ui
   small = *reinterpret_cast<const uint32_t*>(&s);
 }
 
-// The A fragment of k-step kk from the accumulators of n-tiles 2kk and
-// 2kk + 1 (the C layout of keys 16kk.. is the A layout), split in two.
-__device__ __forceinline__ void split_frag(const float (&c0)[4], const float (&c1)[4],
-                                           uint32_t (&big)[4], uint32_t (&small)[4]) {
-  split_bf16(c0[0], c0[1], big[0], small[0]);
-  split_bf16(c0[2], c0[3], big[1], small[1]);
-  split_bf16(c1[0], c1[1], big[2], small[2]);
-  split_bf16(c1[2], c1[3], big[3], small[3]);
-}
+// ---------------------------------------------------------- bf16 on wgmma
+//
+// The design note at the top ("bf16 on Hopper").  Both passes are one
+// warp-specialised CTA of two consumer warpgroups (64 rows each) and a
+// producer warpgroup, one thread of which issues every TMA load: the CTA
+// owns kOwnRows rows of two tiles (K and V in the dK/dV pass, Q and dO in
+// the dQ pass), loaded once, and streams the other two (Q and dO, or K and
+// V) through a ring of kStagesBwd stages.
 
-// c += A . B, m16n8k16, bf16 in, f32 accumulate.  Fragments (g = lane / 4,
-// t = lane % 4): A a0 (g, 2t..2t+1), a1 (g + 8, ..), a2 (g, 2t+8..), a3
-// (g + 8, 2t+8..); B b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); C c0, c1
-// (g, 2t + {0, 1}), c2, c3 (g + 8, ..).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kOwnRows = 128;  // keys (dK/dV) or query rows (dQ) a CTA owns
+constexpr int kWgRows = 64;  // of those, a consumer warpgroup's
+constexpr int kConsumersBwd = kOwnRows / kWgRows;
+constexpr int kThreadsBwd = 128 * (kConsumersBwd + 1);
+// Registers: an SM's four schedulers each hold a quarter of the register
+// file, and a CTA's warps go to them in turn, so a 288-thread CTA (a
+// producer warp) held every thread to 168, where dK/dV spilled 36-440 bytes
+// at dh 80, 96 and 128 and ptxas serialised its wgmma (C7512).  setmaxnreg
+// moves the producer warpgroup's registers to the consumers (K6's split),
+// which ptxas honours only with the waits' trap out of line
+// (hopper::mbar_wait<true>; the note at the top).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kKeyStep = 64;  // keys a dQ step streams
+// Ring depth of both passes: two stages ran faster than three at
+// stablelm's layer (1.915 against 2.007 ms) and at olmoe's (0.739 against
+// 0.755), one stage 1.4x and 1.2x slower (tools/kernel_variants/
+// k6b_split.json, PERF.md).
+constexpr int kStagesBwd = 2;
+// Query rows a dK/dV step streams.  32 at dh 128 (where 64 once left too
+// few registers) ran 28% slower than 64 at olmoe's layer (0.964 against
+// 0.751 ms).
+constexpr int kQueryStep = 64;
 
-// The A fragment of rows r0.. and columns k0.. of a row-major tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int pitch,
-                                       int r0, int k0, int g, int t) {
-  const __nv_bfloat16* p = tile + (r0 + g) * pitch + k0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * pitch);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * pitch + 8);
-}
-
-// The B fragment of X^T (k = X's columns k0.., n = X's rows n0..): pairs
-// along X's rows, two 32-bit loads.
-__device__ __forceinline__ void frag_bt(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                        int pitch, int n0, int k0, int g, int t) {
-  const __nv_bfloat16* p = tile + (n0 + g) * pitch + k0 + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// The B fragment of X itself (k = X's rows k0..k0+15, n = X's columns
-// n0..n0+7): ldmatrix.trans of two 8 x 8 blocks, lane l naming row k0 + l
-// (lanes 16-31 repeat 0-15).
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                       int pitch, int k0, int n0, int lane) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_addr(tile + (k0 + (lane & 15)) * pitch + n0)));
-}
-
-// Rows [row0, row0 + n) of one head into a bf16 tile, 16 bytes a copy
-// (the wrapper checks that rows and strides are 16-byte multiples); rows
-// past S are zeros.
+// A tile of R rows of dh bf16 in shared memory, TMA-loaded as regions that
+// are one box each: dh 80 as five 16-column regions (32-byte rows, 32-byte
+// swizzle), other head dims as D / 64 regions of 64 columns (128-byte rows,
+// 128-byte swizzle) and, at dh 96, one of 32 (64-byte rows and swizzle):
+// [region][R][span].  One layout serves both majors: a K-major k-step of 16
+// columns is 32 bytes of a region's rows, and an MN-major k-step of 16 rows
+// is 16 whole rows of every region (K6 reads V so; flash_attention.cu).
 template <int D>
-__device__ __forceinline__ void load_tile_mma(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              long long row0, int n, long long S, long long rs) {
-  constexpr int P = SmemMma<D>::kPitch;
-  constexpr int CH = D / 8;
-  for (int e = threadIdx.x; e < n * CH; e += kThreadsMma) {
-    const int r = e / CH;
-    const int c = e - r * CH;
-    const long long row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) val = *reinterpret_cast<const uint4*>(src + row * rs + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * P + c * 8) = val;
+struct TileBf16 {
+  static constexpr bool kChunked = D == 80;
+  static constexpr int kMain = kChunked ? 0 : D / 64;
+  static constexpr int kRem = kChunked ? 0 : D % 64;
+  static_assert(kChunked || kRem == 0 || kRem == 32, "dh in 64, 80, 96, 128");
+};
+
+// The descriptor of k-step c (columns 16c..16c+15) of rows row0..row0+63 of a
+// K-major tile of R rows at `tile`.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int R, int row0, int c) {
+  using T = TileBf16<D>;
+  if constexpr (T::kChunked) {
+    return hopper::desc<32>(tile + c * R * 32 + row0 * 32, 16, 256);
+  } else {
+    if (c < 4 * T::kMain)
+      return hopper::desc<128>(tile + (c / 4) * R * 128 + row0 * 128 + (c % 4) * 32, 16, 1024);
+    return hopper::desc<64>(tile + T::kMain * R * 128 + row0 * 64 + (c - 4 * T::kMain) * 32, 16,
+                            512);
   }
 }
 
-// lse (times log2 e, for exp2) and D of n query rows; 0 past S (masked).
-__device__ __forceinline__ void load_rows_mma(float* lse_s, float* delta_s, const float* lse,
-                                              const float* delta, long long row0, int n,
-                                              long long S) {
-  for (int r = threadIdx.x; r < n; r += kThreadsMma) {
-    const long long row = row0 + r;
-    lse_s[r] = row < S ? lse[row] * kLog2eBwd : 0.f;
-    delta_s[r] = row < S ? delta[row] : 0.f;
+// acc = X . Y^T: X rows x0..x0+63 of a K-major tile of XR rows, Y a K-major
+// tile of N = 64 rows, dh / 16 k-steps, both from shared memory.  The
+// first k-step ignores acc's old values.
+template <int D, int N, int XR>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t x, int x0, uint32_t y) {
+  static_assert(N == 64, "the shared-shared products are m64n64");
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    const uint64_t a = kmajor_desc<D>(x, XR, x0, c);
+    const uint64_t b = kmajor_desc<D>(y, N, 0, c);
+    hopper::wgmma_ss_m64n64<0, 0>(acc, a, b, c > 0);
   }
 }
 
+// acc += A . Y for k-step kk: A's 16 columns from registers, Y a tile of K
+// rows (the reduction) read MN-major (dh, wgmma's N, contiguous: the
+// transpose bit).  dh 80 is one n80 product over the five regions (LBO = one
+// region, SBO = 8 rows of 32 B); a 64-column region is an n64 product each
+// (LBO = one region, SBO = 8 rows of 128 B, a k-step 2 KB) and dh 96's last
+// region an n32 (SBO = 8 rows of 64 B).  acc follows dh in order.
+template <int D, int K>
+__device__ __forceinline__ void rs_step(float (&acc)[D / 2], const uint32_t (&a)[4], uint32_t y,
+                                        int kk) {
+  using T = TileBf16<D>;
+  if constexpr (T::kChunked) {
+    hopper::wgmma_rs_m64n80<1>(acc, a, hopper::desc<32>(y + kk * 16 * 32, K * 32, 256));
+  } else {
+#pragma unroll
+    for (int j = 0; j < T::kMain; ++j)
+      hopper::wgmma_rs_m64n64<1>(*reinterpret_cast<float(*)[32]>(&acc[32 * j]), a,
+                                 hopper::desc<128>(y + j * K * 128 + kk * 16 * 128, K * 128, 1024));
+    if constexpr (T::kRem == 32)
+      hopper::wgmma_rs_m64n32<1>(
+          *reinterpret_cast<float(*)[16]>(&acc[32 * T::kMain]), a,
+          hopper::desc<64>(y + T::kMain * K * 128 + kk * 16 * 64, K * 64, 512));
+  }
+}
+
+// The four A registers of k-step kk of a fragment.
+template <int K>
+__device__ __forceinline__ const uint32_t (&kstep(const uint32_t (&a)[K / 4], int kk))[4] {
+  return *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * kk]);
+}
+
+// acc += A . Y over the K rows of Y.
+template <int D, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
+                                         uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) rs_step<D, K>(acc, kstep<K>(a, kk), y, kk);
+}
+
+// acc += (lo + hi) . Y: dS's two bf16 parts, lo's product first at each k-step.
+template <int D, int K>
+__device__ __forceinline__ void issue_rs_split(float (&acc)[D / 2], const uint32_t (&lo)[K / 4],
+                                               const uint32_t (&hi)[K / 4], uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    rs_step<D, K>(acc, kstep<K>(lo, kk), y, kk);
+    rs_step<D, K>(acc, kstep<K>(hi, kk), y, kk);
+  }
+}
+
+// The accumulator of columns 16kk..16kk+15 is the A fragment of k-step kk
+// (flash_attention.cu's pack_p): P rounded to bf16, and dS in two parts.
+template <int N>
+__device__ __forceinline__ void pack_frag(const float (&x)[N / 2], uint32_t (&a)[N / 4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    a[2 * j] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[2 * j + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void split_acc(const float (&x)[N / 2], uint32_t (&hi)[N / 4],
+                                          uint32_t (&lo)[N / 4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split_bf16(x[4 * j], x[4 * j + 1], hi[2 * j], lo[2 * j]);
+    split_bf16(x[4 * j + 2], x[4 * j + 3], hi[2 * j + 1], lo[2 * j + 1]);
+  }
+}
+
+// The TMA maps of a pass: the two tiles a CTA owns and the two it streams,
+// [0] boxes of 64 columns, [1] of dh 96's last 32 or of dh 80's 16.
+struct BwdMaps {
+  CUtensorMap own_a[2], own_b[2], step_a[2], step_b[2];
+};
+
+// One tile of R rows (row0.. of head `head`, batch b) into its regions at dst.
 template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-    flash_attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                        const __nv_bfloat16* __restrict__ k,
-                                        const __nv_bfloat16* __restrict__ v,
-                                        const __nv_bfloat16* __restrict__ g,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta,
-                                        __nv_bfloat16* __restrict__ dk,
-                                        __nv_bfloat16* __restrict__ dv, long long S, int H,
-                                        int Hkv, int causal, float scale, Strides st) {
-  using Sm = SmemMma<D>;
-  constexpr int P = Sm::kPitch;
-  constexpr int ND = D / 8;  // n-blocks of dh
-  extern __shared__ uint4 smem_mma[];
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* vt = kt + Sm::kTile;
-  __nv_bfloat16* qt = vt + Sm::kTile;
-  __nv_bfloat16* gt = qt + Sm::kTile;
-  float* lse_s = reinterpret_cast<float*>(gt + Sm::kTile);
-  float* delta_s = lse_s + kOwnMma;
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap (&m)[2], uint64_t* bar,
+                                         int head, int row0, int b, int R) {
+  using T = TileBf16<D>;
+  if constexpr (T::kChunked) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      hopper::tma_load_4d(dst + c * R * 32, &m[1], bar, 16 * c, head, row0, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < T::kMain; ++j)
+      hopper::tma_load_4d(dst + j * R * 128, &m[0], bar, 64 * j, head, row0, b);
+    if constexpr (T::kRem > 0)
+      hopper::tma_load_4d(dst + T::kMain * R * 128, &m[1], bar, 64 * T::kMain, head, row0, b);
+  }
+}
 
-  const int j = blockIdx.x;
-  const int hk = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;
-  const int t = lane & 3;
-  const int kr = 16 * warp;  // the warp's first key in the tile
-  const long long k0 = (long long)j * kOwnMma;
-  const int n_q = (int)((S + kQStepMma - 1) / kQStepMma);
-  const float scale_log2 = scale * kLog2eBwd;
+// Shared memory of a pass (from a 1024-byte aligned base): the two owned
+// tiles of kOwnRows rows, kStagesBwd stages of the two streamed tiles of
+// StepR rows, each consumer warpgroup's two buffers of its step's rows' lse
+// (times log2 e) and D (dK/dV), then the barriers.  Every tile is a
+// multiple of 1024 bytes.
+template <int D, int StepR>
+struct BwdSmem {
+  static constexpr int kOwn = kOwnRows * D * 2;
+  static constexpr int kStep = StepR * D * 2;
+  static constexpr int kOwnA = 0;
+  static constexpr int kOwnB = kOwn;
+  static constexpr int kStepA = 2 * kOwn;  // + stage * kStep
+  static constexpr int kStepB = kStepA + kStagesBwd * kStep;
+  static constexpr int kRows = kStepB + kStagesBwd * kStep;  // floats [wg][2][lse, D][StepR]
+  static constexpr int kBar = kRows + kConsumersBwd * 2 * 2 * StepR * 4;
+  static constexpr int kBytes = kBar + (2 * kStagesBwd + 1) * 8 + 1024;  // + alignment slack
+  static_assert(kOwn % 1024 == 0 && kStep % 1024 == 0, "tiles on 1024-byte boundaries");
+};
 
-  load_tile_mma<D>(kt, k + b * st.kb + (long long)hk * st.kh, k0, kOwnMma, S, st.ks);
-  load_tile_mma<D>(vt, v + b * st.vb + (long long)hk * st.vh, k0, kOwnMma, S, st.vs);
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+// The loads, all issued by the producer's first thread.  full[s] completes
+// on the TMA bytes of stage s (one arrival), empty[s] when the 8 consumer
+// warps have released it, ownbar on the owned tiles' bytes.
+template <int D, int StepR>
+struct Loader {
+  using Sm = BwdSmem<D, StepR>;
+  const BwdMaps& maps;
+  uint8_t* smem;
+  uint64_t *full, *empty, *ownbar;
+  int b;
 
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const __nv_bfloat16* qh = q + b * st.qb + (long long)h * st.qh;
-    const __nv_bfloat16* gh = g + b * st.gb + (long long)h * st.gh;
-    const float* lse_h = lse + (b * H + h) * S;
-    const float* delta_h = delta + (b * H + h) * S;
-    for (int i = first_query_tile(j, causal, kOwnMma / kQStepMma); i < n_q; ++i) {
-      const long long q0 = (long long)i * kQStepMma;
-      __syncthreads();  // the last tile's readers are done
-      load_tile_mma<D>(qt, qh, q0, kQStepMma, S, st.qs);
-      load_tile_mma<D>(gt, gh, q0, kQStepMma, S, st.gs);
-      load_rows_mma(lse_s, delta_s, lse_h, delta_h, q0, kQStepMma, S);
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries, 4 n-tiles
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, kt, P, kr, 16 * kk, gr, t);
-        frag_a(av, vt, P, kr, 16 * kk, gr, t);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t b0, b1;
-          frag_bt(b0, b1, qt, P, 8 * n, 16 * kk, gr, t);
-          mma_bf16(s[n], ak, b0, b1);
-          frag_bt(b0, b1, gt, P, 8 * n, 16 * kk, gr, t);
-          mma_bf16(dp[n], av, b0, b1);
-        }
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStagesBwd; ++s) {
+        hopper::mbar_init(&full[s], 1);
+        hopper::mbar_init(&empty[s], 4 * kConsumersBwd);
       }
-      // P^T and dS^T: keys k0 + kr + gr (+ 8), queries q0 + 8n + 2t (+ 1)
+      hopper::mbar_init(ownbar, 1);
+      hopper::fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  // Step `it` (rows at.y.. of head at.x) into its stage.
+  __device__ __forceinline__ void step(int it, int2 at) const {
+    const int s = it % kStagesBwd;
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * Sm::kStep);
+    tma_tile<D>(smem + Sm::kStepA + s * Sm::kStep, maps.step_a, &full[s], at.x, at.y, b, StepR);
+    tma_tile<D>(smem + Sm::kStepB + s * Sm::kStep, maps.step_b, &full[s], at.x, at.y, b, StepR);
+  }
+  // The owned tiles, then every step: step it into its stage once the
+  // consumers have released step it - kStagesBwd there.
+  template <typename StepAt>
+  __device__ __forceinline__ void produce(int head, int row0, int n_steps, StepAt step_at) const {
+    hopper::mbar_arrive_expect_tx(ownbar, 2 * Sm::kOwn);
+    tma_tile<D>(smem + Sm::kOwnA, maps.own_a, ownbar, head, row0, b, kOwnRows);
+    tma_tile<D>(smem + Sm::kOwnB, maps.own_b, ownbar, head, row0, b, kOwnRows);
+    for (int it = 0; it < n_steps; ++it) {
+      hopper::mbar_wait<true>(&empty[it % kStagesBwd], ((it / kStagesBwd) & 1) ^ 1);
+      step(it, step_at(it));
+    }
+  }
+  __device__ __forceinline__ uint32_t tile_a(int it) const {
+    return hopper::smem_u32(smem + Sm::kStepA + (it % kStagesBwd) * Sm::kStep);
+  }
+  __device__ __forceinline__ uint32_t tile_b(int it) const {
+    return hopper::smem_u32(smem + Sm::kStepB + (it % kStagesBwd) * Sm::kStep);
+  }
+};
+
+// dK and dV: a CTA per (128-key tile, KV head, b), warpgroup w owning keys
+// 64w.. of it; the steps are the group's query heads in order and, within
+// each, the query tiles of QS rows from first_query_tile on.
+template <int D>
+__global__ void __launch_bounds__(kThreadsBwd, 1)
+    flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv, long long S_, int H,
+                                          int Hkv, int causal, float scale) {
+  constexpr int QS = kQueryStep;
+  using Sm = BwdSmem<D, QS>;
+  extern __shared__ uint4 smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sm::kBar);
+  const int S = (int)S_;  // positions fit in 32 bits (S <= kMaxSeq)
+  const int j = blockIdx.x;  // key tile: the first has the most query tiles
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const Loader<D, QS> ld{maps, smem, full, full + kStagesBwd, full + 2 * kStagesBwd, b};
+  const int group = H / Hkv;
+  const int k0 = j * kOwnRows;
+  const int n_q = (S + QS - 1) / QS;
+  const int first = first_query_tile(j, causal, kOwnRows / QS);
+  const int per_head = n_q > first ? n_q - first : 0;
+  const int n_steps = group * per_head;
+  auto step_at = [&](int it) {  // (query head, first row) of step it
+    return make_int2(hk * group + it / per_head, (first + it % per_head) * QS);
+  };
+  ld.init();
+  if (threadIdx.x >= 128 * kConsumersBwd) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumersBwd) ld.produce(hk, k0, n_steps, step_at);
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int kw0 = k0 + wg * kWgRows;  // this warpgroup's first key
+  const int key_a = kw0 + warp * 16 + (lane >> 2);  // accumulator rows key_a, key_a + 8
+  const float scale_log2 = scale * kLog2eBwd;
+  const uint32_t k_tile = hopper::smem_u32(smem + Sm::kOwnA);
+  const uint32_t v_tile = hopper::smem_u32(smem + Sm::kOwnB);
+  // The warpgroup's two buffers of a step's rows: lse (times log2 e), D.
+  float* rows_wg = reinterpret_cast<float*>(smem + Sm::kRows) + wg * 2 * 2 * QS;
+  // Thread tid < QS fetches row tid of step it's lse and D a step ahead
+  // into registers (0 past S: masked) and stores them at the step's start.
+  float next_l = 0.f, next_d = 0.f;
+  auto fetch = [&](int it) {
+    if (it < n_steps && tid < QS) {
+      const int2 at = step_at(it);
+      const int row = at.y + tid;
+      const long long at_row = ((long long)b * H + at.x) * S + row;
+      next_l = row < S ? lse[at_row] * kLog2eBwd : 0.f;
+      next_d = row < S ? delta[at_row] : 0.f;
+    }
+  };
+  fetch(0);
+  float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  hopper::mbar_wait<true>(ld.ownbar, 0);
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int q0 = step_at(it).y;
+    const float* lse_s = rows_wg + (it & 1) * 2 * QS;
+    const float* delta_s = lse_s + QS;
+    if (tid < QS) {
+      rows_wg[(it & 1) * 2 * QS + tid] = next_l;
+      rows_wg[(it & 1) * 2 * QS + QS + tid] = next_d;
+    }
+    fetch(it + 1);
+    hopper::named_barrier_sync(1 + wg, 128);  // step it's rows are in
+    hopper::mbar_wait<true>(&ld.full[it % kStagesBwd], (it / kStagesBwd) & 1);
+    const uint32_t q_tile = ld.tile_a(it), g_tile = ld.tile_b(it);
+    // Wholly masked for this warpgroup: its keys past S, or every query of
+    // the tile before its first key.
+    const bool active = kw0 < S && !(causal && q0 + QS - 1 < kw0);
+    float sc[QS / 2], dp[QS / 2];  // S^T, then P^T; dP^T, then dS^T
+    if (active) {
+      hopper::wgmma_fence();
+      issue_ss<D, QS, kOwnRows>(sc, k_tile, wg * kWgRows, q_tile);
+      hopper::wgmma_commit();
+      issue_ss<D, QS, kOwnRows>(dp, v_tile, wg * kWgRows, g_tile);
+      hopper::wgmma_commit();
+      const bool masked = q0 + QS > S || kw0 + kWgRows > S || (causal && q0 < kw0 + kWgRows - 1);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      // P^T: keys key_a (+ 8) x queries q0 + 8c + 2 t4 (+ 1), while dP^T runs
+#pragma unroll
+      for (int c = 0; c < QS / 8; ++c) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * c + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const long long key = k0 + kr + gr + 8 * (e >> 1);
-          const int qc = 8 * n + 2 * t + (e & 1);
-          const long long row = q0 + qc;
-          const bool valid = row < S && key < S && (!causal || key <= row);
-          const float p = valid ? exp2f(fmaf(s[n][e], scale_log2, -lse_s[qc])) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - delta_s[qc]);
-        }
-      // dV += P^T dO, dK += dS^T Q over the 32 queries: 2 k-steps
-#pragma unroll
-      for (int kq = 0; kq < kQStepMma / 16; ++kq) {
-        const uint32_t ap[4] = {pack_bf16(s[2 * kq][0], s[2 * kq][1]),
-                                pack_bf16(s[2 * kq][2], s[2 * kq][3]),
-                                pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]),
-                                pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3])};
-        uint32_t as[4], as_lo[4];
-        split_frag(dp[2 * kq], dp[2 * kq + 1], as, as_lo);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t b0, b1;
-          frag_b(b0, b1, gt, P, 16 * kq, 8 * n, lane);
-          mma_bf16(acc_v[n], ap, b0, b1);
-          frag_b(b0, b1, qt, P, 16 * kq, 8 * n, lane);
-          mma_bf16(acc_k[n], as_lo, b0, b1);
-          mma_bf16(acc_k[n], as, b0, b1);
+          float p = hopper::ex2(fmaf(sc[4 * c + e], scale_log2, -((e & 1) ? l.y : l.x)));
+          if (masked) {
+            const int key = key_a + 8 * (e >> 1);
+            const int query = q0 + 8 * c + 2 * t4 + (e & 1);
+            if (query >= S || key >= S || (causal && key > query)) p = 0.f;
+          }
+          sc[4 * c + e] = p;
         }
       }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int c = 0; c < QS / 8; ++c) {
+        const float2 dd = *reinterpret_cast<const float2*>(delta_s + 8 * c + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // a masked p is 0: so is its dS (dP, D finite)
+          const float p = sc[4 * c + e];
+          dp[4 * c + e] = p * (dp[4 * c + e] - ((e & 1) ? dd.y : dd.x));
+        }
+      }
+      uint32_t pa[QS / 4], hi[QS / 4], lo[QS / 4];
+      pack_frag<QS>(sc, pa);  // P rounded to bf16, as K6's P . V takes it
+      hopper::wgmma_fence();
+      issue_rs<D, QS>(acc_v, pa, g_tile);  // dV += P^T dO
+      hopper::wgmma_commit();
+      split_acc<QS>(dp, hi, lo);
+      hopper::wgmma_fence();
+      issue_rs_split<D, QS>(acc_k, lo, hi, q_tile);  // dK += dS^T Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc_v);
+      hopper::fence_regs(acc_k);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
     }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&ld.empty[it % kStagesBwd]);
   }
 
-  // dK, dV [B, S, Hkv, D] contiguous: rows k0 + kr + gr (+ 8), columns 8n + 2t
+  // dK, dV [B, S, Hkv, D] contiguous: rows key_a (+ 8), columns 8c + 2 t4
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const long long key = k0 + kr + gr + 8 * half;
+    const int key = key_a + 8 * half;
     if (key >= S) continue;
-    const long long at = ((b * S + key) * Hkv + hk) * D + 2 * t;
+    const long long at = (((long long)b * S + key) * Hkv + hk) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * n) =
-          pack_bf16(acc_k[n][2 * half] * scale, acc_k[n][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
-          pack_bf16(acc_v[n][2 * half], acc_v[n][2 * half + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * c) =
+          pack_bf16(acc_k[4 * c + 2 * half] * scale, acc_k[4 * c + 2 * half + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * c) =
+          pack_bf16(acc_v[4 * c + 2 * half], acc_v[4 * c + 2 * half + 1]);
     }
   }
 }
 
+// dQ: a CTA per (128-row query tile, head, b), longest first, warpgroup w
+// owning rows 64w.. of it; the steps are the key tiles of kKeyStep up to the
+// CTA's diagonal.
 template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-    flash_attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                      const __nv_bfloat16* __restrict__ k,
-                                      const __nv_bfloat16* __restrict__ v,
-                                      const __nv_bfloat16* __restrict__ g,
-                                      const float* __restrict__ lse,
-                                      const float* __restrict__ delta,
-                                      __nv_bfloat16* __restrict__ dq, long long S, int H, int Hkv,
-                                      int causal, float scale, Strides st) {
-  using Sm = SmemMma<D>;
-  constexpr int P = Sm::kPitch;
-  constexpr int ND = D / 8;
-  extern __shared__ uint4 smem_mma[];
-  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* gt = qt + Sm::kTile;
-  __nv_bfloat16* kt = gt + Sm::kTile;
-  __nv_bfloat16* vt = kt + Sm::kTile;
-  float* lse_s = reinterpret_cast<float*>(vt + Sm::kTile);
-  float* delta_s = lse_s + kOwnMma;
-
+__global__ void __launch_bounds__(kThreadsBwd, 1)
+    flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        __nv_bfloat16* __restrict__ dq, long long S_, int H,
+                                        int Hkv, int causal, float scale) {
+  constexpr int KS = kKeyStep;
+  using Sm = BwdSmem<D, KS>;
+  extern __shared__ uint4 smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sm::kBar);
+  const int S = (int)S_;
   const int i = (int)(gridDim.x - 1 - blockIdx.x);  // longest rows first
   const int h = blockIdx.y;
-  const long long b = blockIdx.z;
+  const int b = blockIdx.z;
+  const Loader<D, KS> ld{maps, smem, full, full + kStagesBwd, full + 2 * kStagesBwd, b};
   const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;
-  const int t = lane & 3;
-  const int qr = 16 * warp;  // the warp's first query row in the tile
-  const long long q0 = (long long)i * kOwnMma;
-  const long long kv_end = causal ? (q0 + kOwnMma < S ? q0 + kOwnMma : S) : S;
-  const int n_k = (int)((kv_end + kKStepMma - 1) / kKStepMma);
-  const float scale_log2 = scale * kLog2eBwd;
+  const int q0 = i * kOwnRows;
+  const int kv_end = causal ? (q0 + kOwnRows < S ? q0 + kOwnRows : S) : S;
+  const int n_k = (kv_end + KS - 1) / KS;
+  auto step_at = [&](int it) { return make_int2(hk, it * KS); };
+  ld.init();
+  if (threadIdx.x >= 128 * kConsumersBwd) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumersBwd) ld.produce(h, q0, n_k, step_at);
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
 
-  load_tile_mma<D>(qt, q + b * st.qb + (long long)h * st.qh, q0, kOwnMma, S, st.qs);
-  load_tile_mma<D>(gt, g + b * st.gb + (long long)h * st.gh, q0, kOwnMma, S, st.gs);
-  load_rows_mma(lse_s, delta_s, lse + (b * H + h) * S, delta + (b * H + h) * S, q0, kOwnMma,
-                S);
-  const __nv_bfloat16* kh = k + b * st.kb + (long long)hk * st.kh;
-  const __nv_bfloat16* vh = v + b * st.vb + (long long)hk * st.vh;
-  float acc[ND][4];
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int qw0 = q0 + wg * kWgRows;  // this warpgroup's first query row
+  const int row_a = qw0 + warp * 16 + (lane >> 2);  // accumulator rows row_a, row_a + 8
+  const float scale_log2 = scale * kLog2eBwd;
+  const uint32_t q_tile = hopper::smem_u32(smem + Sm::kOwnA);
+  const uint32_t g_tile = hopper::smem_u32(smem + Sm::kOwnB);
+  float lse_r[2], delta_r[2];  // the two rows' lse (times log2 e) and D; 0 past S
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const long long at_row = ((long long)b * H + h) * S + row;
+    lse_r[r] = row < S ? lse[at_row] * kLog2eBwd : 0.f;
+    delta_r[r] = row < S ? delta[at_row] : 0.f;
+  }
+  float acc[D / 2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  hopper::mbar_wait<true>(ld.ownbar, 0);
 
   for (int jt = 0; jt < n_k; ++jt) {
-    const long long k0 = (long long)jt * kKStepMma;
-    __syncthreads();  // the last tile's readers are done (and Q, dO, lse have landed)
-    load_tile_mma<D>(kt, kh, k0, kKStepMma, S, st.ks);
-    load_tile_mma<D>(vt, vh, k0, kKStepMma, S, st.vs);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys, 8 n-tiles
-    float s[8][4], dp[8][4];
+    const int k0 = jt * KS;
+    hopper::mbar_wait<true>(&ld.full[jt % kStagesBwd], (jt / kStagesBwd) & 1);
+    const uint32_t k_tile = ld.tile_a(jt), v_tile = ld.tile_b(jt);
+    // Wholly masked for this warpgroup: its rows past S, or every key of the
+    // tile after its last row.
+    const bool active = qw0 < S && !(causal && k0 > qw0 + kWgRows - 1);
+    float sc[KS / 2], dp[KS / 2];  // S, then P; dP, then dS
+    if (active) {
+      hopper::wgmma_fence();
+      issue_ss<D, KS, kOwnRows>(sc, q_tile, wg * kWgRows, k_tile);
+      hopper::wgmma_commit();
+      issue_ss<D, KS, kOwnRows>(dp, g_tile, wg * kWgRows, v_tile);
+      hopper::wgmma_commit();
+      const bool masked = k0 + KS > S || qw0 + kWgRows > S || (causal && k0 + KS - 1 > qw0);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      // P: rows row_a (+ 8) x keys k0 + 8c + 2 t4 (+ 1), while dP runs
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int c = 0; c < KS / 8; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          float p = hopper::ex2(fmaf(sc[4 * c + e], scale_log2, -lse_r[e >> 1]));
+          if (masked) {
+            const int row = row_a + 8 * (e >> 1);
+            const int key = k0 + 8 * c + 2 * t4 + (e & 1);
+            if (row >= S || key >= S || (causal && key > row)) p = 0.f;
+          }
+          sc[4 * c + e] = p;
+        }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      frag_a(aq, qt, P, qr, 16 * kk, gr, t);
-      frag_a(ag, gt, P, qr, 16 * kk, gr, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        frag_bt(b0, b1, kt, P, 8 * n, 16 * kk, gr, t);
-        mma_bf16(s[n], aq, b0, b1);
-        frag_bt(b0, b1, vt, P, 8 * n, 16 * kk, gr, t);
-        mma_bf16(dp[n], ag, b0, b1);
+      for (int e = 0; e < KS / 2; ++e) {  // a masked p is 0: so is its dS (dP, D finite)
+        const float p = sc[e];
+        dp[e] = p * (dp[e] - delta_r[(e >> 1) & 1]);
       }
+      uint32_t hi[KS / 4], lo[KS / 4];
+      split_acc<KS>(dp, hi, lo);
+      hopper::wgmma_fence();
+      issue_rs_split<D, KS>(acc, lo, hi, k_tile);  // dQ += dS K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(hi);
+      hopper::fence_regs(lo);
     }
-    // dS: rows q0 + qr + gr (+ 8), keys k0 + 8n + 2t (+ 1)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = qr + gr + 8 * (e >> 1);
-        const long long row = q0 + r;
-        const long long key = k0 + 8 * n + 2 * t + (e & 1);
-        const bool valid = row < S && key < S && (!causal || key <= row);
-        const float p = valid ? exp2f(fmaf(s[n][e], scale_log2, -lse_s[r])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - delta_s[r]);
-      }
-    // dQ += dS K over the 64 keys: 4 k-steps
-#pragma unroll
-    for (int kk = 0; kk < kKStepMma / 16; ++kk) {
-      uint32_t as[4], as_lo[4];
-      split_frag(dp[2 * kk], dp[2 * kk + 1], as, as_lo);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, kt, P, 16 * kk, 8 * n, lane);
-        mma_bf16(acc[n], as_lo, b0, b1);
-        mma_bf16(acc[n], as, b0, b1);
-      }
-    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&ld.empty[jt % kStagesBwd]);
   }
 
-  // dQ [B, S, H, D] contiguous
+  // dQ [B, S, H, D] contiguous: rows row_a (+ 8), columns 8c + 2 t4
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const long long row = q0 + qr + gr + 8 * half;
+    const int row = row_a + 8 * half;
     if (row >= S) continue;
-    const long long at = ((b * S + row) * H + h) * D + 2 * t;
+    const long long at = (((long long)b * S + row) * H + h) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dq + at + 8 * n) =
-          pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(dq + at + 8 * c) =
+          pack_bf16(acc[4 * c + 2 * half] * scale, acc[4 * c + 2 * half + 1] * scale);
   }
 }
 
-// D, then dK/dV, then dQ on one stream: f32 on the FMA kernels, bf16 on the
-// mma.sync ones.
+// The maps of one tile role: dh 80 one map of 16-column boxes in [1]; else
+// 64-column boxes in [0] and, at dh 96, 32-column ones in [1].
+template <int D>
+int make_maps(CUtensorMap (&m)[2], const void* p, long long B, long long S, int heads,
+              long long sb, long long ss, long long sh, int rows) {
+  using T = TileBf16<D>;
+  if constexpr (T::kChunked) return make_map(&m[1], p, B, S, heads, D, sb, ss, sh, 16, rows);
+  int err = make_map(&m[0], p, B, S, heads, D, sb, ss, sh, 64, rows);
+  if (!err && T::kRem) err = make_map(&m[1], p, B, S, heads, D, sb, ss, sh, T::kRem, rows);
+  return err;
+}
+
+// D, then dK/dV, then dQ on one stream, bf16: the wgmma kernels.
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
+                const float* lse, float* delta, void* dq, void* dk, void* dv, long long B,
+                long long S, int H, int Hkv, int causal, const Strides& st,
+                cudaStream_t stream) {
+  constexpr int QS = kQueryStep;
+  BwdMaps mkv, mq;  // the dK/dV pass's and the dQ pass's
+  int err = make_maps<D>(mkv.own_a, k, B, S, Hkv, st.kb, st.ks, st.kh, kOwnRows);
+  if (!err) err = make_maps<D>(mkv.own_b, v, B, S, Hkv, st.vb, st.vs, st.vh, kOwnRows);
+  if (!err) err = make_maps<D>(mkv.step_a, q, B, S, H, st.qb, st.qs, st.qh, QS);
+  if (!err) err = make_maps<D>(mkv.step_b, g, B, S, H, st.gb, st.gs, st.gh, QS);
+  if (!err) err = make_maps<D>(mq.own_a, q, B, S, H, st.qb, st.qs, st.qh, kOwnRows);
+  if (!err) err = make_maps<D>(mq.own_b, g, B, S, H, st.gb, st.gs, st.gh, kOwnRows);
+  if (!err) err = make_maps<D>(mq.step_a, k, B, S, Hkv, st.kb, st.ks, st.kh, kKeyStep);
+  if (!err) err = make_maps<D>(mq.step_b, v, B, S, Hkv, st.vb, st.vs, st.vh, kKeyStep);
+  if (err) return err;
+  constexpr int smem_kv = BwdSmem<D, QS>::kBytes;
+  constexpr int smem_q = BwdSmem<D, kKeyStep>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)D);
+  const unsigned tiles = (unsigned)((S + kOwnRows - 1) / kOwnRows);
+  const dim3 grid_rows((unsigned)((S + kThreads / 32 - 1) / (kThreads / 32)), (unsigned)H,
+                       (unsigned)B);
+  flash_attention_bwd_delta_kernel<__nv_bfloat16, D><<<grid_rows, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)g, delta, S, H, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dkdv_wgmma_kernel<D>
+      <<<dim3(tiles, (unsigned)Hkv, (unsigned)B), kThreadsBwd, smem_kv, stream>>>(
+          mkv, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+          S, H, Hkv, causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dq_wgmma_kernel<D>
+      <<<dim3(tiles, (unsigned)H, (unsigned)B), kThreadsBwd, smem_q, stream>>>(
+          mq, lse, delta, (__nv_bfloat16*)dq, S, H, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// D, then dK/dV, then dQ on one stream, f32: the FMA kernels.
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* g,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, long long B,
+               long long S, int H, int Hkv, int causal, const Strides& st, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<float, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<float, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)D);
+  const unsigned tiles = (unsigned)((S + kTile - 1) / kTile);
+  const dim3 grid_rows((unsigned)((S + kThreads / 32 - 1) / (kThreads / 32)), (unsigned)H,
+                       (unsigned)B);
+  flash_attention_bwd_delta_kernel<float, D><<<grid_rows, kThreads, 0, stream>>>(
+      (const float*)o, (const float*)g, delta, S, H, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dkdv_kernel<float, D><<<dim3(tiles, (unsigned)Hkv, (unsigned)B), kThreads,
+                                              smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta, (float*)dk,
+      (float*)dv, S, H, Hkv, causal, scale, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_bwd_dq_kernel<float, D><<<dim3(tiles, (unsigned)H, (unsigned)B), kThreads,
+                                            smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta, (float*)dq,
+      S, H, Hkv, causal, scale, st);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* g,
            const float* lse, float* delta, void* dq, void* dk, void* dv, long long B,
            long long S, int H, int Hkv, int causal, const Strides& st, cudaStream_t stream) {
-  constexpr bool kMma = sizeof(T) == 2;
-  constexpr int smem = kMma ? SmemMma<D>::kBytes : Smem<D>::kBytes;
-  constexpr int threads = kMma ? kThreadsMma : kThreads;
-  auto dkdv = [] {
-    if constexpr (kMma) return flash_attention_bwd_dkdv_mma_kernel<D>;
-    else return flash_attention_bwd_dkdv_kernel<T, D>;
-  }();
-  auto dqk = [] {
-    if constexpr (kMma) return flash_attention_bwd_dq_mma_kernel<D>;
-    else return flash_attention_bwd_dq_kernel<T, D>;
-  }();
-  cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const float scale = 1.f / sqrtf((float)D);
-  const unsigned tiles = (unsigned)((S + kTile - 1) / kTile);  // kTile = kOwnMma = 64
-  const dim3 grid_rows((unsigned)((S + kThreads / 32 - 1) / (kThreads / 32)), (unsigned)H,
-                       (unsigned)B);
-  flash_attention_bwd_delta_kernel<T, D><<<grid_rows, kThreads, 0, stream>>>(
-      (const T*)o, (const T*)g, delta, S, H, st);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dkdv<<<dim3(tiles, (unsigned)Hkv, (unsigned)B), threads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dk, (T*)dv, S, H, Hkv,
-      causal, scale, st);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dqk<<<dim3(tiles, (unsigned)H, (unsigned)B), threads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dq, S, H, Hkv, causal,
-      scale, st);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 4)
+    return launch_f32<D>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, stream);
+  else
+    return launch_bf16<D>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, stream);
 }
 
 template <typename T>
@@ -849,6 +1122,8 @@ int flash_attention_backward_bf16(const void* q, const void* k, const void* v, c
 }
 
 const char* flash_attention_backward_error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 10000)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

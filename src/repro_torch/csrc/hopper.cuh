@@ -1,8 +1,8 @@
 // PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads, wgmma and
 // its shared-memory descriptors, register reallocation and named barriers;
 // cp.async and the tf32 mma.sync with its error-compensated (3xTF32) form.
-// Included by the kernels that use them (flash_attention.cu); it has no
-// host code and no state.
+// Included by the kernels that use them (flash_attention.cu and
+// flash_attention_backward.cu); it has no host code and no state.
 #pragma once
 
 #include <stdint.h>
@@ -37,11 +37,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+__device__ __noinline__ void wait_trap() { __trap(); }
+
 // Returns once the phase of parity `parity` has completed: a fresh barrier
 // is in phase 0, so waiting on parity 1 passes at once and on parity 0
 // blocks until the first phase completes.  A wait that polls 2^26 times
 // (seconds; a tile takes microseconds) traps, so a lost arrival ends the launch
-// with an error instead of hanging the card.
+// with an error instead of hanging the card.  kTrapOutOfLine calls the trap
+// out of line, for code after setmaxnreg.inc: an inline trap there keeps
+// ptxas from giving that code more registers than the launch bound's (the
+// dK/dV kernel of K6' spilled 52-1016 bytes at dh 80-128 with it).
+template <bool kTrapOutOfLine = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
@@ -53,7 +59,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
-    if (polls == (1u << 26)) __trap();
+    if (polls == (1u << 26)) {
+      if constexpr (kTrapOutOfLine) wait_trap();
+      else __trap();
+    }
   }
 }
 
@@ -157,6 +166,22 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d[32] (+)= A(desc) . B(desc), m64n64k16, bf16 in, f32 accumulate.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

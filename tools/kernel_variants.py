@@ -5,13 +5,16 @@
 
 on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
 
-    {"kernel": "flash_attention" | "dot_interaction" | "flash_decode" | "scatter_update"
-               | "embedding_bag" | "probe_gather_pool" | "topk_neighbor_select",
+    {"kernel": "flash_attention" | "flash_attention_backward" | "dot_interaction"
+               | "flash_decode" | "scatter_update" | "embedding_bag" | "probe_gather_pool"
+               | "topk_neighbor_select",
      "cases": [...],
      "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
 
 with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal; a sixth entry
-"f32" runs it in f32), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
+"f32" runs it in f32; flash_attention_backward's K6', bf16 causal, from
+the plain version's output and logsumexp, a random dO; "full" as a sixth
+entry drops the causal mask), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
 scores on a grid of 1/4 with -inf, NaN and -0.0 scattered in), [B, F, D]
 (dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
 NaN past cache_len; a seventh entry "f32" runs it in f32), [C, D, K]
@@ -52,12 +55,15 @@ variant of every spec is built at once, one nvcc each, with the flags of
 kernel's own wrapper (``build.use_library``).  At each case a variant with
 ``check`` (the default) is first held against the plain version as
 ``chip_smoke.py`` holds the kernel (K6 and K7 in bf16 by
-``assert_close_rows`` and at 2e-5 in f32, K2 f32 at 1e-4, K4 bit-equal, K1
+``assert_close_rows`` and at 2e-5 in f32, K6' as phase 9g holds it: dq, dk
+and dv by ``assert_close_rows`` with the head floor ``K6B_FLOOR``, and two
+launches bit-equal, K2 f32 at 1e-4, K4 bit-equal, K1
 at 1e-5, K3's miss mask bit-equal and its sums at 1e-5, K5 bit-equal, K1'
 twice bit-equal, bit-equal to its plain version on the CPU and within
 ``K1B_TOL`` of it on the card, K2' at 1e-5); a
 variant that cuts work out sets ``"check": false``.  Then every variant and
-the library call (``F.scaled_dot_product_attention``, ``torch.bmm``,
+the library call (``F.scaled_dot_product_attention``, its backward alone
+for K6' (``chip_smoke.sdpa_backward``), ``torch.bmm``,
 ``index_copy_``, ``F.embedding_bag`` or ``torch.topk``; for K1'
 ``index_add_`` of the live slots' weighted rows into a zeroed table, for
 K2' ``torch.bmm`` of G + G^T and x; none for probe_gather_pool) are timed
@@ -104,7 +110,8 @@ from repro_torch.prefetch import ref as PREF  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_variants"
 CSRC_REL = Path("src/repro_torch/csrc")
-WRAPPERS = {"flash_attention": K6, "dot_interaction": K2, "flash_decode": K7,
+WRAPPERS = {"flash_attention": K6, "flash_attention_backward": K6, "dot_interaction": K2,
+            "flash_decode": K7,
             "scatter_update": HK, "embedding_bag": K1, "probe_gather_pool": HK,
             "topk_neighbor_select": PK}
 MAX_PROBES = 8  # the hot cache's window (hotcache.table.DEFAULT_MAX_PROBES)
@@ -260,6 +267,27 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
     and holds the output against the plain version, and the library call."""
     if case[0] == "backward":
         return backward_setup(tag, kernel, case, gen)
+    if kernel == "flash_attention_backward":
+        B, S, H, Hkv, dh = case[:5]
+        causal = case[5:] != ["full"]
+        bf16 = torch.bfloat16
+        q, do = (torch.randn((B, S, H, dh), device="cuda", generator=gen).to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen).to(bf16)
+                for _ in range(2))
+        o, lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
+        want = ref.flash_attention_backward_ref(q, k, v, o, lse, do, causal)
+        call = lambda: K6.flash_attention_backward(q, k, v, o, lse, do, causal)  # noqa: E731
+
+        def check(n):
+            got = call()
+            for part, g, w in zip(("dq", "dk", "dv"), got, want):
+                CS.assert_close_rows(f"{tag} {n} {case} {part}", g, w, *CS.LM_BF16_TOL,
+                                     CS.K6B_FLOOR)
+            if not all(torch.equal(a, b) for a, b in zip(got, call())):
+                raise AssertionError(f"{tag} {n} {case}: two launches differ")
+
+        return call, check, CS.sdpa_backward(q, k, v, do, causal)
     if kernel == "flash_attention":
         B, S, H, Hkv, dh = case[:5]
         dt = torch.float32 if case[5:] == ["f32"] else torch.bfloat16
