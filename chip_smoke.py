@@ -236,14 +236,16 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
  9g. lm_train_kernels — K6 writing its row logsumexp and K6' (its
                 backward, ``flash_attention_backward.cu``) against their
                 plain versions: lm-small's layer [8, 128, 8, 4, 32] f32,
-                lm_smoke's head dim 16 (4 and 1 KV heads), stablelm-3b's
-                train layer [2, 4096, 32, 32, 80] and olmoe-1b-7b's
-                [1, 4096, 16, 16, 128] in bf16, f32 at dh 80, ragged S (45,
-                1000), full attention, groups 1, 2, 4 and 8, every head dim
-                of each dtype; f32 at 2e-5, bf16 by ``assert_close_rows``;
-                the logsumexp at 2e-5; K6' twice bit-equal, and a planted
-                build whose dK/dV loop skips a query tile refused (f32 and
-                bf16); timed beside its plain version, the backward alone
+                and at the trainer's batch [256, 128, 8, 4, 32], lm_smoke's
+                head dim 16 (4 and 1 KV heads), stablelm-3b's train layer
+                [2, 4096, 32, 32, 80] and olmoe-1b-7b's [1, 4096, 16, 16,
+                128] in bf16, f32 at dh 80 (also with groups of 4), ragged S
+                (45, 1000), full attention, groups 1, 2, 4 and 8, every head
+                dim of each dtype; f32 at 2e-5, bf16 by
+                ``assert_close_rows``; the logsumexp at 2e-5; K6' twice
+                bit-equal (lm-small's, stablelm's, f32 dh 80 in groups), and
+                a planted build whose dK/dV loop skips a query tile refused
+                (f32 and bf16); timed beside its plain version, the backward alone
                 of ``F.scaled_dot_product_attention(..., enable_gqa=True)``
                 and its bound (five products of 2 B H dh a kept pair; f32
                 at three tf32 products each, the FMA bound beside it), and
@@ -447,11 +449,13 @@ K7P_SHARD = 1032  # K7's shard mode checked and timed on model_b4's shard
 # every head dim each dtype takes.
 LMT_KERNEL_CASES = {
     "lm-small f32": (8, 128, 8, 4, 32, "f32", True, True),
+    "lm-small b256 f32": (256, 128, 8, 4, 32, "f32", True, True),
     "lm_smoke f32": (4, 16, 4, 4, 16, "f32", True, False),
     "lm_smoke gqa f32": (4, 16, 4, 1, 16, "f32", True, False),
     "stablelm bf16": (2, 4096, 32, 32, 80, "bf16", True, True),
     "olmoe bf16": (1, 4096, 16, 16, 128, "bf16", True, True),
     "dh80 f32": (2, 1024, 32, 32, 80, "f32", True, True),
+    "dh80 gqa f32": (2, 1024, 32, 8, 80, "f32", True, False),
     "ragged 45 f32": (2, 45, 8, 2, 32, "f32", True, False),
     "ragged 1000 bf16": (2, 1000, 8, 2, 64, "bf16", True, False),
     "ragged 1000 dh16 f32": (1, 1000, 4, 2, 16, "f32", True, False),
@@ -475,6 +479,9 @@ K6B_FLOOR = 2.0**-12
 # K6''s planted fault: its dK/dV loops (f32 and bf16) skip the first query
 # tile they visit (a causal key tile's diagonal tile)
 K6B_PLANT = ("  return causal ? j * ratio : 0;", "  return (causal ? j * ratio : 0) + 1;")
+# The cases where K6' runs twice and must give equal bits; the first two
+# also hold the planted fault
+K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32")
 # K6''s three launches by the names of their kernels (device_busy's filter)
 K6B_LAUNCHES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 LMT_SMALL_STEPS, LMT_SMALL_BATCH, LMT_SMALL_SEQ = 50, 256, 128  # launch.train --model lm
@@ -1542,11 +1549,13 @@ def lm_train(dev: torch.device, planted) -> dict:
         floor = (K6B_FLOOR,) if dt == bf16 else ()
         errs[label] = max(check(f"K6' {label} {shape}: {n}", g, w, *tol, *floor)
                           for n, g, w in zip(("dq", "dk", "dv"), got, want))
-        if label in ("lm-small f32", "stablelm bf16"):
+        if label in K6B_TWICE:
             again = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
                 raise AssertionError(f"K6' {label}: two launches differ")
             log(f"  K6' {label}: two launches bit-equal")
+            del again
+        if label in K6B_TWICE[:2]:
             build.use_library(K6.NAME_BWD, planted_so)
             try:
                 bad = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
@@ -1555,7 +1564,7 @@ def lm_train(dev: torch.device, planted) -> dict:
             name = f"K6' {label} with its dK/dV loop skipping a query tile: dk"
             refuse = assert_refused if dt == bf16 else assert_refused_close
             refuse(name, bad[1], want[1], *tol, *floor)
-            del bad, again
+            del bad
         if timed:
             # f32's bound is that of three tf32 products, which reach f32's
             # accuracy on this card (as K6 f32's); the FMA bound stands beside it.
@@ -1778,6 +1787,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off for matmul and cuDNN: f32 products run in full f32")
+    # What could still turn TF32 on inside the plain versions' cuBLAS calls
+    log(f"[device] TF32 state: matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32_matmul_precision {torch.get_float32_matmul_precision()!r}, "
+        + ", ".join(f"{v}={os.environ.get(v)!r}" for v in ("TORCH_ALLOW_TF32_CUBLAS_OVERRIDE",
+                                                           "NVIDIA_TF32_OVERRIDE")))
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()

@@ -91,15 +91,57 @@
 //    register-A n64, n32 and n80.
 //  * Tensor maps: tensor_map.cuh, shared with K6.
 //
-// f32 runs the products as scalar f32 FMAs from shared memory, which keeps
-// every product exact to f32 rounding (the reference holds f32 attention to
-// 2e-5) at a fraction of the f32 FMA rate (67 TFLOP/s).  Tiles live in
-// shared memory as f32 with a row pitch of dh + 1 floats (dh is a multiple
-// of 16: the pitch is odd, so 16 threads reading 16 rows at one column hit
-// 16 banks); P and dS at a pitch of 65.  A thread holds a 4 x 4 block of S
-// and dP (rows ty + 16a, keys tx + 16b, ty = tid / 16, tx = tid % 16) and 4
-// rows x dh / 16 columns of each accumulator (rows ty + 16a, columns tx +
-// 16e).  Offsets are 64-bit.
+// f32 on the tensor cores ("3xTF32", the section "f32 on mma.sync" below).
+// The reference holds f32 attention to 2e-5, which one TF32 product misses;
+// K6's f32 kernel (flash_attention.cu) meets it with three.  The same here,
+// in all seven products of both passes:
+//  * Every operand is split once as it leaves shared memory or an
+//    accumulator, x = big + small (hopper::split_tf32), and a product is
+//    small . big + big . small + big . big on mma.sync.m16n8k8
+//    (hopper::mma_3xtf32).  Each k-step's three products are summed in a
+//    fresh accumulator that one f32 add then adds to the product's sum
+//    (add4): the tensor core does not round its own additions to nearest,
+//    and a dK summed in the mma across 4,096 query rows drifted ten times
+//    past 2e-5 (tests/test_torch_k6b_f32_plan.py models it as truncation).
+//  * mma.sync, not wgmma: tf32 wgmma reads only K-major operands from
+//    shared memory, and four of the seven products read a tile MN-major
+//    (dV, dK: dO and Q with their rows as the reduction; dQ: K), which would
+//    each need a transposed copy.  mma.sync's fragments are loaded by hand
+//    in either direction.
+//  * A CTA of 8 warps owns 128 rows (keys in dK/dV, query rows in dQ), 16 a
+//    warp, in shared memory; the other two tiles stream in steps of 64 rows
+//    (32 at dh 128, where 64 would not fit beside the owned tiles) through a
+//    2-stage cp.async ring (zero-filled past S), the next step's copy under
+//    this step's products.  The dK/dV ring also carries the step's rows'
+//    lse and D.
+//  * Registers.  A dK/dV lane holds dK and dV (dh floats) for the whole
+//    loop, a dQ lane dQ (dh / 2).  So a warp takes a step in sub-steps, 16
+//    query rows in dK/dV and 32 keys in dQ, each with its own S and dP, and
+//    dK/dV forms P^T and runs dV before it forms dP^T; a product runs its
+//    head dims in a loop that is not unrolled (product_nt) or n-tiles four
+//    at a time (product_nn).  Larger sub-steps, dP^T formed beside S^T or
+//    these loops unrolled held ptxas past 255 registers and spilled
+//    (PERF.md).
+//  * dQ: S = Q K^T and dP = dO V^T (A from the owned tiles, B a streamed
+//    tile's rows), P and dS on the accumulators, dQ += dS K.  dK/dV: S^T =
+//    K Q^T and P^T, dV += P^T dO, then dP^T = V dO^T, dS^T and dK += dS^T
+//    Q.  As in K6
+//    f32, the first products' k-steps take head dims 16p + 4t + {0,1} and
+//    {2,3}, so both operands load as 16-byte pieces, and the second
+//    products' k-step j takes rows 8j + 2t and 8j + 2t + 1 as columns t and
+//    t + 4, so the accumulator of the first is the A fragment of the second
+//    as it stands (no shuffle).
+//  * One tile, two reads.  Q and dO (dK/dV) and K (dQ) are read as
+//    16-byte pieces of rows 8j + g (the first products) and as single
+//    floats of rows 8j + 2t, 8j + 2t + 1 at column 8n + g (the second); no
+//    pitch is free of bank conflicts for both (K6 f32 gives its K and V
+//    pitches of 16 and 4 mod 32).  Every tile is stored at a pitch of dh
+//    rounded up to 32 floats with column c of row r at c ^ swz(r), an XOR
+//    of column bits 3 and 4 by row bits 0-2: each 8-lane phase of a 16-byte
+//    read and each scalar read then meets 32 different banks
+//    (tests/test_torch_k6b_f32_plan.py counts them).
+//  * Causal: a warp skips a sub-step wholly masked for it; the loops stop
+//    at the CTA's diagonal (dQ) or start at it (dK/dV, first_query_tile).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -114,9 +156,7 @@ namespace {
 using tensor_map::kEncodeError;
 using tensor_map::make_map;
 
-constexpr int kTile = 64;  // query rows and keys per tile
-constexpr int kThreads = 256;
-constexpr int kPitchP = kTile + 1;  // floats per row of the P and dS tiles
+constexpr int kThreads = 256;  // the D kernel's: a warp a row
 constexpr long long kMaxSeq = (1LL << 31) - 256;  // positions are int32
 constexpr float kLog2eBwd = 1.4426950408889634f;
 
@@ -126,138 +166,6 @@ struct Strides {  // element strides (b, s, h) of q, k, v, o, do
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Shared memory of both passes (floats): four [kTile][D + 1] tiles (q, do,
-// k, v), P and dS [kTile][kPitchP], lse and D of the query tile's rows.
-template <int D>
-struct Smem {
-  static constexpr int kPitch = D + 1;
-  static constexpr int kQ = 0;
-  static constexpr int kG = kQ + kTile * kPitch;  // do
-  static constexpr int kK = kG + kTile * kPitch;
-  static constexpr int kV = kK + kTile * kPitch;
-  static constexpr int kP = kV + kTile * kPitch;
-  static constexpr int kS = kP + kTile * kPitchP;  // dS
-  static constexpr int kLse = kS + kTile * kPitchP;
-  static constexpr int kDelta = kLse + kTile;
-  static constexpr int kFloats = kDelta + kTile;
-  static constexpr int kBytes = kFloats * 4;
-};
-
-// Rows [row0, row0 + kTile) of one head (src points at row 0 of it; rows
-// rs elements apart) into dst as f32; rows past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row0,
-                                          long long S, long long rs) {
-  constexpr int P = D + 1;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const long long row = row0 + r;
-    dst[r * P + d] = row < S ? to_f32(src[row * rs + d]) : 0.f;
-  }
-}
-
-// lse and D of the query tile's rows (0 past S: those rows are masked).
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const float* lse,
-                                          const float* delta, long long row0, long long S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const long long row = row0 + r;
-    lse_s[r] = row < S ? lse[row] : 0.f;
-    delta_s[r] = row < S ? delta[row] : 0.f;
-  }
-}
-
-// This thread's 4 x 4 of S = q k^T (unscaled) and dP = do v^T on the tiles in
-// shared memory: rows ty + 16a, keys tx + 16b.
-template <int D>
-__device__ __forceinline__ void score_tiles(float (&s)[4][4], float (&dp)[4][4],
-                                            const float* sm, int ty, int tx) {
-  using Sm = Smem<D>;
-  constexpr int P = Sm::kPitch;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], ga[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = sm[Sm::kQ + (ty + 16 * a) * P + d];
-      ga[a] = sm[Sm::kG + (ty + 16 * a) * P + d];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kb[b] = sm[Sm::kK + (tx + 16 * b) * P + d];
-      vb[b] = sm[Sm::kV + (tx + 16 * b) * P + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(ga[a], vb[b], dp[a][b]);
-      }
-  }
-}
-
-// P and dS of this thread's 4 x 4 (s becomes P, dp becomes dS): query rows
-// q0 + ty + 16a, keys k0 + tx + 16b; masked where a key lies past S or, when
-// causal, after its query, and on rows past S.
-template <int D>
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4], const float* sm,
-                                      long long q0, long long k0, long long S, int causal,
-                                      float scale, int ty, int tx) {
-  using Sm = Smem<D>;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-    const long long row = q0 + r;
-    const float lse = sm[Sm::kLse + r];
-    const float delta = sm[Sm::kDelta + r];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const long long key = k0 + tx + 16 * b;
-      const bool valid = row < S && key < S && (!causal || key <= row);
-      const float p = valid ? expf(fmaf(s[a][b], scale, -lse)) : 0.f;
-      s[a][b] = p;
-      dp[a][b] = p * (dp[a][b] - delta);
-    }
-  }
-}
-
-// acc[a][e] += sum_r A[r][ty + 16a] B[r][tx + 16e] over the tile's rows r:
-// A a [kTile][kPitchP] tile read down its columns (P or dS, giving dV or dK),
-// B a [kTile][D + 1] tile.
-template <int D>
-__device__ __forceinline__ void acc_transposed(float (&acc)[4][D / 16], const float* A,
-                                               const float* B, int ty, int tx) {
-  constexpr int P = D + 1;
-#pragma unroll 2
-  for (int r = 0; r < kTile; ++r) {
-    float a_[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) a_[a] = A[r * kPitchP + ty + 16 * a];
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) {
-      const float b_ = B[r * P + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) acc[a][e] = fmaf(a_[a], b_, acc[a][e]);
-    }
-  }
-}
 
 // The first query tile that key tile j's dK/dV loop visits (tiles of
 // `ratio` query tiles a key tile): when causal, the first that holds a
@@ -288,149 +196,426 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) delta[(b * H + h) * S + s] = acc;
 }
 
-// dK and dV: a block per (64-key tile, KV head, b), looping over the group's
-// query heads and their query tiles (from the key tile's own when causal).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v, const T* __restrict__ g,
-                                    const float* __restrict__ lse,
-                                    const float* __restrict__ delta, T* __restrict__ dk,
-                                    T* __restrict__ dv, long long S, int H, int Hkv, int causal,
-                                    float scale, Strides st) {
-  using Sm = Smem<D>;
-  extern __shared__ float sm[];
-  const int j = blockIdx.x;
-  const int hk = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int group = H / Hkv;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const long long k0 = (long long)j * kTile;
-  const int n_q = (int)((S + kTile - 1) / kTile);
+// ----------------------------------------------------------- f32 on mma.sync
+//
+// The design note at the top ("f32 on the tensor cores").  Both passes are
+// one CTA of kWarpsF32 warps: it owns kOwnF32 rows of two tiles (K and V in
+// the dK/dV pass, Q and dO in the dQ pass), copied once, and streams the
+// other two (Q and dO, or K and V) in steps of TileF32<D>::kStep rows
+// through a ring of kStagesF32 stages, each taken in sub-steps.  Warp w
+// owns rows 16w..16w+15 of the owned tiles; lane (g, t) = (lane / 4, lane %
+// 4) holds, as mma.sync's m16n8 accumulator, rows g and g + 8 of them.
 
-  load_tile<T, D>(sm + Sm::kK, k + b * st.kb + (long long)hk * st.kh, k0, S, st.ks);
-  load_tile<T, D>(sm + Sm::kV, v + b * st.vb + (long long)hk * st.vh, k0, S, st.vs);
-  float acc_k[4][D / 16], acc_v[4][D / 16];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) acc_k[a][e] = acc_v[a][e] = 0.f;
+constexpr int kWarpsF32 = 8;
+constexpr int kThreadsF32 = 32 * kWarpsF32;
+constexpr int kOwnF32 = 16 * kWarpsF32;  // keys (dK/dV) or query rows (dQ) a CTA owns
+constexpr int kStagesF32 = 2;  // the cp.async ring of the streamed tiles
+// Rows of a streamed step that one pass of the products takes (a
+// sub-step): a dK/dV warp holds dK and dV (dh floats a lane) beside its
+// sub-step's S^T and dP^T, a dQ warp dQ (dh / 2) beside S and dP.  Larger
+// sub-steps held ptxas past 255 registers (PERF.md).
+constexpr int kSubKvF32 = 16;  // query rows, dK/dV
+constexpr int kSubQF32 = 32;  // keys, dQ
 
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const T* qh = q + b * st.qb + (long long)h * st.qh;
-    const T* gh = g + b * st.gb + (long long)h * st.gh;
-    const float* lse_h = lse + (b * H + h) * S;
-    const float* delta_h = delta + (b * H + h) * S;
-    for (int i = first_query_tile(j, causal, 1); i < n_q; ++i) {
-      const long long q0 = (long long)i * kTile;
-      __syncthreads();  // the last tile's readers are done
-      load_tile<T, D>(sm + Sm::kQ, qh, q0, S, st.qs);
-      load_tile<T, D>(sm + Sm::kG, gh, q0, S, st.gs);
-      load_rows(sm + Sm::kLse, sm + Sm::kDelta, lse_h, delta_h, q0, S);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      score_tiles<D>(s, dp, sm, ty, tx);
-      probs<D>(s, dp, sm, q0, k0, S, causal, scale, ty, tx);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b2 = 0; b2 < 4; ++b2) {
-          const int at = (ty + 16 * a) * kPitchP + tx + 16 * b2;
-          sm[Sm::kP + at] = to_f32(from_f32<T>(s[a][b2]));  // P as K6's P . V took it
-          sm[Sm::kS + at] = dp[a][b2];
-        }
-      __syncthreads();
-      acc_transposed<D>(acc_v, sm + Sm::kP, sm + Sm::kG, ty, tx);
-      acc_transposed<D>(acc_k, sm + Sm::kS, sm + Sm::kQ, ty, tx);
-    }
+// A tile of f32 rows in shared memory: a pitch of dh rounded up to 32
+// floats (a row starts at bank 0), column c of row r at c ^ swz(r).
+template <int D>
+struct TileF32 {
+  static constexpr int kStep = D > 96 ? 32 : 64;  // rows a step streams
+  static constexpr int kLd = (D + 31) / 32 * 32;  // floats a row
+  static constexpr int kOwn = kOwnF32 * kLd;  // floats of an owned tile
+  static constexpr int kStepTile = kStep * kLd;  // floats of a streamed tile
+  // A stage: the two streamed tiles, then (dK/dV) the step's rows' lse and D.
+  static constexpr int kStage = 2 * kStepTile + 2 * kStep;
+  static constexpr int kBytes = (2 * kOwn + kStagesF32 * kStage) * 4;
+  static_assert(D % 16 == 0 && kBytes <= 232448, "dh in 16, 32, 64, 80, 96, 128");
+  static_assert(kStep % kSubKvF32 == 0 && kStep % kSubQF32 == 0, "whole sub-steps");
+};
+
+// The XOR of a row's columns: bit 3 from row bit 1, bit 4 from row bits 0
+// and 2.  A 16-byte read of rows 8j + g, g = 0..7, at columns 16p + 4t puts
+// rows 2m and 2m + 1 (one 8-lane phase) in opposite halves of the 32 banks;
+// a scalar read of rows 8j + 2t (or 8j + 2t + 1), t = 0..3, at columns
+// 8n + g, g = 0..7, puts the four rows on four different 8-bank groups.
+// Only bits 3 and 4 change, so a 16-byte piece stays whole and a row's
+// columns stay below its pitch.
+__device__ __forceinline__ int swz(int r) { return ((r & 2) << 2) | (((r >> 2 ^ r) & 1) << 4); }
+
+// Rows row0..row0 + R - 1 of one head (src its row 0, rows rs floats apart)
+// into the tile at dst by cp.async, 16 bytes a copy; rows past S are zeros.
+template <int D, int R>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int row0, int S,
+                                          long long rs) {
+  constexpr int CH = D / 4;  // 16-byte pieces a row
+  constexpr int Ld = TileF32<D>::kLd;
+  for (int e = threadIdx.x; e < R * CH; e += kThreadsF32) {
+    const int r = e / CH;
+    const int c = 4 * (e - r * CH);
+    const int row = row0 + r;
+    const bool in = row < S;
+    hopper::cp_async16(dst + r * Ld + (c ^ swz(r)), src + (long long)(in ? row : 0) * rs + c, in);
   }
+}
 
-  // dK, dV [B, S, Hkv, D] contiguous
+// 4 bytes from global to shared memory (zero-filled when `full` is false).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// The ring's turn at step it of n: step it has landed (every thread's
+// copies) and step it - 1's readers are done; then step it + kStagesF32 - 1
+// goes into the stage that step it - 1 used.  The group is committed even
+// when empty: the wait counts groups.
+template <typename Load>
+__device__ __forceinline__ void ring_turn(int it, int n, Load load) {
+  hopper::cp_async_wait<kStagesF32 - 2>();
+  __syncthreads();
+  if (it + kStagesF32 - 1 < n) load(it + kStagesF32 - 1);
+  hopper::cp_async_commit();
+}
+
+// c += part: a k-step's terms, summed apart, added to their sum with one
+// f32 add each (rounded to nearest).  The tensor core does not round its own
+// additions to nearest: with every k-step added in the mma itself, a dK sum
+// over 4,096 query rows drifted to 2.2e-4 off the plain version (PERF.md),
+// where each k-step's own terms summed apart stay within 2e-5.
+__device__ __forceinline__ void add4(float* c, const float (&part)[4]) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long long key = k0 + ty + 16 * a;
-    if (key >= S) continue;
-    const long long at = ((b * S + key) * Hkv + hk) * D;
+  for (int e = 0; e < 4; ++e) c[e] += part[e];
+}
+
+// The A fragments of k-steps 2p and 2p + 1 (big and small parts) from the
+// warp's 16 rows at x: rows g and g + 8, head dims 16p + 4t + {0, 1} as
+// k-step 2p's columns t and t + 4, 16p + 4t + {2, 3} as k-step 2p + 1's;
+// col is the lane's swizzled column of them.
+__device__ __forceinline__ void a_frags(uint32_t (&ab)[2][4], uint32_t (&as)[2][4],
+                                        const float* x0, const float* x1, int col) {
+  const float4 xa = *reinterpret_cast<const float4*>(x0 + col);
+  const float4 xb = *reinterpret_cast<const float4*>(x1 + col);
+  hopper::split_tf32(xa.x, ab[0][0], as[0][0]);
+  hopper::split_tf32(xb.x, ab[0][1], as[0][1]);
+  hopper::split_tf32(xa.y, ab[0][2], as[0][2]);
+  hopper::split_tf32(xb.y, ab[0][3], as[0][3]);
+  hopper::split_tf32(xa.z, ab[1][0], as[1][0]);
+  hopper::split_tf32(xb.z, ab[1][1], as[1][1]);
+  hopper::split_tf32(xa.w, ab[1][2], as[1][2]);
+  hopper::split_tf32(xb.w, ab[1][3], as[1][3]);
+}
+
+// c = X . Y^T over dh: X the warp's 16 rows at x, Y N rows of a tile at y
+// (a streamed tile's rows, or keys); n-tile j of c holds Y's rows 8j..8j+7:
+// c[4j], c[4j + 1] at (g, 8j + 2t + {0, 1}), c[4j + 2], c[4j + 3] at g + 8.
+// The loop over dh is not unrolled: unrolled, it spilled (PERF.md).
+template <int D, int N>
+__device__ __forceinline__ void product_nt(float (&c)[N / 2], const float* x, const float* y,
+                                           int lane) {
+  constexpr int Ld = TileF32<D>::kLd;
+  const int g = lane >> 2;
+  // Column 16p + 4t of a row 8j + g sits at 32 (p / 2) + col[p % 2].
+  const int col0 = (4 * (lane & 3)) ^ swz(g), col1 = (16 + 4 * (lane & 3)) ^ swz(g);
+  const float* x0 = x + g * Ld;
+  const float* y0 = y + g * Ld;
 #pragma unroll
-    for (int e = 0; e < D / 16; ++e) {
-      dk[at + tx + 16 * e] = from_f32<T>(acc_k[a][e] * scale);
-      dv[at + tx + 16 * e] = from_f32<T>(acc_v[a][e]);
+  for (int i = 0; i < N / 2; ++i) c[i] = 0.f;
+#pragma unroll 1
+  for (int p = 0; p < D / 16; ++p) {
+    const int col = 32 * (p >> 1) + ((p & 1) ? col1 : col0);
+    uint32_t ab[2][4], as[2][4];
+    a_frags(ab, as, x0, x0 + 8 * Ld, col);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float4 yv = *reinterpret_cast<const float4*>(y0 + 8 * j * Ld + col);
+      uint32_t bb[4], bs[4];
+      hopper::split_tf32(yv.x, bb[0], bs[0]);
+      hopper::split_tf32(yv.y, bb[1], bs[1]);
+      hopper::split_tf32(yv.z, bb[2], bs[2]);
+      hopper::split_tf32(yv.w, bb[3], bs[3]);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};  // k-steps 2p and 2p + 1, summed apart
+      hopper::mma_3xtf32(part, ab[0], as[0], bb[0], bb[1], bs[0], bs[1]);
+      hopper::mma_3xtf32(part, ab[1], as[1], bb[2], bb[3], bs[2], bs[3]);
+      add4(&c[4 * j], part);
     }
   }
 }
 
-// dQ: a block per (64-row query tile, head, b), looping over the key tiles
-// up to its diagonal when causal.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                  const T* __restrict__ v, const T* __restrict__ g,
-                                  const float* __restrict__ lse,
-                                  const float* __restrict__ delta, T* __restrict__ dq,
-                                  long long S, int H, int Hkv, int causal, float scale,
-                                  Strides st) {
-  using Sm = Smem<D>;
-  constexpr int P = Sm::kPitch;
-  extern __shared__ float sm[];
+// n-tiles of acc that product_nn runs at once: all of them spilled in the
+// dK/dV kernel (PERF.md).
+constexpr int kNnChunk = 4;
+
+// acc += M . Y: M (16 x N) an accumulator of product_nt (P, dS, P^T or
+// dS^T), Y N rows x dh of a tile at y.  k-step j takes M's columns 8j + 2t
+// and 8j + 2t + 1 as its columns t and t + 4, so its A fragment is c[4j],
+// c[4j + 2], c[4j + 1], c[4j + 3] as they stand, and Y's B fragment is rows
+// 8j + 2t and 8j + 2t + 1 at column 8n + g.  n-tile n of acc holds head dims
+// 8n..8n+7: acc[4n], acc[4n + 1] at (g, 8n + 2t + {0, 1}), the next two at
+// g + 8.
+template <int D, int N>
+__device__ __forceinline__ void product_nn(float (&acc)[D / 2], const float (&m)[N / 2],
+                                           const float* y, int lane) {
+  constexpr int Ld = TileF32<D>::kLd;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // Column 8n + g of rows 8j + 2t and 8j + 2t + 1 sits at 32 (n / 4) +
+  // col0[n % 4] and 32 (n / 4) + col1[n % 4].
+  int col0[4], col1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    col0[i] = (8 * i + g) ^ swz(2 * t);
+    col1[i] = (8 * i + g) ^ swz(2 * t + 1);
+  }
+  const float* y0 = y + 2 * t * Ld;
+  const float* y1 = y0 + Ld;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += kNnChunk)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      uint32_t ab[4], as[4];
+      hopper::split_tf32(m[4 * j], ab[0], as[0]);
+      hopper::split_tf32(m[4 * j + 2], ab[1], as[1]);
+      hopper::split_tf32(m[4 * j + 1], ab[2], as[2]);
+      hopper::split_tf32(m[4 * j + 3], ab[3], as[3]);
+#pragma unroll
+      for (int n = n0; n < (n0 + kNnChunk < D / 8 ? n0 + kNnChunk : D / 8); ++n) {
+        const int at = 8 * j * Ld + 32 * (n >> 2);
+        uint32_t bb0, bs0, bb1, bs1;
+        hopper::split_tf32(y0[at + col0[n & 3]], bb0, bs0);
+        hopper::split_tf32(y1[at + col1[n & 3]], bb1, bs1);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};  // k-step j, summed apart
+        hopper::mma_3xtf32(part, ab, as, bb0, bb1, bs0, bs1);
+        add4(&acc[4 * n], part);
+      }
+    }
+}
+
+// dK and dV: a CTA per (kOwnF32 keys, KV head, b), warp w owning keys
+// 16w.. of them; the steps are the group's query heads in order and, within
+// each, the query tiles of QS rows from first_query_tile on, each taken in
+// sub-steps of SUB rows.
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+    flash_attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v, const float* __restrict__ g,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, float* __restrict__ dk,
+                                        float* __restrict__ dv, long long S_, int H, int Hkv,
+                                        int causal, float scale, Strides st) {
+  using Ty = TileF32<D>;
+  constexpr int QS = Ty::kStep;
+  constexpr int SUB = kSubKvF32;
+  constexpr int Ld = Ty::kLd;
+  extern __shared__ uint4 smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const int S = (int)S_;  // positions fit in 32 bits (S <= kMaxSeq)
+  const int j = blockIdx.x;  // key tile: the first has the most query tiles
+  const int hk = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int group = H / Hkv;
+  const int k0 = j * kOwnF32;
+  const int n_q = (S + QS - 1) / QS;
+  const int first = first_query_tile(j, causal, kOwnF32 / QS);
+  const int per_head = n_q > first ? n_q - first : 0;
+  const int n_steps = group * per_head;
+  float* stages = sm + 2 * Ty::kOwn;
+  auto load_step = [&](int it) {  // query head, query tile; the rows' lse and D
+    const int h = hk * group + it / per_head;
+    const int q0 = (first + it % per_head) * QS;
+    float* s_ = stages + (it % kStagesF32) * Ty::kStage;
+    copy_tile<D, QS>(s_, q + b * st.qb + (long long)h * st.qh, q0, S, st.qs);
+    copy_tile<D, QS>(s_ + Ty::kStepTile, g + b * st.gb + (long long)h * st.gh, q0, S, st.gs);
+    const long long at = (b * H + h) * S;
+    for (int e = threadIdx.x; e < 2 * QS; e += kThreadsF32) {
+      const int r = e % QS;
+      const bool in = q0 + r < S;
+      cp_async4(s_ + 2 * Ty::kStepTile + e, (e < QS ? lse : delta) + at + (in ? q0 + r : 0), in);
+    }
+  };
+  copy_tile<D, kOwnF32>(sm, k + b * st.kb + (long long)hk * st.kh, k0, S, st.ks);
+  copy_tile<D, kOwnF32>(sm + Ty::kOwn, v + b * st.vb + (long long)hk * st.vh, k0, S, st.vs);
+#pragma unroll
+  for (int s = 0; s < kStagesF32 - 1; ++s) {  // the owned tiles ride in the first group
+    if (s < n_steps) load_step(s);
+    hopper::cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int kw0 = k0 + 16 * warp;  // this warp's first key
+  const int key_a = kw0 + (lane >> 2);  // accumulator rows key_a, key_a + 8
+  const float scale_log2 = scale * kLog2eBwd;
+  const float* k_w = sm + 16 * warp * Ld;
+  const float* v_w = sm + Ty::kOwn + 16 * warp * Ld;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int it = 0; it < n_steps; ++it) {
+    ring_turn(it, n_steps, load_step);
+    const float* stage = stages + (it % kStagesF32) * Ty::kStage;
+    const int q0 = (first + it % per_head) * QS;
+#pragma unroll 1
+    for (int r0 = q0; r0 < q0 + QS; r0 += SUB) {
+      // Wholly masked for this warp: its keys or the sub-step's rows past
+      // S, or every query of the sub-step before its first key.
+      if (kw0 >= S || r0 >= S || (causal && r0 + SUB - 1 < kw0)) continue;
+      const float* q_s = stage + (r0 - q0) * Ld;
+      const float* g_s = q_s + Ty::kStepTile;
+      const float* lse_s = stage + 2 * Ty::kStepTile + (r0 - q0);
+      const float* delta_s = lse_s + QS;
+      float sc[SUB / 2], dp[SUB / 2];  // S^T, then P^T; dP^T, then dS^T
+      product_nt<D, SUB>(sc, k_w, q_s, lane);
+      const bool masked = r0 + SUB > S || kw0 + 16 > S || (causal && r0 < kw0 + 15);
+      // P^T: keys key_a (+ 8) x queries r0 + 8c + 2 t4 (+ 1)
+#pragma unroll
+      for (int c = 0; c < SUB / 8; ++c) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * c + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = hopper::ex2(
+              fmaf(sc[4 * c + e], scale_log2, -kLog2eBwd * ((e & 1) ? l.y : l.x)));
+          if (masked) {
+            const int key = key_a + 8 * (e >> 1);
+            const int query = r0 + 8 * c + 2 * t4 + (e & 1);
+            if (query >= S || key >= S || (causal && key > query)) p = 0.f;
+          }
+          sc[4 * c + e] = p;
+        }
+      }
+      product_nn<D, SUB>(acc_v, sc, g_s, lane);  // dV += P^T dO
+      product_nt<D, SUB>(dp, v_w, g_s, lane);
+#pragma unroll
+      for (int c = 0; c < SUB / 8; ++c) {  // dS^T; a masked p is 0: so is its dS
+        const float2 dd = *reinterpret_cast<const float2*>(delta_s + 8 * c + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * c + e] = sc[4 * c + e] * (dp[4 * c + e] - ((e & 1) ? dd.y : dd.x));
+      }
+      product_nn<D, SUB>(acc_k, dp, q_s, lane);  // dK += dS^T Q
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+
+  // dK, dV [B, S, Hkv, D] contiguous: rows key_a (+ 8), columns 8n + 2 t4
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_a + 8 * half;
+    if (key >= S) continue;
+    const long long at = ((b * S + key) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(acc_k[4 * n + 2 * half] * scale, acc_k[4 * n + 2 * half + 1] * scale);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(acc_v[4 * n + 2 * half], acc_v[4 * n + 2 * half + 1]);
+    }
+  }
+}
+
+// dQ: a CTA per (kOwnF32 query rows, head, b), longest first, warp w owning
+// rows 16w.. of them; the steps are the key tiles of KS keys up to the CTA's
+// diagonal, each taken in sub-steps of SUB keys.
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+    flash_attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v, const float* __restrict__ g,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta, float* __restrict__ dq,
+                                      long long S_, int H, int Hkv, int causal, float scale,
+                                      Strides st) {
+  using Ty = TileF32<D>;
+  constexpr int KS = Ty::kStep;
+  constexpr int SUB = kSubQF32;
+  constexpr int Ld = Ty::kLd;
+  extern __shared__ uint4 smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const int S = (int)S_;
   const int i = (int)(gridDim.x - 1 - blockIdx.x);  // longest rows first
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const long long q0 = (long long)i * kTile;
-  const int n_k = causal ? i + 1 : (int)((S + kTile - 1) / kTile);
-
-  load_tile<T, D>(sm + Sm::kQ, q + b * st.qb + (long long)h * st.qh, q0, S, st.qs);
-  load_tile<T, D>(sm + Sm::kG, g + b * st.gb + (long long)h * st.gh, q0, S, st.gs);
-  load_rows(sm + Sm::kLse, sm + Sm::kDelta, lse + (b * H + h) * S, delta + (b * H + h) * S,
-            q0, S);
-  const T* kh = k + b * st.kb + (long long)hk * st.kh;
-  const T* vh = v + b * st.vb + (long long)hk * st.vh;
-  float acc[4][D / 16];
+  const int q0 = i * kOwnF32;
+  const int kv_end = causal ? (q0 + kOwnF32 < S ? q0 + kOwnF32 : S) : S;
+  const int n_k = (kv_end + KS - 1) / KS;
+  const float* kh = k + b * st.kb + (long long)hk * st.kh;
+  const float* vh = v + b * st.vb + (long long)hk * st.vh;
+  float* stages = sm + 2 * Ty::kOwn;
+  auto load_step = [&](int it) {
+    float* s_ = stages + (it % kStagesF32) * Ty::kStage;
+    copy_tile<D, KS>(s_, kh, it * KS, S, st.ks);
+    copy_tile<D, KS>(s_ + Ty::kStepTile, vh, it * KS, S, st.vs);
+  };
+  copy_tile<D, kOwnF32>(sm, q + b * st.qb + (long long)h * st.qh, q0, S, st.qs);
+  copy_tile<D, kOwnF32>(sm + Ty::kOwn, g + b * st.gb + (long long)h * st.gh, q0, S, st.gs);
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) acc[a][e] = 0.f;
-
-  for (int j = 0; j < n_k; ++j) {
-    const long long k0 = (long long)j * kTile;
-    __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(sm + Sm::kK, kh, k0, S, st.ks);
-    load_tile<T, D>(sm + Sm::kV, vh, k0, S, st.vs);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tiles<D>(s, dp, sm, ty, tx);
-    probs<D>(s, dp, sm, q0, k0, S, causal, scale, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b2 = 0; b2 < 4; ++b2) sm[Sm::kS + (ty + 16 * a) * kPitchP + tx + 16 * b2] = dp[a][b2];
-    __syncthreads();
-    // acc[a][e] += sum_c dS[ty + 16a][c] K[c][tx + 16e]
-#pragma unroll 2
-    for (int c = 0; c < kTile; ++c) {
-      float a_[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) a_[a] = sm[Sm::kS + (ty + 16 * a) * kPitchP + c];
-#pragma unroll
-      for (int e = 0; e < D / 16; ++e) {
-        const float k_ = sm[Sm::kK + c * P + tx + 16 * e];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][e] = fmaf(a_[a], k_, acc[a][e]);
-      }
-    }
+  for (int s = 0; s < kStagesF32 - 1; ++s) {  // the owned tiles ride in the first group
+    if (s < n_k) load_step(s);
+    hopper::cp_async_commit();
   }
 
-  // dQ [B, S, H, D] contiguous
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int qw0 = q0 + 16 * warp;  // this warp's first query row
+  const int row_a = qw0 + (lane >> 2);  // accumulator rows row_a, row_a + 8
+  const float scale_log2 = scale * kLog2eBwd;
+  const float* q_w = sm + 16 * warp * Ld;
+  const float* g_w = sm + Ty::kOwn + 16 * warp * Ld;
+  float lse_r[2], delta_r[2];  // the two rows' lse (times log2 e) and D; 0 past S
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long long row = q0 + ty + 16 * a;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const long long at = (b * H + h) * S + row;
+    lse_r[r] = row < S ? lse[at] * kLog2eBwd : 0.f;
+    delta_r[r] = row < S ? delta[at] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  for (int jt = 0; jt < n_k; ++jt) {
+    ring_turn(jt, n_k, load_step);
+    const float* stage = stages + (jt % kStagesF32) * Ty::kStage;
+#pragma unroll 1
+    for (int k0 = jt * KS; k0 < (jt + 1) * KS; k0 += SUB) {
+      // Wholly masked for this warp: its rows or the sub-step's keys past
+      // S, or every key of the sub-step after its last row.
+      if (qw0 >= S || k0 >= S || (causal && k0 > qw0 + 15)) continue;
+      const float* k_s = stage + (k0 - jt * KS) * Ld;
+      const float* v_s = k_s + Ty::kStepTile;
+      float sc[SUB / 2], dp[SUB / 2];  // S, then P; dP, then dS
+      product_nt<D, SUB>(sc, q_w, k_s, lane);
+      product_nt<D, SUB>(dp, g_w, v_s, lane);
+      const bool masked = k0 + SUB > S || qw0 + 16 > S || (causal && k0 + SUB - 1 > qw0);
+      // P and dS: rows row_a (+ 8) x keys k0 + 8c + 2 t4 (+ 1)
+#pragma unroll
+      for (int c = 0; c < SUB / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = hopper::ex2(fmaf(sc[4 * c + e], scale_log2, -lse_r[e >> 1]));
+          if (masked) {
+            const int row = row_a + 8 * (e >> 1);
+            const int key = k0 + 8 * c + 2 * t4 + (e & 1);
+            if (row >= S || key >= S || (causal && key > row)) p = 0.f;
+          }
+          dp[4 * c + e] = p * (dp[4 * c + e] - delta_r[e >> 1]);  // dS; 0 where masked
+        }
+      product_nn<D, SUB>(acc, dp, k_s, lane);  // dQ += dS K
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+
+  // dQ [B, S, H, D] contiguous: rows row_a (+ 8), columns 8n + 2 t4
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
     if (row >= S) continue;
-    const long long at = ((b * S + row) * H + h) * D;
+    const long long at = ((b * S + row) * H + h) * D + 2 * t4;
 #pragma unroll
-    for (int e = 0; e < D / 16; ++e) dq[at + tx + 16 * e] = from_f32<T>(acc[a][e] * scale);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dq + at + 8 * n) =
+          make_float2(acc[4 * n + 2 * half] * scale, acc[4 * n + 2 * half + 1] * scale);
   }
 }
 
@@ -1021,36 +1206,36 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
   return (int)cudaGetLastError();
 }
 
-// D, then dK/dV, then dQ on one stream, f32: the FMA kernels.
+// D, then dK/dV, then dQ on one stream, f32: the mma.sync kernels.
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* g,
                const float* lse, float* delta, void* dq, void* dk, void* dv, long long B,
                long long S, int H, int Hkv, int causal, const Strides& st, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<float, D>,
+  constexpr int smem = TileF32<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_f32_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<float, D>,
+    e = cudaFuncSetAttribute(flash_attention_bwd_dq_f32_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const float scale = 1.f / sqrtf((float)D);
-  const unsigned tiles = (unsigned)((S + kTile - 1) / kTile);
+  const unsigned tiles = (unsigned)((S + kOwnF32 - 1) / kOwnF32);
   const dim3 grid_rows((unsigned)((S + kThreads / 32 - 1) / (kThreads / 32)), (unsigned)H,
                        (unsigned)B);
   flash_attention_bwd_delta_kernel<float, D><<<grid_rows, kThreads, 0, stream>>>(
       (const float*)o, (const float*)g, delta, S, H, st);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_attention_bwd_dkdv_kernel<float, D><<<dim3(tiles, (unsigned)Hkv, (unsigned)B), kThreads,
-                                              smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta, (float*)dk,
-      (float*)dv, S, H, Hkv, causal, scale, st);
+  flash_attention_bwd_dkdv_f32_kernel<D>
+      <<<dim3(tiles, (unsigned)Hkv, (unsigned)B), kThreadsF32, smem, stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
+          (float*)dk, (float*)dv, S, H, Hkv, causal, scale, st);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_attention_bwd_dq_kernel<float, D><<<dim3(tiles, (unsigned)H, (unsigned)B), kThreads,
-                                            smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta, (float*)dq,
-      S, H, Hkv, causal, scale, st);
+  flash_attention_bwd_dq_f32_kernel<D>
+      <<<dim3(tiles, (unsigned)H, (unsigned)B), kThreadsF32, smem, stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
+          (float*)dq, S, H, Hkv, causal, scale, st);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,8 @@ on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
 
 with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal; a sixth entry
 "f32" runs it in f32; flash_attention_backward's K6', bf16 causal, from
-the plain version's output and logsumexp, a random dO; "full" as a sixth
-entry drops the causal mask), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
+the plain version's output and logsumexp, a random dO; "full" after the
+fifth entry drops the causal mask, "f32" runs it in f32), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
 scores on a grid of 1/4 with -inf, NaN and -0.0 scattered in), [B, F, D]
 (dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
 NaN past cache_len; a seventh entry "f32" runs it in f32), [C, D, K]
@@ -56,8 +56,8 @@ kernel's own wrapper (``build.use_library``).  At each case a variant with
 ``check`` (the default) is first held against the plain version as
 ``chip_smoke.py`` holds the kernel (K6 and K7 in bf16 by
 ``assert_close_rows`` and at 2e-5 in f32, K6' as phase 9g holds it: dq, dk
-and dv by ``assert_close_rows`` with the head floor ``K6B_FLOOR``, and two
-launches bit-equal, K2 f32 at 1e-4, K4 bit-equal, K1
+and dv by ``assert_close_rows`` with the head floor ``K6B_FLOOR`` in bf16,
+at 2e-5 in f32, and two launches bit-equal, K2 f32 at 1e-4, K4 bit-equal, K1
 at 1e-5, K3's miss mask bit-equal and its sums at 1e-5, K5 bit-equal, K1'
 twice bit-equal, bit-equal to its plain version on the CPU and within
 ``K1B_TOL`` of it on the card, K2' at 1e-5); a
@@ -269,11 +269,11 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
         return backward_setup(tag, kernel, case, gen)
     if kernel == "flash_attention_backward":
         B, S, H, Hkv, dh = case[:5]
-        causal = case[5:] != ["full"]
-        bf16 = torch.bfloat16
-        q, do = (torch.randn((B, S, H, dh), device="cuda", generator=gen).to(bf16)
+        causal = "full" not in case[5:]
+        dt = torch.float32 if "f32" in case[5:] else torch.bfloat16
+        q, do = (torch.randn((B, S, H, dh), device="cuda", generator=gen).to(dt)
                  for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen).to(bf16)
+        k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen).to(dt)
                 for _ in range(2))
         o, lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
         want = ref.flash_attention_backward_ref(q, k, v, o, lse, do, causal)
@@ -282,8 +282,11 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
         def check(n):
             got = call()
             for part, g, w in zip(("dq", "dk", "dv"), got, want):
-                CS.assert_close_rows(f"{tag} {n} {case} {part}", g, w, *CS.LM_BF16_TOL,
-                                     CS.K6B_FLOOR)
+                if dt == torch.float32:
+                    CS.assert_close(f"{tag} {n} {case} {part}", g, w, *CS.LM_F32_TOL)
+                else:
+                    CS.assert_close_rows(f"{tag} {n} {case} {part}", g, w, *CS.LM_BF16_TOL,
+                                         CS.K6B_FLOOR)
             if not all(torch.equal(a, b) for a, b in zip(got, call())):
                 raise AssertionError(f"{tag} {n} {case}: two launches differ")
 
