@@ -272,6 +272,39 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
   9k. lm_registry — ``smoke("cuda")`` of each of the five LM ids: a train
                 step (K6 and K6' in f32 at head dim 16) and a decode step
                 (K7 in f32 at head dim 16);
+  9l. lm_tp_prefill — qwen2-72b serving at full width (bf16, its own
+                seq_shard and fsdp_serve), 2 of its 80 layers: one device's
+                ``prefill`` of 2 x 4,096 and 8 ``decode_step``s first, kept
+                in host shared memory; then 4 gloo ranks
+                (``launch.mesh.spawn``, the params shared through CUDA IPC)
+                at mesh (data 2, model 2), one prompt a data rank: each
+                rank's ``prefill(mesh=...)`` (K6 at [1, 4096, 32, 4, 128]),
+                ``caches_for_decode`` and 8 ``decode_step``s under the mesh
+                (K7's shard mode), every block of the last logits, the
+                caches and the steps' logits against one device's by
+                ``limit_share`` (rtol 2^-6 plus 2^-3 of the row's RMS),
+                K6 and K7 counted by the wrappers and the profiler (K6 L,
+                K7's shard mode L x 8 a rank; a trace with no device events
+                fails), bytes
+                equal to the ring model's; the same in f32 compute at 1
+                layer and 2 x 1,024 at 1e-4, beside the card's own f32
+                floor (each prompt alone against the batch);
+  9m. lm_tp_train — stablelm-3b at full width, 2 of its 32 layers in one
+                remat group, the train cell's rule (f32 params, bf16
+                compute, Adam in place): one device's step-1 gradients and
+                3 steps of 2 x 4,096 first, in host shared memory; then 4
+                gloo ranks at mesh (data 2, model 2), at its own seq_shard
+                (off) and on: each rank's step-1 gradient blocks
+                (``loss_and_grads(mesh=...)``, profiled: K6 with its
+                logsumexp and K6' at [1, 4096, 16, 16, 80]) and 3 steps of
+                ``make_train_step(mesh=...)``, the losses within 1e-3 of one
+                device's, the step-1 gradient blocks by ``limit_share``
+                (TP_BF16_GRAD_TOL), K6 3 L - G and K6' L a step by the
+                wrappers and L and 3 L - G in the profiled step-1 call,
+                bytes equal to the ring model's; the same in f32 compute at
+                2 x 1,024, where
+                the losses, every gradient block and every param block
+                after the steps hold at 9i's card-vs-CPU tolerance;
  10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
      ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
      times and bound, its times at 5g's forward shapes (``forward_shapes``)
@@ -290,7 +323,8 @@ kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
 ``lm_f32``: K6 and K7 in f32 on the card, 9b, 9c, 9d as ``lm_moe_f32``,
 9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
 ``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9i's and 9j's steps,
-9k as ``lm_registry.<arch>``) runs with the launch
+9k as ``lm_registry.<arch>``, 9l and 9m as ``lm_tp_prefill`` and
+``lm_tp_train``, summed over their ranks and passes) runs with the launch
 counts set to 0 just before it and read just after; comparisons and
 timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
@@ -490,6 +524,59 @@ LMT_BATCH, LMT_SEQ, LMT_STEPS = 2, 4096, 3  # stablelm-3b: train_4k's batch of 2
 LMT_MOE_LAYERS, LMT_MOE_STEPS = 4, 2  # olmoe-1b-7b at full width, 4 of its 16 layers
 LMT_CUT_LAYERS, LMT_CUT_BATCH, LMT_CUT_SEQ = 2, 1, 256  # the f32 cuts, card vs CPU
 LM_IDS = ("stablelm-3b", "olmoe-1b-7b", "qwen2-72b", "arctic-480b", "llama3-405b")
+# lm_tp_prefill and lm_tp_train (phases 9l, 9m): the LM's tensor-,
+# sequence- and FSDP-parallel paths on 4 gloo ranks of the one card, mesh
+# (data 2, model 2), against one device on the card.  qwen2-72b serving at
+# full width, 2 of its 80 layers (its own seq_shard and fsdp_serve), prompts
+# of 2 x 4,096 then 8 decode steps; the f32-compute pass at 1 layer and
+# 2 x 1,024 at the CPU tests' f32 tolerance.  stablelm-3b under the train
+# cell's rule at full width, 2 of its 32 layers in one remat group, one batch
+# of 2 x 4,096, 3 steps, at its own seq_shard and with seq_shard on; its
+# f32-compute pass at 2 x 1,024 holds the losses, the step-1 gradients and
+# the params after 3 steps at phase 9i's card-vs-CPU tolerance (bf16
+# compute moves the losses by its rounding, and Adam's step is the sign of
+# a small gradient: the bf16 path holds its losses at TP_BF16_LOSS_RTOL and
+# its step-1 gradients at TP_BF16_GRAD_TOL, and reports how far its params
+# lie).
+TP_RANKS, TP_MESH = 4, (2, 2)
+TP_PREFILL_LAYERS, TP_PREFILL_BATCH, TP_PREFILL_SEQ = 2, 2, 4096
+TP_DECODE_STEPS, TP_CACHE = 8, 4112  # the prompt + 8, padded to 16
+TP_F32_LAYERS, TP_F32_SEQ, TP_F32_CACHE = 1, 1024, 1040
+# f32 compute: rtol and atol 1e-4.  The CPU tests' 1e-5 is below the card's
+# own f32 floor at these widths: one device's prefill of a sequence alone
+# against the same in a batch of 2 (other GEMM shapes, other sums over
+# D = 8,192) differs by 2.1e-5 in the logits and 1.3e-5 in the caches on
+# an H100 80GB HBM3 at 700 W; the phase measures that floor and prints it.
+# The reference holds its mesh against one device at 2e-3.
+TP_F32_TOL = (1e-4, 1e-4)
+# bf16 compute, by ``limit_share``: two output ulps plus 2^-3 of the row's
+# RMS.  Each rank rounds its partial of a row-parallel product to bf16
+# before the sum, and the one device rounds the whole once: the difference
+# runs through 2 layers and 8 decode steps.  A query head reading the
+# wrong KV head, or a sum left out or made twice, moves a row by its RMS.
+TP_BF16_TOL = (1.6e-2, 1.25e-1)
+# The bf16 train pass's step-1 gradient blocks, by ``limit_share`` against
+# one device: two ulps plus 2^-2 of the row's RMS (a row: a gradient's last
+# dim).  Each data rank rounds its half of a weight gradient's sum over the
+# tokens to bf16, the one device the whole once; where the halves cancel the
+# difference is an ulp of the halves, not of the sum.  On an H100 80GB HBM3
+# at 700 W the worst element of stablelm's blocks stood at 0.11 of its row's
+# RMS (0.871 of 2^-3; wq, every run bit-equal), so 2^-2 leaves it twice
+# the room.  A gradient summed over one axis too few or too many, or scaled
+# by tp, moves a row by its RMS.
+TP_BF16_GRAD_TOL = (1.6e-2, 2.5e-1)
+TP_TRAIN_LAYERS, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 2, 4096, 3
+TP_TRAIN_F32_SEQ = 1024
+TP_BF16_LOSS_RTOL = 1e-3
+# Adam (lm_common.make_optimizer's: lr 3e-4, eps 1e-8) divides each
+# gradient by its running magnitude, so an element whose gradient lies
+# within the gradients' own tolerance of 0 takes a step that rounding
+# decides: each of its steps is at most about lr on both sides (by
+# Cauchy-Schwarz, 1.004 lr at step 3).  The f32 pass holds the params after
+# the steps at TRAIN_GRAD_TOL plus that freedom, 2.1 lr a step times the
+# share of the step-1 gradient that its tolerance covers.
+TP_ADAM_LR, TP_ADAM_EPS = 3e-4, 1e-8
+TP_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -1724,6 +1811,612 @@ def lm_train(dev: torch.device, planted) -> dict:
         out["paths"][f"lm_registry.{arch_id}"] = counts
         out["lm_registry"][arch_id] = {**res, "launches": {k: v for k, v in counts.items() if v}}
     log("[lm_registry] " + json.dumps(out["lm_registry"]))
+    return out
+
+
+def tp_layer_weights(cfg, tp: int, kv_sharded: bool) -> int:
+    """Elements of one layer's weights a rank of `model` gathers whole for
+    FSDP (wq, wk, wv, wo, wg, wu, wd; the dense family)."""
+    hl, hkv = -(-cfg.n_heads // tp), cfg.n_kv_heads // (tp if kv_sharded else 1)
+    return cfg.d_model * cfg.d_head * (2 * hl + 2 * hkv) + 3 * cfg.d_model * cfg.d_ff // tp
+
+
+def lm_tp_prefill_ring_bytes(cfg, tp: int, dp: int, b_local: int, seq: int, steps: int) -> dict:
+    """A rank's bytes over ``prefill``, ``caches_for_decode`` and ``steps``
+    decode steps by the ring model (a dense config, the compute dtype's
+    activations, FSDP over data in the param dtype, KV heads over model):
+    the embedding's reduce-scatter (seq_shard) or all-reduce; per layer two
+    all-gathers of the hidden state [B_l, S, D] over model and two
+    reduce-scatters into [B_l, S / tp, D] (or two all-reduces) and the
+    weights' all-gathers over data; the last position's all-gather; the
+    handoff's all-gather of the KV heads; each decode step's embedding
+    all-reduce, and each layer's max and sum all-reduces of f32 partials."""
+    act, par = cfg.compute_dtype.itemsize, cfg.param_dtype.itemsize
+    hid = b_local * seq * cfg.d_model * act
+    out = {"all_gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0}
+    if cfg.seq_shard:
+        out["reduce_scatter"] += (1 + 2 * cfg.n_layers) * hid // tp * (tp - 1)
+        out["all_gather"] += 2 * cfg.n_layers * hid * (tp - 1) / tp
+        out["all_gather"] += b_local * tp * cfg.d_model * act * (tp - 1) / tp
+    else:
+        out["all_reduce"] += (1 + 2 * cfg.n_layers) * 2 * hid * (tp - 1) / tp
+    if cfg.fsdp:
+        out["all_gather"] += cfg.n_layers * tp_layer_weights(cfg, tp, True) * par * (dp - 1) / dp
+    caches = 2 * cfg.n_layers * b_local * seq * cfg.n_kv_heads * cfg.d_head * act
+    out["all_gather"] += caches * (tp - 1) / tp
+    hp = -(-cfg.n_heads // tp) * tp
+    out["all_reduce"] += steps * (2 * b_local * cfg.d_model * act * (tp - 1) / tp + cfg.n_layers
+                                  * 2 * b_local * hp * (cfg.d_head + 1) * 4 * (tp - 1) / tp)
+    out["all_reduce_max"] = steps * cfg.n_layers * 2 * b_local * hp * 4 * (tp - 1) / tp
+    return {k: v for k, v in out.items() if v}
+
+
+def lm_tp_train_ring_bytes(cfg, tp: int, dp: int, b_local: int, seq: int) -> dict:
+    """A rank's bytes over one train step (a dense config, KV sharded, one
+    microbatch, FSDP over data) by the ring model, under the two-level remat
+    (L layers, G groups): the hidden state's collectives of the forward, of
+    each group's recompute up to its last layer (2 (L - G) of each kind),
+    of each layer's own (which stops after its FFN product: 2 L gathers, L
+    sums) and of the backward (each collective's transpose once); the
+    weights' all-gathers at each of the 3 L - G uses and their gradients'
+    reduce-scatter once a layer; the vocab-parallel loss (a row max, two
+    row sums over model, two scalars over data); the gradients of the
+    token table, the head and the norms summed over data, and over model
+    too for the norms under seq_shard."""
+    L_, G_ = cfg.n_layers, cfg.groups()
+    act, par = cfg.compute_dtype.itemsize, cfg.param_dtype.itemsize
+    hid = b_local * seq * cfg.d_model * act
+    w = tp_layer_weights(cfg, tp, True)
+    out = {"all_gather": (3 * L_ - G_) * w * par * (dp - 1) / dp,
+           "reduce_scatter": L_ * w * 4 // dp * (dp - 1),
+           "all_reduce": 2 * 2 * b_local * seq * 4 * (tp - 1) / tp + 2 * 2 * 4 * (dp - 1) / dp,
+           "all_reduce_max": 2 * b_local * seq * 4 * (tp - 1) / tp}
+    if cfg.seq_shard:
+        out["all_gather"] += (8 * L_ - 2 * G_ + 2) * hid * (tp - 1) / tp
+        out["reduce_scatter"] += (7 * L_ - 2 * G_ + 2) * hid // tp * (tp - 1)
+    else:
+        out["all_reduce"] += (7 * L_ - 2 * G_ + 2) * 2 * hid * (tp - 1) / tp
+    vocab = -(-cfg.vocab // (128 * tp)) * 128  # a rank's rows of the padded vocab
+    tables = 2 * vocab * cfg.d_model * 4  # its embed and head blocks, f32
+    norms = (2 * L_ + 1) * cfg.d_model * 4
+    if cfg.seq_shard:
+        out["all_reduce"] += 2 * tables * (dp - 1) / dp + 2 * norms * (dp * tp - 1) / (dp * tp)
+    else:
+        out["all_reduce"] += 2 * (tables + norms) * (dp - 1) / dp
+    return out
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def hold_scaled(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``got`` within TRAIN_GRAD_TOL of ``want``, atol times the largest
+    magnitude of ``want`` past 1 (``assert_trees_close``'s ``scaled``);
+    returns the largest abs error."""
+    rtol, atol = TRAIN_GRAD_TOL
+    err = max_err(got, want)
+    tol = atol * max(1.0, float(want.abs().max()))
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=tol):
+        raise AssertionError(f"{label}: max abs err {err:.3e} (rtol {rtol}, atol {tol:.3e})")
+    return err
+
+
+def hold_adam(label: str, got: torch.Tensor, want: torch.Tensor, grad: torch.Tensor,
+              steps: int) -> tuple[float, int]:
+    """Params after ``steps`` Adam steps within TRAIN_GRAD_TOL of ``want``
+    (atol times the largest magnitude past 1), plus Adam's freedom where the
+    step-1 gradient ``grad`` lies near 0 (TP_ADAM_LR above); returns the
+    largest abs error and how many elements needed that freedom."""
+    rtol, atol = TRAIN_GRAD_TOL
+    g, w, d = grad.float(), want.float(), (got.float() - want.float()).abs()
+    tight = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+    gtol = atol * max(1.0, float(g.abs().max()))
+    free = 2.1 * steps * TP_ADAM_LR * torch.clamp(gtol / (g.abs() + TP_ADAM_EPS), max=1.0)
+    if bool((d > tight + free).any()):
+        i = int((d - tight - free).argmax())
+        raise AssertionError(f"{label}: max abs err {float(d.max()):.3e}; at element {i} "
+                             f"{float(d.flatten()[i]):.3e} past TRAIN_GRAD_TOL "
+                             f"{float(tight.flatten()[i]):.3e} plus Adam's freedom "
+                             f"{float(free.flatten()[i]):.3e} (step-1 gradient "
+                             f"{float(g.flatten()[i]):.3e})")
+    return float(d.max()), int((d > tight).sum())
+
+
+def profiled_counts(fn, names: tuple) -> tuple:
+    """``fn()`` under ``torch.profiler`` on the card: its result and, for
+    each name, how many device kernels whose name holds it ran (None for
+    every name when the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return result, dict.fromkeys(names)
+    return result, {n: sum(n in k for k in kernels) for n in names}
+
+
+def hold_profiled(label: str, got: dict, want: dict) -> None:
+    """The profiler's kernel counts ``got`` (``profiled_counts``) equal to
+    ``want``; a trace with no device events fails."""
+    if any(v is None for v in got.values()):
+        raise AssertionError(f"{label}: the profiler's trace holds no device events")
+    if got != want:
+        raise AssertionError(f"{label}: profiled kernels {got}, want {want}")
+
+
+def bytes_since(before: dict) -> dict:
+    from repro_torch.launch import mesh as M
+
+    return {op: v - before.get(op, 0.0) for op, v in M.comm_bytes().items()
+            if v != before.get(op, 0.0)}
+
+
+def host_shared(tree):
+    """``tree``'s tensors copied to host shared memory: a spawned rank
+    receives a handle to each, not its bytes."""
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu").share_memory_(), tree)
+
+
+def on_card_block(whole: torch.Tensor, spec, mesh, dev) -> torch.Tensor:
+    """This rank's block of a host tensor under ``spec``, copied to the card."""
+    from repro_torch.models import layers as L
+
+    return L.constrain(whole, spec, mesh).to(dev)
+
+
+TP_PREFILL_KERNELS = ("flash_attention_bf16_kernel", "flash_attention_f32_kernel",
+                      "flash_decode")
+TP_TRAIN_KERNELS = ("flash_attention_bf16_kernel", "flash_attention_f32_kernel",
+                    "flash_attention_bwd_dq")
+
+
+def lm_tp_prefill_rank(rank: int, world: int, params: dict, cases: list) -> dict:
+    """One rank of lm_tp_prefill (spawned by ``launch.mesh.spawn`` over gloo;
+    each case's whole params are the main process's CUDA tensors, shared,
+    never copied; its one-device outputs are host tensors in shared
+    memory): under mesh (data 2, model 2), the rank's blocks of the params
+    (``mesh_param_specs``: FSDP over data, heads and FFN columns over
+    model), ``prefill`` of its prompt, ``caches_for_decode`` and
+    TP_DECODE_STEPS ``decode_step``s from them (params by
+    ``decode_param_specs``), profiled and with the launch counts and bytes
+    read around it; then its blocks of the last logits, the prefill's
+    caches, each step's logits and the caches after the steps against the
+    one device's."""
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as TF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device(DEVICE)
+    mesh = M.Mesh(TP_MESH, ("data", "model"))
+    ba, seq_axes = ("data",), ("model",)
+    out = {"coords": dict(mesh.coords)}
+    for case, whole in zip(cases, params):
+        name, cfg, want = case["name"], case["cfg"], case["want"]
+        p = R.shard_params(whole, TF.mesh_param_specs(cfg, mesh, ba), mesh)
+        dp = R.shard_params(whole, TF.decode_param_specs(cfg), mesh)
+        toks = L.constrain(case["tokens"], P(ba), mesh).to(dev)
+        dec_toks = L.constrain(case["decode_tokens"], P(None, ba), mesh).to(dev)
+        S = toks.shape[1]
+
+        def path():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                last, caches = TF.prefill(cfg, p, toks, mesh, ba)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                cache = TF.caches_for_decode(cfg, caches, case["cache"], mesh, ba)
+                pos = torch.tensor(S, dtype=torch.int32, device=dev)
+                logits = []
+                t1 = time.perf_counter()
+                for i in range(TP_DECODE_STEPS):
+                    lg, cache = TF.decode_step(cfg, dp, cache, dec_toks[i], pos, mesh, ba,
+                                               seq_axes)
+                    logits.append(lg)
+                    pos += 1
+                torch.cuda.synchronize()
+            return (last, caches, torch.stack(logits), cache, prefill_s,
+                    (time.perf_counter() - t1) / TP_DECODE_STEPS)
+
+        reset_counts()
+        before = M.comm_bytes()
+        (last, caches, logits, cache, prefill_s, step_s), prof = profiled_counts(
+            path, TP_PREFILL_KERNELS)
+        counts, sent = launch_counts(), bytes_since(before)
+        kv_spec = P(None, ba, None, "model" if cfg.kv_sharded(mesh) else None, None)
+        cspec = TF.cache_specs(cfg, ba, seq_axes)
+        checks = (("last logits", last, want["last"], P(ba, "model")),
+                  ("prefill k cache", caches[0], want["k"], kv_spec),
+                  ("prefill v cache", caches[1], want["v"], kv_spec),
+                  (f"{TP_DECODE_STEPS} steps' logits", logits, want["decode"],
+                   P(None, ba, "model")),
+                  ("k cache after the steps", cache[0], want["decode_k"], cspec),
+                  ("v cache after the steps", cache[1], want["decode_v"], cspec))
+        errs, shares = {}, {}
+        for what, got, whole_want, spec in checks:
+            w = on_card_block(whole_want, spec, mesh, dev)
+            label = (f"[lm_tp_prefill] rank {rank} {dict(mesh.coords)} {name}: {what} "
+                     f"{list(got.shape)} vs one device")
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: not finite")
+            errs[what] = err = max_err(got, w)
+            if case["rows"]:
+                shares[what] = share = limit_share(got, w, *case["tol"])
+                ok, limit = share <= 1.0, (f"{share:.3f} of the limit: rtol {case['tol'][0]}"
+                                           f", {case['tol'][1]} of the row's RMS")
+            else:
+                ok = torch.allclose(got.float(), w.float(), rtol=case["tol"][0],
+                                    atol=case["tol"][1])
+                limit = f"rtol {case['tol'][0]}, atol {case['tol'][1]}"
+            if not ok:
+                raise AssertionError(f"{label}: disagrees (max abs err {err:.3e}, {limit})")
+            log(f"  {label}: ok, max abs err {err:.3e} ({limit})")
+        out[name] = {"launches": counts, "profiled_kernels": prof, "bytes": sent,
+                     "max_abs_err": errs, "limit_share": shares, "prefill_wall_s": prefill_s,
+                     "decode_step_wall_s": step_s, "cache_block": list(cache[0].shape)}
+        del p, dp, last, caches, logits, cache
+    return out
+
+
+def lm_tp_train_rank(rank: int, world: int, params: dict, cases: list) -> dict:
+    """One rank of lm_tp_train (spawned over gloo; ``params`` is the main
+    process's CUDA tensors, shared; the cases' one-device losses, step-1
+    gradients and params after the steps are host tensors in shared
+    memory): for each case (bf16 compute, f32 compute) and each layout
+    (the config's seq_shard, then on), the rank's blocks of the params
+    (cloned: Adam updates them in place), its batch block, the step-1
+    gradients of ``loss_and_grads`` under the profiler, then
+    TP_TRAIN_STEPS steps of ``make_train_step(mesh=...)`` with the train
+    cell's Adam, launch counts and bytes read around them; each against the
+    one device's."""
+    from repro_torch.configs import lm_common
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.core.sharding import is_spec
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device(DEVICE)
+    mesh = M.Mesh(TP_MESH, ("data", "model"))
+    ba = ("data",)
+    out = {"coords": dict(mesh.coords)}
+    for case in cases:
+        want = case["want"]
+        for seq_shard in (case["cfg"].seq_shard, True):
+            cfg = dataclasses.replace(case["cfg"], seq_shard=seq_shard)
+            name = f"{case['name']} seq_shard={seq_shard}"
+            label = f"[lm_tp_train] rank {rank} {dict(mesh.coords)} {name}"
+            layout = TF.mesh_param_specs(cfg, mesh, ba)
+            p = tree_map(lambda t: t.clone(), R.shard_params(params, layout, mesh))
+            batch = {k: L.constrain(v, P(ba), mesh).to(dev) for k, v in case["batch"].items()}
+            (loss1, grads), prof = profiled_counts(
+                lambda: TF.loss_and_grads(cfg, p, batch["tokens"], batch["labels"], mesh, ba),
+                TP_TRAIN_KERNELS)
+            specs = {keystr(k): s for k, s in tree_flatten_with_path(layout, is_spec)}
+            grad_errs, grad_shares = {}, {}
+            for key, g in tree_flatten_with_path(grads):
+                k = keystr(key)
+                w = on_card_block(want["grads"][k], specs[k], mesh, dev)
+                if case["hold"]:
+                    grad_errs[k] = hold_scaled(f"{label}: step-1 gradient {k}", g, w)
+                    continue
+                grad_errs[k] = err = max_err(g, w)
+                grad_shares[k] = share = limit_share(g, w, *TP_BF16_GRAD_TOL)
+                if not share <= 1.0:
+                    raise AssertionError(
+                        f"{label}: step-1 gradient {k} {list(g.shape)} disagrees with one "
+                        f"device's (max abs err {err:.3e}, {share:.3f} of the limit: rtol "
+                        f"{TP_BF16_GRAD_TOL[0]}, {TP_BF16_GRAD_TOL[1]} of the row's RMS)")
+            if grad_shares:
+                worst = max(grad_shares, key=grad_shares.get)
+                log(f"  {label}: step-1 gradients ok, at most {grad_shares[worst]:.3f} of the "
+                    f"limit ({worst}; rtol {TP_BF16_GRAD_TOL[0]}, {TP_BF16_GRAD_TOL[1]} of the "
+                    f"row's RMS)")
+            del grads
+            opt, _ = lm_common.make_optimizer("adam")
+            state = opt.init(p)
+            step = TF.make_train_step(cfg, opt, mesh, ba, grad_specs=layout)
+            reset_counts()
+            before = M.comm_bytes()
+            losses, walls = [], []
+            for _ in range(TP_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, state, m = step(p, state, batch)
+                losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t0)
+            counts, sent = launch_counts(), bytes_since(before)
+            rtol, atol = TRAIN_GRAD_TOL if case["hold"] else (TP_BF16_LOSS_RTOL, 0.0)
+            if not (np.allclose(losses, want["losses"], rtol=rtol, atol=atol)
+                    and np.allclose(float(loss1), want["losses"][0], rtol=rtol, atol=atol)):
+                raise AssertionError(f"{label}: losses {losses} (step-1 gradients' "
+                                     f"{float(loss1)}) vs one device's {want['losses']} "
+                                     f"(rtol {rtol}, atol {atol})")
+            log(f"  {label}: losses {losses} vs one device's {want['losses']}: ok "
+                f"(rtol {rtol}, atol {atol})")
+            param_errs, freed = {}, 0
+            for key, t in tree_flatten_with_path(p):
+                k = keystr(key)
+                w = on_card_block(want["params"][k], specs[k], mesh, dev)
+                if case["hold"]:
+                    g1 = on_card_block(want["grads"][k], specs[k], mesh, dev)
+                    param_errs[k], n = hold_adam(f"{label}: {k} after {TP_TRAIN_STEPS} steps",
+                                                 t, w, g1, TP_TRAIN_STEPS)
+                    freed += n
+                else:
+                    param_errs[k] = max_err(t, w)
+            log(f"  {label}: step-1 gradients' and params' max abs err "
+                f"{max(grad_errs.values()):.3e}, {max(param_errs.values()):.3e}"
+                + (f", held at {TRAIN_GRAD_TOL} scaled ({freed} param elements of "
+                   f"{sum(t.numel() for _, t in tree_flatten_with_path(p))} past it, within "
+                   "Adam's freedom)" if case["hold"] else
+                   ", the gradients held by limit_share, the params reported"))
+            out[name] = {"launches": counts, "profiled_kernels": prof, "bytes": sent,
+                         "losses": losses, "step_wall_s": walls, "params_freed": freed,
+                         "grads_max_abs_err": max(grad_errs.values()),
+                         "params_max_abs_err": max(param_errs.values()),
+                         "grads_max_abs_err_by_leaf": grad_errs,
+                         "grads_limit_share_by_leaf": grad_shares,
+                         "params_max_abs_err_by_leaf": param_errs,
+                         "held": case["hold"]}
+            del p, state, batch
+    return out
+
+
+def lm_tp(dev: torch.device) -> dict:
+    """Phases 9l and 9m, the LM's tensor-, sequence- and FSDP-parallel
+    paths (the docstring at the top): each runs its one-device computation
+    on the card first, keeps its outputs in host shared memory, frees what
+    the card held for it but the params, and spawns TP_RANKS gloo ranks.
+    Returns each path's launches summed over the ranks and the phases'
+    summaries."""
+    from repro_torch.configs.lm_common import make_optimizer, serving_config
+    from repro_torch.configs.qwen2_72b import make_config as make_qwen2
+    from repro_torch.configs.stablelm_3b import make_config as make_stablelm
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_map
+
+    f32 = torch.float32
+    amesh = M.AbstractMesh(TP_MESH, ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {"paths": {}}
+
+    def sum_launches(results, names) -> dict:
+        total: dict = {}
+        for res in results:
+            for n in names:
+                for k, v in res[n]["launches"].items():
+                    total[k] = total.get(k, 0) + v
+        return total
+
+    # --------------------------------------------------------- lm_tp_prefill
+    base = dataclasses.replace(serving_config(make_qwen2()), fsdp=True)  # fsdp_serve
+    runs = [("bf16", dataclasses.replace(base, n_layers=TP_PREFILL_LAYERS), TP_PREFILL_SEQ,
+             TP_CACHE, True, TP_BF16_TOL),
+            ("f32", dataclasses.replace(base, n_layers=TP_F32_LAYERS, param_dtype=f32,
+                                        compute_dtype=f32), TP_F32_SEQ, TP_F32_CACHE, False,
+             TP_F32_TOL)]
+    log(f"[lm_tp_prefill] {base.name} at full width on {TP_RANKS} gloo ranks, mesh "
+        f"{dict(zip(('data', 'model'), TP_MESH))}: {TP_PREFILL_LAYERS} layers bf16 at "
+        f"{TP_PREFILL_BATCH} x {TP_PREFILL_SEQ}, {TP_F32_LAYERS} layer f32 at "
+        f"{TP_PREFILL_BATCH} x {TP_F32_SEQ}; {TP_DECODE_STEPS} decode steps each")
+    cases, whole_params, one_device, floors = [], [], {}, {}
+    for name, cfg, S, cache_len, rows, tol in runs:
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, seed=0, device=dev, mesh=amesh)
+        toks = torch.randint(0, cfg.vocab, (TP_PREFILL_BATCH, S), generator=gen, device=dev,
+                             dtype=torch.int32)
+        dec = torch.randint(0, cfg.vocab, (TP_DECODE_STEPS, TP_PREFILL_BATCH), generator=gen,
+                            device=dev, dtype=torch.int32)
+        with torch.no_grad():
+            last, (k, v) = TF.prefill(cfg, params, toks)
+            pad = (0, 0, 0, 0, 0, cache_len - S)
+            cache = (torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
+            pos = torch.tensor(S, dtype=torch.int32, device=dev)
+            logits = []
+            for i in range(TP_DECODE_STEPS):
+                lg, cache = TF.decode_step(cfg, params, cache, dec[i], pos)
+                logits.append(lg)
+                pos += 1
+        want = host_shared({"last": last, "k": k, "v": v, "decode": torch.stack(logits),
+                            "decode_k": cache[0], "decode_v": cache[1]})
+        one_device[name] = time.perf_counter() - t0
+        if not rows:  # the card's own floor: each prompt alone, other GEMM shapes
+            with torch.no_grad():
+                alone = [TF.prefill(cfg, params, toks[b:b + 1]) for b in range(TP_PREFILL_BATCH)]
+            floors[name] = {
+                "last logits": max(max_err(a[0][0], last[b]) for b, a in enumerate(alone)),
+                "prefill k cache": max(max_err(a[1][0][:, 0], k[:, b])
+                                       for b, a in enumerate(alone))}
+            log(f"  [lm_tp_prefill] {name}: one device, each prompt alone against the batch: "
+                f"max abs err {floors[name]} (the card's f32 floor at these widths)")
+            del alone
+        del last, k, v, cache, logits
+        cases.append({"name": name, "cfg": cfg, "cache": cache_len, "rows": rows, "tol": tol,
+                      "tokens": host_shared(toks), "decode_tokens": host_shared(dec),
+                      "want": want})
+        whole_params.append(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = M.spawn(lm_tp_prefill_rank, TP_RANKS, (whole_params, cases), timeout=TP_TIMEOUT_S)
+    for (name, cfg, S, cache_len, rows, tol) in runs:
+        ring = lm_tp_prefill_ring_bytes(cfg, TP_MESH[1], TP_MESH[0],
+                                        TP_PREFILL_BATCH // TP_MESH[0], S, TP_DECODE_STEPS)
+        for r, rr in enumerate(res):
+            run = rr[name]
+            want_k6 = {"flash_attention": cfg.n_layers,
+                       "flash_attention_f32": cfg.n_layers * (cfg.compute_dtype == f32),
+                       "flash_decode": cfg.n_layers * TP_DECODE_STEPS,
+                       "flash_decode_partial": cfg.n_layers * TP_DECODE_STEPS}
+            got = {k: run["launches"][k] for k in want_k6}
+            if got != want_k6:
+                raise AssertionError(f"lm_tp_prefill rank {r} {name}: launches {got}, want "
+                                     f"{want_k6}")
+            f32_run = cfg.compute_dtype == f32
+            want_prof = {"flash_attention_bf16_kernel": cfg.n_layers * (not f32_run),
+                         "flash_attention_f32_kernel": cfg.n_layers * f32_run,
+                         "flash_decode": cfg.n_layers * TP_DECODE_STEPS}
+            hold_profiled(f"lm_tp_prefill rank {r} {name}", run["profiled_kernels"],
+                          want_prof)
+            if run["bytes"] != ring:
+                raise AssertionError(f"lm_tp_prefill rank {r} {name}: bytes {run['bytes']} "
+                                     f"!= the ring model's {ring}")
+    out["paths"]["lm_tp_prefill"] = sum_launches(res, [n for n, *_ in runs])
+    out["lm_tp_prefill"] = summary = {
+        "card": nvidia_smi(), "config": f"{base.name} widths", "mesh": dict(zip(("data", "model"),
+                                                                          TP_MESH)),
+        "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect, "
+                   "not a speed number)",
+        "one_device_s": one_device, "one_device_batch_shape_max_abs_err": floors,
+        "runs": {name: {
+            "layers": cfg.n_layers, "batch": TP_PREFILL_BATCH, "seq": S, "cache": cache_len,
+            "compute": str(cfg.compute_dtype)[6:], "params": str(cfg.param_dtype)[6:],
+            "tolerance": ("assert_close_rows rtol %g, %g of the row's RMS" if rows
+                          else "allclose rtol %g, atol %g") % tol,
+            "coords_per_rank": [rr["coords"] for rr in res],
+            "max_abs_err_per_rank": [rr[name]["max_abs_err"] for rr in res],
+            "limit_share_per_rank": [rr[name]["limit_share"] for rr in res],
+            "launches_per_rank": [{k: v for k, v in rr[name]["launches"].items() if v}
+                                  for rr in res],
+            "profiled_kernels_per_rank": [rr[name]["profiled_kernels"] for rr in res],
+            "bytes_per_rank": [rr[name]["bytes"] for rr in res],
+            "ring_model_bytes": lm_tp_prefill_ring_bytes(
+                cfg, TP_MESH[1], TP_MESH[0], TP_PREFILL_BATCH // TP_MESH[0], S,
+                TP_DECODE_STEPS),
+            "prefill_wall_s_per_rank": [rr[name]["prefill_wall_s"] for rr in res],
+            "decode_step_wall_s_per_rank": [rr[name]["decode_step_wall_s"] for rr in res],
+            "cache_block_per_rank": [rr[name]["cache_block"] for rr in res]}
+            for name, cfg, S, cache_len, rows, tol in runs}}
+    log("[lm_tp_prefill] " + json.dumps(summary))
+    del whole_params, cases, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- lm_tp_train
+    cfg_b = dataclasses.replace(make_stablelm(), n_layers=TP_TRAIN_LAYERS, remat_groups=1,
+                                param_dtype=f32)  # build_lm_cell's train rule
+    runs = [("bf16", cfg_b, TP_TRAIN_SEQ, False),
+            ("f32", dataclasses.replace(cfg_b, compute_dtype=f32), TP_TRAIN_F32_SEQ, True)]
+    log(f"[lm_tp_train] {cfg_b.name} at full width, {TP_TRAIN_LAYERS} of 32 layers, f32 params, "
+        f"Adam, {TP_TRAIN_STEPS} steps on {TP_RANKS} gloo ranks, mesh "
+        f"{dict(zip(('data', 'model'), TP_MESH))}, at seq_shard {cfg_b.seq_shard} and True: "
+        f"bf16 compute at {TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}, f32 at {TP_TRAIN_BATCH} x "
+        f"{TP_TRAIN_F32_SEQ}")
+    p0 = TF.init_params(cfg_b, seed=0, device=dev, mesh=amesh)
+    cases, floors = [], {}
+    for name, cfg, S, hold in runs:
+        t0 = time.perf_counter()
+        host = {k: torch.from_numpy(v) for k, v in syn.lm_batch(
+            np.random.default_rng(11), cfg.vocab, TP_TRAIN_BATCH, S).items()}
+        batch = {k: v.to(dev) for k, v in host.items()}
+        _, grads = TF.loss_and_grads(cfg, p0, batch["tokens"], batch["labels"])
+        if hold:  # the card's own floor: the mean of each sequence's gradients alone
+            halves = [TF.loss_and_grads(cfg, p0, batch["tokens"][b:b + 1],
+                                        batch["labels"][b:b + 1])[1]
+                      for b in range(TP_TRAIN_BATCH)]
+            floors[name] = max(max_err(sum(ts) / TP_TRAIN_BATCH, g) for (_, g), *ts in zip(
+                tree_flatten_with_path(grads), *([t for _, t in tree_flatten_with_path(h)]
+                                                 for h in halves)))
+            log(f"  [lm_tp_train] {name}: one device, the step-1 gradients as the mean of each "
+                f"sequence's alone against the batch's: max abs err {floors[name]:.3e}")
+            del halves
+        grads = host_shared({keystr(k): g for k, g in tree_flatten_with_path(grads)})
+        p = tree_map(lambda t: t.clone(), p0)
+        opt, _ = make_optimizer("adam")
+        state = opt.init(p)
+        step = TF.make_train_step(cfg, opt)
+        losses = []
+        for _ in range(TP_TRAIN_STEPS):
+            p, state, m = step(p, state, batch)
+            losses.append(float(m["loss"]))
+        want = {"losses": losses, "grads": grads,
+                "params": host_shared({keystr(k): t for k, t in tree_flatten_with_path(p)})}
+        del p, state, batch
+        cases.append({"name": name, "cfg": cfg, "hold": hold, "batch": host_shared(host),
+                      "want": want, "one_device_s": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = M.spawn(lm_tp_train_rank, TP_RANKS, (p0, cases), timeout=TP_TIMEOUT_S)
+    names = []
+    for name, cfg, S, hold in runs:
+        for seq_shard in (cfg.seq_shard, True):
+            lay = dataclasses.replace(cfg, seq_shard=seq_shard)
+            key = f"{name} seq_shard={seq_shard}"
+            names.append(key)
+            ring = {op: TP_TRAIN_STEPS * v for op, v in lm_tp_train_ring_bytes(
+                lay, TP_MESH[1], TP_MESH[0], TP_TRAIN_BATCH // TP_MESH[0], S).items()}
+            k6 = (3 * cfg.n_layers - cfg.groups()) * TP_TRAIN_STEPS
+            want_k = {"flash_attention": k6, "flash_attention_backward":
+                      cfg.n_layers * TP_TRAIN_STEPS,
+                      "flash_attention_f32": k6 * (cfg.compute_dtype == f32),
+                      "flash_attention_backward_f32":
+                          cfg.n_layers * TP_TRAIN_STEPS * (cfg.compute_dtype == f32)}
+            f32_run = cfg.compute_dtype == f32
+            k6_call = 3 * cfg.n_layers - cfg.groups()  # the profiled loss_and_grads
+            want_prof = {"flash_attention_bf16_kernel": k6_call * (not f32_run),
+                         "flash_attention_f32_kernel": k6_call * f32_run,
+                         "flash_attention_bwd_dq": cfg.n_layers}
+            for r, rr in enumerate(res):
+                got = {k: rr[key]["launches"][k] for k in want_k}
+                if got != want_k:
+                    raise AssertionError(f"lm_tp_train rank {r} {key}: launches {got}, the "
+                                         f"remat predicts {want_k}")
+                hold_profiled(f"lm_tp_train rank {r} {key}", rr[key]["profiled_kernels"],
+                              want_prof)
+                if rr[key]["bytes"] != ring:
+                    raise AssertionError(f"lm_tp_train rank {r} {key}: bytes "
+                                         f"{rr[key]['bytes']} != the ring model's {ring}")
+    out["paths"]["lm_tp_train"] = sum_launches(res, names)
+    out["lm_tp_train"] = summary = {
+        "card": nvidia_smi(), "config": f"{cfg_b.name} widths, {TP_TRAIN_LAYERS} layers, one remat "
+        "group", "mesh": dict(zip(("data", "model"), TP_MESH)),
+        "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect, "
+                   "not a speed number)",
+        "one_device_s": {c["name"]: c["one_device_s"] for c in cases},
+        "one_device_losses": {c["name"]: c["want"]["losses"] for c in cases},
+        "one_device_batch_shape_grads_max_abs_err": floors,
+        "runs": {key: {
+            "held_at": "TRAIN_GRAD_TOL %s, atol times a leaf's largest magnitude past 1; "
+                       "params plus Adam's freedom near a zero gradient" % (TRAIN_GRAD_TOL,)
+                       if res[0][key]["held"]
+                       else f"losses at rtol {TP_BF16_LOSS_RTOL}; step-1 gradients by "
+                            f"limit_share, rtol {TP_BF16_GRAD_TOL[0]} plus "
+                            f"{TP_BF16_GRAD_TOL[1]} of the row's RMS; params reported",
+            "losses_per_rank": [rr[key]["losses"] for rr in res],
+            "grads_max_abs_err_per_rank": [rr[key]["grads_max_abs_err"] for rr in res],
+            "grads_limit_share_by_leaf_per_rank": [rr[key]["grads_limit_share_by_leaf"]
+                                                   for rr in res],
+            "params_max_abs_err_per_rank": [rr[key]["params_max_abs_err"] for rr in res],
+            "params_past_train_grad_tol_per_rank": [rr[key]["params_freed"] for rr in res],
+            "launches_per_rank": [{k: v for k, v in rr[key]["launches"].items() if v}
+                                  for rr in res],
+            "profiled_kernels_per_rank": [rr[key]["profiled_kernels"] for rr in res],
+            "bytes_per_rank": [rr[key]["bytes"] for rr in res],
+            "step_wall_s_per_rank": [rr[key]["step_wall_s"] for rr in res]}
+            for key in names}}
+    log("[lm_tp_train] " + json.dumps(summary))
+    del p0, cases, res
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3706,6 +4399,9 @@ def main() -> int:
     # ------------------------------------------------- lm_train .. lm_registry
     lmt = lm_train(dev, k6b_planted)
 
+    # -------------------------------------------------- lm_tp_prefill, lm_tp_train
+    tp = lm_tp(dev)
+
     # ---------------------------------------------------------- kernels line
     sources = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:38",
@@ -3725,7 +4421,7 @@ def main() -> int:
              "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
              "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
-             **lmt["paths"]}
+             **lmt["paths"], **tp["paths"]}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]

@@ -8,11 +8,16 @@ model) [+ pod] since batch=1 leaves the data axis free.
 
 A cell's arguments are ``meta`` tensors of the global shapes and its
 in_shardings the reference's ``PartitionSpec`` trees (``T.param_specs``,
-the optimizer's state specs).  Under a mesh the decode cell's step runs
-(``decode_step``'s sequence-sharded decode; it takes its params in the
-layout of ``T.decode_param_specs``, which the reference's GSPMD computes
-from these specs); the train and prefill cells' steps raise until the
-tensor- and sequence-parallel slice ports their layouts.
+the optimizer's state specs, the batch's ``P(batch_axes, None)``).  Under
+a ``launch.mesh.Mesh`` each rank calls the cell's step on its blocks of the
+arguments, cut by those specs (``models.recsys.shard_params``): the train
+and prefill cells' steps run the tensor-, sequence- and FSDP-parallel
+``make_train_step`` and ``prefill`` (the params' layout is
+``T.mesh_param_specs``: serving cells with ``fsdp_serve`` gather weight
+rows over the batch axes at use), Adafactor's reductions span the mesh;
+the decode cell's step is ``decode_step``'s sequence-sharded decode, which
+takes its params in the layout of ``T.decode_param_specs`` (the
+reference's GSPMD computes it from these specs).
 """
 from __future__ import annotations
 
@@ -45,16 +50,18 @@ def serving_config(cfg: TransformerConfig) -> TransformerConfig:
     return dataclasses.replace(cfg, param_dtype=torch.bfloat16)
 
 
-def make_optimizer(kind: str):
+def make_optimizer(kind: str, mesh=None, specs=None):
     """``(optimizer, state_spec_fn)``: Adam (3e-4) or Adafactor (1e-2) and
     the rule that lays its state out as the params.  Adam updates the params
     and its moments in place, as the train cell donates both
     (``donate_argnums=(0, 1)``): at full size, params, gradients and two
-    copies of the moments would not fit one card."""
+    copies of the moments would not fit one card.  Under a ``mesh``
+    Adafactor takes the params' ``specs``: its means span the ranks."""
     if kind == "adam":
         return opt_lib.make_adam(3e-4, in_place=True), opt_specs.adam_state_specs
     if kind == "adafactor":
-        return opt_lib.make_adafactor(1e-2), opt_specs.adafactor_state_specs
+        return (opt_lib.make_adafactor(1e-2, mesh=mesh, specs=specs),
+                opt_specs.adafactor_state_specs)
     raise ValueError(kind)
 
 
@@ -70,11 +77,12 @@ def build_lm_cell(base_cfg: TransformerConfig, opt_kind: str, shape: str, mesh,
 
     if info["kind"] == "train":
         cfg = dataclasses.replace(base_cfg, param_dtype=torch.float32)
-        optimizer, state_spec_fn = make_optimizer(opt_kind)
         pshapes = T.abstract_params(cfg, mesh)
         # HSDP: weights and optimizer state shard over every data-parallel axis
         # (pod x data on the multi-pod mesh).
         pspecs = T.param_specs(cfg, mesh, training=True, fsdp_axes=batch_axes)
+        optimizer, state_spec_fn = make_optimizer(opt_kind, mesh,
+                                                  pspecs if mesh is not None else None)
         sshapes = optimizer.init(pshapes)
         sspecs = state_spec_fn(pspecs, pshapes)
         batch_abs = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}

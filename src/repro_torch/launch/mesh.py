@@ -21,7 +21,10 @@ the transposed collective on the cotangent: all-reduce <-> all-reduce,
 all-gather <-> reduce-scatter.  Each rank's cotangent must cover only what
 that rank's loss used (a replicated value is consumed once over the mesh,
 ``models.recsys.dense_shard``): the all-reduce's backward sums the ranks'
-cotangents.
+cotangents.  Tensor parallelism, where every rank holds a replicated
+value's whole cotangent, takes the conjugate pair instead: :func:`copy_to`
+(identity; all-reduce backward) and :func:`reduce_from` (all-reduce;
+identity backward).
 
 Every call adds the bytes one device moves under the ring model of the
 reference's ``launch/hlo_analysis.py`` to ``comm.bytes.<op>`` in the
@@ -280,6 +283,27 @@ class _AllReduce(torch.autograd.Function):
         return _all_reduce_raw(g, ctx.axes, ctx.mesh), None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_raw(g, ctx.axes, ctx.mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return _all_reduce_raw(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh):
@@ -311,6 +335,24 @@ def _along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     """Sum of ``x`` over the ranks along ``axes`` (the reference's ``psum``)."""
     return _AllReduce.apply(x, mesh.axes(axes), mesh)
+
+
+def copy_to(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """``x``, replicated over ``axes``, handed to computations that each
+    rank runs on its own part of the work (a column-parallel product): the
+    identity, whose backward all-reduces the ranks' partial cotangents over
+    ``axes`` (Megatron's ``f``)."""
+    return _CopyTo.apply(x, mesh.axes(axes), mesh)
+
+
+def reduce_from(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The sum of the ranks' partials ``x`` over ``axes`` as a value
+    replicated there (after a row-parallel product): an all-reduce whose
+    backward passes the cotangent through, since every rank holds the
+    replicated value's whole cotangent (Megatron's ``g``).  :func:`all_reduce`
+    also all-reduces the cotangent, which is right only where each rank's
+    cotangent is a share of it."""
+    return _ReduceFrom.apply(x, mesh.axes(axes), mesh)
 
 
 def all_gather(x: torch.Tensor, axes, mesh: Mesh, dim: int = 0) -> torch.Tensor:

@@ -10,6 +10,18 @@ shard its shard mode, then the combine across ``combine_axes``),
 ``kv_cache_update_shard`` and ``sharded_vocab_embed`` (with and without a
 mesh).  Under a mesh each rank holds its own blocks and the reference's
 ``shard_map`` collectives become ``launch.mesh``'s.
+
+The reference's GSPMD tensor, sequence and FSDP parallelism of the LM is
+made explicit here as pairs of collectives whose backward is the forward's
+transpose (every rank holds a replicated activation's whole cotangent):
+``into_model`` before the column-parallel products (identity with an
+all-reduce backward, or under ``seq_shard`` an all-gather along the
+sequence with a reduce-scatter backward), ``out_of_model`` after the
+row-parallel ones (all-reduce with an identity backward, or a
+reduce-scatter along the sequence with an all-gather backward),
+``fsdp_gather`` (a weight's rows all-gathered at use, reduce-scattered
+backward) and ``vocab_parallel_nll`` (cross entropy over logits split by
+vocab).
 """
 from __future__ import annotations
 
@@ -202,12 +214,16 @@ def sharded_vocab_embed(
     tokens: torch.Tensor,  # [B, S]: this rank's batch block under a mesh
     mesh=None,
     out_dtype=torch.bfloat16,
+    scatter_dim: int | None = None,
 ) -> torch.Tensor:
     """Token embedding: a row gather (the reference's ``jnp.take``) cast to
     ``out_dtype``.  Under a mesh, the table is split by rows over `model`
     and this is the disaggregated lookup with nnz 1 (the paper's
     hierarchical combine): each rank gathers the rows it owns, in
-    ``out_dtype``, zeroes the others and all-reduces over `model`."""
+    ``out_dtype``, zeroes the others and all-reduces over `model` (each
+    rank then holds the whole embedding, and its whole cotangent).  With
+    ``scatter_dim`` the sum is a reduce-scatter along that dim instead, and
+    each rank keeps its block of it (the sequence-sharded residual)."""
     if mesh is None:
         flat = table.index_select(0, tokens.reshape(-1).to(torch.int64))
         return flat.reshape(*tokens.shape, table.shape[1]).to(out_dtype)
@@ -216,4 +232,73 @@ def sharded_vocab_embed(
     hit = (local >= 0) & (local < rows)
     emb = table.index_select(0, local.clamp(0, rows - 1).reshape(-1)).to(out_dtype)
     emb = torch.where(hit.reshape(-1, 1), emb, 0).reshape(*tokens.shape, table.shape[1])
-    return M.all_reduce(emb, (AXIS_MODEL,), mesh)
+    if scatter_dim is not None:
+        return M.reduce_scatter(emb, (AXIS_MODEL,), mesh, dim=scatter_dim)
+    return M.reduce_from(emb, (AXIS_MODEL,), mesh)
+
+
+# ------------------------------------------- tensor and sequence parallelism
+
+
+def into_model(h: torch.Tensor, mesh, seq_shard: bool, dim: int = 1) -> torch.Tensor:
+    """The whole activation for the column-parallel products of a rank of
+    `model`: under ``seq_shard`` the blocks along ``dim`` all-gathered over
+    `model` (reduce-scatter backward), else ``h`` itself, replicated over
+    `model`, whose ranks' partial cotangents all-reduce backward.  The
+    identity without a mesh."""
+    if mesh is None:
+        return h
+    if seq_shard:
+        return M.all_gather(h, (AXIS_MODEL,), mesh, dim=dim)
+    return M.copy_to(h, (AXIS_MODEL,), mesh)
+
+
+def out_of_model(y: torch.Tensor, mesh, seq_shard: bool, dim: int = 1) -> torch.Tensor:
+    """The sum over `model` of a row-parallel product's partials, laid out
+    as the residual stream: under ``seq_shard`` reduce-scattered along
+    ``dim`` (all-gather backward), else all-reduced (identity backward).
+    The identity without a mesh."""
+    if mesh is None:
+        return y
+    if seq_shard:
+        return M.reduce_scatter(y, (AXIS_MODEL,), mesh, dim=dim)
+    return M.reduce_from(y, (AXIS_MODEL,), mesh)
+
+
+def fsdp_gather(w: torch.Tensor, axes: tuple[str, ...], mesh, dim: int) -> torch.Tensor:
+    """A weight whose ``dim`` is split over the FSDP ``axes``, all-gathered
+    whole along it at its use; the backward reduce-scatters the gradient,
+    which sums it over those axes (the reference's ``grad_specs``).  Under
+    remat the gather runs again in the recomputation.  ``w`` itself without
+    axes."""
+    if not axes:
+        return w
+    return M.all_gather(w, axes, mesh, dim=dim)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                       batch_axes: tuple[str, ...]) -> torch.Tensor:
+    """The mean causal-LM cross entropy over the global batch, in f32, from
+    this rank's block of the logits ``[B_l, S, Vp / tp]`` (vocab split over
+    `model`, batch over ``batch_axes``) and its labels ``[B_l, S]`` (global
+    ids, -1 masked): the row max and the sum of exponentials all-reduced
+    over `model`, the label's logit taken on the rank that owns it and
+    all-reduced over `model`, then the masked NLL's sum and the count of
+    unmasked labels all-reduced over ``batch_axes``.  Every rank returns
+    the same loss and holds its whole cotangent."""
+    lf = logits.to(torch.float32)
+    vl = lf.shape[-1]
+    mask = labels >= 0
+    row_max = M.all_reduce_max(lf.detach().amax(-1), (AXIS_MODEL,), mesh)
+    sum_exp = M.reduce_from(torch.exp(lf - row_max[..., None]).sum(-1), (AXIS_MODEL,), mesh)
+    lse = row_max + torch.log(sum_exp)
+    local = labels.to(torch.int64) - mesh.coords[AXIS_MODEL] * vl
+    own = (local >= 0) & (local < vl)
+    picked = lf.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    picked = M.reduce_from(torch.where(own, picked, 0.0), (AXIS_MODEL,), mesh)
+    nll = ((lse - picked) * mask).sum()
+    count = mask.sum().to(torch.float32)
+    if batch_axes:
+        nll = M.reduce_from(nll, batch_axes, mesh)
+        count = M.all_reduce(count, batch_axes, mesh)
+    return nll / count.clamp_min(1)

@@ -19,23 +19,30 @@ layer, as the reference's ``jax.checkpoint`` around its two scans: the
 backward of a group recomputes its layers' inputs, then each layer's
 internals, one layer at a time.
 
-Under a ``launch.mesh.Mesh``, ``decode_step`` is the reference's
-sequence-sharded decode: each rank holds its block of the KV caches (batch
-over ``batch_axes``, positions over ``seq_axes``: ``cache_specs``) and of
-the params (``decode_param_specs``: the token table and the LM head by rows
-over `model`, the experts over `model`); attention is K7's shard mode and
-the flash-decoding combine over ``seq_axes``, the token embedding the
-all-reduced lookup of ``layers.sharded_vocab_embed``, the experts the
-all-reduced partials of ``_moe_forward``, and the head gives the rank's
-vocab block of the logits.  The rest of the layer runs whole on every rank:
-the reference's GSPMD computes the same values with tensor-parallel
-weights.  The geometry methods of ``TransformerConfig`` take the mesh
-(heads and vocab padded to the `model` axis); without one, tp is 1.
+Under a ``launch.mesh.Mesh`` ``forward``, ``prefill``, ``loss_and_grads``
+and ``make_train_step`` run the reference's GSPMD tensor, sequence and FSDP
+parallelism with its collectives made explicit (``layers.into_model``,
+``out_of_model``, ``fsdp_gather``, ``vocab_parallel_nll``): each rank holds
+its batch block over ``batch_axes``, its `model` block of the query heads
+(K6 on them), the KV heads where they divide tp, the FFN columns, the
+experts and the vocab, and of the residual stream's sequence under
+``cfg.seq_shard``; weight rows split over ``batch_axes`` under ``cfg.fsdp``
+are all-gathered at use (``mesh_param_specs``).  Each rank's gradient is
+its block of the global gradient in its param's layout; ``prefill``'s
+caches go on to ``decode_step`` through ``caches_for_decode``.
 
-Waiting for the tensor- and sequence-parallel slice (ROADMAP queue 1, item
-4): ``forward``, ``prefill`` and ``make_train_step`` under a mesh (the
-reference's GSPMD layouts of ``param_specs``, FSDP, ``grad_specs`` and
-``seq_shard``); they raise ``NotImplementedError`` given one.
+``decode_step`` is the reference's sequence-sharded decode: each rank holds
+its block of the KV caches (batch over ``batch_axes``, positions over
+``seq_axes``: ``cache_specs``) and of the params (``decode_param_specs``:
+the token table and the LM head by rows over `model`, the experts over
+`model`); attention is K7's shard mode and the flash-decoding combine over
+``seq_axes``, the token embedding the all-reduced lookup of
+``layers.sharded_vocab_embed``, the experts the all-reduced partials of
+``_moe_forward``, and the head gives the rank's vocab block of the logits.
+The rest of the layer runs whole on every rank: the reference's GSPMD
+computes the same values with tensor-parallel weights.  The geometry
+methods of ``TransformerConfig`` take the mesh (heads and vocab padded to
+the `model` axis); without one, tp is 1.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, AXIS_POD, PartitionSpec
+from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, AXIS_POD, PartitionSpec, is_spec
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -56,13 +63,6 @@ from repro_torch.utils import (numpy_to_tensor, resolve_device, round_up, tree_f
                                tree_map, tree_unflatten)
 
 P = PartitionSpec
-# The reference's mesh parameters stand here as placeholders, so that a cell
-# is built as the reference builds it: ``prefill``'s ``mesh`` and
-# ``batch_axes``, ``make_train_step``'s ``mesh``, ``batch_axes`` and
-# ``grad_specs``, and the config's ``q_block``, ``seq_shard`` and ``fsdp``
-# (read by ``param_specs`` only).  A mesh raises, naming this slice.
-MESH_SLICE = ("the tensor- and sequence-parallel slice (ROADMAP queue 1, item 4) has not "
-              "ported the GSPMD layouts of forward, prefill and the train step")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +70,7 @@ class TransformerConfig:
     """The reference's config, every field with its default.  ``q_block``
     (the reference's remat block of queries in its jnp attention) has no
     effect here: K6 and its plain version tile themselves.  ``seq_shard``
-    and ``fsdp`` are layouts under a mesh (``param_specs``)."""
+    and ``fsdp`` are layouts under a mesh (``mesh_param_specs``)."""
 
     name: str
     n_layers: int
@@ -272,10 +272,82 @@ def decode_param_specs(cfg: TransformerConfig) -> dict:
 # ------------------------------------------------------------------ forward
 
 
-def _dense_ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class _Parallel:
+    """How a rank runs the layers: with no mesh, whole (every method the
+    identity); under one, the reference's GSPMD layout made explicit.  The
+    rank holds its batch block over ``batch_axes``, its `model` block of
+    the heads, the FFN columns and the experts, and of the sequence of the
+    residual stream under ``seq_shard``; the weights' rows are split over
+    ``fsdp_axes`` (``cfg.fsdp``) and gathered at use: ``fsdp_dims`` holds
+    the dim that ``mesh_param_specs`` splits over them in one layer's
+    slice of each such weight."""
+
+    mesh: Any = None
+    batch_axes: tuple[str, ...] = ()
+    fsdp_axes: tuple[str, ...] = ()
+    seq_shard: bool = False
+    fsdp_dims: dict = dataclasses.field(default_factory=dict)
+
+    def into(self, h: torch.Tensor) -> torch.Tensor:
+        return L.into_model(h, self.mesh, self.seq_shard)
+
+    def out(self, y: torch.Tensor) -> torch.Tensor:
+        return L.out_of_model(y, self.mesh, self.seq_shard)
+
+    def weight(self, lp: dict, name: str) -> torch.Tensor:
+        if name not in self.fsdp_dims:
+            return lp[name]
+        return L.fsdp_gather(lp[name], self.fsdp_axes, self.mesh, self.fsdp_dims[name])
+
+
+ONE_DEVICE = _Parallel()
+
+
+def _parallel(cfg: TransformerConfig, mesh, batch_axes) -> _Parallel:
+    if mesh is None:
+        return ONE_DEVICE
+    batch_axes = tuple(batch_axes)
+    if not (cfg.fsdp and batch_axes):
+        return _Parallel(mesh, batch_axes, (), cfg.seq_shard)
+    lyr = mesh_param_specs(cfg, mesh, batch_axes)["layers"]
+    dims = {name: d - 1 for name, spec in lyr.items() for d in range(1, len(spec))
+            if spec.axes_of(d) == batch_axes}
+    return _Parallel(mesh, batch_axes, batch_axes, cfg.seq_shard, dims)
+
+
+def mesh_param_specs(cfg: TransformerConfig, mesh,
+                     batch_axes: tuple[str, ...] = (AXIS_DATA,)) -> dict:
+    """The layout ``forward``, ``prefill`` and the train step take their
+    params in under a mesh: ``param_specs`` with the weights' rows over
+    ``batch_axes`` when ``cfg.fsdp`` (the train cell's, and the serving
+    cells', whose config sets ``fsdp`` to ``fsdp_serve``)."""
+    return param_specs(cfg, mesh, training=True, fsdp_axes=tuple(batch_axes) or None)
+
+
+def _dense_ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+               par: _Parallel = ONE_DEVICE) -> torch.Tensor:
+    """The SwiGLU FFN over h; under a mesh the rank's partial (its `model`
+    columns of wg/wu and rows of wd)."""
     dt = cfg.compute_dtype
-    g = torch.nn.functional.silu(h @ lp["wg"].to(dt)) * (h @ lp["wu"].to(dt))
-    return g @ lp["wd"].to(dt)
+    g = torch.nn.functional.silu(h @ par.weight(lp, "wg").to(dt)) \
+        * (h @ par.weight(lp, "wu").to(dt))
+    return g @ par.weight(lp, "wd").to(dt)
+
+
+def _moe_partial(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+                 par: _Parallel = ONE_DEVICE):
+    """The experts over h [B,S,D]: ``(out [B,S,D], aux)``, where under a
+    mesh ``out`` is this rank's partial (its ``E / tp`` experts of `model`;
+    the caller sums the partials over `model`) and ``aux`` its batch
+    block's Switch loss."""
+    B, S, D = h.shape
+    params = {"router": lp["router"], "w_gate": par.weight(lp, "xg"),
+              "w_up": par.weight(lp, "xu"), "w_down": par.weight(lp, "xd")}
+    shards, shard = (1, None) if par.mesh is None else (par.mesh.shape[AXIS_MODEL],
+                                                        par.mesh.coords[AXIS_MODEL])
+    out, aux = MOE.moe_apply_local(params, h.reshape(B * S, D), cfg.moe, shards, shard)
+    return out.reshape(B, S, D), aux
 
 
 def _moe_forward(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
@@ -286,15 +358,10 @@ def _moe_forward(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
     the partial over `model` (the hierarchical-pooling pattern, see
     models/moe.py); aux, each block's Switch loss, is averaged over
     ``batch_axes`` (GShard practice), and skipped without ``with_aux``."""
-    B, S, D = h.shape
-    params = {"router": lp["router"], "w_gate": lp["xg"], "w_up": lp["xu"],
-              "w_down": lp["xd"]}
+    out, aux = _moe_partial(cfg, lp, h, _Parallel(mesh))
     if mesh is None:
-        out, aux = MOE.moe_apply_local(params, h.reshape(B * S, D), cfg.moe, 1, None)
-        return out.reshape(B, S, D), aux if with_aux else None
-    partial, aux = MOE.moe_apply_local(params, h.reshape(B * S, D), cfg.moe,
-                                       mesh.shape[AXIS_MODEL], mesh.coords[AXIS_MODEL])
-    out = M.all_reduce(partial, (AXIS_MODEL,), mesh).reshape(B, S, D)
+        return out, aux if with_aux else None
+    out = M.reduce_from(out, (AXIS_MODEL,), mesh)
     if not with_aux:
         return out, None
     if batch_axes:
@@ -304,9 +371,10 @@ def _moe_forward(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
 
 def _ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
          batch_axes: tuple[str, ...] = (AXIS_DATA,), with_aux: bool = True):
-    """The layer's FFN on the normed h: the dense SwiGLU, the experts, or
-    both summed (``moe_dense_residual``), as the reference adds them to a
-    zero; and the experts' aux loss (None without experts or ``with_aux``)."""
+    """The decode layer's FFN on the normed h: the dense SwiGLU, the
+    experts, or both summed (``moe_dense_residual``), as the reference adds
+    them to a zero; and the experts' aux loss (None without experts or
+    ``with_aux``)."""
     out, aux = None, None
     if cfg.dense_ffn():
         out = _dense_ffn(cfg, lp, h)
@@ -316,40 +384,75 @@ def _ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
     return out, aux
 
 
+def _kv_for_heads(cfg: TransformerConfig, mesh, k: torch.Tensor) -> torch.Tensor:
+    """The KV heads [B,S,*,dh] that this rank's query heads read.  KV
+    sharded over `model` (or no mesh): ``k`` itself, whose heads serve the
+    rank's query heads in groups as on one device.  Otherwise the rank
+    computed every KV head: query head h of the padded ``Hp`` reads KV head
+    ``h // (Hp / Hkv)`` (the reference's repeat to ``Hp`` heads), so it
+    takes the range its heads read, in groups where they form them, else
+    one KV head a query head."""
+    if mesh is None or cfg.kv_sharded(mesh):
+        return k
+    hp, hkv = cfg.padded_heads(mesh), cfg.n_kv_heads
+    if hp % hkv:
+        raise ValueError(f"{cfg.name}: {hp} padded heads do not group over {hkv} KV heads")
+    g, hl = hp // hkv, hp // cfg.tp(mesh)
+    first = mesh.coords[AXIS_MODEL] * hl
+    used = [(first + j) // g for j in range(hl)]
+    lo, n = used[0], used[-1] - used[0] + 1
+    if hl % n == 0 and used == [lo + j // (hl // n) for j in range(hl)]:
+        return k[:, :, lo:lo + n]
+    return k[:, :, used]
+
+
 def _layer_forward(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, par: _Parallel = ONE_DEVICE):
     """One transformer block over a whole sequence. x: [B,S,D] -> (x, k, v,
-    aux)."""
+    aux).  Under a mesh (``par``) x is the rank's block of the residual
+    stream and each rank computes its ``Hp / tp`` query heads (attention is
+    K6 on them), its KV heads (``_kv_for_heads``) and its FFN columns and
+    experts; k and v are its block of the caches' ``kv_spec`` layout and aux
+    its batch block's Switch loss."""
     dt = cfg.compute_dtype
-    B, S, _ = x.shape
-    Hp, Hkv, dh = cfg.padded_heads(), cfg.n_kv_heads, cfg.d_head
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = h @ lp["wq"].to(dt)
-    k = h @ lp["wk"].to(dt)
-    v = h @ lp["wv"].to(dt)
+    dh, mesh = cfg.d_head, par.mesh
+    h = par.into(L.rms_norm(x, lp["ln1"], cfg.norm_eps))
+    B, S, _ = h.shape
+    q = h @ par.weight(lp, "wq").to(dt)
+    k = h @ par.weight(lp, "wk").to(dt)
+    v = h @ par.weight(lp, "wv").to(dt)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(dt)
         k = k + lp["bk"].to(dt)
         v = v + lp["bv"].to(dt)
-    q = L.apply_rope(q.reshape(B, S, Hp, dh), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(B, S, Hkv, dh), positions, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, dh)
+    q = L.apply_rope(q.reshape(B, S, -1, dh), positions, cfg.rope_theta)
+    k = L.apply_rope(k.reshape(B, S, -1, dh), positions, cfg.rope_theta)
+    v = v.reshape(B, S, -1, dh)
     # GQA by index inside the attention (the reference repeats KV to the
     # padded head count for its 16-way mesh; the math is the same).
-    attn = L.gqa_prefill_attention(q, k, v, causal=True)
-    x = x + attn.reshape(B, S, Hp * dh) @ lp["wo"].to(dt)
-    ffn, aux = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
-    return x + ffn, k, v, aux
+    attn = L.gqa_prefill_attention(q, _kv_for_heads(cfg, mesh, k),
+                                   _kv_for_heads(cfg, mesh, v), causal=True)
+    x = x + par.out(attn.reshape(B, S, -1) @ par.weight(lp, "wo").to(dt))
+    h = par.into(L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    ffn, aux = None, None
+    if cfg.dense_ffn():
+        ffn = _dense_ffn(cfg, lp, h, par)
+    if cfg.moe is not None:
+        moe_out, aux = _moe_partial(cfg, lp, h, par)
+        ffn = moe_out if ffn is None else ffn + moe_out
+    return x + par.out(ffn), k, v, aux
 
 
 def _remat_layers(cfg: TransformerConfig, layers: dict, x: torch.Tensor,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, par: _Parallel = ONE_DEVICE):
     """The layers under the reference's two-level remat: a non-reentrant
     ``torch.utils.checkpoint`` around each group of ``L / cfg.groups()``
     layers, which keeps only the group's input, and inside it one around
     each layer, which keeps only the layer's input; so a group's backward
-    recomputes its layers' inputs and then one layer's internals at a time.
-    Returns the last hidden state and the summed aux loss."""
+    recomputes its layers' inputs and then one layer's internals at a time
+    (under a mesh the collectives too: every rank recomputes the same
+    layers in the same order).  Returns the last hidden state and the
+    summed aux loss."""
     G = cfg.groups()
     per = cfg.n_layers // G
     if per * G != cfg.n_layers:
@@ -361,7 +464,7 @@ def _remat_layers(cfg: TransformerConfig, layers: dict, x: torch.Tensor,
     ckpt = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
 
     def one_layer(x, aux, lp):
-        x, _, _, aux_l = _layer_forward(cfg, x, lp, positions)
+        x, _, _, aux_l = _layer_forward(cfg, x, lp, positions, par)
         return x, aux if aux_l is None else aux + aux_l
 
     def one_group(x, aux, g):
@@ -375,32 +478,48 @@ def _remat_layers(cfg: TransformerConfig, layers: dict, x: torch.Tensor,
     return x, aux
 
 
+def _global_aux(cfg: TransformerConfig, aux: torch.Tensor, par: _Parallel) -> torch.Tensor:
+    """The rank's summed Switch losses as the reference's aux: the mean of
+    the batch blocks' (GShard practice).  The `model` ranks of a block hold
+    the same value, so the mean is taken over every rank: each then takes
+    one share of its cotangent, which the all-reduce of ``into`` sums."""
+    if par.mesh is None or cfg.moe is None:
+        return aux
+    axes = par.mesh.axis_names
+    return M.reduce_from(aux, axes, par.mesh) / par.mesh.axis_size(axes)
+
+
 def _hidden(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-            return_cache: bool, remat: bool = False):
+            return_cache: bool, remat: bool = False, par: _Parallel = ONE_DEVICE):
     """Final-normed hidden states [B,S,D], the experts' aux loss summed
     over the layers and, if asked, the KV caches [L,B,S,Hkv,dh] in the
     compute dtype; with ``remat`` the layers run under
-    :func:`_remat_layers` (no caches)."""
+    :func:`_remat_layers` (no caches).  Under a mesh (``par``) tokens are
+    the rank's batch block, the hidden states its block of the residual
+    stream (the sequence split over `model` under ``seq_shard``), the
+    caches its block of ``kv_spec`` and the aux its batch block's."""
     dt = cfg.compute_dtype
     B, S = tokens.shape
-    x = L.sharded_vocab_embed(params["embed"], tokens, None, out_dtype=dt)
+    if par.seq_shard and S % cfg.tp(par.mesh):
+        raise ValueError(f"seq_shard: {S} positions do not split over {cfg.tp(par.mesh)} ranks")
+    x = L.sharded_vocab_embed(params["embed"], tokens, par.mesh, out_dtype=dt,
+                              scatter_dim=1 if par.seq_shard else None)
     positions = torch.arange(S, device=tokens.device)[None, :]
     if remat:
         if return_cache:
             raise ValueError("remat keeps no caches")
-        x, aux = _remat_layers(cfg, params["layers"], x, positions)
+        x, aux = _remat_layers(cfg, params["layers"], x, positions, par)
         return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux, None
     caches = None
-    if return_cache:
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
-        caches = (torch.empty(shape, dtype=dt, device=tokens.device),
-                  torch.empty(shape, dtype=dt, device=tokens.device))
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for li in range(cfg.n_layers):
-        x, k, v, aux_l = _layer_forward(cfg, x, layer_params(params, li), positions)
+        x, k, v, aux_l = _layer_forward(cfg, x, layer_params(params, li), positions, par)
         if aux_l is not None:
             aux = aux + aux_l
-        if caches is not None:
+        if return_cache:
+            if caches is None:
+                caches = tuple(torch.empty((cfg.n_layers,) + t.shape, dtype=dt,
+                                           device=tokens.device) for t in (k, v))
             caches[0][li] = k
             caches[1][li] = v
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux, caches
@@ -412,20 +531,28 @@ def _needs_grad(params: dict) -> bool:
 
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None,
-            return_cache: bool = False):
+            batch_axes: tuple[str, ...] = (AXIS_DATA,), return_cache: bool = False):
     """Full-sequence forward over tokens [B, S] on the params' device.
     Returns ``(logits [B,S,Vp], aux_loss)`` and, with ``return_cache``, the
     KV caches ``(k_cache, v_cache)`` [L,B,S,Hkv,dh] as a third element.
     ``aux_loss`` is the experts' Switch loss summed over the layers (0
     without experts).  Whenever autograd will differentiate the params and
     no caches are asked for, the layers run under the reference's two-level
-    remat; it changes no value.  A mesh raises: its layouts wait for the
-    tensor- and sequence-parallel slice."""
-    if mesh is not None:
-        raise NotImplementedError(f"forward under a mesh: {MESH_SLICE}")
+    remat; it changes no value.
+
+    Under a ``launch.mesh.Mesh`` every argument and result is this rank's
+    block: tokens of its batch block over ``batch_axes``, the params laid
+    out by ``mesh_param_specs(cfg, mesh, batch_axes)`` (heads and vocab
+    padded for the mesh), the logits its ``[B_l, S, Vp / tp]`` block of the
+    reference's ``P(batch_axes, None, model)``, the caches its block of
+    ``P(None, batch_axes, None, model or None, None)`` (KV heads over
+    `model` where they divide tp), and aux the reference's mean of the
+    batch blocks' Switch losses."""
+    par = _parallel(cfg, mesh, batch_axes)
     remat = not return_cache and _needs_grad(params)
-    x, aux, caches = _hidden(cfg, params, tokens, return_cache, remat)
-    logits = x @ params["head"].to(cfg.compute_dtype).T
+    x, aux, caches = _hidden(cfg, params, tokens, return_cache, remat, par)
+    aux = _global_aux(cfg, aux, par)
+    logits = par.into(x) @ params["head"].to(cfg.compute_dtype).T
     return (logits, aux, caches) if return_cache else (logits, aux)
 
 
@@ -433,21 +560,63 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=Non
             batch_axes: tuple[str, ...] = (AXIS_DATA,)):
     """Prefill: last-position logits [B, Vp] and the KV caches
     [L,B,S,Hkv,dh].  Only the last position goes through the LM head (the
-    reference computes every position's logits and keeps the last).  A mesh
-    raises, as in :func:`forward`."""
-    if mesh is not None:
-        raise NotImplementedError(f"prefill under a mesh: {MESH_SLICE}")
-    x, _, caches = _hidden(cfg, params, tokens, return_cache=True)
-    return x[:, -1] @ params["head"].to(cfg.compute_dtype).T, caches
+    reference computes every position's logits and keeps the last).  Under
+    a mesh, blocks as in :func:`forward`: the logits' ``[B_l, Vp / tp]``
+    and the caches' ``kv_spec`` blocks, which ``caches_for_decode`` turns
+    into ``decode_step``'s."""
+    par = _parallel(cfg, mesh, batch_axes)
+    x, _, caches = _hidden(cfg, params, tokens, True, par=par)
+    last = x[:, -1]
+    if par.seq_shard:  # the last position lives on the last `model` rank
+        last = M.all_gather(x[:, -1:], (AXIS_MODEL,), mesh, dim=1)[:, -1]
+    return last @ params["head"].to(cfg.compute_dtype).T, caches
+
+
+@torch.no_grad()
+def caches_for_decode(cfg: TransformerConfig, caches, max_len: int, mesh,
+                      batch_axes: tuple[str, ...] = (AXIS_DATA,)):
+    """``prefill``'s caches under a mesh (this rank's block of its
+    ``kv_spec`` layout: batch over ``batch_axes``, KV heads over `model`
+    where they divide tp) as ``decode_step``'s: every KV head, positions
+    padded with zeros to ``max_len`` and this rank's block of
+    ``cache_specs(cfg, batch_axes, (model,))``, the batch kept where
+    prefill split it and the positions over `model`.  The reference's jit
+    reshards them implicitly; here the KV heads are all-gathered over
+    `model`.  New tensors: decode writes them in place."""
+    n_seq = mesh.shape[AXIS_MODEL]
+    if max_len % n_seq:
+        raise ValueError(f"caches_for_decode: {max_len} positions do not split over "
+                         f"{n_seq} ranks of {AXIS_MODEL}")
+    s_loc = max_len // n_seq
+    start = mesh.coords[AXIS_MODEL] * s_loc
+    out = []
+    for c in caches:
+        if c.shape[2] > max_len:
+            raise ValueError(f"caches_for_decode: {c.shape[2]} prompt positions past "
+                             f"max_len {max_len}")
+        if cfg.kv_sharded(mesh) and cfg.tp(mesh) > 1:
+            c = M.all_gather(c, (AXIS_MODEL,), mesh, dim=3)
+        block = torch.zeros(c.shape[:2] + (s_loc,) + c.shape[3:], dtype=c.dtype,
+                            device=c.device)
+        n = max(0, min(c.shape[2] - start, s_loc))
+        block[:, :, :n] = c[:, :, start:start + n]
+        out.append(block)
+    return tuple(out)
 
 
 # ------------------------------------------------------------------ training
 
 
-def lm_loss(cfg: TransformerConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def lm_loss(cfg: TransformerConfig, logits: torch.Tensor, labels: torch.Tensor, mesh=None,
+            batch_axes: tuple[str, ...] = (AXIS_DATA,)) -> torch.Tensor:
     """Causal-LM cross entropy in f32 over logits [B,S,Vp] (the padded vocab
     columns included, as the reference's); labels [B,S] with -1 masked; the
-    mean over the unmasked labels (0 when none is)."""
+    mean over the unmasked labels (0 when none is).  Under a mesh the
+    logits are the rank's ``[B_l, S, Vp / tp]`` block and the labels its
+    batch block: the vocab-parallel cross entropy
+    (``layers.vocab_parallel_nll``), the mean over the global batch."""
+    if mesh is not None:
+        return L.vocab_parallel_nll(logits, labels, mesh, tuple(batch_axes))
     logits = logits.to(torch.float32)
     mask = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
@@ -456,20 +625,80 @@ def lm_loss(cfg: TransformerConfig, logits: torch.Tensor, labels: torch.Tensor) 
     return nll.sum() / mask.sum().clamp_min(1)
 
 
+def grad_sum_axes(cfg: TransformerConfig, mesh, batch_axes: tuple[str, ...],
+                  name: str) -> tuple[str, ...]:
+    """The mesh axes over which the ranks' gradients of leaf ``name`` (of
+    the params laid out by ``mesh_param_specs``) are summed into the
+    rank's block of the reference's: each rank's is its batch block's
+    contribution, so every leaf sums over ``batch_axes``, but a weight
+    gathered by FSDP, whose gather's backward reduce-scattered it there
+    already; and over `model` the leaves whose rank holds a part of the
+    contribution there: the norms on a sequence-sharded stream, the router
+    (its gates see the rank's experts only, its aux one share) and the KV
+    projections where KV is not sharded (the rank's heads read some KV
+    heads).  A leaf split over `model` holds its whole block's gradient."""
+    par = _parallel(cfg, mesh, batch_axes)
+    over_model = {"router"}
+    if par.seq_shard:
+        over_model |= {"ln1", "ln2", "final_ln"}
+    if not cfg.kv_sharded(mesh):
+        over_model |= {"wk", "wv", "bk", "bv"}
+    data = () if name in par.fsdp_dims else par.batch_axes
+    return data + ((AXIS_MODEL,) if name in over_model else ())
+
+
+def _sum_grads(cfg: TransformerConfig, params: dict, grads: list, mesh,
+               batch_axes: tuple[str, ...]) -> list:
+    """Each rank's gradients summed over ``grad_sum_axes``: one all-reduce
+    of the leaves that share axes and dtype, concatenated."""
+    groups: dict = {}
+    for i, (path, g) in enumerate(zip((p for p, _ in tree_flatten_with_path(params)), grads)):
+        axes = grad_sum_axes(cfg, mesh, batch_axes, path[-1])
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(i)
+    out = list(grads)
+    for (axes, _), idx in groups.items():
+        flat = M.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), axes, mesh)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
 def loss_and_grads(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-                   labels: torch.Tensor):
+                   labels: torch.Tensor, mesh=None,
+                   batch_axes: tuple[str, ...] = (AXIS_DATA,)):
     """``(loss, grads)``: ``lm_loss`` of ``forward`` (remat on) plus the
     experts' aux loss, and its gradient with respect to every leaf of
     ``params``, shaped as ``params`` (the reference's ``jax.value_and_grad``
-    of its ``loss_fn``).  On the card attention's backward is kernel K6'."""
+    of its ``loss_fn``).  On the card attention's backward is kernel K6'.
+    Under a mesh the arguments are the rank's blocks, as in ``forward``;
+    the loss is the global one and each gradient the rank's block of the
+    global gradient, laid out as its param (``grad_sum_axes``)."""
     leaves = [leaf.detach().requires_grad_(True)
               for _, leaf in tree_flatten_with_path(params)]
     with torch.enable_grad():
-        logits, aux = forward(cfg, tree_unflatten(params, leaves), tokens)
-        loss = lm_loss(cfg, logits, labels) + aux
+        logits, aux = forward(cfg, tree_unflatten(params, leaves), tokens, mesh, batch_axes)
+        loss = lm_loss(cfg, logits, labels, mesh, batch_axes) + aux
         del logits
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+        grads = list(torch.autograd.grad(loss, leaves))
+    if mesh is not None:
+        grads = _sum_grads(cfg, params, grads, mesh, tuple(batch_axes))
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def _microbatch_rows(tokens: torch.Tensor, labels: torch.Tensor, n: int, mesh,
+                     batch_axes: tuple[str, ...]):
+    """The rank's rows of the reference's ``n`` microbatches, in order: the
+    reference splits the global batch into ``n`` contiguous blocks, each
+    then split over ``batch_axes``, so the rank's batch block (a contiguous
+    block of the global batch) holds other rows.  Tokens and labels are
+    all-gathered over ``batch_axes`` and cut again."""
+    out = []
+    for t in (tokens, labels):
+        whole = M.all_gather(t, batch_axes, mesh, dim=0)
+        blocks = whole.reshape(n, whole.shape[0] // n, *whole.shape[1:])
+        out.append(L.constrain(blocks, PartitionSpec(None, batch_axes), mesh).reshape(t.shape))
+    return out
 
 
 def make_train_step(cfg: TransformerConfig, optimizer, mesh=None,
@@ -480,37 +709,48 @@ def make_train_step(cfg: TransformerConfig, optimizer, mesh=None,
     dtype; with ``cfg.microbatches`` M > 1 the batch of ``tokens`` and
     ``labels`` [B, S] splits into M blocks of B / M rows, whose losses and
     gradients are summed (gradients in f32, from zeros) and divided by M;
-    then ``optimizer.update``.  Nothing waits for the device.  Under a
-    ``mesh`` (with ``batch_axes`` and ``grad_specs``, the reference's
-    gradient layout) the step raises when called: its layouts wait for the
-    tensor- and sequence-parallel slice."""
+    then ``optimizer.update``.  Nothing waits for the device.
+
+    Under a ``mesh`` the params, the optimizer state and the batch are the
+    rank's blocks (``mesh_param_specs``, its state specs, ``P(batch_axes)``);
+    each gradient is the rank's block of the global one, laid out as its
+    param, which is the reference's ``grad_specs`` (any other raises), and
+    the optimizer updates the rank's blocks (Adafactor given the mesh and
+    the specs).  Microbatch i is the rank's rows of the reference's i-th
+    block of the global batch."""
+    if mesh is not None and grad_specs is not None:
+        want = mesh_param_specs(cfg, mesh, batch_axes)
+        got, have = (tree_flatten_with_path(t, is_spec) for t in (grad_specs, want))
+        if [(p, tuple(s)) for p, s in got] != [(p, tuple(s)) for p, s in have]:
+            raise ValueError("make_train_step: under a mesh the gradients take the params' "
+                             "layout, mesh_param_specs(cfg, mesh, batch_axes)")
 
     def train_step(params, opt_state, batch):
-        if mesh is not None:
-            raise NotImplementedError(f"the LM train step under a mesh: {MESH_SLICE}")
-        M = cfg.microbatches
+        M_ = cfg.microbatches
         diff = params
         if cfg.bf16_grads:
             diff = tree_map(lambda p: p.to(cfg.compute_dtype) if p.dim() >= 2 else p, params)
         tokens, labels = batch["tokens"], batch["labels"]
-        if M <= 1:
-            loss, grads = loss_and_grads(cfg, diff, tokens, labels)
+        if M_ <= 1:
+            loss, grads = loss_and_grads(cfg, diff, tokens, labels, mesh, batch_axes)
         else:
+            if mesh is not None and batch_axes:
+                tokens, labels = _microbatch_rows(tokens, labels, M_, mesh, tuple(batch_axes))
             B = tokens.shape[0]
-            toks = tokens.reshape(M, B // M, -1)
-            labs = labels.reshape(M, B // M, -1)
+            toks = tokens.reshape(M_, B // M_, -1)
+            labs = labels.reshape(M_, B // M_, -1)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             acc = [t for _, t in tree_flatten_with_path(grads)]
-            for i in range(M):
-                loss_i, g = loss_and_grads(cfg, diff, toks[i], labs[i])
+            for i in range(M_):
+                loss_i, g = loss_and_grads(cfg, diff, toks[i], labs[i], mesh, batch_axes)
                 for a, b in zip(acc, (t for _, t in tree_flatten_with_path(g))):
                     a.add_(b.to(a.dtype))
                 loss = loss + loss_i
                 del g
-            loss = loss / M
-            grads = tree_map(lambda g: g.div_(M), grads)
+            loss = loss / M_
+            grads = tree_map(lambda g: g.div_(M_), grads)
         new_params, new_state = optimizer.update(grads, opt_state, params)
         return new_params, new_state, {"loss": loss}
 

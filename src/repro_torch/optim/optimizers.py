@@ -22,6 +22,7 @@ the device: step counts and bias corrections stay tensors there.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Callable
 
@@ -134,11 +135,23 @@ def make_adafactor(
     decay: float = 0.8,
     eps: float = 1e-30,
     clip_threshold: float = 1.0,
+    mesh=None,
+    specs=None,
 ) -> Optimizer:
     """Adafactor (Shazeer & Stern) without momentum: factored 2nd moments for
     params with ndim >= 2 (over the last two dims), full accumulator otherwise.
     A stacked parameter (ndim >= 3) is updated layer by layer, a loop over its
-    leading dim, as the reference's ``lax.map``: each layer clips by its own RMS."""
+    leading dim, as the reference's ``lax.map``: each layer clips by its own RMS.
+
+    Under a ``mesh`` each rank updates its blocks of the params laid out as
+    ``specs`` (a tree of PartitionSpecs shaped as the params), with the
+    state laid out by ``sharding_rules.adafactor_state_specs``.  The means
+    that reduce a dim the specs split (the factored row and column means,
+    the row mean of their ratio's denominator and the RMS of the clip) are
+    each a local sum, all-reduced over the axes that split the reduced
+    dims, over the global count."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("make_adafactor: a mesh needs the params' specs, and specs a mesh")
 
     def init(params):
         def one(p):
@@ -150,19 +163,35 @@ def make_adafactor(
 
         return {"s": _map(one, params), "t": _step_count(params)}
 
+    def mean(x, dims: tuple, dim_axes, keepdim: bool = False):
+        """The mean over ``dims`` (None: every dim) of the whole tensor this
+        rank holds a block of, split along each dim over ``dim_axes[dim]``
+        (None: no mesh)."""
+        if dim_axes is None:
+            return x.mean() if dims is None else x.mean(dim=dims, keepdim=keepdim)
+        dims = tuple(range(x.ndim)) if dims is None else dims
+        axes = tuple(a for d in dims for a in dim_axes[d])
+        total = x.sum(dim=dims, keepdim=keepdim)
+        count = math.prod(x.shape[d] for d in dims)
+        if axes:
+            total = all_reduce(total, axes, mesh)
+            count *= mesh.axis_size(axes)
+        return total / count
+
     @torch.no_grad()
     def update(grads, state, params):
         t = state["t"] + 1
         beta = 1.0 - t.to(F32) ** (-decay)
 
-        def upd_one(p, g, s):
+        def upd_one(p, g, s, dim_axes):
             """One logical (<= 2D-factored) parameter."""
             g = g.to(F32)
             g2 = g * g + eps
             if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
-                denom = vr.mean(dim=-1, keepdim=True)
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, (-1,), dim_axes)
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, (-2,), dim_axes)
+                denom = mean(vr, (-1,), None if dim_axes is None else dim_axes[:-1],
+                             keepdim=True)
                 r = (vr / torch.clamp_min(denom, eps))[..., None]
                 c = vc[..., None, :]
                 u = g * torch.rsqrt(torch.clamp_min(r * c, eps))
@@ -171,20 +200,28 @@ def make_adafactor(
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(torch.clamp_min(v, eps))
                 new_s = {"v": v}
-            rms_u = torch.sqrt(torch.mean(u * u) + eps)
+            rms_u = torch.sqrt(mean(u * u, None, dim_axes) + eps)
             u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
             return (p.to(F32) - lr * u).to(p.dtype), new_s
 
-        def upd(p, g, s):
+        def upd(p, g, s, spec):
+            dim_axes = None if spec is None else [spec.axes_of(d) for d in range(p.ndim)]
             if p.ndim >= 3:
-                layers = [upd_one(p[i], g[i], {k: v[i] for k, v in s.items()})
+                inner = None if dim_axes is None else dim_axes[1:]
+                layers = [upd_one(p[i], g[i], {k: v[i] for k, v in s.items()}, inner)
                           for i in range(p.shape[0])]
                 return (torch.stack([lp for lp, _ in layers]),
                         {k: torch.stack([ls[k] for _, ls in layers]) for k in s})
-            return upd_one(p, g, s)
+            return upd_one(p, g, s, dim_axes)
 
-        outs = [upd(*xs) for xs in zip(_leaves(params), _leaves(grads),
-                                        _subtrees(params, state["s"]))]
+        pleaves = _leaves(params)
+        spec_leaves = ([sp for _, sp in tree_flatten_with_path(specs, is_spec)]
+                       if specs is not None else [None] * len(pleaves))
+        if len(spec_leaves) != len(pleaves):
+            raise ValueError(f"make_adafactor: {len(spec_leaves)} specs for "
+                             f"{len(pleaves)} params")
+        outs = [upd(*xs) for xs in zip(pleaves, _leaves(grads),
+                                        _subtrees(params, state["s"]), spec_leaves)]
         new_p, new_s = _unzip(params, outs, 2)
         return new_p, {"s": new_s, "t": t}
 

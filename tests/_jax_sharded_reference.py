@@ -14,9 +14,14 @@ test's params; then the other recsys archs' forward, loss, gradients and one
 step, and ``retrieval_topk`` and ``mind_retrieval``; the LM's
 ``sharded_vocab_embed`` and ``transformer.decode_step`` under the mesh, a
 few steps of each decode case.  Outputs are the whole logical arrays, keyed
-as the port's side keys its blocks."""
+as the port's side keys its blocks.  With a third argument ``lm_tp`` it runs
+only the LM's tensor-, sequence- and FSDP-parallel cases instead (``lm_tp``:
+``forward``, ``prefill`` and ``decode_step`` from its caches, and
+``make_train_step`` with the gradients, Adam and Adafactor), so the test
+runs both parts at once."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 
@@ -38,6 +43,7 @@ from repro.models.moe import MoEConfig
 from repro.optim import optimizers as O
 
 BATCH_AXES = ("data",)
+ADAM_EPS = 1e-3  # the LM train step's Adam (tests/_torch_sharded_ranks.py says why)
 
 
 def specs_of(rows):
@@ -68,10 +74,13 @@ def compiled(fn, *args):
     return c(*args), analyze(c.as_text(), 8)
 
 
-def main(inputs_path: str, outputs_path: str) -> None:
+def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
     d = dict(np.load(inputs_path))
     meta = json.loads(str(d["meta"]))
     mesh = make_mesh(tuple(meta["mesh"]), ("data", "model"))
+    if part == "lm_tp":
+        np.savez(outputs_path, **lm_tp(meta, d, mesh))
+        return
     idx, msk = jnp.asarray(d["idx"]), jnp.asarray(d["mask"])
     out: dict = {}
 
@@ -225,6 +234,68 @@ def main(inputs_path: str, outputs_path: str) -> None:
     np.savez(outputs_path, **out)
 
 
+def lm_tp_cfg(case: dict) -> JT.TransformerConfig:
+    moe = MoEConfig(**case["moe"]) if case["moe"] else None
+    return JT.TransformerConfig(**case["cfg"], moe=moe, compute_dtype=jnp.float32)
+
+
+def lm_tp(meta: dict, d: dict, mesh) -> dict:
+    """Each LM case under its mesh: ``forward``'s logits and aux,
+    ``prefill``'s last logits and caches, the caches padded to the decode
+    length and ``decode_step`` from them (batch over the batch axes,
+    positions over model, as ``build_lm_cell`` lays out B > 1), then one
+    ``make_train_step`` with ``fsdp`` and 2 microbatches whose optimizer
+    returns the gradients, Adam's update of them (the step with Adam), and,
+    where the case asks, one step with Adafactor at the config's own
+    microbatches."""
+    meshes = {"main": mesh, "pod": make_mesh((2, 2, 2), ("pod", "data", "model"))}
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    out: dict = {}
+    for name, case in meta["lm_tp_cases"].items():
+        m, ba = meshes[case["mesh"]], tuple(case["batch_axes"])
+        cfg = lm_tp_cfg(case)
+        params = nest(d, f"lmtp|{name}")
+        toks = jnp.asarray(d[f"lmtp_tokens|{name}"])
+        # prefill is forward with its caches, keeping the last position
+        logits, aux, (k, v) = jax.jit(lambda p, t: JT.forward(cfg, p, t, m, ba, True))(
+            params, toks)
+        out[f"lmtp|{name}|logits"], out[f"lmtp|{name}|aux"] = np.asarray(logits), np.asarray(aux)
+        out[f"lmtp|{name}|last"] = np.asarray(logits[:, -1])
+        out[f"lmtp|{name}|prefill_k"], out[f"lmtp|{name}|prefill_v"] = np.asarray(k), np.asarray(v)
+        pad = ((0, 0), (0, 0), (0, meta["lm_tp_max_len"] - toks.shape[1]), (0, 0), (0, 0))
+        cache = (jnp.pad(k, pad), jnp.pad(v, pad))
+        step = jax.jit(lambda p, c, t, pos: JT.decode_step(cfg, p, c, t, pos, m, ba, ("model",)))
+        dec = []
+        for i, t in enumerate(d[f"lmtp_decode_tokens|{name}"]):
+            lg, cache = step(params, cache, jnp.asarray(t), jnp.asarray(toks.shape[1] + i, jnp.int32))
+            dec.append(np.asarray(lg))
+        out[f"lmtp|{name}|decode"] = np.stack(dec)
+        out[f"lmtp|{name}|decode_k"], out[f"lmtp|{name}|decode_v"] = map(np.asarray, cache)
+        batch = {k_: jnp.asarray(d[f"lmtp_train|{name}|{k_}"]) for k_ in ("tokens", "labels")}
+        tcfg = dataclasses.replace(cfg, fsdp=True, microbatches=2)
+        pspecs = JT.param_specs(tcfg, m, True, ba)
+        grads, _, met = jax.jit(JT.make_train_step(tcfg, grads_of, m, ba, pspecs))(
+            params, (), batch)
+        # the step is its gradients, then the optimizer's update of them
+        adam = O.make_adam(1e-3, eps=ADAM_EPS)
+        new_p, _ = jax.jit(adam.update)(grads, adam.init(params), params)
+        for opt_name, tree in (("grads", grads), ("adam", new_p)):
+            out[f"lmtp|{name}|{opt_name}_loss"] = np.asarray(met["loss"])
+            for key, val in flat_np(tree).items():
+                out[f"lmtp|{name}|{opt_name}|{key}"] = val
+        out[f"lmtp|{name}|norm"] = np.asarray(jax.jit(
+            lambda g: O.clip_by_global_norm(g, 1.0)[1])(grads))
+        if case["adafactor"]:
+            opt = O.make_adafactor(1e-2)
+            acfg = dataclasses.replace(cfg, fsdp=True)
+            new_p, _, met = jax.jit(JT.make_train_step(
+                acfg, opt, m, ba, JT.param_specs(acfg, m, True, ba)))(params, opt.init(params), batch)
+            out[f"lmtp|{name}|adafactor_loss"] = np.asarray(met["loss"])
+            for key, val in flat_np(new_p).items():
+                out[f"lmtp|{name}|adafactor|{key}"] = val
+    return out
+
+
 def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
     case = meta["arch_cases"][name]
     kw = dict(meta["arch_specs"][case["arch"]])
@@ -235,4 +306,4 @@ def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:])

@@ -8,6 +8,7 @@ It imports torch and the port only (no jax), so it starts quickly in a
 spawned process."""
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -24,9 +25,13 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
-from repro_torch.utils import keystr, tree_flatten_with_path
+from repro_torch.utils import keystr, tree_flatten_with_path, tree_map
 
 BATCH_AXES = (AXIS_DATA,)
+# The LM train step's Adam: at the default eps of 1e-8 the first step is
+# g / (|g| + 1e-8), which turns the rounding of a gradient near 1e-8 (the
+# collectives' summation order against XLA's) into a step 1e-4 apart.
+ADAM_EPS = 1e-3
 
 
 def specs_of(rows) -> list[TableSpec]:
@@ -282,6 +287,8 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
         out["outputs"][f"lm_decode|{name}|k"] = cache[0].numpy()
         out["outputs"][f"lm_decode|{name}|v"] = cache[1].numpy()
 
+    lm_tp(meta, d, mesh, mesh3, out)
+
     # ---- refusals
     try:
         M.make_production_mesh()
@@ -294,6 +301,96 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
     except NotImplementedError as e:
         out["errors"]["mesh2d_replicated"] = str(e)
     return out
+
+
+def lm_tp_cfg(case: dict) -> T.TransformerConfig:
+    moe = MOE.MoEConfig(**case["moe"]) if case["moe"] else None
+    return T.TransformerConfig(**case["cfg"], moe=moe, compute_dtype=torch.float32)
+
+
+def grads_of() -> O.Optimizer:
+    """An optimizer whose update returns the gradients as the params."""
+    return O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+
+
+def lm_tp(meta: dict, d: dict, mesh, mesh3, out: dict) -> None:
+    """The LM's tensor-, sequence- and FSDP-parallel cases on this rank:
+    ``forward`` and ``prefill`` on its blocks (``mesh_param_specs``; the
+    Adafactor case's prefill through its ``build_lm_cell`` serving cell
+    with ``fsdp_serve``, bf16 params, which the inputs' values survive),
+    ``caches_for_decode`` and ``decode_step``s from them (params by
+    ``decode_param_specs``), the gradients and one Adam step of
+    ``make_train_step`` with ``fsdp`` and 2 microbatches, and the Adafactor
+    case's train cell's step; with the bytes counted by each part."""
+    from repro_torch.configs import lm_common
+
+    meshes = {"main": mesh, "pod": mesh3}
+    for name, case in meta["lm_tp_cases"].items():
+        m, ba = meshes[case["mesh"]], tuple(case["batch_axes"])
+        cfg = lm_tp_cfg(case)
+        whole = nest(d, f"lmtp|{name}")
+        params = R.shard_params(whole, T.mesh_param_specs(cfg, m, ba), m)
+        toks = L.constrain(torch.from_numpy(d[f"lmtp_tokens|{name}"]), P(ba), m)
+        res = out["outputs"]
+        before = M.comm_bytes()
+        with torch.no_grad():
+            logits, aux = T.forward(cfg, params, toks, m, ba)
+        out["bytes"][f"lmtp_forward|{name}"] = _bytes_since(before)
+        res[f"lmtp|{name}|logits"], res[f"lmtp|{name}|aux"] = logits.numpy(), aux.numpy()
+        before = M.comm_bytes()
+        with torch.no_grad():
+            if case["adafactor"]:  # the serving cell's step, bf16 params
+                cell = lm_common.build_lm_cell(cfg, "adam", "prefill_32k", m,
+                                               case["mesh"] == "pod", fsdp_serve=True)
+                cparams = R.shard_params(tree_map(lambda t: t.to(torch.bfloat16), whole),
+                                         cell.in_shardings[0], m)
+                last, caches = cell.step_fn(cparams, toks)
+            else:
+                last, caches = T.prefill(cfg, params, toks, m, ba)
+            res[f"lmtp|{name}|last"] = last.numpy()
+            res[f"lmtp|{name}|prefill_k"], res[f"lmtp|{name}|prefill_v"] = (
+                c.numpy() for c in caches)
+            cache = T.caches_for_decode(cfg, caches, meta["lm_tp_max_len"], m, ba)
+            dparams = R.shard_params(whole, T.decode_param_specs(cfg), m)
+            dec_toks = L.constrain(torch.from_numpy(d[f"lmtp_decode_tokens|{name}"]),
+                                   P(None, ba), m)
+            dec = []
+            for i in range(dec_toks.shape[0]):
+                pos = torch.tensor(toks.shape[1] + i, dtype=torch.int32)
+                lg, cache = T.decode_step(cfg, dparams, cache, dec_toks[i], pos, m, ba,
+                                          ("model",))
+                dec.append(lg)
+        out["bytes"][f"lmtp_prefill|{name}"] = _bytes_since(before)
+        res[f"lmtp|{name}|decode"] = torch.stack(dec).numpy()
+        res[f"lmtp|{name}|decode_k"], res[f"lmtp|{name}|decode_v"] = (c.numpy() for c in cache)
+
+        batch = {k: L.constrain(torch.from_numpy(d[f"lmtp_train|{name}|{k}"]), P(ba), m)
+                 for k in ("tokens", "labels")}
+        tcfg = dataclasses.replace(cfg, fsdp=True, microbatches=2)
+        pspecs = T.mesh_param_specs(tcfg, m, ba)
+        tparams = R.shard_params(whole, pspecs, m)
+        for opt_name, opt in (("grads", grads_of()), ("adam", O.make_adam(1e-3, eps=ADAM_EPS))):
+            before = M.comm_bytes()
+            new_p, _, met = T.make_train_step(tcfg, opt, m, ba, pspecs)(
+                tparams, opt.init(tparams), batch)
+            if opt_name == "grads":
+                out["bytes"][f"lmtp_train|{name}"] = _bytes_since(before)
+            res[f"lmtp|{name}|{opt_name}_loss"] = met["loss"].numpy()
+            for k, v in flat_np(new_p).items():
+                res[f"lmtp|{name}|{opt_name}|{k}"] = v
+            if opt_name == "grads":  # each block once, each replicated leaf once
+                res[f"lmtp|{name}|norm"] = O.clip_by_global_norm(new_p, 1.0, m, pspecs)[1].numpy()
+        if case["adafactor"]:  # the train cell's step
+            cell = lm_common.build_lm_cell(cfg, "adafactor", "train_4k", m,
+                                           case["mesh"] == "pod")
+            cparams = R.shard_params(whole, cell.in_shardings[0], m)
+            opt_state = cell.args[1]  # meta tensors: the state's global shapes
+            state = R.shard_params(tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                                              opt_state), cell.in_shardings[1], m)
+            new_p, _, met = cell.step_fn(cparams, state, batch)
+            res[f"lmtp|{name}|adafactor_loss"] = met["loss"].numpy()
+            for k, v in flat_np(new_p).items():
+                res[f"lmtp|{name}|adafactor|{k}"] = v
 
 
 def echo_coords(rank: int, world: int, shape) -> dict:

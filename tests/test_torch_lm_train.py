@@ -302,16 +302,45 @@ def test_groups_and_batch_axes_match_reference():
         assert tcfg.batch_axes(multi_pod) == jcfg.batch_axes(multi_pod)
 
 
-def test_mesh_raises_until_the_parallel_slice():
-    _, tcfg = _configs()
-    _, tparams = _carry(*_configs())
-    toks = torch.zeros((2, 4), dtype=torch.int32)
-    for fn in (T.forward, T.prefill):
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
-            fn(tcfg, tparams, toks, object())
-    step = T.make_train_step(tcfg, O.make_sgd(0.1), object())  # a cell builds it
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        step(tparams, (), {"tokens": toks, "labels": toks})
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_mesh_cells_build_steps_that_take_their_blocks(arch_id, shape):
+    """The train and prefill cells under a small (data 2, model 4)
+    ``AbstractMesh``: nothing raises before a device is needed.  Every
+    argument splits evenly under its spec, the params' specs are the
+    layout the step takes (``mesh_param_specs``, against which
+    ``make_train_step`` checks ``grad_specs`` when it is built), the batch
+    is split by rows over the batch axes, and the optimizer state's specs
+    are its state specs (Adafactor's under the mesh).  The steps run on
+    gloo ranks in tests/test_torch_sharded.py."""
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    arch = configs.get(arch_id)
+    cell = arch.build_cell(shape, mesh, False)
+    args = tree_flatten_with_path(cell.args)
+    specs = [s for _, s in tree_flatten_with_path(cell.in_shardings, lambda x: isinstance(x, P))]
+    assert len(args) == len(specs)
+    for (path, t), spec in zip(args, specs):
+        assert t.device.type == "meta"
+        for d, n in enumerate(t.shape):
+            axes = spec.axes_of(d)
+            assert n % (mesh.axis_size(axes) if axes else 1) == 0, (keystr(path), d, spec)
+    base, kw = arch.build_cell.keywords["base_cfg"], arch.build_cell.keywords
+    if shape == "train_4k":
+        cfg = dataclasses.replace(base, param_dtype=torch.float32)
+    else:
+        cfg = dataclasses.replace(base, param_dtype=torch.bfloat16, fsdp=kw["fsdp_serve"])
+    layout = T.mesh_param_specs(cfg, mesh, ("data",))
+    assert cell.in_shardings[0] == layout
+    assert cell.in_shardings[-1] == ({"tokens": P(("data",), None), "labels": P(("data",), None)}
+                                     if shape == "train_4k" else P(("data",), None))
+    if shape == "train_4k":
+        state_specs = LC.make_optimizer(kw["opt_kind"])[1](layout, cell.args[0])
+        assert cell.in_shardings[1] == state_specs
+        T.make_train_step(cfg, LC.make_optimizer(kw["opt_kind"], mesh, layout)[0], mesh,
+                          ("data",), grad_specs=layout)
+    other = T.mesh_param_specs(dataclasses.replace(cfg, fsdp=not cfg.fsdp), mesh, ("data",))
+    with pytest.raises(ValueError, match="the gradients take the params' layout"):
+        T.make_train_step(cfg, O.make_sgd(0.1), mesh, ("data",), grad_specs=other)
 
 
 def test_in_place_adam_equals_functional():

@@ -15,7 +15,15 @@ decode: a tiny MoE transformer with the dense residual (6 heads padded to 8
 and vocab 128 to 512 at tp 4), 4 decode steps by ``transformer.decode_step``
 under the mesh at B = 4 (batch over data, positions over model) and in the
 long_500k layout at B = 1 (positions over both axes), across a shard
-boundary and with empty shards, and ``layers.sharded_vocab_embed``.
+boundary and with empty shards, and ``layers.sharded_vocab_embed``; and
+the LM's tensor-, sequence- and FSDP-parallel paths
+(``tests/_jax_sharded_reference.py ... lm_tp``, a second subprocess):
+``forward``, ``prefill`` then ``caches_for_decode`` and 4 ``decode_step``s,
+and ``make_train_step`` (fsdp, 2 microbatches; the gradients, an Adam step
+and an Adafactor train cell's step) for a dense config with seq_shard
+(also on the (2, 2, 2) pod mesh), 6 heads padded to 8 over 2 unsharded KV
+heads with QKV bias, and an MoE config with the dense residual, each
+rank's blocks and bytes against the reference's and the ring model's.
 
 Tolerances: f32 rtol 1e-5, atol 1e-6 (other summation orders: the
 collective's against XLA's); ``comm_dtype=bf16`` rtol and atol 2e-2, the
@@ -27,6 +35,7 @@ reference's compiled HLO.  XLA combines the two chunks' all-reduces of
 port's two), and its CPU backend promotes a bf16 collective to f32 (the
 HLO moves twice the bytes of the port's bf16 payload).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -116,13 +125,36 @@ LM_DECODE_CASES = {  # name: (batch, batch axes, sequence axes)
     "long_500k_b1": (1, [], ["data", "model"]),
 }
 EMBED_SHAPE = (16, 5)
+# the LM's tensor-, sequence- and FSDP-parallel paths, f32 compute: (a) the
+# reference's test_transformer_sharded_matches_single config (KV sharded,
+# seq_shard), also on the pod mesh with two batch axes; (b) 6 heads padded
+# to 8 over 2 KV heads (not sharded: each rank reads one), QKV bias, no
+# seq_shard, no FSDP outside training; (c) the reference's
+# test_moe_sharded_matches_reference config, at a capacity factor that drops
+LM_TP_DENSE = dict(name="tp-dense", n_layers=2, d_model=64, n_heads=8, n_kv_heads=4, d_ff=128,
+                   vocab=256, d_head=8, remat_groups=2, seq_shard=True)
+LM_TP_CASES = {
+    "dense": dict(cfg=LM_TP_DENSE, moe=None, mesh="main", batch_axes=["data"], adafactor=True),
+    "padded": dict(cfg=dict(name="tp-padded", n_layers=2, d_model=32, n_heads=6, n_kv_heads=2,
+                            d_ff=64, vocab=128, d_head=8, qkv_bias=True, fsdp=False),
+                   moe=None, mesh="main", batch_axes=["data"], adafactor=False),
+    "moe": dict(cfg=dict(name="tp-moe", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
+                         d_ff=64, vocab=128, d_head=8, remat_groups=2, moe_dense_residual=True),
+                moe=dict(num_experts=8, top_k=2, d_ff=32, capacity_factor=1.0),
+                mesh="main", batch_axes=["data"], adafactor=False),
+    "dense_pod": dict(cfg=LM_TP_DENSE, moe=None, mesh="pod", batch_axes=["pod", "data"],
+                      adafactor=False),
+}
+LM_TP_SHAPE, LM_TP_TRAIN_BATCH = (4, 16), 8  # forward/prefill [B, S]; the train batch
+LM_TP_MAX_LEN, LM_TP_STEPS = 32, 4  # decode writes positions 16-19
 META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS, n_dense=13,
             bottom_mlp=[64, DIM], mlp=[64, 32], lookup_cases=LOOKUP_CASES,
             grad_modes=GRAD_MODES, pod_cases=POD_CASES, dlrm_modes=DLRM_MODES, train_modes=TRAIN_MODES,
             flat_slots=64, hash_slots=128, max_norm=0.05, arch_specs=ARCH_SPECS,
             arch_cases=ARCH_CASES, arch_forward=list(ARCH_CASES), arch_train=ARCH_TRAIN,
             retrieval_k=10, lm=LM_CFG, lm_moe=LM_MOE, lm_pos=LM_POS, lm_steps=LM_STEPS,
-            lm_decode_cases=LM_DECODE_CASES)
+            lm_decode_cases=LM_DECODE_CASES, lm_tp_cases=LM_TP_CASES,
+            lm_tp_max_len=LM_TP_MAX_LEN)
 
 
 def _inputs(rng) -> dict:
@@ -163,6 +195,7 @@ def _inputs(rng) -> dict:
             d[f"arch_batch|{arch}|{k}"] = b[k]
     _arch_inputs(rng, d)
     _lm_inputs(rng, d)
+    _lm_tp_inputs(rng, d)
     return d
 
 
@@ -189,6 +222,43 @@ def _lm_inputs(rng, d: dict) -> None:
     d["embed_table"] = rng.standard_normal((cfg.padded_vocab(M.AbstractMesh(
         MESH, ("data", "model"))), DIM)).astype(np.float32)
     d["embed_tokens"] = rng.integers(0, cfg.vocab, EMBED_SHAPE).astype(np.int32)
+
+
+def _lm_tp_mesh(case: dict) -> M.AbstractMesh:
+    if case["mesh"] == "pod":
+        return M.AbstractMesh(tuple(POD_MESH.values()), tuple(POD_MESH))
+    return M.AbstractMesh(MESH, ("data", "model"))
+
+
+def _lm_tp_inputs(rng, d: dict) -> None:
+    """Each LM case's params in its mesh's geometry (numpy normals over
+    sqrt(fan in), norms near 1, biases and the router random), rounded to
+    values bf16 holds exactly (the prefill cell's bf16 params are the same
+    numbers), its prompts, decode tokens and a train batch whose labels are
+    a fifth masked."""
+    for name, case in LM_TP_CASES.items():
+        cfg = ranks.lm_tp_cfg(case)
+        shapes = T.init_params(cfg, device="meta", mesh=_lm_tp_mesh(case))
+        for path, t in tree_flatten_with_path(shapes):
+            shape = tuple(t.shape)
+            if path[-1] in ("ln1", "ln2", "final_ln"):
+                arr = 1.0 + 0.1 * rng.standard_normal(shape)
+            elif path[-1] in ("bq", "bk", "bv"):
+                arr = 0.1 * rng.standard_normal(shape)
+            else:
+                fan_in = {("embed",): 1.0, ("head",): cfg.d_model}.get(path, shape[-2])
+                arr = rng.standard_normal(shape) / np.sqrt(fan_in)
+            arr = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16).float().numpy()
+            d["|".join([f"lmtp|{name}", *path])] = arr
+        b, s = LM_TP_SHAPE
+        d[f"lmtp_tokens|{name}"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        d[f"lmtp_decode_tokens|{name}"] = rng.integers(0, cfg.vocab, (LM_TP_STEPS, b)).astype(
+            np.int32)
+        d[f"lmtp_train|{name}|tokens"] = rng.integers(0, cfg.vocab, (LM_TP_TRAIN_BATCH, s)).astype(
+            np.int32)
+        labels = rng.integers(0, cfg.vocab, (LM_TP_TRAIN_BATCH, s))
+        d[f"lmtp_train|{name}|labels"] = np.where(rng.random(labels.shape) < 0.2, -1,
+                                                  labels).astype(np.int32)
 
 
 def _arch_inputs(rng, d: dict) -> None:
@@ -229,22 +299,26 @@ def runs(tmp_path_factory):
     """(reference outputs, the 8 ranks' results): the reference's subprocess
     and the port's ranks run at the same time on the same inputs."""
     tmp = tmp_path_factory.mktemp("sharded")
-    inputs, outputs = tmp / "inputs.npz", tmp / "outputs.npz"
+    inputs = tmp / "inputs.npz"
     np.savez(inputs, **_inputs(np.random.default_rng(0)))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    ref = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_jax_sharded_reference.py"),
-                            str(inputs), str(outputs)], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True)
+    script = str(ROOT / "tests" / "_jax_sharded_reference.py")
+    refs = {part: subprocess.Popen([sys.executable, script, str(inputs), str(tmp / f"{part}.npz"),
+                                    part], env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+            for part in ("main", "lm_tp")}
     try:
         port = M.spawn(ranks.run, MESH[0] * MESH[1], (str(inputs),), timeout=SPAWN_TIMEOUT_S)
-        _, err = ref.communicate(timeout=REF_TIMEOUT_S)
+        errs = {part: ref.communicate(timeout=REF_TIMEOUT_S)[1] for part, ref in refs.items()}
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.communicate()
-    assert ref.returncode == 0, err[-4000:]
-    return dict(np.load(outputs)), port
+        for ref in refs.values():
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
+    for part, ref in refs.items():
+        assert ref.returncode == 0, f"{part}: {errs[part][-4000:]}"
+    return {**dict(np.load(tmp / "main.npz")), **dict(np.load(tmp / "lm_tp.npz"))}, port
 
 
 class _Coords:
@@ -590,6 +664,231 @@ def test_vocab_embed_under_the_mesh_matches_reference(runs):
         np.testing.assert_array_equal(got, _block(ref["vocab_embed"], P("data"), r["coords"]))
         nbytes = EMBED_SHAPE[0] // MESH[0] * EMBED_SHAPE[1] * DIM * 4
         assert r["bytes"]["vocab_embed"] == {"all_reduce": 2 * nbytes * (MESH[1] - 1) / MESH[1]}
+
+
+def _lm_tp_where(r: dict, case: dict) -> tuple[dict, dict]:
+    """A rank's coordinates and the mesh shape of an LM case's mesh."""
+    if case["mesh"] == "pod":
+        return r["coords3"], POD_MESH
+    return r["coords"], dict(zip(("data", "model"), MESH))
+
+
+def _lm_tp_grad_tol(want: np.ndarray):
+    return (RTOL, 1e-5 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("name", list(LM_TP_CASES))
+def test_lm_tp_forward_matches_reference(runs, name):
+    """``forward`` under the mesh: each rank's [B_l, S, Vp / tp] block of the
+    reference's logits (batch over the batch axes, vocab over model) and the
+    aux (the experts' case: the mean of the batch blocks' Switch losses),
+    rtol and atol 1e-5."""
+    ref, port = runs
+    case = LM_TP_CASES[name]
+    ba = tuple(case["batch_axes"])
+    want = ref[f"lmtp|{name}|logits"]
+    assert np.isfinite(want).all()
+    for r in port:
+        coords, shape = _lm_tp_where(r, case)
+        _close(r["outputs"][f"lmtp|{name}|logits"],
+               _block(want, P(ba, None, "model"), coords, shape), (1e-5, 1e-5))
+        _close(r["outputs"][f"lmtp|{name}|aux"], ref[f"lmtp|{name}|aux"], (1e-5, 1e-5))
+    if case["moe"]:
+        assert float(ref[f"lmtp|{name}|aux"]) > 0
+
+
+@pytest.mark.parametrize("name", list(LM_TP_CASES))
+def test_lm_tp_prefill_then_decode_matches_reference(runs, name):
+    """``prefill`` under the mesh (the dense case through its serving cell,
+    bf16 params with FSDP at use): the last logits' and the caches' blocks
+    (``kv_spec``: KV heads over model where they divide tp); then
+    ``caches_for_decode`` and 4 ``decode_step``s from them against the
+    reference's decode from its caches padded to 32 positions: each step's
+    logits block and the caches' ``cache_specs`` blocks after the steps."""
+    ref, port = runs
+    case = LM_TP_CASES[name]
+    ba = tuple(case["batch_axes"])
+    cfg = ranks.lm_tp_cfg(case)
+    kv_spec = P(None, ba, None, "model" if cfg.kv_sharded(_lm_tp_mesh(case)) else None, None)
+    cache_spec = T.cache_specs(cfg, ba, ("model",))
+    for r in port:
+        coords, shape = _lm_tp_where(r, case)
+        out = r["outputs"]
+        _close(out[f"lmtp|{name}|last"], _block(ref[f"lmtp|{name}|last"], P(ba, "model"),
+                                                coords, shape), (1e-5, 1e-5))
+        _close(out[f"lmtp|{name}|decode"], _block(ref[f"lmtp|{name}|decode"],
+                                                  P(None, ba, "model"), coords, shape),
+               (1e-5, 1e-5))
+        for kv in ("k", "v"):
+            _close(out[f"lmtp|{name}|prefill_{kv}"],
+                   _block(ref[f"lmtp|{name}|prefill_{kv}"], kv_spec, coords, shape), (1e-5, 1e-5))
+            _close(out[f"lmtp|{name}|decode_{kv}"],
+                   _block(ref[f"lmtp|{name}|decode_{kv}"], cache_spec, coords, shape),
+                   (1e-5, 1e-5))
+
+
+@pytest.mark.parametrize("name", list(LM_TP_CASES))
+def test_lm_tp_train_step_matches_reference(runs, name):
+    """``make_train_step`` under the mesh with ``fsdp`` and 2 microbatches
+    of a batch with masked labels: the loss, every gradient block under the
+    reference's ``grad_specs`` (an optimizer that returns the gradients;
+    atol 1e-5 times the leaf's largest magnitude) and every param block
+    after one Adam step (rtol and atol 1e-5; eps 1e-3: at 1e-8 Adam's
+    first step, g / (|g| + eps), turns the rounding of a gradient near 1e-8
+    into a step up to 2e-5 apart); the dense case also one step of its
+    Adafactor train cell (the factored means and the clip span the mesh)."""
+    ref, port = runs
+    case = LM_TP_CASES[name]
+    ba = tuple(case["batch_axes"])
+    cfg = dataclasses.replace(ranks.lm_tp_cfg(case), fsdp=True, microbatches=2)
+    specs = {keystr(p): s for p, s in tree_flatten_with_path(
+        T.mesh_param_specs(cfg, _lm_tp_mesh(case), ba), lambda x: isinstance(x, P))}
+    opts = ["grads", "adam"] + (["adafactor"] if case["adafactor"] else [])
+    for r in port:
+        coords, shape = _lm_tp_where(r, case)
+        out = r["outputs"]
+        for opt in opts:
+            _close(out[f"lmtp|{name}|{opt}_loss"], ref[f"lmtp|{name}|{opt}_loss"], (1e-5, 1e-5))
+            for key, spec in specs.items():
+                want = _block(ref[f"lmtp|{name}|{opt}|{key}"], spec, coords, shape)
+                tol = _lm_tp_grad_tol(want) if opt == "grads" else (1e-5, 1e-5)
+                _close(out[f"lmtp|{name}|{opt}|{key}"], want, tol)
+        _close(out[f"lmtp|{name}|norm"], ref[f"lmtp|{name}|norm"], (1e-5, 1e-5))
+    assert np.abs(ref[f"lmtp|{name}|grads|['layers']['wq']"]).max() > 0
+
+
+def _lm_tp_ring_bytes(name: str) -> tuple[dict, dict]:
+    """One rank's bytes of ``forward`` and of ``prefill`` +
+    ``caches_for_decode`` + the decode steps by the ring model, f32
+    activations.  Per layer: under seq_shard two all-gathers of the hidden
+    [B_l, S, D] over model and two reduce-scatters into [B_l, S / tp, D],
+    else two all-reduces of [B_l, S, D]; with FSDP the all-gathers of the
+    layer's weights over the batch axes (the prefill cell's in bf16).  The
+    token embedding is a reduce-scatter (seq_shard) or an all-reduce; the
+    head takes the gathered hidden state (forward) or the last position's;
+    the experts' aux one scalar all-reduce over the mesh.  The handoff
+    gathers sharded KV heads over model; a decode step is the embedding's
+    all-reduce, and each layer's max and sum all-reduces over model and the
+    experts' all-reduce."""
+    case = LM_TP_CASES[name]
+    cfg, am = ranks.lm_tp_cfg(case), _lm_tp_mesh(case)
+    tp, dp = am.shape["model"], am.axis_size(case["batch_axes"])
+    world = am.axis_size(tuple(am.shape))
+    (b, s), D, dh = LM_TP_SHAPE, cfg.d_model, cfg.d_head
+    bl, hid = b // dp, b // dp * s * cfg.d_model * 4
+    hl, hkv_l = cfg.padded_heads(am) // tp, cfg.n_kv_heads // (tp if cfg.kv_sharded(am) else 1)
+    weights = D * hl * dh * 2 + 2 * D * hkv_l * dh
+    if cfg.dense_ffn():
+        weights += 3 * D * cfg.d_ff // tp
+    if cfg.moe:
+        weights += 3 * cfg.moe.num_experts // tp * D * cfg.moe.d_ff
+
+    def layers(item: int) -> dict:
+        per = {}
+        if cfg.seq_shard:
+            per = {"all_gather": 2 * hid * (tp - 1) / tp, "reduce_scatter": 2 * hid // tp * (tp - 1)}
+        else:
+            per = {"all_reduce": 2 * 2 * hid * (tp - 1) / tp}
+        if cfg.fsdp:
+            per["all_gather"] = per.get("all_gather", 0) + weights * item * (dp - 1) / dp
+        return {op: cfg.n_layers * v for op, v in per.items()}
+
+    def add(into: dict, op: str, v: float) -> None:
+        into[op] = into.get(op, 0) + v
+
+    fwd, pre = layers(4), layers(2 if case["adafactor"] else 4)
+    for part in (fwd, pre):
+        if cfg.seq_shard:
+            add(part, "reduce_scatter", hid // tp * (tp - 1))
+        else:
+            add(part, "all_reduce", 2 * hid * (tp - 1) / tp)
+    if cfg.seq_shard:
+        add(fwd, "all_gather", hid * (tp - 1) / tp)
+        add(pre, "all_gather", bl * tp * D * 4 * (tp - 1) / tp)
+    if cfg.moe:
+        add(fwd, "all_reduce", 2 * 4 * (world - 1) / world)
+    if cfg.kv_sharded(am):
+        add(pre, "all_gather", 2 * cfg.n_layers * bl * s * cfg.n_kv_heads * dh * 4 * (tp - 1) / tp)
+    hp = cfg.padded_heads(am)
+    step_model = 2 * bl * D * 4 * (tp - 1) / tp
+    add(pre, "all_reduce", LM_TP_STEPS * (step_model + cfg.n_layers * (
+        2 * bl * hp * (dh + 1) * 4 * (tp - 1) / tp + (step_model if cfg.moe else 0))))
+    add(pre, "all_reduce_max", LM_TP_STEPS * cfg.n_layers * 2 * bl * hp * 4 * (tp - 1) / tp)
+    return fwd, pre
+
+
+def _lm_tp_train_ring_bytes(name: str) -> dict:
+    """One rank's bytes over one ``make_train_step`` (fsdp, 2 microbatches)
+    by the ring model.  The step all-gathers the tokens and the labels over
+    the batch axes (each rank's rows of the reference's microbatches).  Per
+    microbatch, under the two-level remat of L layers in G groups: the
+    hidden state [B_l / 2, S, D] collectives of the forward (the embedding's
+    and two a layer, two gathers and the head's), of each group's
+    recompute up to its last layer, of each layer's own (two gathers, one
+    sum: it stops after its FFN product) and of the backward (each one's
+    transpose); the layer weights' all-gathers at each of the 3 L - G uses
+    and their gradients' reduce-scatter once; the loss (a row max, two row
+    sums over model, two scalars over the batch axes) and the experts' aux
+    (a scalar over the mesh); the gradients summed by ``grad_sum_axes``."""
+    case = LM_TP_CASES[name]
+    cfg = dataclasses.replace(ranks.lm_tp_cfg(case), fsdp=True, microbatches=2)
+    am = _lm_tp_mesh(case)
+    ba = tuple(case["batch_axes"])
+    tp, dp, world = am.shape["model"], am.axis_size(ba), am.axis_size(tuple(am.shape))
+    L_, G_, D, dh = cfg.n_layers, cfg.groups(), cfg.d_model, cfg.d_head
+    B, S = LM_TP_TRAIN_BATCH, LM_TP_SHAPE[1]
+    bl = B // dp // cfg.microbatches
+    hid = bl * S * D * 4
+    kv = cfg.kv_sharded(am)
+    hl, hkv_l = cfg.padded_heads(am) // tp, cfg.n_kv_heads // (tp if kv else 1)
+    w = D * dh * (2 * hl + 2 * hkv_l) + 3 * D * cfg.d_ff // tp
+    if cfg.moe:
+        w += 3 * cfg.moe.num_experts // tp * D * cfg.moe.d_ff
+    per = {"all_gather": (3 * L_ - G_) * w * 4 * (dp - 1) / dp,
+           "reduce_scatter": L_ * w * 4 // dp * (dp - 1),
+           "all_reduce": 2 * 2 * bl * S * 4 * (tp - 1) / tp + 2 * 2 * 4 * (dp - 1) / dp,
+           "all_reduce_max": 2 * bl * S * 4 * (tp - 1) / tp}
+    if cfg.seq_shard:
+        per["all_gather"] += (8 * L_ - 2 * G_ + 2) * hid * (tp - 1) / tp
+        per["reduce_scatter"] += (7 * L_ - 2 * G_ + 2) * hid // tp * (tp - 1)
+    else:
+        per["all_reduce"] += (7 * L_ - 2 * G_ + 2) * 2 * hid * (tp - 1) / tp
+    if cfg.moe:
+        per["all_reduce"] += 2 * 4 * (world - 1) / world
+    # the gradients' sums, f32, grouped by their axes
+    data = 2 * cfg.padded_vocab(am) // tp * D  # the token table's and the head's blocks
+    both, model = 0, 0
+    norms = (2 * L_ + 1) * D
+    if cfg.seq_shard:
+        both += norms
+    else:
+        data += norms
+    if cfg.moe:
+        both += L_ * D * cfg.moe.num_experts  # the router
+    if cfg.qkv_bias:
+        data += L_ * hl * dh  # bq's block
+        if kv:
+            data += 2 * L_ * hkv_l * dh
+        else:
+            both += 2 * L_ * cfg.n_kv_heads * dh
+    if not kv:
+        model += 2 * L_ * D // dp * cfg.n_kv_heads * dh  # wk, wv: their FSDP blocks
+    per["all_reduce"] += (2 * data * 4 * (dp - 1) / dp + 2 * both * 4 * (dp * tp - 1) / (dp * tp)
+                          + 2 * model * 4 * (tp - 1) / tp)
+    out = {op: cfg.microbatches * v for op, v in per.items()}
+    out["all_gather"] += 2 * B * S * 4 * (dp - 1) / dp  # the microbatches' rows
+    return out
+
+
+@pytest.mark.parametrize("name", list(LM_TP_CASES))
+def test_lm_tp_bytes_follow_the_ring_model(runs, name):
+    _, port = runs
+    fwd, pre = _lm_tp_ring_bytes(name)
+    train = _lm_tp_train_ring_bytes(name)
+    for r in port:
+        assert r["bytes"][f"lmtp_forward|{name}"] == fwd
+        assert r["bytes"][f"lmtp_prefill|{name}"] == pre
+        assert r["bytes"][f"lmtp_train|{name}"] == train
 
 
 def test_ranks_sit_row_major_and_refuse(runs):

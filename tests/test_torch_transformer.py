@@ -119,7 +119,7 @@ def test_vocab_embed_matches_jax(rng, monkeypatch):
     # the others and all-reduces: with the all-reduce replaced by the sum
     # over the 4 ranks' outputs, the whole gather again (the spawn of
     # tests/test_torch_sharded.py runs the real collective).
-    monkeypatch.setattr(M, "all_reduce", lambda x, axes, mesh: x)
+    monkeypatch.setattr(M, "reduce_from", lambda x, axes, mesh: x)
     parts = [L.sharded_vocab_embed(torch.from_numpy(table[10 * r:10 * (r + 1)]),
                                    torch.from_numpy(tok), types.SimpleNamespace(
                                        coords={"data": 0, "model": r}),
