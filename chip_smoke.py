@@ -145,6 +145,46 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 memory; K1' timed at wide-deep's and two-tower's step
                 beside ``index_add_``), and the loss and gradients at
                 1,024 with 100,000-row tables against the CPU;
+  5h. gnn   — after phase 5g: graphsage-reddit from the registry at its
+                four published shapes on one device, f32, TF32 off, none
+                launching a hand kernel (the aggregation is index_select
+                and index_add_, as the reference's is XLA's take and
+                segment_sum): full_graph_sm (Cora's 2,708 nodes, 10,556
+                edges padded to 10,752, d 1,433, 7 classes) and molecule
+                (128 graphs of 30 nodes and 64 edges, d 32): the step-1
+                loss and gradients, then 3 Adam steps of the cell, card
+                against CPU, each from the CPU's params and state of the
+                step before (rtol 1e-5, atol 1e-6 times a leaf's largest
+                magnitude past 1; the params with Adam's freedom near that
+                step's zero gradients, the moments);
+                minibatch_lg: Reddit's 232,965 nodes and 114,615,892 edges
+                made on the host and grouped by ``edges_to_csr`` (seconds
+                printed), one ``sample_block`` of 1,024 targets at fanout
+                (15, 10) (169,984 nodes, 409 MB of features), the same
+                checks; ogb_products: 2,449,029 nodes and 61,859,140 edges
+                (padded to 61,859,328) made on the card from a seed
+                (power-law destinations, uniform sources), one forward
+                (finite, device time), 256 nodes' logits against float64
+                on the CPU over their two-hop in-neighbourhoods, 3 train
+                steps (finite losses, device and busy time, the profiler's
+                kernels, peak memory); ``smoke("cuda")``;
+  5i. gnn_sharded — 4 gloo ranks on the one card (``launch.mesh.spawn``),
+                mesh (data 2, model 2), at ogb_products' widths on a tenth
+                of its graph (244,903 nodes padded to 244,904, 6,185,914
+                edges padded to 6,185,984, nodes relabelled at random): the
+                edge-sharded forward (logits at rtol = atol = 1e-5) and one
+                train step (loss and gradients at 5f's tolerance, the
+                params after Adam with its freedom) against one device on
+                the card; ``forward_full_graph_partitioned`` in f32 and
+                bf16 comm against one device's plain version of its
+                arithmetic (node states rounded to the comm dtype before
+                the gather) at 1e-4, the reference's own tolerance, its gap
+                to the f32 forward reported; the minibatch_lg cell's step
+                on four blocks sampled in 5h, one a rank, against one
+                device running the same four; every rank's bytes equal to
+                the ring model's (edge-sharded: every layer's sums and the
+                counts once; partitioned: h a layer), the edge-sharded
+                forward's over the partitioned bf16 one's printed;
   6. lm_kernels — after phase 5g: K6 against its plain
                 version at stablelm-3b's prefill layer [4, 4096, 32, 32, 80]
                 causal in bf16 and f32, at lm_f32's [2, 1024, 32, 32, 80]
@@ -319,7 +359,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 Each path (4, 4b, 4c and 4d on each rank, summed over the ranks in the
 kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
 5g's ``recsys_forward.<arch>``, ``recsys_train.<arch>``,
-``retrieval.two_tower`` and ``retrieval.mind``, 7, 8, and 9 as
+``retrieval.two_tower`` and ``retrieval.mind``, 5h's ``gnn.<shape>``,
+``gnn.ogb_products.forward`` and ``gnn.registry`` and 5i's
+``gnn_sharded`` (summed over its ranks; these must launch no hand
+kernel), 7, 8, and 9 as
 ``lm_f32``: K6 and K7 in f32 on the card, 9b, 9c, 9d as ``lm_moe_f32``,
 9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
 ``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9i's and 9j's steps,
@@ -1507,6 +1550,617 @@ def recsys_archs(dev: torch.device) -> dict:
     return out
 
 
+# GNN (phases 5h and 5i): graphsage-reddit from the registry at each
+# published shape on one device, f32, TF32 off, and its mesh paths on
+# GNN_SHARDED_RANKS gloo ranks of the one card.  The GNN reaches no hand
+# kernel (its aggregation is index_select and index_add_, as the
+# reference's is XLA's take and segment_sum): every path's launch counts
+# must stay 0.
+# Adam steps card vs CPU (full_graph_sm, minibatch_lg, molecule), each from
+# the CPU's params and state of the step before.  Run free, the two
+# trajectories part: an element whose gradient rounding decides moves +-lr
+# on either side, which moves every later gradient (full_graph_sm's
+# w_neigh stood 0.4 lr apart after 3 free steps on an H100 80GB HBM3 at
+# 700 W, past TRAIN_GRAD_TOL plus step 1's freedom).  From one state, a
+# gradient d apart moves the update by at most about 2 lr d / |g| at steps
+# 1-3 (|m^|/sqrt(v^) <= 1.2; sqrt(v^) >= sqrt((1 - b2) / (1 - b2^t)) |g|),
+# hold_adam's freedom with that step's own gradient g.
+GNN_STEPS = 3
+GNN_LR = 1e-3  # the cells' Adam (lr 1e-3, eps 1e-8)
+GNN_REDDIT_EDGES = 114_615_892  # DGL's RedditDataset; the config's 114.6M
+# ogb_products' logits of GNN_TWO_HOP_SEEDS nodes (distinct, each with an
+# in-edge) against float64 on the CPU over their two-hop in-neighbourhoods:
+# f32 sums of up to 8.5M terms (the power-law hub) against exact ones; the
+# f32 CPU forward of 5i's graph stood within 1.2e-6 of float64 at logits of
+# up to 0.23, the hub's own the worst
+GNN_TWO_HOP_SEEDS = 256
+GNN_F64_TOL = (1e-5, 1e-5)
+GNN_F64_CHUNK = 1 << 21  # edges a CPU float64 gather at a time
+# 5i: ogb_products' widths on a tenth of its graph (nodes relabelled by a
+# random permutation so that the partitioned layout's owners share the
+# edges), padded to the ranks (nodes) and to 512 (edges) as the cell pads
+GNN_SHARDED_NODES, GNN_SHARDED_EDGES = 244_903, 6_185_914
+GNN_SHARDED_RANKS, GNN_SHARDED_MESH = 4, (2, 2)
+GNN_SHARDED_TOL = (1e-5, 1e-5)  # logits of up to ~0.2 against one device
+GNN_PART_TOL = (1e-4, 1e-4)  # the reference's own for the partitioned forward
+GNN_SHARDED_TIMEOUT_S = 300
+
+
+def gnn_plain_partitioned(params: dict, feats, edges, mask, comm_dtype) -> torch.Tensor:
+    """The partitioned forward's arithmetic on one device, written apart
+    from ``models.gnn``: every layer's node states rounded to ``comm_dtype``
+    (the all-gather's payload) before the gather, then the plain mean
+    aggregation and the layer, in f32."""
+    from repro_torch.models import gnn as G
+
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    w = mask.to(torch.float32)
+    n = feats.shape[0]
+    counts = torch.zeros(n, device=feats.device).index_add_(0, dst, w).clamp_min(1.0)
+    h = feats
+    for lp in params["layers"]:
+        hb = h.to(comm_dtype).to(torch.float32)
+        sums = torch.zeros((n, h.shape[1]), device=h.device).index_add_(0, dst, hb[src] * w[:, None])
+        h = G.sage_layer(lp, h, sums / counts[:, None])
+    return h @ params["out"]
+
+
+def gnn_two_hop_f64(params: dict, feats, src, dst, mask, seeds) -> tuple:
+    """The logits of ``seeds`` (sorted, distinct) in float64 on the CPU from
+    their two-hop in-neighbourhoods alone: the edges into the seeds, the
+    edges into the seeds and their sources, and those sources' features
+    (selected on the card, gathered on the CPU in chunks); and the sizes
+    of that neighbourhood."""
+    from repro_torch.models import gnn as G
+
+    def sel(targets):
+        m = torch.isin(dst, targets.to(dst.dtype)) & mask
+        return src[m].long(), dst[m].long()
+
+    s1, d1 = sel(seeds)
+    U = torch.unique(torch.cat([seeds, s1]))
+    s2, d2 = sel(U)
+    need = torch.unique(torch.cat([U, s2]))
+    cpu = lambda t: t.cpu()  # noqa: E731
+    U, seeds, need = cpu(U), cpu(seeds), cpu(need)
+    s1, d1, s2, d2 = map(cpu, (s1, d1, s2, d2))
+    h0 = feats[need.to(feats.device)].cpu().double()
+    p = {"layers": [{k: v.cpu().double() for k, v in lp.items()} for lp in params["layers"]],
+         "out": params["out"].cpu().double()}
+    pos = torch.searchsorted
+
+    def mean(h_src, src_pos, dst_pos, n_out):
+        sums = torch.zeros((n_out, h_src.shape[1]), dtype=torch.float64)
+        for i in range(0, src_pos.numel(), GNN_F64_CHUNK):
+            sl = slice(i, i + GNN_F64_CHUNK)
+            sums.index_add_(0, dst_pos[sl], h_src[src_pos[sl]])
+        cnt = torch.bincount(dst_pos, minlength=n_out).double().clamp_min(1.0)
+        return sums / cnt[:, None]
+
+    h1 = G.sage_layer(p["layers"][0], h0[pos(need, U)],
+                      mean(h0, pos(need, s2), pos(U, d2), U.numel()))
+    h2 = G.sage_layer(p["layers"][1], h1[pos(U, seeds)],
+                      mean(h1, pos(U, s1), pos(seeds, d1), seeds.numel()))
+    return h2 @ p["out"], {"hop1_edges": int(s1.numel()), "hop2_edges": int(s2.numel()),
+                           "nodes": int(need.numel())}
+
+
+def gnn(dev: torch.device) -> dict:
+    """Phase 5h: graphsage-reddit from the registry at its four published
+    shapes on the card (the docstring at the top).  Raises on any failure;
+    returns the numbers, each path's launch counts and 5i's minibatch
+    blocks (sampled here from the Reddit-sized graph, in host shared
+    memory)."""
+    from repro_torch import configs
+    from repro_torch.configs import graphsage_reddit as GR
+    from repro_torch.data import graph_sampler as GS
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import optimizers as O
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_to
+
+    t_phase = time.perf_counter()
+    arch = configs.get("graphsage-reddit")
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    out: dict = {"card": nvidia_smi(), "shapes": {}, "paths": {}}
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def no_kernels(path: str) -> None:
+        counts = out["paths"][path] = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{path} launched a hand kernel: {counts}")
+
+    def card_vs_cpu(shape: str, cell, grad_step, params: dict, batch: dict) -> dict:
+        """GNN_STEPS steps of the cell on the card and on the CPU, each from
+        the CPU's params and Adam state of the step before (so rounding
+        cannot compound along the trajectory): the card's step-1 loss and
+        gradients, then each step's loss, params (with Adam's freedom where
+        that step's gradient lies near 0) and moments against the CPU's."""
+        hparams, hbatch = tree_to(params, "cpu"), {k: v.cpu() for k, v in batch.items()}
+        grads, _, m1 = grad_step(params, (), batch)
+        hgrads, _, hm1 = grad_step(hparams, (), hbatch)
+        row = {"step1_loss_err": assert_close(f"[gnn] {shape} step-1 loss, card vs CPU",
+                                              m1["loss"].cpu(), hm1["loss"], *TRAIN_GRAD_TOL),
+               "step1_grads_max_abs_err": assert_trees_close(
+                   f"[gnn] {shape} step-1 gradients, card vs CPU", grads, hgrads,
+                   *TRAIN_GRAD_TOL, scaled=True)}
+        del grads
+        opt = O.make_adam(GNN_LR)
+        hp, hs = hparams, opt.init(hparams)
+        losses, hlosses, walls, worst, freed = [], [], [], 0.0, 0
+        torch.cuda.reset_peak_memory_stats()
+        for k in range(GNN_STEPS):
+            if k:
+                hgrads = grad_step(hp, (), hbatch)[0]
+            p, s = tree_to(hp, dev), tree_to(hs, dev)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = cell.step_fn(p, s, batch)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            no_kernels(f"gnn.{shape}")
+            hp, hs, hm = cell.step_fn(hp, hs, hbatch)
+            losses.append(float(m["loss"]))
+            hlosses.append(float(hm["loss"]))
+            assert_close(f"[gnn] {shape} step {k + 1} loss, card vs CPU", m["loss"].cpu(),
+                         hm["loss"], *TRAIN_GRAD_TOL)
+            flat_g = {keystr(q): v for q, v in tree_flatten_with_path(hgrads)}
+            for (path, got), (_, want) in zip(tree_flatten_with_path(p),
+                                              tree_flatten_with_path(hp)):
+                err, n = hold_adam(f"[gnn] {shape} {keystr(path)} after step {k + 1}",
+                                   got.cpu(), want, flat_g[keystr(path)], 1, lr=GNN_LR)
+                worst, freed = max(worst, err), freed + n
+            assert_trees_close(f"[gnn] {shape} Adam moments after step {k + 1}, card vs CPU",
+                               {"m": s["m"], "v": s["v"]}, {"m": hs["m"], "v": hs["v"]},
+                               *TRAIN_GRAD_TOL, scaled=True)
+        row.update({"losses": losses, "cpu_losses": hlosses, "step_wall_ms": walls,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "params_max_abs_err": worst, "params_past_train_grad_tol": freed})
+        log(f"[gnn] {shape}: {GNN_STEPS} steps card vs CPU ok: losses {losses}, step walls "
+            f"{[round(w, 3) for w in walls]} ms, params max abs err {worst:.3e} "
+            f"({freed} elements on Adam's freedom)")
+        return row
+
+    # ---- full_graph_sm: Cora's size, a random graph of random_graph's law
+    shape = "full_graph_sm"
+    info, cfg = GR.SHAPES[shape], GR._cfg(GR.SHAPES[shape])
+    cell = arch.build_cell(shape, None, False)
+    E_pad = cell.args[2]["edges"].shape[0]
+    rng = np.random.default_rng(0)
+    g = syn.random_graph(rng, info["n_nodes"], info["n_edges"], cfg.d_in, cfg.n_classes)
+    pad = E_pad - info["n_edges"]
+    batch = {"feats": g["feats"], "labels": g["labels"],
+             "edges": np.concatenate([g["edges"], np.zeros((pad, 2), np.int32)]),
+             "edge_mask": np.concatenate([g["edge_mask"], np.zeros(pad, bool)])}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = G.init_params(cfg, seed=0, device=dev)
+    out["shapes"][shape] = dict(card_vs_cpu(shape, cell, G.make_train_step_full(cfg, grads_of),
+                                            params, batch),
+                                nodes=info["n_nodes"], edges=info["n_edges"], edges_padded=E_pad)
+    del params, batch, g
+    free()
+
+    # ---- minibatch_lg: Reddit's size on the host, one block of 1,024 targets
+    shape = "minibatch_lg"
+    info, cfg = GR.SHAPES[shape], GR._cfg(GR.SHAPES[shape])
+    cell = arch.build_cell(shape, None, False)
+    N = info["n_nodes"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    g = syn.random_graph(rng, N, GNN_REDDIT_EDGES, cfg.d_in, cfg.n_classes)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = GS.edges_to_csr(g["edges"], N, g["feats"], g["labels"])
+    t_csr = time.perf_counter() - t0
+    del g
+    t0 = time.perf_counter()
+    blk = GS.sample_block(csr, rng, rng.choice(N, info["batch_nodes"], replace=False),
+                          info["fanout"])
+    t_sample = time.perf_counter() - t0
+    sizes = GS.block_sizes(info["batch_nodes"], info["fanout"], cfg.d_in)
+    if blk.feats.shape[0] != sizes["n_sub"] or [len(e) for e in blk.hop_edges] != \
+            sizes["hop_edges"]:
+        raise AssertionError(f"[gnn] {shape}: block {blk.feats.shape}, {sizes}")
+    log(f"[gnn] {shape}: {N:,} nodes, {GNN_REDDIT_EDGES:,} edges made on the host in "
+        f"{t_gen:.2f}s, edges_to_csr {t_csr:.2f}s; one block of {blk.n_targets} targets at "
+        f"fanout {info['fanout']} sampled in {t_sample:.3f}s: {sizes['n_sub']:,} nodes, hop "
+        f"edges {sizes['hop_edges']}, features {blk.feats.nbytes / 1e6:.0f} MB")
+    # 5i's four blocks, one a rank: the cell at (2, 2) splits batch_nodes four ways
+    tgt4 = info["batch_nodes"] // GNN_SHARDED_RANKS
+    blks = [GS.sample_block(csr, rng, rng.choice(N, tgt4, replace=False), info["fanout"])
+            for _ in range(GNN_SHARDED_RANKS)]
+    sharded_blocks = host_shared({
+        "feats": torch.from_numpy(np.stack([b.feats for b in blks])),
+        "edges1": torch.from_numpy(np.stack([b.hop_edges[0] for b in blks])),
+        "mask1": torch.from_numpy(np.stack([b.hop_masks[0] for b in blks])),
+        "edges2": torch.from_numpy(np.stack([b.hop_edges[1] for b in blks])),
+        "mask2": torch.from_numpy(np.stack([b.hop_masks[1] for b in blks])),
+        "labels": torch.from_numpy(np.stack([b.labels for b in blks]))})
+    del csr, blks
+    batch = {"feats": blk.feats, "edges1": blk.hop_edges[0], "mask1": blk.hop_masks[0],
+             "edges2": blk.hop_edges[1], "mask2": blk.hop_masks[1], "labels": blk.labels}
+    batch = {k: torch.from_numpy(v)[None].to(dev) for k, v in batch.items()}
+    params = G.init_params(cfg, seed=0, device=dev)
+    out["shapes"][shape] = dict(
+        card_vs_cpu(shape, cell, G.make_train_step(GR.minibatch_loss(cfg, blk.n_targets),
+                                                   grads_of), params, batch),
+        nodes=N, edges=GNN_REDDIT_EDGES, graph_seconds=t_gen, csr_seconds=t_csr,
+        sample_seconds=t_sample, block_nodes=sizes["n_sub"], hop_edges=sizes["hop_edges"],
+        block_feature_mb=blk.feats.nbytes / 1e6)
+    del params, batch, blk
+    free()
+
+    # ---- ogb_products: the graph made on the card, one forward, GNN_STEPS steps
+    shape = "ogb_products"
+    info, cfg = GR.SHAPES[shape], GR._cfg(GR.SHAPES[shape])
+    cell = arch.build_cell(shape, None, False)
+    N, E = info["n_nodes"], info["n_edges"]
+    E_pad = cell.args[2]["edges"].shape[0]
+    log(f"[gnn] {shape}: reckoned before the run: features {N * cfg.d_in * 4 / 1e9:.2f} GB, "
+        f"edges {E_pad * 8 / 1e9:.2f} GB, one [E, {cfg.d_in}] f32 message buffer "
+        f"{E_pad * cfg.d_in * 4 / 1e9:.1f} GB, one [E, {cfg.d_hidden}] "
+        f"{E_pad * cfg.d_hidden * 4 / 1e9:.1f} GB; models.gnn holds one buffer of "
+        f"{G.EDGE_CHUNK:,} edges at a time, {G.EDGE_CHUNK * cfg.d_hidden * 4 / 1e9:.2f} GB "
+        f"at d {cfg.d_hidden}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    # random_graph's law on the card: power-law destinations (zipf_indices'
+    # inverse CDF at alpha 1.2), uniform sources
+    u = torch.rand(E, generator=gen, dtype=torch.float64, device=dev)
+    a1 = 1.0 - 1.2
+    dst = ((u * (N ** a1 - 1.0) + 1.0) ** (1.0 / a1) - 1.0).to(torch.int64).clamp_(0, N - 1)
+    del u
+    edges = torch.zeros((E_pad, 2), dtype=torch.int32, device=dev)
+    edges[:E, 1] = dst.to(torch.int32)
+    del dst
+    edges[:E, 0] = torch.randint(0, N, (E,), generator=gen, device=dev, dtype=torch.int32)
+    mask = torch.arange(E_pad, device=dev) < E
+    feats = torch.randn((N, cfg.d_in), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.n_classes, (N,), generator=gen, device=dev, dtype=torch.int32)
+    batch = {"feats": feats, "edges": edges, "edge_mask": mask, "labels": labels}
+    params = G.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = G.forward_full_graph(cfg, params, feats, edges, mask)
+        torch.cuda.synchronize()
+        fwd_first_ms = 1e3 * (time.perf_counter() - t0)
+    no_kernels(f"gnn.{shape}.forward")
+    if tuple(logits.shape) != (N, cfg.n_classes) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[gnn] {shape}: logits {tuple(logits.shape)} not finite")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: G.forward_full_graph(cfg, params, feats, edges, mask), flush,
+                         reps=3, warmup=0)
+    deg = torch.bincount(edges[:E, 1].long(), minlength=N)
+    pick = torch.nonzero(deg > 0)[:, 0]
+    seeds = torch.sort(pick[torch.randperm(pick.numel(), generator=gen, device=dev)[
+        :GNN_TWO_HOP_SEEDS]]).values
+    t0 = time.perf_counter()
+    want, hood = gnn_two_hop_f64(params, feats, edges[:, 0], edges[:, 1], mask, seeds)
+    t_f64 = time.perf_counter() - t0
+    two_hop_err = assert_close(
+        f"[gnn] {shape} logits of {GNN_TWO_HOP_SEEDS} nodes (in-degrees "
+        f"{int(deg[seeds].min())}-{int(deg[seeds].max())}) against float64 on the CPU over "
+        f"their two-hop in-neighbourhoods ({hood})", logits[seeds].double().cpu(), want,
+        *GNN_F64_TOL)
+    del logits, want
+    opt = O.make_adam(GNN_LR)
+    state = opt.init(params)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, evs = [], [], []
+    reset_counts()
+    p, s = params, state
+    for _ in range(GNN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        p, s, m = cell.step_fn(p, s, batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        evs.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    no_kernels(f"gnn.{shape}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[gnn] {shape}: losses {losses}")
+    # the step by kernel: index_select's gathers, index_add_'s atomics, the
+    # products, the elementwise passes (the weighting mul_ the most), the rest
+    prof = device_busy(lambda: cell.step_fn(p, s, batch), 1,
+                       kernels=("vectorized_gather", "indexFuncLargeIndex", "gemm",
+                                "elementwise", "reduce"))
+    _, grads = G.loss_and_grads(lambda q, b: G.node_ce_loss(G.forward_full_graph(
+        cfg, q, b["feats"], b["edges"], b["edge_mask"]), b["labels"]), p, batch)
+    adam = device_busy(lambda: opt.update(grads, s, p), 1)
+    out["shapes"][shape] = {
+        "nodes": N, "edges": E, "edges_padded": E_pad, "graph_on_card_s": t_graph,
+        "forward_first_ms": fwd_first_ms, "forward_device_ms": fwd_ms,
+        "two_hop_max_abs_err": two_hop_err, "two_hop": hood, "two_hop_f64_s": t_f64,
+        "losses": losses, "step_wall_ms": walls, "step_device_ms": evs,
+        "step_device_busy_ms": prof["device_busy_ms"],
+        "step_device_ops": prof["device_ops_per_call"],
+        "step_kernels_ms": prof["kernels_ms_per_call"],
+        "step_top_kernels_ms": prof["top_kernels_ms_per_call"],
+        "adam_update_busy_ms": adam["device_busy_ms"], "peak_gb": peak_gb}
+    log(f"[gnn] {shape}: forward {fwd_ms:.3f} ms on the card; {GNN_STEPS} steps, losses "
+        f"{losses}, device {[round(x, 3) for x in evs]} ms, busy {prof['device_busy_ms']} ms, "
+        f"peak {peak_gb:.2f} GB; kernels {json.dumps(prof['kernels_ms_per_call'])}, top "
+        + json.dumps(prof["top_kernels_ms_per_call"]))
+    del p, s, params, state, batch, feats, edges, mask, labels, grads, deg, pick, seeds, flush
+    free()
+
+    # ---- molecule: 128 graphs of 30 nodes and 64 edges
+    shape = "molecule"
+    info, cfg = GR.SHAPES[shape], GR._cfg(GR.SHAPES[shape])
+    cell = arch.build_cell(shape, None, False)
+    rng = np.random.default_rng(2)
+    Gb, n, e = info["batch"], info["n_nodes"], info["n_edges"]
+    batch = {"feats": rng.standard_normal((Gb, n, cfg.d_in)).astype(np.float32),
+             "edges": rng.integers(0, n, (Gb, e, 2)).astype(np.int32),
+             "edge_mask": rng.random((Gb, e)) < 0.9,
+             "labels": rng.standard_normal(Gb).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = G.init_params(cfg, seed=0, device=dev)
+    out["shapes"][shape] = dict(card_vs_cpu(shape, cell, G.make_train_step(
+        GR.molecule_loss(cfg), grads_of), params, batch), graphs=Gb, nodes=n, edges=e)
+    del params, batch
+    free()
+
+    reset_counts()
+    out["smoke"] = arch.smoke(dev.type)
+    no_kernels("gnn.registry")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    out["sharded_blocks"] = sharded_blocks
+    return out
+
+
+def gnn_sharded_rank(rank: int, world: int, inputs: dict, want: dict) -> dict:
+    """One rank of phase 5i (spawned by ``launch.mesh.spawn`` over gloo; the
+    graph, params, blocks and one-device results are host tensors in shared
+    memory): mesh (data 2, model 2), each path on this rank's blocks, held
+    against one device's on the card; raises on failure.  Returns the
+    errors, bytes, launch counts and walls."""
+    from repro_torch.configs import graphsage_reddit as GR
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import optimizers as O
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device(DEVICE)
+    mesh = M.make_debug_mesh(*GNN_SHARDED_MESH)
+    axes = mesh.axis_names
+    cfg = inputs["cfg"]
+    card = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+    params, w = card(inputs["params"]), card(want)
+    feats, labels = inputs["feats"].to(dev), inputs["labels"].to(dev)
+    batch = {"feats": feats, "labels": labels, "label_mask": inputs["label_mask"].to(dev),
+             "edges": on_card_block(inputs["edges"], P(axes, None), mesh, dev),
+             "edge_mask": on_card_block(inputs["edge_mask"], P(axes), mesh, dev)}
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    out: dict = {"coords": dict(mesh.coords), "max_abs_err": {}, "bytes": {}, "wall_s": {}}
+    tag = f"[gnn_sharded] rank {rank}"
+
+    def run(name: str, fn):
+        before = M.comm_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["wall_s"][name] = time.perf_counter() - t0
+        out["bytes"][name] = bytes_since(before)
+        return res
+
+    def hold_params(name: str, got: dict, want_p: dict, grads: dict) -> None:
+        flat_g = {keystr(k): v for k, v in tree_flatten_with_path(grads)}
+        worst = 0.0
+        for (path, g), (_, wv) in zip(tree_flatten_with_path(got), tree_flatten_with_path(want_p)):
+            worst = max(worst, hold_adam(f"{tag} {name} {keystr(path)}", g, wv,
+                                         flat_g[keystr(path)], 1, lr=GNN_LR)[0])
+        out["max_abs_err"][name] = worst
+
+    reset_counts()
+    with torch.no_grad():
+        logits = run("edge_sharded_forward", lambda: G.forward_full_graph(
+            cfg, params, feats, batch["edges"], batch["edge_mask"], mesh))
+    out["max_abs_err"]["edge_sharded_forward"] = assert_close(
+        f"{tag} edge-sharded forward vs one device", logits, w["forward"], *GNN_SHARDED_TOL)
+    grads, _, met = run("edge_sharded_train_grads",
+                        lambda: G.make_train_step_full(cfg, grads_of, mesh)(params, (), batch))
+    assert_close(f"{tag} edge-sharded loss vs one device", met["loss"], w["loss"],
+                 *TRAIN_GRAD_TOL)
+    out["max_abs_err"]["edge_sharded_grads"] = assert_trees_close(
+        f"{tag} edge-sharded step gradients vs one device", grads, w["grads"], *TRAIN_GRAD_TOL,
+        scaled=True)
+    adam = O.make_adam(GNN_LR)
+    new_p, _, _ = run("edge_sharded_adam_step", lambda: G.make_train_step_full(cfg, adam, mesh)(
+        params, adam.init(params), batch))
+    hold_params("edge_sharded_adam_step", new_p, w["adam"], w["grads"])
+    del grads, new_p
+    part = {"feats": on_card_block(inputs["feats"], P(axes, None), mesh, dev),
+            "edges": on_card_block(inputs["part_edges"], P(axes, None), mesh, dev),
+            "edge_mask": on_card_block(inputs["part_edge_mask"], P(axes), mesh, dev)}
+    rows = M.block_slices(tuple(w["forward"].shape), P(axes, None), mesh)
+    for comm, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with torch.no_grad():
+            blk = run(f"partitioned_{comm}", lambda dt=dt: G.forward_full_graph_partitioned(
+                cfg, params, part["feats"], part["edges"], part["edge_mask"], mesh,
+                comm_dtype=dt))
+        out["max_abs_err"][f"partitioned_{comm}"] = assert_close(
+            f"{tag} partitioned forward, {comm} comm, vs one device's plain version of its "
+            "arithmetic", blk, w[f"partitioned_{comm}"][rows], *GNN_PART_TOL)
+        out["max_abs_err"][f"partitioned_{comm}_vs_f32_forward"] = max_err(blk, w["forward"][rows])
+    mb = inputs["minibatch"]
+    cell = GR.build_cell("minibatch_lg", mesh, False)
+    mcfg = GR._cfg(GR.SHAPES["minibatch_lg"])
+    mparams = card(mb["params"])
+    mbatch = {k: on_card_block(v, cell.in_shardings[2][k], mesh, dev)
+              for k, v in mb["batch"].items()}
+    loss, grads = run("minibatch_grads", lambda: G.loss_and_grads(
+        GR.minibatch_loss(mcfg, mbatch["labels"].shape[1], mesh, axes), mparams, mbatch, mesh,
+        axes))
+    assert_close(f"{tag} minibatch cell loss vs one device", loss, w["mb_loss"], *TRAIN_GRAD_TOL)
+    out["max_abs_err"]["minibatch_grads"] = assert_trees_close(
+        f"{tag} minibatch cell gradients vs one device", grads, w["mb_grads"], *TRAIN_GRAD_TOL,
+        scaled=True)
+    new_p, _, _ = run("minibatch_step", lambda: cell.step_fn(mparams, adam.init(mparams), mbatch))
+    hold_params("minibatch_step", new_p, w["mb_adam"], w["mb_grads"])
+    out["launches"] = launch_counts()
+    return out
+
+
+def gnn_sharded(dev: torch.device, blocks: dict) -> dict:
+    """Phase 5i: the GNN's mesh paths on GNN_SHARDED_RANKS gloo ranks of the
+    one card at ogb_products' widths on a tenth of its graph, and the
+    minibatch_lg cell's step on 5h's four blocks (the docstring at the
+    top).  One device's results come first, on the card; each rank holds
+    its own against them and its bytes against the ring model."""
+    from repro_torch.configs import graphsage_reddit as GR
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import optimizers as O
+    from repro_torch.utils import round_up, tree_flatten_with_path
+
+    t_phase = time.perf_counter()
+    cfg = GR._cfg(GR.SHAPES["ogb_products"])
+    n_real, e_real = GNN_SHARDED_NODES, GNN_SHARDED_EDGES
+    N, E = round_up(n_real, GNN_SHARDED_RANKS), round_up(e_real, 512)
+    rng = np.random.default_rng(3)
+    g = syn.random_graph(rng, n_real, e_real, cfg.d_in, cfg.n_classes)
+    perm = rng.permutation(n_real).astype(np.int32)
+    edges = np.zeros((E, 2), np.int32)
+    edges[:e_real] = perm[g["edges"]]
+    emask = np.arange(E) < e_real
+    feats = np.zeros((N, cfg.d_in), np.float32)
+    feats[:n_real] = g["feats"]
+    labels = np.zeros(N, np.int32)
+    labels[:n_real] = g["labels"]
+    # the partitioned layout: each rank's block holds the edges whose
+    # destination it owns, padded with masked edges to its own first node
+    n_loc = N // GNN_SHARDED_RANKS
+    live = edges[:e_real]
+    owner = live[:, 1] // n_loc
+    cap = int(np.bincount(owner, minlength=GNN_SHARDED_RANKS).max())
+    pe = np.zeros((GNN_SHARDED_RANKS * cap, 2), np.int32)
+    pm = np.zeros(GNN_SHARDED_RANKS * cap, bool)
+    for r in range(GNN_SHARDED_RANKS):
+        own = live[owner == r]
+        pe[r * cap:r * cap + len(own)] = own
+        pe[r * cap + len(own):(r + 1) * cap, 1] = r * n_loc
+        pm[r * cap:r * cap + len(own)] = True
+    inputs = host_shared({"feats": torch.from_numpy(feats), "labels": torch.from_numpy(labels),
+                          "label_mask": torch.arange(N) < n_real,
+                          "edges": torch.from_numpy(edges), "edge_mask": torch.from_numpy(emask),
+                          "part_edges": torch.from_numpy(pe),
+                          "part_edge_mask": torch.from_numpy(pm)})
+    del g, perm, live, owner
+    params = G.init_params(cfg, seed=1, device=dev)
+    batch = {k: inputs[k].to(dev) for k in ("feats", "labels", "label_mask", "edges",
+                                             "edge_mask")}
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    adam = O.make_adam(GNN_LR)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = G.forward_full_graph(cfg, params, batch["feats"], batch["edges"],
+                                   batch["edge_mask"])
+        plain = {f"partitioned_{c}": gnn_plain_partitioned(params, batch["feats"],
+                                                           batch["edges"], batch["edge_mask"], dt)
+                 for c, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    grads, _, met = G.make_train_step_full(cfg, grads_of)(params, (), batch)
+    new_p, _, _ = G.make_train_step_full(cfg, adam)(params, adam.init(params), batch)
+    mcfg = GR._cfg(GR.SHAPES["minibatch_lg"])
+    mparams = G.init_params(mcfg, seed=2, device=dev)
+    mbatch = {k: v.to(dev) for k, v in blocks.items()}
+    tgt = mbatch["labels"].shape[1]
+    mb_loss, mb_grads = G.loss_and_grads(GR.minibatch_loss(mcfg, tgt), mparams, mbatch)
+    mb_adam, _, _ = G.make_train_step(GR.minibatch_loss(mcfg, tgt), adam)(
+        mparams, adam.init(mparams), mbatch)
+    torch.cuda.synchronize()
+    one_device_s = time.perf_counter() - t0
+    want = host_shared({"forward": fwd, **plain, "loss": met["loss"], "grads": grads,
+                        "adam": new_p, "mb_loss": mb_loss, "mb_grads": mb_grads,
+                        "mb_adam": mb_adam})
+    inputs["cfg"] = cfg
+    inputs["params"] = host_shared(params)
+    inputs["minibatch"] = {"params": host_shared(mparams), "batch": blocks}
+    gap = {c: max_err(plain[f"partitioned_{c}"], fwd) for c in ("f32", "bf16")}
+    del params, batch, fwd, plain, grads, new_p, mparams, mbatch, mb_grads, mb_adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = M.spawn(gnn_sharded_rank, GNN_SHARDED_RANKS, (inputs, want),
+                  timeout=GNN_SHARDED_TIMEOUT_S)
+    ring = {
+        "edge_sharded_forward": {"all_reduce": G.full_graph_ring_bytes(cfg, N,
+                                                                       GNN_SHARDED_RANKS)},
+        "partitioned_f32": {"all_gather": G.partitioned_ring_bytes(cfg, N, GNN_SHARDED_RANKS,
+                                                                   torch.float32)},
+        "partitioned_bf16": {"all_gather": G.partitioned_ring_bytes(cfg, N, GNN_SHARDED_RANKS,
+                                                                    torch.bfloat16)}}
+    # the train step: the forward's, then one all-reduce of the hidden layer's
+    # [N, d_hidden] cotangent (the aggregation's input, launch.mesh.copy_to)
+    ring["edge_sharded_train_grads"] = {"all_reduce": ring["edge_sharded_forward"][
+        "all_reduce"] + M.ring_bytes("all_reduce", N * cfg.d_hidden * 4, GNN_SHARDED_RANKS)}
+    mleaves = [t for _, t in tree_flatten_with_path(inputs["minibatch"]["params"])]
+    ring["minibatch_grads"] = {"all_reduce": sum(  # every gradient leaf and the loss
+        M.ring_bytes("all_reduce", n * 4, GNN_SHARDED_RANKS)
+        for n in [t.numel() for t in mleaves] + [1])}
+    for r, rr in enumerate(res):
+        if any(rr["launches"].values()):
+            raise AssertionError(f"gnn_sharded rank {r} launched a hand kernel: "
+                                 f"{rr['launches']}")
+        for name, b in ring.items():
+            if rr["bytes"][name] != b:
+                raise AssertionError(f"gnn_sharded rank {r} {name}: bytes {rr['bytes'][name]} "
+                                     f"!= the ring model's {b}")
+    total: dict = {}
+    for rr in res:
+        for k, v in rr["launches"].items():
+            total[k] = total.get(k, 0) + v
+    fwd_b = ring["edge_sharded_forward"]["all_reduce"]
+    part_b = ring["partitioned_bf16"]["all_gather"]
+    summary = {
+        "card": nvidia_smi(), "config": f"graphsage-reddit at ogb_products' widths (d "
+        f"{cfg.d_in}, hidden {cfg.d_hidden}, {cfg.n_classes} classes)", "nodes": n_real,
+        "nodes_padded": N, "edges": e_real, "edges_padded": E,
+        "partitioned_edges_per_rank": cap, "minibatch_blocks": GNN_SHARDED_RANKS,
+        "minibatch_targets_per_block": tgt,
+        "mesh": dict(zip(("data", "model"), GNN_SHARDED_MESH)),
+        "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect, "
+                   "not a speed number)",
+        "held_at": {"edge_sharded_forward": GNN_SHARDED_TOL, "train": "TRAIN_GRAD_TOL %s, "
+                    "atol times a leaf's largest magnitude past 1; params plus Adam's freedom"
+                    % (TRAIN_GRAD_TOL,), "partitioned": GNN_PART_TOL},
+        "one_device_s": one_device_s,
+        "one_device_partitioned_gap_to_f32_forward": gap,
+        "ring_bytes_per_rank": ring,
+        "edge_sharded_over_partitioned_bf16_bytes": fwd_b / part_b,
+        "max_abs_err_per_rank": [rr["max_abs_err"] for rr in res],
+        "bytes_per_rank": [rr["bytes"] for rr in res],
+        "wall_s_per_rank": [rr["wall_s"] for rr in res],
+        "phase_seconds": time.perf_counter() - t_phase}
+    log(f"[gnn_sharded] bytes a rank a forward: edge-sharded {fwd_b:.0f} (all-reduce of every "
+        f"layer's sums and the counts once), partitioned {part_b:.0f} in bf16 (all-gather of h a "
+        f"layer): {fwd_b / part_b:.3f}x")
+    log("[gnn_sharded] " + json.dumps(summary))
+    del inputs, want, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paths": {"gnn_sharded": total}, "summary": summary}
+
+
 def lm_train(dev: torch.device, planted) -> dict:
     """Phases 9g-9k, LM training on the card (the docstring at the top):
     lm_train_kernels, lm_train_small, lm_train, lm_moe_train and lm_registry.
@@ -1906,16 +2560,17 @@ def hold_scaled(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def hold_adam(label: str, got: torch.Tensor, want: torch.Tensor, grad: torch.Tensor,
-              steps: int) -> tuple[float, int]:
-    """Params after ``steps`` Adam steps within TRAIN_GRAD_TOL of ``want``
-    (atol times the largest magnitude past 1), plus Adam's freedom where the
-    step-1 gradient ``grad`` lies near 0 (TP_ADAM_LR above); returns the
-    largest abs error and how many elements needed that freedom."""
+              steps: int, lr: float = TP_ADAM_LR) -> tuple[float, int]:
+    """Params after ``steps`` Adam steps of learning rate ``lr`` within
+    TRAIN_GRAD_TOL of ``want`` (atol times the largest magnitude past 1),
+    plus Adam's freedom where the step-1 gradient ``grad`` lies near 0
+    (TP_ADAM_LR above); returns the largest abs error and how many elements
+    needed that freedom."""
     rtol, atol = TRAIN_GRAD_TOL
     g, w, d = grad.float(), want.float(), (got.float() - want.float()).abs()
     tight = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
     gtol = atol * max(1.0, float(g.abs().max()))
-    free = 2.1 * steps * TP_ADAM_LR * torch.clamp(gtol / (g.abs() + TP_ADAM_EPS), max=1.0)
+    free = 2.1 * steps * lr * torch.clamp(gtol / (g.abs() + TP_ADAM_EPS), max=1.0)
     if bool((d > tight + free).any()):
         i = int((d - tight - free).argmax())
         raise AssertionError(f"{label}: max abs err {float(d.max()):.3e}; at element {i} "
@@ -3703,6 +4358,13 @@ def main() -> int:
     archs = recsys_archs(dev)
     log("[recsys_archs] " + json.dumps({k: v for k, v in archs.items() if k != "paths"}))
 
+    # ------------------------------------------------------- gnn, gnn_sharded
+    gnn_res = gnn(dev)
+    gnn_blocks = gnn_res.pop("sharded_blocks")
+    log("[gnn] " + json.dumps({k: v for k, v in gnn_res.items() if k != "paths"}))
+    gnn_sh = gnn_sharded(dev, gnn_blocks)
+    del gnn_blocks
+
     # ------------------------------------------------------------ lm kernels
     lm_cfg = serving_config(make_lm_config())
     Hq, Hkv, dh = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.d_head
@@ -4421,6 +5083,7 @@ def main() -> int:
              "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
              "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
+             **gnn_res["paths"], **gnn_sh["paths"],
              **lmt["paths"], **tp["paths"]}
     kernels = []
     for name, replaces in sources.items():

@@ -6,9 +6,8 @@ Port of ``repro/configs/__init__.py``.  Interface:
   ArchDef.build_cell(shape, mesh, multi_pod) -> CellBuild  (meta tensors)
   ArchDef.smoke(device="cuda") -> dict of metrics  (tiny config, real compute)
 
-The port registers what it has ported: the seven recsys archs and the five
-LM archs.  The GNN id of ``ASSIGNED`` waits for ROADMAP queue 1, item 4
-(``models/gnn.py``); ``get`` of it raises ``KeyError`` saying so.
+The port registers every arch of the reference: the seven recsys archs,
+the five LM archs and the GNN (graphsage-reddit).
 """
 from __future__ import annotations
 
@@ -54,8 +53,6 @@ ASSIGNED = [
     "wide-deep",
     "two-tower-retrieval",
 ]
-# assigned ids whose registration waits for the GNN slice
-NOT_PORTED = ("graphsage-reddit",)
 
 
 def register(arch: ArchDef) -> ArchDef:
@@ -64,10 +61,6 @@ def register(arch: ArchDef) -> ArchDef:
 
 
 def get(arch_id: str) -> ArchDef:
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not registered in the port yet "
-                       "(ROADMAP queue 1, item 4: the GNN's registration waits for "
-                       "models/gnn.py)")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
@@ -88,13 +81,14 @@ def input_specs(arch_id: str, shape: str, mesh=None, multi_pod: bool = False):
     return get(arch_id).build_cell(shape, mesh, multi_pod).args
 
 
-# Populate the registry (the ported recsys and LM archs).
+# Populate the registry (the recsys, LM and GNN archs).
 from repro_torch.configs import (  # noqa: E402,F401
     arctic_480b,
     autoint,
     dcn_v2,
     deepfm,
     dlrm_flexemr,
+    graphsage_reddit,
     llama3_405b,
     mind,
     olmoe_1b_7b,

@@ -18,7 +18,11 @@ as the port's side keys its blocks.  With a third argument ``lm_tp`` it runs
 only the LM's tensor-, sequence- and FSDP-parallel cases instead (``lm_tp``:
 ``forward``, ``prefill`` and ``decode_step`` from its caches, and
 ``make_train_step`` with the gradients, Adam and Adafactor), so the test
-runs both parts at once."""
+runs both parts at once.  The main part ends with the GNN (``gnn``):
+the edge-sharded ``forward_full_graph`` and ``make_train_step_full``,
+``forward_full_graph_partitioned`` in f32 and bf16 comm, and the
+minibatch and molecule cells' steps, each under the mesh and on one
+device."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,14 +32,17 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import NamedSharding
 
 from repro.compat import make_mesh
 from repro.core.embedding import (DisaggEmbedding, make_cache_from_table,
                                   make_hash_cache_from_table)
 from repro.core.lookup_engine import chunked_lookup
+from repro.configs import graphsage_reddit as JGR
 from repro.core.sharding import TableSpec
 from repro.hotcache.table import cache_partition_spec
 from repro.launch.hlo_analysis import analyze
+from repro.models import gnn as JG
 from repro.models import layers as JL
 from repro.models import recsys as R
 from repro.models import transformer as JT
@@ -231,6 +238,7 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
         out[f"lm_decode|{name}|logits"] = np.stack(logits)
         out[f"lm_decode|{name}|k"] = np.asarray(cache[0])
         out[f"lm_decode|{name}|v"] = np.asarray(cache[1])
+    out.update(gnn(meta, d, mesh))
     np.savez(outputs_path, **out)
 
 
@@ -293,6 +301,102 @@ def lm_tp(meta: dict, d: dict, mesh) -> dict:
             out[f"lmtp|{name}|adafactor_loss"] = np.asarray(met["loss"])
             for key, val in flat_np(new_p).items():
                 out[f"lmtp|{name}|adafactor|{key}"] = val
+    return out
+
+
+def gnn_params(d: dict) -> dict:
+    t = nest(d, "gnn_p")
+    return {"layers": [t[f"l{i}"] for i in range(len(t) - 1)], "out": t["out"]}
+
+
+def gnn(meta: dict, d: dict, mesh) -> dict:
+    """The GNN's mesh paths and their one-device runs.  Full graph: the
+    edge-sharded ``forward_full_graph``, and ``make_train_step_full`` with
+    an optimizer that returns the gradients and with Adam; the partitioned
+    forward in f32 and bf16 comm (pre-partitioned edges).  The minibatch
+    cell (``minibatch_lg`` at the test's widths: one block of 4 targets a
+    device) and the molecule cell (published shape): the loss and gradients
+    of the cell's loss and one step of the cell, with the batch laid out by
+    the cell's in_shardings; on one device the same steps on whole arrays
+    (the molecule cell built on a 1x1 mesh).  Compiled collective bytes of
+    each mesh program."""
+    gm = meta["gnn"]
+    cfg = JG.GNNConfig(**gm["cfg"])
+    params = gnn_params(d)
+    out: dict = {}
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    b = {k: jnp.asarray(d[f"gnn_full|{k}"]) for k in ("feats", "edges", "edge_mask", "labels")}
+    got, terms = compiled(lambda p, f, e, m: JG.forward_full_graph(cfg, p, f, e, m, mesh),
+                          params, b["feats"], b["edges"], b["edge_mask"])
+    out["gnn|fwd|mesh"] = np.asarray(got)
+    out["hlo_bytes|gnn_fwd"] = np.float64(terms.collective_bytes_per_device)
+    out["gnn|fwd|one"] = np.asarray(jax.jit(lambda p, f, e, m: JG.forward_full_graph(
+        cfg, p, f, e, m, None))(params, b["feats"], b["edges"], b["edge_mask"]))
+    adam = O.make_adam(1e-3)
+    for where, m in (("mesh", mesh), ("one", None)):
+        (grads, _, met), terms = compiled(JG.make_train_step_full(cfg, grads_of, m), params, (), b)
+        out[f"gnn|full_loss|{where}"] = np.asarray(met["loss"])
+        for k, v in flat_np(grads).items():
+            out[f"gnn|full_grads|{where}|{k}"] = v
+        if m is not None:
+            out["hlo_bytes|gnn_train"] = np.float64(terms.collective_bytes_per_device)
+        new_p, new_s, _ = jax.jit(JG.make_train_step_full(cfg, adam, m))(
+            params, adam.init(params), b)
+        for k, v in {**flat_np(new_p), **{"state" + k: v for k, v in flat_np(new_s).items()}
+                     }.items():
+            out[f"gnn|full_adam|{where}|{k}"] = v
+    ep, mp = jnp.asarray(d["gnn_part|edges"]), jnp.asarray(d["gnn_part|edge_mask"])
+    for comm, cdt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+        got, terms = compiled(lambda p, f, e, m, cdt=cdt: JG.forward_full_graph_partitioned(
+            cfg, p, f, e, m, mesh, comm_dtype=cdt), params, b["feats"], ep, mp)
+        out[f"gnn|part|{comm}"] = np.asarray(got)
+        out[f"hlo_bytes|gnn_part|{comm}"] = np.float64(terms.collective_bytes_per_device)
+
+    JGR.SHAPES["minibatch_lg"] = {**JGR.SHAPES["minibatch_lg"], **gm["minibatch"],
+                                  "fanout": tuple(gm["minibatch"]["fanout"])}
+    mesh11 = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    for shape in ("minibatch_lg", "molecule"):
+        cell = JGR.build_cell(shape, mesh, False)
+        mcfg = JGR._cfg(JGR.SHAPES[shape])
+        mb = nest(d, f"gnn_cell|{shape}")
+        mparams = gnn_params({k.replace(f"gnn_cellp|{shape}", "gnn_p"): v for k, v in d.items()
+                              if k.startswith(f"gnn_cellp|{shape}|")})
+        if shape == "minibatch_lg":
+            tgt = mb["labels"].shape[1]
+
+            def loss_fn(p, batch, m, cfg=mcfg, tgt=tgt):
+                logits = jax.vmap(lambda f, e1, m1, e2, m2: JG.forward_minibatch(
+                    cfg, p, f, [e1, e2], [m1, m2], tgt))(
+                    batch["feats"], batch["edges1"], batch["mask1"], batch["edges2"],
+                    batch["mask2"])
+                return JG.node_ce_loss(logits.reshape(-1, cfg.n_classes),
+                                       batch["labels"].reshape(-1))
+        else:
+            def loss_fn(p, batch, m, cfg=mcfg):
+                o = JG.forward_molecule(cfg, p, batch["feats"], batch["edges"],
+                                        batch["edge_mask"], m, ("data",))[:, 0]
+                return jnp.mean((o - batch["labels"]) ** 2)
+        for where in ("mesh", "one"):
+            if where == "mesh":
+                batch = {k: jax.device_put(v, NamedSharding(mesh, cell.in_shardings[2][k]))
+                         for k, v in mb.items()}
+                step, m = cell.step_fn, mesh
+            else:
+                batch = mb
+                one = JGR.build_cell(shape, mesh11, False) if shape == "molecule" else cell
+                step, m = one.step_fn, (mesh11 if shape == "molecule" else None)
+            loss, grads = jax.jit(jax.value_and_grad(lambda p, bb, m=m: loss_fn(p, bb, m)))(
+                mparams, batch)
+            out[f"gnn|cell_loss|{shape}|{where}"] = np.asarray(loss)
+            for k, v in flat_np(grads).items():
+                out[f"gnn|cell_grads|{shape}|{where}|{k}"] = v
+            (new_p, new_s, met), terms = compiled(step, mparams, adam.init(mparams), batch)
+            out[f"gnn|cell_step_loss|{shape}|{where}"] = np.asarray(met["loss"])
+            for k, v in {**flat_np(new_p),
+                         **{"state" + k: v for k, v in flat_np(new_s).items()}}.items():
+                out[f"gnn|cell_step|{shape}|{where}|{k}"] = v
+            if where == "mesh":
+                out[f"hlo_bytes|gnn_cell|{shape}"] = np.float64(terms.collective_bytes_per_device)
     return out
 
 

@@ -20,6 +20,7 @@ from repro_torch.core.lookup_engine import chunked_lookup
 from repro_torch.core.sharding import AXIS_DATA, PartitionSpec as P, TableSpec
 from repro_torch.hotcache.table import cache_partition_spec
 from repro_torch.launch import mesh as M
+from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import recsys as R
@@ -288,6 +289,7 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
         out["outputs"][f"lm_decode|{name}|v"] = cache[1].numpy()
 
     lm_tp(meta, d, mesh, mesh3, out)
+    gnn(meta, d, mesh, out)
 
     # ---- refusals
     try:
@@ -391,6 +393,80 @@ def lm_tp(meta: dict, d: dict, mesh, mesh3, out: dict) -> None:
             res[f"lmtp|{name}|adafactor_loss"] = met["loss"].numpy()
             for k, v in flat_np(new_p).items():
                 res[f"lmtp|{name}|adafactor|{k}"] = v
+
+
+def gnn_params(d: dict, prefix: str = "gnn_p") -> dict:
+    t = nest(d, prefix)
+    return {"layers": [t[f"l{i}"] for i in range(len(t) - 1)], "out": t["out"]}
+
+
+def gnn(meta: dict, d: dict, mesh, out: dict) -> None:
+    """The GNN's mesh paths on this rank, with the bytes each counted:
+    ``forward_full_graph`` and ``make_train_step_full`` (the gradients, then
+    Adam) on the rank's block of the edges, ``forward_full_graph_partitioned``
+    in f32 and bf16 comm on its block of the nodes and of the
+    pre-partitioned edges, and the minibatch and molecule cells (the cell's
+    loss and gradients by ``gnn.loss_and_grads``, then the cell's step) on
+    the rank's blocks of their batches."""
+    from repro_torch.configs import graphsage_reddit as GR
+
+    gm = meta["gnn"]
+    cfg = G.GNNConfig(**gm["cfg"])
+    params = gnn_params(d)
+    axes = mesh.axis_names
+    res = out["outputs"]
+    whole = {k: torch.from_numpy(d[f"gnn_full|{k}"]) for k in ("feats", "edges", "edge_mask",
+                                                                "labels")}
+    b = dict(whole, edges=L.constrain(whole["edges"], P(axes, None), mesh),
+             edge_mask=L.constrain(whole["edge_mask"], P(axes), mesh))
+    before = M.comm_bytes()
+    with torch.no_grad():
+        res["gnn|fwd"] = G.forward_full_graph(cfg, params, b["feats"], b["edges"],
+                                              b["edge_mask"], mesh).numpy()
+    out["bytes"]["gnn_fwd"] = _bytes_since(before)
+    before = M.comm_bytes()
+    grads, _, met = G.make_train_step_full(cfg, grads_of(), mesh)(params, (), b)
+    out["bytes"]["gnn_train"] = _bytes_since(before)
+    res["gnn|full_loss"] = met["loss"].numpy()
+    for k, v in flat_np(grads).items():
+        res[f"gnn|full_grads|{k}"] = v
+    adam = O.make_adam(1e-3)
+    new_p, new_s, _ = G.make_train_step_full(cfg, adam, mesh)(params, adam.init(params), b)
+    for k, v in {**flat_np(new_p), **{"state" + k: v for k, v in flat_np(new_s).items()}}.items():
+        res[f"gnn|full_adam|{k}"] = v
+    feats = L.constrain(whole["feats"], P(axes, None), mesh)
+    ep = L.constrain(torch.from_numpy(d["gnn_part|edges"]), P(axes, None), mesh)
+    mp = L.constrain(torch.from_numpy(d["gnn_part|edge_mask"]), P(axes), mesh)
+    for comm, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        before = M.comm_bytes()
+        with torch.no_grad():
+            res[f"gnn|part|{comm}"] = G.forward_full_graph_partitioned(
+                cfg, params, feats, ep, mp, mesh, comm_dtype=cdt).numpy()
+        out["bytes"][f"gnn_part|{comm}"] = _bytes_since(before)
+
+    GR.SHAPES["minibatch_lg"] = {**GR.SHAPES["minibatch_lg"], **gm["minibatch"],
+                                 "fanout": tuple(gm["minibatch"]["fanout"])}
+    for shape in ("minibatch_lg", "molecule"):
+        cell = GR.build_cell(shape, mesh, False)
+        mcfg = GR._cfg(GR.SHAPES[shape])
+        mparams = gnn_params(d, f"gnn_cellp|{shape}")
+        batch = {k: L.constrain(v, cell.in_shardings[2][k], mesh)
+                 for k, v in nest(d, f"gnn_cell|{shape}").items()}
+        if shape == "minibatch_lg":
+            loss_fn = GR.minibatch_loss(mcfg, batch["labels"].shape[1], mesh, axes)
+        else:
+            loss_fn = GR.molecule_loss(mcfg, mesh, (AXIS_DATA,))
+        loss, grads = G.loss_and_grads(loss_fn, mparams, batch, mesh, axes)
+        res[f"gnn|cell_loss|{shape}"] = loss.numpy()
+        for k, v in flat_np(grads).items():
+            res[f"gnn|cell_grads|{shape}|{k}"] = v
+        before = M.comm_bytes()
+        new_p, new_s, met = cell.step_fn(mparams, adam.init(mparams), batch)
+        out["bytes"][f"gnn_cell|{shape}"] = _bytes_since(before)
+        res[f"gnn|cell_step_loss|{shape}"] = met["loss"].numpy()
+        for k, v in {**flat_np(new_p),
+                     **{"state" + k: v for k, v in flat_np(new_s).items()}}.items():
+            res[f"gnn|cell_step|{shape}|{k}"] = v
 
 
 def echo_coords(rank: int, world: int, shape) -> dict:

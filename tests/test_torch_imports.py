@@ -65,11 +65,16 @@ MOE_LM_MODULES = ["repro_torch.models.moe", "repro_torch.models.transformer",
                   "repro_torch.configs.qwen2_72b", "repro_torch.configs.llama3_405b"]
 
 
-@pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES + MOE_LM_MODULES)
+GNN_MODULES = ["repro_torch.models.gnn", "repro_torch.data.graph_sampler",
+               "repro_torch.configs.graphsage_reddit"]
+
+
+@pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES + MOE_LM_MODULES
+                         + GNN_MODULES)
 def test_sharded_path_modules_are_checked(name):
-    """The modules of the sharded path, of the config registry and of the
-    MoE LM serving path are among those imported without jax above and
-    scanned for imports below."""
+    """The modules of the sharded path, of the config registry, of the
+    MoE LM serving path and of the GNN are among those imported without jax
+    above and scanned for imports below."""
     assert name in [_module_name(p) for p in PORT_FILES]
 
 

@@ -312,18 +312,20 @@ def test_mind_retrieval_matches_reference():
 
 def test_registry_lists_the_seven_recsys_archs():
     """The seven recsys ids beside the five LM ids (the LM registry:
-    tests/test_torch_lm_train.py); the GNN id still raises."""
+    tests/test_torch_lm_train.py) and the GNN id, registered as the
+    reference registers it (tests/test_torch_gnn.py): the port's registry
+    holds every id of the reference's."""
     lm_ids = ["arctic-480b", "llama3-405b", "olmoe-1b-7b", "qwen2-72b", "stablelm-3b"]
-    assert configs.list_archs() == sorted(RECSYS_IDS + lm_ids)
+    assert configs.list_archs() == sorted(RECSYS_IDS + lm_ids + ["graphsage-reddit"])
+    assert configs.list_archs() == jconfigs.list_archs()
     assert configs.ASSIGNED == jconfigs.ASSIGNED
     for arch_id in RECSYS_IDS:
         arch = configs.get(arch_id)
         assert (arch.id, arch.kind, arch.shapes) == (arch_id, "recsys", tuple(RC.RECSYS_SHAPES))
         assert arch.notes == jconfigs.get(arch_id).notes
-    for arch_id in configs.NOT_PORTED:
-        assert arch_id in jconfigs.list_archs()
-        with pytest.raises(KeyError, match="queue 1, item 4"):
-            configs.get(arch_id)
+    gnn, jgnn = configs.get("graphsage-reddit"), jconfigs.get("graphsage-reddit")
+    assert (gnn.kind, gnn.shapes, gnn.notes) == (jgnn.kind, jgnn.shapes, jgnn.notes)
+    assert gnn.kind == "gnn" and not hasattr(configs, "NOT_PORTED")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get("nope")
 

@@ -24,6 +24,11 @@ and an Adafactor train cell's step) for a dense config with seq_shard
 (also on the (2, 2, 2) pod mesh), 6 heads padded to 8 over 2 unsharded KV
 heads with QKV bias, and an MoE config with the dense residual, each
 rank's blocks and bytes against the reference's and the ring model's.
+The GNN rides in the same spawn: the edge-sharded ``forward_full_graph``
+and ``make_train_step_full`` (the gradients, then Adam), the partitioned
+forward in f32 and bf16 comm, and the minibatch and molecule cells' loss,
+gradients and step, each against the reference's mesh run and its
+one-device run.
 
 Tolerances: f32 rtol 1e-5, atol 1e-6 (other summation orders: the
 collective's against XLA's); ``comm_dtype=bf16`` rtol and atol 2e-2, the
@@ -51,6 +56,7 @@ from repro_torch.core.sharding import PartitionSpec as P
 from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
 from repro_torch.launch import mesh as M
+from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import sharding_rules as SR
@@ -147,6 +153,14 @@ LM_TP_CASES = {
 }
 LM_TP_SHAPE, LM_TP_TRAIN_BATCH = (4, 16), 8  # forward/prefill [B, S]; the train batch
 LM_TP_MAX_LEN, LM_TP_STEPS = 32, 4  # decode writes positions 16-19
+# the GNN: a small GraphSAGE on a 64-node graph (edges split 8 ways), the
+# partitioned layout's edges grouped by their destination's owner, the
+# minibatch cell at these widths (one block of 4 targets at fanout (3, 2) a
+# rank) and the molecule cell at its published shape
+GNN_CFG = dict(name="t", n_layers=2, d_in=16, d_hidden=8, n_classes=5)
+GNN_N, GNN_E = 64, 512
+GNN_MINIBATCH = dict(batch_nodes=32, fanout=[3, 2], d_feat=16, n_classes=5)
+GNN_CELLS = ["minibatch_lg", "molecule"]
 META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS, n_dense=13,
             bottom_mlp=[64, DIM], mlp=[64, 32], lookup_cases=LOOKUP_CASES,
             grad_modes=GRAD_MODES, pod_cases=POD_CASES, dlrm_modes=DLRM_MODES, train_modes=TRAIN_MODES,
@@ -154,7 +168,8 @@ META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS
             arch_cases=ARCH_CASES, arch_forward=list(ARCH_CASES), arch_train=ARCH_TRAIN,
             retrieval_k=10, lm=LM_CFG, lm_moe=LM_MOE, lm_pos=LM_POS, lm_steps=LM_STEPS,
             lm_decode_cases=LM_DECODE_CASES, lm_tp_cases=LM_TP_CASES,
-            lm_tp_max_len=LM_TP_MAX_LEN)
+            lm_tp_max_len=LM_TP_MAX_LEN,
+            gnn=dict(cfg=GNN_CFG, minibatch=GNN_MINIBATCH))
 
 
 def _inputs(rng) -> dict:
@@ -196,6 +211,7 @@ def _inputs(rng) -> dict:
     _arch_inputs(rng, d)
     _lm_inputs(rng, d)
     _lm_tp_inputs(rng, d)
+    _gnn_inputs(rng, d)
     return d
 
 
@@ -259,6 +275,67 @@ def _lm_tp_inputs(rng, d: dict) -> None:
         labels = rng.integers(0, cfg.vocab, (LM_TP_TRAIN_BATCH, s))
         d[f"lmtp_train|{name}|labels"] = np.where(rng.random(labels.shape) < 0.2, -1,
                                                   labels).astype(np.int32)
+
+
+def _gnn_params(rng, d: dict, prefix: str, cfg: G.GNNConfig) -> None:
+    """Weights uniform in +-1/sqrt(fan in), biases N(0, 0.1^2)."""
+    for path, t in tree_flatten_with_path(G.abstract_params(cfg)):
+        shape = tuple(t.shape)
+        if path[-1] == "b":
+            arr = 0.1 * rng.standard_normal(shape)
+        else:
+            arr = rng.uniform(-1, 1, shape) / np.sqrt(shape[0])
+        key = "out" if path == ("out",) else f"l{path[1]}|{path[2]}"
+        d[f"{prefix}|{key}"] = arr.astype(np.float32)
+
+
+def _gnn_inputs(rng, d: dict) -> None:
+    """The GNN's params, its full graph (power-law destinations, a tenth of
+    the edges masked), the partitioned layout's edges (each rank's block
+    holds the edges whose destination it owns, padded with masked edges to
+    its own first node, as tests/test_sharded_paths.py builds them), and
+    the two cells' params and batches."""
+    from repro_torch.configs import graphsage_reddit as GR
+    from repro_torch.data import graph_sampler as GS
+
+    cfg = G.GNNConfig(**GNN_CFG)
+    _gnn_params(rng, d, "gnn_p", cfg)
+    g = syn.random_graph(rng, GNN_N, GNN_E, cfg.d_in, cfg.n_classes)
+    g["edge_mask"] = rng.random(GNN_E) > 0.1
+    for k, v in g.items():
+        d[f"gnn_full|{k}"] = v
+    n_dev, n_loc = MESH[0] * MESH[1], GNN_N // (MESH[0] * MESH[1])
+    live = g["edges"][g["edge_mask"]]
+    owner = live[:, 1] // n_loc
+    cap = max(int(np.sum(owner == s)) for s in range(n_dev))
+    ep = np.zeros((n_dev * cap, 2), np.int32)
+    mp = np.zeros((n_dev * cap,), bool)
+    for s in range(n_dev):
+        rows = live[owner == s]
+        ep[s * cap:s * cap + len(rows)] = rows
+        ep[s * cap + len(rows):(s + 1) * cap, 1] = s * n_loc
+        mp[s * cap:s * cap + len(rows)] = True
+    d["gnn_part|edges"], d["gnn_part|edge_mask"] = ep, mp
+    mb = {**GR.SHAPES["minibatch_lg"], **GNN_MINIBATCH}
+    _gnn_params(rng, d, "gnn_cellp|minibatch_lg", GR._cfg(mb))
+    n_graph = 200
+    gg = syn.random_graph(rng, n_graph, 1600, mb["d_feat"], mb["n_classes"])
+    csr = GS.edges_to_csr(gg["edges"], n_graph, gg["feats"], gg["labels"])
+    tgt = mb["batch_nodes"] // n_dev
+    blks = [GS.sample_block(csr, rng, rng.choice(n_graph, tgt, replace=False),
+                            tuple(mb["fanout"])) for _ in range(n_dev)]
+    cell = {"feats": [b.feats for b in blks], "edges1": [b.hop_edges[0] for b in blks],
+            "mask1": [b.hop_masks[0] for b in blks], "edges2": [b.hop_edges[1] for b in blks],
+            "mask2": [b.hop_masks[1] for b in blks], "labels": [b.labels for b in blks]}
+    for k, v in cell.items():
+        d[f"gnn_cell|minibatch_lg|{k}"] = np.stack(v)
+    mol = GR.SHAPES["molecule"]
+    _gnn_params(rng, d, "gnn_cellp|molecule", GR._cfg(mol))
+    gb, n, e = mol["batch"], mol["n_nodes"], mol["n_edges"]
+    d["gnn_cell|molecule|feats"] = rng.standard_normal((gb, n, mol["d_feat"])).astype(np.float32)
+    d["gnn_cell|molecule|edges"] = rng.integers(0, n, (gb, e, 2)).astype(np.int32)
+    d["gnn_cell|molecule|edge_mask"] = rng.random((gb, e)) < 0.9
+    d["gnn_cell|molecule|labels"] = rng.standard_normal(gb).astype(np.float32)
 
 
 def _arch_inputs(rng, d: dict) -> None:
@@ -889,6 +966,125 @@ def test_lm_tp_bytes_follow_the_ring_model(runs, name):
         assert r["bytes"][f"lmtp_forward|{name}"] == fwd
         assert r["bytes"][f"lmtp_prefill|{name}"] == pre
         assert r["bytes"][f"lmtp_train|{name}"] == train
+
+
+# ----------------------------------------------------------------------- GNN
+
+
+def _gnn_trees(got: dict, want: dict, tol=(RTOL, ATOL), scaled=False) -> None:
+    """Leaves by key (``prefix|<keystr>``), each on every rank whole."""
+    assert sorted(got) == sorted(want) and got
+    for key in got:
+        scale = max(1.0, float(np.abs(want[key]).max())) if scaled else 1.0
+        _close(got[key], want[key], (tol[0], tol[1] * scale))
+
+
+def _leaves(flat: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def _gnn_hidden_ring_bytes(cfg: G.GNNConfig) -> float:
+    """One all-reduce of a hidden layer's [N, d_hidden] f32 cotangent a
+    layer past the first."""
+    n_dev = MESH[0] * MESH[1]
+    return (cfg.n_layers - 1) * M.ring_bytes("all_reduce", GNN_N * cfg.d_hidden * 4, n_dev)
+
+
+def test_gnn_edge_sharded_forward_matches_reference(runs):
+    """Every rank's logits (whole) against the reference's mesh run and its
+    one-device run; the bytes are the ring model's (every layer's sums, the
+    counts once) and the compiled HLO's."""
+    ref, port = runs
+    cfg = G.GNNConfig(**GNN_CFG)
+    want = {"all_reduce": G.full_graph_ring_bytes(cfg, GNN_N, MESH[0] * MESH[1])}
+    assert sum(want.values()) == float(ref["hlo_bytes|gnn_fwd"])
+    for r in port:
+        for where in ("mesh", "one"):
+            _close(r["outputs"]["gnn|fwd"], ref[f"gnn|fwd|{where}"])
+        assert r["bytes"]["gnn_fwd"] == want
+
+
+def test_gnn_edge_sharded_train_step_matches_reference(runs):
+    """``make_train_step_full(mesh=...)``: the loss and gradients (whole on
+    every rank: no gradient sum) and one Adam step, against the reference's
+    mesh run and its one-device run.  Bytes: the forward's, then one
+    all-reduce of the aggregation's input cotangent a layer past the first
+    (``launch.mesh.copy_to``'s backward); the reference's transpose
+    all-reduces that cotangent twice (the psum's transpose, then the
+    replicated input's), so its HLO moves one more such all-reduce."""
+    ref, port = runs
+    cfg = G.GNNConfig(**GNN_CFG)
+    fwd = G.full_graph_ring_bytes(cfg, GNN_N, MESH[0] * MESH[1])
+    want = {"all_reduce": fwd + _gnn_hidden_ring_bytes(cfg)}
+    assert float(ref["hlo_bytes|gnn_train"]) == want["all_reduce"] + _gnn_hidden_ring_bytes(cfg)
+    for r in port:
+        out = r["outputs"]
+        for where in ("mesh", "one"):
+            _close(out["gnn|full_loss"], ref[f"gnn|full_loss|{where}"])
+            _gnn_trees(_leaves(out, "gnn|full_grads|"),
+                       _leaves(ref, f"gnn|full_grads|{where}|"), scaled=True)
+            _gnn_trees(_leaves(out, "gnn|full_adam|"), _leaves(ref, f"gnn|full_adam|{where}|"))
+        assert r["bytes"]["gnn_train"] == want
+
+
+@pytest.mark.parametrize("comm", ["f32", "bf16"])
+def test_gnn_partitioned_forward_matches_reference(runs, comm):
+    """``forward_full_graph_partitioned``: each rank's block of the logits
+    against the reference's under its mesh (same comm dtype) and against the
+    one-device forward of the whole graph.  f32 at 1e-5; bf16 comm rounds
+    every node state to 8 bits of mantissa before the aggregation, so it is
+    held at the bf16 partials' 2e-2, as the lookup's bf16 cases.  Bytes:
+    one all-gather of h a layer in the comm dtype (XLA's CPU backend runs
+    the bf16 one in f32: its HLO moves the f32 bytes)."""
+    ref, port = runs
+    cfg = G.GNNConfig(**GNN_CFG)
+    n_dev = MESH[0] * MESH[1]
+    tol = (BF16_TOL, BF16_TOL) if comm == "bf16" else (RTOL, ATOL)
+    dt = torch.bfloat16 if comm == "bf16" else torch.float32
+    spec = P(("data", "model"))
+    for r in port:
+        got = r["outputs"][f"gnn|part|{comm}"]
+        assert got.shape == (GNN_N // n_dev, cfg.n_classes)
+        _close(got, _block(ref[f"gnn|part|{comm}"], spec, r["coords"]), tol)
+        _close(got, _block(ref["gnn|fwd|one"], spec, r["coords"]), tol)
+        assert r["bytes"][f"gnn_part|{comm}"] == {
+            "all_gather": G.partitioned_ring_bytes(cfg, GNN_N, n_dev, dt)}
+    assert float(ref[f"hlo_bytes|gnn_part|{comm}"]) == G.partitioned_ring_bytes(
+        cfg, GNN_N, n_dev, torch.float32)
+    # a quarter of the edge-sharded forward's bytes at (2, 2) and bf16: here
+    # (8 ranks, f32) the all-gathers move a half of the all-reduces' sums
+    assert G.partitioned_ring_bytes(cfg, GNN_N, n_dev, torch.float32) * 2 == pytest.approx(
+        G.full_graph_ring_bytes(cfg, GNN_N, n_dev) - M.ring_bytes("all_reduce", GNN_N * 4, n_dev))
+
+
+@pytest.mark.parametrize("shape", GNN_CELLS)
+def test_gnn_cell_steps_match_reference(runs, shape):
+    """The minibatch and molecule cells under the mesh: each rank's share of
+    the loss and gradients summed over the mesh (the global batch's), and
+    the cell's Adam step, against the reference's mesh run (the batch laid
+    out by the cell's in_shardings) and its one-device run.  Bytes: one
+    all-reduce of the loss and of each gradient leaf, as the compiled
+    HLO's."""
+    ref, port = runs
+    from repro_torch.configs import graphsage_reddit as GR
+
+    info = {**GR.SHAPES[shape], **(GNN_MINIBATCH if shape == "minibatch_lg" else {})}
+    cfg = GR._cfg(info)
+    n_dev = MESH[0] * MESH[1]
+    leaves = [t.numel() * 4 for _, t in tree_flatten_with_path(G.abstract_params(cfg))]
+    want = {"all_reduce": sum(M.ring_bytes("all_reduce", b, n_dev) for b in leaves + [4])}
+    for r in port:
+        out = r["outputs"]
+        for where in ("mesh", "one"):
+            _close(out[f"gnn|cell_loss|{shape}"], ref[f"gnn|cell_loss|{shape}|{where}"])
+            _close(out[f"gnn|cell_step_loss|{shape}"],
+                   ref[f"gnn|cell_step_loss|{shape}|{where}"])
+            _gnn_trees(_leaves(out, f"gnn|cell_grads|{shape}|"),
+                       _leaves(ref, f"gnn|cell_grads|{shape}|{where}|"), scaled=True)
+            _gnn_trees(_leaves(out, f"gnn|cell_step|{shape}|"),
+                       _leaves(ref, f"gnn|cell_step|{shape}|{where}|"))
+        assert r["bytes"][f"gnn_cell|{shape}"] == want
+    assert float(ref[f"hlo_bytes|gnn_cell|{shape}"]) == want["all_reduce"]
 
 
 def test_ranks_sit_row_major_and_refuse(runs):
