@@ -345,6 +345,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 2 x 1,024, where
                 the losses, every gradient block and every param block
                 after the steps hold at 9i's card-vs-CPU tolerance;
+ 9n. dryrun — the dry run (``launch.dryrun``, ``launch.hlo_analysis``):
+                ``run_cell`` of stablelm-3b train_4k and dlrm-flexemr
+                train_batch on the 16x16 ``DryMesh`` (per-device memory
+                beside 80 GB, the roofline terms); one lm-small train step
+                (K6 f32, K6' f32) and decode step (K7), one dlrm-100m
+                train step (K1 masked, K2, K1', K2'), its cached forward
+                over a 2^12-slot hash cache (K3) with K4's swap-in of the
+                cache's rows, and K5 at the miner's shape, each traced on
+                the card and on meta: equal FLOPs by class, launches by
+                kernel (equal to the wrappers' counts) and collective
+                bytes, memory bytes equal but for named scratch fills;
+                stablelm-3b's train step of 9i traced on meta, its bound
+                on the H100 SXM data sheet beside 9i's busy time;
  10. the ``{"kernels": [...]}`` line (K1's and K2's entries add a
      ``backward`` part for K1' and K2'; K1's entry adds its weighted mode's
      times and bound, its times at 5g's forward shapes (``forward_shapes``)
@@ -367,7 +380,8 @@ kernel), 7, 8, and 9 as
 9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
 ``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9i's and 9j's steps,
 9k as ``lm_registry.<arch>``, 9l and 9m as ``lm_tp_prefill`` and
-``lm_tp_train``, summed over their ranks and passes) runs with the launch
+``lm_tp_train``, summed over their ranks and passes, 9n's card runs as
+``dryrun.<program>``) runs with the launch
 counts set to 0 just before it and read just after; comparisons and
 timings run outside those windows.
 It imports nothing of the JAX package.  Without a GPU, or without the repo's
@@ -3075,6 +3089,236 @@ def lm_tp(dev: torch.device) -> dict:
     return out
 
 
+DRY_CELLS = (("stablelm-3b", "train_4k"), ("dlrm-flexemr", "train_batch"))  # on the 16x16 pod
+DRY_CACHE_SLOTS = 1 << 12  # the traced cached forward's hash cache
+DRY_BATCH = 256  # dlrm-100m's train step and cached forward
+DRY_LM_BATCH, DRY_LM_SEQ = 8, 128  # lm-small's train and decode steps
+DRY_K5 = (MINER_ROWS, 16, 12)  # K5 at the miner's shape, f64
+# a trace's peak live bytes against the allocator's requested bytes (or the
+# other trace's): an op may ask the allocator for a temporary below the
+# dispatcher, and meta sees a tensor constructor's host copy that the card
+# makes below it
+DRY_PEAK_TOL = (0.01, 512)  # (share of the peak, bytes a storage the traces made)
+
+
+def dry_vs_card(name: str, card_fn, meta_fn) -> dict:
+    """Phase 10b's check of one program: ``card_fn`` once untraced (its
+    kernels' scratch made), then traced with the launch counts reset, and
+    ``meta_fn`` traced (the dry run's route).  FLOPs by class, launches by
+    kernel and collective bytes must be equal, the launches equal to the
+    wrappers' counts, and the memory bytes equal but for scratch fills
+    (``zero_``/``fill_`` on the card only), which are named.  The card
+    trace's peak live bytes must match the caching allocator's peak of
+    requested bytes over the same run (less what was requested before),
+    and the meta trace's the card trace's, within DRY_PEAK_TOL; the
+    allocator's block bytes (``max_memory_allocated``'s) are reported."""
+    from repro_torch.launch.hlo_analysis import Trace
+
+    card_fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    before = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    with Trace() as card:
+        card_fn()
+        torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    # the allocator's peak of the bytes asked of it (its blocks' bytes add
+    # a 512-byte rounding and the unsplit rest of a reused cached block)
+    requested = after["requested_bytes.all.peak"] - before["requested_bytes.all.current"]
+    blocks = after["allocated_bytes.all.peak"] - before["allocated_bytes.all.current"]
+    counts = {k: v for k, v in launch_counts().items() if v}
+    with Trace() as dry:
+        meta_fn()
+    peaks = {"allocator_requested": requested, "card_trace": card.peak_bytes,
+             "meta_trace": dry.peak_bytes, "allocator_blocks": blocks}
+    rel, per_storage = DRY_PEAK_TOL
+    tol = per_storage * max(card.storages, dry.storages)
+    for a, b in (("allocator_requested", "card_trace"), ("card_trace", "meta_trace")):
+        if abs(peaks[a] - peaks[b]) > rel * peaks[a] + tol:
+            raise AssertionError(f"dryrun {name}: peak live bytes {peaks} ({a} against {b}, "
+                                 f"tolerance {rel} of it + {tol} bytes)")
+    for what, a, b in (("flops", card.flops, dry.flops),
+                       ("launches", card.kernel_launches(), dry.kernel_launches()),
+                       ("collective bytes", card.collective_bytes(), dry.collective_bytes())):
+        if a != b:
+            raise AssertionError(f"dryrun {name}: {what} on the card {a} != on meta {b}")
+    if card.kernel_launches() != counts:
+        raise AssertionError(f"dryrun {name}: traced launches {card.kernel_launches()} != the "
+                             f"wrappers' counts {counts}")
+    diff = {op: card.bytes_by_op.get(op, 0) - dry.bytes_by_op.get(op, 0)
+            for op in set(card.bytes_by_op) | set(dry.bytes_by_op)}
+    diff = {op: d for op, d in diff.items() if d}
+    if any(d < 0 or op.split(".")[0] not in ("zero_", "fill_") for op, d in diff.items()) \
+            or card.mem_bytes - dry.mem_bytes != sum(diff.values()):
+        raise AssertionError(f"dryrun {name}: memory bytes on the card {card.mem_bytes} against "
+                             f"{dry.mem_bytes} on meta, by op {diff}")
+    row = {"flops_by_class": dry.flops, "launches": counts, "mem_bytes": dry.mem_bytes,
+           "scratch_fill_bytes_on_the_card": diff, "kernels": dry.kernels,
+           "peak_bytes": peaks}
+    log(f"[dryrun] {name}: card = meta: FLOPs {dry.flops}, launches {counts}, "
+        f"{dry.mem_bytes:.0f} bytes (+ {diff or 'no'} scratch fills on the card); "
+        f"peak live bytes {peaks}")
+    return row
+
+
+def dryrun(dev: torch.device, lm_train_summary: dict) -> dict:
+    """Phase 10, dryrun: (a) ``launch.dryrun.run_cell`` of DRY_CELLS on the
+    16x16 ``DryMesh`` (terms, per-device memory beside an H100's 80 GB);
+    (b) the trace of each program on the card against the same on meta
+    (``dry_vs_card``): one lm-small train step in f32 (K6 f32, K6' f32),
+    one lm-small decode step (K7 f32), one dlrm-100m train step (K1
+    masked, K2, K1', K2'), a cached forward of dlrm-100m over a hash cache
+    (K3, K1, K2) beside K4's swap-in of the cache's rows, and K5 at the
+    miner's shape; (c) stablelm-3b's train step of phase 9i traced on meta
+    at mesh None: its roofline bound (H100 SXM data sheet) beside the busy
+    time 9i measured, the first share of a whole step's roofline.  Returns
+    the paths' launches and the summary."""
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.stablelm_3b import make_config as make_stablelm
+    from repro_torch.core.embedding import make_hash_cache_from_table
+    from repro_torch.data import synthetic as syn
+    from repro_torch.hotcache import kernels as HK
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as TF
+    from repro_torch.prefetch import kernels as PK
+    from repro_torch.utils import tree_map
+
+    t_phase = time.perf_counter()
+    out: dict = {"paths": {}, "card": nvidia_smi()}
+    log(f"[dryrun] {out['card']}; bounds from the H100 SXM data sheet (989/495/67 TFLOP/s "
+        "bf16/tf32/f32, 3.35 TB/s, NVLink 450 GB/s a direction, 50 GB/s across nodes)")
+
+    # ---- (a) two registry cells on the 16x16 pod, one rank traced on meta
+    out["cells"] = {}
+    for arch_id, shape in DRY_CELLS:
+        rec = DR.run_cell(arch_id, shape, False, ROOT / "build" / "dryrun")
+        mem, roof = rec["memory_analysis"], rec["roofline"]
+        out["cells"][f"{arch_id}.{shape}"] = {
+            "trace_s": rec["compile_seconds"], "per_device_total_gb": mem["per_device_total"] / 1e9,
+            "of_80_gb": mem["per_device_total"] / HA.HBM_BYTES, "roofline": roof}
+        log(f"[dryrun] {arch_id} x {shape} x 16x16: {mem['per_device_total'] / 1e9:.3f} GB a "
+            f"device ({mem['per_device_total'] / HA.HBM_BYTES:.3f} of 80 GB), compute "
+            f"{roof['compute_s'] * 1e3:.3f} ms, memory {roof['memory_s'] * 1e3:.3f} ms, "
+            f"collective {roof['collective_s'] * 1e3:.3f} ms: {roof['dominant']}-bound")
+
+    def on_meta(tree):
+        return tree_map(lambda t: torch.empty_like(t, device="meta")
+                        if isinstance(t, torch.Tensor) else t, tree)
+
+    # ---- (b) card against meta
+    checks = {}
+    lcfg = launch_train.make_lm_small()
+    lparams = TF.init_params(lcfg, seed=0, device=dev)
+    lopt, _ = lm_common.make_optimizer("adam")
+    lstate = lopt.init(lparams)
+    lbatch = {k: torch.from_numpy(v).to(dev) for k, v in syn.lm_batch(
+        np.random.default_rng(0), lcfg.vocab, DRY_LM_BATCH, DRY_LM_SEQ).items()}
+    lstep = TF.make_train_step(lcfg, lopt)
+    m_lp, m_ls, m_lb = on_meta(lparams), on_meta(lopt.init(lparams)), on_meta(lbatch)
+    checks["lm_small_train"] = dry_vs_card(
+        "lm-small train step (f32)", lambda: lstep(lparams, lstate, lbatch),
+        lambda: lstep(m_lp, m_ls, m_lb))
+    out["paths"]["dryrun.lm_small_train"] = launch_counts()
+    cache = TF.init_decode_cache(lcfg, DRY_LM_BATCH, 2 * DRY_LM_SEQ, torch.float32, device=dev)
+    pos = torch.full((), DRY_LM_SEQ, dtype=torch.int32, device=dev)
+    tok = lbatch["tokens"][:, 0]
+    m_cache, m_pos, m_tok = on_meta(cache), on_meta(pos), on_meta(tok)
+    with torch.no_grad():
+        checks["lm_small_decode"] = dry_vs_card(
+            "lm-small decode step (f32)", lambda: TF.decode_step(lcfg, lparams, cache, tok, pos),
+            lambda: TF.decode_step(lcfg, m_lp, m_cache, m_tok, m_pos))
+    out["paths"]["dryrun.lm_small_decode"] = launch_counts()
+    del lparams, lstate, cache, m_lp, m_ls
+
+    tcfg = launch_train.make_dlrm_100m()
+    tparams = R.init_params(tcfg, seed=0, device=dev)
+    topt = launch_train.make_optimizer()
+    tstate = topt.init(tparams)
+    host = syn.recsys_batch(np.random.default_rng(0), tcfg.tables, DRY_BATCH,
+                            n_dense=tcfg.n_dense)
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    tstep = R.make_train_step(tcfg, topt)
+    m_tp, m_ts, m_tb = on_meta(tparams), on_meta(tstate), on_meta(tbatch)
+    checks["dlrm_train"] = dry_vs_card(
+        "dlrm-100m train step", lambda: tstep(tparams, tstate, tbatch),
+        lambda: tstep(m_tp, m_ts, m_tb))
+    out["paths"]["dryrun.dlrm_train"] = launch_counts()
+
+    emb = tcfg.embedding()
+    fused = emb._fused_rows(emb.sharded, torch.from_numpy(host["indices"]))
+    hot_ids, counts_ = np.unique(fused.numpy()[host["mask"]], return_counts=True)
+    hot_ids = hot_ids[np.argsort(-counts_, kind="stable")][:DRY_CACHE_SLOTS // 2]
+    hcache = make_hash_cache_from_table(emb, tparams["emb"], hot_ids, DRY_CACHE_SLOTS, device=dev)
+    m_hcache = dataclasses.replace(hcache, **{f.name: on_meta(getattr(hcache, f.name))
+                                              for f in dataclasses.fields(hcache)})
+    fbatch = {k: tbatch[k] for k in ("indices", "mask", "dense")}
+    m_fb = on_meta(fbatch)
+    with torch.no_grad():
+        checks["cached_forward"] = dry_vs_card(
+            "dlrm-100m cached forward", lambda: R.forward(tcfg, tparams, fbatch, cache=hcache),
+            lambda: R.forward(tcfg, m_tp, m_fb, cache=m_hcache))
+    out["paths"]["dryrun.cached_forward"] = launch_counts()
+    slots = torch.arange(hot_ids.size, dtype=torch.int32, device=dev)
+    rows = tparams["emb"]["table"][torch.from_numpy(hot_ids).to(dev).long()]
+    values = hcache.rows.clone()
+    m_values, m_slots, m_rows = on_meta(values), on_meta(slots), on_meta(rows)
+    checks["cache_swap_in"] = dry_vs_card(
+        "K4 swap-in of the cache's rows", lambda: HK.scatter_update(values, slots, rows),
+        lambda: HK.scatter_update(m_values, m_slots, m_rows))
+    out["paths"]["dryrun.cache_swap_in"] = launch_counts()
+    M_, L_, k_ = DRY_K5
+    scores = torch.randn((M_, L_), dtype=torch.float64, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    m_scores = on_meta(scores)
+    checks["k5"] = dry_vs_card("K5 at the miner's shape", lambda: PK.topk_neighbor_select(
+        scores, k_), lambda: PK.topk_neighbor_select(m_scores, k_))
+    out["paths"]["dryrun.k5"] = launch_counts()
+    covered = set().union(*(c["launches"] for c in checks.values()))
+    for name in ("embedding_bag", "embedding_bag_masked", "dot_interaction",
+                 "embedding_bag_backward", "dot_interaction_backward", "probe_gather_pool",
+                 "scatter_update", "topk_neighbor_select", "flash_attention",
+                 "flash_attention_f32", "flash_attention_backward",
+                 "flash_attention_backward_f32", "flash_decode"):
+        if name not in covered:
+            raise AssertionError(f"dryrun: no card-vs-meta check launched {name}")
+    out["card_vs_meta"] = checks
+    del tparams, tstate, m_tp, m_ts, hcache, values, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) stablelm-3b's train step of phase 9i on meta: its bound
+    cfg = dataclasses.replace(make_stablelm(), param_dtype=torch.float32)
+    opt, _ = lm_common.make_optimizer("adam")
+    params = TF.init_params(cfg, device="meta")
+    state = opt.init(params)
+    batch = {k: torch.empty((LMT_BATCH, LMT_SEQ), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    with HA.Trace() as tr:
+        TF.make_train_step(cfg, opt)(params, state, batch)
+    terms = HA.analyze(tr)
+    busy = lm_train_summary["step_device_busy_ms"]
+    if not busy:
+        raise AssertionError("dryrun: phase 9i measured no busy time to hold the bound against")
+    out["stablelm_train_step"] = {
+        "trace_s": time.perf_counter() - t0, "roofline": terms.as_dict(),
+        "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,
+        "flops_by_class": tr.flops, "kernels": tr.kernels,
+        "busy_ms_9i": busy, "share_of_roofline": terms.bound_s * 1e3 / busy,
+        "card": out["card"]}
+    log(f"[dryrun] stablelm-3b train step {LMT_BATCH} x {LMT_SEQ} (phase 9i's): bound "
+        f"{terms.bound_s * 1e3:.3f} ms ({terms.dominant}: compute {terms.compute_s * 1e3:.3f}, "
+        f"memory {terms.memory_s * 1e3:.3f}) against 9i's {busy:.3f} ms busy: "
+        f"{terms.bound_s * 1e3 / busy:.4f} of the roofline ({out['card']})")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("[dryrun] " + json.dumps({k: v for k, v in out.items() if k != "paths"}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU present", file=sys.stderr)
@@ -5064,6 +5308,9 @@ def main() -> int:
     # -------------------------------------------------- lm_tp_prefill, lm_tp_train
     tp = lm_tp(dev)
 
+    # ---------------------------------------------------------------- dryrun
+    dry = dryrun(dev, lmt["lm_train"])
+
     # ---------------------------------------------------------- kernels line
     sources = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:38",
@@ -5084,7 +5331,7 @@ def main() -> int:
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
              "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
              **gnn_res["paths"], **gnn_sh["paths"],
-             **lmt["paths"], **tp["paths"]}
+             **lmt["paths"], **tp["paths"], **dry["paths"]}
     kernels = []
     for name, replaces in sources.items():
         ms, plain_ms, lib_ms = timings[name]

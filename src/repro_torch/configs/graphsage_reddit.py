@@ -29,11 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchDef, CellBuild, register
-from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, AXIS_POD, PartitionSpec as P
+from repro_torch.core.sharding import AXIS_DATA, AXIS_POD, PartitionSpec as P
 from repro_torch.data import graph_sampler as GS
 from repro_torch.data import synthetic as syn
 from repro_torch.models import gnn as G
-from repro_torch.models import layers as L
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.optim import sharding_rules as opt_specs
 from repro_torch.utils import resolve_device, round_up
@@ -93,13 +92,14 @@ def molecule_loss(cfg: G.GNNConfig, mesh=None, batch_axes: tuple[str, ...] = (AX
     graph-level outputs, summed over the global batch's graphs.  Under a
     ``mesh`` the batch holds this rank's graphs over ``batch_axes`` and the
     forward computes its block over (batch_axes x model)."""
-    split = tuple(batch_axes) + (AXIS_MODEL,)
-
     def loss_fn(p, batch):
         out = G.forward_molecule(cfg, p, batch["feats"], batch["edges"], batch["edge_mask"],
                                  mesh, batch_axes)[:, 0]
-        labels = L.constrain(batch["labels"], P(split), mesh, P(tuple(batch_axes)))
-        return torch.sum((out - labels) ** 2) / (out.numel() * _group(mesh, split))
+        labels = batch["labels"]
+        n_graphs = labels.shape[0] * _group(mesh, batch_axes)
+        if mesh is not None:
+            labels = G.model_block(labels, mesh)
+        return torch.sum((out - labels) ** 2) / n_graphs
 
     return loss_fn
 

@@ -122,7 +122,8 @@ def build_lm_cell(base_cfg: TransformerConfig, opt_kind: str, shape: str, mesh,
 
     return CellBuild("serve_decode", serve_step,
                      (pshapes, cache_abs, _meta((B,), torch.int32), _meta((), torch.int32)),
-                     (pspecs, (cspec, cspec), tok_spec, P()), donate_argnums=(1,))
+                     (pspecs, (cspec, cspec), tok_spec, P()), donate_argnums=(1,),
+                     arg_shardings=(T.decode_param_specs(cfg), (cspec, cspec), tok_spec, P()))
 
 
 def lm_smoke(base_cfg: TransformerConfig, opt_kind: str = "adam", device="cuda") -> dict:

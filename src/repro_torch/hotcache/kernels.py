@@ -4,7 +4,10 @@ Port of ``repro/hotcache/kernels.py``; the CUDA sources and their design
 notes are ``csrc/probe_gather_pool.cu`` and ``csrc/scatter_update.cu``.
 Each entry point dispatches by the tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version in
-``hotcache/ref.py``.  ``launches`` counts kernel launches per kernel.
+``hotcache/ref.py``, a ``meta`` tensor (the dry run) takes the card's checks
+and allocations, then reports ``probe_gather_pool_work`` /
+``scatter_update_work`` to ``kernels.work`` and launches nothing (no winner
+scratch is kept for it).  ``launches`` counts kernel launches per kernel.
 """
 from __future__ import annotations
 
@@ -14,9 +17,9 @@ import threading
 import torch
 
 from repro_torch.hotcache import ref
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.embedding_bag import launch_plan, resident_blocks, vec_width
-from repro_torch.kernels.ops import _is_cuda
+from repro_torch.kernels.ops import _is_cuda, same_device_type
 
 PROBE = "probe_gather_pool"
 SCATTER = "scatter_update"
@@ -52,6 +55,24 @@ _winners: dict[tuple, list] = {}  # key -> [scratch, the next call's base]
 _winners_lock = threading.Lock()  # two threads may share a stream
 
 
+def probe_gather_pool_work(values: torch.Tensor, n_slots: int, num_bags: int) -> work.Work:
+    """K3's work: the ids and weights, one key and one cached row a slot,
+    the [bags, D] f32 sums and the [N] miss mask written, a multiply and an
+    add a slot's element.  By the shapes: a slot that probes further reads
+    more keys, a miss or a zero-weight slot no row."""
+    D = values.shape[1]
+    return work.Work(bytes=n_slots * (13 + D * values.element_size()) + num_bags * D * 4,
+                     f32=2.0 * n_slots * D)
+
+
+def scatter_update_work(values: torch.Tensor, rows: torch.Tensor) -> work.Work:
+    """K4's work: the slots and rows read once, each row written into the
+    cache once (a repeated slot's losers too: the shapes do not say which
+    win); no products."""
+    K, D = rows.shape
+    return work.Work(bytes=K * (4 + D * (rows.element_size() + values.element_size())))
+
+
 def _check_same_device(name: str, ref_t: torch.Tensor, **tensors) -> None:
     for arg, t in tensors.items():
         if t.device != ref_t.device or not t.is_contiguous():
@@ -67,6 +88,7 @@ def probe_gather_pool(
     max_probes: int = 8,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused probe + gather + pool: (pooled [num_bags, D] f32, miss [N] bool)."""
+    same_device_type(keys, values, ids, weights)
     if not _is_cuda(values):
         return ref.probe_gather_pool_ref(keys, values, ids, weights, num_bags,
                                          max_probes)
@@ -94,6 +116,9 @@ def probe_gather_pool(
         raise ValueError(f"{PROBE}: at most 2^31 slots, got {C}")
     pooled = torch.empty((num_bags, D), dtype=torch.float32, device=values.device)
     miss = torch.empty((N,), dtype=torch.bool, device=values.device)
+    work.kernel((PROBE,), probe_gather_pool_work, values, N, num_bags)
+    if work.on_meta(values):
+        return pooled, miss
     shift = max(1, 33 - C.bit_length())
     lib = build.load(PROBE, _PROBE_SIGNATURES)
     vec = vec_width(values.dtype, D, (values.data_ptr() | pooled.data_ptr()) % 16 == 0)
@@ -142,6 +167,7 @@ def scatter_update(
 ) -> torch.Tensor:
     """Swap-in: write rows[i] (cast to values' dtype) into values[slots[i]]
     in place and return ``values``, as the reference's aliased output does."""
+    same_device_type(values, slots, rows)
     if not _is_cuda(values):
         return ref.scatter_update_ref(values, slots, rows)
     key = (values.dtype, rows.dtype)
@@ -161,6 +187,9 @@ def scatter_update(
     if K >= 2**31:
         raise ValueError(f"{SCATTER}: at most 2^31 - 1 writes per launch, got {K}")
     C, D = values.shape
+    work.kernel((SCATTER,), scatter_update_work, values, rows)
+    if work.on_meta(values):
+        return values
     lib = build.load(SCATTER, {s: _SCATTER_ARGS for s in _SCATTER_SYMBOLS.values()})
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream

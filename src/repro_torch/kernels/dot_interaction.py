@@ -10,6 +10,9 @@ TPU kernel it takes any batch size: there is no ``block_b``.
 gram matrix's upper triangle, ``dx = (G + G^T) x``, a block a sample and a
 block of rows (``backward_plan``, the host's launch plan);
 ``ops.dot_interaction_triu`` wires K2 and K2' into autograd for CUDA tensors.
+On the ``meta`` device (the dry run) both wrappers check and allocate as on
+the card, then report ``dot_interaction_work`` /
+``dot_interaction_backward_work`` to ``kernels.work`` and launch nothing.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 NAME = "dot_interaction"
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -41,6 +44,22 @@ launches_backward = 0  # K2' launches
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def dot_interaction_work(x: torch.Tensor) -> work.Work:
+    """K2's work: x [B, F, D] read once, the [B, F, F] f32 gram written
+    once, 2 F^2 D FMA operations a sample (the whole square, as the
+    kernel's output; f32 FMAs in both dtypes)."""
+    B, F, D = x.shape
+    return work.Work(bytes=x.numel() * x.element_size() + B * F * F * 4,
+                     f32=2.0 * B * F * F * D)
+
+
+def dot_interaction_backward_work(x: torch.Tensor, grad_tri: torch.Tensor) -> work.Work:
+    """K2''s work: x and the triangle's gradient read once, dx written once,
+    the product (G + G^T) x: 2 F^2 D FMA operations a sample."""
+    B, F, D = x.shape
+    return work.Work(bytes=(2 * x.numel() + grad_tri.numel()) * 4, f32=2.0 * B * F * F * D)
 
 
 def sample_smem_bytes(F: int, D: int, itemsize: int) -> int:
@@ -76,13 +95,16 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     """``[B, F, D]`` f32 | bf16 CUDA tensor -> ``[B, F, F]`` f32, kernel K2."""
     global launches
     check_inputs(x)
-    if not _on_cuda(x):
+    if not (_on_cuda(x) or work.on_meta(x)):
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors, got {x.device}; "
             "ops.dot_interaction_triu routes CPU tensors to the plain version"
         )
     B, F, D = x.shape
     out = torch.empty((B, F, F), dtype=torch.float32, device=x.device)
+    work.kernel((NAME,), dot_interaction_work, x)
+    if work.on_meta(x):
+        return out
     lib = build.load(NAME, _SIGNATURES)
     with torch.cuda.device(x.device):
         code = getattr(lib, _SYMBOLS[x.dtype])(
@@ -143,12 +165,16 @@ def dot_interaction_backward(x: torch.Tensor, grad_tri: torch.Tensor) -> torch.T
         raise ValueError(f"{NAME}_backward: one [F={F}, D={D}] sample needs "
                          f"{backward_smem_bytes(F, D)} bytes of shared memory, over the "
                          f"{MAX_SMEM} a block holds")
-    if not _on_cuda(x):
+    if not (_on_cuda(x) or work.on_meta(x)):
         raise ValueError(
             f"{NAME}_backward kernel takes CUDA tensors, got {x.device}; "
             "on the CPU autograd differentiates the plain version"
         )
     dx = torch.empty_like(x)
+    bwd = f"{NAME}_backward"
+    work.kernel((bwd,), dot_interaction_backward_work, x, grad_tri)
+    if work.on_meta(x):
+        return dx
     lib = build.load(NAME, _SIGNATURES)
     plan = backward_plan(F, D, (x.data_ptr() | dx.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):

@@ -16,7 +16,11 @@ groups the slots by row itself (a bitmap, a hash table and a slot list kept
 per (device, stream) in ``_bwd_scratch``); ``backward_scratch_sizes``,
 ``backward_table_bits``, ``backward_blocks`` and ``BackwardState`` are its
 host-side plan.
-``ops.embedding_bag`` wires both into autograd for CUDA tables.
+``ops.embedding_bag`` wires both into autograd for CUDA tables.  On the
+``meta`` device (the dry run) both wrappers check and allocate as on the
+card, then report ``embedding_bag_work`` / ``embedding_bag_backward_work``
+to ``kernels.work`` in place of the launch: no library, no scratch, no
+``BackwardState`` step, no count.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 NAME = "embedding_bag"
 THREADS = 256  # threads a block (kThreads in the source)
@@ -128,6 +132,26 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def embedding_bag_work(table: torch.Tensor, n_slots: int, num_bags: int) -> work.Work:
+    """K1's work: the ids and weights, one table row a slot, the [bags, D]
+    f32 sums written, a multiply and an add a slot's element.  An upper
+    bound: the kernel reads a row once a slot, but the masked mode skips
+    a zero-weight slot's row, and the L2 serves a row repeated in a bag."""
+    D = table.shape[1]
+    return work.Work(bytes=n_slots * (8 + D * table.element_size()) + num_bags * D * 4,
+                     f32=2.0 * n_slots * D)
+
+
+def embedding_bag_backward_work(grad_out: torch.Tensor, n_slots: int,
+                                num_rows: int) -> work.Work:
+    """K1''s work: the [bags, D] output gradient, the ids and weights read
+    once, the dense [num_rows, D] f32 gradient written once (every row),
+    a multiply and an add a slot's element."""
+    num_bags, D = grad_out.shape
+    return work.Work(bytes=(num_bags * D + num_rows * D) * 4 + n_slots * 8,
+                     f32=2.0 * n_slots * D)
+
+
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -157,7 +181,7 @@ def embedding_bag(
     """``[num_bags, D]`` f32 weighted bag sums, computed by kernel K1; with
     ``masked`` the zero-weight slots are skipped."""
     global launches, launches_masked
-    if not _on_cuda(table):
+    if not (_on_cuda(table) or work.on_meta(table)):
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors, got {table.device}; "
             "ops.embedding_bag routes CPU tensors to the plain version"
@@ -181,6 +205,10 @@ def embedding_bag(
     if V == 0 or D == 0:
         raise ValueError(f"{NAME}: empty table {tuple(table.shape)}")
     out = torch.empty((num_bags, D), dtype=torch.float32, device=table.device)
+    names = (NAME, f"{NAME}_masked") if masked else (NAME,)
+    work.kernel(names, embedding_bag_work, table, N, num_bags)
+    if work.on_meta(table):
+        return out
     lib = build.load(NAME, _SIGNATURES)
     nnz = N // num_bags
     vec = vec_width(table.dtype, D, (table.data_ptr() | out.data_ptr()) % 16 == 0)
@@ -282,7 +310,7 @@ def embedding_bag_backward(
     row no slot names left 0; with ``masked`` a slot whose weight is 0 adds
     nothing and its id is not used."""
     global launches_backward
-    if not _on_cuda(grad_out):
+    if not (_on_cuda(grad_out) or work.on_meta(grad_out)):
         raise ValueError(
             f"{NAME}_backward kernel takes CUDA tensors, got {grad_out.device}; "
             "on the CPU autograd differentiates the plain version"
@@ -306,6 +334,9 @@ def embedding_bag_backward(
     if N > MAX_SLOTS:
         raise ValueError(f"{NAME}_backward: {N} slots over {MAX_SLOTS}")
     grad = torch.empty((num_rows, D), dtype=torch.float32, device=grad_out.device)
+    work.kernel((f"{NAME}_backward",), embedding_bag_backward_work, grad_out, N, num_rows)
+    if work.on_meta(grad_out):
+        return grad
     lib = build.load(NAME, _SIGNATURES)
     vec = vec_width(torch.float32, D, (grad_out.data_ptr() | grad.data_ptr()) % 16 == 0)
     with torch.cuda.device(grad_out.device), _bwd_scratch_lock:

@@ -11,6 +11,9 @@ only; ``ops.flash_attention`` routes a CPU tensor to the plain versions
 wires the two kernels into autograd on the card.  Unlike the TPU kernel K6
 takes any S (no ``block_q``/``block_k``), reads the ``[B, S, H, dh]``
 layout through strides, and takes the head dims ``HEAD_DIMS[dtype]`` only.
+On the ``meta`` device (the dry run) both wrappers check and allocate as on
+the card, then report ``flash_attention_work`` /
+``flash_attention_backward_work`` to ``kernels.work`` and launch nothing.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_backward"
@@ -82,9 +85,39 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{NAME}: {name} must start on a 16-byte boundary")
 
 
+def kept_pairs(S: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: the causal triangle or the square."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _products(dtype: torch.dtype, nominal: float) -> dict:
+    """bf16 products on the tensor cores; f32 as 3xTF32, three tf32 products each."""
+    return {"bf16": nominal} if dtype == torch.bfloat16 else {"tf32": 3.0 * nominal}
+
+
+def flash_attention_work(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                         with_lse: bool) -> work.Work:
+    """K6's work: q, k, v read and the output (and the [B, H, S] f32
+    logsumexp) written once; two products (S = q k^T, then P v) of 2 dh
+    operations a kept pair and head."""
+    B, S, H, dh = q.shape
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size() + (B * H * S * 4 if with_lse else 0)
+    return work.Work(bytes=moved, **_products(q.dtype, 4.0 * B * H * kept_pairs(S, causal) * dh))
+
+
+def flash_attention_backward_work(q: torch.Tensor, k: torch.Tensor, causal: bool) -> work.Work:
+    """K6''s work: q, k, v, o, dO and the logsumexp read once, dq, dk, dv
+    written once; five products (S, dP, dV, dK, dQ) of 2 dh operations a
+    kept pair and head, whatever the design recomputes."""
+    B, S, H, dh = q.shape
+    moved = (4 * q.numel() + 4 * k.numel()) * q.element_size() + B * H * S * 4
+    return work.Work(bytes=moved, **_products(q.dtype, 10.0 * B * H * kept_pairs(S, causal) * dh))
+
+
 def _check_devices(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
-    if not _on_cuda(tensors[0]) or any(t.device != dev for t in tensors):
+    if not (_on_cuda(tensors[0]) or work.on_meta(tensors[0])) \
+            or any(t.device != dev for t in tensors):
         raise ValueError(
             f"{name} kernel takes CUDA tensors on one device, got "
             f"{', '.join(str(t.device) for t in tensors)}; ops.flash_attention routes CPU "
@@ -115,6 +148,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"tensor on {q.device}, got {tuple(lse.shape)} {lse.dtype} "
                              f"on {lse.device}")
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    names = (NAME, f"{NAME}_f32") if q.dtype == torch.float32 else (NAME,)
+    work.kernel(names, flash_attention_work, q, k, causal, lse is not None)
+    if work.on_meta(q):
+        return out
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):
         code = getattr(lib, _SYMBOLS[q.dtype])(
@@ -158,6 +195,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    names = (NAME_BWD, f"{NAME_BWD}_f32") if q.dtype == torch.float32 else (NAME_BWD,)
+    work.kernel(names, flash_attention_backward_work, q, k, causal)
+    if work.on_meta(q):
+        return dq, dk, dv
     lib = build.load(NAME_BWD, {sym: _ARGS_BWD for sym in _SYMBOLS_BWD.values()})
     with torch.cuda.device(q.device):
         code = getattr(lib, _SYMBOLS_BWD[q.dtype])(

@@ -21,7 +21,9 @@ alone, so the host never reads ``cache_len``); each block writes a partial
 them, counted by int32 tickets that the kernel leaves at zero.  Workspace
 and tickets stay allocated per (device, stream), so a call allocates only
 its output: calls on one stream run in order, and none reads another's
-workspace.
+workspace.  On the ``meta`` device (the dry run) the wrappers check and
+allocate their outputs as on the card, then report ``flash_decode_work``
+to ``kernels.work`` and launch nothing (no workspace).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 NAME = "flash_decode"
 # The kernel's instantiations, by dtype (f32 also at the LM smoke configs' 16
@@ -77,6 +79,19 @@ def chunk_bounds(S: int, n_split: int) -> list[int]:
     """Where the kernel's chunks start, and S: chunk i is
     [i S // n_split, (i + 1) S // n_split)."""
     return [i * S // n_split for i in range(n_split + 1)]
+
+
+def flash_decode_work(q: torch.Tensor, k_cache: torch.Tensor, partial: bool) -> work.Work:
+    """K7's work: q read and the output written once (in shard mode the f32
+    sum and the [B, H, 2] f32 max and sum), both caches read once, two
+    products of 2 dh f32 FMA operations a position and query head.  An
+    upper bound: the whole cache, where the kernel reads only the positions
+    below ``cache_len``, a device value."""
+    B, H, dh = q.shape
+    out = B * H * (dh + 2) * 4 if partial else q.numel() * q.element_size()
+    return work.Work(bytes=q.numel() * q.element_size() + out
+                     + 2 * k_cache.numel() * k_cache.element_size(),
+                     f32=4.0 * B * H * k_cache.shape[1] * dh)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -136,7 +151,7 @@ def _launch(q, k_cache, v_cache, cache_len, shard_start, out, ml) -> None:
     """One launch of the kernel, in shard mode when ``shard_start`` is given."""
     global launches, launches_partial
     devs = {t.device for t in (q, k_cache, v_cache, cache_len, shard_start) if t is not None}
-    if not _on_cuda(q) or len(devs) != 1:
+    if not (_on_cuda(q) or work.on_meta(q)) or len(devs) != 1:
         raise ValueError(
             f"{NAME} kernel takes CUDA tensors on one device, got {sorted(map(str, devs))}; "
             "ops.flash_decode routes CPU tensors to the plain version"
@@ -145,6 +160,10 @@ def _launch(q, k_cache, v_cache, cache_len, shard_start, out, ml) -> None:
         raise ValueError(f"{NAME}: q and the caches must start on 16-byte boundaries")
     B, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    names = (NAME, f"{NAME}_partial") if shard_start is not None else (NAME,)
+    work.kernel(names, flash_decode_work, q, k_cache, shard_start is not None)
+    if work.on_meta(q):
+        return
     n_split = plan_split(S, B, Hkv, H // Hkv)
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
     with torch.cuda.device(q.device):

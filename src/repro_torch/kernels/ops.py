@@ -1,10 +1,15 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
-A CUDA tensor goes to the hand-written kernel (``embedding_bag.py``,
-``dot_interaction.py``, ``flash_attention.py``, ``flash_decode.py``), a CPU
-tensor to the plain version in ``ref.py``;
-any other device raises.  There is no switch and no fallback: on the card
-the plain version is never taken, and a failed build or launch raises.
+Three routes.  A CUDA tensor goes to the hand-written kernel
+(``embedding_bag.py``, ``dot_interaction.py``, ``flash_attention.py``,
+``flash_decode.py``), a CPU tensor to the plain version in ``ref.py``.  A
+``meta`` tensor (the dry run, ``launch.dryrun``) takes the card's route, the
+same ``autograd.Function``s and wrapper code up to the launch, where the
+wrapper reports the kernel's work (``kernels.work``) and launches nothing;
+it never takes the plain versions, whose intermediates are not the
+kernel's work.  Any other device, or tensors on two devices, raise.  There
+is no switch and no fallback: on the card the plain version is never taken,
+and a failed build or launch raises.
 
 Gradients: on the card, where a gradient is needed, K1, K2 and K6 run
 inside ``torch.autograd.Function``s whose backwards are the hand-written
@@ -27,11 +32,20 @@ from repro_torch.kernels import ref
 
 
 def _is_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    """Whether ``t`` takes the card's route: CUDA, or meta (the dry run)."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"unsupported device {t.device} (cuda | cpu)")
+    raise ValueError(f"unsupported device {t.device} (cuda | cpu | meta)")
+
+
+def same_device_type(*tensors) -> None:
+    """Raise unless every tensor given (``None`` skipped) is on one kind of
+    device: a meta tensor beside a CPU one takes neither route."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if len(kinds) > 1:
+        raise ValueError(f"tensors on {sorted(kinds)}: one device type a call")
 
 
 class _EmbeddingBag(torch.autograd.Function):
@@ -59,6 +73,7 @@ def embedding_bag(table, indices, weights, num_bags, masked: bool = False):
     """K1 in its weighted mode (the Pallas kernel's contract) or, with
     ``masked``, skipping every slot whose weight is 0 (``ref.embedding_bag_ref``).
     Differentiable in the table (f32 only) on both devices."""
+    same_device_type(table, indices, weights)
     if _needs_grad(weights):
         raise ValueError("embedding_bag: no gradient for the weights (K1' computes "
                          "the table's only); pass weights that do not require grad")
@@ -114,6 +129,7 @@ def dot_interaction_triu(x: torch.Tensor) -> torch.Tensor:
     """[B,F,D] -> [B, F*(F+1)/2] upper-triangle (incl. diag) pairwise dots,
     row-major as ``np.triu_indices(F)`` orders them; the gram matrix comes
     from kernel K2.  Differentiable (f32 only) on both devices."""
+    same_device_type(x)
     if _needs_grad(x) and x.dtype != torch.float32:
         raise TypeError(f"dot_interaction_triu: a {x.dtype} input that requires grad; "
                         "K2' takes f32 only")
@@ -149,6 +165,7 @@ def flash_attention(q, k, v, causal: bool = True):
     """q [B,S,H,dh], k/v [B,S,Hkv,dh] -> [B,S,H,dh] GQA attention, kernel K6
     on the card; differentiable in q, k and v on both devices (K6' on the
     card)."""
+    same_device_type(q, k, v)
     if _is_cuda(q):
         if _needs_grad(q, k, v):
             return _FlashAttention.apply(q, k, v, causal)
@@ -160,6 +177,7 @@ def flash_decode(q, k_cache, v_cache, cache_len):
     """q [B,H,dh] against caches [B,S,Hkv,dh] up to ``cache_len`` (an int32
     tensor of one element on the caches' device) -> [B,H,dh], kernel K7 on
     the card."""
+    same_device_type(q, k_cache, v_cache, cache_len)
     if _is_cuda(q):
         return K7.flash_decode(q, k_cache, v_cache, cache_len)
     return ref.flash_decode_ref(q, k_cache, v_cache, cache_len)
@@ -171,6 +189,7 @@ def flash_decode_partial(q, k_local, v_local, cache_len, shard_start):
     the whole cache, valid below ``cache_len`` (both int32 tensors of one
     element on the caches' device) -> ``(o [B,H,dh] f32, m [B,H] f32,
     l [B,H] f32)``, un-normalised: kernel K7's shard mode on the card."""
+    same_device_type(q, k_local, v_local, cache_len, shard_start)
     if _is_cuda(q):
         return K7.flash_decode_partial(q, k_local, v_local, cache_len, shard_start)
     return ref.flash_decode_partial_ref(q, k_local, v_local, cache_len, shard_start)

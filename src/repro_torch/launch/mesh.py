@@ -27,8 +27,9 @@ value's whole cotangent, takes the conjugate pair instead: :func:`copy_to`
 identity backward).
 
 Every call adds the bytes one device moves under the ring model of the
-reference's ``launch/hlo_analysis.py`` to ``comm.bytes.<op>`` in the
-process's metrics registry, backward calls included:
+reference's ``launch/hlo_analysis.py`` to ``comm.bytes.<op>``, and one to
+``comm.calls.<op>``, in the process's metrics registry, backward calls
+included, and reports the call to ``kernels.work`` (the dry run's trace):
 
     all-reduce      2 * bytes * (G-1)/G     (a sum; a max counts apart,
                                             as all_reduce_max, alike)
@@ -37,6 +38,12 @@ process's metrics registry, backward calls included:
 
 With the gloo backend a CUDA tensor is staged through host memory; a time
 taken so measures the host, not an interconnect.
+
+A :class:`DryMesh` is one rank of a mesh with no processes behind it, for
+the dry run (``launch.dryrun``): its collectives take ``meta`` tensors
+only, send nothing, return a meta tensor of the shape the real collective
+returns, and count as the real ones do.  A real :class:`Mesh` refuses a
+meta tensor and a ``DryMesh`` any other; neither falls back to the other.
 
 :func:`spawn` runs a function on N ranks of this host (``torch.multiprocessing``,
 rendezvous through a ``FileStore`` file, never a TCP port) and returns
@@ -57,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.sharding import AXIS_DATA, AXIS_MODEL, AXIS_POD, PartitionSpec
+from repro_torch.kernels import work
 from repro_torch.obs.metrics import get_registry
 
 PRODUCTION_SHAPES = {False: ((16, 16), (AXIS_DATA, AXIS_MODEL)),
@@ -123,12 +131,54 @@ class Mesh:
             idx = idx * self.shape[a] + self.coords[a]
         return idx
 
+    def group_ranks(self, axes) -> tuple[int, ...]:
+        """The global ranks of the group over ``axes`` that holds this rank,
+        in the group's (row-major) order."""
+        axes = self.axes(axes)
+        sizes = tuple(self.shape.values())
+        ranks = []
+        for pos in itertools.product(*(range(self.shape[a]) for a in axes)):
+            coords = dict(self.coords, **dict(zip(axes, pos)))
+            ranks.append(int(np.ravel_multi_index(tuple(coords[a] for a in self.axis_names),
+                                                  sizes)))
+        return tuple(ranks)
+
     def group(self, axes):
         """The process group over ``axes`` that holds this rank."""
         return self._groups[self.axes(axes)]
 
     def barrier(self) -> None:
         dist.barrier()
+
+
+class DryMesh(Mesh):
+    """Rank ``rank`` of a mesh of ``shape`` with no processes and no process
+    group behind it: the dry run's stand-in for one rank of the production
+    mesh.  It has a real mesh's ``shape``, ``axis_names``, ``coords`` and
+    layout methods, so ``block_slices`` and ``models.recsys.shard_params``
+    cut that rank's blocks unchanged; its collectives take meta tensors
+    only (``_all_reduce_raw`` and the rest)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], rank: int = 0):
+        if len(shape) != len(axis_names):
+            raise ValueError("one size per axis name")
+        if not 0 <= rank < math.prod(shape):
+            raise ValueError(f"rank {rank} outside a mesh of {math.prod(shape)} devices")
+        self.shape = dict(zip(axis_names, (int(n) for n in shape)))
+        self.axis_names = tuple(axis_names)
+        self.rank = rank
+        self.backend = None
+        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(rank, shape))))
+        self._groups = {}
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape}, rank={self.rank}, coords={self.coords})"
+
+    def group(self, axes):
+        raise RuntimeError("a DryMesh has no process groups: its collectives send nothing")
+
+    def barrier(self) -> None:
+        raise RuntimeError("a DryMesh has no processes to wait for")
 
 
 class AbstractMesh:
@@ -208,8 +258,22 @@ def block_slices(shape: Sequence[int], spec: PartitionSpec | None, mesh: Mesh,
 # --------------------------------------------------------------- collectives
 
 
-def _count(op: str, nbytes: float) -> None:
-    get_registry().counter(f"comm.bytes.{op}").add(nbytes)
+def _count(op: str, nbytes: float, out: torch.Tensor, mesh: Mesh, axes) -> None:
+    reg = get_registry()
+    reg.counter(f"comm.bytes.{op}").add(nbytes)
+    reg.counter(f"comm.calls.{op}").add(1)
+    work.collective(op, nbytes, out.numel() * out.element_size(), mesh.group_ranks, axes)
+
+
+def _dry(mesh: Mesh, x: torch.Tensor) -> bool:
+    """Whether this collective is the dry run's: a ``DryMesh`` and a meta
+    tensor.  Either without the other raises."""
+    dry = isinstance(mesh, DryMesh)
+    if dry != (x.device.type == "meta"):
+        raise ValueError(f"a {type(mesh).__name__} takes "
+                         f"{'meta tensors only' if dry else 'no meta tensor'}; got one on "
+                         f"{x.device}")
+    return dry
 
 
 def ring_bytes(op: str, nbytes: int, group_size: int) -> float:
@@ -233,13 +297,15 @@ def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
 def _all_reduce_raw(x: torch.Tensor, axes, mesh: Mesh, op=dist.ReduceOp.SUM,
                     counter: str = "all_reduce") -> torch.Tensor:
     g = mesh.axis_size(axes)
-    _count(counter, ring_bytes(counter, x.numel() * x.element_size(), g))
+    dry = _dry(mesh, x)
+    _count(counter, ring_bytes(counter, x.numel() * x.element_size(), g), x, mesh, axes)
     if _staged(mesh, x):
         h = x.detach().to("cpu", copy=True)
         dist.all_reduce(h, op=op, group=mesh.group(axes))
         return h.to(x.device)
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=mesh.group(axes))
+    if not dry:
+        dist.all_reduce(out, op=op, group=mesh.group(axes))
     return out
 
 
@@ -252,10 +318,14 @@ def all_reduce_max(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
 
 def _all_gather_raw(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     g = mesh.axis_size(axes)
+    dry = _dry(mesh, x)
     x = x.detach().contiguous()
     out = torch.empty((x.shape[0] * g,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device="cpu" if _staged(mesh, x) else x.device)
-    _count("all_gather", ring_bytes("all_gather", out.numel() * out.element_size(), g))
+    _count("all_gather", ring_bytes("all_gather", out.numel() * out.element_size(), g),
+           out, mesh, axes)
+    if dry:
+        return out
     dist.all_gather_into_tensor(out, x.cpu() if _staged(mesh, x) else x, group=mesh.group(axes))
     return out.to(x.device)
 
@@ -264,10 +334,14 @@ def _reduce_scatter_raw(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     g = mesh.axis_size(axes)
     if x.shape[0] % g:
         raise ValueError(f"reduce_scatter: dim 0 of {x.shape[0]} does not split {g} ways")
+    dry = _dry(mesh, x)
     x = x.detach().contiguous()
     out = torch.empty((x.shape[0] // g,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device="cpu" if _staged(mesh, x) else x.device)
-    _count("reduce_scatter", ring_bytes("reduce_scatter", out.numel() * out.element_size(), g))
+    _count("reduce_scatter", ring_bytes("reduce_scatter", out.numel() * out.element_size(), g),
+           out, mesh, axes)
+    if dry:
+        return out
     dist.reduce_scatter_tensor(out, x.cpu() if _staged(mesh, x) else x, group=mesh.group(axes))
     return out.to(x.device)
 
@@ -371,8 +445,18 @@ def reduce_scatter(x: torch.Tensor, axes, mesh: Mesh, dim: int = 0) -> torch.Ten
 
 def comm_bytes() -> dict:
     """``{op: bytes}`` counted so far by this process's collectives."""
+    return _comm("bytes")
+
+
+def comm_calls() -> dict:
+    """``{op: calls}`` counted so far by this process's collectives."""
+    return _comm("calls")
+
+
+def _comm(what: str) -> dict:
     snap = get_registry().snapshot()
-    return {k[len("comm.bytes."):]: v for k, v in snap.items() if k.startswith("comm.bytes.")}
+    head = f"comm.{what}."
+    return {k[len(head):]: v for k, v in snap.items() if k.startswith(head)}
 
 
 # --------------------------------------------------------------------- spawn

@@ -310,6 +310,20 @@ def forward_minibatch(
     return h[:n_targets] @ params["out"]
 
 
+def model_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block over `model` of the graphs it holds over the batch
+    axes (dim 0): blocks of ceil(G / model) graphs, the last ranks' short
+    or empty where `model` does not divide G (the molecule cell's 128
+    graphs on the 16x16 pod are 8 a data rank, one on each of the first 8
+    model ranks; the reference's GSPMD pads such a split and places the
+    graphs otherwise, for the same sums).  An even split is
+    ``L.constrain``'s."""
+    G = x.shape[0]
+    step = -(-G // mesh.axis_size(AXIS_MODEL))
+    i = mesh.index(AXIS_MODEL)
+    return x[min(i * step, G):min((i + 1) * step, G)]
+
+
 def forward_molecule(
     cfg: GNNConfig,
     params: dict,
@@ -326,10 +340,7 @@ def forward_molecule(
     (batch_axes x model), as the reference lays it out, and only those
     graphs are computed."""
     if mesh is not None:
-        have = P(tuple(batch_axes))
-        want = P(tuple(batch_axes) + (AXIS_MODEL,))
-        feats, edges, edge_mask = (L.constrain(x, want, mesh, have)
-                                   for x in (feats, edges, edge_mask))
+        feats, edges, edge_mask = (model_block(x, mesh) for x in (feats, edges, edge_mask))
     dt = cfg.compute_dtype
     G, n, d = feats.shape
     h = feats.reshape(G * n, d).to(dt)
@@ -342,7 +353,7 @@ def forward_molecule(
     counts = _counts(e)
     for lp in params["layers"]:
         h = sage_layer(lp, h, _mean(_sums(h, e), counts))
-    return h.reshape(G, n, -1).mean(dim=1) @ params["out"]
+    return h.reshape(G, n, h.shape[-1]).mean(dim=1) @ params["out"]
 
 
 # ----------------------------------------------------------------- training

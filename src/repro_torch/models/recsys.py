@@ -240,14 +240,17 @@ def abstract_params(cfg: RecsysConfig, num_shards: int = 1) -> dict:
 
 
 def param_specs(cfg: RecsysConfig, num_shards: int,
-                batch_axes: tuple[str, ...] = (AXIS_DATA,)) -> dict:
+                batch_axes: tuple[str, ...] = (AXIS_DATA,), like: dict | None = None) -> dict:
     """Embedding tables (``emb`` and ``wide``) row-sharded on ``model``
     (paper layout) or over the whole mesh (``mesh2d``); ``rep_table`` and
-    the dense params replicated."""
+    the dense params replicated.  ``like``, a tree of the params' structure
+    and leaf ranks (a rank's blocks or its gradients), spares building
+    ``abstract_params``: a step takes its specs so and allocates nothing
+    for them, not even on ``meta`` (the dry run counts meta storages)."""
     tables = {"emb": cfg.embedding(num_shards)}
     if cfg.separate_wide:
         tables["wide"] = cfg.wide_embedding(num_shards)
-    shapes = abstract_params(cfg, num_shards)
+    shapes = abstract_params(cfg, num_shards) if like is None else like
     out = {}
     for k, v in shapes.items():
         if k in tables:
@@ -589,7 +592,7 @@ def _reduce_grads(cfg: RecsysConfig, grads: dict, mesh,
     on: the dense leaves (and ``rep_table``) over the whole mesh, the tables
     over the data axes in the paper layout and nowhere in ``mesh2d``, where
     each row exists once."""
-    specs = param_specs(cfg, cfg.num_shards_for(mesh), batch_axes)
+    specs = param_specs(cfg, cfg.num_shards_for(mesh), batch_axes, like=grads)
     spec_of = {keystr(p): s for p, s in tree_flatten_with_path(specs, is_spec)}
     out = []
     for path, g in tree_flatten_with_path(grads):

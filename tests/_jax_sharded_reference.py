@@ -5,8 +5,8 @@
 
 Reads the inputs the test wrote (a .npz whose ``meta`` entry is the JSON case
 list) and runs the JAX package's sharded paths once under its (2, 4) mesh:
-every lookup case (its whole output, and the collective bytes
-``launch.hlo_analysis.analyze`` reads from its compiled HLO), ``lookup_rows``,
+every lookup case (its whole output, and the collective bytes and the
+FLOPs ``launch.hlo_analysis.analyze`` reads from its compiled HLO), ``lookup_rows``,
 ``chunked_lookup``, ``cache_partition_spec``, ``gather_rows``, ``jax.grad`` of the lookup (also under a (2, 2, 2) mesh
 with two batch axes), ``R.forward``, the loss and its
 gradients (global norm clipping) and one ``make_train_step``, on the
@@ -113,6 +113,7 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
             params, idx, msk, cache)
         out[f"lookup|{name}"] = np.asarray(got)
         out[f"hlo_bytes|{name}"] = np.float64(terms.collective_bytes_per_device)
+        out[f"hlo_flops|{name}"] = np.float64(terms.flops_per_device)
         for op, n in terms.collective_counts.items():
             out[f"hlo_calls|{name}|{op}"] = np.int64(n)
     case = meta["lookup_cases"]["hierarchical"]
@@ -120,6 +121,7 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
     got, terms = compiled(lambda p, i, m: emb.lookup_rows(p, i, m, mesh=mesh), params, idx, msk)
     out["lookup_rows"] = np.asarray(got)
     out["hlo_bytes|lookup_rows"] = np.float64(terms.collective_bytes_per_device)
+    out["hlo_flops|lookup_rows"] = np.float64(terms.flops_per_device)
     out["chunked_lookup"] = np.asarray(jax.jit(lambda p, i, m: chunked_lookup(
         emb, p, i, m, mesh, 2, batch_axes=BATCH_AXES))(params, idx, msk))
     spec = cache_partition_spec()
@@ -129,6 +131,7 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
                           jnp.asarray(d["row_ids"]))
     out["gather_rows"] = np.asarray(got)
     out["hlo_bytes|gather_rows"] = np.float64(terms.collective_bytes_per_device)
+    out["hlo_flops|gather_rows"] = np.float64(terms.flops_per_device)
 
     for mode in meta["grad_modes"]:
         case = meta["lookup_cases"][mode]
@@ -145,6 +148,7 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
             params, idx, msk)
         out[f"pod_lookup|{name}"] = np.asarray(got)
         out[f"hlo_bytes|pod|{name}"] = np.float64(terms.collective_bytes_per_device)
+        out[f"hlo_flops|pod|{name}"] = np.float64(terms.flops_per_device)
         g = jax.jit(jax.grad(lambda p, emb=emb: emb.lookup(
             p, idx, msk, mesh=mesh3, batch_axes=axes3).sum()))(params)
         out[f"pod_grad|{name}"] = np.asarray(g["table"])
@@ -330,6 +334,7 @@ def gnn(meta: dict, d: dict, mesh) -> dict:
                           params, b["feats"], b["edges"], b["edge_mask"])
     out["gnn|fwd|mesh"] = np.asarray(got)
     out["hlo_bytes|gnn_fwd"] = np.float64(terms.collective_bytes_per_device)
+    out["hlo_flops|gnn_fwd"] = np.float64(terms.flops_per_device)
     out["gnn|fwd|one"] = np.asarray(jax.jit(lambda p, f, e, m: JG.forward_full_graph(
         cfg, p, f, e, m, None))(params, b["feats"], b["edges"], b["edge_mask"]))
     adam = O.make_adam(1e-3)
@@ -340,6 +345,7 @@ def gnn(meta: dict, d: dict, mesh) -> dict:
             out[f"gnn|full_grads|{where}|{k}"] = v
         if m is not None:
             out["hlo_bytes|gnn_train"] = np.float64(terms.collective_bytes_per_device)
+            out["hlo_flops|gnn_train"] = np.float64(terms.flops_per_device)
         new_p, new_s, _ = jax.jit(JG.make_train_step_full(cfg, adam, m))(
             params, adam.init(params), b)
         for k, v in {**flat_np(new_p), **{"state" + k: v for k, v in flat_np(new_s).items()}
@@ -351,6 +357,7 @@ def gnn(meta: dict, d: dict, mesh) -> dict:
             cfg, p, f, e, m, mesh, comm_dtype=cdt), params, b["feats"], ep, mp)
         out[f"gnn|part|{comm}"] = np.asarray(got)
         out[f"hlo_bytes|gnn_part|{comm}"] = np.float64(terms.collective_bytes_per_device)
+        out[f"hlo_flops|gnn_part|{comm}"] = np.float64(terms.flops_per_device)
 
     JGR.SHAPES["minibatch_lg"] = {**JGR.SHAPES["minibatch_lg"], **gm["minibatch"],
                                   "fanout": tuple(gm["minibatch"]["fanout"])}
@@ -397,6 +404,7 @@ def gnn(meta: dict, d: dict, mesh) -> dict:
                 out[f"gnn|cell_step|{shape}|{where}|{k}"] = v
             if where == "mesh":
                 out[f"hlo_bytes|gnn_cell|{shape}"] = np.float64(terms.collective_bytes_per_device)
+                out[f"hlo_flops|gnn_cell|{shape}"] = np.float64(terms.flops_per_device)
     return out
 
 

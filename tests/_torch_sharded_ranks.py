@@ -33,6 +33,7 @@ BATCH_AXES = (AXIS_DATA,)
 # g / (|g| + 1e-8), which turns the rounding of a gradient near 1e-8 (the
 # collectives' summation order against XLA's) into a step 1e-4 apart.
 ADAM_EPS = 1e-3
+MOLECULE_UNEVEN = 3  # molecule graphs a data rank: over 4 model ranks 1, 1, 1, 0
 
 
 def specs_of(rows) -> list[TableSpec]:
@@ -467,6 +468,26 @@ def gnn(meta: dict, d: dict, mesh, out: dict) -> None:
         for k, v in {**flat_np(new_p),
                      **{"state" + k: v for k, v in flat_np(new_s).items()}}.items():
             res[f"gnn|cell_step|{shape}|{k}"] = v
+
+    # the molecule cell where `model` does not divide a data rank's graphs:
+    # MOLECULE_UNEVEN a data rank, blocks of one on the first model ranks and
+    # the last ones empty (``gnn.model_block``)
+    cell = GR.build_cell("molecule", mesh, False)
+    mparams = gnn_params(d, "gnn_cellp|molecule")
+    n = MOLECULE_UNEVEN * mesh.axis_size(AXIS_DATA)
+    batch = {k: L.constrain(v[:n], cell.in_shardings[2][k], mesh)
+             for k, v in nest(d, "gnn_cell|molecule").items()}
+    res["gnn|uneven|block_graphs"] = np.int64(G.model_block(batch["feats"], mesh).shape[0])
+    loss_fn = GR.molecule_loss(GR._cfg(GR.SHAPES["molecule"]), mesh, (AXIS_DATA,))
+    loss, grads = G.loss_and_grads(loss_fn, mparams, batch, mesh, axes)
+    res["gnn|uneven|loss"] = loss.numpy()
+    for k, v in flat_np(grads).items():
+        res[f"gnn|uneven|grads|{k}"] = v
+    new_p, new_s, met = cell.step_fn(mparams, adam.init(mparams), batch)
+    res["gnn|uneven|step_loss"] = met["loss"].numpy()
+    for k, v in {**flat_np(new_p),
+                 **{"state" + k: v for k, v in flat_np(new_s).items()}}.items():
+        res[f"gnn|uneven|step|{k}"] = v
 
 
 def echo_coords(rank: int, world: int, shape) -> dict:

@@ -495,11 +495,19 @@ def test_flash_decode_refuses_bad_input(args, exc, match):
 
 
 def test_ops_reject_other_devices():
-    meta = [t.to("meta") for t in _qkv()]
+    """A device other than cuda, cpu and meta (the dry run's, which takes
+    the card's route) raises, and so do tensors on two kinds of device."""
+    other = [types.SimpleNamespace(device=torch.device("xpu"), requires_grad=False)] * 4
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_attention(*meta)
+        ops.flash_attention(*other[:3])
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_decode(*[t.to("meta") for t in _decode_args()])
+        ops.flash_decode(*other)
+    q, k, v = _qkv()
+    with pytest.raises(ValueError, match="one device type"):
+        ops.flash_attention(q.to("meta"), k, v)
+    args = _decode_args()
+    with pytest.raises(ValueError, match="one device type"):
+        ops.flash_decode(*[t.to("meta") for t in args[:3]], args[3])
 
 
 def test_flash_decode_shard_refuses_the_sharded_combine():

@@ -428,11 +428,19 @@ def test_cpu_tensors_never_launch(rng):
 
 
 def test_wrappers_reject_other_devices():
+    """A device other than cuda, cpu and meta (the dry run's) raises, and so
+    do tensors on two kinds of device."""
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
+        HK.probe_gather_pool(other, other, other, other, 1)
+    with pytest.raises(ValueError, match="one device type"):
         HK.probe_gather_pool(torch.zeros(4, dtype=torch.int32, device="meta"),
                              torch.zeros(4, 8, device="meta"),
-                             torch.zeros(2, dtype=torch.int32, device="meta"),
+                             torch.zeros(2, dtype=torch.int32),
                              torch.zeros(2, device="meta"), 1)
+    with pytest.raises(ValueError, match="one device type"):
+        HK.scatter_update(torch.zeros(4, 8, device="meta"),
+                          torch.zeros(2, dtype=torch.int32), torch.zeros(2, 8, device="meta"))
 
 
 @pytest.mark.parametrize("name,symbols", [

@@ -69,12 +69,16 @@ GNN_MODULES = ["repro_torch.models.gnn", "repro_torch.data.graph_sampler",
                "repro_torch.configs.graphsage_reddit"]
 
 
+DRYRUN_MODULES = ["repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+                  "repro_torch.kernels.work"]
+
+
 @pytest.mark.parametrize("name", SHARDED_MODULES + REGISTRY_MODULES + MOE_LM_MODULES
-                         + GNN_MODULES)
+                         + GNN_MODULES + DRYRUN_MODULES)
 def test_sharded_path_modules_are_checked(name):
     """The modules of the sharded path, of the config registry, of the
-    MoE LM serving path and of the GNN are among those imported without jax
-    above and scanned for imports below."""
+    MoE LM serving path, of the GNN and of the dry run are among those
+    imported without jax above and scanned for imports below."""
     assert name in [_module_name(p) for p in PORT_FILES]
 
 

@@ -109,8 +109,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ops_reject_other_devices():
+    """A device other than cuda, cpu and meta (the dry run's) raises, and so
+    do tensors on two kinds of device."""
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.dot_interaction_triu(torch.zeros(2, 3, 8, device="meta"))
+        ops.dot_interaction_triu(types.SimpleNamespace(device=torch.device("xpu"),
+                                                       requires_grad=False))
+    with pytest.raises(ValueError, match="one device type"):
+        ops.embedding_bag(torch.zeros(4, 8, device="meta"), torch.zeros(4, dtype=torch.int32),
+                          torch.ones(4), 2)
 
 
 @pytest.mark.parametrize("mod", [K1, K2], ids=["embedding_bag", "dot_interaction"])
