@@ -255,16 +255,23 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 top-k set or kept experts differ is a near tie, counted
                 with its margin and left out), the rest at 1e-4 and 1e-3
                 (the ``lm_moe_f32`` path: K6 in f32 only, and K7);
-  9e. lm_sharded_decode — olmoe's widths at 2 layers in f32 on 4 gloo
-                ranks of the one card (``launch.mesh.spawn``, the params
-                and caches shared through CUDA IPC): mesh (1, 4) at B = 4,
-                positions over model, and (2, 2) at B = 1, positions over
-                both axes (long_500k's layout) against 32,768 positions,
-                with full, partial and empty shards and NaN past the steps'
-                rows; 8 ``decode_step``s under the mesh, each rank's logits
-                block against one device's decode on the card at 1e-4, K7's
-                shard mode once a layer a step on every rank, the bytes the
-                ring model's;
+  9e. lm_sharded_decode — on 4 gloo ranks of the one card
+                (``launch.mesh.spawn``, the params and caches shared through
+                CUDA IPC), each rank holding its blocks of the params in the
+                decode cell's layout (``mesh_param_specs``): olmoe's widths
+                at 2 layers in f32, heads and experts over model, at mesh
+                (1, 4) at B = 4, positions over model, and (2, 2) at B = 1,
+                positions over both axes (long_500k's layout) against
+                32,768 positions, 8 steps at 1e-4; qwen2-72b at full width,
+                2 layers, bf16 weights with FSDP over data, at mesh (2, 2)
+                in both layouts (B = 4 over data: weights gathered at use;
+                B = 1: partial products summed over data), 3 steps in
+                bf16 compute (TP_BF16_TOL) and 3 in f32 (TP_F32_TOL); full, partial and empty shards and NaN past the
+                steps' rows; each rank's logits block against one device's
+                decode on the card, K7's shard mode once a layer a step on
+                every rank, the bytes the ring model's, each rank's param
+                bytes a share of the whole (a quarter of qwen2's layer
+                matrices, half its embedding and head);
   9f. lm_moe_wide — each with everything before it freed: arctic-480b cut to
                 2 of its 35 layers (55.4 GB: 56 heads in groups of 7, 128
                 experts top-2 beside the dense FFN), qwen2-72b to 2 of 80
@@ -520,17 +527,27 @@ MOE_DEPTH_TOL = (1e-3, 1e-3)
 WIDE_CUTS = (("arctic-480b", 2), ("qwen2-72b", 2), ("llama3-405b", 1))
 WIDE_BATCH, WIDE_DECODE_STEPS = 1, 8  # prompts of LM_PROMPT tokens
 WIDE_CACHE = 4112  # the prompt + 8, padded to 16
-# lm_sharded_decode: olmoe's widths at 2 layers in f32 compute on 4 gloo
-# ranks of the one card, 8 steps each, the logits' blocks against one
-# device's decode on the card.  (name, mesh, batch, batch axes, sequence
+# lm_sharded_decode: on 4 gloo ranks of the one card, each rank holding its
+# blocks of the params in the decode cell's layout (``mesh_param_specs``),
+# the logits' blocks against one device's decode on the card.  olmoe's
+# widths at 2 layers in f32 compute, heads and experts over model (its
+# cell's ``fsdp_serve`` is off), 8 steps; qwen2-72b at full width, 2
+# layers, bf16 weights with FSDP over data (its cell's ``fsdp_serve``), 3
+# steps in bf16 compute and again in f32 compute (``qwen2_f32``, the same
+# weights; a B = 4 step gathers its weights through host memory, the
+# phase's slowest part).  (name, config, mesh, batch, batch axes, sequence
 # axes, cache positions, first position: shards full, partial and empty)
 SHARDED_DECODE_LAYERS = 2
-SHARDED_DECODE_STEPS = 8
+SHARDED_DECODE_TIMEOUT_S = 600  # qwen2's weight gathers go through host memory
+SHARDED_DECODE_STEPS = {"olmoe": 8, "qwen2": 3, "qwen2_f32": 3}
 SHARDED_DECODE_CASES = (
-    ("model_b4", (1, 4), 4, ("data",), ("model",), 4128, 2500),
-    ("all_axes_b1", (2, 2), 1, (), ("data", "model"), 32768, 20000),
+    ("model_b4", "olmoe", (1, 4), 4, ("data",), ("model",), 4128, 2500),
+    ("all_axes_b1", "olmoe", (2, 2), 1, (), ("data", "model"), 32768, 20000),
+    ("qwen2_fsdp_b4", "qwen2", (2, 2), 4, ("data",), ("model",), 4096, 2500),
+    ("qwen2_fsdp_b1", "qwen2", (2, 2), 1, (), ("data", "model"), 32768, 20000),
+    ("qwen2_f32_fsdp_b4", "qwen2_f32", (2, 2), 4, ("data",), ("model",), 4096, 2500),
+    ("qwen2_f32_fsdp_b1", "qwen2_f32", (2, 2), 1, (), ("data", "model"), 32768, 20000),
 )
-SHARDED_DECODE_TOL = (1e-4, 1e-4)
 K7P_SHARD = 1032  # K7's shard mode checked and timed on model_b4's shard
 # LM training (phases 9g-9k).  K6 with its row logsumexp and K6' against
 # their plain versions, (B, S, H, Hkv, dh, dtype, causal, timed): the
@@ -612,6 +629,14 @@ TP_F32_TOL = (1e-4, 1e-4)
 # runs through 2 layers and 8 decode steps.  A query head reading the
 # wrong KV head, or a sum left out or made twice, moves a row by its RMS.
 TP_BF16_TOL = (1.6e-2, 1.25e-1)
+# lm_sharded_decode's tolerances: olmoe f32 at 1e-4; qwen2-72b's f32 compute
+# at TP_F32_TOL and its bf16 compute by rows at TP_BF16_TOL, for the reason
+# given there: the ranks round their partials of the row-parallel products
+# (and under long_500k's FSDP of the column-parallel ones) to bf16 before
+# the sum.  LM_BF16_TOL's 2^-5 of the row's RMS is about bf16's own error
+# at these widths: one device's bf16-compute decode of a 2-layer, 2,048-wide
+# config on the CPU lies at 1.03 of it from the f32-compute decode.
+SHARDED_DECODE_TOL = {"olmoe": (1e-4, 1e-4), "qwen2": TP_BF16_TOL, "qwen2_f32": TP_F32_TOL}
 # The bf16 train pass's step-1 gradient blocks, by ``limit_share`` against
 # one device: two ulps plus 2^-2 of the row's RMS (a row: a gradient's last
 # dim).  Each data rank rounds its half of a weight gradient's sum over the
@@ -1017,49 +1042,121 @@ def routing_differs(name: str, a: list, b: list) -> tuple[torch.Tensor, list]:
     return flagged, margins
 
 
-def lm_decode_ring_bytes(cfg, b_local: int, g_seq: int, g_model: int, steps: int,
-                         heads: int) -> dict:
-    """A rank's bytes over ``steps`` sharded decode steps by the ring model:
-    the token embedding's all-reduce over model; each layer's max all-reduce
-    of the row maxima [B_l, H] and all-reduce of the scaled sums
-    [B_l, H, dh + 1] over the sequence axes, and the experts' all-reduce
-    [B_l, D] over model, f32 (the compute dtype)."""
-    model = 2 * b_local * cfg.d_model * 4 * (g_model - 1) / g_model
-    seq = 2 * b_local * heads * 4 * (g_seq - 1) / g_seq
-    return {"all_reduce": steps * (model + cfg.n_layers * (model + seq * (cfg.d_head + 1))),
-            "all_reduce_max": steps * cfg.n_layers * seq}
+def lm_decode_ring_bytes(cfg, shape: dict, b: int, batch_axes, seq_axes, fsdp_axes,
+                         steps: int) -> dict:
+    """A rank's bytes over ``steps`` of ``decode_step`` under a mesh of
+    ``shape`` by the ring model, the params in ``mesh_param_specs(cfg,
+    mesh, fsdp_axes)``: the token embedding's all-reduce [B_l, D] over
+    model; each layer's all-gathers over model of the rank's query heads
+    [B_l, Hp / tp, dh] and, where they divide tp, its KV heads; the max
+    all-reduce of the row maxima [B_l, Hp] and the all-reduce of the
+    scaled sums [B_l, Hp, dh + 1] over the sequence axes (f32); the
+    all-reduces over model of the ``wo`` and ``wd`` partials and of the
+    experts'.  Under ``cfg.fsdp`` with the batch over the FSDP axes every
+    layer weight's model block is all-gathered there (in the param
+    dtype); with no batch axes the residual's model dim is split over
+    them, and its partial products (the norms' sums of squares in f32, q,
+    k, v, the SwiGLU's columns, the head's) are all-reduced there, the
+    experts' input and rows all-gathered there.  Activations in the
+    compute dtype."""
+    act, par = cfg.compute_dtype.itemsize, cfg.param_dtype.itemsize
+
+    def size(axes):
+        return math.prod(shape[a] for a in axes)
+
+    def ar(n, g):
+        return 2 * n * (g - 1) / g
+
+    def ag(n, g):
+        return n * (g - 1) / g
+
+    tp, g_seq, bl = shape["model"], size(seq_axes), b // size(batch_axes)
+    fsdp = size(fsdp_axes) if cfg.fsdp else 1
+    partial = fsdp > 1 and not batch_axes
+    D, dh, hp = cfg.d_model, cfg.d_head, -(-cfg.n_heads // tp) * tp
+    kv = cfg.n_kv_heads % tp == 0
+    hl, hkv_l = hp // tp, cfg.n_kv_heads // (tp if kv else 1)
+    dm = D // fsdp if partial else D
+    experts = 3 * cfg.moe.num_experts // tp * D * cfg.moe.d_ff * par if cfg.moe else 0
+    out: dict = {}
+
+    def add(op, v):
+        if v:
+            out[op] = out.get(op, 0) + steps * v
+
+    add("all_reduce", ar(bl * D * act, tp))
+    for _ in range(cfg.n_layers):
+        add("all_gather", ag(bl * hp * dh * act, tp)
+            + (2 * ag(bl * cfg.n_kv_heads * dh * act, tp) if kv else 0))
+        add("all_reduce_max", ar(bl * hp * 4, g_seq))
+        add("all_reduce", ar(bl * hp * (dh + 1) * 4, g_seq) + ar(bl * dm * act, tp))
+        if cfg.dense_ffn():
+            add("all_reduce", ar(bl * dm * act, tp))
+        if cfg.moe:
+            add("all_reduce", ar(bl * D * act, tp))
+        if fsdp > 1 and not partial:
+            dense = 3 * D * cfg.d_ff // tp * par if cfg.dense_ffn() else 0
+            add("all_gather", ag(2 * D * hl * dh * par, fsdp) + 2 * ag(D * hkv_l * dh * par, fsdp)
+                + ag(dense, fsdp) + ag(experts, fsdp))
+        if partial:
+            add("all_reduce", 2 * ar(bl * 4, fsdp) + ar(bl * hl * dh * act, fsdp)
+                + 2 * ar(bl * hkv_l * dh * act, fsdp))
+            if cfg.dense_ffn():
+                add("all_reduce", 2 * ar(bl * cfg.d_ff // tp * act, fsdp))
+            if cfg.moe:
+                add("all_gather", ag(bl * D * act, fsdp) + ag(experts, fsdp))
+    if partial:
+        vp = -(-cfg.vocab // (128 * tp)) * 128 * tp
+        add("all_reduce", ar(bl * 4, fsdp) + ar(bl * vp // tp * act, fsdp))
+    return out
 
 
-def sharded_decode_config(base):
-    """lm_sharded_decode's config: olmoe's widths, cut to 2 layers, f32."""
-    return dataclasses.replace(base, n_layers=SHARDED_DECODE_LAYERS, param_dtype=torch.float32,
-                               compute_dtype=torch.float32)
+def sharded_decode_config(arch: str):
+    """lm_sharded_decode's config: olmoe's widths in f32, heads and experts
+    over model; or qwen2-72b's serving config (bf16 weights) with FSDP, in
+    bf16 compute or (``qwen2_f32``) f32; cut to SHARDED_DECODE_LAYERS
+    layers."""
+    from repro_torch.configs.lm_common import serving_config
+    from repro_torch.configs.olmoe_1b_7b import make_config as make_olmoe
+    from repro_torch.configs.qwen2_72b import make_config as make_qwen2
+
+    if arch == "olmoe":
+        return dataclasses.replace(make_olmoe(), n_layers=SHARDED_DECODE_LAYERS, fsdp=False,
+                                   param_dtype=torch.float32, compute_dtype=torch.float32)
+    cfg = dataclasses.replace(serving_config(make_qwen2()), n_layers=SHARDED_DECODE_LAYERS,
+                              fsdp=True)
+    return dataclasses.replace(cfg, compute_dtype=torch.float32) if arch == "qwen2_f32" else cfg
 
 
 def lm_sharded_rank(rank: int, world: int, params: dict, cases: list) -> dict:
     """One rank of the lm_sharded_decode phase (spawned by ``launch.mesh.spawn``
-    over gloo; ``params`` and each case's caches, tokens and one-device
-    logits are the main process's CUDA tensors, shared, never copied):
-    for each case its mesh, its blocks of the params
-    (``decode_param_specs``) and caches (``cache_specs``, copied: the steps
-    write them), SHARDED_DECODE_STEPS ``decode_step``s under the mesh with
-    the launch counts and bytes read around them, then its logits' blocks
-    against the one-device logits."""
-    from repro_torch.configs.olmoe_1b_7b import make_config
+    over gloo; ``params`` (by config) and each case's caches, tokens and
+    one-device logits are the main process's CUDA tensors, shared, never
+    copied): for each case its mesh, its blocks of the params
+    (``mesh_param_specs``, FSDP over the batch axes where the config has
+    it) and caches (``cache_specs``, copied: the steps write them), the
+    case's ``decode_step``s under the mesh with the launch counts and bytes
+    read around them, then its logits' blocks against the one-device
+    logits (f32 by ``assert_close``, bf16 by ``assert_close_rows``)."""
     from repro_torch.core.sharding import PartitionSpec as P
     from repro_torch.launch import mesh as M
     from repro_torch.models import layers as L
     from repro_torch.models import recsys as R
     from repro_torch.models import transformer as TF
+    from repro_torch.utils import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
-    cfg = sharded_decode_config(make_config())
     out: dict = {}
     for case in cases:
-        name, batch_axes, seq_axes = case["name"], case["batch_axes"], case["seq_axes"]
+        name, arch, cfg = case["name"], case["arch"], case["cfg"]
+        batch_axes, seq_axes, fsdp_axes = case["batch_axes"], case["seq_axes"], ("data",)
         mesh = M.Mesh(case["mesh"], ("data", "model"))
-        p = R.shard_params(params, TF.decode_param_specs(cfg), mesh)
+        p = R.shard_params(params[case["params"]], TF.mesh_param_specs(cfg, mesh, fsdp_axes),
+                           mesh)
+        held = {"layers": sum(t.numel() * t.element_size() for t in tree_leaves(p["layers"])),
+                "embed_and_head": sum(p[k].numel() * p[k].element_size()
+                                      for k in ("embed", "head"))}
         spec = TF.cache_specs(cfg, batch_axes, seq_axes)
         cache = tuple(L.constrain(c, spec, mesh).clone(memory_format=torch.contiguous_format)
                       for c in case["cache"])
@@ -1071,9 +1168,9 @@ def lm_sharded_rank(rank: int, world: int, params: dict, cases: list) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            for i in range(SHARDED_DECODE_STEPS):
+            for i in range(toks.shape[0]):
                 lg, cache = TF.decode_step(cfg, p, cache, toks[i], pos, mesh, batch_axes,
-                                           seq_axes)
+                                           seq_axes, fsdp_axes=fsdp_axes)
                 logits.append(lg)
                 pos += 1
         torch.cuda.synchronize()
@@ -1085,11 +1182,12 @@ def lm_sharded_rank(rank: int, world: int, params: dict, cases: list) -> dict:
         want = L.constrain(case["want"], P(None, batch_axes or None, "model"), mesh)
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"[lm_sharded_decode] rank {rank} {name}: logits not finite")
-        err = assert_close(f"[lm_sharded_decode] rank {rank} {name} {dict(mesh.coords)} "
-                           f"logits block {list(got.shape)} over {SHARDED_DECODE_STEPS} steps "
-                           "vs one device's decode", got, want, *SHARDED_DECODE_TOL)
+        label = (f"[lm_sharded_decode] rank {rank} {name} {dict(mesh.coords)} logits block "
+                 f"{list(got.shape)} over {toks.shape[0]} steps vs one device's decode")
+        check = assert_close_rows if cfg.compute_dtype == torch.bfloat16 else assert_close
+        err = check(label, got, want, *SHARDED_DECODE_TOL[arch])
         out[name] = {"coords": dict(mesh.coords), "launches": counts, "bytes": sent,
-                     "max_abs_err": err, "wall_s": wall,
+                     "max_abs_err": err, "wall_s": wall, "param_bytes": held,
                      "cache_block": list(cache[0].shape)}
         del p, cache, toks, logits, got, want
     return out
@@ -2497,8 +2595,8 @@ def lm_tp_prefill_ring_bytes(cfg, tp: int, dp: int, b_local: int, seq: int, step
     all-gathers of the hidden state [B_l, S, D] over model and two
     reduce-scatters into [B_l, S / tp, D] (or two all-reduces) and the
     weights' all-gathers over data; the last position's all-gather; the
-    handoff's all-gather of the KV heads; each decode step's embedding
-    all-reduce, and each layer's max and sum all-reduces of f32 partials."""
+    handoff's all-gather of the KV heads; the decode steps'
+    (``lm_decode_ring_bytes``)."""
     act, par = cfg.compute_dtype.itemsize, cfg.param_dtype.itemsize
     hid = b_local * seq * cfg.d_model * act
     out = {"all_gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0}
@@ -2512,10 +2610,9 @@ def lm_tp_prefill_ring_bytes(cfg, tp: int, dp: int, b_local: int, seq: int, step
         out["all_gather"] += cfg.n_layers * tp_layer_weights(cfg, tp, True) * par * (dp - 1) / dp
     caches = 2 * cfg.n_layers * b_local * seq * cfg.n_kv_heads * cfg.d_head * act
     out["all_gather"] += caches * (tp - 1) / tp
-    hp = -(-cfg.n_heads // tp) * tp
-    out["all_reduce"] += steps * (2 * b_local * cfg.d_model * act * (tp - 1) / tp + cfg.n_layers
-                                  * 2 * b_local * hp * (cfg.d_head + 1) * 4 * (tp - 1) / tp)
-    out["all_reduce_max"] = steps * cfg.n_layers * 2 * b_local * hp * 4 * (tp - 1) / tp
+    for op, v in lm_decode_ring_bytes(cfg, {"data": dp, "model": tp}, b_local * dp, ("data",),
+                                      ("model",), ("data",), steps).items():
+        out[op] = out.get(op, 0.0) + v
     return {k: v for k, v in out.items() if v}
 
 
@@ -2656,8 +2753,8 @@ def lm_tp_prefill_rank(rank: int, world: int, params: dict, cases: list) -> dict
     memory): under mesh (data 2, model 2), the rank's blocks of the params
     (``mesh_param_specs``: FSDP over data, heads and FFN columns over
     model), ``prefill`` of its prompt, ``caches_for_decode`` and
-    TP_DECODE_STEPS ``decode_step``s from them (params by
-    ``decode_param_specs``), profiled and with the launch counts and bytes
+    TP_DECODE_STEPS ``decode_step``s from them (the same params), profiled
+    and with the launch counts and bytes
     read around it; then its blocks of the last logits, the prefill's
     caches, each step's logits and the caches after the steps against the
     one device's."""
@@ -2676,7 +2773,6 @@ def lm_tp_prefill_rank(rank: int, world: int, params: dict, cases: list) -> dict
     for case, whole in zip(cases, params):
         name, cfg, want = case["name"], case["cfg"], case["want"]
         p = R.shard_params(whole, TF.mesh_param_specs(cfg, mesh, ba), mesh)
-        dp = R.shard_params(whole, TF.decode_param_specs(cfg), mesh)
         toks = L.constrain(case["tokens"], P(ba), mesh).to(dev)
         dec_toks = L.constrain(case["decode_tokens"], P(None, ba), mesh).to(dev)
         S = toks.shape[1]
@@ -2692,7 +2788,7 @@ def lm_tp_prefill_rank(rank: int, world: int, params: dict, cases: list) -> dict
                 logits = []
                 t1 = time.perf_counter()
                 for i in range(TP_DECODE_STEPS):
-                    lg, cache = TF.decode_step(cfg, dp, cache, dec_toks[i], pos, mesh, ba,
+                    lg, cache = TF.decode_step(cfg, p, cache, dec_toks[i], pos, mesh, ba,
                                                seq_axes)
                     logits.append(lg)
                     pos += 1
@@ -2736,7 +2832,7 @@ def lm_tp_prefill_rank(rank: int, world: int, params: dict, cases: list) -> dict
         out[name] = {"launches": counts, "profiled_kernels": prof, "bytes": sent,
                      "max_abs_err": errs, "limit_share": shares, "prefill_wall_s": prefill_s,
                      "decode_step_wall_s": step_s, "cache_block": list(cache[0].shape)}
-        del p, dp, last, caches, logits, cache
+        del p, last, caches, logits, cache
     return out
 
 
@@ -3357,7 +3453,8 @@ def main() -> int:
     from repro_torch.prefetch import ref as PREF
     from repro_torch.runtime.elastic import reshard_tables
     from repro_torch.runtime.serving import ATTR_STAGES, FlexEMRServer
-    from repro_torch.utils import keystr, tree_flatten_with_path, tree_size_bytes, tree_to
+    from repro_torch.utils import (keystr, tree_flatten_with_path, tree_leaves, tree_size_bytes,
+                                   tree_to)
 
     def require(path: str, counts: dict, names) -> None:
         missing = [n for n in names if counts[n] < 1]
@@ -5178,44 +5275,54 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------- lm_sharded_decode
-    sd_cfg = sharded_decode_config(make_olmoe())
-    sd_mesh = M.AbstractMesh(SHARDED_DECODE_CASES[0][1], ("data", "model"))
-    sd_params = TF.init_params(sd_cfg, seed=0, device=dev, mesh=sd_mesh)
+    sd_cfgs = {arch: sharded_decode_config(arch) for arch in SHARDED_DECODE_STEPS}
+    sd_from = {"olmoe": "olmoe", "qwen2": "qwen2", "qwen2_f32": "qwen2"}  # whose params
+    sd_params = {arch: TF.init_params(sd_cfgs[arch], seed=0, device=dev, mesh=M.AbstractMesh(
+        next(c[2] for c in SHARDED_DECODE_CASES if c[1] == arch), ("data", "model")))
+        for arch in set(sd_from.values())}
     sd_gen = torch.Generator(device=dev).manual_seed(4)
     sd_cases = []
     t_sd = time.perf_counter()
-    for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
-        cache = TF.init_decode_cache(sd_cfg, b, S_, device=dev)
+    for name, arch, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
+        cfg, steps = sd_cfgs[arch], SHARDED_DECODE_STEPS[arch]
+        cache = TF.init_decode_cache(cfg, b, S_, device=dev)
         for c in cache:  # the prompt's rows random, NaN past the steps' rows: never read
             c[:, :, :pos0].normal_(generator=sd_gen)
-            c[:, :, pos0 + SHARDED_DECODE_STEPS:] = float("nan")
-        toks = torch.randint(0, sd_cfg.vocab, (SHARDED_DECODE_STEPS, b), generator=sd_gen,
-                             device=dev, dtype=torch.int32)
+            c[:, :, pos0 + steps:] = float("nan")
+        toks = torch.randint(0, cfg.vocab, (steps, b), generator=sd_gen, device=dev,
+                             dtype=torch.int32)
         work = tuple(c.clone() for c in cache)
         pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
         want = []
         with torch.no_grad():
-            for i in range(SHARDED_DECODE_STEPS):
-                want.append(TF.decode_step(sd_cfg, sd_params, work, toks[i], pos)[0])
+            for i in range(steps):
+                want.append(TF.decode_step(cfg, sd_params[sd_from[arch]], work, toks[i],
+                                           pos)[0])
                 pos += 1
         del work
-        sd_cases.append({"name": name, "mesh": shape, "batch_axes": batch_axes,
-                         "seq_axes": seq_axes, "cache": cache, "tokens": toks, "pos": pos0,
-                         "want": torch.stack(want)})
+        sd_cases.append({"name": name, "arch": arch, "cfg": cfg, "params": sd_from[arch],
+                         "mesh": shape,
+                         "batch_axes": batch_axes, "seq_axes": seq_axes, "cache": cache,
+                         "tokens": toks, "pos": pos0, "want": torch.stack(want)})
     torch.cuda.synchronize()
     sd_one_device_s = time.perf_counter() - t_sd
     sd_out = M.spawn(lm_sharded_rank, SHARDED_RANKS, (sd_params, sd_cases),
-                     timeout=SHARDED_TIMEOUT_S)
-    sd_launches = {}
-    for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
+                     timeout=SHARDED_DECODE_TIMEOUT_S)
+    sd_launches, sd_ring = {}, {}
+    for name, arch, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES:
+        cfg, steps = sd_cfgs[arch], SHARDED_DECODE_STEPS[arch]
         sizes = dict(zip(("data", "model"), shape))
-        b_l = b // math.prod(sizes[a] for a in batch_axes)
-        g_seq = math.prod(sizes[a] for a in seq_axes)
-        ring = lm_decode_ring_bytes(sd_cfg, b_l, g_seq, sizes["model"], SHARDED_DECODE_STEPS,
-                                    sd_cfg.padded_heads(sd_mesh))
+        sd_ring[name] = ring = lm_decode_ring_bytes(cfg, sizes, b, batch_axes, seq_axes,
+                                                    ("data",), steps)
+        wp = sd_params[sd_from[arch]]
+        whole = {"layers": sum(t.numel() * t.element_size() for t in tree_leaves(wp["layers"])),
+                 "embed_and_head": sum(wp[k].numel() * wp[k].element_size()
+                                       for k in ("embed", "head"))}
+        share = {"layers": sizes["model"] * (sizes["data"] if cfg.fsdp else 1),
+                 "embed_and_head": sizes["model"]}
         for r, res in enumerate(sd_out):
             run = res[name]
-            want_k7 = sd_cfg.n_layers * SHARDED_DECODE_STEPS
+            want_k7 = cfg.n_layers * steps
             if run["launches"]["flash_decode_partial"] != want_k7 \
                     or run["launches"]["flash_decode"] != want_k7:
                 raise AssertionError(f"lm_sharded_decode rank {r} {name}: K7 launched "
@@ -5223,22 +5330,36 @@ def main() -> int:
             if run["bytes"] != ring:
                 raise AssertionError(f"lm_sharded_decode rank {r} {name}: bytes {run['bytes']}"
                                      f" != the ring model's {ring}")
+            # every matrix a share of the whole; norms, router and biases whole
+            for part, n in share.items():
+                if not run["param_bytes"][part] * n <= whole[part] * 1.01:
+                    raise AssertionError(f"lm_sharded_decode rank {r} {name}: holds "
+                                         f"{run['param_bytes'][part]} B of {part}, over 1/{n} "
+                                         f"of the whole {whole[part]} B")
             for k, v in run["launches"].items():
                 sd_launches[k] = sd_launches.get(k, 0) + v
+        log(f"  [lm_sharded_decode] {name}: param bytes per rank "
+            f"{[res[name]['param_bytes'] for res in sd_out]} of {whole}; K7 shard launches per "
+            f"rank {[res[name]['launches']['flash_decode_partial'] for res in sd_out]}; bytes "
+            f"per rank = the ring model's {ring}")
     log("[lm_sharded_decode] " + json.dumps({
-        "config": f"{sd_cfg.name} widths, {sd_cfg.n_layers} layers, f32",
+        "card": nvidia_smi(),
+        "configs": {arch: f"{cfg.name} widths, {cfg.n_layers} layers, params "
+                          f"{str(cfg.param_dtype)[6:]}, compute {str(cfg.compute_dtype)[6:]}, "
+                          f"fsdp {cfg.fsdp}" for arch, cfg in sd_cfgs.items()},
         "backend": "gloo, CUDA tensors staged through host memory (walls: no interconnect)",
         "one_device_reference_s": sd_one_device_s,
         "cases": {name: {
-            "mesh": {"data": shape[0], "model": shape[1]}, "batch": b,
+            "config": arch, "mesh": {"data": shape[0], "model": shape[1]}, "batch": b,
             "batch_axes": list(batch_axes), "seq_axes": list(seq_axes), "cache": S_,
-            "first_position": pos0, "steps": SHARDED_DECODE_STEPS,
+            "first_position": pos0, "steps": SHARDED_DECODE_STEPS[arch],
             "coords_per_rank": [r[name]["coords"] for r in sd_out],
+            "param_bytes_per_rank": [r[name]["param_bytes"] for r in sd_out],
             "cache_block_per_rank": [r[name]["cache_block"] for r in sd_out],
-            "bytes_per_rank": sd_out[0][name]["bytes"],
+            "bytes_per_rank": sd_out[0][name]["bytes"], "ring_model_bytes": sd_ring[name],
             "max_abs_err_per_rank": [r[name]["max_abs_err"] for r in sd_out],
             "steps_wall_s_per_rank": [r[name]["wall_s"] for r in sd_out],
-        } for name, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES},
+        } for name, arch, shape, b, batch_axes, seq_axes, S_, pos0 in SHARDED_DECODE_CASES},
         "launches": sd_launches,
     }))
     del sd_params, sd_cases, sd_out

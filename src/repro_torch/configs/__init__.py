@@ -29,10 +29,6 @@ class CellBuild:
     in_shardings: tuple  # tree of PartitionSpec, matching args
     donate_argnums: tuple[int, ...] = ()
     static_argnums: tuple[int, ...] = ()
-    # the layout the port's step takes its arguments in under a mesh, where
-    # it is not in_shardings (the reference's GSPMD reshards at entry): the
-    # LM decode cells' params by ``transformer.decode_param_specs``
-    arg_shardings: tuple | None = None
 
 
 @dataclasses.dataclass

@@ -15,9 +15,9 @@ and prefill cells' steps run the tensor-, sequence- and FSDP-parallel
 ``make_train_step`` and ``prefill`` (the params' layout is
 ``T.mesh_param_specs``: serving cells with ``fsdp_serve`` gather weight
 rows over the batch axes at use), Adafactor's reductions span the mesh;
-the decode cell's step is ``decode_step``'s sequence-sharded decode, which
-takes its params in the layout of ``T.decode_param_specs`` (the
-reference's GSPMD computes it from these specs).
+the decode cell's step is ``decode_step``'s sequence-sharded decode in the
+same layout, its weight rows FSDP-split over the cell's batch axes also
+where long_500k's B = 1 splits no batch (``fsdp_axes``).
 """
 from __future__ import annotations
 
@@ -118,12 +118,14 @@ def build_lm_cell(base_cfg: TransformerConfig, opt_kind: str, shape: str, mesh,
     tok_spec = P(dec_batch_axes) if dec_batch_axes else P(None)
 
     def serve_step(params, cache, tokens, pos):
-        return T.decode_step(cfg, params, cache, tokens, pos, mesh, dec_batch_axes, seq_axes)
+        # the weight rows stay FSDP-split over the cell's batch axes, also
+        # where B = 1 leaves the batch unsplit
+        return T.decode_step(cfg, params, cache, tokens, pos, mesh, dec_batch_axes, seq_axes,
+                             fsdp_axes=batch_axes)
 
     return CellBuild("serve_decode", serve_step,
                      (pshapes, cache_abs, _meta((B,), torch.int32), _meta((), torch.int32)),
-                     (pspecs, (cspec, cspec), tok_spec, P()), donate_argnums=(1,),
-                     arg_shardings=(T.decode_param_specs(cfg), (cspec, cspec), tok_spec, P()))
+                     (pspecs, (cspec, cspec), tok_spec, P()), donate_argnums=(1,))
 
 
 def lm_smoke(base_cfg: TransformerConfig, opt_kind: str = "adam", device="cuda") -> dict:

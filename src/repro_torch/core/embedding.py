@@ -89,6 +89,14 @@ def empty_cache(capacity: int, dim: int, dtype=torch.float32,
     )
 
 
+def _mesh2d_rows_refusal(what: str) -> str:
+    """Why ``what`` under a mesh reads the paper layout only."""
+    return (f"{what}(mesh=...) reads the paper layout: the reference's mesh2d {what} is not "
+            f"its one-device {what} (its shard_map offsets ids by mesh2d's rows_per_shard "
+            "after GSPMD reshards the table over model only), so it has no mesh2d result to "
+            "port")
+
+
 @dataclasses.dataclass
 class DisaggEmbedding:
     """Sharded, cached, pooling-pushdown embedding bag.
@@ -414,7 +422,7 @@ class DisaggEmbedding:
         if mesh is None:
             return self._gather_masked(params["table"], fused, mask)
         if self.mode == "mesh2d":
-            raise NotImplementedError("lookup_rows(mesh=...) reads the paper layout")
+            raise NotImplementedError(_mesh2d_rows_refusal("lookup_rows"))
         self._check_shard(params["table"])
         local = fused - mesh.coords[AXIS_MODEL] * tables.rows_per_shard
         hit = (local >= 0) & (local < tables.rows_per_shard) & mask
@@ -465,7 +473,7 @@ class DisaggEmbedding:
             rows = table[row_ids.clamp(0, tables.total_rows - 1).long()]
             return torch.where(valid[:, None], rows, zero)
         if self.mode == "mesh2d":
-            raise NotImplementedError("gather_rows(mesh=...) reads the paper layout")
+            raise NotImplementedError(_mesh2d_rows_refusal("gather_rows"))
         self._check_shard(table)
         rps = tables.rows_per_shard
         local = row_ids - mesh.coords[AXIS_MODEL] * rps

@@ -105,7 +105,7 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool, out_dir=OUT_DIR, rank: i
     mesh = M.DryMesh(*M.PRODUCTION_SHAPES[multi_pod], rank=rank)
     n_devices = math.prod(mesh.shape.values())
     build = configs.get(arch_id).build_cell(shape, mesh, multi_pod)
-    args = rank_blocks(build.args, build.arg_shardings or build.in_shardings, mesh)
+    args = rank_blocks(build.args, build.in_shardings, mesh)
     with hlo_analysis.Trace() as trace:
         out = build.step_fn(*args)
     mem = memory_analysis(args, [args[i] for i in build.donate_argnums], out, trace)

@@ -5,7 +5,7 @@ connection): token activations are replicated across the `model` axis
 (they are split over the batch axes only), so every expert shard can
 *locally* select the tokens routed to its experts, run its expert FFNs and
 contribute a partial token output; one all-reduce over `model` combines the
-partials (``models.transformer._moe_forward``).  That is the paper's
+partials (``models.transformer``'s layers).  That is the paper's
 hierarchical-pooling pattern applied to expert fan-out: each "server"
 (expert shard) reduces what it owns, and only [T, D]-sized partials cross
 the network, never the dispatched [E, C, D] buffers.

@@ -31,18 +31,21 @@ are all-gathered at use (``mesh_param_specs``).  Each rank's gradient is
 its block of the global gradient in its param's layout; ``prefill``'s
 caches go on to ``decode_step`` through ``caches_for_decode``.
 
-``decode_step`` is the reference's sequence-sharded decode: each rank holds
-its block of the KV caches (batch over ``batch_axes``, positions over
-``seq_axes``: ``cache_specs``) and of the params (``decode_param_specs``:
-the token table and the LM head by rows over `model`, the experts over
-`model`); attention is K7's shard mode and the flash-decoding combine over
-``seq_axes``, the token embedding the all-reduced lookup of
-``layers.sharded_vocab_embed``, the experts the all-reduced partials of
-``_moe_forward``, and the head gives the rank's vocab block of the logits.
-The rest of the layer runs whole on every rank: the reference's GSPMD
-computes the same values with tensor-parallel weights.  The geometry
-methods of ``TransformerConfig`` take the mesh (heads and vocab padded to
-the `model` axis); without one, tp is 1.
+``decode_step`` is the reference's sequence-sharded decode, in the same
+param layout: each rank holds its block of the KV caches (batch over
+``batch_axes``, positions over ``seq_axes``: ``cache_specs``); it computes
+its `model` block of the query heads (and of the KV heads where they
+divide tp) and all-gathers them over `model`, so that attention is K7's
+shard mode on its sequence shard and the flash-decoding combine over
+``seq_axes``; its ``wo`` and ``wd`` rows and its experts give partials
+summed over `model`; the token embedding is the all-reduced lookup of
+``layers.sharded_vocab_embed`` and the head gives the rank's vocab block
+of the logits.  Under FSDP it follows the reference's compiled program:
+with the batch over the FSDP axes the weights are gathered at use, with
+no batch axes (long_500k) the residual's model dim stays split over them
+and the partial products are all-reduced there (``_decode_parallel``).
+The geometry methods of ``TransformerConfig`` take the mesh (heads and
+vocab padded to the `model` axis); without one, tp is 1.
 """
 from __future__ import annotations
 
@@ -253,22 +256,6 @@ def layer_params(params: dict, li: int) -> dict:
     return {k: v[li] for k, v in params["layers"].items()}
 
 
-def decode_param_specs(cfg: TransformerConfig) -> dict:
-    """The layout ``decode_step`` takes its params in under a mesh: the
-    token table and the LM head by rows over `model` (the reference's), the
-    experts over `model` (the reference's expert parallelism), the rest
-    whole on every rank."""
-    keys = ["ln1", "ln2", "wq", "wk", "wv", "wo"]
-    keys += ["bq", "bk", "bv"] if cfg.qkv_bias else []
-    keys += ["wg", "wu", "wd"] if cfg.dense_ffn() else []
-    lyr = {k: PartitionSpec() for k in keys}
-    if cfg.moe is not None:
-        lyr["router"] = PartitionSpec()
-        lyr.update({k: PartitionSpec(None, AXIS_MODEL) for k in ("xg", "xu", "xd")})
-    return {"embed": PartitionSpec(AXIS_MODEL, None), "layers": lyr,
-            "final_ln": PartitionSpec(), "head": PartitionSpec(AXIS_MODEL, None)}
-
-
 # ------------------------------------------------------------------ forward
 
 
@@ -304,16 +291,19 @@ class _Parallel:
 ONE_DEVICE = _Parallel()
 
 
-def _parallel(cfg: TransformerConfig, mesh, batch_axes) -> _Parallel:
+def _parallel(cfg: TransformerConfig, mesh, batch_axes, fsdp_axes=None) -> _Parallel:
+    """The rank's ``_Parallel``: weight rows split over ``fsdp_axes``
+    (default ``batch_axes``) where ``cfg.fsdp``."""
     if mesh is None:
         return ONE_DEVICE
     batch_axes = tuple(batch_axes)
-    if not (cfg.fsdp and batch_axes):
+    fsdp_axes = batch_axes if fsdp_axes is None else tuple(fsdp_axes)
+    if not (cfg.fsdp and fsdp_axes):
         return _Parallel(mesh, batch_axes, (), cfg.seq_shard)
-    lyr = mesh_param_specs(cfg, mesh, batch_axes)["layers"]
+    lyr = mesh_param_specs(cfg, mesh, fsdp_axes)["layers"]
     dims = {name: d - 1 for name, spec in lyr.items() for d in range(1, len(spec))
-            if spec.axes_of(d) == batch_axes}
-    return _Parallel(mesh, batch_axes, batch_axes, cfg.seq_shard, dims)
+            if spec.axes_of(d) == fsdp_axes}
+    return _Parallel(mesh, batch_axes, fsdp_axes, cfg.seq_shard, dims)
 
 
 def mesh_param_specs(cfg: TransformerConfig, mesh,
@@ -348,40 +338,6 @@ def _moe_partial(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
                                                         par.mesh.coords[AXIS_MODEL])
     out, aux = MOE.moe_apply_local(params, h.reshape(B * S, D), cfg.moe, shards, shard)
     return out.reshape(B, S, D), aux
-
-
-def _moe_forward(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
-                 batch_axes: tuple[str, ...] = (AXIS_DATA,), with_aux: bool = True):
-    """Expert layer over h [B,S,D] -> (out [B,S,D], aux or None).  Under a
-    mesh the rank holds ``E / tp`` experts over `model` and its batch block
-    of h (replicated over `model`): local dispatch, then an all-reduce of
-    the partial over `model` (the hierarchical-pooling pattern, see
-    models/moe.py); aux, each block's Switch loss, is averaged over
-    ``batch_axes`` (GShard practice), and skipped without ``with_aux``."""
-    out, aux = _moe_partial(cfg, lp, h, _Parallel(mesh))
-    if mesh is None:
-        return out, aux if with_aux else None
-    out = M.reduce_from(out, (AXIS_MODEL,), mesh)
-    if not with_aux:
-        return out, None
-    if batch_axes:
-        aux = M.all_reduce(aux, batch_axes, mesh) / mesh.axis_size(batch_axes)
-    return out, aux
-
-
-def _ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor, mesh=None,
-         batch_axes: tuple[str, ...] = (AXIS_DATA,), with_aux: bool = True):
-    """The decode layer's FFN on the normed h: the dense SwiGLU, the
-    experts, or both summed (``moe_dense_residual``), as the reference adds
-    them to a zero; and the experts' aux loss (None without experts or
-    ``with_aux``)."""
-    out, aux = None, None
-    if cfg.dense_ffn():
-        out = _dense_ffn(cfg, lp, h)
-    if cfg.moe is not None:
-        moe_out, aux = _moe_forward(cfg, lp, h, mesh, batch_axes, with_aux)
-        out = moe_out if out is None else out + moe_out
-    return out, aux
 
 
 def _kv_for_heads(cfg: TransformerConfig, mesh, k: torch.Tensor) -> torch.Tensor:
@@ -777,9 +733,116 @@ def cache_specs(cfg: TransformerConfig, batch_axes: tuple[str, ...],
     return PartitionSpec(None, tuple(batch_axes) or None, tuple(seq_axes) or None, None, None)
 
 
+def _decode_parallel(cfg: TransformerConfig, mesh, batch_axes, fsdp_axes) -> tuple:
+    """``(par, partial)`` for ``decode_step``: the rank's ``_Parallel``, and
+    whether the residual stream is split over the FSDP axes along its model
+    dim.  With the batch over the FSDP axes (decode_32k) the layer weights
+    are all-gathered there at use, as the reference's compiled program
+    does; with FSDP and no batch axes (long_500k) no layer weight but the
+    experts is gathered: each rank keeps its block of the residual's model
+    dim, multiplies it by its rows of the column-parallel weights and
+    all-reduces the partial products over the FSDP axes (``partial``)."""
+    par = _parallel(cfg, mesh, batch_axes, fsdp_axes)
+    if par.fsdp_axes and par.batch_axes and par.fsdp_axes != par.batch_axes:
+        raise NotImplementedError(f"decode_step: FSDP over {par.fsdp_axes} with the batch over "
+                                  f"{par.batch_axes}")
+    return par, bool(par.fsdp_axes) and not par.batch_axes
+
+
+def _model_block(x: torch.Tensor, par: _Parallel, partial: bool) -> torch.Tensor:
+    """The rank's block of the last (model) dim of ``x`` under ``partial``,
+    else ``x``."""
+    if not partial:
+        return x
+    n = x.shape[-1] // par.mesh.axis_size(par.fsdp_axes)
+    i = par.mesh.index(par.fsdp_axes)
+    return x[..., i * n:(i + 1) * n]
+
+
+def _decode_norm(x: torch.Tensor, w: torch.Tensor, eps: float, par: _Parallel,
+                 partial: bool) -> torch.Tensor:
+    """``rms_norm``; under ``partial`` of the rank's block of the model dim,
+    its sum of squares all-reduced over the FSDP axes."""
+    if not partial:
+        return L.rms_norm(x, w, eps)
+    xf = x.to(torch.float32)
+    ss = M.all_reduce((xf * xf).sum(-1, keepdim=True), par.fsdp_axes, par.mesh)
+    var = ss / (x.shape[-1] * par.mesh.axis_size(par.fsdp_axes))
+    w = _model_block(w, par, partial).to(torch.float32)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def _decode_matmul(a: torch.Tensor, lp: dict, name: str, dt, par: _Parallel,
+                   partial: bool) -> torch.Tensor:
+    """``a`` times the rank's block of layer weight ``name``: gathered over
+    the FSDP axes at use, or under ``partial`` the rank's rows, whose
+    partial products (the rows of the model dim) are all-reduced over them;
+    a weight split there along its output dim gives the rank's block of
+    it."""
+    if not partial:
+        return a @ par.weight(lp, name).to(dt)
+    y = a @ lp[name].to(dt)
+    if par.fsdp_dims.get(name) == 0:
+        y = M.reduce_from(y, par.fsdp_axes, par.mesh)
+    return y
+
+
+def _decode_layer(cfg: TransformerConfig, lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos: torch.Tensor, cache_len: torch.Tensor, start,
+                  combine: tuple, par: _Parallel, partial: bool) -> torch.Tensor:
+    """One layer of ``decode_step`` on x [B, 1, D] (under ``partial`` the
+    rank's block of D): writes the new K/V row into the layer's caches in
+    place and returns the new residual.  Under a mesh the rank computes its
+    `model` block of the query heads (and of the KV heads where they divide
+    tp, else every KV head), all-gathers them over `model` for K7's shard
+    mode on its sequence shard, multiplies its block of the heads' output
+    by its ``wo`` rows and its SwiGLU columns by its ``wd`` rows, and sums
+    both partials over `model`; the experts run as ``_moe_partial`` on the
+    whole normed state, their partial summed over `model`."""
+    dt, dh, mesh = cfg.compute_dtype, cfg.d_head, par.mesh
+    B = x.shape[0]
+    mm = functools.partial(_decode_matmul, lp=lp, dt=dt, par=par, partial=partial)
+    h = _decode_norm(x, lp["ln1"], cfg.norm_eps, par, partial)
+    q = mm(h, name="wq").reshape(B, -1, dh)
+    k_new = mm(h, name="wk").reshape(B, -1, dh)
+    v_new = mm(h, name="wv").reshape(B, -1, dh)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(dt).reshape(-1, dh)
+        k_new = k_new + lp["bk"].to(dt).reshape(-1, dh)
+        v_new = v_new + lp["bv"].to(dt).reshape(-1, dh)
+    posb = pos.reshape(1, 1)
+    q = L.apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
+    k_new = L.apply_rope(k_new[:, None], posb, cfg.rope_theta)[:, 0]
+    tp = cfg.tp(mesh)
+    if tp > 1:  # K7's shard mode takes every head, contiguous, on each sequence shard
+        q = M.all_gather(q, (AXIS_MODEL,), mesh, dim=1).contiguous()
+        if cfg.kv_sharded(mesh):
+            k_new = M.all_gather(k_new, (AXIS_MODEL,), mesh, dim=1)
+            v_new = M.all_gather(v_new, (AXIS_MODEL,), mesh, dim=1)
+    k_c = L.kv_cache_update_shard(k_cache, k_new, pos, start)
+    v_c = L.kv_cache_update_shard(v_cache, v_new, pos, start)
+    attn = L.flash_decode_shard(q, k_c, v_c, cache_len, start, combine, mesh)
+    if tp > 1:
+        hl = attn.shape[1] // tp
+        attn = attn[:, mesh.coords[AXIS_MODEL] * hl:(mesh.coords[AXIS_MODEL] + 1) * hl]
+    x = x + L.out_of_model(mm(attn.reshape(B, 1, -1), name="wo"), mesh, False)
+    h = _decode_norm(x, lp["ln2"], cfg.norm_eps, par, partial)
+    ffn = None
+    if cfg.dense_ffn():
+        g = torch.nn.functional.silu(mm(h, name="wg")) * mm(h, name="wu")
+        ffn = L.out_of_model(mm(g, name="wd"), mesh, False)
+    if cfg.moe is not None:
+        whole = M.all_gather(h, par.fsdp_axes, mesh, dim=-1) if partial else h
+        moe_out = _model_block(L.out_of_model(_moe_partial(cfg, lp, whole, par)[0], mesh, False),
+                               par, partial)
+        ffn = moe_out if ffn is None else ffn + moe_out
+    return x + ffn
+
+
 def decode_step(cfg: TransformerConfig, params: dict, cache, tokens: torch.Tensor,
                 pos: torch.Tensor, mesh=None, batch_axes: tuple[str, ...] = (AXIS_DATA,),
-                seq_axes: tuple[str, ...] = (AXIS_MODEL,)):
+                seq_axes: tuple[str, ...] = (AXIS_MODEL,),
+                fsdp_axes: tuple[str, ...] | None = None):
     """One autoregressive step: tokens [B] at position ``pos`` (an int32
     scalar tensor on the params' device) against caches [L,B,S,Hkv,dh].
 
@@ -791,22 +854,24 @@ def decode_step(cfg: TransformerConfig, params: dict, cache, tokens: torch.Tenso
 
     Under ``mesh`` every argument is this rank's block: tokens of its batch
     block (``batch_axes``), the caches by ``cache_specs(cfg, batch_axes,
-    seq_axes)``, the params by ``decode_param_specs(cfg)`` with heads and
-    vocab padded for the mesh; the logits are its [B_l, Vp / tp] block of
-    the reference's ``P(batch_axes, model)``.  Every rank writes the new rows
-    into its shard only (position ``pos`` lives on one), attends over its
-    shard with K7's shard mode and combines over ``seq_axes``.  With
-    ``batch_axes=()`` and ``seq_axes`` every axis this is the long_500k
-    layout (B = 1)."""
+    seq_axes)``, the params by ``mesh_param_specs(cfg, mesh, fsdp_axes)``
+    (``fsdp_axes`` defaults to ``batch_axes``; a serving cell passes its
+    own batch axes, which long_500k's ``batch_axes=()`` leaves out) with
+    heads and vocab padded for the mesh; the logits are its [B_l, Vp / tp]
+    block of the reference's ``P(batch_axes, model)``.  Every rank writes
+    the new rows into its shard only (position ``pos`` lives on one),
+    attends over its shard with K7's shard mode and combines over
+    ``seq_axes`` (``_decode_layer``; the FSDP layouts in
+    ``_decode_parallel``).  With ``batch_axes=()`` and ``seq_axes`` every
+    axis this is the long_500k layout (B = 1)."""
     if pos.dim() != 0:
         raise NotImplementedError("decode_step: pos must be a scalar (one position "
                                   "for the whole batch)")
     dt = cfg.compute_dtype
-    B = tokens.shape[0]
-    Hp, Hkv, dh = cfg.padded_heads(mesh), cfg.n_kv_heads, cfg.d_head
+    par, partial = _decode_parallel(cfg, mesh, batch_axes, fsdp_axes)
     k_cache, v_cache = cache
     x = L.sharded_vocab_embed(params["embed"], tokens[:, None], mesh, out_dtype=dt)
-    posb = pos.reshape(1, 1)
+    x = _model_block(x, par, partial)
     cache_len = (pos + 1).to(torch.int32)
     start, combine = 0, ()
     if mesh is not None and seq_axes:
@@ -814,23 +879,10 @@ def decode_step(cfg: TransformerConfig, params: dict, cache, tokens: torch.Tenso
         start = torch.full((), mesh.index(combine) * k_cache.shape[2], dtype=torch.int32,
                            device=pos.device)
     for li in range(cfg.n_layers):
-        lp = layer_params(params, li)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = (h @ lp["wq"].to(dt)).reshape(B, Hp, dh)
-        k_new = (h @ lp["wk"].to(dt)).reshape(B, Hkv, dh)
-        v_new = (h @ lp["wv"].to(dt)).reshape(B, Hkv, dh)
-        if cfg.qkv_bias:
-            q = q + lp["bq"].to(dt).reshape(Hp, dh)
-            k_new = k_new + lp["bk"].to(dt).reshape(Hkv, dh)
-            v_new = v_new + lp["bv"].to(dt).reshape(Hkv, dh)
-        q = L.apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
-        k_new = L.apply_rope(k_new[:, None], posb, cfg.rope_theta)[:, 0]
-        k_c = L.kv_cache_update_shard(k_cache[li], k_new, pos, start)
-        v_c = L.kv_cache_update_shard(v_cache[li], v_new, pos, start)
-        attn = L.flash_decode_shard(q, k_c, v_c, cache_len, start, combine, mesh)
-        x = x + attn.reshape(B, 1, Hp * dh) @ lp["wo"].to(dt)
-        ffn, _ = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), mesh, batch_axes,
-                      with_aux=False)
-        x = x + ffn
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x[:, 0] @ params["head"].to(dt).T, (k_cache, v_cache)
+        x = _decode_layer(cfg, layer_params(params, li), x, k_cache[li], v_cache[li], pos,
+                          cache_len, start, combine, par, partial)
+    x = _decode_norm(x, params["final_ln"], cfg.norm_eps, par, partial)
+    logits = x[:, 0] @ _model_block(params["head"].to(dt), par, partial).T
+    if partial:
+        logits = M.reduce_from(logits, par.fsdp_axes, mesh)
+    return logits, (k_cache, v_cache)

@@ -13,7 +13,9 @@ gradients (global norm clipping) and one ``make_train_step``, on the
 test's params; then the other recsys archs' forward, loss, gradients and one
 step, and ``retrieval_topk`` and ``mind_retrieval``; the LM's
 ``sharded_vocab_embed`` and ``transformer.decode_step`` under the mesh, a
-few steps of each decode case.  Outputs are the whole logical arrays, keyed
+few steps of each decode case, its params placed by the serving cell's
+``param_specs`` (FSDP over data where the case asks), with the collective
+bytes and FLOPs of its compiled step.  Outputs are the whole logical arrays, keyed
 as the port's side keys its blocks.  With a third argument ``lm_tp`` it runs
 only the LM's tensor-, sequence- and FSDP-parallel cases instead (``lm_tp``:
 ``forward``, ``prefill`` and ``decode_step`` from its caches, and
@@ -27,12 +29,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
 from repro.compat import make_mesh
 from repro.core.embedding import (DisaggEmbedding, make_cache_from_table,
@@ -73,6 +77,32 @@ def nest(flat: dict, prefix: str) -> dict:
 def flat_np(tree) -> dict:
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     return {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
+
+
+def placed(tree, specs, mesh):
+    """``tree`` put on the mesh by ``specs`` (a tree of PartitionSpec), as a
+    cell's ``in_shardings`` place its arguments."""
+    return jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), tree, specs,
+                        is_leaf=lambda x: isinstance(x, P))
+
+
+_IOTA_GROUPS = re.compile(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?")
+
+
+def explicit_groups(hlo_text: str) -> str:
+    """The HLO text with every iota replica-group list (``[4,2]<=[2,4]T(1,0)``)
+    written out as ``{{0,4},{1,5},...}``: ``analyze`` reads a group's size
+    from the untransposed iota form only and takes a transposed one (the
+    groups over `data` of a (data, model) mesh) for the whole mesh."""
+    def expand(m):
+        ids = np.arange(int(np.prod([int(x) for x in m.group(3).split(",")])))
+        ids = ids.reshape([int(x) for x in m.group(3).split(",")])
+        if m.group(4):
+            ids = ids.transpose([int(x) for x in m.group(4).split(",")])
+        rows = ids.reshape(int(m.group(1)), int(m.group(2)))
+        return "replica_groups={" + ",".join("{" + ",".join(map(str, r)) + "}"
+                                             for r in rows) + "}"
+    return _IOTA_GROUPS.sub(expand, hlo_text)
 
 
 def compiled(fn, *args):
@@ -227,21 +257,45 @@ def main(inputs_path: str, outputs_path: str, part: str = "main") -> None:
     out["vocab_embed"] = np.asarray(jax.jit(lambda t, tok: JL.sharded_vocab_embed(
         t, tok, mesh, BATCH_AXES, out_dtype=jnp.float32))(jnp.asarray(d["embed_table"]),
                                                           jnp.asarray(d["embed_tokens"])))
-    cfg = JT.TransformerConfig(**meta["lm"], moe=MoEConfig(**meta["lm_moe"]),
-                               compute_dtype=jnp.float32, remat_groups=1)
-    lm_params = nest(d, "lm")
-    for name, (_, batch_axes, seq_axes) in meta["lm_decode_cases"].items():
-        step = jax.jit(lambda p, c, t, pos, ba=tuple(batch_axes), sa=tuple(seq_axes):
+    base = JT.TransformerConfig(**meta["lm"], moe=MoEConfig(**meta["lm_moe"]),
+                                compute_dtype=jnp.float32, remat_groups=1)
+    for name, (b, batch_axes, seq_axes, fsdp, inputs) in meta["lm_decode_cases"].items():
+        ba, sa = tuple(batch_axes), tuple(seq_axes)
+        # the serving cell's layout: param_specs with FSDP over the batch axes
+        cfg = dataclasses.replace(base, fsdp=fsdp)
+        pspecs = JT.param_specs(cfg, mesh, fsdp, BATCH_AXES)
+        step = jax.jit(lambda p, c, t, pos, cfg=cfg, ba=ba, sa=sa:
                        JT.decode_step(cfg, p, c, t, pos, mesh, ba, sa))
-        cache = (jnp.asarray(d[f"lm_cache|{name}|k"]), jnp.asarray(d[f"lm_cache|{name}|v"]))
+        cache = (jnp.asarray(d[f"lm_cache|{inputs}|k"]), jnp.asarray(d[f"lm_cache|{inputs}|v"]))
+        lm_params = placed(nest(d, "lm"), pspecs, mesh)
         logits = []
-        for i, toks in enumerate(d[f"lm_tokens|{name}"]):
+        for i, toks in enumerate(d[f"lm_tokens|{inputs}"]):
             lg, cache = step(lm_params, cache, jnp.asarray(toks),
                              jnp.asarray(meta["lm_pos"] + i, jnp.int32))
             logits.append(np.asarray(lg))
         out[f"lm_decode|{name}|logits"] = np.stack(logits)
         out[f"lm_decode|{name}|k"] = np.asarray(cache[0])
         out[f"lm_decode|{name}|v"] = np.asarray(cache[1])
+        # the same step at lm_hlo_d_head compiled from its arguments' shapes
+        # and layouts (the decode cell's), for its collective bytes and FLOPs
+        hcfg = dataclasses.replace(cfg, d_head=meta["lm_hlo_d_head"])
+        cshape = (hcfg.n_layers, b, d[f"lm_cache|{inputs}|k"].shape[2], hcfg.n_kv_heads,
+                  hcfg.d_head)
+
+        def sds(shape, dtype, spec):
+            return jax.ShapeDtypeStruct(shape, dtype, sharding=NamedSharding(mesh, spec))
+
+        args = (jax.tree.map(lambda x, s: sds(x.shape, x.dtype, s), JT.abstract_params(
+                    hcfg, mesh), JT.param_specs(hcfg, mesh, fsdp, BATCH_AXES),
+                    is_leaf=lambda x: isinstance(x, P)),
+                (sds(cshape, jnp.float32, JT.cache_specs(hcfg, ba, sa)),) * 2,
+                sds((b,), jnp.int32, P(ba or None)), sds((), jnp.int32, P()))
+        text = jax.jit(lambda p, c, t, pos, cfg=hcfg, ba=ba, sa=sa: JT.decode_step(
+            cfg, p, c, t, pos, mesh, ba, sa)).lower(*args).compile().as_text()
+        terms = analyze(explicit_groups(text), 8)
+        n = len(d[f"lm_tokens|{inputs}"])  # the steps, each this program
+        out[f"hlo_bytes|lm_decode|{name}"] = np.float64(n * terms.collective_bytes_per_device)
+        out[f"hlo_flops|lm_decode|{name}"] = np.float64(n * terms.flops_per_device)
     out.update(gnn(meta, d, mesh))
     np.savez(outputs_path, **out)
 
@@ -277,9 +331,10 @@ def lm_tp(meta: dict, d: dict, mesh) -> dict:
         pad = ((0, 0), (0, 0), (0, meta["lm_tp_max_len"] - toks.shape[1]), (0, 0), (0, 0))
         cache = (jnp.pad(k, pad), jnp.pad(v, pad))
         step = jax.jit(lambda p, c, t, pos: JT.decode_step(cfg, p, c, t, pos, m, ba, ("model",)))
+        dparams = placed(params, JT.param_specs(cfg, m, True, ba), m)  # the decode cell's
         dec = []
         for i, t in enumerate(d[f"lmtp_decode_tokens|{name}"]):
-            lg, cache = step(params, cache, jnp.asarray(t), jnp.asarray(toks.shape[1] + i, jnp.int32))
+            lg, cache = step(dparams, cache, jnp.asarray(t), jnp.asarray(toks.shape[1] + i, jnp.int32))
             dec.append(np.asarray(lg))
         out[f"lmtp|{name}|decode"] = np.stack(dec)
         out[f"lmtp|{name}|decode_k"], out[f"lmtp|{name}|decode_v"] = map(np.asarray, cache)

@@ -75,10 +75,12 @@ def arch_cfg(meta: dict, name: str) -> R.RecsysConfig:
                           **kw, **case["over"])
 
 
-def lm_cfg(meta: dict) -> T.TransformerConfig:
-    """The tiny MoE LM of the sharded decode cases, f32 compute."""
+def lm_cfg(meta: dict, fsdp: bool = False) -> T.TransformerConfig:
+    """The tiny MoE LM of the sharded decode cases, f32 compute; with
+    ``fsdp`` its weight rows split over the batch axes (a serving cell's
+    ``fsdp_serve``)."""
     return T.TransformerConfig(**meta["lm"], moe=MOE.MoEConfig(**meta["lm_moe"]),
-                               compute_dtype=torch.float32)
+                               compute_dtype=torch.float32, fsdp=fsdp)
 
 
 def optimizer() -> O.Optimizer:
@@ -267,14 +269,14 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
         L.constrain(torch.from_numpy(d["embed_tokens"]), batch_p, mesh), mesh,
         out_dtype=torch.float32).numpy()
     out["bytes"]["vocab_embed"] = _bytes_since(before)
-    cfg = lm_cfg(meta)
-    lm_params = R.shard_params(nest(d, "lm"), T.decode_param_specs(cfg), mesh)
-    for name, (_, batch_axes, seq_axes) in meta["lm_decode_cases"].items():
+    for name, (_, batch_axes, seq_axes, fsdp, inputs) in meta["lm_decode_cases"].items():
         batch_axes, seq_axes = tuple(batch_axes), tuple(seq_axes)
+        cfg = lm_cfg(meta, fsdp)
+        lm_params = R.shard_params(nest(d, "lm"), T.mesh_param_specs(cfg, mesh, BATCH_AXES), mesh)
         spec = T.cache_specs(cfg, batch_axes, seq_axes)
-        cache = tuple(L.constrain(torch.from_numpy(d[f"lm_cache|{name}|{kv}"]), spec,
+        cache = tuple(L.constrain(torch.from_numpy(d[f"lm_cache|{inputs}|{kv}"]), spec,
                                   mesh).contiguous() for kv in ("k", "v"))
-        toks = L.constrain(torch.from_numpy(d[f"lm_tokens|{name}"]),
+        toks = L.constrain(torch.from_numpy(d[f"lm_tokens|{inputs}"]),
                            P(None, batch_axes or None), mesh)
         logits = []
         before = M.comm_bytes()
@@ -282,7 +284,7 @@ def run(rank: int, world: int, inputs_path: str) -> dict:
             for i in range(meta["lm_steps"]):
                 pos = torch.tensor(meta["lm_pos"] + i, dtype=torch.int32)
                 lg, cache = T.decode_step(cfg, lm_params, cache, toks[i], pos, mesh,
-                                          batch_axes, seq_axes)
+                                          batch_axes, seq_axes, fsdp_axes=BATCH_AXES)
                 logits.append(lg)
         out["bytes"][f"lm_decode|{name}"] = _bytes_since(before)
         out["outputs"][f"lm_decode|{name}|logits"] = torch.stack(logits).numpy()
@@ -321,8 +323,8 @@ def lm_tp(meta: dict, d: dict, mesh, mesh3, out: dict) -> None:
     ``forward`` and ``prefill`` on its blocks (``mesh_param_specs``; the
     Adafactor case's prefill through its ``build_lm_cell`` serving cell
     with ``fsdp_serve``, bf16 params, which the inputs' values survive),
-    ``caches_for_decode`` and ``decode_step``s from them (params by
-    ``decode_param_specs``), the gradients and one Adam step of
+    ``caches_for_decode`` and ``decode_step``s from them (the same params),
+    the gradients and one Adam step of
     ``make_train_step`` with ``fsdp`` and 2 microbatches, and the Adafactor
     case's train cell's step; with the bytes counted by each part."""
     from repro_torch.configs import lm_common
@@ -354,13 +356,12 @@ def lm_tp(meta: dict, d: dict, mesh, mesh3, out: dict) -> None:
             res[f"lmtp|{name}|prefill_k"], res[f"lmtp|{name}|prefill_v"] = (
                 c.numpy() for c in caches)
             cache = T.caches_for_decode(cfg, caches, meta["lm_tp_max_len"], m, ba)
-            dparams = R.shard_params(whole, T.decode_param_specs(cfg), m)
             dec_toks = L.constrain(torch.from_numpy(d[f"lmtp_decode_tokens|{name}"]),
                                    P(None, ba), m)
             dec = []
             for i in range(dec_toks.shape[0]):
                 pos = torch.tensor(toks.shape[1] + i, dtype=torch.int32)
-                lg, cache = T.decode_step(cfg, dparams, cache, dec_toks[i], pos, m, ba,
+                lg, cache = T.decode_step(cfg, params, cache, dec_toks[i], pos, m, ba,
                                           ("model",))
                 dec.append(lg)
         out["bytes"][f"lmtp_prefill|{name}"] = _bytes_since(before)

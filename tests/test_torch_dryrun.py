@@ -10,8 +10,9 @@ here; tensors on two devices refused; a ``DryMesh``'s collectives against
 the ring model, their refusal of other tensors and a real mesh's of meta;
 ``run_cell`` for every registry arch at every shape on both production
 meshes (the LMs cut to 2 layers by replacing their config in the
-registry), its record's keys against the reference's ``run_cell``'s; and
-two ranks' terms equal through the CLI.
+registry), its record's keys against the reference's ``run_cell``'s; each
+rank's argument bytes of every LM decode cell at full depth, under 80 GB;
+and two ranks' terms equal through the CLI.
 """
 import ast
 import dataclasses
@@ -459,6 +460,28 @@ def test_run_cell_on_the_production_meshes(cut_lms, tmp_path, capsys, arch_id, s
     on_disk = json.loads((tmp_path / f"{arch_id}__{shape}__{rec['mesh']}.json").read_text())
     assert on_disk == json.loads(json.dumps(rec))
     assert f"== {arch_id} x {shape} x {rec['mesh']}" in capsys.readouterr().out
+
+
+DECODE_CELLS = [(a, s) for a in sorted(configs.REGISTRY) if configs.get(a).kind.startswith("lm")
+                for s in configs.get(a).shapes if LC.LM_SHAPES[s]["kind"] == "decode"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch_id,shape", DECODE_CELLS, ids=[f"{a}-{s}" for a, s in DECODE_CELLS])
+def test_decode_cell_arguments_fit_an_h100_at_full_depth(arch_id, shape, multi_pod):
+    """Each rank's blocks of an LM decode cell's arguments (its params in
+    the cell's ``in_shardings``, which its step takes, and its caches) at
+    full depth on both production meshes, cut on meta without tracing: below
+    an H100's 80 GB; the query and output projections a tp-th of the whole
+    or less."""
+    mesh = M.DryMesh(*M.PRODUCTION_SHAPES[multi_pod])
+    build = configs.get(arch_id).build_cell(shape, mesh, multi_pod)
+    args = D.rank_blocks(build.args, build.in_shardings, mesh)
+    per_rank = D._bytes(D._tensors(args))
+    assert 0 < per_rank < H.HBM_BYTES
+    for name in ("wq", "wo"):
+        whole, block = (a[0]["layers"][name].numel() for a in (build.args, args))
+        assert block * mesh.shape["model"] <= whole
 
 
 def test_every_rank_gives_the_same_terms(tmp_path):

@@ -170,7 +170,8 @@ def test_moe_apply_local_matches_jax(case, shards, rng, monkeypatch):
 
 def test_moe_shards_sum_to_the_whole(rng):
     """The partials of every expert shard sum to the unsharded output (the
-    all-reduce over `model` of _moe_forward), drops included."""
+    all-reduce over `model` of the transformer's expert layer), drops
+    included."""
     p, x = _moe_inputs(rng, 64, ties=True)
     cfg = TM.MoEConfig(num_experts=E, top_k=K, d_ff=F, capacity_factor=0.75)
     tp = {k: torch.from_numpy(v) for k, v in p.items()}

@@ -15,7 +15,10 @@ decode: a tiny MoE transformer with the dense residual (6 heads padded to 8
 and vocab 128 to 512 at tp 4), 4 decode steps by ``transformer.decode_step``
 under the mesh at B = 4 (batch over data, positions over model) and in the
 long_500k layout at B = 1 (positions over both axes), across a shard
-boundary and with empty shards, and ``layers.sharded_vocab_embed``; and
+boundary and with empty shards, with the params in the serving cell's
+layout (heads, FFN columns and experts over model; in the ``_fsdp`` cases
+the weight rows over data too, the reference's params placed so), and
+``layers.sharded_vocab_embed``; and
 the LM's tensor-, sequence- and FSDP-parallel paths
 (``tests/_jax_sharded_reference.py ... lm_tp``, a second subprocess):
 ``forward``, ``prefill`` then ``caches_for_decode`` and 4 ``decode_step``s,
@@ -58,6 +61,7 @@ from repro_torch.core.sharding import TableSpec
 from repro_torch.data import synthetic as syn
 from repro_torch.launch import mesh as M
 from repro_torch.models import gnn as G
+from repro_torch.models import layers as L
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
@@ -129,10 +133,17 @@ LM_CFG = dict(name="tiny-moe", n_layers=2, d_model=32, n_heads=6, n_kv_heads=2, 
               vocab=128, d_head=8, moe_dense_residual=True)
 LM_MOE = dict(num_experts=8, top_k=2, d_ff=48, capacity_factor=1.25)
 LM_CACHE, LM_POS, LM_STEPS = 32, 13, 4  # steps write positions 13-16
-LM_DECODE_CASES = {  # name: (batch, batch axes, sequence axes)
-    "b4_model": (4, ["data"], ["model"]),
-    "long_500k_b1": (1, [], ["data", "model"]),
+# name: (batch, batch axes, sequence axes, weight rows FSDP over data, the
+# case whose caches and tokens it takes)
+LM_DECODE_CASES = {
+    "b4_model": (4, ["data"], ["model"], False, "b4_model"),
+    "long_500k_b1": (1, [], ["data", "model"], False, "long_500k_b1"),
+    "b4_model_fsdp": (4, ["data"], ["model"], True, "b4_model"),
+    "long_500k_b1_fsdp": (1, [], ["data", "model"], True, "long_500k_b1"),
 }
+# the decode programs held against the compiled HLO take LM_CFG at head dim
+# 16: their dry trace takes K7's meta route, whose f32 head dims start there
+LM_HLO_D_HEAD = 16
 EMBED_SHAPE = (16, 5)
 # the LM's tensor-, sequence- and FSDP-parallel paths, f32 compute: (a) the
 # reference's test_transformer_sharded_matches_single config (KV sharded,
@@ -170,7 +181,8 @@ META = dict(mesh=list(MESH), dim=DIM, emb_specs=EMB_SPECS, dlrm_specs=DLRM_SPECS
             flat_slots=64, hash_slots=128, max_norm=0.05, arch_specs=ARCH_SPECS,
             arch_cases=ARCH_CASES, arch_forward=list(ARCH_CASES), arch_train=ARCH_TRAIN,
             retrieval_k=10, lm=LM_CFG, lm_moe=LM_MOE, lm_pos=LM_POS, lm_steps=LM_STEPS,
-            lm_decode_cases=LM_DECODE_CASES, lm_tp_cases=LM_TP_CASES,
+            lm_decode_cases=LM_DECODE_CASES, lm_hlo_d_head=LM_HLO_D_HEAD,
+            lm_tp_cases=LM_TP_CASES,
             lm_tp_max_len=LM_TP_MAX_LEN,
             gnn=dict(cfg=GNN_CFG, minibatch=GNN_MINIBATCH))
 
@@ -233,7 +245,9 @@ def _lm_inputs(rng, d: dict) -> None:
             fan_in = 1.0 if path == ("embed",) else t.shape[-2]
             arr = rng.standard_normal(tuple(t.shape)) / np.sqrt(fan_in)
         d["|".join(["lm", *path])] = np.asarray(arr, np.float32)
-    for name, (b, _, _) in LM_DECODE_CASES.items():
+    for name, (b, _, _, _, inputs) in LM_DECODE_CASES.items():
+        if inputs != name:
+            continue
         shape = (cfg.n_layers, b, LM_CACHE, cfg.n_kv_heads, cfg.d_head)
         for kv in ("k", "v"):
             d[f"lm_cache|{name}|{kv}"] = rng.standard_normal(shape).astype(np.float32)
@@ -684,34 +698,86 @@ def test_retrieval_under_the_mesh_matches_reference(runs, name):
         np.testing.assert_array_equal(r["outputs"][f"retrieval|{name}|indices"], want_i)
 
 
-def _lm_ring_bytes(name: str) -> dict:
-    """One rank's bytes over the decode steps by the ring model: the token
-    embedding's all-reduce over model; each layer's max all-reduce of the
-    row maxima [B_l, Hp] and all-reduce of the scaled sums [B_l, Hp, dh + 1]
-    over the sequence axes, and the experts' all-reduce [B_l, D] over
-    model."""
-    b, batch_axes, seq_axes = LM_DECODE_CASES[name]
-    sizes = dict(zip(("data", "model"), MESH))
-    b_l = b // int(np.prod([sizes[a] for a in batch_axes]))
-    g_seq, g_model = int(np.prod([sizes[a] for a in seq_axes])), sizes["model"]
-    cfg = ranks.lm_cfg(META)
-    hp = cfg.padded_heads(M.AbstractMesh(MESH, ("data", "model")))
-    model = 2 * b_l * cfg.d_model * 4 * (g_model - 1) / g_model
-    per_step = {"all_reduce": model + cfg.n_layers * (
-        model + 2 * b_l * hp * (cfg.d_head + 1) * 4 * (g_seq - 1) / g_seq),
-        "all_reduce_max": cfg.n_layers * 2 * b_l * hp * 4 * (g_seq - 1) / g_seq}
-    return {op: LM_STEPS * v for op, v in per_step.items()}
+def _decode_ring_bytes(cfg, am, b: int, batch_axes, seq_axes, steps: int,
+                       fsdp_axes=("data",)) -> dict:
+    """One rank's bytes over ``steps`` of ``decode_step`` by the ring model,
+    f32, the weight rows split over ``fsdp_axes`` under ``cfg.fsdp``.  The
+    token embedding's all-reduce [B_l, D] over model.  Each layer: the
+    all-gathers over model of the rank's query heads [B_l, Hp / tp, dh]
+    and, where they divide tp, its KV heads; the max
+    all-reduce of the row maxima [B_l, Hp] and the all-reduce of the
+    scaled sums [B_l, Hp, dh + 1] over the sequence axes; the all-reduces
+    over model of the ``wo`` and ``wd`` partials and of the experts'
+    [B_l, D].  With FSDP over the batch every layer weight's model block
+    is all-gathered over the FSDP axes; with FSDP and no batch axes the
+    residual's model dim is split over them, its partial products (the two
+    norms' sums of squares, q, k, v, the SwiGLU's two columns, the final
+    norm's and the head's) are all-reduced there, and the experts take the
+    whole normed state, gathered there, and their rows, gathered there."""
+    ar = lambda n, g: 2 * n * (g - 1) / g  # noqa: E731
+    ag = lambda n, g: n * (g - 1) / g  # noqa: E731
+    tp, g_seq = am.shape["model"], am.axis_size(tuple(seq_axes))
+    fsdp = am.axis_size(tuple(fsdp_axes)) if cfg.fsdp else 1
+    partial = fsdp > 1 and not batch_axes
+    bl = b // am.axis_size(tuple(batch_axes))
+    D, dh, hp = cfg.d_model, cfg.d_head, cfg.padded_heads(am)
+    kv = cfg.kv_sharded(am)
+    hl, hkv_l, dm = hp // tp, cfg.n_kv_heads // (tp if kv else 1), D // (fsdp if partial else 1)
+    out: dict = {}
+
+    def add(op: str, v: float) -> None:
+        out[op] = out.get(op, 0) + steps * v
+
+    add("all_reduce", ar(bl * D * 4, tp))
+    for _ in range(cfg.n_layers):
+        add("all_gather", ag(bl * hp * dh * 4, tp) + (2 * ag(bl * cfg.n_kv_heads * dh * 4, tp)
+                                                       if kv else 0))
+        add("all_reduce_max", ar(bl * hp * 4, g_seq))
+        add("all_reduce", ar(bl * hp * (dh + 1) * 4, g_seq) + ar(bl * dm * 4, tp))
+        if cfg.dense_ffn():
+            add("all_reduce", ar(bl * dm * 4, tp))
+        if cfg.moe:
+            add("all_reduce", ar(bl * D * 4, tp))
+        experts = 3 * cfg.moe.num_experts // tp * D * cfg.moe.d_ff * 4 if cfg.moe else 0
+        if fsdp > 1 and not partial:
+            dense = 3 * D * cfg.d_ff // tp * 4 if cfg.dense_ffn() else 0
+            add("all_gather", ag(2 * D * hl * dh * 4, fsdp) + 2 * ag(D * hkv_l * dh * 4, fsdp)
+                + ag(dense, fsdp) + ag(experts, fsdp))
+        if partial:
+            add("all_reduce", 2 * ar(bl * 4, fsdp) + ar(bl * hl * dh * 4, fsdp)
+                + 2 * ar(bl * hkv_l * dh * 4, fsdp))
+            if cfg.dense_ffn():
+                add("all_reduce", 2 * ar(bl * cfg.d_ff // tp * 4, fsdp))
+            if cfg.moe:
+                add("all_gather", ag(bl * D * 4, fsdp) + ag(experts, fsdp))
+    if partial:
+        add("all_reduce", ar(bl * 4, fsdp) + ar(bl * cfg.padded_vocab(am) // tp * 4, fsdp))
+    return out
+
+
+def _lm_case_cfg(name: str, hlo: bool = False):
+    """Decode case ``name``'s config; with ``hlo`` at LM_HLO_D_HEAD."""
+    cfg = ranks.lm_cfg(META, LM_DECODE_CASES[name][3])
+    return dataclasses.replace(cfg, d_head=LM_HLO_D_HEAD) if hlo else cfg
+
+
+def _lm_ring_bytes(name: str, hlo: bool = False) -> dict:
+    b, batch_axes, seq_axes, _, _ = LM_DECODE_CASES[name]
+    return _decode_ring_bytes(_lm_case_cfg(name, hlo), M.AbstractMesh(MESH, ("data", "model")),
+                              b, batch_axes, seq_axes, LM_STEPS)
 
 
 @pytest.mark.parametrize("name", list(LM_DECODE_CASES))
 def test_lm_sharded_decode_matches_reference(runs, name):
     """``decode_step`` under the mesh against the reference's ``decode_step``
-    under its mesh: every step's logits block (batch over the batch axes,
-    vocab over model) and the caches' blocks after the steps, whose new rows
-    land in the owner shard only (position 16 starts a new shard); f32 at
-    rtol and atol 1e-5."""
+    under its mesh, both with the params in the serving cell's layout
+    (``mesh_param_specs``: heads, FFN columns and experts over model, and in
+    the ``_fsdp`` cases the weight rows over data): every step's logits
+    block (batch over the batch axes, vocab over model) and the caches'
+    blocks after the steps, whose new rows land in the owner shard only
+    (position 16 starts a new shard); f32 at rtol and atol 1e-5."""
     ref, port = runs
-    b, batch_axes, seq_axes = LM_DECODE_CASES[name]
+    b, batch_axes, seq_axes, _, _ = LM_DECODE_CASES[name]
     cfg = ranks.lm_cfg(META)
     logit_spec = P(None, tuple(batch_axes) or None, "model")
     cache_spec = T.cache_specs(cfg, tuple(batch_axes), tuple(seq_axes))
@@ -847,9 +913,8 @@ def _lm_tp_ring_bytes(name: str) -> tuple[dict, dict]:
     token embedding is a reduce-scatter (seq_shard) or an all-reduce; the
     head takes the gathered hidden state (forward) or the last position's;
     the experts' aux one scalar all-reduce over the mesh.  The handoff
-    gathers sharded KV heads over model; a decode step is the embedding's
-    all-reduce, and each layer's max and sum all-reduces over model and the
-    experts' all-reduce."""
+    gathers sharded KV heads over model; the decode steps take the same
+    params (``_decode_ring_bytes``, FSDP over the batch axes)."""
     case = LM_TP_CASES[name]
     cfg, am = ranks.lm_tp_cfg(case), _lm_tp_mesh(case)
     tp, dp = am.shape["model"], am.axis_size(case["batch_axes"])
@@ -889,11 +954,9 @@ def _lm_tp_ring_bytes(name: str) -> tuple[dict, dict]:
         add(fwd, "all_reduce", 2 * 4 * (world - 1) / world)
     if cfg.kv_sharded(am):
         add(pre, "all_gather", 2 * cfg.n_layers * bl * s * cfg.n_kv_heads * dh * 4 * (tp - 1) / tp)
-    hp = cfg.padded_heads(am)
-    step_model = 2 * bl * D * 4 * (tp - 1) / tp
-    add(pre, "all_reduce", LM_TP_STEPS * (step_model + cfg.n_layers * (
-        2 * bl * hp * (dh + 1) * 4 * (tp - 1) / tp + (step_model if cfg.moe else 0))))
-    add(pre, "all_reduce_max", LM_TP_STEPS * cfg.n_layers * 2 * bl * hp * 4 * (tp - 1) / tp)
+    for op, v in _decode_ring_bytes(cfg, am, b, case["batch_axes"], ["model"], LM_TP_STEPS,
+                                    case["batch_axes"]).items():
+        add(pre, op, v)
     return fwd, pre
 
 
@@ -1135,6 +1198,22 @@ def test_refusals_in_one_process():
         M.make_debug_mesh(2, 4)
 
 
+@pytest.mark.parametrize("which", ["lookup_rows", "gather_rows"])
+def test_mesh2d_rows_refuse_and_say_why(which):
+    """Under a mesh ``lookup_rows`` and ``gather_rows`` read the paper layout
+    only: the reference's mesh2d versions do not give its one-device result
+    (ROADMAP, Quirks of the reference), so there is none to port."""
+    emb = DisaggEmbedding(ranks.specs_of(EMB_SPECS), dim=DIM, num_shards=8, mode="mesh2d")
+    mesh = M.DryMesh(MESH, ("data", "model"))
+    table = {"table": torch.empty((emb.sharded.total_rows // 8, DIM), device="meta")}
+    ids = torch.zeros((B, len(EMB_SPECS), 4), dtype=torch.int32, device="meta")
+    call = {"lookup_rows": lambda: emb.lookup_rows(table, ids, ids > 0, mesh=mesh),
+            "gather_rows": lambda: emb.gather_rows(table, ids[:, 0, 0], mesh=mesh)}[which]
+    with pytest.raises(NotImplementedError,
+                       match=f"reference's mesh2d {which} is not its one-device {which}"):
+        call()
+
+
 def test_spawn_returns_per_rank_and_fails_loudly():
     assert M.spawn(ranks.echo_coords, 4, ((2, 2),), timeout=60) == [
         {"data": 0, "model": 0}, {"data": 0, "model": 1},
@@ -1150,7 +1229,8 @@ def test_spawn_returns_per_rank_and_fails_loudly():
 
 HLO_CASES = sorted(LOOKUP_CASES) + ["lookup_rows", "gather_rows", "pod|hierarchical",
                                     "pod|mesh2d", "gnn_fwd", "gnn_train", "gnn_part|f32",
-                                    "gnn_part|bf16", "gnn_cell|minibatch_lg", "gnn_cell|molecule"]
+                                    "gnn_part|bf16", "gnn_cell|minibatch_lg", "gnn_cell|molecule"
+                                    ] + [f"lm_decode|{name}" for name in LM_DECODE_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -1209,8 +1289,25 @@ def _dry_trace(key: str, d: dict, monkeypatch):
                 emb.lookup(params, idx, msk, mesh=mesh, cache=cache, batch_axes=batch_axes,
                            num_chunks=case["num_chunks"])
         return tr
-    cfg = G.GNNConfig(**GNN_CFG)
     to_meta = functools.partial(tree_map, lambda t: t.to("meta"))
+    if key.startswith("lm_decode|"):  # the case's steps at LM_HLO_D_HEAD, from shapes
+        b, ba, sa, _, _ = LM_DECODE_CASES[name]
+        ba, sa = tuple(ba), tuple(sa)
+        cfg = _lm_case_cfg(name, hlo=True)
+        params = R.shard_params(T.abstract_params(cfg, mesh), T.mesh_param_specs(
+            cfg, mesh, batch_axes), mesh)
+        spec = T.cache_specs(cfg, ba, sa)
+        shape = (cfg.n_layers, b, LM_CACHE, cfg.n_kv_heads, cfg.d_head)
+        cache = tuple(L.constrain(torch.empty(shape, device="meta"), spec, mesh).contiguous()
+                      for _ in range(2))
+        toks = L.constrain(torch.empty((LM_STEPS, b), dtype=torch.int32, device="meta"),
+                           P(None, ba or None), mesh)
+        with Trace() as tr, torch.no_grad():
+            for i in range(LM_STEPS):
+                T.decode_step(cfg, params, cache, toks[i], torch.empty(
+                    (), dtype=torch.int32, device="meta"), mesh, ba, sa, fsdp_axes=batch_axes)
+        return tr
+    cfg = G.GNNConfig(**GNN_CFG)
     if key.startswith("gnn_cell|"):
         monkeypatch.setitem(GR.SHAPES, "minibatch_lg", {
             **GR.SHAPES["minibatch_lg"], **GNN_MINIBATCH, "fanout": tuple(GNN_MINIBATCH["fanout"])})
@@ -1245,6 +1342,34 @@ def _dry_trace(key: str, d: dict, monkeypatch):
     return tr
 
 
+def _xla_decode_differences(name: str) -> tuple[float, float]:
+    """``(bytes, flops)`` by which the reference's compiled decode steps
+    exceed the port's, named: (a) over several sequence axes XLA splits the
+    max all-reduce of the row maxima into one a mesh axis; (b) with FSDP
+    over the batch and KV heads that do not divide tp, XLA moves each rank
+    a [D / tp, Hkv dh] row block of ``wk`` and of ``wv`` by a
+    collective-permute, multiplies it by its D / tp slice of the normed
+    state and all-reduces the partial k and v [B_l, Hkv dh] over model,
+    where the port all-gathers both weights over data and computes every
+    KV head from the whole of D (fewer FLOPs on XLA's side)."""
+    b, batch_axes, seq_axes, fsdp, _ = LM_DECODE_CASES[name]
+    cfg, am = _lm_case_cfg(name, hlo=True), M.AbstractMesh(MESH, ("data", "model"))
+    ar = lambda n, g: 2 * n * (g - 1) / g  # noqa: E731
+    bl = b // am.axis_size(tuple(batch_axes))
+    rows = bl * cfg.padded_heads(am) * 4
+    extra, flops = 0.0, 0.0
+    if len(seq_axes) > 1:
+        extra += sum(ar(rows, am.shape[a]) for a in seq_axes) - ar(rows, am.axis_size(seq_axes))
+    if fsdp and batch_axes and not cfg.kv_sharded(am):
+        tp, dp = am.shape["model"], am.axis_size(("data",))
+        kv = cfg.n_kv_heads * cfg.d_head
+        w = cfg.d_model * kv * 4
+        extra += 2 * (w / tp + ar(bl * kv * 4, tp) - w * (dp - 1) / dp)
+        flops -= 2 * 2 * bl * cfg.d_model * kv * (tp - 1) / tp
+    n = LM_STEPS * cfg.n_layers
+    return n * extra, n * flops
+
+
 @pytest.mark.parametrize("key", HLO_CASES)
 def test_dry_trace_matches_the_compiled_hlo(runs, dry_inputs, monkeypatch, key):
     """Rank 0's part of each case traced on meta under a ``DryMesh`` of the
@@ -1252,25 +1377,35 @@ def test_dry_trace_matches_the_compiled_hlo(runs, dry_inputs, monkeypatch, key):
     cell): its collective bytes are the bytes rank 0 counted on the real
     mesh and the reference's compiled HLO's, but for the documented
     differences (XLA's CPU backend runs a bf16 collective in f32; the GNN
-    backward's one more all-reduce of a hidden cotangent, ROADMAP Quirks);
-    its FLOPs are the HLO's dots', but for these named ops: the hand
-    kernels' products (K1's and K3's FMAs, where the reference gathers and
-    reduces without a dot), and the molecule forward, whose compiled
+    backward's one more all-reduce of a hidden cotangent, ROADMAP Quirks;
+    the LM decode's, ``_xla_decode_differences``); its FLOPs are the HLO's
+    dots', but for these named ops: the hand kernels' products (K1's and
+    K3's FMAs, where the reference gathers and reduces without a dot; K7's
+    shard mode is the reference's two dots), the decode's k and v products
+    (``_xla_decode_differences``), and the molecule forward, whose compiled
     program computes a data rank's graphs on each of its `model` ranks (the
     sharding constraint sits on the output) where the port computes its
     block of them."""
     ref, port = runs
+    name = key.split("|", 1)[-1]
     tr = _dry_trace(key, dry_inputs, monkeypatch)
-    assert tr.collective_bytes() == port[0]["bytes"][key]
+    # the decode programs run here at another head dim than on the ranks,
+    # whose bytes the ring model holds (test_lm_sharded_decode_bytes_...)
+    assert tr.collective_bytes() == (_lm_ring_bytes(name, hlo=True) if key.startswith(
+        "lm_decode|") else port[0]["bytes"][key])
     # XLA's CPU backend moves these ops' bf16 payloads in f32
     f32_on_cpu = {"hierarchical_bf16": "all_reduce", "mesh2d_bf16": "reduce_scatter",
                   "gnn_part|bf16": "all_gather"}.get(key)
     got = sum(v * (2 if op == f32_on_cpu else 1) for op, v in tr.collective_bytes().items())
     if key == "gnn_train":
         got += _gnn_hidden_ring_bytes(G.GNNConfig(**GNN_CFG))
+    decode = _xla_decode_differences(name) if key.startswith("lm_decode|") else (0.0, 0.0)
+    got += decode[0]
     assert got == float(ref[f"hlo_bytes|{key}"])
     kernels = {name: k["f32"] for name, k in tr.kernels.items() if "bytes" in k}
-    assert set(kernels) <= {"embedding_bag", "probe_gather_pool"}
+    assert set(kernels) <= {"embedding_bag", "probe_gather_pool", "flash_decode"}
     assert sum(tr.flops.values()) == sum(tr.aten_flops.values()) + sum(kernels.values())
     aten = sum(tr.aten_flops.values()) * (MESH[1] if key == "gnn_cell|molecule" else 1)
+    # the reference's attention over a sequence shard is two dots, K7's work here
+    aten += kernels.get("flash_decode", 0.0) + decode[1]
     assert aten == pytest.approx(float(ref[f"hlo_flops|{key}"]), rel=1e-2)
