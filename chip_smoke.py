@@ -145,6 +145,29 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 memory; K1' timed at wide-deep's and two-tower's step
                 beside ``index_add_``), and the loss and gradients at
                 1,024 with 100,000-row tables against the CPU;
+  5g2. recsys_cells — after phase 5g: the seven recsys registry ids'
+                cells (dlrm-flexemr and 5g's six x train_batch,
+                serve_p99, serve_bulk, retrieval_cand) under a real mesh
+                of 4 gloo ranks of the card at (data 2, model 2): each
+                rank takes its blocks of the cell's global arguments by
+                its ``in_shardings`` (``CellBuild.blocks``) and calls the
+                cell's step, held against one device's run of the cell
+                built with ``mesh=None`` on the card, on the same params
+                (tables made on the card from a seed, capped at 1,000,000
+                rows, a train cell's halved further until its table
+                gradient's all-reduce fits half of 256 MB; batches and
+                candidate counts halved from the cell's own until a
+                rank's ring-model bytes fit 256 MB; the params, batches
+                and one device's outputs shared through CUDA IPC): serve
+                scores at 4c's tolerance (two-tower's atol over its
+                temperature), retrieval values and indices equal on
+                tie-free scores, train loss, gradients and optimizer
+                state at 4d's and the params against the optimizer on the
+                rank's own gradients; K1 masked once a lookup (twice for
+                wide-deep and deepfm, none for mind), K1' once a lookup in
+                training, K2 for the DLRM and K2' in its train step, each
+                rank's bytes = ``recsys_cell_ring_bytes``; paths
+                ``recsys_cells.<arch>.<shape>``;
   5h. gnn   — after phase 5g: graphsage-reddit from the registry at its
                 four published shapes on one device, f32, TF32 off, none
                 launching a hand kernel (the aggregation is index_select
@@ -396,6 +419,7 @@ It imports nothing of the JAX package.  Without a GPU, or without the repo's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -490,6 +514,24 @@ RECSYS_CHECK_ROWS = 100_000
 # wide table, autoint/dcn/deepfm, wide-deep's emb, fuse_wide's 40, two-tower
 RECSYS_K1_WIDTHS = ((8, 8, 40), (16, 1, 39), (32, 8, 40), (40, 8, 40), (256, 1, 4))
 RECSYS_K1_ROWS = 1_000_000
+# phase 5g2 (recsys_cells): the seven recsys registry ids' cells on
+# RECSYS_CELL_RANKS gloo ranks of the one card at mesh (data 2, model 2),
+# each against one device's run of the same cell (mesh=None) on the card.
+# Every table capped at RECSYS_CELL_ROWS (5g's train cap); a train cell's
+# tables halved from there until the all-reduce over data of a rank's table
+# gradient takes at most half of RECSYS_CELL_MAX_BYTES; a cell's batch (a
+# retrieval's candidate count) halved from its own until the rank's bytes
+# by the ring model fit RECSYS_CELL_MAX_BYTES: gloo stages each collective
+# through host memory
+RECSYS_CELL_IDS = ("dlrm-flexemr",) + RECSYS_ARCH_IDS
+RECSYS_CELL_RANKS = 4
+RECSYS_CELL_MESH = (2, 2)  # (data, model)
+RECSYS_CELL_ROWS = 1_000_000
+RECSYS_CELL_MAX_BYTES = 256e6
+RECSYS_CELL_QUERIES = 8  # the two-tower retrieval cell's queries (recsys_common's)
+RECSYS_CELL_SERVE_TOL = SHARDED_FWD_TOL  # 4c's: scores and top-k values
+RECSYS_CELL_TRAIN_TOL = TRAIN_STEP_TOL  # 4d's: loss, gradients, state, params
+RECSYS_CELL_TIMEOUT_S = 600
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -1348,6 +1390,18 @@ def sharded_rank(rank: int, world: int, fwd: dict, train: dict) -> dict:
     return out
 
 
+def recsys_config(arch_id: str, cap: int | None = None):
+    """The registry's config of a recsys id, every table's rows capped at
+    ``cap`` where given."""
+    from repro_torch import configs
+
+    cfg = getattr(configs, arch_id.replace("-", "_")).make_config()
+    if cap is None:
+        return cfg
+    return dataclasses.replace(cfg, tables=tuple(
+        dataclasses.replace(t, vocab=min(t.vocab, cap)) for t in cfg.tables))
+
+
 def recsys_archs(dev: torch.device) -> dict:
     """Phase 5g: the six other recsys archs on the card.  K1 and K1' at this
     slice's widths against their plain versions; each arch's forward at its
@@ -1359,7 +1413,6 @@ def recsys_archs(dev: torch.device) -> dict:
     numbers and each path's launch counts."""
     import torch.nn.functional as F
 
-    from repro_torch import configs
     from repro_torch.configs.recsys_common import (N_CANDIDATES, RECSYS_SHAPES, RETRIEVAL_K,
                                                    make_recsys_optimizer)
     from repro_torch.data import synthetic as syn
@@ -1374,13 +1427,6 @@ def recsys_archs(dev: torch.device) -> dict:
     train_b = RECSYS_SHAPES["train_batch"]["batch"]
     out: dict = {"forward": {}, "retrieval": {}, "train": {}, "paths": {},
                  "k1_forward_shapes": {}, "k1b_train_shapes": {}}
-
-    def make(arch_id: str, cap: int | None = None) -> R.RecsysConfig:
-        cfg = getattr(configs, arch_id.replace("-", "_")).make_config()
-        if cap is None:
-            return cfg
-        return dataclasses.replace(cfg, tables=tuple(
-            dataclasses.replace(t, vocab=min(t.vocab, cap)) for t in cfg.tables))
 
     def batch_of(cfg, b: int) -> dict:
         rng = np.random.default_rng(0)
@@ -1450,7 +1496,7 @@ def recsys_archs(dev: torch.device) -> dict:
 
     # ---- forward at the published configs, and the two retrievals
     for arch_id in RECSYS_ARCH_IDS:
-        cfg = make(arch_id)
+        cfg = recsys_config(arch_id)
         t0 = time.perf_counter()
         params = R.init_params(cfg, seed=0, device=dev)
         torch.cuda.synchronize()
@@ -1581,7 +1627,7 @@ def recsys_archs(dev: torch.device) -> dict:
     # ---- train: one step at train_batch with each table capped; the loss
     # and gradients at a small batch against the same on the CPU
     for arch_id in RECSYS_ARCH_IDS:
-        cfg = make(arch_id, RECSYS_TRAIN_ROWS)
+        cfg = recsys_config(arch_id, RECSYS_TRAIN_ROWS)
         params = R.init_params(cfg, seed=0, device=dev)
         opt = make_recsys_optimizer()
         state = opt.init(params)
@@ -1644,7 +1690,7 @@ def recsys_archs(dev: torch.device) -> dict:
         del params, state, batch, step, opt
         free()
 
-        scfg = make(arch_id, RECSYS_CHECK_ROWS)
+        scfg = recsys_config(arch_id, RECSYS_CHECK_ROWS)
         sparams = R.init_params(scfg, seed=0, device=dev)
         sbatch = batch_of(scfg, RECSYS_CHECK_BATCH)
         loss_c, grads_c = R.loss_and_grads(scfg, sparams, sbatch)
@@ -1660,6 +1706,428 @@ def recsys_archs(dev: torch.device) -> dict:
         free()
     out["phase_seconds"] = time.perf_counter() - t_phase
     return out
+
+
+def recsys_cell_ring_bytes(cfg, kind: str, batch: int, mesh_shape=RECSYS_CELL_MESH,
+                           k: int = 100, queries: int = RECSYS_CELL_QUERIES) -> dict:
+    """One rank's bytes of a recsys registry cell under a (data, model) mesh
+    by the ring model, f32, the paper layout (tables over model, the batch
+    over data; ``batch`` is a retrieval cell's candidate count).  Each
+    lookup: an all-reduce over model of the data rank's pooled rows (the
+    separate wide table's too; mind's raw history and target rows).  Train:
+    their transposes, the loss over the mesh, each table block's gradient
+    over data and each dense leaf's over the mesh; two-tower all-gathers the
+    item vectors and reduce-scatters their cotangent, mind all-gathers each
+    rank's last score (the BPR negative) and reduce-scatters its cotangent.
+    Retrieval: the lookups (two-tower's queries whole on every rank; mind's
+    history whole, its candidates over data), then each rank's top k values
+    and int32 positions all-gathered over the candidates' axes."""
+    from repro_torch.models import recsys as R
+    from repro_torch.utils import tree_flatten_with_path
+
+    dp, tp = mesh_shape
+    world = dp * tp
+    ar = lambda n, g: 2 * n * (g - 1) / g  # noqa: E731
+    ag = lambda n, g: n * (g - 1) / g  # noqa: E731
+    F, D = cfg.num_fields, cfg.embed_dim
+    out: dict = {}
+
+    def add(op: str, v: float) -> None:
+        out[op] = out.get(op, 0) + v
+
+    def topk(rows: int, n_loc: int, g: int) -> None:
+        add("all_gather", 2 * ag(rows * min(k, n_loc) * g * 4, g))
+
+    if kind == "retrieval" and cfg.arch == "two_tower":
+        add("all_reduce", ar(queries * F * D * 4, tp))
+        topk(queries, batch // world, world)
+        return out
+    if kind == "retrieval" and cfg.arch == "mind":
+        add("all_reduce", ar(cfg.hist_len * D * 4, tp) + ar(batch // dp * D * 4, tp))
+        topk(1, batch // dp, dp)
+        return out
+    bl = batch // dp
+    if cfg.arch == "mind":
+        lookups = ar(bl * cfg.hist_len * D * 4, tp) + ar(bl * D * 4, tp)
+    else:
+        lookups = ar(bl * F * D * 4, tp)
+        if cfg.separate_wide:
+            lookups += ar(bl * F * R.WIDE_DIM * 4, tp)
+    add("all_reduce", lookups)
+    if kind == "retrieval":
+        topk(1, batch // world, world)
+    if kind != "train":
+        return out
+    dense = tables = 0.0
+    for path, t in tree_flatten_with_path(R.abstract_params(cfg, tp)):
+        if path[0] in ("emb", "wide"):
+            tables += ar(t.numel() * 4 / tp, dp)
+        else:
+            dense += t.numel() * 4
+    add("all_reduce", lookups + ar(4, world) + ar(dense, world) + tables)
+    if cfg.arch == "two_tower":
+        d = cfg.mlp[-1]
+        add("all_gather", ag(batch * d * 4, world))
+        add("reduce_scatter", batch // world * d * 4 * (world - 1))
+    if cfg.arch == "mind":
+        add("all_gather", ag(world * 4, world))
+        add("reduce_scatter", 4 * (world - 1))
+    return out
+
+
+def recsys_cell_configs(arch_id: str) -> tuple:
+    """(config, train config, {shape: batch or candidate count}) of a recsys
+    registry id for phase 5g2: every table capped at RECSYS_CELL_ROWS, the
+    train config's halved further until a rank's table-gradient all-reduce
+    over data takes at most half of RECSYS_CELL_MAX_BYTES, and each cell's
+    batch halved from its own until the rank's ring-model bytes fit
+    RECSYS_CELL_MAX_BYTES (mind's candidates also to distinct items)."""
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+    from repro_torch.models import recsys as R
+    from repro_torch.utils import tree_flatten_with_path
+
+    def table_bytes(c) -> float:
+        dp, tp = RECSYS_CELL_MESH
+        return sum(2 * t.numel() * 4 / tp * (dp - 1) / dp
+                   for path, t in tree_flatten_with_path(R.abstract_params(c, tp))
+                   if path[0] in ("emb", "wide"))
+
+    cfg, cap = recsys_config(arch_id, RECSYS_CELL_ROWS), RECSYS_CELL_ROWS
+    while table_bytes(recsys_config(arch_id, cap)) > RECSYS_CELL_MAX_BYTES / 2 and cap > 1:
+        cap //= 2
+    tcfg = recsys_config(arch_id, cap)
+    sizes = {}
+    for shape, info in RECSYS_SHAPES.items():
+        kind = info["kind"]
+        c = tcfg if kind == "train" else cfg
+        n = info["n_candidates"] if kind == "retrieval" else info["batch"]
+        if kind == "retrieval" and c.arch == "mind":
+            while n > c.tables[0].vocab:  # distinct items: tie-free scores
+                n //= 2
+        world = RECSYS_CELL_MESH[0] * RECSYS_CELL_MESH[1]
+        while (sum(recsys_cell_ring_bytes(c, kind, n).values()) > RECSYS_CELL_MAX_BYTES
+               and n % (2 * world) == 0):
+            n //= 2
+        if (n % world or sum(recsys_cell_ring_bytes(c, kind, n).values())
+                > RECSYS_CELL_MAX_BYTES):
+            raise ValueError(f"{arch_id} {shape}: no batch of {n} or more that splits over "
+                             f"the mesh fits {RECSYS_CELL_MAX_BYTES} bytes a rank")
+        sizes[shape] = n
+    return cfg, tcfg, sizes
+
+
+@contextlib.contextmanager
+def recsys_cell_sizes(sizes: dict):
+    """``recsys_common.RECSYS_SHAPES`` set to one arch's phase-5g2 sizes
+    inside the ``with`` block, restored after."""
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+
+    saved = {s: dict(v) for s, v in RECSYS_SHAPES.items()}
+    try:
+        for shape, n in sizes.items():
+            RECSYS_SHAPES[shape]["n_candidates" if RECSYS_SHAPES[shape]["kind"] == "retrieval"
+                                 else "batch"] = n
+        yield
+    finally:
+        for shape, v in saved.items():
+            RECSYS_SHAPES[shape].update(v)
+
+
+def recsys_cell_launches(cfg, kind: str) -> dict:
+    """The launch counts one rank's cell must show, every other kernel 0:
+    K1 masked once a lookup (wide-deep's and deepfm's two, mind's raw rows
+    none), K1' once a lookup in a train step, K2 in the DLRM's forward and
+    K2' in its train step."""
+    n = 0 if cfg.arch == "mind" else 2 if cfg.separate_wide else 1
+    want = {"embedding_bag": n, "embedding_bag_masked": n}
+    if kind == "train":
+        want["embedding_bag_backward"] = n
+    if cfg.arch == "dlrm":
+        want["dot_interaction"] = 1
+        if kind == "train":
+            want["dot_interaction_backward"] = 1
+    return want
+
+
+def mesh_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+               atol: float) -> float:
+    """A rank's block against one device's, allclose; the largest abs error."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: {tuple(got.shape)} against {tuple(want.shape)}")
+    err = max_err(got, want)
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: the mesh's block disagrees with one device's (max abs "
+                             f"err {err:.3e}, rtol {rtol}, atol {atol})")
+    return err
+
+
+def hold_rows(name: str, got: torch.Tensor, want: torch.Tensor, spec, mesh, rows: int,
+              rtol: float, atol: float) -> float:
+    """A rank's block ``got`` of a leaf whose mesh layout holds ``rows``
+    rows, against one device's whole ``want`` (a table's rows without the
+    shard count's padding: only the rows both hold are compared)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+
+    if want.shape[0] == rows:
+        return mesh_close(name, got, L.constrain(want, spec, mesh), rtol, atol)
+    lo = M.block_slices((rows,) + tuple(want.shape[1:]), spec, mesh)[0].start or 0
+    n = max(0, min(lo + got.shape[0], want.shape[0]) - lo)
+    return mesh_close(name, got[:n], want[lo:lo + n], rtol, atol)
+
+
+def recsys_cell_rank(rank: int, world: int, archs: list) -> dict:
+    """One rank of phase 5g2 (spawned by ``launch.mesh.spawn`` over gloo; the
+    params, batches and one device's outputs are CUDA tensors of the main
+    process, shared through CUDA IPC).  Arch by arch and cell by cell: the
+    cell built under the mesh, this rank's blocks of its global arguments
+    by its ``in_shardings`` (``CellBuild.blocks``), a train cell's
+    gradients by an optimizer that returns them (not counted), then the
+    cell's step, counted and held against one device's run.  Raises on a
+    failure; returns each cell's launches, bytes, errors and wall time."""
+    from repro_torch.configs import recsys_common as RC
+    from repro_torch.core.sharding import PartitionSpec as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import optimizers as O
+    from repro_torch.utils import keystr, tree_flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    mesh = M.make_debug_mesh(*RECSYS_CELL_MESH)
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    out: dict = {}
+    for a in archs:
+        arch_id = a["arch"]
+        with recsys_cell_sizes(a["sizes"]):
+            for shape, info in RC.RECSYS_SHAPES.items():
+                kind = info["kind"]
+                cfg = a["train_cfg"] if kind == "train" else a["cfg"]
+                params = a["train_params"] if kind == "train" else a["params"]
+                batch, want = a["batches"][shape], a["want"][shape]
+                cell = RC._build(shape, mesh, False, cfg_fn=lambda cfg=cfg: cfg)
+                if kind == "train":
+                    args = (params, RC.make_recsys_optimizer().init(params), batch)
+                elif len(cell.args) == 3:
+                    args = (params, batch, a["cands"])
+                else:
+                    args = (params, batch)
+                blocks = cell.blocks(args, mesh)
+                tag = f"[recsys_cells] rank {rank} {arch_id} {shape}"
+                if kind == "train":
+                    grads, _, gm = R.make_train_step(cfg, grads_of, mesh)(blocks[0], (), blocks[2])
+                reset_counts()
+                before = M.comm_bytes()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.set_grad_enabled(kind == "train"):
+                    res = cell.step_fn(*blocks)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = launch_counts()
+                sent = {op: v - before.get(op, 0.0) for op, v in M.comm_bytes().items()
+                        if v != before.get(op, 0.0)}
+                errs = {}
+                if kind == "serve":
+                    atol = RECSYS_CELL_SERVE_TOL[1]
+                    if cfg.arch == "two_tower":  # a cosine over the temperature
+                        atol /= float(params["temp"])
+                    errs["scores"] = mesh_close(
+                        f"{tag} scores", res, L.constrain(want["scores"], P(("data", "model")),
+                                                          mesh), RECSYS_CELL_SERVE_TOL[0], atol)
+                elif kind == "retrieval":
+                    vals, idx = res
+                    gaps = -torch.diff(want["values"], dim=-1)
+                    errs["values"] = mesh_close(f"{tag} top-k values", vals, want["values"],
+                                                *RECSYS_CELL_SERVE_TOL)
+                    if not bool((gaps > errs["values"]).all()):
+                        raise AssertionError(f"{tag}: top scores closer than the values' "
+                                             f"difference {errs['values']}: {gaps.min()}")
+                    if not torch.equal(idx, want["indices"]):
+                        raise AssertionError(f"{tag}: top-k indices differ from one device's")
+                else:
+                    new_p, new_s, m = res
+                    pspecs, sspecs = cell.in_shardings[0], cell.in_shardings[1]
+                    rows = {keystr(p): t.shape[0] for p, t in tree_flatten_with_path(
+                        (params, args[1])) if t.ndim}
+                    rows = {k[3:]: v for k, v in rows.items()}  # less the tuple's index
+                    rtol, atol = RECSYS_CELL_TRAIN_TOL
+                    errs["loss"] = mesh_close(f"{tag} loss", m["loss"], want["loss"], rtol, atol)
+                    errs["grads_loss"] = mesh_close(f"{tag} loss (gradient run)", gm["loss"],
+                                                    want["loss"], rtol, atol)
+
+                    def hold(what, got_tree, specs, want_tree, scaled=False):
+                        """Leaf by leaf, atol times the leaf's largest
+                        magnitude past 1 where ``scaled``."""
+                        worst = 0.0
+                        wants = {keystr(p): t for p, t in tree_flatten_with_path(want_tree)}
+                        spec_of = {keystr(p): s for p, s in tree_flatten_with_path(
+                            specs, lambda x: isinstance(x, P))}
+                        got_flat = tree_flatten_with_path(got_tree)
+                        if sorted(keystr(p) for p, _ in got_flat) != sorted(wants):
+                            raise AssertionError(f"{tag} {what}: leaves differ")
+                        for p, got in got_flat:
+                            key, w = keystr(p), wants[keystr(p)]
+                            scale = max(1.0, float(w.abs().max())) if scaled and w.numel() else 1.0
+                            name = f"{tag} {what} {key}"
+                            worst = max(worst, mesh_close(name, got, w, rtol, atol) if got.ndim == 0
+                                        else hold_rows(name, got, w, spec_of[key], mesh,
+                                                       rows[key], rtol, atol * scale))
+                        return worst
+
+                    errs["grads"] = hold("gradient", grads, pspecs, want["grads"], scaled=True)
+                    errs["state"] = hold("optimizer state", new_s, sspecs, want["state"])
+                    # the params against the optimizer on this rank's own
+                    # gradients: Adam's first step lr g / (|g| + 1e-8) turns a
+                    # near-zero gradient's rounding into a step apart
+                    opt = RC.make_recsys_optimizer()
+                    own_p, _ = opt.update(grads, opt.init(blocks[0]), blocks[0])
+                    own = {keystr(p): t for p, t in tree_flatten_with_path(own_p)}
+                    errs["params"] = max(mesh_close(f"{tag} params {keystr(p)} vs the optimizer "
+                                                    "on the rank's gradients", t, own[keystr(p)],
+                                                    rtol, atol)
+                                         for p, t in tree_flatten_with_path(new_p))
+                    del new_p, new_s, m, grads, own_p
+                out[f"{arch_id}|{shape}"] = {
+                    "launches": counts, "bytes": sent, "max_abs_err": errs, "wall_s": wall}
+                del res, blocks, args, cell
+                torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def recsys_cells(dev: torch.device) -> dict:
+    """Phase 5g2: the seven recsys registry ids' cells under a real mesh of
+    RECSYS_CELL_RANKS gloo ranks of the one card (the docstring at the top).
+    Arch by arch, the params made on the card from a seed and one device's
+    run of each cell (built with mesh=None) on them, its intermediates freed
+    before the next arch; then one spawn of the ranks, which read the
+    params, batches and one device's outputs through CUDA IPC.  Raises on
+    any failure; returns the numbers and each path's summed launches."""
+    from repro_torch.configs import recsys_common as RC
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import optimizers as O
+
+    t_phase = time.perf_counter()
+    grads_of = O.Optimizer(init=lambda p: (), update=lambda g, s, p: (g, s))
+    archs, summary = [], {"card": nvidia_smi(), "mesh": dict(zip(("data", "model"),
+                                                              RECSYS_CELL_MESH)),
+                          "max_ring_bytes_per_rank": RECSYS_CELL_MAX_BYTES, "archs": {}}
+
+    def one_device(cfg, params2: dict) -> dict:
+        """The params of the one-device layout: each table's rows without
+        the shard count's padding."""
+        out = dict(params2)
+        for key, emb in (("emb", cfg.embedding(1)), ("wide", cfg.wide_embedding(1))):
+            if key in params2:
+                out[key] = {"table": params2[key]["table"][:emb.sharded.total_rows]}
+        return out
+
+    for i, arch_id in enumerate(RECSYS_CELL_IDS):
+        t0 = time.perf_counter()
+        cfg, tcfg, sizes = recsys_cell_configs(arch_id)
+        ns = RECSYS_CELL_MESH[1]
+        params = R.init_params(cfg, seed=i, num_shards=ns, device=dev)
+        tparams = R.init_params(tcfg, seed=i, num_shards=ns, device=dev)
+        if cfg.arch == "mind":  # N(0, 1) rows: scores and gradients far from rounding
+            for p in (params, tparams):
+                p["emb"]["table"].mul_(100.0)
+        rng = np.random.default_rng(i)
+        batches, want = {}, {}
+        cands = None
+        with recsys_cell_sizes(sizes):
+            for shape, info in RC.RECSYS_SHAPES.items():
+                kind = info["kind"]
+                c = tcfg if kind == "train" else cfg
+                n = sizes[shape]
+                if kind == "retrieval" and c.arch == "two_tower":
+                    host = syn.recsys_batch(rng, c.tables, RECSYS_CELL_QUERIES)
+                    host = {k: host[k] for k in ("indices", "mask")}
+                    cands = torch.randn((n, c.mlp[-1]), device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(i))
+                elif kind == "retrieval" and c.arch == "mind":
+                    host = syn.mind_batch(rng, c.tables[0].vocab, 1, c.hist_len)
+                    host = {"hist": host["hist"], "hist_mask": host["hist_mask"],
+                            "cand_ids": rng.permutation(c.tables[0].vocab)[:n].astype(np.int32)}
+                else:
+                    host = (syn.mind_batch(rng, c.tables[0].vocab, n, c.hist_len)
+                            if c.arch == "mind" else
+                            syn.recsys_batch(rng, c.tables, n, n_dense=c.n_dense))
+                    keys, _ = RC.batch_abstract(c, n, ("data",), kind == "train")
+                    host = {k: host[k] for k in keys}
+                batch = batches[shape] = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+                p1 = one_device(c, tparams if kind == "train" else params)
+                cell = RC._build(shape, None, False, cfg_fn=lambda c=c: c)
+                if kind == "train":
+                    grads, _, m = R.make_train_step(c, grads_of)(p1, (), batch)
+                    new_p, new_s, _ = cell.step_fn(p1, RC.make_recsys_optimizer().init(p1),
+                                                   batch)
+                    want[shape] = {"loss": m["loss"], "grads": grads, "state": new_s}
+                    del new_p
+                else:
+                    with torch.no_grad():
+                        res = cell.step_fn(*((p1, batch, cands) if len(cell.args) == 3
+                                             else (p1, batch)))
+                    want[shape] = ({"scores": res} if kind == "serve"
+                                   else {"values": res[0], "indices": res[1]})
+        torch.cuda.synchronize()
+        archs.append({"arch": arch_id, "cfg": cfg, "train_cfg": tcfg, "sizes": sizes,
+                      "params": params, "train_params": tparams, "batches": batches,
+                      "cands": cands, "want": want})
+        rows = {"serve": max(t.vocab for t in cfg.tables),
+                "train": max(t.vocab for t in tcfg.tables)}
+        summary["archs"][arch_id] = {
+            "table_rows_cap": rows, "sizes": sizes,
+            "ring_bytes_per_rank": {
+                shape: recsys_cell_ring_bytes(tcfg if info["kind"] == "train" else cfg,
+                                              info["kind"], sizes[shape])
+                for shape, info in RC.RECSYS_SHAPES.items()},
+            "one_device_s": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[recsys_cells] {arch_id}: tables capped at {rows} rows, sizes {sizes}, one "
+            f"device's cells in {summary['archs'][arch_id]['one_device_s']:.2f}s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t_spawn = time.perf_counter()
+    res = M.spawn(recsys_cell_rank, RECSYS_CELL_RANKS, (archs,), timeout=RECSYS_CELL_TIMEOUT_S)
+    summary["spawn_s"] = time.perf_counter() - t_spawn
+    paths: dict = {}
+    for a in archs:
+        arch_id = a["arch"]
+        for shape, info in RC.RECSYS_SHAPES.items():
+            kind = info["kind"]
+            c = a["train_cfg"] if kind == "train" else a["cfg"]
+            key = f"{arch_id}|{shape}"
+            need = recsys_cell_launches(c, kind)
+            ring = recsys_cell_ring_bytes(c, kind, a["sizes"][shape])
+            total: dict = {}
+            for r, rr in enumerate(res):
+                got = rr[key]
+                wrong = {k: v for k, v in got["launches"].items() if v != need.get(k, 0)}
+                if wrong:
+                    raise AssertionError(f"[recsys_cells] rank {r} {key}: launches {wrong}, "
+                                         f"expected {need} and 0 elsewhere")
+                if got["bytes"] != ring:
+                    raise AssertionError(f"[recsys_cells] rank {r} {key}: bytes {got['bytes']} "
+                                         f"!= the ring model's {ring}")
+                for k, v in got["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            paths[f"recsys_cells.{c.arch}.{shape}"] = total
+            summary["archs"][arch_id].setdefault("cells", {})[shape] = {
+                "wall_s_per_rank": [rr[key]["wall_s"] for rr in res],
+                "max_abs_err_per_rank": [rr[key]["max_abs_err"] for rr in res],
+                "launches_per_rank": {k: v // RECSYS_CELL_RANKS for k, v in total.items() if v}}
+    del archs, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log("[recsys_cells] " + json.dumps(summary))
+    return {"paths": paths, "summary": summary}
 
 
 # GNN (phases 5h and 5i): graphsage-reddit from the registry at each
@@ -4699,6 +5167,9 @@ def main() -> int:
     archs = recsys_archs(dev)
     log("[recsys_archs] " + json.dumps({k: v for k, v in archs.items() if k != "paths"}))
 
+    # ---------------------------------------------------------- recsys_cells
+    cells = recsys_cells(dev)
+
     # ------------------------------------------------------- gnn, gnn_sharded
     gnn_res = gnn(dev)
     gnn_blocks = gnn_res.pop("sharded_blocks")
@@ -5451,7 +5922,7 @@ def main() -> int:
              "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
              "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
-             **gnn_res["paths"], **gnn_sh["paths"],
+             **cells["paths"], **gnn_res["paths"], **gnn_sh["paths"],
              **lmt["paths"], **tp["paths"], **dry["paths"]}
     kernels = []
     for name, replaces in sources.items():

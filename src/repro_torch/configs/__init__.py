@@ -30,6 +30,15 @@ class CellBuild:
     donate_argnums: tuple[int, ...] = ()
     static_argnums: tuple[int, ...] = ()
 
+    def blocks(self, args: tuple, mesh) -> tuple:
+        """This rank's blocks of ``args`` (the global arrays, shaped as
+        ``self.args``) under ``in_shardings``, views: what ``step_fn``
+        takes under ``mesh``.  The counterpart of the reference's
+        ``jax.device_put(x, NamedSharding(mesh, spec))`` of each argument."""
+        from repro_torch.models.recsys import shard_params
+
+        return tuple(shard_params(a, s, mesh) for a, s in zip(args, self.in_shardings))
+
 
 @dataclasses.dataclass
 class ArchDef:

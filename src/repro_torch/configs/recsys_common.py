@@ -11,8 +11,9 @@ embedding tables (state is O(rows)) + Adam on the dense NN, composed via
 
 A cell's arguments are ``meta`` tensors of the global shapes and its
 in_shardings the port's ``PartitionSpec`` trees; under a mesh each rank
-would pass its blocks of them (``launch.mesh``).  A spec over no axes
-(``P((), None)``, the two_tower retrieval batch) is replicated.
+passes its blocks of them (``CellBuild.blocks``) to the step.  A spec over
+no axes (``P((), None)``, the two_tower retrieval batch) is replicated.
+With ``mesh=None`` the cell is one device's: its specs split nothing.
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ def build_recsys_cell(cfg: R.RecsysConfig, shape: str, mesh, multi_pod: bool) ->
     if cfg.arch == "two_tower":
         batch_abs, bspecs = batch_abstract(cfg, 8, (), train=False)
         cand_abs = _meta((N, cfg.mlp[-1]), torch.float32)
-        cand_spec = P(tuple(mesh.axis_names), None)
+        cand_spec = P(tuple(mesh.axis_names) if mesh is not None else None, None)
 
         def retrieval_step(params, batch, candidates):
             return R.retrieval_topk(cfg, params, batch, candidates, k=RETRIEVAL_K, mesh=mesh,

@@ -651,17 +651,20 @@ def make_train_step(cfg: RecsysConfig, optimizer, mesh=None,
 
 def topk(scores: torch.Tensor, k: int, mesh=None,
          axes: tuple[str, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the ``k`` largest along dim 1 of ``scores``
-    [B, n], largest first.  Under a ``mesh`` with ``axes``, ``scores`` holds
-    this rank's block of the candidates, split over ``axes``: a local top-k
-    of ``min(k, n)``, its positions made global by the rank's block, both
-    all-gathered over ``axes`` and a top-k of those; the result is the same
-    on every rank.  ``torch.topk`` promises no order among ties."""
+    """(values, int32 indices) of the ``k`` largest along dim 1 of
+    ``scores`` [B, n], largest first, as ``jax.lax.top_k`` gives them.
+    Under a ``mesh`` with ``axes``, ``scores`` holds this rank's block of
+    the candidates, split over ``axes``: a local top-k of ``min(k, n)``,
+    its positions made global by the rank's block, both all-gathered over
+    ``axes`` (the positions as int32, the reference's bytes) and a top-k of
+    those; the result is the same on every rank.  ``torch.topk`` promises
+    no order among ties."""
     if mesh is None or not axes:
-        return torch.topk(scores, k, dim=-1)
+        val, idx = torch.topk(scores, k, dim=-1)
+        return val, idx.to(torch.int32)
     n_loc = scores.shape[1]
     val, pos = torch.topk(scores, min(k, n_loc), dim=-1)
-    gpos = pos + mesh.index(axes) * n_loc
+    gpos = (pos + mesh.index(axes) * n_loc).to(torch.int32)
     vals = M.all_gather(val, axes, mesh, dim=1)
     poss = M.all_gather(gpos, axes, mesh, dim=1)
     gval, gidx = torch.topk(vals, k, dim=-1)

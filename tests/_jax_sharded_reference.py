@@ -62,6 +62,8 @@ def specs_of(rows):
 
 
 def nest(flat: dict, prefix: str) -> dict:
+    """``{"a|b": x}`` entries under ``prefix|`` as nested dicts of arrays; a
+    node whose keys are all indices (``attn|0|wq``) is a list."""
     out: dict = {}
     for key, arr in flat.items():
         if not key.startswith(prefix + "|"):
@@ -71,7 +73,15 @@ def nest(flat: dict, prefix: str) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = jnp.asarray(arr)
-    return out
+    return _lists(out)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 def flat_np(tree) -> dict:

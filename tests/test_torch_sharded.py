@@ -66,7 +66,7 @@ from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 from repro_torch.optim import sharding_rules as SR
-from repro_torch.utils import keystr, tree_flatten_with_path, tree_map
+from repro_torch.utils import keystr, tree_flatten_with_path, tree_map, tree_unflatten
 
 import _torch_sharded_ranks as ranks
 
@@ -1123,14 +1123,37 @@ def test_gnn_partitioned_forward_matches_reference(runs, comm):
         G.full_graph_ring_bytes(cfg, GNN_N, n_dev) - M.ring_bytes("all_reduce", GNN_N * 4, n_dev))
 
 
+def _reference_adam_step(params, grads: dict) -> dict:
+    """The reference's ``make_adam(1e-3)`` stepping ``params`` (whole, nested
+    torch tensors) by ``grads`` (by keystr) from its initial state: the new
+    params by keystr."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.optim import optimizers as JO
+
+    g = tree_unflatten(params, [grads[keystr(p)] for p, _ in tree_flatten_with_path(params)])
+    to_jax = functools.partial(tree_map, lambda t: jnp.asarray(np.asarray(t)))
+    adam = JO.make_adam(1e-3)
+    p = to_jax(params)
+    new_p, _ = adam.update(to_jax(g), adam.init(p), p)
+    return {jax.tree_util.keystr(k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(new_p)[0]}
+
+
 @pytest.mark.parametrize("shape", GNN_CELLS)
-def test_gnn_cell_steps_match_reference(runs, shape):
+def test_gnn_cell_steps_match_reference(runs, dry_inputs, shape):
     """The minibatch and molecule cells under the mesh: each rank's share of
     the loss and gradients summed over the mesh (the global batch's), and
     the cell's Adam step, against the reference's mesh run (the batch laid
-    out by the cell's in_shardings) and its one-device run.  Bytes: one
-    all-reduce of the loss and of each gradient leaf, as the compiled
-    HLO's."""
+    out by the cell's in_shardings) and its one-device run: the Adam state
+    against theirs, the params against the reference's ``make_adam``
+    applied to the rank's own gradients.  Adam's first step is
+    lr g / (|g| + 1e-8): at a gradient near 1e-8 it turns the gradients'
+    rounding, well inside their tolerance, into a step apart (on other
+    draws 1.55e-6 at a gradient of 6.09e-9 against 6.05e-9, and 4.74e-6,
+    past STEP_TOL).  Bytes: one all-reduce of the loss and of each gradient
+    leaf, as the compiled HLO's."""
     ref, port = runs
     from repro_torch.configs import graphsage_reddit as GR
 
@@ -1139,16 +1162,22 @@ def test_gnn_cell_steps_match_reference(runs, shape):
     n_dev = MESH[0] * MESH[1]
     leaves = [t.numel() * 4 for _, t in tree_flatten_with_path(G.abstract_params(cfg))]
     want = {"all_reduce": sum(M.ring_bytes("all_reduce", b, n_dev) for b in leaves + [4])}
+    params = ranks.gnn_params(dry_inputs, f"gnn_cellp|{shape}")
     for r in port:
         out = r["outputs"]
+        grads = _leaves(out, f"gnn|cell_grads|{shape}|")
+        step = _leaves(out, f"gnn|cell_step|{shape}|")
+        stepped = _reference_adam_step(params, grads)
+        _gnn_trees({k: v for k, v in step.items() if k in stepped}, stepped)
         for where in ("mesh", "one"):
             _close(out[f"gnn|cell_loss|{shape}"], ref[f"gnn|cell_loss|{shape}|{where}"])
             _close(out[f"gnn|cell_step_loss|{shape}"],
                    ref[f"gnn|cell_step_loss|{shape}|{where}"])
-            _gnn_trees(_leaves(out, f"gnn|cell_grads|{shape}|"),
-                       _leaves(ref, f"gnn|cell_grads|{shape}|{where}|"), scaled=True)
-            _gnn_trees(_leaves(out, f"gnn|cell_step|{shape}|"),
-                       _leaves(ref, f"gnn|cell_step|{shape}|{where}|"))
+            _gnn_trees(grads, _leaves(ref, f"gnn|cell_grads|{shape}|{where}|"), scaled=True)
+            want_step = _leaves(ref, f"gnn|cell_step|{shape}|{where}|")
+            assert sorted(step) == sorted(want_step)
+            _gnn_trees({k: v for k, v in step.items() if k.startswith("state")},
+                       {k: v for k, v in want_step.items() if k.startswith("state")})
         assert r["bytes"][f"gnn_cell|{shape}"] == want
     assert float(ref[f"hlo_bytes|gnn_cell|{shape}"]) == want["all_reduce"]
 
