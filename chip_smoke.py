@@ -223,18 +223,25 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 the kernel's split over S, one past it and the whole cache;
                 K6 and K7 at each MoE / wide path's own layer (olmoe's 16/16
                 heads in bf16 and lm_moe_f32's f32, arctic's 56/8: groups of
-                7, qwen2's 64/8, llama3's 128/8, all at dh 128);
+                7, qwen2's 64/8, llama3's 128/8, all at dh 128); bf16 at the
+                reference sweep's rows at head dims 16 and 32 (K6 [2, 64, 4,
+                2, 16] causal and [1, 128, 4, 4, 32] full; K7 q [2, 8, 16]
+                over [2, 128, 2, 16] at cache_len 100 and q [1, 4, 32] over
+                [1, 256, 4, 32] at 256) and K7 at lm_small_bf16's decode
+                step, each timed;
                 bf16 to two output ulps plus 2^-5 of the row's RMS, a check
                 shown to refuse planted faults (one KV tile of 64 skipped,
-                bf16 and f32; K7's middle chunk dropped); K7's shard mode
-                (``flash_decode_partial``) in f32 and bf16 on
-                lm_sharded_decode's [4, 1032, 16, 128] shard starting
-                below, inside, at and past cache_len, NaN from cache_len
-                on: its max and sum, and its sum over its sum, against the
-                plain version; an empty shard must give m = -inf, l = 0,
-                acc = 0; timed by events and by the profiler (the kernel's
-                own device time: the events also hold the wrapper's
-                enqueue when the host trails), beside
+                bf16 and f32, and bf16 at dh 32; K7's middle chunk dropped);
+                K7's shard mode (``flash_decode_partial``) in f32 and bf16
+                on lm_sharded_decode's [4, 1032, 16, 128] shard, and in
+                bf16 on shards of 256 positions at dh 16 (4 heads over 1)
+                and 32 (8 over 4), each starting below, inside, at and past
+                cache_len, NaN from cache_len on: its max and sum, and its
+                sum over its sum, against the plain version; an empty shard
+                must give m = -inf, l = 0, acc = 0; the first shard timed
+                by events and by the profiler (the kernel's own device
+                time: the events also hold the wrapper's enqueue when the
+                host trails), beside
                 ``aten._scaled_dot_product_efficient_attention`` with its
                 logsumexp (= m + log l) on the same shard.
                 CUDA-event medians of each kernel, its plain version and
@@ -305,22 +312,26 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 reading the weights;
  9g. lm_train_kernels — K6 writing its row logsumexp and K6' (its
                 backward, ``flash_attention_backward.cu``) against their
-                plain versions: lm-small's layer [8, 128, 8, 4, 32] f32,
-                and at the trainer's batch [256, 128, 8, 4, 32], lm_smoke's
-                head dim 16 (4 and 1 KV heads), stablelm-3b's train layer
+                plain versions: lm-small's layer [8, 128, 8, 4, 32] f32
+                and bf16, and at the trainer's batch [256, 128, 8, 4, 32],
+                lm_smoke's head dim 16 (4 and 1 KV heads) in both dtypes,
+                bf16 at dh 16 with a ragged S of 1,000 and at dh 32 full,
+                stablelm-3b's train layer
                 [2, 4096, 32, 32, 80] and olmoe-1b-7b's [1, 4096, 16, 16,
                 128] in bf16, f32 at dh 80 (also with groups of 4), ragged S
                 (45, 1000), full attention, groups 1, 2, 4 and 8, every head
                 dim of each dtype; f32 at 2e-5, bf16 by
                 ``assert_close_rows``; the logsumexp at 2e-5; K6' twice
-                bit-equal (lm-small's, stablelm's, f32 dh 80 in groups), and
-                a planted build whose dK/dV loop skips a query tile refused
-                (f32 and bf16); timed beside its plain version, the backward alone
+                bit-equal (lm-small's in both dtypes, stablelm's, f32 dh 80
+                in groups), and a planted build whose dK/dV loop skips a
+                query tile refused (lm-small's f32 and bf16, stablelm's);
+                timed beside its plain version, the backward alone
                 of ``F.scaled_dot_product_attention(..., enable_gqa=True)``
                 and its bound (five products of 2 B H dh a kept pair; f32
                 at three tf32 products each, the FMA bound beside it), and
-                K6 with and without its logsumexp; each of K6''s three
-                launches (D, dK/dV, dQ) timed from a profiler window;
+                K6 with and without its logsumexp, its plain version and
+                SDPA's forward; each of K6''s three launches (D, dK/dV, dQ)
+                timed from a profiler window;
   9h. lm_train_small — lm-small (``launch.train.make_lm_small``): one
                 step's loss and every gradient leaf on the card against the
                 CPU (64 sequences of the trainer's first batch, rtol 1e-5,
@@ -328,6 +339,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 K6' as the remat predicts (3 L - G and L a step, here 10
                 and 4); then ``launch.train --model lm`` for 50 steps of 256
                 x 128 tokens, whose closing assert needs the loss to fall;
+  9h2. lm_small_bf16 — lm-small and lm_smoke's widths (the registry's
+                smoke cut of qwen2-72b: dh 16, 4 heads over 1, QKV bias) in
+                the reference's default bf16 compute (f32 params from seed
+                0): a prefill of 8 x 128 (lm_smoke 4 x 16; K6 once a layer),
+                16 greedy decode steps (K7 once a layer a step) and a train
+                step at the trainer's 256 x 128 (lm_smoke 4 x 16; K6 with
+                its logsumexp 3 L - G and K6' L times a microbatch), each
+                with the other kernels' counts at 0, against the same on
+                the CPU (the plain versions; the decode fed the card's
+                tokens): logits and caches by rows at TP_BF16_TOL, the loss
+                at TP_BF16_LOSS_RTOL, every gradient leaf by rows at
+                TP_BF16_GRAD_TOL;
   9i. lm_train — stablelm-3b at full width and depth, f32 params (the
                 train cell's rule), bf16 compute, Adam updating in place,
                 3 steps on one fixed batch of 2 x 4,096 (train_4k's 256
@@ -408,7 +431,8 @@ kernels line, 5, 5b, 5c, 5d's run under faults, 5e, 5f's defaults run,
 kernel), 7, 8, and 9 as
 ``lm_f32``: K6 and K7 in f32 on the card, 9b, 9c, 9d as ``lm_moe_f32``,
 9e summed over its ranks and cases, 9f as ``lm_wide_prefill.<arch>`` and
-``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9i's and 9j's steps,
+``lm_wide_decode.<arch>``, 9h's ``launch.train`` run, 9h2's prefill,
+decode and train step as ``lm_small_bf16.<config>.<part>``, 9i's and 9j's steps,
 9k as ``lm_registry.<arch>``, 9l and 9m as ``lm_tp_prefill`` and
 ``lm_tp_train``, summed over their ranks and passes, 9n's card runs as
 ``dryrun.<program>``) runs with the launch
@@ -591,17 +615,25 @@ SHARDED_DECODE_CASES = (
     ("qwen2_f32_fsdp_b1", "qwen2_f32", (2, 2), 1, (), ("data", "model"), 32768, 20000),
 )
 K7P_SHARD = 1032  # K7's shard mode checked and timed on model_b4's shard
+K7P_SMALL = 256  # and checked in bf16 at head dims 16 and 32 on shards of this length
 # LM training (phases 9g-9k).  K6 with its row logsumexp and K6' against
 # their plain versions, (B, S, H, Hkv, dh, dtype, causal, timed): the
 # trainer's lm-small layer, lm_smoke's head dim 16 (GQA as the registry's
-# smokes cut it), stablelm-3b's and olmoe-1b-7b's train layers at 2 x 4,096
-# and 1 x 4,096, f32 at dh 80, ragged S, full attention, groups 1 to 8, and
-# every head dim each dtype takes.
+# smokes cut it), both in f32 and in the reference's default bf16 compute,
+# stablelm-3b's and olmoe-1b-7b's train layers at 2 x 4,096 and 1 x 4,096,
+# f32 at dh 80, ragged S, full attention, groups 1 to 8, and every head dim
+# each dtype takes.
 LMT_KERNEL_CASES = {
     "lm-small f32": (8, 128, 8, 4, 32, "f32", True, True),
     "lm-small b256 f32": (256, 128, 8, 4, 32, "f32", True, True),
     "lm_smoke f32": (4, 16, 4, 4, 16, "f32", True, False),
     "lm_smoke gqa f32": (4, 16, 4, 1, 16, "f32", True, False),
+    "lm-small bf16": (8, 128, 8, 4, 32, "bf16", True, True),
+    "lm-small b256 bf16": (256, 128, 8, 4, 32, "bf16", True, True),
+    "lm_smoke bf16": (4, 16, 4, 4, 16, "bf16", True, False),
+    "lm_smoke gqa bf16": (4, 16, 4, 1, 16, "bf16", True, False),
+    "ragged 1000 dh16 bf16": (1, 1000, 4, 2, 16, "bf16", True, False),
+    "full dh32 bf16": (2, 300, 4, 2, 32, "bf16", False, False),
     "stablelm bf16": (2, 4096, 32, 32, 80, "bf16", True, True),
     "olmoe bf16": (1, 4096, 16, 16, 128, "bf16", True, True),
     "dh80 f32": (2, 1024, 32, 32, 80, "f32", True, True),
@@ -629,13 +661,24 @@ K6B_FLOOR = 2.0**-12
 # K6''s planted fault: its dK/dV loops (f32 and bf16) skip the first query
 # tile they visit (a causal key tile's diagonal tile)
 K6B_PLANT = ("  return causal ? j * ratio : 0;", "  return (causal ? j * ratio : 0) + 1;")
-# The cases where K6' runs twice and must give equal bits; the first two
+# The cases where K6' runs twice and must give equal bits, and those that
 # also hold the planted fault
-K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32")
+K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32", "lm-small bf16")
+K6B_PLANTED = ("lm-small f32", "stablelm bf16", "lm-small bf16")
 # K6''s three launches by the names of their kernels (device_busy's filter)
 K6B_LAUNCHES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 LMT_SMALL_STEPS, LMT_SMALL_BATCH, LMT_SMALL_SEQ = 50, 256, 128  # launch.train --model lm
 LMT_SMALL_CHECK = 64  # sequences of the trainer's first batch in the card-vs-CPU step
+# lm_small_bf16 (phase 9h2): lm-small's and lm_smoke's widths in bf16
+# compute, card vs CPU on the same params and inputs: a prefill of
+# LMB_PREFILL (lm-small; lm_smoke at its smoke's batch, LMB_SMOKE), that
+# many greedy decode steps (the CPU fed the card's tokens), a train step at
+# the trainer's batch (lm_smoke: LMB_SMOKE).  Logits and caches by rows at
+# TP_BF16_TOL, the loss at TP_BF16_LOSS_RTOL, every gradient leaf by rows at
+# TP_BF16_GRAD_TOL: both sides round at the same points, but the card's
+# products sum in other orders than the CPU's, and K6, K6' and K7 round P to
+# bf16 in their own order.
+LMB_PREFILL, LMB_SMOKE, LMB_DECODE_STEPS = (8, 128), (4, 16), 16
 LMT_BATCH, LMT_SEQ, LMT_STEPS = 2, 4096, 3  # stablelm-3b: train_4k's batch of 256 cut to 2
 LMT_MOE_LAYERS, LMT_MOE_STEPS = 4, 2  # olmoe-1b-7b at full width, 4 of its 16 layers
 LMT_CUT_LAYERS, LMT_CUT_BATCH, LMT_CUT_SEQ = 2, 1, 256  # the f32 cuts, card vs CPU
@@ -730,6 +773,34 @@ def cuda_ms(fn, flush: torch.Tensor, reps: int = 15, warmup: int = 3,
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, calls: int = 20, sleep_cycles: int = 1 << 25) -> float:
+    """Device time of one call of ``fn`` with the host's enqueue hidden: a
+    sleep kernel holds the stream while the host enqueues ``calls`` calls
+    back to back, which then run one after another (L2 warm).  Where the
+    host took longer to enqueue them than the sleep lasted (its time could
+    then be in the reading), once more with a sleep 8x as long, then it
+    raises.  For launch-sized calls, whose event pairs in ``cuda_ms`` hold
+    the wrapper's host time (torch.profiler windows of such calls came back
+    without device events at times on this card)."""
+    fn()
+    for cycles in (sleep_cycles, 8 * sleep_cycles):
+        torch.cuda.synchronize()
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < held.elapsed_time(start):
+            return start.elapsed_time(end) / calls
+    raise AssertionError(f"device_ms: the host's {host_ms:.3f} ms of enqueue outlasted the "
+                         f"sleep's {held.elapsed_time(start):.3f} ms")
+
+
 def bound(bytes_moved: float, flops: float,
           flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -788,6 +859,26 @@ def sdpa_backward(q, k, v, do, causal: bool):
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     g = do.transpose(1, 2)
     return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
+
+
+def k6_bound(q, k, causal: bool, rate: float | None = None) -> tuple[float, str]:
+    """K6's bound (its serving launch): q, k, v read and the output written
+    once, two products of 2 dh operations a kept pair and head, at ``rate``
+    (by default the bf16 tensor cores' or the f32 FMA rate)."""
+    B_, S_, H_, d_ = q.shape
+    pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
+    rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S)
+    return bound(2 * (q.numel() + k.numel()) * q.element_size(), 4 * d_ * B_ * H_ * pairs, rate)
+
+
+def sdpa_forward(q, k, v, causal: bool):
+    """K6's yardstick, timed and never called by the port: one
+    ``F.scaled_dot_product_attention`` call (GQA) on [B, S, heads, dh]
+    tensors."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), is_causal=causal, enable_gqa=True)
 
 
 def kernel_name(mangled: str) -> str:
@@ -2741,9 +2832,138 @@ def gnn_sharded(dev: torch.device, blocks: dict) -> dict:
     return {"paths": {"gnn_sharded": total}, "summary": summary}
 
 
+def lm_small_bf16(dev: torch.device) -> dict:
+    """Phase 9h2 (the docstring at the top): lm-small and lm_smoke's widths
+    in bf16 compute on the card against the CPU.  Returns each config's
+    summary and, under "paths", the launches of each part."""
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.qwen2_72b import make_config as make_qwen2
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import keystr, tree_flatten_with_path, tree_to
+
+    bf16 = torch.bfloat16
+
+    def hold_tree_rows(name, got, want, tol) -> float:
+        """Every leaf of two trees by rows (``limit_share``, a row the last
+        dim), keys in the same order; returns the worst share of the limit."""
+        got, want = tree_flatten_with_path(got), tree_flatten_with_path(want)
+        if [keystr(k) for k, _ in got] != [keystr(k) for k, _ in want]:
+            raise AssertionError(f"{name}: the trees' leaves differ")
+        shares = {keystr(k): limit_share(g.detach().cpu(), w.detach(), *tol)
+                  for (k, g), (_, w) in zip(got, want)}
+        worst = max(shares, key=shares.get)
+        if not shares[worst] <= 1.0:
+            raise AssertionError(f"{name}: {worst} at {shares[worst]:.3f} of the limit "
+                                 f"(rtol {tol[0]}, {tol[1]} of the row's RMS)")
+        log(f"  {name}: ok, {len(shares)} leaves, worst {worst} at {shares[worst]:.3f} of the "
+            f"limit (rtol {tol[0]}, {tol[1]} of the row's RMS)")
+        return shares[worst]
+
+    def only(name, counts, want) -> None:
+        """The window's LM kernel launches are exactly ``want``."""
+        keys = ("flash_attention", "flash_attention_f32", "flash_attention_backward",
+                "flash_attention_backward_f32", "flash_decode", "flash_decode_partial")
+        got = {k: counts[k] for k in keys}
+        if got != {k: want.get(k, 0) for k in keys}:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+
+    out = {"paths": {}}
+    for key, cfg, (pb, ps), (tb, ts) in (
+            ("lm-small", dataclasses.replace(launch_train.make_lm_small(), compute_dtype=bf16),
+             LMB_PREFILL, (LMT_SMALL_BATCH, LMT_SMALL_SEQ)),
+            ("lm_smoke", dataclasses.replace(lm_common.smoke_config(make_qwen2()),
+                                             compute_dtype=bf16), LMB_SMOKE, LMB_SMOKE)):
+        n_steps, L_ = LMB_DECODE_STEPS, cfg.n_layers
+        log(f"[lm_small_bf16] {key} (dh {cfg.d_head}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+            f"{L_} layers, d_model {cfg.d_model}, vocab {cfg.vocab}), bf16 compute: prefill "
+            f"{pb} x {ps}, {n_steps} greedy decode steps, a train step of {tb} x {ts}; card "
+            "vs CPU")
+        params = TF.init_params(cfg, seed=0, device=dev)
+        cpu_params = tree_to(params, "cpu")
+        host = syn.lm_batch(np.random.default_rng(7), cfg.vocab, max(pb, tb), max(ps, ts))
+        prompt = torch.from_numpy(host["tokens"][:pb, :ps])
+        summary = {"config": cfg.name, "d_head": cfg.d_head, "prefill": [pb, ps],
+                   "decode_steps": n_steps, "train_batch": [tb, ts]}
+        # prefill (K6), then greedy steps (K7) into caches of ps + n_steps
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last, (kc, vc) = TF.prefill(cfg, params, prompt.to(dev))
+        torch.cuda.synchronize()
+        summary["prefill_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["paths"][f"lm_small_bf16.{key}.prefill"] = counts = launch_counts()
+        only(f"lm_small_bf16 {key} prefill", counts, {"flash_attention": L_})
+        with torch.no_grad():
+            kd, vd = TF.init_decode_cache(cfg, pb, ps + n_steps, device=dev)
+            kd[:, :, :ps], vd[:, :, :ps] = kc, vc
+        tok = last[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        pos = torch.tensor(ps, dtype=torch.int32, device=dev)
+        fed, card_logits = [], [last]
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(n_steps):  # no host sync inside the loop
+                fed.append(tok)
+                logits = TF.decode_step(cfg, params, (kd, vd), tok, pos)[0]
+                card_logits.append(logits)
+                tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+                pos += 1
+        torch.cuda.synchronize()
+        summary["decode_wall_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_steps
+        out["paths"][f"lm_small_bf16.{key}.decode"] = counts = launch_counts()
+        only(f"lm_small_bf16 {key} decode", counts, {"flash_decode": L_ * n_steps})
+        # the same on the CPU, fed the card's tokens
+        with torch.no_grad():
+            last_c, (kc_c, vc_c) = TF.prefill(cfg, cpu_params, prompt)
+            kd_c, vd_c = TF.init_decode_cache(cfg, pb, ps + n_steps, device="cpu")
+            kd_c[:, :, :ps], vd_c[:, :, :ps] = kc_c, vc_c
+            cpu_logits = [last_c]
+            for i, t in enumerate(fed):
+                cpu_logits.append(TF.decode_step(cfg, cpu_params, (kd_c, vd_c), t.cpu(),
+                                                 torch.tensor(ps + i, dtype=torch.int32))[0])
+        what = f"lm_small_bf16 {key}: prefill {pb} x {ps} + {n_steps} decode steps"
+        summary["logits_max_abs_err"] = assert_close_rows(
+            f"{what}, logits on the card (K6, K7) vs the CPU", torch.stack(card_logits).cpu(),
+            torch.stack(cpu_logits), *TP_BF16_TOL)
+        for name, g, w in (("k cache", kd, kd_c), ("v cache", vd, vd_c)):
+            summary[f"{name[0]}_cache_max_abs_err"] = assert_close_rows(
+                f"{what}, {name} on the card vs the CPU", g.cpu(), w, *TP_BF16_TOL)
+        summary["tokens_generated"] = torch.stack(fed[:4], 1)[:2].tolist()
+        del kc, vc, kd, vd, kd_c, vd_c, card_logits, cpu_logits, last
+        # one train step (K6 with its logsumexp, K6'), card vs CPU
+        toks, labs = (torch.from_numpy(host[k][:tb, :ts]) for k in ("tokens", "labels"))
+        reset_counts()
+        t0 = time.perf_counter()
+        loss_c, grads_c = TF.loss_and_grads(cfg, params, toks.to(dev), labs.to(dev))
+        torch.cuda.synchronize()
+        summary["train_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["paths"][f"lm_small_bf16.{key}.train"] = counts = launch_counts()
+        # the two-level remat's launches (lm_train's launches_per_step);
+        # loss_and_grads takes the batch whole, as one microbatch
+        k6, k6b = 3 * L_ - cfg.groups(), L_
+        only(f"lm_small_bf16 {key} train step", counts,
+             {"flash_attention": k6, "flash_attention_backward": k6b})
+        log(f"  lm_small_bf16 {key}: K6 x {L_} in the prefill, K7 x {L_} a decode step, K6 x "
+            f"{k6} and K6' x {k6b} in the train step, all bf16")
+        loss_p, grads_p = TF.loss_and_grads(cfg, cpu_params, toks, labs)
+        summary["loss"] = [float(loss_c), float(loss_p)]
+        assert_close(f"lm_small_bf16 {key}: train step loss, card vs CPU", loss_c.cpu(), loss_p,
+                     TP_BF16_LOSS_RTOL, 0.0)
+        summary["grads_worst_share"] = hold_tree_rows(
+            f"lm_small_bf16 {key}: train step gradients, card vs CPU", grads_c, grads_p,
+            TP_BF16_GRAD_TOL)
+        out[key] = summary
+        del params, cpu_params, grads_c, grads_p
+    log("[lm_small_bf16] " + json.dumps({k: v for k, v in out.items() if k != "paths"}))
+    return out
+
+
 def lm_train(dev: torch.device, planted) -> dict:
     """Phases 9g-9k, LM training on the card (the docstring at the top):
-    lm_train_kernels, lm_train_small, lm_train, lm_moe_train and lm_registry.
+    lm_train_kernels, lm_train_small, lm_small_bf16, lm_train, lm_moe_train
+    and lm_registry.
     ``planted`` is the nvcc process and library of K6''s planted fault.
     Returns the launches of each path, K6''s rows and the paths' summaries."""
     from repro_torch import configs
@@ -2836,6 +3056,7 @@ def lm_train(dev: torch.device, planted) -> dict:
         rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S)
         return bound(moved, flops, rate)
 
+
     plant_log, _ = planted[0].communicate()
     if planted[0].returncode:
         raise RuntimeError(f"nvcc failed for K6''s planted fault:\n{plant_log}")
@@ -2876,7 +3097,7 @@ def lm_train(dev: torch.device, planted) -> dict:
                 raise AssertionError(f"K6' {label}: two launches differ")
             log(f"  K6' {label}: two launches bit-equal")
             del again
-        if label in K6B_TWICE[:2]:
+        if label in K6B_PLANTED:
             build.use_library(K6.NAME_BWD, planted_so)
             try:
                 bad = K6.flash_attention_backward(q, k, v, o, want_lse, do, causal)
@@ -2889,7 +3110,8 @@ def lm_train(dev: torch.device, planted) -> dict:
         if timed:
             # f32's bound is that of three tf32 products, which reach f32's
             # accuracy on this card (as K6 f32's); the FMA bound stands beside it.
-            bnd = k6b_bound(q, k, causal, TF32_TENSOR_FLOP_PER_S / 3 if dt == f32 else None)
+            rate_f = TF32_TENSOR_FLOP_PER_S / 3 if dt == f32 else None
+            bnd = k6b_bound(q, k, causal, rate_f)
             row = {"case": f"{label} {shape}", "max_abs_err": errs[label],
                    "ms": cuda_ms(lambda: K6.flash_attention_backward(q, k, v, o, want_lse, do,
                                                                      causal), flush),
@@ -2899,7 +3121,12 @@ def lm_train(dev: torch.device, planted) -> dict:
                    "bound_ms": bnd[0], "bound_by": bnd[1],
                    "k6_forward_ms": cuda_ms(lambda: K6.flash_attention(q, k, v, causal), flush),
                    "k6_forward_lse_ms": cuda_ms(lambda: K6.flash_attention(q, k, v, causal,
-                                                                           lse=lse), flush)}
+                                                                           lse=lse), flush),
+                   # K6 alone at this layer: its plain version, SDPA and its bound
+                   "k6_forward_plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+                                                  flush, reps=5, warmup=1),
+                   "k6_forward_library_ms": cuda_ms(lambda: sdpa_forward(q, k, v, causal), flush),
+                   "k6_forward_bound_ms": k6_bound(q, k, causal, rate_f)[0]}
             if dt == f32:
                 row["bound_ms_fma"] = k6b_bound(q, k, causal)[0]
             # K6''s three launches (D, dK/dV, dQ), device time a launch from
@@ -2909,6 +3136,14 @@ def lm_train(dev: torch.device, planted) -> dict:
                                                                    causal), 10, K6B_LAUNCHES)
             row["launch_ms"] = busy.get("kernels_ms_each")
             row["launches_traced"] = busy.get("kernels_launches")
+            # Device time alone of K6', K6, SDPA and SDPA's backward
+            # (``device_ms``): at lm-small's layers the event pairs above hold
+            # the host's enqueue (K6 and K6' encode their tensor maps a call)
+            row["device_ms"] = device_ms(lambda: K6.flash_attention_backward(
+                q, k, v, o, want_lse, do, causal))
+            row["k6_forward_device_ms"] = device_ms(lambda: K6.flash_attention(q, k, v, causal))
+            row["k6_forward_library_device_ms"] = device_ms(lambda: sdpa_forward(q, k, v, causal))
+            row["library_device_ms"] = device_ms(sdpa_backward(q, k, v, do, causal))
             rows.append(row)
             log(f"  K6' {label}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
                 f"backward {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
@@ -2946,6 +3181,11 @@ def lm_train(dev: torch.device, planted) -> dict:
         "tokens_per_s": LMT_SMALL_BATCH * LMT_SMALL_SEQ / median_s,
         "grads_max_abs_err": small_err}
     log("[lm_train_small] " + json.dumps(out["lm_train_small"]))
+
+    # -------------------------------------------------------- lm_small_bf16
+    small_bf16 = lm_small_bf16(dev)
+    out["paths"].update(small_bf16.pop("paths"))
+    out["lm_small_bf16"] = small_bf16
 
     # ------------------------------------------------------------- lm_train
     def train_path(name, cfg, steps, batch_seed, fall: bool, kernels: tuple):
@@ -5187,23 +5427,12 @@ def main() -> int:
     def rnd(shape, dtype):
         return torch.randn(shape, device=dev, generator=lm_gen).to(dtype)
 
-    def k6_bound(q, k, causal, rate=None):
-        B_, S_, H_, d_ = q.shape
-        pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
-        rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == bf16 else F32_FLOP_PER_S)
-        return bound(2 * (q.numel() + k.numel()) * q.element_size(),  # q, k, v, out
-                     4 * d_ * B_ * H_ * pairs, rate)
-
     def k7_bound(q, kc, n):
         B_, _, Hkv_, d_ = kc.shape
         return bound(2 * B_ * n * Hkv_ * d_ * kc.element_size()  # K and V rows < n
                      + 2 * q.numel() * q.element_size(),  # q, out
                      4 * d_ * q.shape[0] * q.shape[1] * n)
 
-    def k6_lib(q, k, v, causal):  # the yardstick: timed here, never called by the port
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), is_causal=causal,
-                                              enable_gqa=True)
 
     def k7_lib(q, kc, vc, n):
         return F.scaled_dot_product_attention(q[:, :, None], kc[:, :n].transpose(1, 2),
@@ -5217,6 +5446,11 @@ def main() -> int:
 
     lm_rows = []
     k7p_rows = {}  # K7's shard mode timed, by dtype
+
+    def device_times(row, kern, lib):
+        """The kernel's and the library call's device time alone
+        (``device_ms``) beside a row's event medians."""
+        row["kernel_device_ms"], row["library_device_ms"] = device_ms(kern), device_ms(lib)
 
     def time_case(label, kern, plain, lib, bnd):
         row = {"case": label, "ms": cuda_ms(kern, flush),
@@ -5248,6 +5482,10 @@ def main() -> int:
         "ragged dh64 f32": ((2, LM_RAGGED_SEQ, 4, 64), 2, f32, True),
         "ragged dh96 f32": ((2, LM_RAGGED_SEQ, 4, 96), 2, f32, True),
         "ragged dh128 full f32": ((2, LM_RAGGED_SEQ, 4, 128), 1, f32, False),
+        # The reference sweep's bf16 rows at head dims 16 and 32
+        # (tests/test_kernels.py): one 16- or 32-column region a tile.
+        "dh16 bf16": ((2, 64, 4, 16), 2, bf16, True),
+        "dh32 full bf16": ((1, 128, 4, 32), 4, bf16, False),
     }
     # Each MoE / wide path's own prefill and decode layer: olmoe's 16/16
     # heads (bf16, and lm_moe_f32's f32 layer), arctic's 56/8 (groups of 7:
@@ -5284,21 +5522,29 @@ def main() -> int:
                 refuse(f"K6 {label} with the first KV tile skipped, rows {h}+",
                        planted[:, h - t:], want[:, h:], *tol)
                 del planted
+            if label == "dh32 full bf16":  # the same fault at head dim 32: half the keys
+                t = LM_KV_TILE
+                assert_refused(f"K6 {label} with the first KV tile skipped",
+                               ref.flash_attention_ref(q, k[:, t:], v[:, t:], False), want, *tol)
             if label == "path bf16":
                 errs["flash_attention"] = err
                 timings["flash_attention"] = (
                     cuda_ms(lambda: K6.flash_attention(q, k, v, True), flush),
                     cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), flush),
-                    cuda_ms(lambda: k6_lib(q, k, v, True), flush))
+                    cuda_ms(lambda: sdpa_forward(q, k, v, True), flush))
                 bounds["flash_attention"] = k6_bound(q, k, True)
-            elif label in ("path f32", "lm_f32 f32", "gqa bf16", "dh128 bf16"):
+            elif label in ("path f32", "lm_f32 f32", "gqa bf16", "dh128 bf16", "dh16 bf16",
+                           "dh32 full bf16"):
                 # f32's bound is its design's: three tf32 products; the f32
                 # FMA bound stands beside it.
                 rate = TF32_TENSOR_FLOP_PER_S / 3 if dt == f32 else None
                 row = time_case(f"K6 {label} {list(shape[:3]) + [hkv, shape[3]]}",
                                 lambda: K6.flash_attention(q, k, v, causal),
                                 lambda: ref.flash_attention_ref(q, k, v, causal),
-                                lambda: k6_lib(q, k, v, causal), k6_bound(q, k, causal, rate))
+                                lambda: sdpa_forward(q, k, v, causal), k6_bound(q, k, causal, rate))
+                if shape[3] < 64:  # launch-sized: the host's enqueue fills the events
+                    device_times(row, lambda: K6.flash_attention(q, k, v, causal),
+                                 lambda: sdpa_forward(q, k, v, causal))
                 if dt == f32:
                     row["bound_ms_fma"] = k6_bound(q, k, causal)[0]
                     row["max_abs_err"] = err
@@ -5309,7 +5555,7 @@ def main() -> int:
         q, k, v = (rnd((1, Sp, Hq, dh), bf16) for _ in range(3))
         time_case(f"K6 bf16 [1, {Sp}, {Hq}, {Hkv}, {dh}] causal (prefill_32k, B = 1)",
                   lambda: K6.flash_attention(q, k, v, True), None,
-                  lambda: k6_lib(q, k, v, True), k6_bound(q, k, True))
+                  lambda: sdpa_forward(q, k, v, True), k6_bound(q, k, True))
         del q, k, v
 
         n_path = LM_PROMPT + 1  # the first decode step's valid length
@@ -5329,6 +5575,13 @@ def main() -> int:
             "g4 chunk edge + 1 bf16": (g4_q, g4_c, bf16, edge + 1),
             "g4 full cache bf16": (g4_q, g4_c, bf16, LM_CACHE),
             "g4 chunk edge + 1 f32": (g4_q, g4_c, f32, edge + 1),
+            # the reference sweep's bf16 rows at head dims 16 and 32, and
+            # lm_small_bf16's decode (8 prompts of 128, its first step)
+            "dh16 bf16": ((2, 8, 16), (2, 128, 2, 16), bf16, 100),
+            "dh32 bf16": ((1, 4, 32), (1, 256, 4, 32), bf16, 256),
+            "lm-small bf16": ((LMB_PREFILL[0], 8, 32),
+                              (LMB_PREFILL[0], LMB_PREFILL[1] + LMB_DECODE_STEPS, 4, 32), bf16,
+                              LMB_PREFILL[1] + 1),
         }
         for label, (b_, s_, cache_, c_, dt_) in new_paths.items():  # the first step's length
             k7_cases[label] = ((b_, c_.n_heads, c_.d_head),
@@ -5348,9 +5601,10 @@ def main() -> int:
             want = ref.flash_decode_ref(q, kc, vc, n_t)
             err = check(f"K7 flash_decode {label} q {list(qs)} caches {list(cs)} "
                         f"cache_len {n}, NaN past it", got, want, *tol)
-            if label == "path bf16":
+            if label in ("path bf16", "dh32 bf16"):
                 assert_refused(f"K7 {label} with the last KV tile skipped",
                                ref.flash_decode_ref(q, kc, vc, n_t - LM_KV_TILE), want, *tol)
+            if label == "path bf16":
                 # A combine that drops the middle chunk of the split.
                 bnd = K7.chunk_bounds(cs[1], K7.plan_split(cs[1], cs[0], cs[2], qs[1] // cs[2]))
                 lo, hi = bnd[(len(bnd) - 1) // 2], bnd[(len(bnd) - 1) // 2 + 1]
@@ -5366,11 +5620,14 @@ def main() -> int:
                     cuda_ms(lambda: ref.flash_decode_ref(q, kc, vc, n_t), flush),
                     cuda_ms(lambda: k7_lib(q, kc, vc, n), flush))
                 bounds["flash_decode"] = k7_bound(q, kc, n)
-            elif label in ("path f32", "gqa bf16"):
-                time_case(f"K7 {label} q {list(qs)} caches {list(cs)} cache_len {n}",
-                          lambda: K7.flash_decode(q, kc, vc, n_t),
-                          lambda: ref.flash_decode_ref(q, kc, vc, n_t),
-                          lambda: k7_lib(q, kc, vc, n), k7_bound(q, kc, n))
+            elif label in ("path f32", "gqa bf16", "dh16 bf16", "dh32 bf16", "lm-small bf16"):
+                row = time_case(f"K7 {label} q {list(qs)} caches {list(cs)} cache_len {n}",
+                                lambda: K7.flash_decode(q, kc, vc, n_t),
+                                lambda: ref.flash_decode_ref(q, kc, vc, n_t),
+                                lambda: k7_lib(q, kc, vc, n), k7_bound(q, kc, n))
+                if qs[2] < 64:
+                    device_times(row, lambda: K7.flash_decode(q, kc, vc, n_t),
+                                 lambda: k7_lib(q, kc, vc, n))
             del q, kc, vc, got, want
         # K7 at decode_32k's length, B = 8, a full cache: kernel and library only.
         Bl, Sl = LM_LONG_DECODE_BATCH, LM_SHAPES["decode_32k"]["seq"]
@@ -5388,64 +5645,72 @@ def main() -> int:
         # NaN from cache_len on (an empty shard is NaN throughout and must
         # give m = -inf, l = 0, acc = 0).  The normalised acc / l against the
         # plain version's at the output tolerances, m and l at f32's.
-        sq, sc = (LM_BATCH, 16, 128), (LM_BATCH, K7P_SHARD, 16, 128)
-        n_glob = K7P_SHARD + K7P_SHARD // 2
-        partial_cases = {"below cache_len": 0, "cache_len inside": K7P_SHARD,
-                         "cache_len at the start": n_glob, "past cache_len": 2 * K7P_SHARD}
+        # Then, untimed, bf16 at head dims 16 and 32 on shards of
+        # K7P_SMALL positions: lm_smoke's 4 heads over 1 and lm-small's 8
+        # over 4.
         k7p_errs = {}
-        for dt in (f32, bf16):
-            for label, start in partial_cases.items():
-                q, kc, vc = rnd(sq, dt), rnd(sc, dt), rnd(sc, dt)
-                live = max(0, min(n_glob - start, K7P_SHARD))
-                kc[:, live:] = float("nan")
-                vc[:, live:] = float("nan")
-                n_t = torch.tensor(n_glob, dtype=torch.int32, device=dev)
-                s_t = torch.tensor(start, dtype=torch.int32, device=dev)
-                o, m, l_ = K7.flash_decode_partial(q, kc, vc, n_t, s_t)
-                wo, wm, wl = ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t)
-                name = (f"K7 shard mode {dtype_name(q)} q {list(sq)} shard {list(sc)} start "
-                        f"{start} cache_len {n_glob} ({label}, {live} rows)")
-                if not (bool(torch.isfinite(o).all()) and not bool(torch.isnan(m).any())
-                        and bool(torch.isfinite(l_).all())):
-                    raise AssertionError(f"{name}: NaN or inf in the partials")
-                if live == 0:
-                    if not (bool((m == float("-inf")).all()) and not l_.any() and not o.any()):
-                        raise AssertionError(f"{name}: an empty shard must give m = -inf, "
-                                             "l = 0, acc = 0")
-                    log(f"  {name}: ok, m = -inf, l = 0, acc = 0")
-                    continue
-                assert_close(f"{name}: m", m, wm, *LM_F32_TOL)
-                assert_close(f"{name}: l", l_, wl, *LM_F32_TOL)
-                check = assert_close_rows if dt == bf16 else assert_close
-                k7p_errs[(dtype_name(q), label)] = check(
-                    f"{name}: acc / l", o / l_[..., None], wo / wl[..., None],
-                    *(LM_BF16_TOL if dt == bf16 else LM_F32_TOL))
-                if label == "below cache_len":
-                    bnd = bound(2 * kc.numel() * kc.element_size() + q.numel() * q.element_size()
-                                + o.numel() * 4 + 2 * m.numel() * 4,
-                                4 * sq[2] * sq[0] * sq[1] * live)
-                    row = time_case(f"K7 shard mode {dtype_name(q)} q {list(sq)} shard "
-                                    f"{list(sc)}, every row valid",
-                                    lambda: K7.flash_decode_partial(q, kc, vc, n_t, s_t),
-                                    lambda: ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t),
-                                    lambda: k7p_lib(q, kc, vc, live), bnd)
-                    row["max_abs_err"] = k7p_errs[(dtype_name(q), label)]
-                    # The yardstick's own partial: its lse against m + log l,
-                    # its output against acc / l (reported, not gated).
-                    lo, lse = k7p_lib(q, kc, vc, live)[:2]
-                    row["library_partial_err"] = {
-                        "lse": max_err(lse[..., 0], m + torch.log(l_)),
-                        "out": max_err(lo[:, :, 0].float(), o / l_[..., None])}
-                    # The event pair above also holds the wrapper's enqueue
-                    # when the host trails the flush: the kernel's own device
-                    # time, L2 flushed before each call, from the profiler.
-                    row["kernel_device_ms"] = device_busy(
-                        lambda: (flush.zero_(), K7.flash_decode_partial(q, kc, vc, n_t, s_t)),
-                        15, kernels=("flash_decode_kernel",))["kernels_ms_per_call"][
-                        "flash_decode_kernel"]
-                    k7p_rows[dtype_name(q)] = row
-                del o, m, l_, wo, wm, wl
-            del q, kc, vc
+        for sq, sc, dts, timed in (
+                ((LM_BATCH, 16, 128), (LM_BATCH, K7P_SHARD, 16, 128), (f32, bf16), True),
+                ((4, 4, 16), (4, K7P_SMALL, 1, 16), (bf16,), False),
+                ((8, 8, 32), (8, K7P_SMALL, 4, 32), (bf16,), False)):
+            shard = sc[1]
+            n_glob = shard + shard // 2
+            partial_cases = {"below cache_len": 0, "cache_len inside": shard,
+                             "cache_len at the start": n_glob, "past cache_len": 2 * shard}
+            for dt in dts:
+                for label, start in partial_cases.items():
+                    q, kc, vc = rnd(sq, dt), rnd(sc, dt), rnd(sc, dt)
+                    live = max(0, min(n_glob - start, shard))
+                    kc[:, live:] = float("nan")
+                    vc[:, live:] = float("nan")
+                    n_t = torch.tensor(n_glob, dtype=torch.int32, device=dev)
+                    s_t = torch.tensor(start, dtype=torch.int32, device=dev)
+                    o, m, l_ = K7.flash_decode_partial(q, kc, vc, n_t, s_t)
+                    wo, wm, wl = ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t)
+                    name = (f"K7 shard mode {dtype_name(q)} q {list(sq)} shard {list(sc)} start "
+                            f"{start} cache_len {n_glob} ({label}, {live} rows)")
+                    if not (bool(torch.isfinite(o).all()) and not bool(torch.isnan(m).any())
+                            and bool(torch.isfinite(l_).all())):
+                        raise AssertionError(f"{name}: NaN or inf in the partials")
+                    if live == 0:
+                        if not (bool((m == float("-inf")).all()) and not l_.any() and not o.any()):
+                            raise AssertionError(f"{name}: an empty shard must give m = -inf, "
+                                                 "l = 0, acc = 0")
+                        log(f"  {name}: ok, m = -inf, l = 0, acc = 0")
+                        continue
+                    assert_close(f"{name}: m", m, wm, *LM_F32_TOL)
+                    assert_close(f"{name}: l", l_, wl, *LM_F32_TOL)
+                    check = assert_close_rows if dt == bf16 else assert_close
+                    k7p_errs[(dtype_name(q), label)] = check(
+                        f"{name}: acc / l", o / l_[..., None], wo / wl[..., None],
+                        *(LM_BF16_TOL if dt == bf16 else LM_F32_TOL))
+                    if timed and label == "below cache_len":
+                        bnd = bound(2 * kc.numel() * kc.element_size()
+                                    + q.numel() * q.element_size()
+                                    + o.numel() * 4 + 2 * m.numel() * 4,
+                                    4 * sq[2] * sq[0] * sq[1] * live)
+                        row = time_case(f"K7 shard mode {dtype_name(q)} q {list(sq)} shard "
+                                        f"{list(sc)}, every row valid",
+                                        lambda: K7.flash_decode_partial(q, kc, vc, n_t, s_t),
+                                        lambda: ref.flash_decode_partial_ref(q, kc, vc, n_t, s_t),
+                                        lambda: k7p_lib(q, kc, vc, live), bnd)
+                        row["max_abs_err"] = k7p_errs[(dtype_name(q), label)]
+                        # The yardstick's own partial: its lse against m + log l,
+                        # its output against acc / l (reported, not gated).
+                        lo, lse = k7p_lib(q, kc, vc, live)[:2]
+                        row["library_partial_err"] = {
+                            "lse": max_err(lse[..., 0], m + torch.log(l_)),
+                            "out": max_err(lo[:, :, 0].float(), o / l_[..., None])}
+                        # The event pair above also holds the wrapper's enqueue
+                        # when the host trails the flush: the kernel's own device
+                        # time, L2 flushed before each call, from the profiler.
+                        row["kernel_device_ms"] = device_busy(
+                            lambda: (flush.zero_(), K7.flash_decode_partial(q, kc, vc, n_t, s_t)),
+                            15, kernels=("flash_decode_kernel",))["kernels_ms_per_call"][
+                            "flash_decode_kernel"]
+                        k7p_rows[dtype_name(q)] = row
+                    del o, m, l_, wo, wm, wl
+                del q, kc, vc
     for name in ("flash_attention", "flash_decode"):
         ms, plain_ms, lib_ms = timings[name]
         bms, by = bounds[name]
@@ -5966,10 +6231,11 @@ def main() -> int:
                 "prefill_shape": {key: k6_f32["path f32"][key] for key in f32_keys},
             }
             # with its row logsumexp (the train path's forward, K6''s input),
-            # beside the same launch without it, at phase 9g's timed cases
-            kernels[-1]["lse"] = [{key: r[key] for key in ("case", "k6_forward_ms",
-                                                           "k6_forward_lse_ms")}
-                                  for r in lmt["k6b_rows"]]
+            # beside the same launch without it, its plain version, SDPA and
+            # its bound, at phase 9g's timed cases
+            kernels[-1]["lse"] = [{key: r[key] for key in (
+                "case", "k6_forward_ms", "k6_forward_lse_ms", "k6_forward_plain_ms",
+                "k6_forward_library_ms", "k6_forward_bound_ms")} for r in lmt["k6b_rows"]]
     # K6', the backward of K6: no Pallas kernel; the reference differentiates
     # its jnp attention with XLA.  Timed at lm_train's layer (stablelm-3b).
     k6b_path = next(r for r in lmt["k6b_rows"] if r["case"].startswith("stablelm bf16"))

@@ -128,14 +128,14 @@ def build_lm_cell(base_cfg: TransformerConfig, opt_kind: str, shape: str, mesh,
                      (pspecs, (cspec, cspec), tok_spec, P()), donate_argnums=(1,))
 
 
-def lm_smoke(base_cfg: TransformerConfig, opt_kind: str = "adam", device="cuda") -> dict:
-    """Reduced-config smoke: same family, tiny dims (head dim 16, f32); one
-    train step and one decode step on ``device`` (the card unless the caller
-    passes "cpu"), checking shapes and finiteness."""
+def smoke_config(base_cfg: TransformerConfig) -> TransformerConfig:
+    """The smoke's reduced config of ``base_cfg``'s family: 2 layers, d_model
+    64, 4 query heads of 16 with the KV heads cut in proportion (at least
+    one), vocab 256, 4 experts, f32 params and compute."""
     moe = base_cfg.moe
     if moe is not None:
         moe = dataclasses.replace(moe, num_experts=4, top_k=min(2, moe.top_k), d_ff=32)
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         base_cfg,
         n_layers=2,
         d_model=64,
@@ -152,6 +152,13 @@ def lm_smoke(base_cfg: TransformerConfig, opt_kind: str = "adam", device="cuda")
         fsdp=False,
         q_block=8,
     )
+
+
+def lm_smoke(base_cfg: TransformerConfig, opt_kind: str = "adam", device="cuda") -> dict:
+    """Reduced-config smoke (``smoke_config``: head dim 16, f32); one train
+    step and one decode step on ``device`` (the card unless the caller
+    passes "cpu"), checking shapes and finiteness."""
+    cfg = smoke_config(base_cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     params = T.init_params(cfg, seed=0, device=dev)

@@ -12,9 +12,9 @@
 //   For training, each row's logsumexp m + log l (natural log, scaled scores)
 //   goes to an optional [B, H, S] f32 output that the backward kernel K6'
 //   (flash_attention_backward.cu) reads; without it the launch is the
-//   serving one, unchanged.  Head dims 64, 80, 96 and 128 in both dtypes;
-//   the f32 kernel also 16 and 32 (the LM trainer's and the registry's
-//   smoke configs), while the bf16 kernel's 64-column TMA boxes refuse them.
+//   serving one, unchanged.  Head dims 16, 32, 64, 80, 96 and 128 in both
+//   dtypes (16 and 32: the LM trainer's lm-small and the registry's smoke
+//   configs, which the reference runs in bf16 compute by default).
 //
 // What bounds it on the card: operations.  Every valid (q, k) pair costs
 // 4 * dh FLOP (q . k and p . v) against 2 * dh bytes of K and V that a
@@ -66,7 +66,9 @@
 //    128-byte swizzle span.  A tile is stored as regions, one TMA box each:
 //    dh / 64 regions of 64 columns (128-byte rows, 128-byte swizzle) and,
 //    where dh % 64 is 16 or 32, one region of the rest (32- or 64-byte rows,
-//    that span's swizzle).  Q and K are K-major (dh, the reduction axis,
+//    that span's swizzle).  dh 16 and 32 are that remainder region alone
+//    (no 64-column region, and no 64-column tensor map: its box would be
+//    wider than the tensor's rows).  Q and K are K-major (dh, the reduction axis,
 //    contiguous): a k-step of 16 columns in a 64-column region advances the
 //    descriptor's start by 32 B inside the swizzle atom, SBO = 8 rows of
 //    128 B; in the remainder region SBO = 8 rows of its span.  V is
@@ -75,8 +77,11 @@
 //    80, V stays in five 16-column regions (32-byte swizzle: SBO = 256 B,
 //    LBO = one region, 512 B per k-step) so that P . V is one n80 product:
 //    n64 + n16 ran slower (tools/kernel_variants/k6_v_layout.json; the
-//    figures are in PERF.md).  Nothing is padded to 128.  chip_smoke.py
-//    holds each layout against the plain version: dh 64, 80, 96 and 128.
+//    figures are in PERF.md).  At dh 16 and 32 P . V is one n16 or n32
+//    product and S one k-step or two.  Nothing is padded to 128.
+//    chip_smoke.py holds each layout against the plain version at every
+//    head dim; tests/test_torch_k6_swizzle.py models the swizzles and
+//    checks each descriptor against the boxes the producer wrote.
 //  * Tensor maps need the driver API.  cuTensorMapEncodeTiled lives in
 //    libcuda; the build links nothing, so the launch function fetches it
 //    once through cudaGetDriverEntryPoint(ByVersion) from the runtime
@@ -96,7 +101,7 @@
 //  * Build: wgmma and setmaxnreg need sm_90a, which build.py targets; the
 //    build phase of chip_smoke.py prints -Xptxas -v (registers, shared
 //    memory, spills) for this file.  The consumers hold S (64 f32), O (dh / 2
-//    f32) and P (32 registers); none of the four head dims spills.
+//    f32) and P (32 registers); no head dim spills.
 //
 // f32 (flash_attention_f32_kernel): the reference holds f32 attention to
 // 2e-5, and one TF32 product keeps about three decimal digits; scalar FMAs
@@ -179,9 +184,10 @@ struct Layout {  // shared memory, from a 1024-byte aligned base
   static constexpr int kRem = D % 64;  // 0, 16 or 32
   // dh 80 keeps V in 16-column regions (32-byte swizzle), so that P . V is
   // one n80 product (a 64-column region plus an n16 product ran slower on
-  // the card: k6_v_layout.json); dh 96 splits P . V into n64 and n32 products.
-  static constexpr bool kVChunked = kRem == 16;
-  static_assert(kRem == 0 || kRem == 16 || kRem == 32, "dh in 64, 80, 96, 128");
+  // the card: k6_v_layout.json); dh 96 splits P . V into n64 and n32
+  // products; dh 16 and 32 are one n16 or n32 product on the remainder.
+  static constexpr bool kVChunked = D == 80;
+  static_assert(kRem == 0 || kRem == 16 || kRem == 32, "dh in 16, 32, 64, 80, 96, 128");
   static constexpr int kQBytes = kBQ * D * 2;  // one warpgroup's Q
   static constexpr int kKVBytes = kBKV * D * 2;  // one K or V tile
   static constexpr int kK = kConsumers * kQBytes;
@@ -190,7 +196,8 @@ struct Layout {  // shared memory, from a 1024-byte aligned base
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
 };
 
-// The tensor maps of q, k and v: [0] boxes of 64 columns, [1] of kRem.
+// The tensor maps of q, k and v: [0] boxes of 64 columns (none at dh 16 and
+// 32), [1] of kRem (of 16 for dh 80's V).
 struct Maps {
   CUtensorMap q[2], k[2], v[2];
 };
@@ -697,10 +704,10 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, long long B, long long S,
                 int H, int Hkv, int causal, const Strides& st, void* stream, float* lse) {
   if (S > kMaxSeq) return (int)cudaErrorInvalidValue;
-  Maps maps;
+  Maps maps = {};  // [0] stays empty at dh 16 and 32
   constexpr int kRem = Layout<D>::kRem;
   int err = 0;
-  for (int j = 0; j < (kRem ? 2 : 1) && !err; ++j) {
+  for (int j = Layout<D>::kMain ? 0 : 1; j < (kRem ? 2 : 1) && !err; ++j) {
     const int cols = j == 0 ? 64 : kRem;
     err = make_map(&maps.q[j], q, B, S, H, D, st.qb, st.qs, st.qh, cols, kBQ);
     if (!err) err = make_map(&maps.k[j], k, B, S, Hkv, D, st.kb, st.ks, st.kh, cols, kBKV);
@@ -754,14 +761,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, long long B,
   st.kb = strides[3]; st.ks = strides[4]; st.kh = strides[5];
   st.vb = strides[6]; st.vs = strides[7]; st.vh = strides[8];
   st.ob = strides[9]; st.os = strides[10]; st.oh = strides[11];
-  if constexpr (!kBf16) {  // the bf16 layout's TMA boxes are 64 columns: f32 only
-    switch (D) {
-      case 16: return launch<kBf16, 16>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
-      case 32: return launch<kBf16, 32>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
-      default: break;
-    }
-  }
   switch (D) {
+    case 16: return launch<kBf16, 16>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
+    case 32: return launch<kBf16, 32>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
     case 64: return launch<kBf16, 64>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
     case 80: return launch<kBf16, 80>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
     case 96: return launch<kBf16, 96>(q, k, v, o, B, S, H, Hkv, causal, st, stream, lse);
@@ -776,7 +778,7 @@ extern "C" {
 
 // q [B, S, H, D], k and v [B, S, Hkv, D], o [B, S, H, D], one dtype; strides
 // holds the 12 element strides (b, s, h) of q, k, v, o; the last dim is
-// contiguous.  D in {64, 80, 96, 128}, and in f32 also 16 and 32.  lse, when
+// contiguous.  D in {16, 32, 64, 80, 96, 128}.  lse, when
 // not null, is a [B, H, S] f32 output: each row's logsumexp of the scaled
 // scores (null: the serving launch, unchanged).  Both need q, k and v on 16-byte
 // boundaries with 16-byte multiples as strides (TMA in bf16, 16-byte copies

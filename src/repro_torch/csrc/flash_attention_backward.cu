@@ -86,9 +86,11 @@
 //    regions with a 128-byte swizzle (and dh 96's last 32 columns with a
 //    64-byte one), or at dh 80 five 16-column regions with a 32-byte
 //    swizzle (K6 keeps its V so): a K-major k-step is 32 bytes of each row
-//    of one region, an MN-major k-step 16 whole rows of every region.
+//    of one region, an MN-major k-step 16 whole rows of every region.  dh 16
+//    is dh 80's layout with one region, dh 32 dh 96's last region alone
+//    (64-byte rows and swizzle); neither has a 64-column region or map.
 //  * Product shapes: shared-shared m64n64 (new in hopper.cuh) and
-//    register-A n64, n32 and n80.
+//    register-A n64, n32, n16 and n80.
 //  * Tensor maps: tensor_map.cuh, shared with K6.
 //
 // f32 on the tensor cores ("3xTF32", the section "f32 on mma.sync" below).
@@ -668,18 +670,19 @@ constexpr int kStagesBwd = 2;
 constexpr int kQueryStep = 64;
 
 // A tile of R rows of dh bf16 in shared memory, TMA-loaded as regions that
-// are one box each: dh 80 as five 16-column regions (32-byte rows, 32-byte
-// swizzle), other head dims as D / 64 regions of 64 columns (128-byte rows,
-// 128-byte swizzle) and, at dh 96, one of 32 (64-byte rows and swizzle):
-// [region][R][span].  One layout serves both majors: a K-major k-step of 16
-// columns is 32 bytes of a region's rows, and an MN-major k-step of 16 rows
-// is 16 whole rows of every region (K6 reads V so; flash_attention.cu).
+// are one box each: dh 80 and 16 as D / 16 regions of 16 columns (32-byte
+// rows, 32-byte swizzle), other head dims as D / 64 regions of 64 columns
+// (128-byte rows, 128-byte swizzle) and, at dh 96 and 32, one of 32 (64-byte
+// rows and swizzle): [region][R][span].  One layout serves both majors: a
+// K-major k-step of 16 columns is 32 bytes of a region's rows, and an
+// MN-major k-step of 16 rows is 16 whole rows of every region (K6 reads V
+// so; flash_attention.cu).
 template <int D>
 struct TileBf16 {
-  static constexpr bool kChunked = D == 80;
+  static constexpr bool kChunked = D == 16 || D == 80;
   static constexpr int kMain = kChunked ? 0 : D / 64;
   static constexpr int kRem = kChunked ? 0 : D % 64;
-  static_assert(kChunked || kRem == 0 || kRem == 32, "dh in 64, 80, 96, 128");
+  static_assert(kChunked || kRem == 0 || kRem == 32, "dh in 16, 32, 64, 80, 96, 128");
 };
 
 // The descriptor of k-step c (columns 16c..16c+15) of rows row0..row0+63 of a
@@ -714,15 +717,18 @@ __device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t x, int x0
 // acc += A . Y for k-step kk: A's 16 columns from registers, Y a tile of K
 // rows (the reduction) read MN-major (dh, wgmma's N, contiguous: the
 // transpose bit).  dh 80 is one n80 product over the five regions (LBO = one
-// region, SBO = 8 rows of 32 B); a 64-column region is an n64 product each
-// (LBO = one region, SBO = 8 rows of 128 B, a k-step 2 KB) and dh 96's last
-// region an n32 (SBO = 8 rows of 64 B).  acc follows dh in order.
+// region, SBO = 8 rows of 32 B) and dh 16 one n16 over its one; a 64-column
+// region is an n64 product each (LBO = one region, SBO = 8 rows of 128 B, a
+// k-step 2 KB) and the last region of dh 96 (or dh 32's only) an n32 (SBO =
+// 8 rows of 64 B).  acc follows dh in order.
 template <int D, int K>
 __device__ __forceinline__ void rs_step(float (&acc)[D / 2], const uint32_t (&a)[4], uint32_t y,
                                         int kk) {
   using T = TileBf16<D>;
   if constexpr (T::kChunked) {
-    hopper::wgmma_rs_m64n80<1>(acc, a, hopper::desc<32>(y + kk * 16 * 32, K * 32, 256));
+    const uint64_t b = hopper::desc<32>(y + kk * 16 * 32, K * 32, 256);
+    if constexpr (D == 80) hopper::wgmma_rs_m64n80<1>(acc, a, b);
+    else hopper::wgmma_rs_m64n16<1>(acc, a, b);
   } else {
 #pragma unroll
     for (int j = 0; j < T::kMain; ++j)
@@ -781,7 +787,8 @@ __device__ __forceinline__ void split_acc(const float (&x)[N / 2], uint32_t (&hi
 }
 
 // The TMA maps of a pass: the two tiles a CTA owns and the two it streams,
-// [0] boxes of 64 columns, [1] of dh 96's last 32 or of dh 80's 16.
+// [0] boxes of 64 columns, [1] of dh 96's last 32 (dh 32's only ones) or of
+// dh 80's and dh 16's 16.
 struct BwdMaps {
   CUtensorMap own_a[2], own_b[2], step_a[2], step_b[2];
 };
@@ -1149,14 +1156,15 @@ __global__ void __launch_bounds__(kThreadsBwd, 1)
   }
 }
 
-// The maps of one tile role: dh 80 one map of 16-column boxes in [1]; else
-// 64-column boxes in [0] and, at dh 96, 32-column ones in [1].
+// The maps of one tile role: dh 80 and 16 one map of 16-column boxes in
+// [1]; else 64-column boxes in [0] (none at dh 32: a box wider than the
+// tensor's rows) and, at dh 96 and 32, 32-column ones in [1].
 template <int D>
 int make_maps(CUtensorMap (&m)[2], const void* p, long long B, long long S, int heads,
               long long sb, long long ss, long long sh, int rows) {
   using T = TileBf16<D>;
   if constexpr (T::kChunked) return make_map(&m[1], p, B, S, heads, D, sb, ss, sh, 16, rows);
-  int err = make_map(&m[0], p, B, S, heads, D, sb, ss, sh, 64, rows);
+  int err = T::kMain ? make_map(&m[0], p, B, S, heads, D, sb, ss, sh, 64, rows) : 0;
   if (!err && T::kRem) err = make_map(&m[1], p, B, S, heads, D, sb, ss, sh, T::kRem, rows);
   return err;
 }
@@ -1168,7 +1176,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
                 long long S, int H, int Hkv, int causal, const Strides& st,
                 cudaStream_t stream) {
   constexpr int QS = kQueryStep;
-  BwdMaps mkv, mq;  // the dK/dV pass's and the dQ pass's
+  BwdMaps mkv = {}, mq = {};  // the dK/dV pass's and the dQ pass's (unused maps empty)
   int err = make_maps<D>(mkv.own_a, k, B, S, Hkv, st.kb, st.ks, st.kh, kOwnRows);
   if (!err) err = make_maps<D>(mkv.own_b, v, B, S, Hkv, st.vb, st.vs, st.vh, kOwnRows);
   if (!err) err = make_maps<D>(mkv.step_a, q, B, S, H, st.qb, st.qs, st.qh, QS);
@@ -1263,14 +1271,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   st.ob = strides[9]; st.os = strides[10]; st.oh = strides[11];
   st.gb = strides[12]; st.gs = strides[13]; st.gh = strides[14];
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (sizeof(T) == 4) {  // f32 takes the small head dims too
-    switch (D) {
-      case 16: return launch<T, 16>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
-      case 32: return launch<T, 32>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
-      default: break;
-    }
-  }
   switch (D) {
+    case 16: return launch<T, 16>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
+    case 32: return launch<T, 32>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
     case 64: return launch<T, 64>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
     case 80: return launch<T, 80>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
     case 96: return launch<T, 96>(q, k, v, o, g, lse, delta, dq, dk, dv, B, S, H, Hkv, causal, st, s);
@@ -1287,8 +1290,8 @@ extern "C" {
 // dtype, by the 15 element strides (b, s, h) of q, k, v, o, g in `strides`,
 // the last dim contiguous; lse [B, H, S] f32 (K6's row logsumexp); delta a
 // [B, H, S] f32 scratch; dq [B, S, H, D], dk and dv [B, S, Hkv, D] contiguous
-// outputs in q's dtype.  D in {16, 32, 64, 80, 96, 128} for f32 and {64, 80,
-// 96, 128} for bf16.  Three launches on `stream`; returns the first nonzero
+// outputs in q's dtype.  D in {16, 32, 64, 80, 96, 128} for both dtypes.
+// Three launches on `stream`; returns the first nonzero
 // cudaGetLastError(), else 0.
 int flash_attention_backward_f32(const void* q, const void* k, const void* v, const void* o,
                                  const void* g, const float* lse, float* delta, void* dq,

@@ -44,7 +44,9 @@
 //  * Grouped heads take G = 4 a block (q and acc of 4 heads in registers,
 //    about 125 registers at dh 128, so that several blocks fit an SM; G = 8
 //    took 195 and ran slower); more heads take more head chunks over the
-//    same rows, read through L2.
+//    same rows, read through L2.  At bf16 dh 16 a tile is 40 rows, 10 a
+//    segment, whose scores and values stay in registers: 246 at G = 4, no
+//    spill (PERF.md).
 //  * cache_len is read on the card from an int32 tensor: one build serves
 //    any fill level, and the decode loop never waits on the host.  A chunk
 //    that starts at or past it writes an empty partial (m = -inf, l = 0,
@@ -485,14 +487,9 @@ template <typename T, bool kPartial>
 int by_dim(const void* q, const void* kc, const void* vc, const int* n, const int* start,
            void* out, void* ml, void* ws, void* tickets, long long B, long long S, int H,
            int Hkv, int D, int n_split, void* stream) {
-  if constexpr (sizeof(T) == 4) {  // f32 also at the LM smoke configs' head dims
-    switch (D) {
-      case 16: return by_group<T, 16, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
-      case 32: return by_group<T, 32, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
-      default: break;
-    }
-  }
   switch (D) {
+    case 16: return by_group<T, 16, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
+    case 32: return by_group<T, 32, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
     case 64: return by_group<T, 64, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
     case 80: return by_group<T, 80, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
     case 96: return by_group<T, 96, kPartial>(q, kc, vc, n, start, out, ml, ws, tickets, B, S, H, Hkv, n_split, stream);
@@ -522,8 +519,9 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* len,
 extern "C" {
 
 // q [B, H, D], k_cache and v_cache [B, S, Hkv, D], all contiguous and of one
-// dtype; cache_len a device int32 scalar; D in {64, 80, 96, 128}, and in f32
-// also 16 and 32 (a row of 4 or 8 chunks: a segment of 8 lanes).  n_split
+// dtype; cache_len a device int32 scalar; D in {16, 32, 64, 80, 96, 128} (at
+// 16 and 32 a row is 2 to 8 chunks, taken by a segment of 8 lanes whose
+// lanes past the row read nothing and add zeros).  n_split
 // chunks of the positions (1 <= n_split <= S); for n_split > 1, ws an f32
 // workspace of B H n_split (D + 2) elements and tickets B H int32 zeros that
 // the kernel leaves at zero.  shard_start null: out [B, H, D] in the

@@ -36,10 +36,11 @@ import torch
 from repro_torch.kernels import build, work
 
 NAME = "flash_decode"
-# The kernel's instantiations, by dtype (f32 also at the LM smoke configs' 16
-# and 32, which lm_smoke's decode step runs on the card).
+# The kernel's instantiations, by dtype: the same in both (16 and 32 are
+# lm-small's and the registry's smoke configs', whose decode steps run on
+# the card in either compute dtype).
 HEAD_DIMS = {torch.float32: (16, 32, 64, 80, 96, 128),
-             torch.bfloat16: (64, 80, 96, 128)}
+             torch.bfloat16: (16, 32, 64, 80, 96, 128)}
 _ARGS = [ctypes.c_void_p] * 9 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

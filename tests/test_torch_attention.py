@@ -422,6 +422,91 @@ def test_model_prefill_f32_reaches_the_f32_kernel(fake_k6, monkeypatch):
     assert {s for s, _ in fake_k6.calls} == {"flash_attention_f32"}
 
 
+def test_model_prefill_bf16_reaches_the_bf16_kernel(fake_k6, monkeypatch):
+    """The same in bf16 compute: every head dim the bf16 kernel takes,
+    16 and 32 (lm_smoke's and lm-small's) among them."""
+    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
+    B, S, H, Hkv = 1, 13, 4, 2
+    for dh in K6.HEAD_DIMS[torch.bfloat16]:
+        x = torch.randn(B, S, (H + 2 * Hkv) * dh).to(torch.bfloat16)
+        q, k, v = x.split((H * dh, Hkv * dh, Hkv * dh), dim=-1)
+        pos = torch.arange(S)[None]
+        q = L.apply_rope(q.reshape(B, S, H, dh), pos, 10_000.0)
+        k = L.apply_rope(k.reshape(B, S, Hkv, dh), pos, 10_000.0)
+        L.gqa_prefill_attention(q, k, v.reshape(B, S, Hkv, dh), causal=True)
+    assert [a[8] for _, a in fake_k6.calls] == list(K6.HEAD_DIMS[torch.bfloat16])
+    assert [16, 32] == list(K6.HEAD_DIMS[torch.bfloat16][:2])
+    assert {s for s, _ in fake_k6.calls} == {"flash_attention_bf16"}
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+def test_flash_attention_bf16_takes_small_head_dims(fake_k6, dh):
+    """bf16 at head dims 16 and 32 reaches the bf16 kernel with q as a view
+    of a wider tensor (its own strides, uncopied), with and without the row
+    logsumexp, and counts as two bf16 launches."""
+    B, S, H, Hkv = 2, 24, 4, 2
+    q = torch.zeros(B, H, S, 2 * dh, dtype=torch.bfloat16)[..., :dh].transpose(1, 2)
+    k, v = (torch.zeros(B, S, Hkv, dh, dtype=torch.bfloat16) for _ in "kv")
+    lse = torch.empty(B, H, S)
+    before = (K6.launches, K6.launches_f32)
+    out = K6.flash_attention(q, k, v, True, lse=lse)
+    out2 = K6.flash_attention(q, k, v, False)
+    (sym, a), (sym2, b) = fake_k6.calls
+    assert sym == sym2 == "flash_attention_bf16"
+    assert a[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert b[3] == out2.data_ptr()
+    assert a[4:10] == (B, S, H, Hkv, dh, 1) and b[4:10] == (B, S, H, Hkv, dh, 0)
+    assert list(a[10]) == [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                           *out.stride()[:3]]
+    assert q.stride()[:3] == (H * S * 2 * dh, 2 * dh, S * 2 * dh)
+    assert a[11] == b[11] == 55 and a[12] == lse.data_ptr() and b[12] is None
+    for o in (out, out2):
+        assert o.shape == (B, S, H, dh) and o.is_contiguous() and o.dtype == torch.bfloat16
+    assert (K6.launches, K6.launches_f32) == (before[0] + 2, before[1])
+
+
+@pytest.fixture
+def fake_k7(monkeypatch):
+    """The CUDA branch of the K7 wrappers on CPU tensors, with the library,
+    the device and the stream faked."""
+    lib = _FakeLib(K7.NAME)
+    monkeypatch.setattr(K7, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "check", lambda lib_, name, code: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=55))
+    monkeypatch.setattr(K7, "_scratch", {})
+    before = (K7.launches, K7.launches_partial)
+    yield lib
+    K7.launches, K7.launches_partial = before
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+def test_flash_decode_bf16_takes_small_head_dims(fake_k7, dh):
+    """K7 in bf16 at head dims 16 and 32, in both modes: the bf16 symbol,
+    pointers, shapes, the split and the stream; the serving launch returns
+    bf16 and passes no shard start, the shard mode an f32 sum and (m, l)."""
+    B, S, H, Hkv = 2, 300, 8, 2
+    q = torch.zeros(B, H, dh, dtype=torch.bfloat16)
+    kc = torch.zeros(B, S, Hkv, dh, dtype=torch.bfloat16)
+    vc = torch.zeros(B, S, Hkv, dh, dtype=torch.bfloat16)
+    n, start = torch.tensor(200, dtype=torch.int32), torch.tensor(64, dtype=torch.int32)
+    before = (K7.launches, K7.launches_partial)
+    out = K7.flash_decode(q, kc, vc, n)
+    o, m, l_sum = K7.flash_decode_partial(q, kc, vc, n, start)
+    (sym, a), (sym2, b) = fake_k7.calls
+    assert sym == sym2 == "flash_decode_bf16"
+    for args in (a, b):
+        assert args[:4] == (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), n.data_ptr())
+        assert args[9:] == (B, S, H, Hkv, dh, K7.plan_split(S, B, Hkv, H // Hkv), 55)
+    assert a[4] is None and a[6] is None and a[5] == out.data_ptr()
+    assert b[4] == start.data_ptr() and b[5] == o.data_ptr() and b[6] == m.data_ptr()
+    assert out.dtype == torch.bfloat16 and out.shape == (B, H, dh)
+    assert o.dtype == m.dtype == l_sum.dtype == torch.float32 and o.shape == (B, H, dh)
+    assert (K7.launches, K7.launches_partial) == (before[0] + 2, before[1] + 1)
+
+
 # ------------------------------------------------------- wrapper refusals
 
 
@@ -445,12 +530,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (K6.launches, K7.launches) == before
 
 
+@pytest.mark.parametrize("dh", [16, 32])
+def test_bf16_small_head_dims_pass_the_checks(dh):
+    """bf16 at head dims 16 and 32 passes both wrappers' checks; CPU
+    tensors are then refused as at any other head dim, nothing launched."""
+    before = (K6.launches, K7.launches)
+    K6.check_inputs(*_qkv(dh=dh))
+    K7.check_inputs(*_decode_args(dh=dh))
+    with pytest.raises(ValueError, match="CUDA"):
+        K6.flash_attention(*_qkv(dh=dh))
+    with pytest.raises(ValueError, match="CUDA"):
+        K7.flash_decode(*_decode_args(dh=dh))
+    assert (K6.launches, K7.launches) == before
+
+
 @pytest.mark.parametrize(
     "args,exc,match",
     [
         (_qkv(dtype=torch.float16), TypeError, "dtype"),
         (_qkv(dh=48), ValueError, "head dim 48"),
-        (_qkv(dh=16), ValueError, "head dim 16"),
+        (_qkv(dh=16), ValueError, "CUDA"),  # taken: refused only for lying on the CPU
+        (_qkv(dh=8), ValueError, "head dim 8"),
         (_qkv(H=3, Hkv=2), ValueError, "Hkv divides H"),
         ((torch.zeros(8, 2, 80), torch.zeros(1, 8, 1, 80), torch.zeros(1, 8, 1, 80)),
          ValueError, "want q"),
@@ -466,7 +566,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ((torch.zeros(1, 1, 1, 80, dtype=torch.bfloat16).expand(1, 2**31, 1, 80),) * 3,
          ValueError, "positions"),
     ],
-    ids=["f16", "dh48", "dh16", "groups", "rank", "mixed", "strided", "row-pitch",
+    ids=["f16", "dh48", "dh16", "dh8", "groups", "rank", "mixed", "strided", "row-pitch",
          "misaligned", "too-long"],
 )
 def test_flash_attention_refuses_bad_input(args, exc, match):
@@ -479,6 +579,8 @@ def test_flash_attention_refuses_bad_input(args, exc, match):
     [
         (_decode_args(dtype=torch.float16), TypeError, "dtype"),
         (_decode_args(dh=40), ValueError, "head dim 40"),
+        (_decode_args(dh=48, dtype=torch.float32), ValueError, "head dim 48"),
+        (_decode_args(dh=8), ValueError, "head dim 8"),
         (_decode_args(H=3, Hkv=2), ValueError, "Hkv divides H"),
         (_decode_args()[:3] + (torch.tensor(3),), TypeError, "int32"),
         (_decode_args()[:3] + (torch.tensor([3, 4], dtype=torch.int32),), TypeError, "int32"),
@@ -487,7 +589,8 @@ def test_flash_attention_refuses_bad_input(args, exc, match):
         ((torch.zeros(1, 2, 160)[..., ::2],) + _decode_args(dtype=torch.float32)[1:],
          ValueError, "contiguous"),
     ],
-    ids=["f16", "dh40", "groups", "int64-len", "two-lens", "rank", "strided"],
+    ids=["f16", "dh40", "f32-dh48", "dh8", "groups", "int64-len", "two-lens", "rank",
+         "strided"],
 )
 def test_flash_decode_refuses_bad_input(args, exc, match):
     with pytest.raises(exc, match=match):

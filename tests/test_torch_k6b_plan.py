@@ -209,6 +209,10 @@ CASES = [  # B, S, H, Hkv, dh, causal
     (1, 130, 8, 1, 128, True),  # a group of 8
     (1, 45, 2, 1, 128, False),
     (1, 256, 2, 2, 64, True),  # whole tiles
+    (2, 64, 4, 2, 16, True),  # lm_smoke's head dim: one 16-column region
+    (2, 45, 4, 1, 16, False),  # a group of 4, as the registry's smokes cut it
+    (1, 200, 8, 4, 32, True),  # lm-small's layer: one 32-column region
+    (1, 130, 2, 2, 32, False),
 ]
 
 
@@ -245,7 +249,7 @@ def test_source_constants():
 
 
 @pytest.mark.parametrize("S", [45, 128, 130, 1000])
-@pytest.mark.parametrize("dh", [80, 128])
+@pytest.mark.parametrize("dh", [16, 32, 80, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plan_covers_each_kept_pair_once(S, dh, causal):
     """Each pass visits every kept (query, key) pair in exactly one active
@@ -290,7 +294,7 @@ def test_plan_covers_each_kept_pair_once(S, dh, causal):
 def test_causal_key_tile_starts_at_its_diagonal():
     """A causal key tile's first query tile holds its first key's own row:
     the tile the planted fault skips."""
-    for dh in (80, 128):
+    for dh in (16, 32, 80, 128):
         for j, steps in enumerate(dkdv_plan(1000, dh, True)):
             q0, wgs = steps[0]
             assert q0 == j * OWN_ROWS and wgs[0] is True
@@ -305,7 +309,7 @@ def test_model_matches_the_plain_version(B, S, H, Hkv, dh, causal):
         _close(g, w, name)
 
 
-@pytest.mark.parametrize("B,S,H,Hkv,dh,causal", [CASES[0], CASES[4]])
+@pytest.mark.parametrize("B,S,H,Hkv,dh,causal", [CASES[0], CASES[4], CASES[9]])
 def test_one_rounding_of_ds_is_not_enough(B, S, H, Hkv, dh, causal):
     """dS rounded once to bf16 (lo dropped) misses the tolerance that the
     two parts meet: the reason for the second product."""
@@ -316,7 +320,7 @@ def test_one_rounding_of_ds_is_not_enough(B, S, H, Hkv, dh, causal):
         _close(got[1], want[1], "dk")
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_planted_late_start_is_caught(dh):
     """The planted fault (every dK/dV loop one query tile late) fails the
     check on dk; dq, from the other pass, still matches."""

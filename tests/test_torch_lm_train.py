@@ -557,7 +557,8 @@ def test_flash_attention_f32_takes_small_head_dims_and_lse(fake_lib, dh):
 
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 16), (torch.float32, 80),
-                                      (torch.bfloat16, 64), (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.bfloat16, 16), (torch.bfloat16, 32)])
 def test_flash_attention_backward_launch_arguments(fake_lib, dtype, dh):
     """Pointers, shapes, the 15 strides of q, k, v, o and do (k a view of a
     wider tensor: its own strides, uncopied), the stream; new contiguous
@@ -585,15 +586,15 @@ def test_flash_attention_backward_launch_arguments(fake_lib, dtype, dh):
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("bf16_dh16", ValueError, "head dim 16"),
+    ("bf16_dh48", ValueError, "head dim 48"),
     ("lse_shape", ValueError, "lse"),
     ("lse_dtype", ValueError, "lse"),
     ("o_shape", ValueError, "must match q"),
     ("do_strides", ValueError, "strides"),
 ])
 def test_flash_attention_backward_refuses_bad_input(fake_lib, case, exc, match):
-    dtype = torch.bfloat16 if case == "bf16_dh16" else torch.float32
-    q, k, v = _qkv(dtype=dtype)
+    dtype = torch.bfloat16 if case == "bf16_dh48" else torch.float32
+    q, k, v = _qkv(dtype=dtype, dh=48 if case == "bf16_dh48" else 16)
     o, do, lse = torch.zeros_like(q), torch.zeros_like(q), torch.zeros(2, 4, 24)
     if case == "lse_shape":
         lse = torch.zeros(2, 24, 4)
@@ -612,15 +613,20 @@ def test_flash_attention_lse_and_cpu_refusals():
     q, k, v = _qkv()
     with pytest.raises(ValueError, match="CUDA"):
         K6.flash_attention_backward(q, k, v, q, torch.zeros(2, 4, 24), q, True)
-    with pytest.raises(ValueError, match="head dim 32"):
+    # bf16 at dh 32 passes the checks and is refused for lying on the CPU; a
+    # head dim outside the set is refused for itself
+    with pytest.raises(ValueError, match="CUDA"):
         K6.flash_attention(*_qkv(dh=32, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="head dim 48"):
+        K6.flash_attention(*_qkv(dh=48, dtype=torch.bfloat16))
 
 
 def test_flash_decode_f32_takes_small_head_dims():
-    """K7's f32 kernel takes head dims 16 and 32 (lm_smoke's decode on the
-    card); bf16 still refuses them."""
+    """K7 takes head dims 16 and 32 (lm_smoke's and lm-small's decode on
+    the card) in f32 and in bf16; 48 stays refused in both."""
     for dtype, dh, ok in ((torch.float32, 16, True), (torch.float32, 32, True),
-                          (torch.bfloat16, 16, False)):
+                          (torch.bfloat16, 16, True), (torch.bfloat16, 32, True),
+                          (torch.float32, 48, False), (torch.bfloat16, 48, False)):
         args = (torch.zeros(2, 4, dh, dtype=dtype), torch.zeros(2, 8, 2, dh, dtype=dtype),
                 torch.zeros(2, 8, 2, dh, dtype=dtype), torch.tensor(3, dtype=torch.int32))
         ctx = contextlib.nullcontext() if ok else pytest.raises(ValueError, match="head dim")
