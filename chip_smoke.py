@@ -168,6 +168,27 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 training, K2 for the DLRM and K2' in its train step, each
                 rank's bytes = ``recsys_cell_ring_bytes``; paths
                 ``recsys_cells.<arch>.<shape>``;
+  5g3. demos — after phase 5g2: the port's README demos
+                (examples/torch_*.py) at their defaults, each run on the
+                card and again on the CPU from the card's initial params
+                (the CPU takes the plain versions): quickstart on one
+                device and on 4 gloo ranks of the card (mesh (data 2,
+                model 2)), hotcache, prefetch, elastic_reshard, and
+                serve_dlrm with --requests 2000 --trace --metrics-out;
+                every integer counter of a demo equal between the two
+                runs (routing table, rdma-pool p99, subrequests, steals;
+                hit and lookup counts, bytes, cached and admitted rows;
+                prefetch issued and hits; reshard rows; serve batches,
+                bytes and engine counters), the pooled lookups at K1's
+                tolerance (rtol = atol = 1e-5), the elastic loss and
+                scores after 10 steps at 1e-5 and its score drift under
+                1e-5 on both; launches: K1 masked 3 times on one device
+                and twice a rank, none on the hotcache demo, K5 on the
+                prefetch demo, K1 and K2 12 times and K1' and K2' 10 on
+                the elastic demo, K2 once a batch on serve, whose trace
+                ``tools/trace_export.py --attribution`` reads at coverage
+                100.00%; each demo's wall time beside the card's name and
+                power limit; paths ``demo_*``;
   5h. gnn   — after phase 5g: graphsage-reddit from the registry at its
                 four published shapes on one device, f32, TF32 off, none
                 launching a hand kernel (the aggregation is index_select
@@ -556,6 +577,18 @@ RECSYS_CELL_QUERIES = 8  # the two-tower retrieval cell's queries (recsys_common
 RECSYS_CELL_SERVE_TOL = SHARDED_FWD_TOL  # 4c's: scores and top-k values
 RECSYS_CELL_TRAIN_TOL = TRAIN_STEP_TOL  # 4d's: loss, gradients, state, params
 RECSYS_CELL_TIMEOUT_S = 600
+# phase 5g3 (demos): the README demos, card against CPU
+DEMO_RANKS = 4  # demo_quickstart_ranks: gloo ranks of the one card, mesh (data 2, model 2)
+DEMO_K1_TOL = (1e-5, 1e-5)  # K1's own (phase 3): the quickstart's pooled lookups
+DEMO_SCORE_TOL = (1e-5, 1e-5)  # the elastic demo's loss and scores after 10 steps
+DEMO_SERVE_ARGS = ("--requests", "2000")
+# launch.serve's summary keys that no clock decides: equal on card and CPU
+DEMO_SERVE_COUNTERS = ("batches", "requests", "submitted", "nonfinite_scores", "hit_rate",
+                       "network_bytes", "bytes_request", "bytes_no_cache", "bytes_swap_in")
+DEMO_ENGINE_COUNTERS = ("batches", "subrequests", "wire_response_bytes", "wire_request_bytes",
+                        "pooled_segment_wrs", "pooled_segments", "pooled_rows", "doorbells",
+                        "virtual_steals", "p50_latency_us", "p99_latency_us", "deduped_rows",
+                        "range_wrs")
 LM_BATCH = 4  # prompts of the lm_prefill / lm_decode paths
 LM_PROMPT = 4096  # tokens per prompt
 LM_DECODE_STEPS = 32
@@ -2218,6 +2251,162 @@ def recsys_cells(dev: torch.device) -> dict:
     torch.cuda.empty_cache()
     summary["phase_seconds"] = time.perf_counter() - t_phase
     log("[recsys_cells] " + json.dumps(summary))
+    return {"paths": paths, "summary": summary}
+
+
+def demos(dev: torch.device) -> dict:
+    """Phase 5g3: the port's README demos (the docstring at the top), each
+    run on the card with its launch counts read around it, then on the CPU
+    from the card's initial params.  Raises on any failure; returns each
+    demo's numbers and its path's launches."""
+    sys.path.insert(0, str(ROOT / "examples"))  # spawned ranks inherit it
+    import torch_elastic_reshard as ER
+    import torch_hotcache_demo as HD
+    import torch_prefetch_demo as PD
+    import torch_quickstart as QS
+    import torch_serve_dlrm as SD
+
+    from repro_torch.utils import tree_map
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    paths, summary = {}, {"card": card, "walls_s": {}, "cpu_walls_s": {}}
+
+    def run(path: str, fn, *args, **kwargs):
+        """``fn`` on the card, its launches counted from 0 as ``path``."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        summary["walls_s"][path] = wall = time.perf_counter() - t0
+        paths[path] = launch_counts()
+        log(f"[demos] {path}: {wall:.3f} s wall on the card ({card})")
+        return res
+
+    def on_cpu(path: str, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        summary["cpu_walls_s"][path] = time.perf_counter() - t0
+        return res
+
+    def same(path: str, what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"[demos] {path}: {what} differ, card {got} against CPU {want}")
+
+    def launched(path: str, want: dict, counts: dict | None = None) -> None:
+        """Exactly ``want``'s launches on ``path`` (K1 all masked), none else."""
+        counts = paths[path] if counts is None else counts
+        want = {**dict.fromkeys(counts, 0), **want}
+        want["embedding_bag_masked"] = want["embedding_bag"]
+        wrong = {k: (v, want[k]) for k, v in counts.items()
+                 if (v < 1 if want[k] == "some" else v != want[k])}
+        if wrong:
+            raise AssertionError(f"[demos] {path}: launches (got, want) {wrong}")
+
+    def host(tree):
+        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    # ---- quickstart, one device: 3 lookups, each one K1 masked
+    q_card = run("demo_quickstart", QS.run, "cuda")
+    launched("demo_quickstart", {"embedding_bag": 3})
+    q_cpu = on_cpu("demo_quickstart", QS.run, "cpu", params=host(QS.init_params("cuda")))
+    # ---- quickstart on DEMO_RANKS gloo ranks: hierarchical and cached, K1 on every rank
+    qr_card = run("demo_quickstart_ranks", QS.run, "cuda", ranks=DEMO_RANKS)
+    for r, counts in enumerate(qr_card["rank_launches"]):
+        launched(f"demo_quickstart_ranks rank {r}", {"embedding_bag": 2},
+                 {**paths["demo_quickstart_ranks"], **counts})
+    paths["demo_quickstart_ranks"] = {k: v + sum(c.get(k, 0) for c in qr_card["rank_launches"])
+                                      for k, v in paths["demo_quickstart_ranks"].items()}
+    qr_cpu = on_cpu("demo_quickstart_ranks", QS.run, "cpu", ranks=DEMO_RANKS,
+                    params=host(QS.init_params("cuda", DEMO_RANKS // 2)))
+    errs = {}
+    for path, got, want in (("demo_quickstart", q_card, q_cpu),
+                            ("demo_quickstart_ranks", qr_card, qr_cpu)):
+        for key in ("routing_table", "rdma", "pool_bit_equal", "pipelined_bit_equal"):
+            same(path, key, got[key], want[key])
+        if not (got["pool_bit_equal"] and got["pipelined_bit_equal"]):
+            raise AssertionError(f"[demos] {path}: the rdma pool's outputs are not bit-equal")
+        for mode, x in got["pooled"].items():
+            errs[f"{path}.{mode}"] = assert_close(
+                f"{path} {mode} lookup {tuple(x.shape)}, card (K1) vs CPU (plain)", x,
+                want["pooled"][mode], *DEMO_K1_TOL)
+
+    # ---- hotcache: a host tier and a plain oracle, no kernel
+    h_card = run("demo_hotcache", HD.run, "cuda")
+    launched("demo_hotcache", {})
+    h_cpu = on_cpu("demo_hotcache", HD.run, "cpu", params=host(HD.init_params("cuda")))
+    for key in h_card:
+        if key != "oracle_max_err":
+            same("demo_hotcache", key, h_card[key], h_cpu[key])
+
+    # ---- prefetch: the miner's neighbor select is K5, bit-equal to its plain version
+    p_card = run("demo_prefetch", PD.run, "cuda")
+    launched("demo_prefetch", {"topk_neighbor_select": "some"})
+    p_cpu = on_cpu("demo_prefetch", PD.run, "cpu", params=host(PD.init_params("cuda")))
+    for key in p_card:
+        if key != "oracle_max_err":
+            same("demo_prefetch", key, p_card[key], p_cpu[key])
+
+    # ---- elastic: K1, K1', K2, K2' once a train step; K1 and K2 once a scoring forward
+    e_card = run("demo_elastic", ER.run, "cuda")
+    launched("demo_elastic", {"embedding_bag": ER.STEPS + 2, "dot_interaction": ER.STEPS + 2,
+                              "embedding_bag_backward": ER.STEPS,
+                              "dot_interaction_backward": ER.STEPS})
+    e_cpu = on_cpu("demo_elastic", ER.run, "cpu", params=host(ER.init_params("cuda")))
+    same("demo_elastic", "rows", e_card["rows"], e_cpu["rows"])
+    errs["demo_elastic.loss"] = assert_close(
+        "demo_elastic loss after 10 steps, card vs CPU", torch.tensor(e_card["loss"]),
+        torch.tensor(e_cpu["loss"]), *DEMO_SCORE_TOL)
+    errs["demo_elastic.scores"] = assert_close(
+        f"demo_elastic scores {tuple(e_card['scores'].shape)} after the reshard, card vs CPU",
+        e_card["scores"], e_cpu["scores"], *DEMO_SCORE_TOL)
+
+    # ---- serve_dlrm: the dense stage's K2 once a batch; its trace through the tool
+    with tempfile.TemporaryDirectory() as d:
+        trace, metrics = os.path.join(d, "trace.json"), os.path.join(d, "metrics.json")
+        s_card = run("demo_serve", SD.main, [*DEMO_SERVE_ARGS, "--trace", trace,
+                                             "--metrics-out", metrics])
+        tool = subprocess.run([sys.executable, str(ROOT / "tools" / "trace_export.py"), trace,
+                               "--attribution"], capture_output=True, text=True, timeout=120)
+        if tool.returncode or "(coverage 100.00%)" not in tool.stdout:
+            raise AssertionError(f"[demos] demo_serve: trace_export --attribution rc "
+                                 f"{tool.returncode}: {tool.stdout[-2000:]} {tool.stderr[-2000:]}")
+        coverage = tool.stdout.strip().splitlines()[-1]
+        if not os.path.exists(metrics):
+            raise AssertionError("[demos] demo_serve wrote no metrics snapshot")
+    launched("demo_serve", {"dot_interaction": "some"})
+    if paths["demo_serve"]["dot_interaction"] < s_card["batches"]:
+        raise AssertionError(f"[demos] demo_serve: K2 launched "
+                             f"{paths['demo_serve']['dot_interaction']} times for "
+                             f"{s_card['batches']} batches")
+    s_cpu = on_cpu("demo_serve", SD.main, [*DEMO_SERVE_ARGS, "--device", "cpu"])
+    if s_card["requests"] != 2000 or s_card["nonfinite_scores"]:
+        raise AssertionError(f"[demos] demo_serve: {s_card['requests']} requests served, "
+                             f"{s_card['nonfinite_scores']} non-finite scores")
+    for key in DEMO_SERVE_COUNTERS:
+        same("demo_serve", key, s_card[key], s_cpu[key])
+    for key in DEMO_ENGINE_COUNTERS:
+        same("demo_serve", f"rdma_engine.{key}", s_card["rdma_engine"][key],
+             s_cpu["rdma_engine"][key])
+
+    summary.update({
+        "quickstart": {"abs_mean": {m: q_card[m]["abs_mean"] for m in QS.MODES},
+                       "cached_max_err": q_card["cached_max_err"], "rdma": q_card["rdma"]},
+        "quickstart_ranks": {"mesh": qr_card["mesh"], "rank_launches": qr_card["rank_launches"],
+                             "cached_max_err": qr_card["cached_max_err"]},
+        "hotcache": {k: v for k, v in h_card.items() if k != "steps"},
+        "prefetch": p_card,
+        "elastic": {k: v for k, v in e_card.items() if k != "scores"},
+        "serve": {**{k: s_card[k] for k in DEMO_SERVE_COUNTERS},
+                  "throughput_rps": s_card["throughput_rps"],
+                  "p99_latency_ms": s_card["p99_latency_ms"],
+                  "trace_attribution": coverage},
+        "card_vs_cpu_max_abs_err": errs,
+        "launches": {p: {k: v for k, v in c.items() if v} for p, c in paths.items()},
+    })
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log("[demos] " + json.dumps(summary, default=str))
     return {"paths": paths, "summary": summary}
 
 
@@ -5410,6 +5599,9 @@ def main() -> int:
     # ---------------------------------------------------------- recsys_cells
     cells = recsys_cells(dev)
 
+    # ---------------------------------------------------------------- demos
+    demo_res = demos(dev)
+
     # ------------------------------------------------------- gnn, gnn_sharded
     gnn_res = gnn(dev)
     gnn_blocks = gnn_res.pop("sharded_blocks")
@@ -6187,7 +6379,7 @@ def main() -> int:
              "lm_f32": lm_f32_launches, "lm_moe_prefill": moe_prefill_launches,
              "lm_moe_decode": moe_decode_launches, "lm_moe_f32": lm_moe_f32_launches,
              "lm_sharded_decode": sd_launches, **wide_launches, **archs["paths"],
-             **cells["paths"], **gnn_res["paths"], **gnn_sh["paths"],
+             **cells["paths"], **demo_res["paths"], **gnn_res["paths"], **gnn_sh["paths"],
              **lmt["paths"], **tp["paths"], **dry["paths"]}
     kernels = []
     for name, replaces in sources.items():
