@@ -142,7 +142,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 ``make_train_step`` of each at 65,536 with every table
                 capped at 1,000,000 rows (finite loss and gradients, K1
                 and K1' once a lookup, the step's device time and peak
-                memory; K1' timed at wide-deep's and two-tower's step
+                memory; K1' on the step's own Zipf batch at wide-deep's
+                step, its wide table's and two-tower's, bit-equal on the
+                touched rows to host sums in slot order
+                (``k1b_hold_slot_order``: its hot runs hold thousands of
+                slots), 0.0 elsewhere, two launches bit-equal, then timed
                 beside ``index_add_``), and the loss and gradients at
                 1,024 with 100,000-row tables against the CPU;
   5g2. recsys_cells — after phase 5g: the seven recsys registry ids'
@@ -1526,15 +1530,72 @@ def recsys_config(arch_id: str, cap: int | None = None):
         dataclasses.replace(t, vocab=min(t.vocab, cap)) for t in cfg.tables))
 
 
+def recsys_train_batch(arch_id: str, dev: torch.device) -> tuple:
+    """Phase 5g's train step of an arch: its config with every table capped
+    at ``RECSYS_TRAIN_ROWS`` and its ``train_batch`` (seed 0) on ``dev``."""
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+    from repro_torch.data import synthetic as syn
+
+    cfg = recsys_config(arch_id, RECSYS_TRAIN_ROWS)
+    host = syn.recsys_batch(np.random.default_rng(0), cfg.tables,
+                            RECSYS_SHAPES["train_batch"]["batch"], n_dense=cfg.n_dense)
+    return cfg, {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def k1b_step_inputs(cfg, batch: dict, gen: torch.Generator, wide: bool = False) -> tuple:
+    """K1''s inputs at a train step: the batch's fused ids and 0/1 weights,
+    flat, as the lookup hands them over (masked mode), a random gradient
+    [bags, D] from ``gen``, and the table's rows; ``wide`` takes the
+    separate wide table's.  Zipf ids: a hot row's run spans the batch."""
+    emb = cfg.wide_embedding() if wide else cfg.embedding()
+    ids = emb._fused_rows(emb.sharded, batch["indices"]).reshape(-1).contiguous()
+    w = batch["mask"].reshape(-1).to(torch.float32).contiguous()
+    bags = batch["indices"].shape[0] * batch["indices"].shape[1]
+    g = torch.randn((bags, emb.dim), device=ids.device, generator=gen)
+    return g, ids, w, emb.sharded.total_rows
+
+
+def k1b_hold_slot_order(name: str, got: torch.Tensor, again: torch.Tensor, g, ids, w,
+                        V: int) -> dict:
+    """K1''s masked output on a batch with hot rows, held bit for bit to
+    host sums in slot order: the plain version on the CPU (``index_add_``,
+    one slot after another) over the touched rows renumbered into a compact
+    table, so that a run of thousands of slots is held exactly, which the
+    card's plain version (atomics) cannot be.  Every other row must be 0.0
+    exactly (its bits), and ``again``, a second launch, equal bit for bit.
+    Returns the touched rows and the longest runs."""
+    from repro_torch.kernels import embedding_bag as K1
+    from repro_torch.kernels import ref
+
+    live = w != 0
+    rows, inverse, counts = torch.unique(ids[live].long().clamp(0, V - 1), return_inverse=True,
+                                         return_counts=True)
+    compact = torch.zeros_like(ids)
+    compact[live] = inverse.to(torch.int32)
+    want = ref.embedding_bag_backward_ref(g.cpu(), compact.cpu(), w.cpu(), rows.numel(),
+                                          masked=True)
+    assert_bits(f"{name}: its {rows.numel()} touched rows vs host sums in slot order",
+                got[rows].cpu(), want)
+    bits = got.view(torch.int32)
+    if int(torch.count_nonzero(bits)) != int(torch.count_nonzero(bits[rows])):
+        raise AssertionError(f"{name}: a row no live slot names is not 0.0")
+    log(f"  {name}: the other {V - rows.numel()} rows are 0.0 exactly")
+    assert_bits(f"{name}, twice", again, got)
+    return {"touched_rows": rows.numel(), "live_slots": int(live.sum()),
+            "longest_runs": torch.topk(counts, min(4, counts.numel())).values.tolist(),
+            "runs_over_sort_cap": int((counts > K1.BWD_SORT_CAP).sum())}
+
+
 def recsys_archs(dev: torch.device) -> dict:
     """Phase 5g: the six other recsys archs on the card.  K1 and K1' at this
     slice's widths against their plain versions; each arch's forward at its
     published config on ``serve_p99``'s batch (checked against the plain
     lookup and the dense stage on the CPU, timed, profiled); both
     retrievals against the same scores on the CPU; one train step of each
-    at ``train_batch`` with every table capped, and the loss and gradients
-    at a small batch against the CPU.  Raises on any failure; returns the
-    numbers and each path's launch counts."""
+    at ``train_batch`` with every table capped (K1' on wide-deep's and
+    two-tower's step batch held to host sums in slot order), and the loss
+    and gradients at a small batch against the CPU.  Raises on any failure;
+    returns the numbers and each path's launch counts."""
     import torch.nn.functional as F
 
     from repro_torch.configs.recsys_common import (N_CANDIDATES, RECSYS_SHAPES, RETRIEVAL_K,
@@ -1790,26 +1851,33 @@ def recsys_archs(dev: torch.device) -> dict:
         log(f"[recsys_archs] {arch_id} train step at {train_b}: loss {loss:.6f}, device busy "
             f"{prof['device_busy_ms']} ms, peak {peak_gb:.2f} GB, top kernels "
             + json.dumps(prof["top_kernels_ms_per_call"]))
-        if arch_id in ("wide-deep", "two-tower-retrieval"):  # K1' at the step's shape
-            emb = cfg.embedding()
-            ids = emb._fused_rows(emb.sharded, batch["indices"]).reshape(-1).contiguous()
-            w = batch["mask"].reshape(-1).to(torch.float32).contiguous()
-            bags = train_b * cfg.num_fields
-            V, D = params["emb"]["table"].shape
-            g = torch.randn((bags, D), device=dev, generator=gen)
+        # K1' at the step's shape, on its Zipf batch: bit for bit to host sums
+        # in slot order on the touched rows (its hot runs span the batch),
+        # 0.0 elsewhere, twice the same; then timed
+        for wide in ((False, True) if arch_id == "wide-deep" else
+                     (False,) if arch_id == "two-tower-retrieval" else ()):
+            g, ids, w, V = k1b_step_inputs(cfg, batch, gen, wide)
+            bags, D = g.shape
+            name = f"{arch_id}{'.wide' if wide else ''}"
+            got = K1.embedding_bag_backward(g, ids, w, V, masked=True)
+            hot = k1b_hold_slot_order(f"K1' at {name}'s train step [{bags} bags x "
+                                      f"{ids.numel() // bags}] -> [{V}, {D}]", got,
+                                      K1.embedding_bag_backward(g, ids, w, V, masked=True),
+                                      g, ids, w, V)
+            del got
             live = w != 0
             contrib = (g.repeat_interleave(ids.numel() // bags, dim=0) * w[:, None])[live]
             live_idx = ids[live].long()
             ms = bound(V * D * 4 + g.numel() * 4 + ids.numel() * 8, 2 * live_idx.numel() * D)
-            out["k1b_train_shapes"][arch_id] = {
+            out["k1b_train_shapes"][name] = {
                 "case": f"masked [{bags} bags x {ids.numel() // bags}] -> [{V}, {D}] f32",
                 "ms": cuda_ms(lambda: K1.embedding_bag_backward(g, ids, w, V, masked=True),
-                              flush, reps=3, warmup=1),
+                              flush, reps=5, warmup=1),
                 "plain_ms": cuda_ms(lambda: ref.embedding_bag_backward_ref(
                     g, ids, w, V, masked=True), flush, reps=3, warmup=1),
                 "library_ms": cuda_ms(lambda: torch.zeros((V, D), device=dev).index_add_(
-                    0, live_idx, contrib), flush, reps=3, warmup=1),
-                "bound_ms": ms[0], "bound_by": ms[1]}
+                    0, live_idx, contrib), flush, reps=5, warmup=1),
+                "bound_ms": ms[0], "bound_by": ms[1], "bit_equal_to_slot_order": True, **hot}
             del g, contrib, live_idx, ids, w, live
         del params, state, batch, step, opt
         free()

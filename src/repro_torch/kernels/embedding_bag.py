@@ -12,10 +12,11 @@ the launch geometry, computed here on the host.
 one cooperative launch that writes every row of the dense gradient once,
 zeros where no live slot names the row and elsewhere the row's slots summed
 in slot order, so the gradient is the same bit for bit on every run.  It
-groups the slots by row itself (a bitmap, a hash table and a slot list kept
+groups the slots by row itself (a bitmap of the rows, each touched row's
+rank among them, a slot list, and buckets that order the long runs, kept
 per (device, stream) in ``_bwd_scratch``); ``backward_scratch_sizes``,
-``backward_table_bits``, ``backward_blocks`` and ``BackwardState`` are its
-host-side plan.
+``backward_long_cap``, ``backward_bucket_bits``, ``backward_bucket_cap``,
+``backward_blocks`` and ``BackwardState`` are its host-side plan.
 ``ops.embedding_bag`` wires both into autograd for CUDA tables.  On the
 ``meta`` device (the dry run) both wrappers check and allocate as on the
 card, then report ``embedding_bag_work`` / ``embedding_bag_backward_work``
@@ -53,8 +54,8 @@ _SIGNATURES = {
     BWD_SYMBOL: [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 13 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
     BWD_OCC_SYMBOL: [ctypes.c_int],
 }
 _WIDE_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
@@ -62,11 +63,15 @@ _WIDE_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
 # warps fill, all sum), at most BWD_BLOCKS_PER_SM an SM (2 ran faster than
 # 3 or 4: fewer barrier arrivals, the fill's loads ahead of its stores)
 BWD_BLOCKS_PER_SM = 2
-BWD_SORT_CAP = 128  # runs up to this long are ordered by rank (kSortCap)
-BWD_WINDOW = 32 * BWD_SORT_CAP  # longer runs: slots a bitmap window spans (kWindow)
-BWD_COUNTERS = 8 * 32  # grid-wide counts, one 128-byte line each (kCounters)
-MAX_ROWS = 2**31 - 2  # K1' keeps rows + 1 and slots as 32-bit words
-MAX_SLOTS = 2**30  # the slot table holds at least 2N entries, at most 2^31
+BWD_GROUP_WARPS = 2  # warps of a block that group the slots (kGroupWarps)
+BWD_SORT_CAP = 128  # runs and buckets up to this long are ordered by rank (kSortCap)
+BWD_WINDOW = 32 * BWD_SORT_CAP  # a longer bucket: slots a bitmap window spans (kWindow)
+BWD_BUCKET_AIM = 32  # a long run's buckets: its length over this, a power of two (kBucketAim)
+BWD_TILE = 128  # a long run's slots a warp moves into buckets at a time (kTile)
+BWD_HOT_RUN = 4096  # long runs this long are summed first (kHotRun)
+BWD_COUNTERS = 20 * 32  # grid-wide counts, one 128-byte line each (kCounters)
+MAX_ROWS = 2**31 - 2  # K1' keeps rows and their ranks as 32-bit words
+MAX_SLOTS = 2**30  # K1' keeps slots, ranks and run starts as 32-bit words
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_masked = 0  # those of them in the masked mode
@@ -78,11 +83,20 @@ _occupancy_lock = threading.Lock()
 # and the next launch's number and bitmap half (BackwardState)
 _bwd_scratch: dict[tuple, dict[str, torch.Tensor]] = {}
 _bwd_state: dict[tuple, "BackwardState"] = {}
+# the last launch's plan by (device, stream): its key (library, vec, slots,
+# rows), the scratch it was made from, the grid and the scratch pointers,
+# kept while both hold, so a step that repeats a launch computes none of it
+# again
+_bwd_plan: dict[tuple, tuple] = {}
 _bwd_scratch_lock = threading.Lock()
-# the parts made as zeros: K1' leaves the counters, keys and counts at zero,
-# clears each bitmap half the launch after it marks it, and releases a
-# phase by writing its launch number (never 0) into the flags
-BWD_ZEROED = ("counters", "flags", "bitmap", "keys", "counts")
+# the parts made as zeros: K1' leaves the counters, the chunks' marks, the
+# counts and the buckets at zero, clears each bitmap half the launch after
+# it marks it, and releases a phase by writing its launch number (never 0)
+# into the flags
+BWD_ZEROED = ("counters", "flags", "bitmap", "wchunk", "counts", "buckets")
+# the parts after the bitmap's halves, in the order the library takes them
+BWD_POINTERS = ("wchunk", "wprefix", "counts", "ebase", "runs", "rowof", "slot_entry",
+                "slot_rank", "list", "longs", "buckets", "brun", "order")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,25 +241,44 @@ def embedding_bag(
     return out
 
 
-def backward_table_bits(n_slots: int) -> int:
-    """log2 of K1''s slot table: the least power of two with at least
-    ``2 n_slots`` entries (and at least 2), so an open-addressed insert of
-    every slot's row finds a free entry within a few probes."""
-    return max(1, (2 * n_slots - 1).bit_length())
+def backward_long_cap(n_slots: int) -> int:
+    """K1''s long runs at most (runs past ``BWD_SORT_CAP`` slots; at least 1)."""
+    return max(1, n_slots // (BWD_SORT_CAP + 1))
+
+
+def backward_bucket_bits(length: int) -> int:
+    """log2 of a long run's buckets: its length over ``BWD_BUCKET_AIM``
+    rounded up to a power of two (``bucket_bits``)."""
+    return (-(-length // BWD_BUCKET_AIM) - 1).bit_length()
+
+
+def backward_bucket_cap(n_slots: int) -> int:
+    """The buckets of every long run together at most: a run of L slots
+    has fewer than L / 16 + 2, and there are at most
+    ``backward_long_cap`` runs."""
+    return n_slots // 16 + 2 * (n_slots // (BWD_SORT_CAP + 1)) + 1
 
 
 def backward_scratch_sizes(n_slots: int, num_rows: int, blocks: int) -> dict[str, int]:
     """The int32 elements of each part of K1''s scratch for ``n_slots``
     slots into ``num_rows`` rows on a grid of ``blocks`` (each at least 1):
     the grid-wide counters, a 128-byte flag line a block, two halves of a
-    bitmap of the rows, the slot table's keys, counts and run starts, and
-    per slot the entries in use, their runs (4 words each), each slot's
-    entry and the slot list."""
-    table = 1 << backward_table_bits(n_slots)
+    bitmap of the rows, the marks in each grouping warp's chunk of words
+    (``BWD_GROUP_WARPS`` a block) and the marks below each word; per slot
+    (no more rows are touched than slots are live) each touched row's
+    count, run start (two words: the start and the long index), run (four
+    words) and row, each slot's row's rank and place in its run and the
+    slot list; the long
+    runs (four words each), their buckets' counts and long indices, and per
+    slot the long runs' slots bucket by bucket."""
     n = max(1, n_slots)
-    return {"counters": BWD_COUNTERS, "flags": 32 * blocks, "bitmap": 2 * -(-num_rows // 32),
-            "keys": table, "counts": table, "ebase": table, "elist": n, "runs": 4 * n,
-            "slot_entry": n, "list": n}
+    words = -(-num_rows // 32)
+    buckets = backward_bucket_cap(n_slots)
+    return {"counters": BWD_COUNTERS, "flags": 32 * blocks, "bitmap": 2 * words,
+            "wchunk": BWD_GROUP_WARPS * blocks, "wprefix": words, "counts": n, "ebase": 2 * n,
+            "runs": 4 * n, "rowof": n, "slot_entry": n, "slot_rank": n, "list": n,
+            "longs": 4 * backward_long_cap(n_slots), "buckets": buckets, "brun": buckets,
+            "order": n}
 
 
 def backward_blocks(sms: int, per_sm: int) -> int:
@@ -341,21 +374,27 @@ def embedding_bag_backward(
     vec = vec_width(torch.float32, D, (grad_out.data_ptr() | grad.data_ptr()) % 16 == 0)
     with torch.cuda.device(grad_out.device), _bwd_scratch_lock:
         stream = torch.cuda.current_stream().cuda_stream
-        sms = sm_count(grad_out.device)
-        blocks = backward_blocks(
-            sms, resident_blocks(lib, NAME, BWD_OCC_SYMBOL, grad_out.device, vec) // sms)
-        sc = backward_scratch(grad_out.device, stream, N, num_rows, blocks)
         key = (grad_out.device, stream)
+        plan = _bwd_plan.get(key)
+        if (plan is None or plan[0] != (getattr(lib, "_name", None), vec, N, num_rows)
+                or plan[1] is not _bwd_scratch.get(key)):
+            sms = sm_count(grad_out.device)
+            blocks = backward_blocks(
+                sms, resident_blocks(lib, NAME, BWD_OCC_SYMBOL, grad_out.device, vec) // sms)
+            sc = backward_scratch(grad_out.device, stream, N, num_rows, blocks)
+            plan = ((getattr(lib, "_name", None), vec, N, num_rows), _bwd_scratch[key], blocks,
+                    sc["counters"].data_ptr(), sc["flags"].data_ptr(), sc["bitmap"].data_ptr(),
+                    4 * (sc["bitmap"].numel() // 2),
+                    tuple(sc[k].data_ptr() for k in BWD_POINTERS) + (
+                        backward_long_cap(N), backward_bucket_cap(N)))
+            _bwd_plan[key] = plan
+        _, _, blocks, counters, flags, bitmap, half, rest = plan
         state = _bwd_state[key]
-        half = sc["bitmap"].numel() // 2
         code = getattr(lib, BWD_SYMBOL)(
             grad_out.data_ptr(), indices.data_ptr(), weights.data_ptr(), grad.data_ptr(),
-            N, N // num_bags, D, num_rows, int(masked), vec, blocks, sc["counters"].data_ptr(),
-            sc["flags"].data_ptr(), state.epoch, sc["bitmap"][state.parity * half:].data_ptr(),
-            sc["bitmap"][(1 - state.parity) * half:].data_ptr(), state.stale_words(),
-            *(sc[k].data_ptr() for k in ("keys", "counts", "ebase", "elist", "runs",
-                                         "slot_entry", "list")),
-            backward_table_bits(N), stream)
+            N, N // num_bags, D, num_rows, int(masked), vec, blocks, counters, flags,
+            state.epoch, bitmap + state.parity * half, bitmap + (1 - state.parity) * half,
+            state.stale_words(), *rest, stream)
         build.check(lib, NAME, code)
         _bwd_state[key] = state.after(-(-num_rows // 32))
     launches_backward += 1

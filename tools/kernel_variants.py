@@ -33,6 +33,12 @@ batch B over a cache of C slots holding the hot ids of 4 warm-up batches,
 as chip_smoke.py builds it).  The backward kernels: ["backward", B]
 (embedding_bag's K1' on dlrm-100m's lookup of the trainer's batch of B, as
 chip_smoke.py's train phase builds it: masked, a random gradient),
+["backward", arch] (K1' on an arch's train step, as phase 5g builds it:
+``chip_smoke.recsys_train_batch`` and ``k1b_step_inputs``, Zipf ids whose
+hot rows' runs span the batch; "wide" as a third entry takes the separate
+wide table's D; checked by ``chip_smoke.k1b_hold_slot_order``: the
+touched rows bit-equal to host sums in slot order, the rest 0.0, two
+launches bit-equal),
 ["backward", bags, nnz, D, V, live_frac] (K1', masked, uniform ids in
 [0, V), a slot live with probability live_frac) and ["backward", B, F, D]
 (dot_interaction's K2' on random x and triangle gradients, f32).
@@ -204,6 +210,23 @@ def backward_setup(tag: str, kernel: str, case: list, gen: torch.Generator):
         return (call,
                 lambda n: CS.assert_close(f"{tag} {n} {case}", call(), want, 1e-5, 1e-5),
                 lambda: torch.bmm(s_full, x))
+    if isinstance(case[1], str):  # an arch's train step: Zipf ids, hot rows
+        cfg, batch = CS.recsys_train_batch(case[1], torch.device("cuda"))
+        g, ids, w, V = CS.k1b_step_inputs(cfg, batch, gen, wide="wide" in case[2:])
+        del batch
+        nnz = ids.numel() // g.shape[0]
+        live_idx = ids[w != 0].long()
+        contrib = (g.repeat_interleave(nnz, dim=0) * w[:, None])[w != 0]
+        call = lambda: K1.embedding_bag_backward(g, ids, w, V, masked=True)  # noqa: E731
+
+        def check_hot(n):
+            got = call()
+            print(json.dumps({"spec": tag, "variant": n, "case": case, **CS.k1b_hold_slot_order(
+                f"{tag} {n} {case}", got, call(), g, ids, w, V)}), flush=True)
+
+        return (call, check_hot,
+                lambda: torch.zeros((V, g.shape[1]), device="cuda").index_add_(0, live_idx,
+                                                                               contrib))
     if len(case) == 2:
         ids, w, V, nnz = train_inputs(case[1])
     else:
