@@ -272,7 +272,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 CUDA-event medians of each kernel, its plain version and
                 ``F.scaled_dot_product_attention`` (timed only, never called
                 by the port), and of kernel and library at the repo's own
-                lengths (prefill_32k at B = 1, decode_32k at B = 8);
+                lengths (prefill_32k at B = 1, decode_32k at B = 8).
+                K6 bf16's persistent walk (``k6_walk_checks``): at the
+                trainer's layer [256, 128, 8, 4, 32] and at stablelm-3b's
+                prefill, two launches bit-equal, the output into a
+                NaN-filled buffer, and a planted build whose walk stops one
+                unit short (``K6_PLANT``, built beside the kernels) refused
+                there; at the trainer's, device times (``device_ms``) with
+                and without the logsumexp beside SDPA's forward and the
+                bound; the host's enqueue of one call at lm-small's layer
+                split into the wrapper, its C launch function and the
+                library's maps and attribute (``k6_host_split``), on a line
+                of its own;
   7. lm_prefill — stablelm-3b at full width and depth (bf16 weights made on
                 the card from seed 0), ``transformer.prefill`` of 4 prompts
                 of 4,096 tokens: finite last logits, K6 launched once per
@@ -698,6 +709,13 @@ K6B_FLOOR = 2.0**-12
 # K6''s planted fault: its dK/dV loops (f32 and bf16) skip the first query
 # tile they visit (a causal key tile's diagonal tile)
 K6B_PLANT = ("  return causal ? j * ratio : 0;", "  return (causal ? j * ratio : 0) + 1;")
+# K6's planted fault (bf16): its tile walk stops one unit short, so the last
+# unit's rows of the last (b, h) are never written (phase 6 runs it into a
+# NaN-filled buffer, at the trainer's layer and at stablelm-3b's prefill)
+K6_PLANT = ("  const long long n_units = walk.units();",
+            "  const long long n_units = walk.units() - 1;")
+K6_HOST_CALLS = 200  # calls a part of the host-enqueue split averages over
+K6_STABLELM = ((4, 4096, 32, 80), 32)  # stablelm-3b's prefill layer (LM_BATCH x LM_PROMPT)
 # The cases where K6' runs twice and must give equal bits, and those that
 # also hold the planted fault
 K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32", "lm-small bf16")
@@ -706,6 +724,9 @@ K6B_PLANTED = ("lm-small f32", "stablelm bf16", "lm-small bf16")
 K6B_LAUNCHES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 LMT_SMALL_STEPS, LMT_SMALL_BATCH, LMT_SMALL_SEQ = 50, 256, 128  # launch.train --model lm
 LMT_SMALL_CHECK = 64  # sequences of the trainer's first batch in the card-vs-CPU step
+# K6's bf16 cases of phase 6 that run twice (bit-equal) and hold the planted
+# fault: the trainer's layer (lm-small at its batch) and stablelm-3b's prefill
+K6_TRAINER = ((LMT_SMALL_BATCH, LMT_SMALL_SEQ, 8, 32), 4)
 # lm_small_bf16 (phase 9h2): lm-small's and lm_smoke's widths in bf16
 # compute, card vs CPU on the same params and inputs: a prefill of
 # LMB_PREFILL (lm-small; lm_smoke at its smoke's batch, LMB_SMOKE), that
@@ -906,6 +927,139 @@ def k6_bound(q, k, causal: bool, rate: float | None = None) -> tuple[float, str]
     pairs = S_ * (S_ + 1) // 2 if causal else S_ * S_
     rate = rate or (BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S)
     return bound(2 * (q.numel() + k.numel()) * q.element_size(), 4 * d_ * B_ * H_ * pairs, rate)
+
+
+def k6_host_split(q, k, v, causal: bool, lse=None, calls: int = K6_HOST_CALLS) -> dict:
+    """Host time of one bf16 K6 call (its enqueue), in microseconds a call,
+    by part: ``wrapper_us``, ``K6.flash_attention`` whole; ``launch_us``,
+    the C launch function alone, called through ctypes with one call's
+    arguments made once; and, where the library has
+    ``flash_attention_bf16_host_ns``, within the launch function the six
+    tensor maps and the shared-memory attribute as a call makes them now
+    (``maps_us``: copies from the library's cache, the address replaced;
+    ``attribute_us``: a check of a flag) and as every call made them before
+    the cache (``maps_encoded_us``: cuTensorMapEncodeTiled each;
+    ``attribute_set_us``: cudaFuncSetAttribute).  A sleep kernel holds the
+    stream while the calls are enqueued, so no enqueue waits for the card."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as K6
+
+    B_, S_, H_, d_ = q.shape
+    out = torch.empty_like(q)
+    lib = build.load(K6.NAME, {sym: K6._ARGS for sym in K6._SYMBOLS.values()})
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B_, S_, H_, k.shape[2],
+            d_, int(causal), K6._strides(q, k, v, out), torch.cuda.current_stream().cuda_stream,
+            None if lse is None else lse.data_ptr())
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 28)  # far longer than the calls' enqueue
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    split = {"shape": [B_, S_, H_, k.shape[2], d_], "calls": calls,
+             "wrapper_us": host_us(lambda: K6.flash_attention(q, k, v, causal, lse=lse)),
+             "launch_us": host_us(lambda: lib.flash_attention_bf16(*args))}
+    parts = getattr(lib, "flash_attention_bf16_host_ns", None)
+    if parts is not None:
+        parts.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        parts.restype = ctypes.c_int
+        ns = (ctypes.c_longlong * 4)()
+        build.check(lib, K6.NAME, parts(*args[:3], *args[4:9], args[10], calls, ns))
+        split.update({"maps_encoded_us": ns[0] / 1e3, "attribute_set_us": ns[1] / 1e3,
+                      "maps_us": ns[2] / 1e3, "attribute_us": ns[3] / 1e3})
+    split["python_us"] = split["wrapper_us"] - split["launch_us"]
+    return split
+
+
+def k6_walk_checks(dev: torch.device, k6_planted, flush: torch.Tensor,
+                   gen: torch.Generator) -> tuple[dict, dict]:
+    """Phase 6's checks of the bf16 K6's persistent walk (the docstring at
+    the top); ``k6_planted`` is the nvcc process and library of ``K6_PLANT``.
+    Returns the trainer's timed row and the host-enqueue split."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as K6
+
+    bf16 = torch.bfloat16
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    # The bf16 kernel's walk at the trainer's layer (lm-small at the
+    # trainer's batch: one KV tile a work tile) and at stablelm-3b's
+    # prefill: two launches bit-equal, and the planted build whose walk
+    # stops one unit short refused, run into a NaN-filled buffer (the
+    # caching allocator hands the freed one back, checked by pointer).
+    # At the trainer's, device times with and without the logsumexp
+    # beside SDPA's forward and the bound.
+    plant_log, _ = k6_planted[0].communicate()
+    if k6_planted[0].returncode:
+        raise RuntimeError(f"nvcc failed for K6's planted fault:\n{plant_log}")
+    for label, (shape, hkv) in (("trainer", K6_TRAINER), ("stablelm prefill", K6_STABLELM)):
+        q = rnd(shape, bf16)
+        k, v = (rnd(shape[:2] + (hkv, shape[3]), bf16) for _ in "kv")
+        want = ref.flash_attention_ref(q, k, v, True)
+        name = f"K6 {label} bf16 {list(shape[:3]) + [hkv, shape[3]]} causal"
+        got = K6.flash_attention(q, k, v, True)
+        err = assert_close_rows(name, got, want, *LM_BF16_TOL)
+        if not torch.equal(K6.flash_attention(q, k, v, True), got):
+            raise AssertionError(f"{name}: two launches differ")
+        log(f"  {name}: two launches bit-equal")
+
+        def into_nan():
+            buf = torch.full(shape, float("nan"), dtype=bf16, device=dev)
+            ptr = buf.data_ptr()
+            del buf
+            o_ = K6.flash_attention(q, k, v, True)
+            if o_.data_ptr() != ptr:
+                raise AssertionError("K6's output is not the NaN-filled buffer just freed")
+            return o_
+
+        assert_close_rows(f"{name} into a NaN-filled buffer", into_nan(), want,
+                          *LM_BF16_TOL)
+        build.use_library(K6.NAME, k6_planted[1])
+        try:
+            bad = into_nan()
+        finally:
+            build.use_library(K6.NAME, build.library_path(K6.NAME))
+        assert_refused(f"{name} with its tile walk one unit short, into a NaN-filled "
+                       "buffer", bad, want, *LM_BF16_TOL)
+        del got, bad
+        if label == "trainer":
+            lse = torch.empty((shape[0], shape[2], shape[1]), device=dev)
+            kern = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
+            kern_lse = lambda: K6.flash_attention(q, k, v, True, lse=lse)  # noqa: E731
+            sdpa = lambda: sdpa_forward(q, k, v, True)  # noqa: E731
+            bnd = k6_bound(q, k, True)
+            k6_trainer = {
+                "case": name, "max_abs_err": err, "device_ms": device_ms(kern),
+                "lse_device_ms": device_ms(kern_lse), "library_device_ms": device_ms(sdpa),
+                "ms": cuda_ms(kern, flush), "lse_ms": cuda_ms(kern_lse, flush),
+                "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), flush,
+                                    reps=5, warmup=1),
+                "library_ms": cuda_ms(sdpa, flush), "bound_ms": bnd[0], "bound_by": bnd[1]}
+            log(f"  {name}: device {k6_trainer['device_ms']:.6f} ms, with the logsumexp "
+                f"{k6_trainer['lse_device_ms']:.6f}, SDPA's forward "
+                f"{k6_trainer['library_device_ms']:.6f}, bound {bnd[0]:.6f} ({bnd[1]})")
+            del lse
+        del q, k, v, want
+    # The host's enqueue of one bf16 call at lm-small's layer, by part.
+    q = rnd((LMB_PREFILL[0], LMB_PREFILL[1], 8, 32), bf16)
+    k, v = (rnd((LMB_PREFILL[0], LMB_PREFILL[1], 4, 32), bf16) for _ in "kv")
+    lse = torch.empty((LMB_PREFILL[0], 8, LMB_PREFILL[1]), device=dev)
+    k6_host = k6_host_split(q, k, v, True, lse)
+    log("[lm_kernels] K6 host split " + json.dumps(k6_host))
+    del q, k, v, lse
+    return k6_trainer, k6_host
 
 
 def sdpa_forward(q, k, v, causal: bool):
@@ -4451,6 +4605,7 @@ def main() -> int:
     t0 = time.perf_counter()
     planted_build, planted_so = start_planted_build(build)  # used in phase 5f
     k6b_planted = start_planted_build(build, K6.NAME_BWD, K6B_PLANT)  # used in phase 9g
+    k6_planted = start_planted_build(build, K6.NAME, K6_PLANT)  # used in phase 6
     report = build.build([K1.NAME, K2.NAME, HK.PROBE, HK.SCATTER, PK.NAME, K6.NAME,
                           K6.NAME_BWD, K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
@@ -5810,6 +5965,7 @@ def main() -> int:
                     row["max_abs_err"] = err
                     k6_f32[label] = row
             del q, k, v, want
+        k6_trainer, k6_host = k6_walk_checks(dev, k6_planted, flush, lm_gen)
         # K6 at prefill_32k's length, one sequence: kernel and library only.
         Sp = LM_SHAPES["prefill_32k"]["seq"]
         q, k, v = (rnd((1, Sp, Hq, dh), bf16) for _ in range(3))
@@ -6493,6 +6649,8 @@ def main() -> int:
             # with its row logsumexp (the train path's forward, K6''s input),
             # beside the same launch without it, its plain version, SDPA and
             # its bound, at phase 9g's timed cases
+            kernels[-1]["trainer"] = k6_trainer
+            kernels[-1]["host_split"] = k6_host
             kernels[-1]["lse"] = [{key: r[key] for key in (
                 "case", "k6_forward_ms", "k6_forward_lse_ms", "k6_forward_plain_ms",
                 "k6_forward_library_ms", "k6_forward_bound_ms")} for r in lmt["k6b_rows"]]

@@ -134,6 +134,11 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at barrier `id` of `threads` threads without waiting for it.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // 2^x on the special-function unit (flushes results below 2^-126 to 0).
 __device__ __forceinline__ float ex2(float x) {
   float y;

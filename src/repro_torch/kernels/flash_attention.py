@@ -17,7 +17,9 @@ the card, then report ``flash_attention_work`` /
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -62,28 +64,75 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     contiguous, rows not on 16-byte boundaries: a start or a stride that is
     no multiple of 16 bytes (the bf16 kernel loads its tiles with TMA, the
     f32 kernel with 16-byte copies; both require both), or an S past
-    ``MAX_SEQ``.  K6' takes the same."""
-    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{NAME}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
+    ``MAX_SEQ``.  K6' takes the same.  All but the starts depend only on
+    dtypes, shapes and strides, checked once for each (``_check_layout``)."""
+    _check_layout(q.dtype, k.dtype, v.dtype, q.shape, k.shape, v.shape,
+                  q.stride(), k.stride(), v.stride())
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        name = next(n for n, t in (("q", q), ("k", k), ("v", v)) if t.data_ptr() % 16)
+        raise ValueError(f"{NAME}: {name} must start on a 16-byte boundary")
+
+
+@functools.lru_cache(maxsize=1024)
+def _check_layout(qt, kt, vt, q_shape, k_shape, v_shape, q_stride, k_stride, v_stride) -> None:
+    if qt not in _SYMBOLS or kt != qt or vt != qt:
+        raise TypeError(f"{NAME}: dtypes {qt}, {kt}, {vt}; "
                         "want one of f32 / bf16 for q, k and v")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if len(q_shape) != 4 or len(k_shape) != 4 or k_shape != v_shape:
         raise ValueError(f"{NAME}: want q [B,S,H,dh] and k, v [B,S,Hkv,dh], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H, dh = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, dh) or H % k.shape[2]:
-        raise ValueError(f"{NAME}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+                         f"{tuple(q_shape)}, {tuple(k_shape)}, {tuple(v_shape)}")
+    B, S, H, dh = q_shape
+    if (k_shape[0], k_shape[1], k_shape[3]) != (B, S, dh) or H % k_shape[2]:
+        raise ValueError(f"{NAME}: k/v {tuple(k_shape)} do not fit q {tuple(q_shape)}"
                          " (same B, S, dh; Hkv divides H)")
-    if dh not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS[q.dtype]} for "
-                         f"{str(q.dtype)[6:]}")
+    if dh not in HEAD_DIMS[qt]:
+        raise ValueError(f"{NAME}: head dim {dh} not in {HEAD_DIMS[qt]} for "
+                         f"{str(qt)[6:]}")
     if S > MAX_SEQ:
         raise ValueError(f"{NAME}: S = {S} past the kernel's {MAX_SEQ} positions")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
-            raise ValueError(f"{NAME}: {name} strides {t.stride()} — want a contiguous "
+    size = torch.tensor([], dtype=qt).element_size()
+    for name, stride in (("q", q_stride), ("k", k_stride), ("v", v_stride)):
+        if stride[3] != 1 or any(st * size % 16 for st in stride[:3]):
+            raise ValueError(f"{NAME}: {name} strides {stride} — want a contiguous "
                              "head dim and rows on 16-byte boundaries")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{NAME}: {name} must start on a 16-byte boundary")
+
+
+# The bf16 kernel's work tile: query rows of one (b, h) (kRowsCta, csrc).
+ROWS_CTA = 128
+
+
+def k6_unit(B: int, S: int, H: int, causal: bool, u: int) -> list:
+    """The ``(b, h, q-tile)`` work tiles of unit ``u`` of the bf16 kernel's
+    walk (``Walk::tile`` in csrc/flash_attention.cu), in the order a CTA
+    takes them: causal, the q-tiles ``n - 1 - p`` and ``p`` of one (b, h),
+    the heavier first, and after all pairs the middle q-tile of an odd
+    ``n``; full, each q-tile, the last first; (b, h) the slower index."""
+    n_qt = -(-S // ROWS_CTA)
+    pairs = n_qt // 2 if causal else 0
+    singles = n_qt - 2 * pairs
+    if u < B * H * pairs:
+        bh, p = divmod(u, pairs)
+        tiles = [(bh, n_qt - 1 - p), (bh, p)]
+    else:
+        bh, r = divmod(u - B * H * pairs, singles)
+        tiles = [(bh, n_qt - 1 - pairs - r)]
+    return [(bh // H, bh % H, qt) for bh, qt in tiles]
+
+
+def k6_units(B: int, S: int, H: int, causal: bool) -> int:
+    n_qt = -(-S // ROWS_CTA)
+    return B * H * (n_qt - n_qt // 2 if causal else n_qt)
+
+
+def k6_walk(B: int, S: int, H: int, ctas: int, causal: bool = True) -> list:
+    """The bf16 kernel's walk, its twin: for each of the launch's CTAs
+    (``ctas``, the SM count, or fewer where there are fewer units) the
+    ``(b, h, q-tile)`` of every work tile it takes, in order: CTA c takes
+    units c, c + grid, ... (``k6_unit``)."""
+    units = k6_units(B, S, H, causal)
+    grid = min(units, ctas)
+    return [[t for u in range(c, units, grid) for t in k6_unit(B, S, H, causal, u)]
+            for c in range(grid)]
 
 
 def kept_pairs(S: int, causal: bool) -> int:
@@ -115,6 +164,27 @@ def flash_attention_backward_work(q: torch.Tensor, k: torch.Tensor, causal: bool
     return work.Work(bytes=moved, **_products(q.dtype, 10.0 * B * H * kept_pairs(S, causal) * dh))
 
 
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already (entering it costs the host a few microseconds a launch)."""
+    if device.type == "cuda" and device.index == torch._C._cuda_getDevice():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of a CUDA device as the driver's handle, without
+    the ``torch.cuda.Stream`` object that ``current_stream`` builds (7 us of
+    host time a call on the card's host, PERF.md); other devices (the
+    tests' faked launches) through ``current_stream``."""
+    if device.type == "cuda":
+        return torch._C._cuda_getCurrentRawStream(device.index)
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _check_devices(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if not (_on_cuda(tensors[0]) or work.on_meta(tensors[0])) \
@@ -126,8 +196,13 @@ def _check_devices(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _strides(*tensors: torch.Tensor):
-    return (ctypes.c_longlong * (3 * len(tensors)))(
-        *(s for t in tensors for s in t.stride()[:3]))
+    return _strides_of(tuple(s for t in tensors for s in t.stride()[:3]))
+
+
+@functools.lru_cache(maxsize=1024)
+def _strides_of(strides: tuple):
+    """The C array of a launch's strides, made once for each (never written)."""
+    return (ctypes.c_longlong * len(strides))(*strides)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,11 +229,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if work.on_meta(q):
         return out
     lib = build.load(NAME, {sym: _ARGS for sym in _SYMBOLS.values()})
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         code = getattr(lib, _SYMBOLS[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, H, k.shape[2], dh, int(causal), _strides(q, k, v, out),
-            torch.cuda.current_stream().cuda_stream,
+            _stream(q.device),
             None if lse is None else lse.data_ptr(),
         )
     build.check(lib, NAME, code)
@@ -201,12 +276,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if work.on_meta(q):
         return dq, dk, dv
     lib = build.load(NAME_BWD, {sym: _ARGS_BWD for sym in _SYMBOLS_BWD.values()})
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         code = getattr(lib, _SYMBOLS_BWD[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, S, H, k.shape[2], dh, int(causal), _strides(q, k, v, o, do),
-            torch.cuda.current_stream().cuda_stream,
+            _stream(q.device),
         )
     build.check(lib, NAME_BWD, code)
     launches_bwd += 1

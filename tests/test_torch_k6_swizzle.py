@@ -177,7 +177,8 @@ def _want_mn(tile, kk, col0, n):
 # -------------------------------------------------------------------- K6
 
 
-BQ, BKV = _const(FWD, "kBQ"), _const(FWD, "kBKV")
+BQ, BKV, CONSUMERS = _const(FWD, "kBQ"), _const(FWD, "kBKV"), _const(FWD, "kConsumers")
+SMEM_LIMIT = 232_448  # bytes of shared memory a block of an H100 may take
 
 
 def k6_model(D: int, overrides: dict | None = None) -> None:
@@ -185,7 +186,7 @@ def k6_model(D: int, overrides: dict | None = None) -> None:
     descriptor reads anything but what its product needs."""
     ly = _plan(FWD, _body(FWD, "struct Layout {"), D, "Ly", overrides)
     kernel = _body(FWD, "flash_attention_bf16_kernel(const __grid_constant__")
-    launch = _body(FWD, "int launch_bf16(")
+    launch = _body(FWD, "int make_maps_bf16(")
     # the maps the launch builds: [0] of 64 columns from kMain on, [1] of kRem
     # (16 for a chunked V)
     first = _eval(re.search(r"for \(int j = (Layout<D>::kMain \? 0 : 1);", launch).group(1)
@@ -216,38 +217,58 @@ def k6_model(D: int, overrides: dict | None = None) -> None:
                 mem.box(name, _eval(ch[0], ns), rows, _eval(ch[3], ns), 16)
             used.add(1)
 
-    qbytes, kvbytes = BQ * D * 2, BKV * D * 2
-    k_at, v_at = 2 * qbytes, 2 * qbytes + 3 * kvbytes  # stage 0 of the ring
-    for w in range(2):
-        tile(f"q{w}", w * qbytes, BQ)
-    tile("k", k_at, BKV)
-    tile("v", v_at, BKV, v=True)
+    # Every Q buffer (a warpgroup's half each) and every stage of the K/V
+    # ring, where the producer's loads put them
+    qbytes, qtile, kvbytes = ly["kQBytes"], ly["kQTile"], ly["kKVBytes"]
+    assert qbytes == BQ * D * 2 and kvbytes == BKV * D * 2 and qtile == CONSUMERS * qbytes
+    producer = _body(kernel, "if (wg == kConsumers) {")
+    (q_dst,) = (a[0] for a in _args(producer, r"\bload") if a[1] == "maps.q")
+    (k_dst,) = (a[0] for a in _args(producer, r"\bload") if a[1] == "maps.k")
+    v_dst = re.search(r"uint8_t\* v_dst = ([^;]+);", producer).group(1)
+    q_at = {(qb, w): _eval(q_dst.replace("smem + ", ""), dict(ly, qb=qb, w=w))
+            for qb in range(ly["kQBufs"]) for w in range(CONSUMERS)}
+    k_at = {s: _eval(k_dst.replace("smem + ", ""), dict(ly, s=s)) for s in range(ly["kStages"])}
+    v_at = {s: _eval(v_dst.replace("smem + ", ""), dict(ly, s=s)) for s in range(ly["kStages"])}
+    for (qb, w), at in q_at.items():
+        tile(f"q{qb}.{w}", at, BQ)
+    for s_ in range(ly["kStages"]):
+        tile(f"k{s_}", k_at[s_], BKV)
+        tile(f"v{s_}", v_at[s_], BKV, v=True)
     assert used <= built, f"a box of a map the launch does not build: {used - built}"
-    for name, rows in (("q0", BQ), ("q1", BQ), ("k", BKV), ("v", BKV)):
-        mem.holds(name, rows, D)
+    for (qb, w) in q_at:
+        mem.holds(f"q{qb}.{w}", BQ, D)
+    for s_ in range(ly["kStages"]):
+        mem.holds(f"k{s_}", BKV, D)
+        mem.holds(f"v{s_}", BKV, D)
+    top = max(mem.cell) + 1
+    assert top <= ly["kBar"], f"tiles reach byte {top}, past the barriers at {ly['kBar']}"
+    assert ly["kBytes"] <= SMEM_LIMIT, f"{ly['kBytes']} bytes of shared memory at dh {D}"
 
     qk = _body(FWD, "void issue_qk(")
     d = _descs(qk)
     lcl = _locals(qk)
-    for w in range(2):
-        for c in range(D // 16):
-            ns = dict(ly, c=c, q_addr=w * qbytes, k_addr=k_at, kBQ=BQ, kBKV=BKV)
-            for name, expr in lcl:
-                ns[name] = _eval(expr, ns)
-            pair = d[0:2] if c < 4 * ly["kMain"] else d[2:4]
-            (sa, a), (sb, b) = pair
-            da, db = ([_eval(x, ns) for x in args] for args in (a, b))
-            span = _eval(sa, ns)
-            assert read_kmajor(mem, da, span, 64) == _want_k(f"q{w}", 0, 64, c), (D, "Q", c)
-            assert read_kmajor(mem, db, _eval(sb, ns), BKV) == _want_k("k", 0, BKV, c), (D, c)
+    for (qb, w), q_addr in q_at.items():
+        for s_, k_addr in k_at.items():
+            for c in range(D // 16):
+                ns = dict(ly, c=c, q_addr=q_addr, k_addr=k_addr, kBQ=BQ, kBKV=BKV)
+                for name, expr in lcl:
+                    ns[name] = _eval(expr, ns)
+                pair = d[0:2] if c < 4 * ly["kMain"] else d[2:4]
+                (sa, a), (sb, b) = pair
+                da, db = ([_eval(x, ns) for x in args] for args in (a, b))
+                span = _eval(sa, ns)
+                assert read_kmajor(mem, da, span, 64) == _want_k(f"q{qb}.{w}", 0, 64, c), \
+                    (D, "Q", qb, w, c)
+                assert read_kmajor(mem, db, _eval(sb, ns), BKV) == _want_k(f"k{s_}", 0, BKV, c), \
+                    (D, s_, c)
 
     pv = _body(FWD, "void issue_pv(")
     d = _descs(pv)
     n_of = [int(n) for n in re.findall(r"wgmma_rs_m64n(\d+)<", pv)]
     span_rem = ly["kRem"] * 2
-    for kk in range(BKV // 16):
+    for s_, kk in ((s_, kk) for s_ in v_at for kk in range(BKV // 16)):
         products = []  # (descriptor, swizzle span, n, first column)
-        ns = dict(ly, kk=kk, v_addr=v_at, kBKV=BKV, span=span_rem)
+        ns = dict(ly, kk=kk, v_addr=v_at[s_], kBKV=BKV, span=span_rem)
         ns["v_rem"] = _eval(re.search(r"const uint32_t v_rem = ([^;]+);", pv).group(1), ns)
         if ly["kVChunked"]:
             products.append((d[0], n_of[0], 0))
@@ -262,8 +283,8 @@ def k6_model(D: int, overrides: dict | None = None) -> None:
             (sw, args), n, col0 = p[:3]
             ns_p = dict(ns, **(p[3] if len(p) > 3 else {}))
             desc = [_eval(x, ns_p) for x in args]
-            assert read_mnmajor(mem, desc, _eval(sw, ns_p), n) == _want_mn("v", kk, col0, n), \
-                (D, "V", kk, col0)
+            assert read_mnmajor(mem, desc, _eval(sw, ns_p), n) == \
+                _want_mn(f"v{s_}", kk, col0, n), (D, "V", s_, kk, col0)
             cols += range(col0, col0 + n)
         assert cols == list(range(D)), f"P . V's products cover columns {cols[:3]}.. of {D}"
 

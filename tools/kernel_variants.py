@@ -11,8 +11,10 @@ on a machine with one NVIDIA GPU, from the repo root.  A spec file holds
      "cases": [...],
      "variants": [{"name": ..., "subs": [[old, new], ...], "check": true}, ...]}
 
-with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal; a sixth entry
-"f32" runs it in f32; flash_attention_backward's K6', bf16 causal, from
+with cases [B, S, H, Hkv, dh] (flash_attention, bf16 causal; entries after
+the fifth: "f32" runs it in f32, "lse" writes the row logsumexp too (held
+at 2e-5), "full" drops the causal mask; checked twice bit-equal;
+flash_attention_backward's K6', bf16 causal, from
 the plain version's output and logsumexp, a random dO; "full" after the
 fifth entry drops the causal mask, "f32" runs it in f32), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
 scores on a grid of 1/4 with -inf, NaN and -0.0 scattered in), [B, F, D]
@@ -57,7 +59,9 @@ hold while it is checked and timed, and ``"flush": "read"``: the L2 is
 flushed before each of its timings by reading a 256 MB buffer instead of
 writing it, so no dirty lines are left for the kernel to write back.  Every
 variant of every spec is built at once, one nvcc each, with the flags of
-``kernels/build.py``, into ``build/kernel_variants/``, and runs through the
+``kernels/build.py``, into ``build/kernel_variants/`` (printing the
+registers each kernel's SASS names, where ``cuobjdump`` is there: past the
+launch bound's count where setmaxnreg gave a warpgroup more), and runs through the
 kernel's own wrapper (``build.use_library``).  At each case a variant with
 ``check`` (the default) is first held against the plain version as
 ``chip_smoke.py`` holds the kernel (K6 and K7 in bf16 by
@@ -85,6 +89,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -164,7 +169,31 @@ def build_variants(specs: dict[str, dict],
         for line in log.splitlines():
             if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  {label}: {line.strip()}", flush=True)
+        so = libs[label.split()[0]][label.split()[1]][1]
+        regs = sass_registers(so)
+        if regs:
+            print(json.dumps({"variant": label, "sass_registers": regs}), flush=True)
     return libs
+
+
+def sass_registers(so: Path) -> dict:
+    """{kernel: registers its SASS names (the highest R index + 1)} of a
+    built library, by ``cuobjdump -sass``: above the launch bound's count
+    where setmaxnreg gave a warpgroup more.  Empty without cuobjdump."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
+    regs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            regs[name] = 0
+        elif name is not None:
+            for r in re.findall(r"\bR(\d+)\b", line):
+                regs[name] = max(regs[name], int(r) + 1)
+    return {CS.kernel_name(n): r for n, r in regs.items()}
 
 
 def parent_functions(root: Path, kernel: str) -> dict:
@@ -316,19 +345,29 @@ def setup(tag: str, kernel: str, case: list, gen: torch.Generator):
         return call, check, CS.sdpa_backward(q, k, v, do, causal)
     if kernel == "flash_attention":
         B, S, H, Hkv, dh = case[:5]
-        dt = torch.float32 if case[5:] == ["f32"] else torch.bfloat16
+        dt = torch.float32 if "f32" in case[5:] else torch.bfloat16
+        causal = "full" not in case[5:]
         q = torch.randn((B, S, H, dh), device="cuda", generator=gen).to(dt)
         k, v = (torch.randn((B, S, Hkv, dh), device="cuda", generator=gen)
                 .to(dt) for _ in range(2))
-        want = ref.flash_attention_ref(q, k, v, True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
+        lse = torch.empty((B, H, S), device="cuda") if "lse" in case[5:] else None
         close, tol = ((CS.assert_close_rows, CS.LM_BF16_TOL) if dt == torch.bfloat16
                       else (CS.assert_close, CS.LM_F32_TOL))
-        call = lambda: K6.flash_attention(q, k, v, True)  # noqa: E731
-        return (call,
-                lambda n: close(f"{tag} {n} {case}", call(), want, *tol),
+        call = lambda: K6.flash_attention(q, k, v, causal, lse=lse)  # noqa: E731
+
+        def check_k6(n):
+            got = call()
+            close(f"{tag} {n} {case}", got, want, *tol)
+            if lse is not None:
+                CS.assert_close(f"{tag} {n} {case} logsumexp", lse, want_lse, *CS.LM_F32_TOL)
+            if not torch.equal(call(), got):
+                raise AssertionError(f"{tag} {n} {case}: two launches differ")
+
+        return (call, check_k6,
                 lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True))
+                    is_causal=causal, enable_gqa=True))
     if kernel == "dot_interaction":
         x = torch.randn(tuple(case), device="cuda", generator=gen)
         want = ref.dot_interaction_ref(x)
