@@ -11,8 +11,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 backward) and K7 (flash decode) from src/repro_torch/csrc/,
                 one nvcc per source, all in parallel (with K1''s planted
                 fault for phase 5f and K6''s for phase 9g beside them), and
-                prints each kernel's -Xptxas -v
-                registers, spills and performance warnings;
+                prints each kernel's -Xptxas -v registers, spills and
+                performance warnings; a spill in K6''s bf16 kernels fails;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (TF32 off): K1 in its masked and
                 weighted modes, f32 and bf16, with NaN in the rows behind
@@ -358,16 +358,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
                 (45, 1000), full attention, groups 1, 2, 4 and 8, every head
                 dim of each dtype; f32 at 2e-5, bf16 by
                 ``assert_close_rows``; the logsumexp at 2e-5; K6' twice
-                bit-equal (lm-small's in both dtypes, stablelm's, f32 dh 80
-                in groups), and a planted build whose dK/dV loop skips a
-                query tile refused (lm-small's f32 and bf16, stablelm's);
+                bit-equal (lm-small's in both dtypes, stablelm's, olmoe's,
+                f32 dh 80 in groups), and a planted build whose dK/dV loop
+                skips a query tile refused (lm-small's f32 and bf16,
+                stablelm's);
                 timed beside its plain version, the backward alone
                 of ``F.scaled_dot_product_attention(..., enable_gqa=True)``
                 and its bound (five products of 2 B H dh a kept pair; f32
                 at three tf32 products each, the FMA bound beside it), and
                 K6 with and without its logsumexp, its plain version and
                 SDPA's forward; each of K6''s three launches (D, dK/dV, dQ)
-                timed from a profiler window;
+                timed from a profiler window; the host time of a bf16 K6'
+                call at lm-small's layer by part (``k6b_host_split``) on a
+                line of its own;
   9h. lm_train_small — lm-small (``launch.train.make_lm_small``): one
                 step's loss and every gradient leaf on the card against the
                 CPU (64 sequences of the trainer's first batch, rtol 1e-5,
@@ -718,7 +721,7 @@ K6_HOST_CALLS = 200  # calls a part of the host-enqueue split averages over
 K6_STABLELM = ((4, 4096, 32, 80), 32)  # stablelm-3b's prefill layer (LM_BATCH x LM_PROMPT)
 # The cases where K6' runs twice and must give equal bits, and those that
 # also hold the planted fault
-K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32", "lm-small bf16")
+K6B_TWICE = ("lm-small f32", "stablelm bf16", "dh80 gqa f32", "lm-small bf16", "olmoe bf16")
 K6B_PLANTED = ("lm-small f32", "stablelm bf16", "lm-small bf16")
 # K6''s three launches by the names of their kernels (device_busy's filter)
 K6B_LAUNCHES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
@@ -975,6 +978,65 @@ def k6_host_split(q, k, v, causal: bool, lse=None, calls: int = K6_HOST_CALLS) -
         parts.restype = ctypes.c_int
         ns = (ctypes.c_longlong * 4)()
         build.check(lib, K6.NAME, parts(*args[:3], *args[4:9], args[10], calls, ns))
+        split.update({"maps_encoded_us": ns[0] / 1e3, "attribute_set_us": ns[1] / 1e3,
+                      "maps_us": ns[2] / 1e3, "attribute_us": ns[3] / 1e3})
+    split["python_us"] = split["wrapper_us"] - split["launch_us"]
+    return split
+
+
+def k6b_host_split(q, k, v, o, lse, do, causal: bool, calls: int = K6_HOST_CALLS) -> dict:
+    """Host time of one bf16 K6' call (its enqueue), in microseconds a call,
+    by part, as ``k6_host_split`` splits K6's: ``wrapper_us``,
+    ``K6.flash_attention_backward`` whole; ``launch_us``, the C launch
+    function alone (its launches included) with one call's arguments made
+    once; and, where the library has ``flash_attention_backward_bf16_host_ns``
+    (the two-pass rework under ``tools/kernel_variants/k6b_twopass``, not
+    the shipped kernel), its eight tensor maps and two shared-memory
+    attributes as its call makes them (``maps_us``: copies from the cache;
+    ``attribute_us``: a check of a flag) and as every call of the shipped
+    design makes them (``maps_encoded_us``: cuTensorMapEncodeTiled each;
+    ``attribute_set_us``: cudaFuncSetAttribute).  ``python_us`` is the
+    wrapper less the launch function."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as K6
+
+    B_, S_, H_, d_ = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty((B_, H_, S_), device=q.device)  # D
+    lib = build.load(K6.NAME_BWD, {sym: K6._ARGS_BWD for sym in K6._SYMBOLS_BWD.values()})
+    strides = K6._strides(q, k, v, o, do)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B_, S_, H_, k.shape[2], d_, int(causal), strides,
+            torch.cuda.current_stream().cuda_stream)
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 28)  # far longer than the calls' enqueue
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    split = {"shape": [B_, S_, H_, k.shape[2], d_], "calls": calls,
+             "wrapper_us": host_us(lambda: K6.flash_attention_backward(q, k, v, o, lse, do,
+                                                                       causal)),
+             "launch_us": host_us(lambda: lib.flash_attention_backward_bf16(*args))}
+    parts = getattr(lib, "flash_attention_backward_bf16_host_ns", None)
+    if parts is not None:
+        parts.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        parts.restype = ctypes.c_int
+        ns = (ctypes.c_longlong * 4)()
+        build.check(lib, K6.NAME_BWD, parts(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            do.data_ptr(), B_, S_, H_, k.shape[2], d_, strides,
+                                            calls, ns))
         split.update({"maps_encoded_us": ns[0] / 1e3, "attribute_set_us": ns[1] / 1e3,
                       "maps_us": ns[2] / 1e3, "attribute_us": ns[3] / 1e3})
     split["python_us"] = split["wrapper_us"] - split["launch_us"]
@@ -3564,6 +3626,14 @@ def lm_train(dev: torch.device, planted) -> dict:
     torch.cuda.empty_cache()
     out["k6b_rows"], out["k6b_errs"] = rows, errs
     log("[lm_train_kernels] " + json.dumps(rows))
+    # The host's enqueue of one bf16 K6' call at lm-small's layer, by part.
+    B, S, H, Hkv, dh = LMB_PREFILL[0], LMB_PREFILL[1], 8, 4, 32
+    q, do = (torch.randn((B, S, H, dh), device=dev, generator=gen).to(bf16) for _ in "qd")
+    k, v = (torch.randn((B, S, Hkv, dh), device=dev, generator=gen).to(bf16) for _ in "kv")
+    o, lse = ref.flash_attention_ref(q, k, v, True, return_lse=True)
+    out["k6b_host"] = k6b_host_split(q, k, v, o, lse, do, True)
+    log("[lm_train_kernels] K6' host split " + json.dumps(out["k6b_host"]))
+    del q, k, v, do, o, lse
 
     # ------------------------------------------------------- lm_train_small
     small = launch_train.make_lm_small()
@@ -4610,13 +4680,24 @@ def main() -> int:
                           K6.NAME_BWD, K7.NAME], ptxas_verbose=True)
     log(f"[build] {time.perf_counter() - t0:.2f}s wall for "
         + ", ".join(f"{n} {r['seconds']:.2f}s" for n, r in report.items()))
+    spills = []
     for name, r in report.items():  # nvcc -Xptxas -v: registers, spills, warnings
+        fn = ""
         for line in r["log"].splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
+            props = re.search(r"Function properties for (\w+)", line)
+            if props:  # the spill line that follows is this function's
+                fn = kernel_name(props.group(1))
             if entry:
-                log(f"  {name}: {kernel_name(entry.group(1))}")
+                fn = kernel_name(entry.group(1))
+                log(f"  {name}: {fn}")
             elif "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
+                if "wgmma" in fn and "spill" in line and not re.search(
+                        r"\b0 bytes spill stores, 0 bytes spill loads", line):
+                    spills.append(f"{fn}: {line.strip()}")
+    if report[K6.NAME_BWD]["log"] and spills:  # the log is empty where the library was built
+        raise AssertionError("K6' bf16 spills: " + "; ".join(spills))
 
     # ------------------------------------------- main-path model and inputs
     cfg = make_config()

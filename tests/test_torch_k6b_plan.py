@@ -300,6 +300,20 @@ def test_causal_key_tile_starts_at_its_diagonal():
             assert q0 == j * OWN_ROWS and wgs[0] is True
 
 
+@pytest.mark.parametrize("S,causal", [(1000, True), (130, False), (4096, True)])
+def test_dq_order_is_a_function_of_step_and_tile(S, causal):
+    """dQ of a query tile sums its key tiles in one CTA, in ascending order
+    (the kernel's loop over them): a function of (query tile, key tile)
+    alone, the same for every batch, head and group, so two launches sum
+    in the same order."""
+    for i, steps in dq_plan(S, causal):
+        k0s = [k0 for k0, _ in steps]
+        assert k0s == list(range(0, KEY_STEP * len(steps), KEY_STEP))
+    dq = SRC[SRC.index("flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__"):]
+    assert "  for (int jt = 0; jt < n_k; ++jt) {" in dq
+    assert "auto step_at = [&](int it) { return make_int2(hk, it * KS); };" in dq
+
+
 @pytest.mark.parametrize("B,S,H,Hkv,dh,causal", CASES)
 def test_model_matches_the_plain_version(B, S, H, Hkv, dh, causal):
     args = _inputs(B, S, H, Hkv, dh, causal)

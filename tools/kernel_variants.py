@@ -16,7 +16,9 @@ the fifth: "f32" runs it in f32, "lse" writes the row logsumexp too (held
 at 2e-5), "full" drops the causal mask; checked twice bit-equal;
 flash_attention_backward's K6', bf16 causal, from
 the plain version's output and logsumexp, a random dO; "full" after the
-fifth entry drops the causal mask, "f32" runs it in f32), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
+fifth entry drops the causal mask, "f32" runs it in f32, "device" times it
+by ``chip_smoke.device_ms``, the device's time alone with the host's
+enqueue hidden, as phase 9g times the launch-sized cases), [M, L, k, "f32" | "f64"] (topk_neighbor_select on
 scores on a grid of 1/4 with -inf, NaN and -0.0 scattered in), [B, F, D]
 (dot_interaction, f32), [B, S, H, Hkv, dh, cache_len] (flash_decode, bf16,
 NaN past cache_len; a seventh entry "f32" runs it in f32), [C, D, K]
@@ -52,8 +54,9 @@ variant ``base``.  ``--against DIR`` adds to every spec the variant
 through this checkout's wrapper, so two designs with one C interface are
 timed in turns in one process; where that checkout's wrapper of a
 backward kernel has another C interface (K1' and K2' before their
-redesign), the variant runs through that checkout's own wrapper function
-(``PARENT_WRAPPED``), loaded from its file.  A variant may also set ``"attrs"``:
+redesign, and K6' whose designs size their scratch apart), the variant
+runs through that checkout's own wrapper function (``PARENT_WRAPPED``),
+loaded from its file.  A variant may also set ``"attrs"``:
 attributes of the kernel's wrapper module (such as K7's ``MAX_CHUNK``) that
 hold while it is checked and timed, and ``"flush": "read"``: the L2 is
 flushed before each of its timings by reading a 256 MB buffer instead of
@@ -83,7 +86,11 @@ by CUDA events, L2 flushed, in turns:
 rather than from the heat of the last (without it, one build read slower
 round after round of one call).  One JSON line per case gives each one's
 median in ms over the rounds and its time in every round, so that pairs of
-rounds can be counted, with the card's name and power limit.
+rounds can be counted, with the card's name and power limit.  A spec's
+``"launches"``, a list of kernel names, adds a line a case with each
+variant's device time a launch of each (``chip_smoke.device_busy``, a
+profiler window of 10 calls, L2 not flushed), which splits a call that
+launches several kernels.
 """
 from __future__ import annotations
 
@@ -133,7 +140,8 @@ _tables: dict[int, torch.Tensor] = {}  # K1 cases: dlrm-flexemr's table by D
 # wrapper functions whose C interface changed with the backward kernels'
 # redesign: an ``--against`` checkout's own function runs its library
 PARENT_WRAPPED = {"embedding_bag": ("embedding_bag_backward",),
-                  "dot_interaction": ("dot_interaction_backward",)}
+                  "dot_interaction": ("dot_interaction_backward",),
+                  "flash_attention_backward": ("flash_attention_backward",)}
 
 
 def build_variants(specs: dict[str, dict],
@@ -203,7 +211,8 @@ def parent_functions(root: Path, kernel: str) -> dict:
     names = PARENT_WRAPPED.get(kernel, ())
     if not names:
         return {}
-    path = root / "src/repro_torch/kernels" / f"{kernel}.py"
+    module = WRAPPERS[kernel].__name__.rsplit(".", 1)[1]  # K6' lives in flash_attention.py
+    path = root / "src/repro_torch/kernels" / f"{module}.py"
     spec = importlib.util.spec_from_file_location(f"against_{kernel}", path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod  # its dataclasses look their module up
@@ -505,11 +514,17 @@ def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
         for n, (variant, so) in libs.items():
             if variant.get("check", True):
                 as_variant(variant, so, lambda: check(n))
-        fns = {n: (lambda v=v, so=so: as_variant(v, so, lambda: CS.cuda_ms(
-                   call, flush, read_flush=v.get("flush") == "read")))
+        device = "device" in case[5:]
+
+        def timed(fn, v=None):
+            if device:
+                return CS.device_ms(fn)
+            return CS.cuda_ms(fn, flush, read_flush=(v or {}).get("flush") == "read")
+
+        fns = {n: (lambda v=v, so=so: as_variant(v, so, lambda: timed(call, v)))
                for n, (v, so) in libs.items()}
         if library is not None:
-            fns["library"] = lambda: CS.cuda_ms(library, flush)
+            fns["library"] = lambda: timed(library)
         times = {n: [] for n in fns}
         order = list(fns)
         for r in range(ROUNDS):
@@ -519,6 +534,13 @@ def run(tag: str, spec: dict, libs: dict, card: str, flush: torch.Tensor,
         print(json.dumps({"spec": tag, "case": case, "card": card,
                           "median_ms": {n: statistics.median(t) for n, t in times.items()},
                           "round_ms": times}), flush=True)
+        if spec.get("launches"):
+            names = tuple(spec["launches"])
+            split = {n: as_variant(v, so, lambda: CS.device_busy(call, 10, names))
+                     for n, (v, so) in libs.items()}
+            print(json.dumps({"spec": tag, "case": case, "card": card, "launch_ms": {
+                n: b.get("kernels_ms_each") for n, b in split.items()},
+                "busy_ms": {n: b["device_busy_ms"] for n, b in split.items()}}), flush=True)
 
 
 def main() -> int:
